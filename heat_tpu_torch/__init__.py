@@ -1,0 +1,19 @@
+"""heat_tpu_torch — the PyTorch/CUDA port of heat_tpu.
+
+It keeps heat_tpu's layout and public names, so that
+``import heat_tpu_torch as ht`` reads like ``import heat_tpu as ht``::
+
+    import heat_tpu_torch as ht
+    A = ht.random.randn(65536, 8192, split=0)
+    U, err = ht.linalg.hsvd_rank(A, 10)
+
+Arrays live on the GPU unless the caller asks for the CPU
+(``ht.use_device("cpu")`` or ``device="cpu"``); without CUDA, creation on
+the GPU raises. Hand-written CUDA kernels for Hopper (``csrc/``) carry the
+streaming reads of the hSVD; they are compiled at first use.
+"""
+
+from .core import *
+from .core.linalg import *
+
+from . import core

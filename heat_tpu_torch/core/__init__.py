@@ -1,0 +1,17 @@
+"""heat_tpu_torch core: array, type system, devices, communicator,
+factories (port of ``heat_tpu.core``)."""
+
+from .communication import *
+from .constants import *
+from .devices import *
+from .types import *
+from .dndarray import *
+from .factories import *
+from .sanitation import *
+from .stride_tricks import *
+
+from . import interop
+from . import random
+
+from . import linalg
+from .linalg import *

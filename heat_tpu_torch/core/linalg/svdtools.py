@@ -1,0 +1,474 @@
+"""Hierarchical SVD, the north-star operation, on one device.
+
+Port of the single-device branch of ``heat_tpu.core.linalg.svdtools``
+(``_hsvd_impl`` :969; Heat reference: heat/core/linalg/svdtools.py,
+``hsvd_rank`` :31, ``hsvd_rtol`` :124, ``hsvd`` :259). At world size 1
+every array is whole on one device, so ``split=None`` and ``split=0`` both
+take this branch, as they do in ``heat_tpu`` on one chip:
+
+- a small rank budget runs a randomized sketch: the 2-pass HMT range
+  finder (``_sketched_uds_both`` then ``_projection_tail``), or with
+  ``single_pass=True`` Tropp's one-view sketch (``_one_view_uds_both`` then
+  ``_one_view_tail``);
+- otherwise a full SVD.
+
+The streaming reads of A go through the hand-written CUDA kernels of
+``_cuda_sketch`` where their predicates hold (float32 on CUDA, widths in
+range); everywhere else, and on the CPU, through the fixed-grain tiled
+torch streams ``_pass1_tiles`` / ``_pass2_tiles`` / ``_oneview_tiles``.
+The small products (Gram matrices, the projection ``z = A·Q``) are torch
+matmuls in the operand's full precision: torch's default
+``allow_tf32=False`` keeps float32 products in FP32, as ``heat_tpu``'s
+``precision="highest"`` does. The distributed branch (level-0 sketches and
+the TSQR merge ``_merge_svd``) is ROADMAP.md Queue 1, item 1.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import types
+from ..dndarray import DNDarray
+from ..sanitation import sanitize_in
+from . import _cuda_sketch
+from ._lapack import safe_svd
+
+__all__ = ["hsvd", "hsvd_rank", "hsvd_rtol"]
+
+
+_SKETCH_OVERSAMPLE = 10
+#: tile grain of the torch streams (``heat_tpu``'s ``_PASS_TILE``): pass 1
+#: walks 512-column tiles, pass 2 512-row tiles, the one-view stream
+#: 512-column tiles; arrays smaller than one tile take one product
+_PASS_TILE = 512
+_ONEVIEW_GAP = 9  # k̂ = keep + GAP column-sketch oversample (Tropp one-view)
+_ONEVIEW_ERRQ = 10  # extra Ψ rows reserved for the unbiased error estimator
+_SKETCH_SEED = 0x5BD
+_ONEVIEW_SEED = 0x5BD1
+
+
+def _sumsq(blk: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.real(blk * torch.conj(blk)))
+
+
+def _real_zero(a: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=a.real.dtype if a.is_complex() else a.dtype, device=a.device)
+
+
+def _pass1_tiles(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Pass 1 of the 2-pass sketch, ``w = g @ a``, in 512-column tiles."""
+    n = a.shape[1]
+    T = _PASS_TILE
+    if n < T:
+        return g @ a
+    return torch.cat([g @ a[:, k : k + T] for k in range(0, n, T)], dim=1)
+
+
+def _pass2_tiles(a: torch.Tensor, qw: torch.Tensor, norm_in: Optional[torch.Tensor]):
+    """Pass 2, ``z = a @ qw`` in 512-row tiles, with ``‖a‖²_F`` folded into
+    the same stream as a running carry when ``norm_in`` is given."""
+    m = a.shape[0]
+    T = _PASS_TILE
+    if m < T:
+        return a @ qw, (None if norm_in is None else norm_in + _sumsq(a))
+    zs = []
+    acc = norm_in
+    for k in range(0, m, T):
+        blk = a[k : k + T]
+        zs.append(blk @ qw)
+        if acc is not None:
+            acc = acc + _sumsq(blk)
+    return torch.cat(zs, dim=0), acc
+
+
+def _oneview_tiles(g, omega, a, y_in, norm_in):
+    """The one-view stream, ``w = g @ a``, ``y += a @ omega`` and
+    ``norm += ‖a‖²``, in 512-column tiles with (y, norm) carries."""
+    n = a.shape[1]
+    T = _PASS_TILE
+    if n < T:
+        return g @ a, y_in + a @ omega, norm_in + _sumsq(a)
+    ws = []
+    y, acc = y_in, norm_in
+    for k in range(0, n, T):
+        blk = a[:, k : k + T]
+        ws.append(g @ blk)
+        y = y + blk @ omega[k : k + T]
+        acc = acc + _sumsq(blk)
+    return torch.cat(ws, dim=1), y, acc
+
+
+def _needs_exact_spectrum(rtol: Optional[float]) -> bool:
+    """Below rtol=1e-3 the sketch cannot capture the spectrum the rank
+    selection needs (σ near √ε·σ_max in float32), so the full SVD runs."""
+    return rtol is not None and float(rtol) < 1e-3
+
+
+def _warn_merge_knobs(maxmergedim, no_of_merges) -> None:
+    """The reference's merge-tree knobs (svdtools.py:346-445) have no
+    effect here; non-default values warn."""
+    if maxmergedim is not None or (no_of_merges is not None and no_of_merges != 2):
+        warnings.warn(
+            "maxmergedim/no_of_merges are accepted for reference-API parity "
+            "but have no effect: the TSQR merge replaces the reference's "
+            "Send/Recv merge tree",
+            UserWarning,
+            stacklevel=3,
+        )
+
+
+def _gram_orthonormalize(z: torch.Tensor) -> torch.Tensor:
+    """Orthonormalize the columns of a tall-skinny ``z`` by two rounds of
+    Gram eigen-orthonormalization (z ← z·V·Λ^{-1/2}); cannot fail on
+    rank-deficient sketches, unlike Cholesky-QR."""
+    info = torch.finfo(z.real.dtype if z.is_complex() else z.dtype)
+    for _ in range(2):
+        gram = torch.conj(z).T @ z
+        lam, v = torch.linalg.eigh(gram)  # ascending
+        # relative floor for rank deficiency plus an absolute one, so an
+        # all-zero block propagates zeros instead of 0·inf = NaN
+        lam = torch.clamp(torch.maximum(lam, info.eps * torch.max(lam) * z.shape[0]), min=info.tiny)
+        z = (z @ v) * torch.rsqrt(lam)
+    return z
+
+
+def _cholqr2_refine(v: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalize a near-orthonormal ``v`` by two rounds of
+    Cholesky-QR; the correction R ≈ I keeps each column paired with its
+    σ. The tiny ridge keeps exact-zero columns at zero instead of NaN."""
+    eps = torch.finfo(v.real.dtype if v.is_complex() else v.dtype).eps
+    eye = torch.eye(v.shape[1], dtype=v.dtype, device=v.device)
+    for _ in range(2):
+        g = torch.conj(v).T @ v + eps * eye
+        r = torch.linalg.cholesky(g)  # lower: g = r r^H
+        v = torch.conj(torch.linalg.solve_triangular(r, torch.conj(v).T, upper=False)).T
+    return v
+
+
+def _normal(shape, like: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=like.dtype, device=like.device)
+
+
+def _sketched_uds_both(a, keep: int, sketch_l: int, want: str = "left", g=None):
+    """Randomized truncated SVD in two streaming passes over ``a``
+    (``heat_tpu`` svdtools.py:280): ``w = g·a`` (pass 1, with ``‖a‖²`` in the
+    same read where kernel K1 serves it), ``Q = orth(wᴴ)``, ``z = a·Q``
+    (pass 2, with ``‖a‖²`` folded in otherwise), then ``_projection_tail``.
+
+    ``g`` (sketch_l, m) defaults to a draw from a generator seeded
+    ``0x5BD`` on ``a``'s device; tests pass ``heat_tpu``'s operator.
+    Returns (u|None, v|None, s, err_sq, norm_sq)."""
+    m = a.shape[0]
+    if g is None:
+        gen = torch.Generator(device=a.device)
+        gen.manual_seed(_SKETCH_SEED)
+        g = _normal((sketch_l, m), a, gen)
+    if _cuda_sketch.sketch_serviceable(sketch_l, a):
+        w, norm_sq = _cuda_sketch.sketch_with_norm(g, a)  # pass 1 + norm in one read
+        qw = _gram_orthonormalize(torch.conj(w).T)
+        z, _ = _pass2_tiles(a, qw, None)
+    else:
+        w = _pass1_tiles(g, a)
+        qw = _gram_orthonormalize(torch.conj(w).T)
+        z, norm_sq = _pass2_tiles(a, qw, _real_zero(a))
+    return _projection_tail(z, qw, norm_sq, keep, want)
+
+
+def _projection_tail(z, qw, norm_sq, keep: int, want: str):
+    """Everything after the passes of ``_sketched_uds_both``: Gram-eigh of
+    the projection, factor assembly and the exact a-posteriori error
+    ``‖A‖² − ‖z‖²`` (``heat_tpu`` svdtools.py:333)."""
+    gram = torch.conj(z).T @ z
+    lam, u_z = torch.linalg.eigh(gram)  # ascending
+    lam = torch.clamp(lam.flip(0), min=0.0)[:keep]  # descending energies σ²
+    u_z = u_z.flip(1)[:, :keep]
+    s = torch.sqrt(lam)
+    u = v = None
+    if want in ("left", "both"):
+        inv_s = torch.where(s > 0, 1.0 / s, 0.0)
+        u = _cholqr2_refine((z @ u_z) * inv_s)
+    if want in ("right", "both"):
+        v = qw @ u_z
+    err_sq = torch.clamp(norm_sq - torch.sum(lam), min=0.0)
+    return u, v, s, err_sq, norm_sq
+
+
+def _one_view_params(keep: int, cap: int, a: Optional[torch.Tensor] = None):
+    """(k̂, ℓ) for the one-view sketch, or None when it should not run:
+    the matrix is too small for the sketch (4·(ℓ+q) > cap), or ``a`` lies
+    on CUDA and kernel K2 cannot serve the signature. Its torch stream
+    would then read A three times, worse than the 2-pass default, so
+    ``single_pass`` reverts to 2-pass, as ``heat_tpu`` does on a TPU
+    (svdtools.py:365)."""
+    k_hat = keep + _ONEVIEW_GAP
+    l_row = 2 * k_hat + 1
+    if 4 * (l_row + _ONEVIEW_ERRQ) > cap:
+        return None
+    if a is not None and a.is_cuda:
+        if not _cuda_sketch.dual_sketch_serviceable(l_row + _ONEVIEW_ERRQ, k_hat, a):
+            return None
+    return k_hat, l_row
+
+
+def _one_view_uds_both(a, keep: int, k_hat: int, sketch_l: int, want: str = "left", g=None, omega=None):
+    """One-view (single-pass) randomized truncated SVD (Tropp et al.;
+    ``heat_tpu`` svdtools.py:387): ``Y = A·Ω``, ``W = Ψ·A`` and ``‖A‖²`` from
+    one read of A (kernel K2 where it serves), then ``_one_view_tail``.
+
+    ``g`` (sketch_l + 10, m) and ``omega`` (n, k̂) default to draws from one
+    generator seeded ``0x5BD1`` on ``a``'s device; tests pass
+    ``heat_tpu``'s operators. Returns (u|None, v|None, s, err_sq, norm_sq)."""
+    m, n = a.shape
+    if g is None or omega is None:
+        gen = torch.Generator(device=a.device)
+        gen.manual_seed(_ONEVIEW_SEED)
+        g = _normal((sketch_l + _ONEVIEW_ERRQ, m), a, gen)
+        omega = _normal((n, k_hat), a, gen)
+    if _cuda_sketch.dual_sketch_serviceable(g.shape[0], k_hat, a):
+        w_full, y, norm_sq = _cuda_sketch.dual_sketch_with_norm(g, omega, a)
+    else:
+        y0 = torch.zeros((m, k_hat), dtype=a.dtype, device=a.device)
+        w_full, y, norm_sq = _oneview_tiles(g, omega, a, y0, _real_zero(a))
+    return _one_view_tail(w_full, y, norm_sq, g, keep, sketch_l, want)
+
+
+def _one_view_tail(w_full, y, norm_sq, g, keep: int, sketch_l: int, want: str):
+    """Everything after the one-view stream (``heat_tpu`` svdtools.py:438):
+    Q from the column sketch, B = (ΨQ)⁺W through QR and a triangular solve,
+    Gram-eigh, factor assembly, and the unbiased error estimate from the
+    held-out rows of Ψ."""
+    w, w_err = w_full[:sketch_l], w_full[sketch_l:]
+    g_err = g[sketch_l:]
+    q = _gram_orthonormalize(y)  # (m, k̂)
+    qq, rr = torch.linalg.qr(g[:sketch_l] @ q)  # ΨQ (ℓ, k̂)
+    b = torch.linalg.solve_triangular(rr, torch.conj(qq).T @ w, upper=True)  # (k̂, n)
+    lam, u_b = torch.linalg.eigh(b @ torch.conj(b).T)
+    lam = torch.clamp(lam.flip(0), min=0.0)[:keep]
+    u_b = u_b.flip(1)[:, :keep]
+    s = torch.sqrt(lam)
+    u = v = None
+    if want in ("left", "both"):
+        u = _cholqr2_refine(q @ u_b)
+    if want in ("right", "both"):
+        inv_s = torch.where(s > 0, 1.0 / s, 0.0)
+        v = _cholqr2_refine((torch.conj(b).T @ u_b) * inv_s)
+    # Ψ₂A − (Ψ₂Q)B with the kept-rank reconstruction
+    b_keep = torch.conj(u_b).T @ b  # (keep, n)
+    resid = w_err - ((g_err @ q) @ u_b) @ b_keep
+    err_sq = _sumsq(resid) / _ONEVIEW_ERRQ
+    return u, v, s, err_sq, norm_sq
+
+
+def _truncate_with_err(res, r_final: int):
+    """Truncate the sketch factors to ``r_final`` and fold the relative
+    a-posteriori error."""
+    u, v, s, err_sq, norm_sq = res
+    err = torch.sqrt(err_sq + torch.sum(s[r_final:] ** 2)) / torch.clamp(
+        torch.sqrt(norm_sq), min=1e-30
+    )
+    return (
+        u[:, :r_final] if u is not None else None,
+        v[:, :r_final] if v is not None else None,
+        s[:r_final],
+        err,
+    )
+
+
+def _err_scalar(val, A: DNDarray) -> DNDarray:
+    """The relative-error estimate as a 0-d DNDarray on A's device (the
+    reference returns a DNDarray too, svdtools.py:449). A tensor keeps its
+    dtype; a host float is float64, as in ``heat_tpu``'s cpu/gpu world."""
+    if isinstance(val, torch.Tensor):
+        t = val.to(A.larray.device)
+    else:
+        t = torch.tensor(float(val), dtype=torch.float64, device=A.larray.device)
+    return DNDarray(t, (), types.canonical_heat_type(t.dtype), None, A.device, A.comm)
+
+
+def _choose_rank(
+    s: np.ndarray,
+    maxrank: Optional[int],
+    rtol: Optional[float],
+    a_norm: float,
+    prior_err_sq: float,
+    cap: int,
+) -> int:
+    """Final truncation rank: the static budget and/or the smallest rank
+    whose discarded energy keeps the total error below rtol·‖A‖."""
+    s = np.asarray(s, dtype=np.float64)
+    k = min(len(s), cap)
+    if rtol is None:
+        return max(1, min(maxrank, k))
+    budget_sq = (rtol * a_norm) ** 2 - prior_err_sq
+    tail = np.cumsum((s[::-1] ** 2))[::-1]  # tail[i] = sum_{j>=i} s_j^2
+    r = k
+    for i in range(k, 0, -1):
+        discard = tail[i] if i < len(s) else 0.0
+        if discard <= max(budget_sq, 0.0):
+            r = i
+        else:
+            break
+    if maxrank is not None:
+        r = min(r, maxrank)
+    return max(1, r)
+
+
+def hsvd_rank(
+    A: DNDarray,
+    maxrank: int,
+    compute_sv: bool = False,
+    maxmergedim: Optional[int] = None,
+    safetyshift: int = 5,
+    silent: bool = True,
+    single_pass: bool = False,
+):
+    """Truncated hierarchical SVD with a fixed rank budget (reference:
+    svdtools.py:31). Returns ``(U, sigma, V, rel_error_estimate)`` when
+    ``compute_sv=True`` else ``(U, rel_error_estimate)``; the error is a
+    0-d DNDarray.
+
+    ``single_pass=True`` selects the one-view sketch: both sketches from a
+    single read of A (kernel K2 on CUDA). Its approximation constant is
+    larger than the 2-pass bound and its error estimate is approximate; it
+    is exact for matrices of rank ≤ maxrank + safetyshift."""
+    sanitize_in(A)
+    if A.ndim != 2:
+        raise ValueError(f"hsvd requires a 2-dimensional array, got {A.ndim}")
+    if not isinstance(maxrank, (int, np.integer)) or maxrank < 1:
+        raise ValueError(f"maxrank must be a positive integer, got {maxrank}")
+    if maxmergedim is not None and maxmergedim < 2 * (maxrank + safetyshift) + 1:
+        raise ValueError(
+            "maxmergedim too small for maxrank+safetyshift (reference constraint, svdtools.py)"
+        )
+    _warn_merge_knobs(maxmergedim, None)
+    return _hsvd_impl(
+        A,
+        maxrank=int(maxrank),
+        rtol=None,
+        safetyshift=int(safetyshift),
+        compute_sv=compute_sv,
+        single_pass=bool(single_pass),
+    )
+
+
+def hsvd_rtol(
+    A: DNDarray,
+    rtol: float,
+    compute_sv: bool = False,
+    maxrank: Optional[int] = None,
+    maxmergedim: Optional[int] = None,
+    no_of_merges: Optional[int] = None,
+    silent: bool = True,
+    safetyshift: int = 5,
+):
+    """Hierarchical SVD truncated to a relative error tolerance (reference:
+    svdtools.py:124): ‖A − UΣVᴴ‖_F ≤ rtol·‖A‖_F (upper-bound estimate)."""
+    sanitize_in(A)
+    if A.ndim != 2:
+        raise ValueError(f"hsvd requires a 2-dimensional array, got {A.ndim}")
+    if rtol <= 0:
+        raise ValueError(f"rtol must be positive, got {rtol}")
+    _warn_merge_knobs(maxmergedim, no_of_merges)
+    return _hsvd_impl(
+        A,
+        maxrank=int(maxrank) if maxrank is not None else None,
+        rtol=float(rtol),
+        safetyshift=int(safetyshift),
+        compute_sv=compute_sv,
+    )
+
+
+def hsvd(
+    A: DNDarray,
+    maxrank: Optional[int] = None,
+    maxmergedim: Optional[int] = None,
+    rtol: Optional[float] = None,
+    safetyshift: int = 0,
+    no_of_merges: Optional[int] = 2,
+    compute_sv: bool = False,
+    silent: bool = True,
+    warnings_off: bool = False,
+):
+    """General hierarchical SVD entry point (reference: svdtools.py:259)."""
+    sanitize_in(A)
+    if maxrank is None and rtol is None:
+        raise ValueError("at least one of maxrank and rtol must be given")
+    _warn_merge_knobs(maxmergedim, no_of_merges)
+    return _hsvd_impl(
+        A,
+        maxrank=int(maxrank) if maxrank is not None else None,
+        rtol=rtol,
+        safetyshift=int(safetyshift),
+        compute_sv=compute_sv,
+    )
+
+
+def _hsvd_impl(
+    A: DNDarray,
+    maxrank: Optional[int],
+    rtol: Optional[float],
+    safetyshift: int,
+    compute_sv: bool,
+    single_pass: bool = False,
+):
+    dtype = types.float32 if types.heat_type_is_exact(A.dtype) else A.dtype
+    if A.is_distributed():  # unreachable until the communicator serves world size > 1
+        raise NotImplementedError("distributed hsvd: see ROADMAP.md, Queue 1")
+    arr = A.larray.to(dtype.torch_type()).contiguous()
+    m, n = A.shape
+    full_rank_cap = min(m, n)
+
+    def wrap(t, shape):
+        return DNDarray(t, shape, dtype, None, A.device, A.comm)
+
+    budget = (maxrank + safetyshift) if maxrank is not None else None
+    sketch_l = None
+    if budget is not None and not _needs_exact_spectrum(rtol):
+        l = min(budget + _SKETCH_OVERSAMPLE, full_rank_cap)
+        if 4 * l <= full_rank_cap:
+            sketch_l = l
+    want = "both" if compute_sv else "left"
+    if sketch_l is not None and rtol is None:
+        # rank budget: the rank is static, truncation and error stay on device
+        keep = min(budget, full_rank_cap)
+        r_final = max(1, min(maxrank, keep))
+        ov = _one_view_params(keep, full_rank_cap, arr) if single_pass else None
+        if ov is not None:
+            res = _one_view_uds_both(arr, keep, ov[0], ov[1], want)
+        else:
+            res = _sketched_uds_both(arr, keep, sketch_l, want)
+        u_t, v_t, s_t, err_t = _truncate_with_err(res, r_final)
+        err = _err_scalar(err_t, A)
+    elif sketch_l is not None:
+        # tolerance mode: the rank is chosen on the host from the sketched spectrum
+        keep = min(budget, full_rank_cap)
+        u_f, v_f, s_f, err0_sq, norm_sq = _sketched_uds_both(arr, keep, sketch_l, want)
+        s_host = s_f.cpu().numpy()
+        a_norm = float(np.sqrt(max(float(norm_sq), 0.0)))
+        r_final = _choose_rank(s_host, maxrank, rtol, a_norm, float(err0_sq), full_rank_cap)
+        err = _err_scalar(
+            float(np.sqrt(float(err0_sq) + np.sum(s_host[r_final:].astype(np.float64) ** 2)))
+            / max(a_norm, 1e-30),
+            A,
+        )
+        u_t = u_f[:, :r_final]
+        v_t = v_f[:, :r_final] if v_f is not None else None
+        s_t = s_f[:r_final]
+    else:
+        # full SVD: both sides come out of the one call
+        u, s, vh = safe_svd(arr, full_matrices=False)
+        s_host = s.cpu().numpy().astype(np.float64)
+        a_norm = float(np.sqrt(np.sum(s_host**2)))
+        r_final = _choose_rank(s_host, maxrank, rtol, a_norm, 0.0, full_rank_cap)
+        u_t, v_t, s_t = u[:, :r_final], vh[:r_final].T, s[:r_final]
+        err = _err_scalar(float(np.sqrt(np.sum(s_host[r_final:] ** 2))) / max(a_norm, 1e-30), A)
+
+    U = wrap(u_t, (m, r_final))
+    if not compute_sv:
+        return U, err
+    sigma = DNDarray(s_t, (int(s_t.shape[0]),), types.canonical_heat_type(s_t.dtype), None, A.device, A.comm)
+    return U, sigma, wrap(v_t, (n, r_final)), err

@@ -1,0 +1,308 @@
+"""Type system for heat_tpu_torch.
+
+Port of ``heat_tpu.core.types``: the NumPy-style heat type hierarchy, each
+type carried by a ``torch.dtype``, with the torch promotion lattice (Heat
+reference: heat/core/types.py, ``canonical_heat_type`` at :494,
+``promote_types`` at :838, ``finfo`` at :952).
+
+The port keeps native 64-bit and complex types (the cpu/gpu world of
+``heat_tpu``), so ``heat_tpu``'s 64→32-bit degradation does not exist here.
+"""
+
+from __future__ import annotations
+
+import builtins
+from typing import Any, Iterable, Type, Union
+
+import numpy as np
+import torch
+
+__all__ = [
+    "datatype",
+    "number",
+    "integer",
+    "signedinteger",
+    "unsignedinteger",
+    "bool",
+    "bool_",
+    "floating",
+    "int8",
+    "byte",
+    "int16",
+    "short",
+    "int32",
+    "int",
+    "int_",
+    "int64",
+    "long",
+    "uint8",
+    "ubyte",
+    "float16",
+    "half",
+    "bfloat16",
+    "float32",
+    "float",
+    "float_",
+    "float64",
+    "double",
+    "complex",
+    "complex64",
+    "cfloat",
+    "csingle",
+    "complex128",
+    "cdouble",
+    "canonical_heat_type",
+    "heat_type_of",
+    "heat_type_is_exact",
+    "heat_type_is_complexfloating",
+    "promote_types",
+    "finfo",
+]
+
+
+class datatype:
+    """Generic base class for heat_tpu_torch data types."""
+
+    _torch_type: Any = None
+
+    @classmethod
+    def torch_type(cls) -> torch.dtype:
+        """The corresponding ``torch.dtype``."""
+        return cls._torch_type
+
+
+class bool(datatype):
+    """1-byte boolean."""
+
+    _torch_type = torch.bool
+
+
+class number(datatype):
+    """Abstract base for all numeric types."""
+
+
+class integer(number):
+    """Abstract base for integer types."""
+
+
+class signedinteger(integer):
+    """Abstract base for signed integers."""
+
+
+class int8(signedinteger):
+    _torch_type = torch.int8
+
+
+class int16(signedinteger):
+    _torch_type = torch.int16
+
+
+class int32(signedinteger):
+    _torch_type = torch.int32
+
+
+class int64(signedinteger):
+    _torch_type = torch.int64
+
+
+class unsignedinteger(integer):
+    """Abstract base for unsigned integers."""
+
+
+class uint8(unsignedinteger):
+    _torch_type = torch.uint8
+
+
+class floating(number):
+    """Abstract base for floating-point types."""
+
+
+class float16(floating):
+    _torch_type = torch.float16
+
+
+class bfloat16(floating):
+    _torch_type = torch.bfloat16
+
+
+class float32(floating):
+    _torch_type = torch.float32
+
+
+class float64(floating):
+    _torch_type = torch.float64
+
+
+class complex(number):
+    """Abstract base for complex floating types."""
+
+
+class complex64(complex):
+    _torch_type = torch.complex64
+
+
+class complex128(complex):
+    _torch_type = torch.complex128
+
+
+# aliases (reference: types.py:414-428)
+bool_ = bool
+ubyte = uint8
+byte = int8
+short = int16
+int = int32
+int_ = int32
+long = int64
+half = float16
+float = float32
+float_ = float32
+double = float64
+cfloat = complex64
+csingle = complex64
+cdouble = complex128
+
+_complexfloating = (complex64, complex128)
+_inexact = (float16, bfloat16, float32, float64, *_complexfloating)
+_exact = (uint8, int8, int16, int32, int64)
+_concrete = (bool, *_exact, *_inexact)
+
+# type strings, numpy scalar types and builtins
+__type_mappings = {
+    "?": bool,
+    "B": uint8,
+    "b": int8,
+    "h": int16,
+    "i": int32,
+    "l": int64,
+    "e": float16,
+    "E": bfloat16,
+    "f": float32,
+    "d": float64,
+    "F": complex64,
+    "D": complex128,
+    "b1": bool,
+    "u": uint8,
+    "u1": uint8,
+    "i1": int8,
+    "i2": int16,
+    "i4": int32,
+    "i8": int64,
+    "f2": float16,
+    "f4": float32,
+    "f8": float64,
+    "c8": complex64,
+    "c16": complex128,
+    "bfloat16": bfloat16,
+    np.bool_: bool,
+    np.uint8: uint8,
+    np.int8: int8,
+    np.int16: int16,
+    np.int32: int32,
+    np.int64: int64,
+    np.float16: float16,
+    np.float32: float32,
+    np.float64: float64,
+    np.complex64: complex64,
+    np.complex128: complex128,
+    builtins.bool: bool,
+    builtins.int: int32,
+    builtins.float: float32,
+    builtins.complex: complex64,
+}
+
+# dtype name → heat type (numpy dtypes and their names)
+__name_mappings = {t.__name__: t for t in _concrete}
+
+# torch dtype → heat type
+__torch_mappings = {t._torch_type: t for t in _concrete}
+
+
+def canonical_heat_type(a_type: Union[str, Type[datatype], Any]) -> Type[datatype]:
+    """Canonicalize a builtin Python type, type string, numpy dtype, torch
+    dtype or heat type into the canonical heat type (reference: types.py:494)."""
+    try:
+        if issubclass(a_type, datatype):
+            return a_type
+    except TypeError:
+        pass
+    if isinstance(a_type, torch.dtype):
+        mapped = __torch_mappings.get(a_type)
+        if mapped is not None:
+            return mapped
+        raise TypeError(f"data type {a_type} is not understood")
+    try:
+        mapped = __type_mappings.get(a_type)
+    except TypeError:  # unhashable
+        mapped = None
+    if mapped is not None:
+        return mapped
+    try:
+        mapped = __name_mappings.get(np.dtype(a_type).name)
+        if mapped is not None:
+            return mapped
+    except TypeError:
+        pass
+    raise TypeError(f"data type {a_type} is not understood")
+
+
+def heat_type_of(obj: Any) -> Type[datatype]:
+    """Infer the canonical heat type of an object — DNDarray, tensor, numpy
+    array, scalar or (nested) iterable (reference: types.py:567)."""
+    dtype = getattr(obj, "dtype", None)
+    if dtype is not None:
+        return canonical_heat_type(dtype)
+    if isinstance(obj, (builtins.bool, builtins.int, builtins.float, builtins.complex)):
+        return canonical_heat_type(type(obj))
+    if isinstance(obj, str):
+        raise TypeError(f"data type of {obj} is not understood")
+    if isinstance(obj, Iterable):
+        for elem in obj:
+            return heat_type_of(elem)
+        raise TypeError(f"data type of empty iterable {obj} is not understood")
+    raise TypeError(f"data type of {obj} is not understood")
+
+
+def heat_type_is_exact(ht_dtype: Type[datatype]) -> builtins.bool:
+    """True if ``ht_dtype`` is an integer type."""
+    return ht_dtype in _exact
+
+
+def heat_type_is_complexfloating(ht_dtype: Type[datatype]) -> builtins.bool:
+    """True if ``ht_dtype`` is complex."""
+    return ht_dtype in _complexfloating
+
+
+def promote_types(
+    type1: Union[str, Type[datatype], Any], type2: Union[str, Type[datatype], Any]
+) -> Type[datatype]:
+    """Smallest type to which both may be safely cast, on the torch lattice
+    (int ∨ float → that float; reference: types.py:838)."""
+    t1 = canonical_heat_type(type1)
+    t2 = canonical_heat_type(type2)
+    return canonical_heat_type(torch.promote_types(t1.torch_type(), t2.torch_type()))
+
+
+class finfo:
+    """Machine limits for floating point types (reference: types.py:952).
+    A complex type reports the limits of its real part."""
+
+    def __new__(cls, dtype: Type[datatype]):
+        try:
+            dtype = canonical_heat_type(dtype)
+        except TypeError:
+            raise TypeError(f"data type {dtype} not inexact, not supported")
+        if dtype not in _inexact:
+            raise TypeError(f"data type {dtype} not inexact, not supported")
+        return super().__new__(cls)._init(dtype)
+
+    def _init(self, dtype):
+        tt = dtype.torch_type()
+        if tt.is_complex:
+            tt = torch.empty((), dtype=tt).real.dtype
+        info = torch.finfo(tt)
+        self.bits = info.bits
+        self.eps = builtins.float(info.eps)
+        self.max = builtins.float(info.max)
+        self.min = builtins.float(info.min)
+        self.tiny = builtins.float(info.tiny)
+        return self
