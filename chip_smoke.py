@@ -6,21 +6,31 @@ Phases, each of which fails the run by raising:
    switches; float32 products must run in full FP32, so matmul TF32 on is
    a failure;
 2. the build of every CUDA kernel from ``heat_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together), with its time;
+   ``nvcc`` per source, all started together), with its time and the
+   register line of each main-path instantiation;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at a ragged one, and against itself on a rerun
+   path's shapes and at ragged ones, and against itself on a rerun
    (its cross-block sums run in a fixed order);
-4. the main path at full size: ``ht.random.randn(65536, 8192, split=0)``
-   (the 2.1 GB float32 per-chip shard of the north-star operation), then
-   ``ht.linalg.hsvd_rank(A, 10, compute_sv=True)`` in the 2-pass form and
-   with ``single_pass=True``; every kernel count is set to 0 just before
-   each call and read just after. The factors must be orthonormal, and an
-   exactly rank-8 operand of the same size, and a small one held against
-   numpy's SVD, must give their singular values back;
+4. the main paths at full size, each kernel count set to 0 just before
+   each call and read just after:
+   - hSVD: ``ht.random.randn(65536, 8192, split=0)`` (the 2.1 GB float32
+     per-chip shard of the north-star operation), then
+     ``ht.linalg.hsvd_rank(A, 10, compute_sv=True)`` in the 2-pass form
+     and with ``single_pass=True``. The factors must be orthonormal, and
+     an exactly rank-8 operand of the same size, and a small one held
+     against numpy's SVD, must give their singular values back;
+   - KMeans: ``ht.random.randn(15_625_000, 64, split=0)`` (the 4.0 GB
+     per-chip shard of BASELINE's 1B x 64 over 64 chips), then 20 Lloyd
+     iterations of ``KMeans(8, init="kmeans++")`` and ``predict``. Eight
+     well-separated blobs of the same size must be recovered, and a fit
+     from one point per blob must equal a Lloyd loop on the plain
+     assignment; the reference benchmark's configuration (four spherical
+     clusters of 5000 3-D points, k = 4) must be recovered by KMeans,
+     KMedians and KMedoids;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
-   peaks.
+   peaks; and a profile of one call or fit of each main path.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -30,6 +40,7 @@ exits with an error and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,6 +59,19 @@ RANK8_SIGMA = [8.0, 7.0, 6.0, 5.0, 4.0, 3.0, 2.0, 1.0]
 # error of the norm
 TOL_W = 1e-5
 TOL_NORM = 1e-6
+
+KM_N, KM_D, KM_K = 15_625_000, 64, 8  # the KMeans per-chip shard (bench.py:114)
+KM_ITERS = 20
+# K3 against its plain version: cluster sums within relative Frobenius
+# error 1e-5 and inertia within relative error 1e-5 (float32 sums in two
+# orders); counts exactly equal on well-separated blobs; on Gaussian data
+# near-ties may flip labels between the two orders, so Σ|Δcount| ≤ 1e-5·n
+TOL_SUMS = 1e-5
+TOL_INERTIA = 1e-5
+TOL_FLIPS = 1e-5
+# (n, d, k) of phase 3: main, the reference benchmark, ragged, and the
+# largest k and d the kernel's predicate admits
+K3_SHAPES = ((KM_N, KM_D, KM_K), (20000, 3, 4), (1003, 16, 4), (100_003, 124, 64))
 
 
 def _require(ok: bool, what: str) -> None:
@@ -99,14 +123,16 @@ def build_kernels() -> None:
     from heat_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s for {_build.sources()}", flush=True)
+    ready = _build.build_all()
+    each = ", ".join(f"{name} ready after {sec:.1f} s" for name, sec in ready.items())
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s for {_build.sources()} ({each})", flush=True)
     for name in _build.sources():
         log = _build._library_path(name).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
-        # register use of the main path's instantiations (K1 l=25, K2 ℓ=59)
+        # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59, K3 k ≤ 8)
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and ("ILi25ELb0E" in line or "ILi59ELb1E" in line):
+            main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E")
+            if "Compiling entry function" in line and any(tag in line for tag in main):
                 detail = " | ".join(s.split(":", 1)[-1].strip() for s in lines[i + 1 : i + 4])
                 print(f"ptxas {line.split(chr(39))[1][:48]}: {detail}", flush=True)
 
@@ -150,6 +176,148 @@ def check_kernels(dev) -> dict:
             _require(all(map(torch.equal, (w, y, norm), cs.dual_sketch_with_norm(g, omega, a))), "K2 is not repeatable")
         del a
     return errs
+
+
+def _blobs(gen, n: int, means):
+    """Blobs of n // k rows each around the k ``means`` (n divisible by k),
+    with unit-variance Gaussian noise, built on the card."""
+    import torch
+
+    x = torch.randn(n, means.shape[1], device=means.device, generator=gen)
+    x += means.repeat_interleave(n // means.shape[0], dim=0)
+    return x
+
+
+def _axis_means(dev, d: int, k: int, scale: float = 8.0):
+    """k ≤ 2d means ±scale·e_j: every pair at least scale·√2 apart, 5.7
+    noise deviations from their bisector, at a magnitude that keeps the
+    float32 quadratic expansion from cancelling."""
+    import torch
+
+    idx = torch.arange(k, device=dev)
+    means = torch.zeros(k, d, device=dev)
+    means[idx, idx % d] = scale * (1.0 - 2.0 * (idx >= d).float())
+    return means
+
+
+def check_assign(dev) -> float:
+    """K3 against its plain version on Gaussian data (centers drawn from
+    X) and on well-separated blobs; returns the largest absolute error of
+    the sums at the main shape."""
+    import torch
+
+    from heat_tpu_torch.cluster import _cuda_assign as ca
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    main_err = None
+    for n, d, k in K3_SHAPES:
+        n_blob = n - n % k
+        for data in ("gaussian", "blobs"):
+            if data == "gaussian":
+                x = torch.randn(n, d, device=dev, generator=gen)
+                c = x[torch.randperm(n, device=dev, generator=gen)[:k]].contiguous()
+            else:
+                c = _axis_means(dev, d, k)
+                x = _blobs(gen, n_blob, c)
+            sums, counts, inertia = ca.fused_assign(x, c)
+            psums, pcounts, pinertia = ca.fused_assign_plain(x, c)
+            torch.cuda.synchronize()
+            es = _rel(sums, psums)
+            ei = abs(float(inertia) - float(pinertia)) / float(pinertia)
+            flips = float((counts - pcounts).abs().sum())
+            limit = TOL_FLIPS * x.shape[0] if data == "gaussian" else 0.0
+            print(
+                f"K3 ({x.shape[0]}x{d}, k={k}, {data}): sums rel {es:.3e} (tol {TOL_SUMS}), inertia rel "
+                f"{ei:.3e} (tol {TOL_INERTIA}), sum |count diff| {flips:.0f} (limit {limit:.0f})", flush=True,
+            )
+            _require(es <= TOL_SUMS and ei <= TOL_INERTIA and flips <= limit,
+                     f"K3 disagrees with its plain version at {x.shape[0]}x{d}, k={k} ({data})")
+            _require(all(map(torch.equal, (sums, counts, inertia), ca.fused_assign(x, c))), "K3 is not repeatable")
+            if (n, d, k, data) == (KM_N, KM_D, KM_K, "gaussian"):
+                main_err = float((sums - psums).abs().max())
+            del x
+    return main_err
+
+
+def _recovered(labels, k: int) -> bool:
+    """Every one of k equal blocks of ``labels`` holds one label, and the k
+    labels differ."""
+    import torch
+
+    blocks = labels.reshape(k, -1)
+    firsts = blocks[:, 0]
+    return bool((blocks == firsts[:, None]).all()) and len(torch.unique(firsts)) == k
+
+
+def kmeans_path(dev) -> int:
+    """The KMeans main path through the public entry points; returns K3's
+    launches in the full-size fit."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.cluster import _cuda_assign as ca
+
+    ht.random.seed(0)
+    X = ht.random.randn(KM_N, KM_D, split=0)
+    _require(X.larray.device == dev and X.dtype is ht.float32 and X.split == 0, "X is not a float32 split-0 array on the card")
+    ca.ASSIGN_LAUNCHES = 0
+    km = ht.cluster.KMeans(n_clusters=KM_K, init="kmeans++", max_iter=KM_ITERS, tol=-1.0, random_state=0).fit(X)
+    torch.cuda.synchronize()
+    launches = ca.ASSIGN_LAUNCHES
+    centers, labels = km.cluster_centers_.larray, km.labels_.larray
+    print(
+        f"KMeans({KM_N}x{KM_D}, k={KM_K}, kmeans++).fit: n_iter {km.n_iter_}, K3 launches {launches}, "
+        f"inertia {km.inertia_:.6e}, labels split {km.labels_.split} dtype {km.labels_.dtype.__name__}", flush=True,
+    )
+    _require(km.n_iter_ == KM_ITERS and launches == km.n_iter_, "the fit did not run every Lloyd step through K3")
+    _require(tuple(centers.shape) == (KM_K, KM_D) and tuple(labels.shape) == (KM_N,), "fit result shapes")
+    _require(bool(torch.isfinite(centers).all()) and math.isfinite(km.inertia_), "non-finite centers or inertia")
+    _require(int(labels.min()) >= 0 and int(labels.max()) < KM_K, "labels out of range")
+    _require(torch.equal(km.predict(X).larray, labels), "predict(X) differs from labels_")
+    del X, km, labels
+
+    # eight well-separated blobs of the same size, with known means
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    # means 8·sqrt(2·64) apart against a spread of sqrt(64): k-means++ seeding
+    # finds each blob, where the axis layout of phase 3 is too tight for it
+    x = _blobs(gen, KM_N, torch.randn(KM_K, KM_D, device=dev, generator=gen) * 8.0)
+    B = ht.array(x, split=0)
+    km = ht.cluster.KMeans(n_clusters=KM_K, init="kmeans++", random_state=1).fit(B)
+    ok = _recovered(km.labels_.larray, KM_K)
+    print(f"blobs, kmeans++: n_iter {km.n_iter_}, every blob one distinct cluster: {ok}", flush=True)
+    _require(ok, "kmeans++ did not recover the eight blobs")
+    init = x[:: KM_N // KM_K].contiguous()
+    km = ht.cluster.KMeans(n_clusters=KM_K, init=ht.array(init)).fit(B)
+    c = init
+    for _ in range(km.n_iter_):
+        sums, counts, inertia = ca.fused_assign_plain(x, c)
+        c = torch.where(counts[:, None] > 0, sums / torch.clamp_min(counts[:, None], 1), c)
+    ec = _rel(km.cluster_centers_.larray, c)
+    ei = abs(km.inertia_ - float(inertia)) / float(inertia)
+    print(
+        f"blobs, one point per blob: n_iter {km.n_iter_}; against a plain Lloyd loop: centers rel "
+        f"{ec:.3e} (tol {TOL_SUMS}), inertia rel {ei:.3e} (tol {TOL_INERTIA})", flush=True,
+    )
+    _require(ec <= TOL_SUMS and ei <= TOL_INERTIA, "the fit disagrees with a Lloyd loop on the plain assignment")
+    _require(_recovered(km.labels_.larray, KM_K), "the fit from one point per blob did not recover the blobs")
+    del x, B, km
+
+    # the reference benchmark's configuration (BASELINE.md, heat benchmarks/cb/cluster.py)
+    data = ht.utils.data.create_spherical_dataset(5000, radius=0.5, offset=6.0, random_state=1)
+    _require(tuple(data.shape) == (20000, 3) and data.larray.device == dev, "spherical data shape or device")
+    for cls in (ht.cluster.KMeans, ht.cluster.KMedians, ht.cluster.KMedoids):
+        ca.ASSIGN_LAUNCHES = 0
+        est = cls(n_clusters=4, init="kmeans++", random_state=0).fit(data)
+        ok = _recovered(est.labels_.larray, 4)
+        print(
+            f"reference config 4x5000x3, {cls.__name__}: n_iter {est.n_iter_}, K3 launches "
+            f"{ca.ASSIGN_LAUNCHES}, every cluster recovered: {ok}", flush=True,
+        )
+        _require(ok, f"{cls.__name__} did not recover the four spherical clusters")
+        _require(cls is not ht.cluster.KMeans or ca.ASSIGN_LAUNCHES == est.n_iter_, "KMeans ran without K3")
+    return launches
 
 
 def _orthonormal_err(x) -> float:
@@ -293,36 +461,95 @@ def timings(dev, launches: dict, errs: dict) -> list:
             f"bound {passes * 4 * mn / HBM_BYTES_PER_S * 1e3:.4f} ms ({passes} read(s) of A); "
             f"{(time.perf_counter() - t0) / 6 * 1e3:.1f} ms host time per call with its sync", flush=True,
         )
-    profile_breakdown(ht, A)
+    for single_pass in (False, True):
+        profile_breakdown(
+            f"hsvd_rank(single_pass={single_pass})",
+            lambda: ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True, single_pass=single_pass),
+        )
     return rows
 
 
-def profile_breakdown(ht, A) -> None:
-    """Device time by kernel for one call of each form, from torch.profiler
+def kmeans_timings(dev, launches: int, err: float) -> dict:
+    """K3, its plain version and the one library product at the main
+    shape, then the KMeans fit: per Lloyd iteration, its seeding and its
+    final assignment, and a profile of one fit. Returns K3's row."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.cluster import _cuda_assign as ca
+    from heat_tpu_torch.cluster._kcluster import _kmeanspp, _predict, make_fit_loop
+    from heat_tpu_torch.cluster.kmeans import _lloyd_step
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn(KM_N, KM_D, device=dev, generator=gen)
+    c = x[torch.randperm(KM_N, device=dev, generator=gen)[:KM_K]].contiguous()
+    ms = _median_ms(lambda: ca.fused_assign(x, c), 10)
+    plain_ms = _median_ms(lambda: ca.fused_assign_plain(x, c), 5)
+    library_ms = _median_ms(lambda: torch.matmul(x, c.T), 10)
+    n, d, k = float(KM_N), KM_D, KM_K
+    nbytes = 4 * (n * d + k * d + k * d + k + 1)
+    flops = 2 * n * k * d + 2 * n * k * (d + 2)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    print(
+        f"fused_assign: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (x @ c.T) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})", flush=True,
+    )
+    row = {
+        "name": "fused_assign", "route": "cuda", "source": "heat_tpu_torch/csrc/kmeans_assign.cu",
+        "replaces": "heat_tpu/cluster/_pallas.py:66", "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+    X = ht.array(x, split=0)
+
+    def fit():
+        return ht.cluster.KMeans(
+            n_clusters=KM_K, init="kmeans++", max_iter=KM_ITERS, tol=-1.0, random_state=0
+        ).fit(X)
+
+    fit_ms = _median_ms(fit, 3)
+    seed_ms = _median_ms(lambda: _kmeanspp(x, KM_K, ht.random._next_generator(KM_K, dev)), 3)
+    loop = make_fit_loop(_lloyd_step, -1.0, KM_ITERS, True)
+    loop_ms = _median_ms(lambda: loop(x, c), 3)
+    final_ms = _median_ms(lambda: _predict(x, c, "euclidean", True), 3)
+    per_iter = loop_ms / KM_ITERS
+    print(
+        f"KMeans.fit({KM_N}x{KM_D}, k={KM_K}, kmeans++, {KM_ITERS} iterations): {fit_ms:.4f} ms "
+        f"(median of 3, CUDA events); Lloyd loop {loop_ms:.4f} ms = {per_iter:.4f} ms per iteration, "
+        f"{1e3 / per_iter:.2f} iterations per second (bound {row['bound_ms']:.4f} ms per iteration, one "
+        f"read of X); seeding {seed_ms:.4f} ms; final assignment {final_ms:.4f} ms", flush=True,
+    )
+    profile_breakdown(f"KMeans.fit({KM_ITERS} iterations)", fit)
+    return row
+
+
+def profile_breakdown(label: str, call) -> None:
+    """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
     cost)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for single_pass in (False, True):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True, single_pass=single_pass)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = sorted(
-            (e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-        )[::-1]
-        busy_ms = sum(r[0] for r in rows)
-        top = "; ".join(f"{key[:100]} x{count} {t:.3f} ms" for t, count, key in rows[:8] if t > 0)
-        print(
-            f"profile hsvd_rank(single_pass={single_pass}): wall {wall_ms:.3f} ms, device busy "
-            f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); by kernel: {top}", flush=True,
-        )
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(
+        (e.self_device_time_total / 1e3, e.count, e.key)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    )[::-1]
+    busy_ms = sum(r[0] for r in rows)
+    top = "; ".join(f"{key[:100]} x{count} {t:.3f} ms" for t, count, key in rows[:8] if t > 0)
+    print(
+        f"profile {label}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); by kernel: {top}", flush=True,
+    )
 
 
 def main() -> int:
@@ -336,14 +563,18 @@ def main() -> int:
     card = card_report()
     build_kernels()
     errs = check_kernels(dev)
+    assign_err = check_assign(dev)
     launches = main_path(dev)
+    assign_launches = kmeans_path(dev)
     rows = timings(dev, launches, errs)
+    rows.append(kmeans_timings(dev, assign_launches, assign_err))
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
+    # every phase runs on cuda:0, so the run used one card
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1},
     }))
     return 0
 

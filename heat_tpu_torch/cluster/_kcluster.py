@@ -1,0 +1,327 @@
+"""Shared k-clustering machinery.
+
+Port of ``heat_tpu.cluster._kcluster`` (Heat reference:
+heat/cluster/_kcluster.py). ``heat_tpu`` compiles each whole fit (seeding,
+the convergence loop and the final assignment) into one XLA program. The
+port runs the same steps as a plain function on torch tensors: seeding,
+then a Python loop with ``heat_tpu``'s condition, then the final
+assignment. The loop reads the centers' shift on the host once per
+iteration.
+
+Temporaries that XLA never built are not built here either: the
+k-means++ candidate distances are taken one candidate at a time, in row
+chunks, and the L1 distances of the median and medoid steps one center at
+a time.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from ..core import random as ht_random, types
+from ..core.base import BaseEstimator, ClusteringMixin
+from ..core.dndarray import DNDarray
+from ..core.sanitation import sanitize_in
+
+__all__ = ["_KCluster"]
+
+_SEEDED_INITS = ("probability_based", "kmeans++", "k-means++")
+
+# rows per chunk when distances to one point are taken over the whole
+# operand: a (chunk, d) temporary instead of an (n, d) one
+_ROW_CHUNK = 1 << 20
+
+
+def _seed_generator(k: int, device: torch.device) -> torch.Generator:
+    """The seeding generator, derived from the current stream, which then
+    advances by the k draws the ++-seeding consumes (``heat_tpu``'s
+    ``_seed_key``, _kcluster.py:33)."""
+    return ht_random._next_generator(k, device)
+
+
+def make_fit_loop(step: Callable, tol: float, max_iter: int, returns_inertia: bool):
+    """The convergence loop of a fit: ``step(arr, centers)`` returns
+    ``(new_centers, shift[, inertia])``; the loop runs while
+    ``it < max_iter and shift > tol``, from shift = +inf, as ``heat_tpu``'s
+    ``while_loop`` does (_kcluster.py:44). Returns ``run(arr, centers0) ->
+    (centers, n_iter[, inertia])``."""
+
+    def run(arr: torch.Tensor, centers: torch.Tensor):
+        # the comparison runs in the data's dtype, as in the traced loop
+        tol_ = torch.tensor(tol, dtype=arr.dtype).item()
+        it, shift = 0, float("inf")
+        inertia = torch.zeros((), dtype=arr.dtype, device=arr.device)
+        while it < max_iter and shift > tol_:
+            res = step(arr, centers)
+            centers = res[0]
+            if returns_inertia:
+                inertia = res[2]
+            shift = float(res[1])
+            it += 1
+        return (centers, it, inertia) if returns_inertia else (centers, it)
+
+    return run
+
+
+def _sqdist_to(arr: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """``Σ_j (arr[:, j] − point[j])²`` per row, in row chunks."""
+    out = torch.empty(arr.shape[0], dtype=arr.dtype, device=arr.device)
+    for s in range(0, arr.shape[0], _ROW_CHUNK):
+        diff = arr[s : s + _ROW_CHUNK] - point
+        out[s : s + _ROW_CHUNK] = torch.sum(diff * diff, dim=1)
+    return out
+
+
+def _choice(gen: torch.Generator, probs: torch.Tensor, size: int) -> torch.Tensor:
+    """``size`` indices drawn with replacement with probabilities ``probs``,
+    as ``jax.random.choice(p=)`` computes them: the float64 cumulative sum,
+    then a search for ``total · (1 − u)`` with u uniform in [0, 1)."""
+    cum = torch.cumsum(probs.to(torch.float64), dim=0)
+    u = torch.rand(size, generator=gen, dtype=torch.float64, device=probs.device)
+    r = cum[-1] * (1.0 - u)
+    return torch.searchsorted(cum, r).clamp_max(probs.shape[0] - 1)
+
+
+def _kmeanspp(arr: torch.Tensor, k: int, gen: torch.Generator) -> torch.Tensor:
+    """Greedy k-means++ seeding (``heat_tpu``'s ``_kmeanspp_program``,
+    _kcluster.py:150): each step draws 2 + ⌊ln k⌋ candidates with
+    probability proportional to the current squared distance and keeps the
+    one that minimizes the potential."""
+    n = arr.shape[0]
+    n_candidates = 2 + int(np.log(max(k, 2)))
+    first = torch.randint(0, n, (), generator=gen, device=arr.device)
+    centers = torch.zeros((k, arr.shape[1]), dtype=arr.dtype, device=arr.device)
+    centers[0] = arr[first]
+    d2 = _sqdist_to(arr, centers[0])
+    for i in range(1, k):
+        probs = d2 / torch.clamp_min(torch.sum(d2), 1e-30)
+        cand_pts = arr[_choice(gen, probs, n_candidates)]  # (L, d)
+        cand_d2 = torch.stack([_sqdist_to(arr, p) for p in cand_pts])  # (L, n)
+        potentials = torch.stack([torch.sum(torch.minimum(d2, c)) for c in cand_d2])
+        best = torch.argmin(potentials)
+        centers[i] = cand_pts[best]
+        d2 = torch.minimum(d2, cand_d2[best])
+    return centers
+
+
+def _pairwise(arr: torch.Tensor, c: torch.Tensor, metric: str = "euclidean") -> torch.Tensor:
+    """Sample × center distances: Euclidean through the quadratic
+    expansion, or Manhattan one center at a time."""
+    if metric == "manhattan":
+        return torch.stack([torch.sum(torch.abs(arr - cj), dim=1) for cj in c], dim=1)
+    x2 = torch.sum(arr * arr, dim=1, keepdim=True)
+    c2 = torch.sum(c * c, dim=1, keepdim=True).T
+    return torch.sqrt(torch.clamp_min(x2 + c2 - 2.0 * (arr @ c.T), 0.0))
+
+
+def _l1_assign(arr: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """First-index argmin labels under the L1 metric."""
+    return torch.argmin(_pairwise(arr, centers, "manhattan"), dim=1)
+
+
+def _masked_median(arr: torch.Tensor, mask: torch.Tensor):
+    """Coordinate-wise median of the rows where ``mask`` holds, and their
+    count, as ``jnp.nanmedian`` of the NaN-masked operand computes it: the
+    masked values sort last, and the median interpolates linearly between
+    the entries at ⌊q⌋ and ⌈q⌉, q = 0.5 · (count − 1). With no rows the
+    median is NaN; callers keep the old center then."""
+    cnt = torch.sum(mask)
+    nan = torch.tensor(float("nan"), dtype=arr.dtype, device=arr.device)
+    ordered = torch.sort(torch.where(mask[:, None], arr, nan), dim=0).values
+    q = 0.5 * (cnt.to(arr.dtype) - 1)
+    lo, hi = torch.floor(q), torch.ceil(q)
+    w_hi = q - lo
+    last = torch.clamp_min(cnt - 1, 0)
+    lo_v = ordered[torch.minimum(torch.clamp_min(lo, 0).long(), last)]
+    hi_v = ordered[torch.minimum(torch.clamp_min(hi, 0).long(), last)]
+    return lo_v * (1 - w_hi) + hi_v * w_hi, cnt
+
+
+def _predict(arr: torch.Tensor, centers: torch.Tensor, metric: str, eval_fv: bool):
+    """Labels (int64, first-index argmin) and, with ``eval_fv``, the
+    functional value: Σ min d for Manhattan, Σ (min d)² for Euclidean
+    (``heat_tpu``'s ``_predict_program``, _kcluster.py:109)."""
+    d = _pairwise(arr, centers, metric)
+    labels = torch.argmin(d, dim=1)
+    if not eval_fv:
+        return labels
+    dmin = torch.gather(d, 1, labels[:, None])
+    fun = torch.sum(dmin) if metric == "manhattan" else torch.sum(dmin**2)
+    return labels, fun
+
+
+def _float_operand(x: DNDarray) -> torch.Tensor:
+    """The operand as a contiguous tensor; integer data become float32."""
+    arr = x.larray
+    arr = arr.to(torch.float32) if types.heat_type_is_exact(x.dtype) else arr
+    return arr.contiguous()
+
+
+class _KCluster(BaseEstimator, ClusteringMixin):
+    """Base class for k-statistics clustering (reference: _kcluster.py)."""
+
+    def __init__(
+        self,
+        n_clusters: int,
+        init: Union[str, DNDarray],
+        max_iter: int,
+        tol: float,
+        random_state: Optional[int],
+    ):
+        self.n_clusters = n_clusters
+        self.init = init
+        self.max_iter = max_iter
+        self.tol = tol
+        self.random_state = random_state
+
+        self._cluster_centers = None
+        self._labels = None
+        self._inertia = None
+        self._n_iter = None
+        # random_state gives the model a private (seed, counter) stream that
+        # only its own inits advance; without it the global stream is used
+        # (heat_tpu _kcluster.py:206-222)
+        self._rng_state = (
+            None if random_state is None else (ht_random.ALGORITHM, int(random_state), 0, 0, 0.0)
+        )
+
+    def _with_stream(self, fn):
+        """Run ``fn()`` against the model's private stream when it has one,
+        else against the global stream; the private stream's advanced state
+        is kept and the global stream is left as it was (heat_tpu
+        _kcluster.py:224)."""
+        if self._rng_state is None:
+            return fn()
+        outer = ht_random.get_state()
+        ht_random.set_state(self._rng_state)
+        try:
+            return fn()
+        finally:
+            self._rng_state = ht_random.get_state()
+            ht_random.set_state(outer)
+
+    @property
+    def rng_state(self):
+        """The model's private stream state ``("TorchGenerator", seed,
+        counter, 0, 0.0)``, or None for a model on the global stream."""
+        return self._rng_state
+
+    @rng_state.setter
+    def rng_state(self, state) -> None:
+        self._rng_state = None if state is None else tuple(state)
+
+    @property
+    def cluster_centers_(self) -> DNDarray:
+        """Coordinates of the cluster centers."""
+        return self._cluster_centers
+
+    @property
+    def labels_(self) -> DNDarray:
+        """Label of each sample point."""
+        return self._labels
+
+    @property
+    def inertia_(self) -> float:
+        """Sum of squared distances of samples to their closest center (L1
+        distances for the Manhattan family). Kept on the device by fit; the
+        first access reads it to the host."""
+        if self._inertia is None:
+            return None
+        if not isinstance(self._inertia, float):
+            self._inertia = float(self._inertia)
+        return self._inertia
+
+    @property
+    def n_iter_(self) -> int:
+        """Number of iterations run."""
+        return None if self._n_iter is None else int(self._n_iter)
+
+    # ------------------------------------------------------------------ #
+    # initialization (reference: _kcluster.py:87-187)                    #
+    # ------------------------------------------------------------------ #
+    def _initialize_cluster_centers(self, x: DNDarray) -> None:
+        k = self.n_clusters
+        n, d = x.shape
+        arr = _float_operand(x)
+        if isinstance(self.init, DNDarray):
+            if self.init.shape != (k, d):
+                raise ValueError(
+                    f"passed centroids need to be of shape ({k}, {d}), got {self.init.shape}"
+                )
+            centers = self.init.larray.to(device=arr.device, dtype=arr.dtype)
+        elif isinstance(self.init, str) and self.init == "random":
+            # k observations drawn at random from the data
+            idx = self._with_stream(lambda: ht_random.randperm(n, device=x.device).larray[:k])
+            centers = arr[idx]
+        elif isinstance(self.init, str) and self.init in _SEEDED_INITS:
+            centers = _kmeanspp(arr, k, self._with_stream(lambda: _seed_generator(k, arr.device)))
+        else:
+            raise ValueError(
+                f"initialization needs to be 'random', 'probability_based' or a DNDarray, got {self.init}"
+            )
+        self._cluster_centers = self._replicated(centers, x)
+
+    @staticmethod
+    def _replicated(centers: torch.Tensor, x: DNDarray) -> DNDarray:
+        return DNDarray(
+            centers, tuple(centers.shape), types.canonical_heat_type(centers.dtype), None,
+            x.device, x.comm,
+        )
+
+    @staticmethod
+    def _labels_of(labels: torch.Tensor, x: DNDarray) -> DNDarray:
+        split = 0 if x.split is not None else None
+        return DNDarray(labels, (x.shape[0],), types.int64, split, x.device, x.comm)
+
+    # ------------------------------------------------------------------ #
+    # assignment (reference: _kcluster.py:196-209)                       #
+    # ------------------------------------------------------------------ #
+    _assignment_metric = "euclidean"
+
+    def _assign_to_cluster(self, x: DNDarray, eval_functional_value: bool = False) -> DNDarray:
+        """Label of the closest center for every sample, with the subclass's
+        assignment metric; with ``eval_functional_value`` also sets
+        ``inertia_``."""
+        sanitize_in(x)
+        arr = _float_operand(x)
+        c = self._cluster_centers.larray.to(device=arr.device)
+        if eval_functional_value:
+            labels, self._inertia = _predict(arr, c, self._assignment_metric, True)
+        else:
+            labels = _predict(arr, c, self._assignment_metric, False)
+        return self._labels_of(labels, x)
+
+    # ------------------------------------------------------------------ #
+    # the whole fit, shared by the three estimators                      #
+    # ------------------------------------------------------------------ #
+    def _fit_fused(self, x: DNDarray, step: Callable, returns_inertia: bool):
+        """The whole fit (``heat_tpu``'s ``_fused_fit_program``,
+        _kcluster.py:80): seeding or the given init, the convergence loop
+        over ``step(arr, centers)`` (Lloyd / median / medoid), then the
+        final assignment. ``inertia_`` is the last step's when
+        ``returns_inertia``, else the final assignment's functional value."""
+        sanitize_in(x)
+        if x.ndim != 2:
+            raise ValueError(f"input needs to be 2-dimensional, got {x.ndim}")
+        arr = _float_operand(x)
+        self._initialize_cluster_centers(x)
+        loop = make_fit_loop(step, float(self.tol), int(self.max_iter), returns_inertia)
+        res = loop(arr, self._cluster_centers.larray)
+        centers, n_iter = res[0], res[1]
+        labels, fun = _predict(arr, centers, self._assignment_metric, True)
+        self._n_iter = n_iter
+        self._inertia = res[2] if returns_inertia else fun
+        self._cluster_centers = self._replicated(centers, x)
+        self._labels = self._labels_of(labels, x)
+        return self
+
+    def predict(self, x: DNDarray) -> DNDarray:
+        """Labels of the closest cluster center for new data (reference:
+        _kcluster.py predict)."""
+        sanitize_in(x)
+        if self._cluster_centers is None:
+            raise RuntimeError("fit needs to be called before predict")
+        return self._assign_to_cluster(x)

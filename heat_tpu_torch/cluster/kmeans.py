@@ -1,0 +1,158 @@
+"""K-Means clustering.
+
+Port of ``heat_tpu.cluster.kmeans`` (Heat reference:
+heat/cluster/kmeans.py, ``KMeans``; Lloyd update at kmeans.py:74-100).
+
+A Lloyd step needs the cluster sums, the counts and the inertia. On the
+TPU, XLA fuses ``heat_tpu``'s jnp step into one read of X per iteration.
+Eager PyTorch does not fuse: the same ops read X three times and write and
+re-read an (n, k) distance matrix and an (n, k) one-hot. So on a CUDA
+float32 operand within the kernel's bounds the port's steps call kernel
+K3 (``_cuda_assign.fused_assign``), which computes exactly those three
+from one read of X. Otherwise the same function runs as torch ops
+(``fused_assign_plain``), decided up front by ``assign_serviceable``.
+
+``partial_fit`` is the streaming form (running-mean updates per batch) on
+DNDarray batches. ``heat_tpu``'s host-resident ``HostArray`` operands and
+checkpointed fits (``ckpt=``) are not ported (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from ..core.dndarray import DNDarray
+from ..core.sanitation import sanitize_in
+from . import _cuda_assign
+from ._kcluster import _KCluster, _float_operand
+
+__all__ = ["KMeans"]
+
+
+def _assign(arr: torch.Tensor, centers: torch.Tensor):
+    """(sums, counts, inertia) of ``arr`` against ``centers``: kernel K3
+    where it serves the operand, else the torch form."""
+    n, d = arr.shape
+    if _cuda_assign.assign_serviceable(n, d, centers.shape[0], arr):
+        return _cuda_assign.fused_assign(arr, centers.contiguous())
+    return _cuda_assign.fused_assign_plain(arr, centers)
+
+
+def _lloyd_step(arr: torch.Tensor, centers: torch.Tensor):
+    """One Lloyd iteration: ``(arr, centers) -> (new_centers, shift²,
+    inertia)`` (``heat_tpu`` kmeans.py:40). Empty clusters keep their
+    center."""
+    sums, counts, inertia = _assign(arr, centers)
+    sums = sums.to(arr.dtype)
+    counts = counts.to(arr.dtype)
+    new_centers = torch.where(
+        counts[:, None] > 0, sums / torch.clamp_min(counts[:, None], 1), centers
+    )
+    shift = torch.sum((new_centers - centers) ** 2)
+    return new_centers, shift, inertia.to(arr.dtype)
+
+
+def _partial_fit_step(arr: torch.Tensor, centers: torch.Tensor, counts: torch.Tensor):
+    """One streaming minibatch update: ``(arr, centers, counts) ->
+    (new_centers, new_counts, inertia)`` (``heat_tpu`` kmeans.py:92). Every
+    center is the mean of all samples ever assigned to it; counts and the
+    mix run in float32 whatever the data's dtype."""
+    sums, bcounts, inertia = _assign(arr, centers)
+    new_counts = counts + bcounts.to(torch.float32)
+    c32 = centers.to(torch.float32)
+    new_centers = torch.where(
+        new_counts[:, None] > 0,
+        (c32 * counts[:, None] + sums.to(torch.float32)) / torch.clamp_min(new_counts[:, None], 1),
+        c32,
+    ).to(arr.dtype)
+    return new_centers, new_counts, inertia.to(arr.dtype)
+
+
+def _refuse_unported(x, ckpt) -> None:
+    if ckpt is not None:
+        raise NotImplementedError(
+            "KMeans.fit(ckpt=): checkpointed fits are not ported (ROADMAP.md Queue 1)"
+        )
+    if type(x).__name__ == "HostArray":
+        raise NotImplementedError(
+            "KMeans over a host-resident HostArray: out-of-core staging is not ported "
+            "(ROADMAP.md Queue 1); pass a DNDarray"
+        )
+
+
+class KMeans(_KCluster):
+    """K-Means with Lloyd's algorithm (reference: kmeans.py:17).
+
+    Parameters follow the reference: n_clusters, init
+    ('random' | 'probability_based'/'kmeans++' | DNDarray), max_iter, tol,
+    random_state.
+    """
+
+    def __init__(
+        self,
+        n_clusters: int = 8,
+        init: Union[str, DNDarray] = "random",
+        max_iter: int = 300,
+        tol: float = 1e-4,
+        random_state: Optional[int] = None,
+    ):
+        if isinstance(init, str) and init == "kmeans++":
+            init = "probability_based"
+        super().__init__(
+            n_clusters=n_clusters,
+            init=init,
+            max_iter=max_iter,
+            tol=tol,
+            random_state=random_state,
+        )
+        # streaming state (partial_fit): samples-per-center running counts,
+        # None until the first batch initializes the centers
+        self._partial_counts = None
+
+    def _update_centroids(self, x: DNDarray, matching_centroids: DNDarray) -> DNDarray:
+        """Masked-mean centroid update for given labels (reference:
+        kmeans.py:74-100); ``fit`` uses the fused step."""
+        arr = _float_operand(x)
+        labels = matching_centroids.larray.to(device=arr.device, dtype=torch.int64)
+        onehot = torch.nn.functional.one_hot(labels, self.n_clusters).to(arr.dtype)
+        sums = onehot.T @ arr
+        counts = torch.sum(onehot, dim=0)
+        centers = self._cluster_centers.larray
+        new_centers = torch.where(
+            counts[:, None] > 0, sums / torch.clamp_min(counts[:, None], 1), centers
+        )
+        return self._replicated(new_centers, x)
+
+    def fit(self, x: DNDarray, ckpt=None) -> "KMeans":
+        """Run Lloyd iterations to convergence (reference: kmeans.py:102):
+        seeding, the loop and the final assignment (see
+        ``_KCluster._fit_fused``)."""
+        _refuse_unported(x, ckpt)
+        return self._fit_fused(x, _lloyd_step, returns_inertia=True)
+
+    def partial_fit(self, x: DNDarray) -> "KMeans":
+        """Incremental fit on one batch (sklearn MiniBatchKMeans-style): the
+        first call initializes the centers from the batch with the
+        configured ``init``, every call folds the batch into the per-center
+        running means. ``inertia_`` reports the last batch's value."""
+        _refuse_unported(x, None)
+        sanitize_in(x)
+        if x.ndim != 2:
+            raise ValueError(f"input needs to be 2-dimensional, got {x.ndim}")
+        arr = _float_operand(x)
+        if self._cluster_centers is None:
+            self._initialize_cluster_centers(x)
+        if self._partial_counts is None:
+            # a fresh stream, also after fit(): it refines the fitted
+            # centers from count zero
+            self._partial_counts = torch.zeros(
+                (self.n_clusters,), dtype=torch.float32, device=arr.device
+            )
+        centers = self._cluster_centers.larray.to(device=arr.device, dtype=arr.dtype)
+        centers, self._partial_counts, self._inertia = _partial_fit_step(
+            arr, centers, self._partial_counts
+        )
+        self._cluster_centers = self._replicated(centers, x)
+        return self

@@ -1,6 +1,7 @@
 """heat_tpu_torch core: array, type system, devices, communicator,
 factories (port of ``heat_tpu.core``)."""
 
+from .base import *
 from .communication import *
 from .constants import *
 from .devices import *

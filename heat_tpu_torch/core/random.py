@@ -1,18 +1,20 @@
 """Pseudo-random number generation.
 
-Port of the draws of ``heat_tpu.core.random`` that this slice needs
-(Heat reference: heat/core/random.py): ``seed``, ``randn``, ``rand`` and
-``normal``. A global (seed, counter) pair advances by the number of
+Port of the draws of ``heat_tpu.core.random`` that the ported slices
+need (Heat reference: heat/core/random.py): ``seed``, ``get_state``,
+``set_state``, ``randn``, ``rand``, ``normal``, ``randint`` and
+``randperm``. A global (seed, counter) pair advances by the number of
 elements each draw takes, as in ``heat_tpu``; each draw runs on its own
 ``torch.Generator`` on the target device, seeded from that pair. The
-values are torch's Philox stream, not ``heat_tpu``'s Threefry stream:
-porting Threefry is ROADMAP.md Queue 1, later.
+values are torch's stream for that device (Philox on CUDA, MT19937 on the
+CPU), not ``heat_tpu``'s Threefry stream: porting Threefry is ROADMAP.md
+Queue 1. The state names the port's stream as ``"TorchGenerator"``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple, Type
+from typing import Optional, Tuple, Type, Union
 
 import numpy as np
 import torch
@@ -23,12 +25,16 @@ from .devices import sanitize_device
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis, sanitize_shape
 
-__all__ = ["normal", "rand", "randn", "seed"]
+__all__ = ["get_state", "normal", "rand", "randint", "randn", "randperm", "seed", "set_state"]
+
+#: name of the port's stream in the state tuple (``heat_tpu``'s is "Threefry")
+ALGORITHM = "TorchGenerator"
 
 __seed: Optional[int] = None
 __counter: int = 0
 
 _FLOATS = (types.float16, types.bfloat16, types.float32, types.float64)
+_INTS = (types.int8, types.int16, types.int32, types.int64, types.uint8)
 
 
 def seed(seed: Optional[int] = None) -> None:
@@ -38,6 +44,27 @@ def seed(seed: Optional[int] = None) -> None:
         seed = int(time.time() * 1000) % (2**32)
     __seed = int(seed)
     __counter = 0
+
+
+def get_state() -> Tuple[str, int, int, int, float]:
+    """The generator's state ``(ALGORITHM, seed, counter, 0, 0.0)``, in the
+    shape of ``heat_tpu``'s (reference: random.py get_state)."""
+    if __seed is None:
+        seed()
+    return (ALGORITHM, __seed, __counter, 0, 0.0)
+
+
+def set_state(state: Tuple[str, int, int, int, float]) -> None:
+    """Set the generator's state from a 3- or 5-tuple (reference: random.py
+    set_state). The algorithm must be the port's own: a ``"Threefry"``
+    state of ``heat_tpu`` names another stream."""
+    global __seed, __counter
+    if not isinstance(state, tuple) or len(state) not in (3, 5):
+        raise ValueError("state needs to be a 3- or 5-tuple")
+    if state[0] != ALGORITHM:
+        raise ValueError(f"algorithm must be {ALGORITHM!r}, got {state[0]!r}")
+    __seed = int(state[1])
+    __counter = int(state[2])
 
 
 def _next_generator(numel: int, device: torch.device) -> torch.Generator:
@@ -90,3 +117,41 @@ def rand(*args, dtype=types.float32, split: Optional[int] = None, device=None, c
 def randn(*args, dtype=types.float32, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
     """Standard-normal samples of the given shape (reference: random.py randn)."""
     return _draw("normal", sanitize_shape(args) if args else (), dtype, split, device, comm)
+
+
+def randint(
+    low: int,
+    high: Optional[int] = None,
+    size: Optional[Union[int, Tuple[int, ...]]] = None,
+    dtype=types.int32,
+    split: Optional[int] = None,
+    device=None,
+    comm=None,
+) -> DNDarray:
+    """Random integers in [low, high) (reference: random.py randint)."""
+    if high is None:
+        low, high = 0, low
+    shape = sanitize_shape(size) if size is not None and size != () else ()
+    if low >= high:
+        raise ValueError(f"low >= high ({low} >= {high})")
+    dtype = types.canonical_heat_type(dtype if dtype is not None else types.int32)
+    if dtype not in _INTS:
+        raise ValueError(f"dtype must be an integer type, got {dtype}")
+    device = sanitize_device(device)
+    tdev = device.torch_device
+    gen = _next_generator(int(np.prod(shape)) if shape else 1, tdev)
+    data = torch.randint(int(low), int(high), shape, generator=gen, dtype=dtype.torch_type(), device=tdev)
+    return DNDarray(data, shape, dtype, sanitize_axis(shape, split), device, sanitize_comm(comm))
+
+
+def randperm(n: int, dtype=types.int64, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
+    """Random permutation of arange(n) (reference: random.py randperm); the
+    counter advances by n, as in ``heat_tpu``."""
+    if not isinstance(n, (int, np.integer)):
+        raise TypeError(f"n must be an integer, got {type(n)}")
+    dtype = types.canonical_heat_type(dtype)
+    device = sanitize_device(device)
+    tdev = device.torch_device
+    gen = _next_generator(int(n), tdev)
+    data = torch.randperm(int(n), generator=gen, device=tdev).to(dtype.torch_type())
+    return DNDarray(data, (int(n),), dtype, sanitize_axis((int(n),), split), device, sanitize_comm(comm))

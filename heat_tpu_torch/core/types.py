@@ -54,6 +54,7 @@ __all__ = [
     "canonical_heat_type",
     "heat_type_of",
     "heat_type_is_exact",
+    "heat_type_is_inexact",
     "heat_type_is_complexfloating",
     "promote_types",
     "finfo",
@@ -265,6 +266,11 @@ def heat_type_of(obj: Any) -> Type[datatype]:
 def heat_type_is_exact(ht_dtype: Type[datatype]) -> builtins.bool:
     """True if ``ht_dtype`` is an integer type."""
     return ht_dtype in _exact
+
+
+def heat_type_is_inexact(ht_dtype: Type[datatype]) -> builtins.bool:
+    """True if ``ht_dtype`` is floating or complex."""
+    return ht_dtype in _inexact
 
 
 def heat_type_is_complexfloating(ht_dtype: Type[datatype]) -> builtins.bool:

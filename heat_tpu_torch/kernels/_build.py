@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -87,16 +88,24 @@ def _finish(name: str, job) -> str:
     return ""
 
 
-def build_all(names: Iterable[str] = None) -> None:
+def build_all(names: Iterable[str] = None) -> Dict[str, float]:
     """Compile every source that has no current library, one ``nvcc`` per
-    source, all started together; waits for all of them before raising."""
+    source, all started together; waits for all of them before raising.
+    Returns, for each source compiled, the seconds from the common start
+    until its library was seen ready (waited for in name order)."""
     names = list(names) if names is not None else sources()
+    ready, failures = {}, []
     with _lock:
+        t0 = time.perf_counter()
         jobs = {n: _start(n) for n in names}
-        failures = [_finish(n, job) for n, job in jobs.items() if job is not None]
+        for n, job in jobs.items():
+            if job is not None:
+                failures.append(_finish(n, job))
+                ready[n] = time.perf_counter() - t0
     failures = [f for f in failures if f]
     if failures:
         raise RuntimeError("\n".join(failures))
+    return ready
 
 
 def load(name: str) -> ctypes.CDLL:
