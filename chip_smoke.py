@@ -27,10 +27,21 @@ Phases, each of which fails the run by raising:
      assignment; the reference benchmark's configuration (four spherical
      clusters of 5000 3-D points, k = 4) must be recovered by KMeans,
      KMedians and KMedoids;
+   - sort: ``ht.random.randn(134_217_728, split=0)`` (bench.py's
+     ``sort_1gb`` size), ``ht.sort`` ascending and descending, whose
+     indices must equal torch's stable argsort exactly; ``ht.sort`` of
+     262,144 x 512 along axis 1 (the TPU kernel's own 512-element blocks);
+     ``ht.unique`` of ``ht.random.randint(0, 1000, ...)`` of the same
+     length, with its inverse, and of the float32 array; ``ht.topk(x,
+     1000)`` both ways, which must equal the prefix of the sort. Each call
+     must launch K4;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
-   peaks; and a profile of one call or fit of each main path.
+   peaks; and a profile of one call or fit of each main path. K4 is
+   checked for exact equality with its plain version (it moves integers)
+   at both regimes' main shapes, ragged and boundary segment lengths,
+   adversarial float32 keys and n = 1, and on a rerun.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -72,6 +83,11 @@ TOL_FLIPS = 1e-5
 # (n, d, k) of phase 3: main, the reference benchmark, ragged, and the
 # largest k and d the kernel's predicate admits
 K3_SHAPES = ((KM_N, KM_D, KM_K), (20000, 3, 4), (1003, 16, 4), (100_003, 124, 64))
+
+SORT_N = 134_217_728  # float32 elements of the sort_1gb row (bench.py:111)
+SORT_ROWS, SORT_SEG = 262_144, 512  # 512-element rows: the TPU kernel's own blocks
+TOPK_K = 1000
+ADV_N = 1 << 22  # adversarial keys, as one segment and as rows of 512
 
 
 def _require(ok: bool, what: str) -> None:
@@ -129,12 +145,15 @@ def build_kernels() -> None:
     for name in _build.sources():
         log = _build._library_path(name).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
-        # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59, K3 k ≤ 8)
+        # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59,
+        # K3 k ≤ 8, and K4's kernels of both regimes)
         for i, line in enumerate(lines):
-            main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E")
-            if "Compiling entry function" in line and any(tag in line for tag in main):
+            main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E", "segment_sort_kernel",
+                    "tile_hist_kernel", "scan_rows_kernel", "tile_scatter_kernel")
+            tags = [tag for tag in main if tag in line]
+            if "Compiling entry function" in line and tags:
                 detail = " | ".join(s.split(":", 1)[-1].strip() for s in lines[i + 1 : i + 4])
-                print(f"ptxas {line.split(chr(39))[1][:48]}: {detail}", flush=True)
+                print(f"ptxas {line.split(chr(39))[1][:48]} ({tags[0]}): {detail}", flush=True)
 
 
 def check_kernels(dev) -> dict:
@@ -238,6 +257,218 @@ def check_assign(dev) -> float:
                 main_err = float((sums - psums).abs().max())
             del x
     return main_err
+
+
+def _random_words(gen, n: int, dev, high: int = None):
+    """n random u32 words (int32 bit patterns), or values in [0, high)."""
+    import torch
+
+    if high is None:
+        return torch.randint(-(2**31), 2**31, (n,), device=dev, generator=gen, dtype=torch.int32)
+    return torch.randint(0, high, (n,), device=dev, generator=gen, dtype=torch.int32)
+
+
+def _unsigned(words):
+    return words.long() & 0xFFFFFFFF
+
+
+def _adversarial_f32(kind: str, gen, dev):
+    """float32 keys of the kinds of tests/test_kernels_sort.py, and one of
+    special values: ±0, ±inf, ±max, NaNs of both signs, subnormals."""
+    import torch
+
+    x = torch.randn(ADV_N, device=dev, generator=gen)
+    if kind == "sorted":
+        x = torch.sort(x).values
+    elif kind == "reverse":
+        x = torch.sort(x, descending=True).values
+    elif kind == "const":
+        x = torch.full_like(x, float(x[0]))
+    elif kind == "fewuniq":
+        x = x[torch.randint(0, 7, (ADV_N,), device=dev, generator=gen)]
+    elif kind == "nan":
+        x[torch.rand(ADV_N, device=dev, generator=gen) < 0.15] = float("nan")
+    elif kind == "specials":
+        bits = torch.tensor(
+            [0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7F7FFFFF, 0xFF7FFFFF, 0x7FC00000,
+             0xFFC00000, 0x7FFFFFFF, 0xFFFFFFFF, 0x00000001, 0x807FFFFF, 0x3F800000],
+            device=dev, dtype=torch.int64,
+        )
+        pick = bits[torch.randint(0, len(bits), (ADV_N,), device=dev, generator=gen)]
+        x = torch.where(pick >= 2**31, pick - 2**32, pick).to(torch.int32).view(torch.float32)
+    return x
+
+
+def _k4_case(ks, label: str, keys, pays=None, seg_len=None, pay_bytes=0) -> int:
+    """K4 against its plain version and against itself on a rerun, exactly;
+    where the payload is the position, the payloads must also be torch's
+    stable argsort of the keys. Returns the largest absolute difference."""
+    import torch
+
+    got = ks.pair_sort(keys, pays, seg_len, pay_bytes)
+    ref = ks.pair_sort_plain(keys, pays, seg_len, pay_bytes)
+    again = ks.pair_sort(keys, pays, seg_len, pay_bytes)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+    rerun = all(map(torch.equal, got, again))
+    argsort = "n/a"
+    if pays is None:
+        rows = keys.numel() // (seg_len or keys.numel())
+        expect = torch.sort(_unsigned(keys).reshape(rows, -1), dim=1, stable=True).indices
+        argsort = torch.equal(got[1].long().reshape(rows, -1), expect)
+        _require(argsort, f"K4 ({label}) is not torch's stable argsort")
+    print(
+        f"K4 ({label}): max |difference| from the plain version {err} (tol 0), rerun identical {rerun}, "
+        f"payload equals torch's stable argsort {argsort}", flush=True,
+    )
+    _require(err == 0 and rerun, f"K4 disagrees with its plain version or itself ({label})")
+    return err
+
+
+def check_sort(dev) -> dict:
+    """K4 against its plain version at the listed shapes; returns the
+    largest error of each regime's main shape."""
+    import torch
+
+    from heat_tpu_torch.kernels import sort as ks
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    errs = {}
+    keys = _random_words(gen, SORT_N, dev)
+    errs["pair_sort_one_segment"] = _k4_case(ks, f"n={SORT_N}, one segment", keys)
+    del keys
+    keys, pays = _random_words(gen, SORT_N, dev, 1000), _random_words(gen, SORT_N, dev)
+    _k4_case(ks, f"n={SORT_N}, 1000 key values, pay_bytes=4", keys, pays, pay_bytes=4)
+    del keys, pays
+    keys = _random_words(gen, SORT_ROWS * SORT_SEG, dev)
+    errs["pair_sort_segments"] = _k4_case(ks, f"{SORT_ROWS} segments of {SORT_SEG}", keys, seg_len=SORT_SEG)
+    del keys
+    for rows, seg in ((10_007, 777), (2048, ks.SEG_MAX), (1, ks.SEG_MAX + 1), (1, 1)):
+        _k4_case(ks, f"{rows} segment(s) of {seg}", _random_words(gen, rows * seg, dev, 3000), seg_len=seg)
+    for kind in ("sorted", "reverse", "const", "fewuniq", "nan", "specials"):
+        u = ks.to_sortable(_adversarial_f32(kind, gen, dev))
+        _k4_case(ks, f"{kind} float32 keys, one segment of {ADV_N}", u)
+        _k4_case(ks, f"{kind} float32 keys, segments of {SORT_SEG}", u, seg_len=SORT_SEG)
+    return errs
+
+
+def sort_path(dev) -> dict:
+    """The sort family's main path through the public entry points; returns
+    K4's launches in the one-segment calls and in the row sort."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.kernels import sort as ks
+
+    def run(label: str, call):
+        ks.SORT_LAUNCHES = 0
+        out = call()
+        torch.cuda.synchronize()
+        launches = ks.SORT_LAUNCHES
+        print(f"{label}: K4 launches {launches}", flush=True)
+        _require(launches > 0, f"{label} ran without K4")
+        return out, launches
+
+    ht.random.seed(0)
+    x = ht.random.randn(SORT_N, split=0)
+    xt = x.larray
+    _require(xt.device == dev and x.dtype is ht.float32 and x.split == 0, "x is not a float32 split-0 array on the card")
+    one = 0
+    (v, i), n = run(f"ht.sort(x), x = randn({SORT_N})", lambda: ht.sort(x))
+    one += n
+    _require(v.split == 0 and i.dtype is ht.int64 and v.shape == i.shape == (SORT_N,), "sort result types")
+    _require(torch.equal(i.larray, torch.sort(xt, stable=True).indices), "ht.sort indices differ from the stable argsort")
+    _require(torch.equal(v.larray, xt[i.larray]) and bool((v.larray[1:] >= v.larray[:-1]).all()), "ht.sort values not sorted")
+    (vd, idd), n = run("ht.sort(x, descending=True)", lambda: ht.sort(x, descending=True))
+    one += n
+    flipped = torch.sort(~ks.to_sortable(xt).long() & 0xFFFFFFFF, stable=True).indices
+    _require(torch.equal(idd.larray, flipped), "descending indices differ from the stable argsort of the complement")
+    _require(bool((vd.larray[1:] <= vd.larray[:-1]).all()), "descending values not sorted")
+
+    (tv, ti), n = run(f"ht.topk(x, {TOPK_K})", lambda: ht.topk(x, TOPK_K))
+    one += n
+    _require(torch.equal(ti.larray, idd.larray[:TOPK_K]) and torch.equal(tv.larray, vd.larray[:TOPK_K]),
+             "topk differs from the prefix of the descending sort")
+    (tv, ti), n = run(f"ht.topk(x, {TOPK_K}, largest=False)", lambda: ht.topk(x, TOPK_K, largest=False))
+    one += n
+    _require(torch.equal(ti.larray, i.larray[:TOPK_K]) and torch.equal(tv.larray, v.larray[:TOPK_K]),
+             "topk(largest=False) differs from the prefix of the sort")
+    del vd, idd, i
+
+    uf, n = run("ht.unique(x)", lambda: ht.unique(x))
+    one += n
+    _require(torch.equal(uf.larray, torch.unique_consecutive(v.larray)), "ht.unique(x) is not x's sorted distinct values")
+    del v, uf
+    ints = ht.random.randint(0, 1000, (SORT_N,), split=0)
+    _require(ints.dtype is ht.int32, "randint did not give int32")
+    u, n = run("ht.unique(randint(0, 1000))", lambda: ht.unique(ints))
+    one += n
+    _require(torch.equal(u.larray, torch.arange(1000, device=dev, dtype=torch.int32)), "unique of randint(0, 1000) is not 0..999")
+    (u, inv), n = run("ht.unique(randint(0, 1000), return_inverse=True)", lambda: ht.unique(ints, return_inverse=True))
+    one += n
+    _require(inv.shape == (SORT_N,) and torch.equal(u.larray[inv.larray], ints.larray), "values[inverse] does not rebuild the input")
+    del ints, u, inv, x, xt
+
+    X = ht.random.randn(SORT_ROWS, SORT_SEG, split=0)
+    (V, I), rows = run(f"ht.sort(X, axis=1), X = randn({SORT_ROWS}, {SORT_SEG})", lambda: ht.sort(X, axis=1))
+    _require(torch.equal(I.larray, torch.sort(X.larray, dim=1, stable=True).indices), "row sort indices differ from the stable argsort")
+    _require(bool((V.larray[:, 1:] >= V.larray[:, :-1]).all()), "row sort values not sorted")
+    return {"one_segment": one, "segments": rows}
+
+
+def sort_timings(dev, launches: dict, errs: dict) -> list:
+    """K4 in both regimes beside its plain version and torch.sort, then the
+    public calls end to end and a profile of ht.sort; returns K4's rows."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.kernels import sort as ks
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    x = torch.randn(SORT_N, device=dev, generator=gen)
+    X = torch.randn(SORT_ROWS, SORT_SEG, device=dev, generator=gen)
+    rows = []
+    for name, key, seg, library in (
+        ("pair_sort_one_segment", "one_segment", None, lambda: torch.sort(x, stable=True)),
+        ("pair_sort_segments", "segments", SORT_SEG, lambda: torch.sort(X, dim=1, stable=True)),
+    ):
+        words = ks.to_sortable(x if seg is None else X.reshape(-1))
+        plan = ks.sort_plan(SORT_N, seg_len=seg)
+        ms = _median_ms(lambda: ks.pair_sort(words, seg_len=seg), 10)
+        plain_ms = _median_ms(lambda: ks.pair_sort_plain(words, seg_len=seg), 2)
+        library_ms = _median_ms(library, 10)
+        # with a generated payload: read each key once, write each key and payload once
+        bound_ms, bound_by = _bound(12.0 * SORT_N, 0.0)
+        model_ms = plan["hbm_bytes"] / HBM_BYTES_PER_S * 1e3
+        print(
+            f"{name} (K4, {plan['path']}, n={SORT_N}{'' if seg is None else f' in segments of {seg}'}): {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, 12 B a pair); "
+            f"pass model {plan['passes']} passes, {plan['hbm_bytes'] / 1e9:.4f} GB, {model_ms:.4f} ms at 3.35 TB/s "
+            f"({plan['hbm_bytes'] / (ms * 1e-3) / 1e9:.1f} GB/s of model bytes achieved)", flush=True,
+        )
+        rows.append({
+            "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/radix_sort.cu",
+            "replaces": "heat_tpu/kernels/sort.py:253", "launches": launches[key], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        })
+        del words
+    A = ht.array(x, split=0)
+    floor_ms = ks.sort_plan(SORT_N)["floor_bytes"] / HBM_BYTES_PER_S * 1e3
+    sort_ms = _median_ms(lambda: ht.sort(A), 5)
+    unique_ms = _median_ms(lambda: ht.unique(A), 5)
+    topk_ms = _median_ms(lambda: ht.topk(A, TOPK_K), 5)
+    torch_topk_ms = _median_ms(lambda: torch.topk(x, TOPK_K), 5)
+    rows_ms = _median_ms(lambda: ht.sort(ht.array(X, split=0), axis=1), 5)
+    print(
+        f"ht.sort(randn({SORT_N})): {sort_ms:.4f} ms (median of 5, CUDA events), floor {floor_ms:.4f} ms "
+        f"(read 4, write 4 + 8 B an element); ht.sort(randn({SORT_ROWS}, {SORT_SEG}), axis=1): {rows_ms:.4f} ms; "
+        f"ht.unique: {unique_ms:.4f} ms; ht.topk(x, {TOPK_K}): {topk_ms:.4f} ms beside torch.topk {torch_topk_ms:.4f} ms",
+        flush=True,
+    )
+    profile_breakdown(f"ht.sort(randn({SORT_N}))", lambda: ht.sort(A))
+    return rows
 
 
 def _recovered(labels, k: int) -> bool:
@@ -564,10 +795,13 @@ def main() -> int:
     build_kernels()
     errs = check_kernels(dev)
     assign_err = check_assign(dev)
+    sort_errs = check_sort(dev)
     launches = main_path(dev)
     assign_launches = kmeans_path(dev)
+    sort_launches = sort_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
+    rows.extend(sort_timings(dev, sort_launches, sort_errs))
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -8,6 +8,7 @@ from .devices import *
 from .types import *
 from .dndarray import *
 from .factories import *
+from .manipulations import *
 from .sanitation import *
 from .stride_tricks import *
 

@@ -86,6 +86,16 @@ class DNDarray:
         """The process-local tensor (reference dndarray.py:139)."""
         return self.__array
 
+    @larray.setter
+    def larray(self, array: torch.Tensor) -> None:
+        """Rebind the data to a LOGICAL tensor; shape and type follow it
+        (reference dndarray.py:150)."""
+        self.__array = array
+        self.__gshape = tuple(int(s) for s in array.shape)
+        self.__dtype = types.canonical_heat_type(array.dtype)
+        if self.__split is not None and self.__split >= len(self.__gshape):
+            self.__split = None
+
     @property
     def lshape(self) -> Tuple[int, ...]:
         """Shape of this process's shard (reference dndarray.py:295)."""

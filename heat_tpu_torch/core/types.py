@@ -288,6 +288,13 @@ def promote_types(
     return canonical_heat_type(torch.promote_types(t1.torch_type(), t2.torch_type()))
 
 
+def index_torch_type() -> torch.dtype:
+    """Dtype of index-valued outputs (sort and topk indices, the inverse of
+    unique): int64, which the port always has (``heat_tpu``'s
+    ``index_jax_type`` at world size 1 with x64 on)."""
+    return torch.int64
+
+
 class finfo:
     """Machine limits for floating point types (reference: types.py:952).
     A complex type reports the limits of its real part."""

@@ -1,0 +1,450 @@
+"""The local sort: key transforms, the radix pair-sort kernel K4 and its
+plain version, and the engine under ``ht.sort``, ``ht.unique`` and
+``ht.topk`` (port of ``heat_tpu.kernels.sort``).
+
+``pair_sort`` (kernel K4, ``csrc/radix_sort.cu``) is a stable LSD radix-256
+sort of (u32 key, u32 payload) pairs in independent segments, lexicographic
+in (key, payload). It replaces the Pallas TPU kernel
+``heat_tpu/kernels/sort.py::_pallas_block_call``, which sorts 512-pair
+blocks in VMEM and serves the TPU only as a base case. On Hopper the kernel
+is the engine of the whole local sort: one thread block per segment of at
+most ``SEG_MAX`` pairs, or a multi-block pass sequence for one segment of
+any length below 2^31. The source notes what bounds it and how the design
+meets that.
+
+The wrapper runs its plain version only when the tensors lie on the CPU. A
+CUDA tensor launches the kernel or raises; there is no fallback. Each call
+that launches adds one to ``SORT_LAUNCHES``.
+
+Dispatch is decided up front by shape and dtype (``sort_serviceable``):
+float32 and int32 sort on their u32 transform through ``pair_sort`` when
+the sort axis is the only one, or its rows hold at most ``SEG_MAX``
+elements; every other case takes ``torch.sort(stable=True)`` on a signed
+int64 key, the counterpart of the ``lax.sort`` that ``heat_tpu`` runs
+outside any Pallas kernel. Every route gives ``lax.sort``'s stable order:
+−0.0 ties +0.0 and every NaN sorts last, tied. Values that come back
+through the transform are canonical in those two tie classes (+0.0, the
+quiet NaN), as on ``heat_tpu``'s kernel paths.
+
+The distributed sorts (``block_sort``, the blocked columnsort) wait for the
+distributed programs (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "SEG_MAX",
+    "SORT_LAUNCHES",
+    "from_sortable",
+    "local_sort",
+    "pair_sort",
+    "pair_sort_plain",
+    "sort_key",
+    "sort_keys",
+    "sort_plan",
+    "sort_serviceable",
+    "to_sortable",
+    "transformable",
+]
+
+#: launches of K4 since the count was last set to 0
+SORT_LAUNCHES = 0
+
+#: longest segment that one thread block sorts in shared memory (regime a);
+#: longer single segments take the multi-block passes (regime b)
+SEG_MAX = 4096
+# pairs of one regime-(b) tile: the histogram table has one column per tile
+_TILE = 4096
+_RADIX = 256
+
+# dtypes whose u32 transform K4 sorts
+_WORD_DTYPES = (torch.float32, torch.int32)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+# --------------------------------------------------------------------- #
+# monotone bit transforms: dtype <-> radix-sortable unsigned words      #
+# --------------------------------------------------------------------- #
+_INT_OF_BITS = {8: torch.int8, 16: torch.int16, 32: torch.int32, 64: torch.int64}
+_MANTISSA = {torch.float16: 10, torch.bfloat16: 7, torch.float32: 23, torch.float64: 52}
+_SIGNED = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _bits(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size() * 8
+
+
+def transformable(dtype: torch.dtype) -> bool:
+    """True when ``to_sortable``/``from_sortable`` serve this dtype: the
+    floating and integer dtypes, not bool or complex."""
+    return dtype in _MANTISSA or dtype in _SIGNED or dtype == torch.uint8
+
+
+def _float_consts(dtype: torch.dtype):
+    bits = _bits(dtype)
+    nmant = _MANTISSA[dtype]
+    sign = -(1 << (bits - 1))                              # the sign bit, as a signed word
+    exp_all = ((1 << (bits - 1 - nmant)) - 1) << nmant     # e.g. 0x7F800000
+    qnan = exp_all | (1 << (nmant - 1))                    # the canonical quiet NaN
+    return bits, sign, exp_all, qnan
+
+
+def to_sortable(x: torch.Tensor) -> torch.Tensor:
+    """The unsigned word of ``heat_tpu.kernels.sort.to_sortable``, bit for
+    bit, held in the signed integer dtype of the same width (torch has no
+    shifts or comparisons on uint32 on the CPU). Its UNSIGNED order is
+    ``lax.sort``'s comparator order on ``x``.
+
+    floats: non-negatives get the sign bit set, negatives are complemented,
+    with the comparator's two tie classes collapsed: every NaN maps to
+    all-ones (type-max) and −0.0 onto +0.0's word. Subnormals keep their
+    strict IEEE order. Signed ints flip the sign bit; uint8 is the identity.
+    """
+    dt = x.dtype
+    if not transformable(dt):
+        raise TypeError(f"no sortable transform for {dt}")
+    bits = _bits(dt)
+    it = _INT_OF_BITS[bits]
+    if dt == torch.uint8:
+        return x.view(it)
+    sign = -(1 << (bits - 1))
+    if dt in _SIGNED:
+        return x ^ sign
+    _, sign, exp_all, _ = _float_consts(dt)
+    s = x.view(it)
+    isnan = (s & ~sign) > exp_all
+    s = torch.where(s == sign, 0, s)  # -0.0 -> +0.0
+    # negatives (top bit set) are complemented, non-negatives get the top bit
+    return torch.where(isnan, -1, s ^ ((s >> (bits - 1)) | sign))
+
+
+def from_sortable(u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`to_sortable`: exact bit round-trip everywhere
+    except the two collapsed tie classes, which come back as their
+    canonical representative (+0.0; the quiet positive NaN)."""
+    if not transformable(dtype):
+        raise TypeError(f"no sortable transform for {dtype}")
+    bits = _bits(dtype)
+    it = _INT_OF_BITS[bits]
+    u = u.view(it) if u.dtype != it and u.element_size() * 8 == bits else u.to(it)
+    if dtype == torch.uint8:
+        return u.view(torch.uint8)
+    sign = -(1 << (bits - 1))
+    if dtype in _SIGNED:
+        return u ^ sign
+    _, sign, _, qnan = _float_consts(dtype)
+    # the original was negative iff the word's top bit is clear
+    out = torch.where(u == -1, qnan, u ^ (~(u >> (bits - 1)) | sign))
+    return out.view(dtype)
+
+
+def _wide_key(x: torch.Tensor, total: bool) -> torch.Tensor:
+    """int64 key whose SIGNED order is the sort order of ``x``: the
+    comparator's (ties of ±0, every NaN last and tied) or, with ``total``,
+    IEEE totalOrder (+0 above −0, a NaN with its sign bit below −inf, NaNs
+    ordered by their bits)."""
+    if x.dtype == torch.bool or x.dtype == torch.uint8 or x.dtype in _SIGNED:
+        return x.to(torch.int64)
+    if x.dtype not in _MANTISSA:
+        raise TypeError(f"no sort key for {x.dtype}")
+    bits, sign, exp_all, _ = _float_consts(x.dtype)
+    s = x.view(_INT_OF_BITS[bits]).to(torch.int64)  # sign-extended bits
+    mag = (1 << (bits - 1)) - 1
+    if not total:
+        isnan = (s & mag) > exp_all
+        s = torch.where(s == sign, 0, s)
+    key = torch.where(s < 0, s ^ mag, s)
+    return key if total else torch.where(isnan, torch.iinfo(torch.int64).max, key)
+
+
+def sort_key(x: torch.Tensor, total: bool = False) -> torch.Tensor:
+    """The key whose ascending order is the sort order of the real array
+    ``x``: int32 words holding u32 bit patterns for float32 and int32 (what
+    K4 sorts), a signed int64 key for every other dtype. Without ``total``
+    the order is ``lax.sort``'s comparator (``to_sortable``); with it,
+    IEEE totalOrder, the order of ``lax.top_k``: the plain sign-flip
+    bijection with nothing collapsed. ``~key`` reverses either order."""
+    if x.dtype not in _WORD_DTYPES:
+        return _wide_key(x, total)
+    if not total or x.dtype == torch.int32:
+        return to_sortable(x)
+    s = x.view(torch.int32)
+    return s ^ ((s >> 31) | -(1 << 31))
+
+
+# --------------------------------------------------------------------- #
+# K4: the pair sort, its plain version and its wrapper                  #
+# --------------------------------------------------------------------- #
+def _segments(keys: torch.Tensor, pays: Optional[torch.Tensor], seg_len: Optional[int], pay_bytes: int):
+    """Validate a pair-sort call; returns (n_segments, seg_len)."""
+    if keys.dtype != torch.int32:
+        raise TypeError(f"the pair sort takes int32 words holding u32 bit patterns, keys are {keys.dtype}")
+    if keys.ndim != 1:
+        raise ValueError(f"keys must be 1-D, got shape {tuple(keys.shape)}")
+    if pays is not None:
+        if pays.dtype != torch.int32:
+            raise TypeError(f"payloads must be int32 words, got {pays.dtype}")
+        if pays.shape != keys.shape:
+            raise ValueError(f"payloads {tuple(pays.shape)} and keys {tuple(keys.shape)} differ in shape")
+        if pays.device != keys.device:
+            raise ValueError(f"payloads lie on {pays.device}, keys on {keys.device}")
+    elif pay_bytes != 0:
+        raise ValueError("pay_bytes orders by the payload: give one, or pay_bytes=0 for the position")
+    if not 0 <= pay_bytes <= 4:
+        raise ValueError(f"pay_bytes must lie in [0, 4], got {pay_bytes}")
+    n = keys.shape[0]
+    seg_len = n if seg_len is None else int(seg_len)
+    if n == 0:
+        return 0, max(seg_len, 1)
+    if not 1 <= seg_len < 2**31 or n % seg_len:
+        raise ValueError(f"seg_len {seg_len} must be in [1, 2^31) and divide {n}")
+    return n // seg_len, seg_len
+
+
+def _to_words(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as int32 words with the same bits."""
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+# the plain version's rank: blocks of at most this many pairs of a row,
+# one-hot counted this many pairs at a time
+_PLAIN_BLOCK = 4096
+_PLAIN_CHUNK = 1 << 20
+
+
+def _counting_pass(digit: torch.Tensor, k: torch.Tensor, p: torch.Tensor):
+    """One stable counting-sort pass of each row of (k, p) by ``digit``
+    in [0, 256): a bincount histogram, its exclusive cumsum, and the stable
+    rank within the digit. The rank is a one-hot running count within
+    blocks of the row, plus the counts of the row's earlier blocks."""
+    rows, length = digit.shape
+    dev = digit.device
+    row_bins = torch.arange(rows, device=dev)[:, None] * _RADIX
+    hist = torch.bincount((row_bins + digit).reshape(-1), minlength=rows * _RADIX).reshape(rows, _RADIX)
+    dest = (torch.cumsum(hist, 1) - hist).gather(1, digit)
+    blk = min(length, _PLAIN_BLOCK)
+    nb = -(-length // blk)
+    # pads carry digit 256, which no bin counts
+    blocks = torch.full((rows, nb * blk), _RADIX, dtype=digit.dtype, device=dev)
+    blocks[:, :length] = digit
+    blocks = blocks.reshape(rows * nb, blk)
+    clamped = blocks.clamp(max=_RADIX - 1)
+    rank = torch.empty(blocks.shape, dtype=torch.int32, device=dev)
+    counts = torch.empty((rows * nb, _RADIX), dtype=torch.int64, device=dev)
+    bins = torch.arange(_RADIX, device=dev)[None, :, None]
+    step = max(1, _PLAIN_CHUNK // blk)
+    for b0 in range(0, rows * nb, step):
+        d = blocks[b0 : b0 + step]
+        # the running count of each digit along the block, in the innermost dim
+        upto = torch.cumsum(d[:, None, :] == bins, dim=2, dtype=torch.int32)
+        rank[b0 : b0 + step] = upto.gather(1, clamped[b0 : b0 + step, None, :])[:, 0, :] - 1
+        counts[b0 : b0 + step] = upto[:, :, -1]
+    counts = counts.reshape(rows, nb, _RADIX)
+    earlier = (torch.cumsum(counts, 1) - counts).reshape(rows * nb, _RADIX)
+    dest += (rank + earlier.gather(1, clamped)).reshape(rows, nb * blk)[:, :length]
+    return torch.empty_like(k).scatter_(1, dest, k), torch.empty_like(p).scatter_(1, dest, p)
+
+
+def pair_sort_plain(keys: torch.Tensor, pays: Optional[torch.Tensor] = None, seg_len: Optional[int] = None,
+                    pay_bytes: int = 0):
+    """K4's function with torch ops: in each segment of ``seg_len`` pairs,
+    ``pay_bytes`` stable counting-sort passes over the payload's low bytes,
+    then four over the key, on words held in int64. Returns the sorted
+    keys and the payloads (the position within the segment when ``pays``
+    is None), as int32 words."""
+    n_seg, seg_len = _segments(keys, pays, seg_len, pay_bytes)
+    if n_seg == 0:
+        return keys.clone(), torch.empty_like(keys)
+    k = (keys.to(torch.int64) & 0xFFFFFFFF).reshape(n_seg, seg_len)
+    if pays is None:
+        p = torch.arange(seg_len, device=keys.device).expand(n_seg, seg_len).contiguous()
+    else:
+        p = (pays.to(torch.int64) & 0xFFFFFFFF).reshape(n_seg, seg_len)
+    for q in range(pay_bytes + 4):
+        from_pay = q < pay_bytes
+        shift = 8 * (q if from_pay else q - pay_bytes)
+        k, p = _counting_pass(((p if from_pay else k) >> shift) & 255, k, p)
+    return _to_words(k).reshape(-1), _to_words(p).reshape(-1)
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from . import _build
+
+        lib = _build.load("radix_sort")
+        lib.heat_radix_seg_max.argtypes = []
+        lib.heat_radix_seg_max.restype = _I
+        lib.heat_radix_scratch_words.argtypes = [_LL, _I]
+        lib.heat_radix_scratch_words.restype = _LL
+        lib.heat_radix_pair_sort.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]
+        lib.heat_radix_pair_sort.restype = _I
+        lib.heat_radix_error_string.argtypes = [_I]
+        lib.heat_radix_error_string.restype = ctypes.c_char_p
+        if lib.heat_radix_seg_max() != SEG_MAX:
+            raise RuntimeError(f"csrc/radix_sort.cu sorts segments of {lib.heat_radix_seg_max()}, not {SEG_MAX}")
+        _LIB = lib
+    return _LIB
+
+
+def pair_sort(keys: torch.Tensor, pays: Optional[torch.Tensor] = None, seg_len: Optional[int] = None,
+              pay_bytes: int = 0):
+    """Stable sort of (key, payload) pairs in each segment of ``seg_len``
+    (kernel K4 on CUDA), lexicographic in (key, payload).
+
+    ``keys`` and ``pays``: 1-D contiguous int32 tensors holding u32 bit
+    patterns, ``seg_len`` divides their length (default: one segment).
+    ``pay_bytes`` = 0 carries the payload and orders stably by key alone;
+    1-4 also orders by that many low bytes of the payload. Without
+    ``pays`` the payload is the position within the segment (the argsort).
+    Segments longer than ``SEG_MAX`` must be alone, and shorter than 2^31.
+    Returns the sorted keys and payloads as int32 words. CPU tensors take
+    the plain version."""
+    global SORT_LAUNCHES
+    n_seg, seg_len = _segments(keys, pays, seg_len, pay_bytes)
+    if seg_len > SEG_MAX and n_seg > 1:
+        raise ValueError(f"segments longer than SEG_MAX={SEG_MAX} must be alone, got {n_seg} of {seg_len}")
+    if keys.device.type == "cpu":
+        return pair_sort_plain(keys, pays, seg_len, pay_bytes)
+    if keys.device.type != "cuda":
+        raise ValueError(f"the CUDA pair sort needs CUDA tensors, got {keys.device}")
+    for name, t in (("keys", keys), ("pays", pays)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n_seg == 0:
+        return keys.clone(), torch.empty_like(keys)
+    dev = keys.device
+    lib = _lib()
+    out_k = torch.empty_like(keys)
+    out_p = torch.empty_like(keys)
+    words = lib.heat_radix_scratch_words(n_seg, seg_len)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev) if words else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.heat_radix_pair_sort(
+        keys.data_ptr(), None if pays is None else pays.data_ptr(), out_k.data_ptr(), out_p.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), n_seg, seg_len, pay_bytes, dev.index, stream,
+    )
+    if rc != 0:
+        msg = lib.heat_radix_error_string(rc).decode()
+        raise RuntimeError(f"pair_sort kernel launch failed: CUDA error {rc} ({msg})")
+    SORT_LAUNCHES += 1
+    return out_k, out_p
+
+
+# --------------------------------------------------------------------- #
+# dispatch                                                              #
+# --------------------------------------------------------------------- #
+def _words_serviceable(shape) -> bool:
+    """K4 sorts int32 words of this shape along the last axis: one
+    segment below 2^31, or rows of at most SEG_MAX."""
+    if len(shape) == 0:
+        return False
+    n = int(shape[-1])
+    numel = 1
+    for s in shape:
+        numel *= int(s)
+    return numel > 0 and n < 2**31 and (numel == n or n <= SEG_MAX)
+
+
+def sort_serviceable(shape, dtype: torch.dtype, axis: int = -1) -> bool:
+    """Whether a sort of an array of this shape and dtype along ``axis``
+    runs K4: float32 or int32, and, once the axis is moved last, either
+    one segment below 2^31 elements or rows of at most ``SEG_MAX``."""
+    if dtype not in _WORD_DTYPES or len(shape) == 0:
+        return False
+    shape = list(shape)
+    shape.append(shape.pop(axis % len(shape)))
+    return _words_serviceable(shape)
+
+
+def sort_keys(key: torch.Tensor, pays: Optional[torch.Tensor] = None):
+    """Stable ascending sort of ``key`` along its last axis, carrying
+    ``pays`` (default: the position, as int64). ``key`` is what
+    ``sort_key`` gives: int32 words take K4 when their shape is
+    serviceable, and ``torch.sort(stable=True)`` on the words widened to
+    int64 otherwise; int64 keys take ``torch.sort(stable=True)``. Payloads
+    through K4 must lie in [0, 2^31). Returns (sorted key, payloads)."""
+    key = key.contiguous()
+    if key.dtype == torch.int32 and _words_serviceable(key.shape):
+        n = key.shape[-1]
+        p = None if pays is None else pays.to(torch.int32).contiguous().reshape(-1)
+        sk, sp = pair_sort(key.reshape(-1), p, seg_len=n)
+        sp = sp.reshape(key.shape)
+        return sk.reshape(key.shape), sp.to(torch.int64 if pays is None else pays.dtype)
+    wide = key.to(torch.int64) & 0xFFFFFFFF if key.dtype == torch.int32 else key
+    _, idx = torch.sort(wide, dim=-1, stable=True)
+    return key.gather(-1, idx), idx if pays is None else pays.gather(-1, idx)
+
+
+def local_sort(arr: torch.Tensor, axis: int = -1, descending: bool = False):
+    """Values and stable argsort (int64) of ``arr`` along ``axis`` — the
+    single-device engine under ``ht.sort``.
+
+    The order is ``lax.sort``'s; ``descending`` sorts the complemented key
+    in the same single pass, so ties keep their input order and NaNs come
+    first. float32 and int32 sort on their u32 transform (K4 where
+    ``sort_serviceable``) and come back through the inverse transform, with
+    no gather. Other dtypes gather their values by the argsort of their
+    int64 key; complex sorts lexicographically in (real, imag) by two
+    stable sorts, as ``jnp.argsort`` orders it."""
+    if arr.ndim == 0:
+        return arr.clone(), torch.zeros((), dtype=torch.int64, device=arr.device)
+    axis %= arr.ndim
+    x = arr.movedim(axis, -1).contiguous()
+    if x.is_complex():
+        idx = None
+        for part in (x.imag, x.real):  # least significant first
+            k = sort_key(part.contiguous())
+            k = ~k if descending else k
+            _, idx = sort_keys(k if idx is None else k.gather(-1, idx), idx)
+        values = x.gather(-1, idx)
+    else:
+        key = sort_key(x)
+        sk, idx = sort_keys(~key if descending else key)
+        if key.dtype == torch.int32:
+            values = from_sortable(~sk if descending else sk, x.dtype)
+        else:
+            values = x.gather(-1, idx)
+    return values.movedim(-1, axis).contiguous(), idx.movedim(-1, axis).contiguous()
+
+
+# --------------------------------------------------------------------- #
+# pass-count model (PERF.md arithmetic)                                 #
+# --------------------------------------------------------------------- #
+def sort_plan(n: int, dtype: torch.dtype = torch.float32, seg_len: Optional[int] = None) -> dict:
+    """Pass count and device-memory bytes of ``local_sort``'s K4 call on
+    ``n`` elements of ``dtype`` in rows of ``seg_len`` (default: one row),
+    and the floor of any sort that returns values and int64 indices: one
+    read of the values and one write of values and indices.
+
+    ``radix_a`` (rows of at most ``SEG_MAX``): one read of each key into
+    shared memory and one write of each pair, every pass in shared memory.
+    ``radix_b`` (one long row): per 8-bit pass a histogram read of the
+    keys, a scatter that reads and writes keys and payloads, and the
+    (256 x tiles) table written, scanned and read; the first pass reads no
+    payload (it is generated). ``torch``: the library sort, not modelled."""
+    seg_len = n if seg_len is None else seg_len
+    floor = n * (2 * torch.empty((), dtype=dtype).element_size() + 8)
+    shape = (n,) if seg_len == n else (n // seg_len, seg_len)
+    if not sort_serviceable(shape, dtype):
+        return {"path": "torch", "passes": None, "hbm_bytes": None, "floor_bytes": floor,
+                "model": "torch.sort(stable=True): the library's radix sort, not modelled"}
+    if seg_len <= SEG_MAX:
+        return {"path": "radix_a", "passes": 4, "hbm_bytes": 12 * n, "floor_bytes": floor,
+                "model": "one read of each key and one write of each pair; all 8-bit passes in shared memory"}
+    tiles = -(-n // _TILE)
+    per_pass = 20 * n + 16 * _RADIX * tiles  # keys 4 + 8 + 8 B a pair; table written, scanned, read
+    return {"path": "radix_b", "passes": 4, "tiles": tiles, "hbm_bytes": 4 * per_pass - 4 * n,
+            "floor_bytes": floor,
+            "model": "per 8-bit pass: histogram read 4, scatter read 8 and write 8 B a pair, and the table"}
