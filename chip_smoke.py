@@ -35,13 +35,29 @@ Phases, each of which fails the run by raising:
      length, with its inverse, and of the float32 array; ``ht.topk(x,
      1000)`` both ways, which must equal the prefix of the sort. Each call
      must launch K4;
+   - sparse: bench.py's ``spmm_1gb`` (16384^2, 16,384 full (8, 128)
+     bricks, seed 0x18): ``ht.sparse.sparse_dbcsr_matrix(bsr, split=0) @
+     x`` with k = 4 (K7 once), ``ht.sparse.sddmm(S, u, v)`` with d = 64
+     (K8 once) and the DCSR form ``sparse_csr_matrix(...) @ x``, each
+     against a float64 reference; a card-scale matrix (131072^2,
+     1,048,576 bricks, built on the card through the raw constructor),
+     ``S @ x`` with k = 1 and 4 and ``sddmm`` with d = 64; bench.py's
+     ``pagerank_2m`` (8192 nodes, ~2M edges) through ``ht.graph.pagerank``
+     with tol 1e-8, K7 once per iteration, ranks within 1e-6 of a float64
+     scipy power iteration;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
    peaks; and a profile of one call or fit of each main path. K4 is
    checked for exact equality with its plain version (it moves integers)
    at both regimes' main shapes, ragged and boundary segment lengths,
-   adversarial float32 keys and n = 1, and on a rerun.
+   adversarial float32 keys and n = 1, and on a rerun. K7 and K8 are held
+   against their plain versions within 1e-5 of each element's absolute-sum
+   scale, and against themselves on a rerun bit for bit, at the main-path
+   shapes, ragged 1003 x 777, empty brick rows, all-zero and pad bricks,
+   an empty matrix and bf16 bricks; K7's library yardstick is PyTorch's
+   sparse tensor of the same matrix, and PageRank is timed as its host
+   build and its fixpoint.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -56,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -88,6 +105,19 @@ SORT_N = 134_217_728  # float32 elements of the sort_1gb row (bench.py:111)
 SORT_ROWS, SORT_SEG = 262_144, 512  # 512-element rows: the TPU kernel's own blocks
 TOPK_K = 1000
 ADV_N = 1 << 22  # adversarial keys, as one segment and as rows of 512
+
+SPARSE_SEED = 0x18  # bench.py's seed of spmm_1gb and pagerank_2m
+SPMM_N, SPMM_OCC, SPMM_K = 16384, 0.0625, 4  # spmm_1gb (bench.py:117-122): 16,384 full bricks
+SDDMM_D = 64
+CARD_N, CARD_BRICKS = 131072, 1 << 20  # 6.25% brick fill: 64 bricks per brick row, 4.29 GB
+PR_N, PR_DEG, PR_TOL = 8192, 256, 1e-8  # pagerank_2m (bench.py:123-125)
+PR_HEAT_TPU_ITERATIONS = 10  # heat_tpu's count on the CPU (docs/PERF.md:334)
+# K7 and K8 against their plain versions, and the sparse path against its
+# float64 references: |got - ref| <= 1e-5 * (the sum of the absolute
+# terms), elementwise; float32 sums in another order stay within a few
+# ulps of that scale (1e-5 is ~80 ulps)
+TOL_SPARSE = 1e-5
+TOL_RANKS = 1e-6  # PageRank against a float64 power iteration, absolute
 
 
 def _require(ok: bool, what: str) -> None:
@@ -146,10 +176,11 @@ def build_kernels() -> None:
         log = _build._library_path(name).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59,
-        # K3 k ≤ 8, and K4's kernels of both regimes)
+        # K3 k ≤ 8, K4's kernels of both regimes, K7 k = 1 and 4, K8)
         for i, line in enumerate(lines):
             main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E", "segment_sort_kernel",
-                    "tile_hist_kernel", "scan_rows_kernel", "tile_scatter_kernel")
+                    "tile_hist_kernel", "scan_rows_kernel", "tile_scatter_kernel",
+                    "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel")
             tags = [tag for tag in main if tag in line]
             if "Compiling entry function" in line and tags:
                 detail = " | ".join(s.split(":", 1)[-1].strip() for s in lines[i + 1 : i + 4])
@@ -756,6 +787,457 @@ def kmeans_timings(dev, launches: int, err: float) -> dict:
     return row
 
 
+# --------------------------------------------------------------------- #
+# the sparse engine and PageRank (kernels K7 and K8)                    #
+# --------------------------------------------------------------------- #
+def sparse_inputs() -> dict:
+    """The host inputs of the sparse rows, built as bench.py builds them
+    (seed 0x18): spmm_1gb's BSR and pagerank_2m's adjacency."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SPARSE_SEED)
+    smb, snb = SPMM_N // 8, SPMM_N // 128
+    lin = np.sort(rng.choice(smb * snb, int(smb * snb * SPMM_OCC), replace=False))
+    brow = (lin // snb).astype(np.int32)
+    indptr = np.zeros(smb + 1, np.int64)
+    np.add.at(indptr, brow + 1, 1)
+    bsr = sp.bsr_matrix(
+        (rng.standard_normal((lin.size, 8, 128)).astype(np.float32), (lin % snb).astype(np.int32), np.cumsum(indptr)),
+        shape=(SPMM_N, SPMM_N),
+    )
+    prng = np.random.default_rng(SPARSE_SEED)
+    src, dst = prng.integers(0, PR_N, PR_N * PR_DEG), prng.integers(0, PR_N, PR_N * PR_DEG)
+    keep = src != dst
+    graph = sp.csr_matrix((np.ones(int(keep.sum()), np.float32), (src[keep], dst[keep])), shape=(PR_N, PR_N))
+    graph.sum_duplicates()
+    print(
+        f"sparse inputs on the host: spmm_1gb {SPMM_N}^2 with {lin.size} bricks ({bsr.nnz} nnz), pagerank_2m "
+        f"{PR_N} nodes with {graph.nnz} edges, {time.perf_counter() - t0:.1f} s", flush=True,
+    )
+    return {"bsr": bsr, "graph": graph}
+
+
+def card_matrix(dev, ht):
+    """The card-scale brick matrix, built on the card from a seeded
+    generator and passed to the raw constructor: 131072^2, 1,048,576
+    distinct bricks (6.25% of the brick grid, 64 per brick row on average,
+    bcol ascending within each row), randn data."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SPARSE_SEED)
+    mb, nb = CARD_N // 8, CARD_N // 128
+    lin = torch.sort(torch.randperm(mb * nb, device=dev, generator=gen)[:CARD_BRICKS]).values
+    brow, bcol = (lin // nb).to(torch.int32), (lin % nb).to(torch.int32)
+    bdata = torch.randn(CARD_BRICKS, 8, 128, device=dev, generator=gen)
+    bmask = torch.ones(CARD_BRICKS, 8, dtype=torch.bool, device=dev)
+    gnnz = int(torch.count_nonzero(bdata))
+    return ht.sparse.DBCSR_matrix(bdata, bcol, brow, bmask, ((0, mb, CARD_BRICKS),), gnnz, CARD_BRICKS,
+                                  (CARD_N, CARD_N), ht.float32, 0, ht.gpu, ht.get_comm())
+
+
+def _k7_case(ks, label: str, S, k: int, gen, dtype=None) -> float:
+    """K7 against its plain version on S's bricks (widened from ``dtype``
+    when given), within TOL_SPARSE of the absolute-sum scale, and against
+    itself on a rerun, bit for bit. Returns the largest absolute error."""
+    import torch
+
+    bdata, bcol, brow, bmask = S._phys_components
+    bd = bdata.float()
+    x = torch.randn(S.shape[1], k, device=bd.device, generator=gen)
+    y = ks.brick_spmm(bd, bcol, brow, bmask, S._brick_rowptr, x, S.shape[0])
+    again = ks.brick_spmm(bd, bcol, brow, bmask, S._brick_rowptr, x, S.shape[0])
+    ref = ks.brick_spmm_plain(bd, bcol, brow, bmask, x, S.shape[0])
+    scale = ks.brick_spmm_plain(bd.abs(), bcol, brow, bmask, x.abs(), S.shape[0])
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max()) if y.numel() else 0.0
+    rel = float(((y - ref).abs() / scale.clamp_min(1e-30)).max()) if y.numel() else 0.0
+    rerun = torch.equal(y, again)
+    print(f"K7 ({label}, k={k}): max |err| {err:.3e}, max err/scale {rel:.3e} (tol {TOL_SPARSE}), rerun identical {rerun}",
+          flush=True)
+    _require(bool(((y - ref).abs() <= TOL_SPARSE * scale).all()) and rerun,
+             f"K7 disagrees with its plain version or itself ({label}, k={k})")
+    return err
+
+
+def _k8_case(ks, label: str, S, d: int, gen) -> float:
+    """K8 against its plain version, within TOL_SPARSE of the scale
+    |s|·(|u|·|v|ᵀ), and on a rerun bit for bit; returns the largest
+    absolute error."""
+    import torch
+
+    sdata, bcol, brow, _ = S._phys_components
+    sd = sdata.float()
+    u = torch.randn(S.shape[0], d, device=sd.device, generator=gen)
+    v = torch.randn(S.shape[1], d, device=sd.device, generator=gen)
+    out = ks.brick_sddmm(sd, brow, bcol, *S._brick_colorder, u, v)
+    again = ks.brick_sddmm(sd, brow, bcol, *S._brick_colorder, u, v)
+    ref = ks.brick_sddmm_plain(sd, brow, bcol, u, v)
+    scale = ks.brick_sddmm_plain(sd.abs(), brow, bcol, u.abs(), v.abs())
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    rel = float(((out - ref).abs() / scale.clamp_min(1e-30)).max())
+    rerun = torch.equal(out, again)
+    print(f"K8 ({label}, d={d}): max |err| {err:.3e}, max err/scale {rel:.3e} (tol {TOL_SPARSE}), rerun identical "
+          f"{rerun}", flush=True)
+    _require(bool(((out - ref).abs() <= TOL_SPARSE * scale).all()) and rerun,
+             f"K8 disagrees with its plain version or itself ({label}, d={d})")
+    del out, again, ref, scale
+    return err
+
+
+def check_spmm(dev, inputs: dict) -> dict:
+    """K7 and K8 against their plain versions at the main-path shapes and
+    at ragged, empty-row, zero-brick, empty and bf16 ones; returns the
+    largest error at each main-path shape."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.graph.pagerank import _transition
+    from heat_tpu_torch.kernels import spmm as ks
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    errs = {}
+    S = ht.sparse.sparse_dbcsr_matrix(inputs["bsr"], split=0)
+    for k in (1, SPMM_K, 64):
+        e = _k7_case(ks, f"spmm_1gb, {S.nbricks} bricks", S, k, gen)
+        errs.setdefault(f"spmm_1gb_k{k}", e)
+    for d in (1, SDDMM_D):
+        errs[f"sddmm_1gb_d{d}"] = _k8_case(ks, f"spmm_1gb, {S.nbricks} bricks", S, d, gen)
+    M = ht.sparse.sparse_dbcsr_matrix(_transition(inputs["graph"], np.float32)[0], split=0)
+    errs["pagerank_k1"] = _k7_case(ks, f"pagerank_2m transition, {M.nbricks} bricks", M, 1, gen)
+    del S, M
+
+    C = card_matrix(dev, ht)
+    for k in (1, SPMM_K):
+        errs[f"card_k{k}"] = _k7_case(ks, f"{CARD_N}^2, {CARD_BRICKS} bricks", C, k, gen)
+    errs[f"card_sddmm_d{SDDMM_D}"] = _k8_case(ks, f"{CARD_N}^2, {CARD_BRICKS} bricks", C, SDDMM_D, gen)
+    del C
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(11)
+    ragged = sp.random(1003, 777, density=0.02, format="csr", dtype=np.float32, random_state=rng)
+    R = ht.sparse.sparse_dbcsr_matrix(ragged)
+    # every third brick row holds bricks, the rest are empty rows
+    dense = np.zeros((4096, 4096), np.float32)
+    dense[::24] = rng.standard_normal((len(range(0, 4096, 24)), 4096)) * (rng.random((171, 4096)) < 0.05)
+    E = ht.sparse.sparse_dbcsr_matrix(sp.csr_matrix(dense))
+    # stored bricks of all zeros, and pad bricks after the real ones
+    bdata, bcol, brow, bmask = R._phys_components
+    zero = bdata.clone()
+    zero[::3] = 0
+    pads = 5
+    Z = ht.sparse.DBCSR_matrix(
+        torch.cat([zero, torch.zeros(pads, 8, 128, device=dev)]), torch.cat([bcol, bcol[:pads] * 0]),
+        torch.cat([brow, brow[:pads] * 0]), torch.cat([bmask, torch.zeros(pads, 8, dtype=torch.bool, device=dev)]),
+        ((0, R.mb, R.nbricks),), R.gnnz, R.nbricks, R.shape, ht.float32, None, ht.gpu, ht.get_comm(),
+    )
+    empty = ht.sparse.sparse_dbcsr_matrix(sp.csr_matrix((37, 300), dtype=np.float32))
+    _require(empty.slab_bricks == 1 and empty.nbricks == 0, "the empty matrix is not one pad brick")
+    half = R.astype(ht.bfloat16)
+    for label, A in (("ragged 1003x777", R), ("4096^2 with empty rows", E), ("zero and pad bricks", Z),
+                     ("empty 37x300, one pad brick", empty), ("bf16 bricks, 1003x777", half)):
+        for k in (1, SPMM_K, 64):
+            _k7_case(ks, label, A, k, gen)
+        for d in (1, SDDMM_D):
+            _k8_case(ks, label, A, d, gen)
+    return errs
+
+
+def _scale_check(label: str, got, ref, scale, tol: float) -> float:
+    """|got - ref| <= tol * scale elementwise (float64); returns the
+    largest err/scale."""
+    import numpy as np
+
+    got, ref, scale = (np.asarray(a, dtype=np.float64) for a in (got, ref, scale))
+    _require(got.shape == ref.shape, f"{label}: shape {got.shape}, expected {ref.shape}")
+    _require(bool(np.isfinite(got).all()), f"{label}: non-finite values")
+    rel = float(np.max(np.abs(got - ref) / np.maximum(scale, 1e-30))) if got.size else 0.0
+    print(f"{label}: max err/scale against the float64 reference {rel:.3e} (tol {tol})", flush=True)
+    _require(rel <= tol, f"{label} disagrees with its float64 reference")
+    return rel
+
+
+def _pagerank_reference(graph, alpha=0.85, tol=1e-13, max_iter=1000):
+    """float64 power iteration with scipy, uniform dangling teleport."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n = graph.shape[0]
+    outdeg = np.asarray(graph.sum(axis=1)).ravel().astype(np.float64)
+    dangling = outdeg == 0
+    M = (sp.diags(np.where(dangling, 0.0, 1.0 / np.maximum(outdeg, 1.0))) @ graph.astype(np.float64)).T.tocsr()
+    r = np.full(n, 1.0 / n)
+    for _ in range(max_iter):
+        r_new = alpha * (M @ r + r[dangling].sum() / n) + (1 - alpha) / n
+        done = np.abs(r_new - r).sum() < tol
+        r = r_new
+        if done:
+            break
+    return r / r.sum()
+
+
+def sparse_path(dev, inputs: dict) -> dict:
+    """The sparse main path through the public entry points, each call
+    with the kernel counts set to 0 just before it and read just after;
+    returns the launches of each call."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.kernels import spmm as ks
+
+    def run(label: str, call):
+        ks.SPMM_LAUNCHES = ks.SDDMM_LAUNCHES = 0
+        out = call()
+        torch.cuda.synchronize()
+        counts = (ks.SPMM_LAUNCHES, ks.SDDMM_LAUNCHES)
+        print(f"{label}: K7 launches {counts[0]}, K8 launches {counts[1]}", flush=True)
+        return out, counts
+
+    launches = {}
+    rng = np.random.default_rng(12)
+    bsr = inputs["bsr"]
+    t0 = time.perf_counter()
+    S = ht.sparse.sparse_dbcsr_matrix(bsr, split=0)
+    print(f"spmm_1gb: sparse_dbcsr_matrix {time.perf_counter() - t0:.2f} s, {S}", flush=True)
+    _require(S.nbricks == int((SPMM_N // 8) * (SPMM_N // 128) * SPMM_OCC) and S._phys_components[0].device == dev, "spmm_1gb matrix geometry or device")
+    x = rng.standard_normal((SPMM_N, SPMM_K)).astype(np.float32)
+    y, counts = run(f"spmm_1gb: S @ x, x ({SPMM_N}, {SPMM_K})", lambda: S @ x)
+    launches["spmm_1gb"] = counts[0]
+    _require(counts == (1, 0) and y.split == 0 and y.larray.device == dev, "S @ x did not run K7 once")
+    absA = abs(bsr).astype(np.float64)
+    _scale_check("spmm_1gb S @ x vs scipy", y.numpy(), bsr.astype(np.float64) @ x.astype(np.float64),
+                 absA @ np.abs(x).astype(np.float64), TOL_SPARSE)
+    D = ht.sparse.sparse_csr_matrix(bsr, split=0)
+    yd, counts = run("spmm_1gb: DCSR @ x (index_add_)", lambda: D @ x)
+    _require(counts == (0, 0), "the DCSR form ran a brick kernel")
+    _scale_check("spmm_1gb DCSR @ x vs scipy", yd.numpy(), bsr.astype(np.float64) @ x.astype(np.float64),
+                 absA @ np.abs(x).astype(np.float64), TOL_SPARSE)
+    del D, yd
+    u = torch.from_numpy(rng.standard_normal((SPMM_N, SDDMM_D)).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.standard_normal((SPMM_N, SDDMM_D)).astype(np.float32)).to(dev)
+    C, counts = run(f"spmm_1gb: sddmm(S, u, v), d={SDDMM_D}", lambda: ht.sparse.sddmm(S, u, v))
+    launches["sddmm_1gb"] = counts[1]
+    _require(counts == (0, 1) and C.nbricks == S.nbricks, "sddmm did not run K8 once")
+    sdata, bcol, brow, _ = S._phys_components
+    ref = ks.brick_sddmm_plain(sdata.double(), brow, bcol, u.double(), v.double())
+    scale = ks.brick_sddmm_plain(sdata.double().abs(), brow, bcol, u.double().abs(), v.double().abs())
+    _scale_check("spmm_1gb sddmm vs float64 (plain version in float64 on the card)",
+                 C._phys_components[0].cpu().numpy(), ref.cpu().numpy(), scale.cpu().numpy(), TOL_SPARSE)
+    del S, C, ref, scale, u, v
+
+    Cm = card_matrix(dev, ht)
+    bdata, bcol, brow, bmask = Cm._phys_components
+    for k in (1, SPMM_K):
+        xk = torch.randn(CARD_N, k, device=dev)
+        y, counts = run(f"{CARD_N}^2 ({CARD_BRICKS} bricks): S @ x, k={k}", lambda: Cm @ xk)
+        launches[f"card_k{k}"] = counts[0]
+        _require(counts == (1, 0) and y.shape == (CARD_N, k), f"S @ x (k={k}) did not run K7 once")
+        ref = ks.brick_spmm_plain(bdata.double(), bcol, brow, bmask, xk.double(), CARD_N)
+        scale = ks.brick_spmm_plain(bdata.double().abs(), bcol, brow, bmask, xk.double().abs(), CARD_N)
+        _scale_check(f"{CARD_N}^2 S @ x (k={k}) vs float64 (plain version on the card)", y.numpy(), ref.cpu().numpy(),
+                     scale.cpu().numpy(), TOL_SPARSE)
+        del y, ref, scale
+    u, v = torch.randn(CARD_N, SDDMM_D, device=dev), torch.randn(CARD_N, SDDMM_D, device=dev)
+    Cs, counts = run(f"{CARD_N}^2: sddmm(S, u, v), d={SDDMM_D}", lambda: ht.sparse.sddmm(Cm, u, v))
+    launches[f"card_sddmm_d{SDDMM_D}"] = counts[1]
+    _require(counts == (0, 1), "sddmm did not run K8 once")
+    out = Cs._phys_components[0]
+    _require(out.shape == bdata.shape and bool(torch.isfinite(out).all()), "sddmm output shape or values")
+    del Cs, out, Cm, bdata, bcol, brow, bmask
+    torch.cuda.empty_cache()
+
+    graph = inputs["graph"]
+    res, counts = run(f"pagerank_2m: ht.graph.pagerank({PR_N} nodes, {graph.nnz} edges, tol={PR_TOL})",
+                      lambda: ht.graph.pagerank(graph, tol=PR_TOL))
+    launches["pagerank"] = counts[0]
+    ranks = res.ranks.numpy()
+    ref = _pagerank_reference(graph)
+    err = float(np.abs(ranks - ref).max())
+    print(
+        f"pagerank_2m: {res.iterations} iterations (heat_tpu on the CPU: {PR_HEAT_TPU_ITERATIONS}), converged "
+        f"{res.converged}, delta {res.delta:.3e}; ranks vs float64 scipy power iteration max |err| {err:.3e} "
+        f"(tol {TOL_RANKS}), max rel err {float(np.abs(ranks - ref).max() / ref.max()):.3e}", flush=True,
+    )
+    _require(res.converged and counts == (res.iterations, 0), "PageRank did not run K7 once per iteration")
+    _require(err <= TOL_RANKS and abs(float(ranks.sum()) - 1.0) <= 1e-5, "PageRank ranks off")
+    launches["pagerank_iterations"] = res.iterations
+    return launches
+
+
+def _library_spmm(S, x):
+    """One PyTorch call computing S @ x: the BSR tensor with (8, 128)
+    blocks, or, where PyTorch refuses those on CUDA, the CSR tensor of the
+    same matrix's nonzeros (built on the card). Returns (name, call)."""
+    import torch
+
+    bdata, bcol, brow, _ = S._phys_components
+    nreal = S._slab_meta[0][2]
+    rowptr = S._brick_rowptr
+    m, n = S.mb * 8, S.nb * 128
+    _require(S.shape == (m, n), "the library yardstick takes whole bricks")
+    warnings.filterwarnings("ignore", message="Sparse (BSR|CSR) tensor support is in beta")
+    warnings.filterwarnings("ignore", message="Sparse invariant checks are implicitly disabled")
+    try:
+        bsr = torch.sparse_bsr_tensor(rowptr, bcol[:nreal], bdata[:nreal], size=(m, n))
+        bsr @ x
+        return "torch.sparse_bsr_tensor (8, 128) blocks @ x", lambda: bsr @ x
+    except RuntimeError as e:
+        print(f"library yardstick: torch.sparse_bsr_tensor @ x refused on CUDA ({str(e).splitlines()[0][:120]}); "
+              f"using torch.sparse_csr_tensor of the same matrix", flush=True)
+    per_row = (rowptr[1:] - rowptr[:-1]).long()
+    start = rowptr[:-1].long()
+    crow = torch.empty(m + 1, dtype=torch.int64, device=x.device)
+    crow[:-1] = (1024 * start[:, None] + 128 * per_row[:, None] * torch.arange(8, device=x.device)).reshape(-1)
+    crow[-1] = 1024 * nreal
+    values = torch.empty(1024 * nreal, dtype=bdata.dtype, device=x.device)
+    cols = torch.empty(1024 * nreal, dtype=torch.int32, device=x.device)
+    lane = torch.arange(128, device=x.device)
+    for t0 in range(0, nreal, 1 << 16):
+        t = torch.arange(t0, min(nreal, t0 + (1 << 16)), device=x.device)
+        g = brow[t].long()
+        base = crow[:-1].reshape(-1, 8)[g] + 128 * (t - start[g])[:, None]  # (T, 8): each row's slot of brick t
+        pos = (base[:, :, None] + lane).reshape(-1)
+        values[pos] = bdata[t].reshape(-1)
+        cols[pos] = (128 * bcol[t].long()[:, None, None] + lane).expand(-1, 8, -1).reshape(-1).to(torch.int32)
+    # the stored zeros of the bricks are no entries of the CSR matrix
+    nz = values != 0
+    counts = torch.zeros(1024 * nreal + 1, dtype=torch.int64, device=x.device)
+    counts[1:] = torch.cumsum(nz, 0)
+    csr = torch.sparse_csr_tensor(counts[crow].to(torch.int32), cols[nz], values[nz], size=(m, n))
+    return f"torch.sparse_csr_tensor ({int(counts[-1])} nonzeros) @ x", lambda: csr @ x
+
+
+def _k7_row(name, S, x, launches, err):
+    import torch
+
+    from heat_tpu_torch.kernels import spmm as ks
+
+    bdata, bcol, brow, bmask = S._phys_components
+    m, n = S.shape
+    k = x.shape[1]
+    rowptr = S._brick_rowptr
+    ms = _median_ms(lambda: ks.brick_spmm(bdata, bcol, brow, bmask, rowptr, x, m), 20)
+    plain_ms = _median_ms(lambda: ks.brick_spmm_plain(bdata, bcol, brow, bmask, x, m), 3)
+    lib_name, lib_call = _library_spmm(S, x)
+    y, y_lib = ks.brick_spmm(bdata, bcol, brow, bmask, rowptr, x, m), lib_call()
+    scale = ks.brick_spmm_plain(bdata.abs(), bcol, brow, bmask, x.abs(), m)
+    _require(bool(((y - y_lib).abs() <= TOL_SPARSE * scale).all()), f"{lib_name} does not compute S @ x")
+    del y, y_lib, scale
+    library_ms = _median_ms(lib_call, 10)
+    B, nreal = S.slab_bricks, S._slab_meta[0][2]
+    nbytes = 4096 * B + 12 * B + 4 * (S.mb + 1) + 4 * k * (n + m)
+    bound_ms, bound_by = _bound(nbytes, 2.0 * 1024 * nreal * k)
+    print(
+        f"{name} (K7, {nreal} bricks, k={k}): {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.4f} GB; {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved)",
+        flush=True,
+    )
+    return {
+        "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/spmm.cu",
+        "replaces": "heat_tpu/kernels/spmm.py:238", "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def _k8_row(name, S, d, gen, launches, err):
+    import torch
+
+    from heat_tpu_torch.kernels import spmm as ks
+
+    sdata, bcol, brow, _ = S._phys_components
+    m, n = S.shape
+    u = torch.randn(m, d, device=sdata.device, generator=gen)
+    v = torch.randn(n, d, device=sdata.device, generator=gen)
+    colorder = S._brick_colorder
+    ms = _median_ms(lambda: ks.brick_sddmm(sdata, brow, bcol, *colorder, u, v), 10)
+    plain_ms = _median_ms(lambda: ks.brick_sddmm_plain(sdata, brow, bcol, u, v), 3)
+    B = S.slab_bricks
+    nbytes = 2 * 4096 * B + 8 * B + 4 * d * (m + n)
+    bound_ms, bound_by = _bound(nbytes, 1024.0 * B * (2 * d + 1))
+    print(
+        f"{name} (K8, {B} bricks, d={d}): {ms:.4f} ms, plain {plain_ms:.4f} ms, library — (none), bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e9:.4f} GB, {1024.0 * B * (2 * d + 1) / 1e9:.1f} GFLOP; "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved)", flush=True,
+    )
+    return {
+        "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/spmm.cu",
+        "replaces": "heat_tpu/kernels/spmm.py:265", "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def sparse_timings(dev, inputs: dict, launches: dict, errs: dict) -> list:
+    """K7 and K8 at the main-path shapes beside bound, plain version and
+    library call; S @ x end to end; PageRank split into the host build and
+    the fixpoint. Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.graph.pagerank import _adjacency_to_scipy, _fixpoint, _transition
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    rows = []
+    S = ht.sparse.sparse_dbcsr_matrix(inputs["bsr"], split=0)
+    x = torch.randn(SPMM_N, SPMM_K, device=dev, generator=gen)
+    rows.append(_k7_row("brick_spmm_1gb", S, x, launches["spmm_1gb"], errs[f"spmm_1gb_k{SPMM_K}"]))
+    rows.append(_k8_row("brick_sddmm_1gb", S, SDDMM_D, gen, launches["sddmm_1gb"], errs[f"sddmm_1gb_d{SDDMM_D}"]))
+    e2e = _median_ms(lambda: S @ x, 20)
+    print(f"spmm_1gb: S @ x {e2e:.4f} ms end to end (median of 20, CUDA events)", flush=True)
+    del S
+
+    C = card_matrix(dev, ht)
+    for k in (SPMM_K, 1):
+        xk = torch.randn(CARD_N, k, device=dev, generator=gen)
+        rows.append(_k7_row(f"brick_spmm_card_k{k}", C, xk, launches[f"card_k{k}"], errs[f"card_k{k}"]))
+    rows.append(_k8_row("brick_sddmm_card", C, SDDMM_D, gen, launches[f"card_sddmm_d{SDDMM_D}"],
+                        errs[f"card_sddmm_d{SDDMM_D}"]))
+    xk = torch.randn(CARD_N, SPMM_K, device=dev, generator=gen)
+    e2e = _median_ms(lambda: C @ xk, 10)
+    print(f"{CARD_N}^2: S @ x (k={SPMM_K}) {e2e:.4f} ms end to end (median of 10, CUDA events)", flush=True)
+    del C, xk
+    torch.cuda.empty_cache()
+
+    graph = inputs["graph"]
+    steps = {}
+    for rep in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        csr = _adjacency_to_scipy(graph)
+        t1 = time.perf_counter()
+        M_host, dangling, _ = _transition(csr, np.float32)
+        t2 = time.perf_counter()
+        M = ht.sparse.sparse_dbcsr_matrix(M_host, dtype=ht.float32, split=0)
+        dang = torch.from_numpy(dangling).to(dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        r, iters, _ = _fixpoint(M, dang, 0.85, PR_TOL, 200)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, sec in (("adjacency", t1 - t0), ("transition", t2 - t1), ("dbcsr", t3 - t2), ("fixpoint", t4 - t3)):
+            steps.setdefault(key, []).append(sec * 1e3)
+    med = {key: statistics.median(v) for key, v in steps.items()}
+    build = med["adjacency"] + med["transition"] + med["dbcsr"]
+    whole = _median_ms(lambda: ht.graph.pagerank(graph, tol=PR_TOL), 3)
+    print(
+        f"pagerank_2m ({iters} iterations): whole call {whole:.1f} ms (CUDA events, median of 3); host build "
+        f"{build:.1f} ms = adjacency to scipy {med['adjacency']:.1f} + transition {med['transition']:.1f} + "
+        f"sparse_dbcsr_matrix (tobsr, landing) {med['dbcsr']:.1f}; fixpoint {med['fixpoint']:.2f} ms = "
+        f"{med['fixpoint'] / iters:.3f} ms per iteration (host clock with sync, median of 3)", flush=True,
+    )
+    rows.append(_k7_row("brick_spmm_pagerank", M, r[:, None].contiguous(), launches["pagerank"], errs["pagerank_k1"]))
+    profile_breakdown("pagerank_2m fixpoint", lambda: _fixpoint(M, dang, 0.85, PR_TOL, 200))
+    return rows
+
+
 def profile_breakdown(label: str, call) -> None:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
@@ -796,19 +1278,22 @@ def main() -> int:
     errs = check_kernels(dev)
     assign_err = check_assign(dev)
     sort_errs = check_sort(dev)
+    inputs = sparse_inputs()
+    spmm_errs = check_spmm(dev, inputs)
     launches = main_path(dev)
     assign_launches = kmeans_path(dev)
     sort_launches = sort_path(dev)
+    sparse_launches = sparse_path(dev, inputs)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
     rows.extend(sort_timings(dev, sort_launches, sort_errs))
+    rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
-    # every phase runs on cuda:0, so the run used one card
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1},
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
     }))
     return 0
 

@@ -9,13 +9,17 @@ It keeps heat_tpu's layout and public names, so that
     X = ht.random.randn(15_625_000, 64, split=0)
     km = ht.cluster.KMeans(n_clusters=8, init="kmeans++").fit(X)
     values, indices = ht.sort(ht.random.randn(134_217_728, split=0))
+    S = ht.sparse.sparse_dbcsr_matrix(scipy_matrix, split=0)
+    y = S @ x
+    ranks = ht.graph.pagerank(adjacency).ranks
 
 Arrays live on the GPU unless the caller asks for the CPU
 (``ht.use_device("cpu")`` or ``device="cpu"``); without CUDA, creation on
 the GPU raises. Hand-written CUDA kernels for Hopper (``csrc/``) carry the
-streaming reads of the hSVD, the assignment pass of KMeans and the radix
-sort under ``ht.sort``, ``ht.unique`` and ``ht.topk``; they are compiled
-at first use.
+streaming reads of the hSVD, the assignment pass of KMeans, the radix
+sort under ``ht.sort``, ``ht.unique`` and ``ht.topk``, and the brick SpMM
+and SDDMM of the sparse engine under ``ht.sparse`` and ``ht.graph``; they
+are compiled at first use.
 """
 
 from .core import *
@@ -23,6 +27,8 @@ from .core.linalg import *
 
 from . import core
 from . import cluster
+from . import graph
 from . import kernels
+from . import sparse
 from . import spatial
 from . import utils

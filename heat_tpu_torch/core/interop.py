@@ -12,6 +12,11 @@ and passes them to ``svdtools._sketched_uds_both(..., g=)`` /
 A fitted k-clustering estimator carries across as its state
 (``kcluster_from_numpy``); ``predict`` and ``partial_fit`` then continue
 from the same centers.
+
+A sparse matrix carries across as its components: a DCSR matrix as its
+CSR arrays (``dcsr_from_numpy``), a DBCSR matrix as its physical brick
+slabs (``dbcsr_from_numpy``), which are reassembled from ``heat_tpu``'s
+per-device slabs into the one slab of world size 1.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 from .dndarray import DNDarray
 from .factories import array
 
-__all__ = ["from_numpy_state", "kcluster_from_numpy"]
+__all__ = ["dbcsr_from_numpy", "dcsr_from_numpy", "from_numpy_state", "kcluster_from_numpy"]
 
 
 def from_numpy_state(
@@ -66,3 +71,52 @@ def kcluster_from_numpy(cls, state: Mapping[str, np.ndarray], **params):
     if state.get("inertia_") is not None:
         est._inertia = float(state["inertia_"])
     return est
+
+
+def dcsr_from_numpy(indptr, indices, data, shape, split: Optional[int] = 0, device=None):
+    """A ``DCSR_matrix`` of ``shape`` from global CSR components taken as
+    numpy (``heat_tpu``'s ``indptr``, ``indices`` and ``data``), on
+    ``device``. The values keep their numpy dtype; bfloat16 values come
+    as float32 and are cast back with ``astype``."""
+    from ..sparse.factories import _from_components
+    from .communication import sanitize_comm
+    from .devices import sanitize_device
+
+    device = sanitize_device(device)
+    data = torch.from_numpy(np.array(data))
+    return _from_components(np.array(indptr), np.array(indices), data, tuple(shape), split, device,
+                            sanitize_comm(None))
+
+
+def dbcsr_from_numpy(components: Mapping[str, object], device=None):
+    """A ``DBCSR_matrix`` from ``heat_tpu``'s physical DBCSR components
+    taken as numpy: ``bdata``, ``bcol``, ``brow``, ``bmask``, ``slab_meta``,
+    ``gnnz``, ``nbricks``, ``gshape`` and ``dtype`` (a type name or numpy
+    dtype; bfloat16 bricks may come as float32), and ``split`` where given
+    (default 0 for a layout of several slabs, else None).
+
+    A layout of p > 1 slabs (``heat_tpu`` split 0 on its mesh) keeps each
+    brick once, from the first slab that covers its row (the ownership
+    order of ``heat_tpu``'s ``_to_scipy_bsr``), and is laid out again as
+    the one slab of world size 1. ``bmask`` is derived anew for that slab."""
+    from ..sparse.dbcsr_matrix import _bricks_from_slabs, _from_bricks
+    from . import types
+    from .communication import sanitize_comm
+    from .devices import sanitize_device
+
+    slab_meta = tuple(tuple(int(v) for v in t) for t in components["slab_meta"])
+    bdata = np.asarray(components["bdata"])
+    if bdata.dtype.name == "bfloat16":  # numpy holds it only through an extension type
+        bdata = bdata.astype(np.float32)
+    bdata, bcol, brow = _bricks_from_slabs(
+        bdata, np.asarray(components["bcol"], np.int32), np.asarray(components["brow"], np.int32), slab_meta
+    )
+    if bcol.shape[0] != int(components["nbricks"]):
+        raise ValueError(
+            f"the slabs hold {bcol.shape[0]} distinct bricks, the components say nbricks={components['nbricks']}"
+        )
+    split = components.get("split", 0 if len(slab_meta) > 1 else None)
+    return _from_bricks(
+        bdata, bcol, brow, int(components["gnnz"]), tuple(components["gshape"]),
+        types.canonical_heat_type(components["dtype"]), split, sanitize_device(device), sanitize_comm(None),
+    )
