@@ -45,6 +45,15 @@ Phases, each of which fails the run by raising:
      ``pagerank_2m`` (8192 nodes, ~2M edges) through ``ht.graph.pagerank``
      with tol 1e-8, K7 once per iteration, ranks within 1e-6 of a float64
      scipy power iteration;
+   - attention: ``ht.nn.ring_attention(q, k, v, causal=True)`` on
+     ``ht.random.randn(..., split=2)`` at bench.py's RA rows (4, 8, 4096,
+     64) float32 and bf16 and its RAB row (1, 8, 16384, 128) bf16;
+     ``ht.nn.functional.scaled_dot_product_attention`` on raw float32
+     tensors at RA, not causal; ``ht.nn.MultiheadAttention(1024, 8,
+     causal=True, dtype=bf16)`` on x (1, 16384, 1024), 8 heads of 128.
+     Each call must launch K9 exactly once and agree with the plain route
+     (MultiheadAttention: K9 on its strided heads against the plain
+     version, and its output against that o through out_proj);
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -57,7 +66,20 @@ Phases, each of which fails the run by raising:
    shapes, ragged 1003 x 777, empty brick rows, all-zero and pad bricks,
    an empty matrix and bf16 bricks; K7's library yardstick is PyTorch's
    sparse tensor of the same matrix, and PageRank is timed as its host
-   build and its fixpoint.
+   build and its fixpoint. K9 is held against its plain version (float32
+   |Δo| ≤ 1e-5 max|v|, |Δlse| ≤ 1e-5 (1 + |lse|); bf16 elementwise |Δo| ≤
+   3 · 2^-8 (|o| + the attention of |v|) and |Δlse| ≤ 1e-4 (1 + |lse|)) and
+   against itself on a rerun bit for bit, at RA (f32 causal and not, bf16),
+   RAB, ragged 1000 x 777 keys with D = 72, D_v = 40, ragged causal 1003,
+   causal S_q < S_kv, D = 8, D = 256, S_q = 1, scores scaled by 10 and
+   S_kv = 0 (no launch); its lse through the ring's combine of two halves of
+   K/V; on the strided heads of a packed projection, bit for bit its
+   result on copies; and under autograd (one launch, gradients within 1e-5
+   of the plain version's). Its bound is the operations over 67 TFLOP/s (float32,
+   FP32 kept exact) or 989 TFLOP/s (bf16 tensor cores), or the bytes where
+   larger; its library yardstick is ``scaled_dot_product_attention`` on
+   the same inputs, checked to agree first; the public calls are timed end
+   to end and one MultiheadAttention forward is profiled.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -119,6 +141,22 @@ PR_HEAT_TPU_ITERATIONS = 10  # heat_tpu's count on the CPU (docs/PERF.md:334)
 TOL_SPARSE = 1e-5
 TOL_RANKS = 1e-6  # PageRank against a float64 power iteration, absolute
 
+BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
+RA = (4, 8, 4096, 64)  # bench.py's RA_* rows (B, H, S, D), causal (bench.py:103)
+RAB = (1, 8, 16384, 128)  # bench.py's RAB_* 16k-token long-context row (bench.py:109)
+MHA_E, MHA_H = 1024, 8  # MultiheadAttention at RAB's attention shape: 8 heads of 128
+# K9 against its plain version. float32: both sides sum float32 terms in
+# other orders over up to 16384 keys, and o is a convex combination of v
+# rows, so |Δo| <= 1e-5 max|v| of the (b, h) slice and |Δlse| <= 1e-5 (1 +
+# |lse|). bfloat16, elementwise: K9 rounds p to bf16 for the second product
+# (|Δ| <= 2^-8 A, A the attention of |v|) and both sides round o to bf16
+# (2^-8 |o| each), so |Δo| <= 3 · 2^-8 (|ro| + A), which also covers the
+# ring's combine of two rounded halves (2 |o| + 3 A); float32 scores and sums
+# add ~1e-4 of that. lse stays float32: 1e-4 (1 + |lse|)
+TOL_ATT_F32 = 1e-5
+TOL_ATT_BF16_O = 3.0
+TOL_ATT_BF16_LSE = 1e-4
+
 
 def _require(ok: bool, what: str) -> None:
     if not ok:
@@ -176,11 +214,13 @@ def build_kernels() -> None:
         log = _build._library_path(name).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59,
-        # K3 k ≤ 8, K4's kernels of both regimes, K7 k = 1 and 4, K8)
+        # K3 k ≤ 8, K4's kernels of both regimes, K7 k = 1 and 4, K8, K9
+        # float32 at D_v = 64 and bf16 at D_v = 64 and 128)
         for i, line in enumerate(lines):
             main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E", "segment_sort_kernel",
                     "tile_hist_kernel", "scan_rows_kernel", "tile_scatter_kernel",
-                    "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel")
+                    "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel",
+                    "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi64E", "attn_bf16_kernelILi128E")
             tags = [tag for tag in main if tag in line]
             if "Compiling entry function" in line and tags:
                 detail = " | ".join(s.split(":", 1)[-1].strip() for s in lines[i + 1 : i + 4])
@@ -1238,6 +1278,341 @@ def sparse_timings(dev, inputs: dict, launches: dict, errs: dict) -> list:
     return rows
 
 
+# --------------------------------------------------------------------- #
+# attention: K9 under ht.nn                                             #
+# --------------------------------------------------------------------- #
+def _qkv(dev, gen, bh, s_q, s_kv, d, d_v, dtype, mult: float = 1.0):
+    import torch
+
+    q = (torch.randn(bh + (s_q, d), device=dev, generator=gen) * mult).to(dtype)
+    k = torch.randn(bh + (s_kv, d), device=dev, generator=gen).to(dtype)
+    v = torch.randn(bh + (s_kv, d_v), device=dev, generator=gen).to(dtype)
+    return q, k, v
+
+
+def _o_limit(ka, q, k, v, causal, ro):
+    """The elementwise limit of |o - ro| for K9's o (TOL_ATT_*): float32
+    1e-5 max|v| of each (batch, head) slice; bfloat16 3 · 2^-8 (|ro| + A),
+    A the float32 attention of |v| on the same q and k."""
+    import torch
+
+    if q.dtype != torch.bfloat16:
+        return TOL_ATT_F32 * v.float().abs().amax(dim=(-2, -1), keepdim=True)
+    a, _ = ka.flash_attention_plain(q.float(), k.float(), v.float().abs(), causal)
+    return TOL_ATT_BF16_O * 2.0**-8 * (ro.float().abs() + a)
+
+
+def _o_errors(ka, o, ro, q, k, v, causal):
+    """(max |o - ro| / its limit, max |o - ro|); the first must be <= 1."""
+    if not o.numel():
+        return 0.0, 0.0
+    diff = (o.float() - ro.float()).abs()
+    return float((diff / _o_limit(ka, q, k, v, causal, ro).clamp_min(1e-30)).max()), float(diff.max())
+
+
+def _o_tol_text(dtype) -> str:
+    import torch
+
+    return f"{TOL_ATT_BF16_O:g} · 2^-8 (|ro| + A)" if dtype == torch.bfloat16 else f"{TOL_ATT_F32:g} max|v|"
+
+
+def _att_errors(ka, o, lse, ro, rl, q, k, v, causal):
+    """o's error as a share of its limit, max |Δo|, and max |Δlse| / (1 +
+    |lse|), the -inf rows required to agree exactly."""
+    import torch
+
+    eo, abs_o = _o_errors(ka, o, ro, q, k, v, causal)
+    dead, rdead = torch.isneginf(lse), torch.isneginf(rl)
+    _require(torch.equal(dead, rdead), "K9 and its plain version disagree on the rows without keys")
+    live = ~dead
+    el = float(((lse - rl).abs() / (1 + rl.abs()))[live].max()) if bool(live.any()) else 0.0
+    return eo, abs_o, el
+
+
+def _lse_tol(dtype) -> float:
+    import torch
+
+    return TOL_ATT_BF16_LSE if dtype == torch.bfloat16 else TOL_ATT_F32
+
+
+def _k9_case(ka, label, q, k, v, causal) -> float:
+    """K9 against its plain version and against itself on a rerun; returns
+    the largest absolute error of o."""
+    import torch
+
+    launches = ka.ATTENTION_LAUNCHES
+    o, lse = ka.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    _require(ka.ATTENTION_LAUNCHES == launches + 1, f"K9 ({label}) did not launch once")
+    ro, rl = ka.flash_attention_plain(q, k, v, causal)
+    eo, abs_o, el = _att_errors(ka, o, lse, ro, rl, q, k, v, causal)
+    tol_l = _lse_tol(q.dtype)
+    o2, l2 = ka.flash_attention(q, k, v, causal)
+    rerun = bool(torch.equal(o, o2) and torch.equal(lse, l2))
+    print(
+        f"K9 ({label}, {tuple(q.shape)} x {tuple(v.shape)}, {str(q.dtype)[6:]}, causal={causal}): max |Δo| "
+        f"{abs_o:.3e}, {eo:.3f} of its limit {_o_tol_text(q.dtype)}; lse err {el:.3e} of 1+|lse| (tol {tol_l}); "
+        f"rerun identical {rerun}",
+        flush=True,
+    )
+    _require(eo <= 1 and el <= tol_l and rerun, f"K9 disagrees with its plain version or itself ({label})")
+    return abs_o
+
+
+def check_attention(dev) -> dict:
+    """K9 against its plain version at the main path's shapes and at ragged
+    and boundary ones; the lse residual through the ring's combine; a
+    strided read of a packed projection. Returns the main shapes' errors."""
+    import torch
+
+    from heat_tpu_torch.kernels import attention as ka
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+    b, h, s, d = RA
+    for dtype, causal, key in ((f32, True, "ra_f32_causal"), (f32, False, "ra_f32"), (bf16, True, "ra_bf16_causal")):
+        errs[key] = _k9_case(ka, key, *_qkv(dev, gen, (b, h), s, s, d, d, dtype), causal)
+    b, h, s, d = RAB
+    errs["rab_bf16_causal"] = _k9_case(ka, "rab_bf16_causal", *_qkv(dev, gen, (b, h), s, s, d, d, bf16), True)
+    for dtype in (f32, bf16):
+        _k9_case(ka, "ragged", *_qkv(dev, gen, (6,), 1000, 777, 72, 40, dtype), False)
+        _k9_case(ka, "ragged causal", *_qkv(dev, gen, (2, 3), 1003, 1003, 64, 64, dtype), True)
+        _k9_case(ka, "causal, S_q < S_kv", *_qkv(dev, gen, (4,), 300, 1003, 64, 64, dtype), True)
+        _k9_case(ka, "D = 8", *_qkv(dev, gen, (2, 4), 64, 64, 8, 8, dtype), True)
+        _k9_case(ka, "D = 256", *_qkv(dev, gen, (2, 2), 1000, 1000, 256, 256, dtype), True)
+        _k9_case(ka, "D = 256, D_v = 64", *_qkv(dev, gen, (2,), 500, 700, 256, 64, dtype), False)
+        _k9_case(ka, "S_q = 1", *_qkv(dev, gen, (4, 8), 1, 4096, 64, 64, dtype), False)
+        _k9_case(ka, "scores x10", *_qkv(dev, gen, (2, 8), 2048, 2048, 64, 64, dtype, mult=10.0), True)
+        # S_kv = 0: zeros and -inf, no launch
+        q, k, v = _qkv(dev, gen, (2,), 5, 0, 16, 8, dtype)
+        launches = ka.ATTENTION_LAUNCHES
+        o, lse = ka.flash_attention(q, k, v, True)
+        _require(ka.ATTENTION_LAUNCHES == launches and not o.any() and bool(torch.isneginf(lse).all()),
+                 "S_kv = 0 launched or gave more than zeros and -inf")
+
+        # the lse residual: K9 on the two halves of K/V, combined as the ring
+        # combines its steps, against K9 on the whole
+        b, h, s, d = RA
+        q, k, v = _qkv(dev, gen, (b, h), s, s, d, d, dtype)
+        half = s // 2
+        o1, l1 = ka.flash_attention(q, k[..., :half, :], v[..., :half, :])
+        o2, l2 = ka.flash_attention(q, k[..., half:, :], v[..., half:, :])
+        o, lse = ka.combine_partials(o1, l1, o2, l2)
+        ro, rl = ka.flash_attention(q, k, v)
+        eo, abs_o, el = _att_errors(ka, o, lse, ro, rl, q, k, v, False)
+        tol_l = _lse_tol(dtype)
+        print(f"K9 lse identity ({str(dtype)[6:]}, two halves of {s} keys combined vs whole): max |Δo| "
+              f"{abs_o:.3e}, {eo:.3f} of its limit {_o_tol_text(dtype)}; lse err {el:.3e} (tol {tol_l})", flush=True)
+        _require(eo <= 1 and el <= tol_l, "K9's lse residual does not combine into the whole")
+
+        # the heads of a packed projection, read in place: the same bits as
+        # K9 on contiguous copies
+        qkv = torch.randn(2, 300, 3, 4, 32, device=dev, generator=gen).to(dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        o, lse = ka.flash_attention(q, k, v, True)
+        oc, lc = ka.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), True)
+        _require(torch.equal(o, oc) and torch.equal(lse, lc), "K9 on strided views differs from K9 on copies")
+
+    # under autograd the public route launches K9 and differentiates the
+    # plain version in the backward
+    from heat_tpu_torch.nn.attention import _single_device_attention
+
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, gen, (2, 4), 300, 300, 32, 32, f32))
+    launches = ka.ATTENTION_LAUNCHES
+    grads = torch.autograd.grad(_single_device_attention(q, k, v, True).square().sum(), (q, k, v))
+    ref = torch.autograd.grad(ka.flash_attention_plain(q, k, v, True)[0].square().sum(), (q, k, v))
+    gerr = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(grads, ref))
+    print(f"K9 under autograd: {ka.ATTENTION_LAUNCHES - launches} launch, gradients within {gerr:.2e} of the "
+          f"plain version's (relative to their largest element; tol {TOL_ATT_F32})", flush=True)
+    _require(ka.ATTENTION_LAUNCHES == launches + 1 and gerr <= TOL_ATT_F32, "K9's autograd route")
+    del q, k, v, o, lse, grads, ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+def attention_path(dev):
+    """The attention path through its public entry points at full size;
+    returns K9's launch count of each call and the largest |Δo| of K9 on
+    MultiheadAttention's heads."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.kernels import attention as ka
+
+    launches = {}
+
+    def run(label: str, call):
+        ka.ATTENTION_LAUNCHES = 0
+        out = call()
+        torch.cuda.synchronize()
+        launches[label] = ka.ATTENTION_LAUNCHES
+        _require(launches[label] == 1, f"{label} launched K9 {launches[label]} times, not once")
+        return out
+
+    def check(label, out, q, k, v, causal):
+        ro, _ = ka.flash_attention_plain(q, k, v, causal)
+        _require(out.shape == ro.shape and out.dtype == ro.dtype and bool(torch.isfinite(out).all()),
+                 f"{label}: shape, dtype or values")
+        err, abs_o = _o_errors(ka, out, ro, q, k, v, causal)
+        print(f"{label}: {tuple(out.shape)} {str(out.dtype)[6:]}, K9 launches {launches[label]}, max |Δo| "
+              f"{abs_o:.3e} against the plain route, {err:.3f} of its limit {_o_tol_text(q.dtype)}", flush=True)
+        _require(err <= 1, f"{label} disagrees with the plain route")
+        return abs_o
+
+    ht.random.seed(5)
+    for (b, h, s, d), dtype, label in ((RA, ht.float32, "ring_attention_ra_f32"),
+                                       (RA, ht.bfloat16, "ring_attention_ra_bf16"),
+                                       (RAB, ht.bfloat16, "ring_attention_rab_bf16")):
+        q, k, v = (ht.random.randn(b, h, s, d, dtype=dtype, split=2) for _ in range(3))
+        _require(q.larray.device == dev and q.split == 2, "q is not a split-2 array on the card")
+        out = run(label, lambda: ht.nn.ring_attention(q, k, v, causal=True))
+        _require(out.split == 2 and out.dtype is dtype and out.gshape == (b, h, s, d), f"{label}: result metadata")
+        check(label, out.larray, q.larray, k.larray, v.larray, True)
+    del q, k, v, out
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    b, h, s, d = RA
+    q, k, v = _qkv(dev, gen, (b, h), s, s, d, d, torch.float32)
+    out = run("sdpa_ra_f32", lambda: ht.nn.functional.scaled_dot_product_attention(q, k, v))
+    check("sdpa_ra_f32", out, q, k, v, False)
+    del q, k, v, out
+
+    mha, x = _mha_inputs(dev, ht)
+    with torch.inference_mode():
+        out = run("mha_1024", lambda: mha(x))
+        # K9 on the module's strided heads of its packed projection, held
+        # against the plain version elementwise; then the module's output
+        # against that o through out_proj, the same ops on the same inputs
+        # (at most one bf16 rounding apart, of the product and of the sum)
+        q, k, v = _mha_heads(mha, x)
+        o, _ = ka.flash_attention(q, k, v, True)
+        mha_err = check("mha_1024", o, q, k, v, True)
+        y = o.transpose(1, 2).reshape(x.shape) @ mha.out_proj
+        ref = y + mha.out_bias
+        bound = 2.0**-7 * (y.float().abs() + ref.float().abs())
+        ok = bool(((out.float() - ref.float()).abs() <= bound).all()) and bool(torch.isfinite(out).all())
+    print(f"MultiheadAttention({MHA_E}, {MHA_H}, causal, bf16) on {tuple(x.shape)}: {tuple(out.shape)}, "
+          f"K9 launches {launches['mha_1024']}, equal to K9's o through out_proj within one bf16 rounding: {ok}",
+          flush=True)
+    _require(ok and out.shape == x.shape, "MultiheadAttention is not K9's attention through its projections")
+    del out, ref, y, o, q, k, v
+    torch.cuda.empty_cache()
+    return launches, mha_err
+
+
+def _mha_inputs(dev, ht):
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    mha = ht.nn.MultiheadAttention(MHA_E, MHA_H, causal=True, dtype=ht.bfloat16, generator=gen)
+    with torch.no_grad():  # non-zero biases, so that they are exercised
+        mha.in_bias.uniform_(-0.1, 0.1, generator=gen)
+        mha.out_bias.uniform_(-0.1, 0.1, generator=gen)
+    x = torch.randn(1, RAB[2], MHA_E, device=dev, generator=gen).to(torch.bfloat16)
+    return mha, x
+
+
+def _mha_heads(mha, x):
+    """q, k and v of ``MultiheadAttention.forward``: (B, H, S, D) strided
+    views of its packed projection."""
+    b, s, e = x.shape
+    qkv = (x @ mha.in_proj + mha.in_bias).reshape(b, s, 3, mha.num_heads, mha.head_dim)
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def _k9_row(name, q, k, v, causal, launches, err):
+    """K9 beside its bound, its plain version and the library call on the
+    same inputs (whose agreement is checked first)."""
+    import torch
+
+    from heat_tpu_torch.kernels import attention as ka
+
+    *lead, s_q, d = q.shape
+    s_kv, d_v = k.shape[-2], v.shape[-1]
+    bh = math.prod(lead)
+    scale = 1.0 / math.sqrt(d)
+    ms = _median_ms(lambda: ka.flash_attention(q, k, v, causal), 10)
+    plain_ms = _median_ms(lambda: ka.flash_attention_plain(q, k, v, causal), 3)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale)
+    o, _ = ka.flash_attention(q, k, v, causal)
+    # both against the exact result: twice K9's float32 limit; in bfloat16
+    # each is within 2^-8 (|o| + A), inside the limit with o for ro
+    lib_err, lib_abs = _o_errors(ka, lib(), o, q, k, v, causal)
+    lim = lib_err / 2 if q.dtype == torch.float32 else lib_err
+    _require(lim <= 1, f"scaled_dot_product_attention does not compute K9's function ({name}: {lib_abs:.3e})")
+    del o
+    library_ms = _median_ms(lib, 10)
+    pairs = sum(min(i + 1, s_kv) for i in range(s_q)) if causal else s_q * s_kv
+    flops = 2.0 * (d + d_v) * bh * pairs
+    es = q.element_size()
+    nbytes = es * bh * (s_q * d + s_kv * (d + d_v) + s_q * d_v) + 4 * bh * s_q
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    print(
+        f"{name} (K9, {tuple(q.shape)}, {str(q.dtype)[6:]}, causal={causal}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms (agrees to {lib_abs:.2e}, {lim:.3f} of its limit), bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s, "
+        f"{nbytes / 1e6:.1f} MB; {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s achieved)", flush=True,
+    )
+    return {
+        "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/attention.cu",
+        "replaces": "heat_tpu/nn/attention.py:637, :537", "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def attention_timings(dev, launches: dict, errs: dict, mha_err: float) -> list:
+    """K9 at the main path's shapes beside bound, plain version and
+    library call; the public calls end to end; a profile of one
+    MultiheadAttention forward. Returns the kernel rows."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    rows = []
+    b, h, s, d = RA
+    for dtype, causal, key, path in ((torch.float32, True, "ra_f32_causal", "ring_attention_ra_f32"),
+                                     (torch.float32, False, "ra_f32", "sdpa_ra_f32"),
+                                     (torch.bfloat16, True, "ra_bf16_causal", "ring_attention_ra_bf16")):
+        q, k, v = _qkv(dev, gen, (b, h), s, s, d, d, dtype)
+        rows.append(_k9_row(f"flash_attention_{key}", q, k, v, causal, launches[path], errs[key]))
+    b, h, s, d = RAB
+    q, k, v = _qkv(dev, gen, (b, h), s, s, d, d, torch.bfloat16)
+    rows.append(_k9_row("flash_attention_rab_bf16_causal", q, k, v, True, launches["ring_attention_rab_bf16"],
+                        errs["rab_bf16_causal"]))
+    del q, k, v
+
+    ht.random.seed(6)
+    for (b, h, s, d), dtype, label in ((RA, ht.float32, "RA f32"), (RA, ht.bfloat16, "RA bf16"),
+                                       (RAB, ht.bfloat16, "RAB bf16")):
+        q, k, v = (ht.random.randn(b, h, s, d, dtype=dtype, split=2) for _ in range(3))
+        call_ms = _median_ms(lambda: ht.nn.ring_attention(q, k, v, causal=True), 10)
+        print(f"ring_attention {label} causal {tuple(q.shape)}: {call_ms:.4f} ms a call (CUDA events, median of 10)",
+              flush=True)
+    del q, k, v
+
+    mha, x = _mha_inputs(dev, ht)
+    with torch.inference_mode():
+        fwd_ms = _median_ms(lambda: mha(x), 10)
+        q, k, v = _mha_heads(mha, x)
+        row = _k9_row("flash_attention_mha_1024", q, k, v, True, launches["mha_1024"], mha_err)
+        proj_flops = 2.0 * RAB[2] * MHA_E * 4 * MHA_E
+        print(f"MultiheadAttention({MHA_E}, {MHA_H}, causal, bf16) forward on {tuple(x.shape)}: {fwd_ms:.4f} ms "
+              f"(CUDA events, median of 10); projections {proj_flops / 1e9:.1f} GFLOP, bound "
+              f"{proj_flops / BF16_FLOP_PER_S * 1e3:.4f} ms", flush=True)
+        rows.append(row)
+        del q, k, v
+        profile_breakdown(f"MultiheadAttention({MHA_E}, {MHA_H}) forward {tuple(x.shape)} bf16", lambda: mha(x))
+    return rows
+
+
 def profile_breakdown(label: str, call) -> None:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
@@ -1280,14 +1655,17 @@ def main() -> int:
     sort_errs = check_sort(dev)
     inputs = sparse_inputs()
     spmm_errs = check_spmm(dev, inputs)
+    att_errs = check_attention(dev)
     launches = main_path(dev)
     assign_launches = kmeans_path(dev)
     sort_launches = sort_path(dev)
     sparse_launches = sparse_path(dev, inputs)
+    att_launches, mha_err = attention_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
     rows.extend(sort_timings(dev, sort_launches, sort_errs))
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
+    rows.extend(attention_timings(dev, att_launches, att_errs, mha_err))
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

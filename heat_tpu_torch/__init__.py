@@ -12,14 +12,19 @@ It keeps heat_tpu's layout and public names, so that
     S = ht.sparse.sparse_dbcsr_matrix(scipy_matrix, split=0)
     y = S @ x
     ranks = ht.graph.pagerank(adjacency).ranks
+    q = ht.random.randn(1, 8, 16384, 128, dtype=ht.bfloat16, split=2)
+    out = ht.nn.ring_attention(q, q, q, causal=True)
+    mha = ht.nn.MultiheadAttention(1024, 8, causal=True, generator=torch.Generator().manual_seed(0))
 
 Arrays live on the GPU unless the caller asks for the CPU
 (``ht.use_device("cpu")`` or ``device="cpu"``); without CUDA, creation on
 the GPU raises. Hand-written CUDA kernels for Hopper (``csrc/``) carry the
 streaming reads of the hSVD, the assignment pass of KMeans, the radix
 sort under ``ht.sort``, ``ht.unique`` and ``ht.topk``, and the brick SpMM
-and SDDMM of the sparse engine under ``ht.sparse`` and ``ht.graph``; they
-are compiled at first use.
+and SDDMM of the sparse engine under ``ht.sparse`` and ``ht.graph``, and the
+flash-attention forward K9 under ``ht.nn.ring_attention``,
+``ht.nn.functional.scaled_dot_product_attention`` and
+``ht.nn.MultiheadAttention``; they are compiled at first use.
 """
 
 from .core import *
@@ -29,6 +34,7 @@ from . import core
 from . import cluster
 from . import graph
 from . import kernels
+from . import nn
 from . import sparse
 from . import spatial
 from . import utils

@@ -9,7 +9,7 @@ geometry is that of ``heat_tpu`` (ceil-division blocks, short or empty
 tail), so it can be held against ``heat_tpu`` for any world size.
 
 A process whose ``torch.distributed`` world has more than one rank gets a
-``NotImplementedError``: multi-rank execution is ROADMAP.md Queue 1, item 1.
+``NotImplementedError``: multi-rank execution is ROADMAP.md Queue 1, item 5.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def _world_size() -> int:
             raise NotImplementedError(
                 f"heat_tpu_torch runs at world size 1 so far; this process is one of "
                 f"{size} torch.distributed ranks. Multi-rank execution (the distributed "
-                "hsvd branch) is ROADMAP.md Queue 1, item 1."
+                "hsvd branch) is ROADMAP.md Queue 1, item 5."
             )
     return 1
 

@@ -17,6 +17,10 @@ A sparse matrix carries across as its components: a DCSR matrix as its
 CSR arrays (``dcsr_from_numpy``), a DBCSR matrix as its physical brick
 slabs (``dbcsr_from_numpy``), which are reassembled from ``heat_tpu``'s
 per-device slabs into the one slab of world size 1.
+
+A module of ``ht.nn`` takes a ``heat_tpu`` parameter dict (the result of
+``init``, taken as numpy) with ``nn_params_from_numpy``: the port's modules
+carry the same parameter names and layouts.
 """
 
 from __future__ import annotations
@@ -29,7 +33,13 @@ import torch
 from .dndarray import DNDarray
 from .factories import array
 
-__all__ = ["dbcsr_from_numpy", "dcsr_from_numpy", "from_numpy_state", "kcluster_from_numpy"]
+__all__ = [
+    "dbcsr_from_numpy",
+    "dcsr_from_numpy",
+    "from_numpy_state",
+    "kcluster_from_numpy",
+    "nn_params_from_numpy",
+]
 
 
 def from_numpy_state(
@@ -120,3 +130,24 @@ def dbcsr_from_numpy(components: Mapping[str, object], device=None):
         bdata, bcol, brow, int(components["gnnz"]), tuple(components["gshape"]),
         types.canonical_heat_type(components["dtype"]), split, sanitize_device(device), sanitize_comm(None),
     )
+
+
+def nn_params_from_numpy(module: torch.nn.Module, params: Mapping[str, object]) -> torch.nn.Module:
+    """Load a ``heat_tpu`` parameter dict (``init``'s result, each value
+    taken as numpy; bfloat16 may come as float32) into ``module``, an
+    ``ht.nn`` module with the same parameter names and shapes. Each value
+    takes the parameter's dtype and device. The dict must name exactly the
+    module's parameters. Returns the module."""
+    own = dict(module.named_parameters())
+    if set(own) != set(params):
+        raise KeyError(f"parameters {sorted(params)} do not match the module's {sorted(own)}")
+    with torch.no_grad():
+        for name, value in params.items():
+            value = np.asarray(value)
+            if value.dtype.name == "bfloat16":  # numpy holds it only through an extension type
+                value = value.astype(np.float32)
+            p = own[name]
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{name} has shape {value.shape}, the module's {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(value, order="C")).to(device=p.device, dtype=p.dtype))
+    return module

@@ -4,10 +4,18 @@ support for the port's CUDA sources (``csrc/``).
 ``sort`` holds the local sort engine under ``ht.sort``, ``ht.unique`` and
 ``ht.topk`` with its radix pair-sort kernel K4 (``csrc/radix_sort.cu``).
 ``spmm`` holds the brick engine of the DBCSR format with its SpMM kernel K7
-and SDDMM kernel K8 (``csrc/spmm.cu``).
+and SDDMM kernel K8 (``csrc/spmm.cu``). ``attention`` holds exact softmax
+attention with its flash-attention forward kernel K9 (``csrc/attention.cu``)
+under ``ht.nn``. The launch counts stay on their modules (for example
+``attention.ATTENTION_LAUNCHES``): a name imported here would not follow them.
 """
 
-from . import sort, spmm
+from . import attention, sort, spmm
+from .attention import (
+    attention_serviceable,
+    flash_attention,
+    flash_attention_plain,
+)
 from .sort import (
     from_sortable,
     local_sort,
@@ -23,6 +31,7 @@ from .spmm import (
 )
 
 __all__ = [
+    "attention",
     "sort",
     "spmm",
     "from_sortable",
@@ -34,4 +43,7 @@ __all__ = [
     "brick_spmm",
     "sddmm_serviceable",
     "spmm_serviceable",
+    "attention_serviceable",
+    "flash_attention",
+    "flash_attention_plain",
 ]
