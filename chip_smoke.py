@@ -54,6 +54,18 @@ Phases, each of which fails the run by raising:
      Each call must launch K9 exactly once and agree with the plain route
      (MultiheadAttention: K9 on its strided heads against the plain
      version, and its output against that o through out_proj);
+   - relayout: the packed pivot of bench.py's 1 GB reshape row, (1000,
+     250000) float32 split 1 -> (10,000,000, 25) new_split=1 and back,
+     planned by the port's planner as heat_tpu plans them at 8 ranks
+     (packed-pivot, 9 all-to-alls each), with the executor's per-rank
+     bodies of all 8 ranks run in this one process (8 ranks emulated; the
+     exchange is a device copy, not NCCL, so the wall time is not a
+     distributed timing). Both moves must equal torch.reshape bit for bit,
+     issue the plan's collectives, and launch K5 8 times (forward) and K6 8
+     times (reverse). Then world size 1 through the public entry points:
+     ht.arange(2**27, split=0).sum() equal to its closed form in int64,
+     and resplit and reshape(new_split=) of the 1 GB array against
+     torch.reshape;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -79,7 +91,15 @@ Phases, each of which fails the run by raising:
    FP32 kept exact) or 989 TFLOP/s (bf16 tensor cores), or the bytes where
    larger; its library yardstick is ``scaled_dot_product_attention`` on
    the same inputs, checked to agree first; the public calls are timed end
-   to end and one MultiheadAttention forward is profiled.
+   to end and one MultiheadAttention forward is profiled. K5 and K6 are held
+   against their plain versions bit for bit (raw words) at the per-rank
+   shapes of the 1 GB move over 8 ranks and of (2048, 64) <-> (8192, 16)
+   over 4, ragged and degenerate shapes (no rows, p = 1, c_in = c_out),
+   64-bit offsets, bool, int8, bf16, float32, float64, complex64 and
+   complex128, and float32 NaN payloads and -0.0; their bound is the bytes
+   read and written over 3.35 TB/s, and a clone() of the 160 MB buffer
+   stands beside them as the card's copy rate (no single PyTorch call pads
+   and block-transposes).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -157,6 +177,11 @@ TOL_ATT_F32 = 1e-5
 TOL_ATT_BF16_O = 3.0
 TOL_ATT_BF16_LSE = 1e-4
 
+# K5/K6 move bytes and must equal their plain versions bit for bit
+RESHAPE_1GB = ((1000, 250000), (10_000_000, 25))  # bench.py's reshape_split1_1gb row
+RELAYOUT_P8 = (1_250_000, 25, 32, 8)  # K5's per-rank (rows, c_in, c_out, p) of that move over 8 ranks
+RELAYOUT_WIDE = (67_108_865, 31, 32, 8)  # rows x 32 > 2^31: the kernels' 64-bit index path
+
 
 def _require(ok: bool, what: str) -> None:
     if not ok:
@@ -215,12 +240,14 @@ def build_kernels() -> None:
         lines = log.read_text().splitlines() if log.exists() else []
         # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59,
         # K3 k ≤ 8, K4's kernels of both regimes, K7 k = 1 and 4, K8, K9
-        # float32 at D_v = 64 and bf16 at D_v = 64 and 128)
+        # float32 at D_v = 64 and bf16 at D_v = 64 and 128, K5/K6 on 4-byte
+        # words with 32-bit offsets)
         for i, line in enumerate(lines):
             main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E", "segment_sort_kernel",
                     "tile_hist_kernel", "scan_rows_kernel", "tile_scatter_kernel",
                     "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel",
-                    "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi64E", "attn_bf16_kernelILi128E")
+                    "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi64E", "attn_bf16_kernelILi128E",
+                    "11pack_kernelIjjE", "13unpack_kernelIjjE")
             tags = [tag for tag in main if tag in line]
             if "Compiling entry function" in line and tags:
                 detail = " | ".join(s.split(":", 1)[-1].strip() for s in lines[i + 1 : i + 4])
@@ -1613,6 +1640,187 @@ def attention_timings(dev, launches: dict, errs: dict, mha_err: float) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# relayout: K5 (pack) and K6 (unpack) of the packed pivot
+# ---------------------------------------------------------------------------
+def _raw(t):
+    """The raw words of ``t`` as an integer tensor: equality of these is
+    equality bit for bit (NaN payloads and -0.0 included)."""
+    import torch
+
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64, 16: torch.int64}
+    return t.contiguous().reshape(-1).view(words[t.element_size()])
+
+
+def _random_of(gen, n: int, dtype, dev):
+    """n elements of ``dtype`` with random raw words (random 0/1 for bool)."""
+    import torch
+
+    if dtype == torch.bool:
+        return torch.randint(0, 2, (n,), generator=gen, device=dev, dtype=torch.uint8).bool()
+    es = torch.empty(0, dtype=dtype).element_size()
+    return torch.randint(0, 256, (n * es,), generator=gen, device=dev, dtype=torch.uint8).view(dtype)
+
+
+def _k56_case(kr, label: str, x, rows: int, c_in: int, c_out: int, p: int) -> None:
+    """K5 on x, then K6 on K5's output, each against its plain version bit
+    for bit, each launching once (none when there are no rows)."""
+    import torch
+
+    before = kr.PACK_LAUNCHES, kr.UNPACK_LAUNCHES
+    packed = kr.pack_rows(x, rows, c_in, c_out, p)
+    back = kr.unpack_rows(packed, rows, c_out, c_in, p)
+    torch.cuda.synchronize()
+    want = kr.pack_rows_plain(x, rows, c_in, c_out, p)
+    ok = torch.equal(_raw(packed), _raw(want)) and torch.equal(_raw(back), _raw(kr.unpack_rows_plain(want, rows, c_out, c_in, p)))
+    ok = ok and torch.equal(_raw(back), _raw(x))
+    launched = int(rows > 0)
+    counted = (kr.PACK_LAUNCHES - before[0], kr.UNPACK_LAUNCHES - before[1]) == (launched, launched)
+    print(f"K5/K6 {label} ({rows} rows, {c_in} <-> {c_out} over p={p}, {str(x.dtype)[6:]}): "
+          f"{'equal bit for bit' if ok else 'DIFFER'}, launches {'as expected' if counted else 'WRONG'}", flush=True)
+    _require(ok, f"K5/K6 differ from their plain versions at {label}")
+    _require(counted, f"K5/K6 launch counts at {label}")
+
+
+def check_relayout(dev) -> dict:
+    """K5 and K6 against their plain versions bit for bit at the executor's
+    per-rank shapes (the 1 GB move over 8 ranks, (2048, 64) <-> (8192, 16)
+    over 4), ragged and degenerate shapes, a 64-bit index case, six dtypes
+    and special float32 bits; returns the main shape's errors."""
+    import torch
+
+    from heat_tpu_torch.kernels import relayout as kr
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+    rows, c_in, c_out, p = RELAYOUT_P8
+    x = torch.randn(rows * c_in, device=dev, generator=gen)
+    _k56_case(kr, "the 1 GB move's per-rank shape at p = 8", x, rows, c_in, c_out, p)
+    packed = kr.pack_rows(x, rows, c_in, c_out, p)
+    errs = {"relayout_pack": float((packed - kr.pack_rows_plain(x, rows, c_in, c_out, p)).abs().max())}
+    errs["relayout_unpack"] = float((kr.unpack_rows(packed, rows, c_out, c_in, p) - x).abs().max())
+    del x, packed
+    for shape in ((2048, 16, 16, 4), (512, 64, 64, 4)):
+        _k56_case(kr, "(2048, 64) <-> (8192, 16) per rank at p = 4", torch.randn(shape[0] * shape[1], device=dev,
+                  generator=gen), *shape)
+    for dtype in (torch.bool, torch.int8, torch.bfloat16, torch.float32, torch.float64, torch.complex64):
+        for shape in ((1003, 777, 784, 8), (7, 13, 15, 5), (1, 25, 32, 8), (5, 7, 7, 1), (6, 1, 8, 8), (0, 25, 32, 8)):
+            _k56_case(kr, "ragged/degenerate", _random_of(gen, shape[0] * shape[1], dtype, dev), *shape)
+    _k56_case(kr, "16-byte words", _random_of(gen, 64 * 13, torch.complex128, dev), 64, 13, 16, 4)
+    specials = torch.tensor([float("nan"), -0.0, float("inf"), -float("inf"), 0.0, 1e-40, -1.5, 3.0] * 100, device=dev)
+    words = specials.view(torch.int32)
+    words[::8] = 0x7FC12345  # a quiet NaN with a payload
+    words[5::8] = 0xFFC00001 - (1 << 32)  # a NaN with its sign bit set
+    words[7::8] = 0x7F800001  # a signalling NaN
+    _k56_case(kr, "NaN payloads and -0.0", specials, 32, 25, 32, 8)
+    big = RELAYOUT_WIDE
+    _k56_case(kr, "64-bit offsets (rows x c_out > 2^31)", _random_of(gen, big[0] * big[1], torch.bool, dev), *big)
+    return errs
+
+
+def relayout_path(dev) -> dict:
+    """The slice's main path. On the card, 8 ranks of the packed pivot run
+    in one process (``LocalWorld``: the exchange is a device copy, not
+    NCCL): the 1 GB move (1000, 250000) split 1 -> (10,000,000, 25)
+    new_split=1 and back, planned by the port's planner as heat_tpu plans
+    them (packed-pivot, 9 all-to-alls each). Then the world-size-1 entry
+    points. Returns K5's launches on the forward move and K6's on the
+    reverse."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.kernels import relayout as kr
+    from heat_tpu_torch.redistribution import executor, planner
+
+    print("packed pivot: 8 ranks emulated in one process; exchange is a device copy, not NCCL", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    x = torch.randn(*RESHAPE_1GB[0], device=dev, generator=gen)
+    p = 8
+    world = executor.LocalWorld(p)
+    launches = {}
+    shards = list(x.chunk(p, dim=1))
+    for name, want in (("reshape_split1_1gb_p8", x.reshape(RESHAPE_1GB[1])), ("reshape_packed_rev_p8", x)):
+        spec = dict(planner.golden_specs())[name]
+        sched = planner.plan(spec)
+        _require((sched.strategy, sched.collective_counts()) == ("packed-pivot", {"all-to-all": 9}),
+                 f"{name} plans {sched.strategy} {sched.collective_counts()}, not packed-pivot with 9 all-to-alls")
+        body = executor.program(spec, sched)
+        shards = [s.contiguous() for s in shards]
+        torch.cuda.synchronize()
+        kr.PACK_LAUNCHES = kr.UNPACK_LAUNCHES = 0
+        t0 = time.perf_counter()
+        shards = world.run(body, shards)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches[name] = (kr.PACK_LAUNCHES, kr.UNPACK_LAUNCHES)
+        whole = torch.cat(shards, dim=1)
+        ok = torch.equal(_raw(whole), _raw(want))
+        print(f"{name} {spec!r}: K5 launches {launches[name][0]}, K6 launches {launches[name][1]}, "
+              f"all-to-alls per rank {world.counts[0]}, {'equal to torch.reshape' if ok else 'DIFFERS'} bit for bit; "
+              f"{wall:.1f} ms wall for all 8 emulated ranks (not a distributed timing)", flush=True)
+        _require(ok, f"{name}: the emulated ranks' result differs from torch.reshape")
+        _require(all(c == sched.collective_counts() for c in world.counts), f"{name}: collectives differ from the plan")
+    _require(launches["reshape_split1_1gb_p8"] == (8, 0), "the forward move must launch K5 once a rank and K6 never")
+    _require(launches["reshape_packed_rev_p8"] == (0, 8), "the reverse move must launch K6 once a rank and K5 never")
+    del shards, whole
+
+    # world size 1 through the public entry points
+    n = 2**27
+    s = ht.arange(n, split=0).sum()
+    _require(s.dtype is ht.int64 and s.item() == n * (n - 1) // 2,
+             f"ht.arange(2**27, split=0).sum() gave {s.item()} ({s.dtype.__name__}), not {n * (n - 1) // 2} (int64)")
+    A = ht.array(x, split=1)
+    B = A.resplit(0)
+    C = ht.reshape(A, RESHAPE_1GB[1], new_split=1)
+    plan = ht.redistribution.explain(A, reshape=RESHAPE_1GB[1], new_split=1)
+    ok = torch.equal(B.larray, x) and B.split == 0 and torch.equal(C.larray, x.reshape(RESHAPE_1GB[1])) and C.split == 1
+    print(f"world size 1: ht.arange(2**27, split=0).sum() = {s.item()} (int64); resplit(0) and "
+          f"reshape({RESHAPE_1GB[1]}, new_split=1) of the 1 GB array: {'equal' if ok else 'DIFFER'} to torch.reshape; "
+          f"plan {plan.strategy}", flush=True)
+    _require(ok and plan.strategy == "local", "world size 1 resplit/reshape")
+    return {"pack": launches["reshape_split1_1gb_p8"][0], "unpack": launches["reshape_packed_rev_p8"][1]}
+
+
+def relayout_timings(dev, launches: dict, errs: dict) -> list:
+    """K5 and K6 at the per-rank shape of the 1 GB move over 8 ranks,
+    beside their bound (bytes read and written over 3.35 TB/s), their plain
+    versions and a clone() of the 160 MB buffer (the card's copy rate);
+    no single PyTorch call pads and block-transposes, so no library row."""
+    import torch
+
+    from heat_tpu_torch.kernels import relayout as kr
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    rows, c_in, c_out, p = RELAYOUT_P8
+    x = torch.randn(rows * c_in, device=dev, generator=gen)
+    packed = kr.pack_rows(x, rows, c_in, c_out, p)
+    nbytes = 4.0 * rows * (c_in + c_out)
+    bound_ms, bound_by = _bound(nbytes, 0.0)
+    clone_ms = _median_ms(lambda: packed.clone(), 20)
+    print(f"copy rate: clone() of the {packed.numel() * 4 / 1e6:.0f} MB packed buffer {clone_ms:.4f} ms "
+          f"({2 * packed.numel() * 4 / (clone_ms * 1e-3) / 1e12:.3f} TB/s read + write)", flush=True)
+    rows_out = []
+    for name, kernel, (c_from, c_to), call, plain, line in (
+        ("relayout_pack", "K5", (c_in, c_out), lambda: kr.pack_rows(x, rows, c_in, c_out, p),
+         lambda: kr.pack_rows_plain(x, rows, c_in, c_out, p), "heat_tpu/kernels/relayout.py:169"),
+        ("relayout_unpack", "K6", (c_out, c_in), lambda: kr.unpack_rows(packed, rows, c_out, c_in, p),
+         lambda: kr.unpack_rows_plain(packed, rows, c_out, c_in, p), "heat_tpu/kernels/relayout.py:194"),
+    ):
+        ms = _median_ms(call, 20)
+        plain_ms = _median_ms(plain, 5)
+        print(f"{name} ({kernel}, {rows} rows, {c_from} -> {c_to} columns over p={p}, float32): {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, clone {clone_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.0f} MB; {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)", flush=True)
+        rows_out.append({
+            "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/relayout.cu", "replaces": line,
+            "launches": launches["pack" if kernel == "K5" else "unpack"], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+    return rows_out
+
+
 def profile_breakdown(label: str, call) -> None:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
@@ -1656,16 +1864,19 @@ def main() -> int:
     inputs = sparse_inputs()
     spmm_errs = check_spmm(dev, inputs)
     att_errs = check_attention(dev)
+    relayout_errs = check_relayout(dev)
     launches = main_path(dev)
     assign_launches = kmeans_path(dev)
     sort_launches = sort_path(dev)
     sparse_launches = sparse_path(dev, inputs)
     att_launches, mha_err = attention_path(dev)
+    relayout_launches = relayout_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
     rows.extend(sort_timings(dev, sort_launches, sort_errs))
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
     rows.extend(attention_timings(dev, att_launches, att_errs, mha_err))
+    rows.extend(relayout_timings(dev, relayout_launches, relayout_errs))
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

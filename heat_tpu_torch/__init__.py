@@ -15,6 +15,8 @@ It keeps heat_tpu's layout and public names, so that
     q = ht.random.randn(1, 8, 16384, 128, dtype=ht.bfloat16, split=2)
     out = ht.nn.ring_attention(q, q, q, causal=True)
     mha = ht.nn.MultiheadAttention(1024, 8, causal=True, generator=torch.Generator().manual_seed(0))
+    total = ht.arange(2**27, split=0).sum()
+    B = ht.reshape(ht.random.randn(1000, 250000, split=1), (10_000_000, 25), new_split=1)
 
 Arrays live on the GPU unless the caller asks for the CPU
 (``ht.use_device("cpu")`` or ``device="cpu"``); without CUDA, creation on
@@ -24,7 +26,14 @@ sort under ``ht.sort``, ``ht.unique`` and ``ht.topk``, and the brick SpMM
 and SDDMM of the sparse engine under ``ht.sparse`` and ``ht.graph``, and the
 flash-attention forward K9 under ``ht.nn.ring_attention``,
 ``ht.nn.functional.scaled_dot_product_attention`` and
-``ht.nn.MultiheadAttention``; they are compiled at first use.
+``ht.nn.MultiheadAttention``, and the pack and unpack copies K5 and K6 of
+the redistribution executor under ``resplit`` and
+``ht.reshape(..., new_split=)``; they are compiled at first use.
+
+A process joins a multi-rank world with ``ht.init_distributed()`` (NCCL on
+cards, one card per rank; gloo on the CPU), for example under
+``torchrun --nproc-per-node=N``; a split array then holds on each rank
+only its shard.
 """
 
 from .core import *
@@ -35,6 +44,7 @@ from . import cluster
 from . import graph
 from . import kernels
 from . import nn
+from . import redistribution
 from . import sparse
 from . import spatial
 from . import utils

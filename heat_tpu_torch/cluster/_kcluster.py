@@ -154,7 +154,14 @@ def _predict(arr: torch.Tensor, centers: torch.Tensor, metric: str, eval_fv: boo
 
 
 def _float_operand(x: DNDarray) -> torch.Tensor:
-    """The operand as a contiguous tensor; integer data become float32."""
+    """The operand as a contiguous tensor; integer data become float32.
+    An operand split across ranks is refused: the fit would run on one
+    shard as if it were the whole array."""
+    if x.is_distributed():
+        raise NotImplementedError(
+            "k-clustering of an array split across ranks (the all-reduce of K3's sums, counts and "
+            "inertia, seeding across ranks): see ROADMAP.md Queue 1, item 3"
+        )
     arr = x.larray
     arr = arr.to(torch.float32) if types.heat_type_is_exact(x.dtype) else arr
     return arr.contiguous()
@@ -247,6 +254,8 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         n, d = x.shape
         arr = _float_operand(x)
         if isinstance(self.init, DNDarray):
+            if self.init.is_distributed():
+                raise NotImplementedError("initial centers split across ranks: see ROADMAP.md Queue 1, item 3")
             if self.init.shape != (k, d):
                 raise ValueError(
                     f"passed centroids need to be of shape ({k}, {d}), got {self.init.shape}"
@@ -254,6 +263,10 @@ class _KCluster(BaseEstimator, ClusteringMixin):
             centers = self.init.larray.to(device=arr.device, dtype=arr.dtype)
         elif isinstance(self.init, str) and self.init == "random":
             # k observations drawn at random from the data
+            if k > n:
+                raise ValueError(
+                    f"init='random' draws n_clusters={k} distinct samples, but the data hold only {n}"
+                )
             idx = self._with_stream(lambda: ht_random.randperm(n, device=x.device).larray[:k])
             centers = arr[idx]
         elif isinstance(self.init, str) and self.init in _SEEDED_INITS:

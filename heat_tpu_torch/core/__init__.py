@@ -1,5 +1,5 @@
 """heat_tpu_torch core: array, type system, devices, communicator,
-factories (port of ``heat_tpu.core``)."""
+factories, reductions (port of ``heat_tpu.core``)."""
 
 from .base import *
 from .communication import *
@@ -9,6 +9,7 @@ from .types import *
 from .dndarray import *
 from .factories import *
 from .manipulations import *
+from .arithmetics import *
 from .sanitation import *
 from .stride_tricks import *
 

@@ -1,28 +1,41 @@
-"""Communicator of heat_tpu_torch, at world size 1.
+"""Communicator of heat_tpu_torch over ``torch.distributed``.
 
-Port of the single-device case of ``heat_tpu.core.communication``
-(``MeshCommunication`` :290; Heat reference: heat/core/communication.py).
-The port runs one process per device over ``torch.distributed``, like the
-MPI ranks of the Heat reference. This slice serves world size 1 only: every
-array lives whole on one device, ``split`` is a label, and the chunk
-geometry is that of ``heat_tpu`` (ceil-division blocks, short or empty
-tail), so it can be held against ``heat_tpu`` for any world size.
+Port of ``heat_tpu.core.communication`` (``MeshCommunication`` :290;
+Heat reference: heat/core/communication.py). ``heat_tpu`` is one
+controller over a mesh of devices; the port runs one process per device,
+like the MPI ranks of the Heat reference. Rank and size come from the
+``torch.distributed`` default group (NCCL on cards, gloo on the CPU); a
+process that never joined one is a world of size 1. ``init_distributed``
+joins it.
 
-A process whose ``torch.distributed`` world has more than one rank gets a
-``NotImplementedError``: multi-rank execution is ROADMAP.md Queue 1, item 5.
+The chunk geometry is ``heat_tpu``'s for every world size: ceil-division
+blocks along the split axis with a short or empty tail, so rank r holds
+exactly the shard that ``heat_tpu`` places on device r.
+
+The collectives are thin wrappers that count their calls in
+``TorchCommunication.counts`` (the counterpart of ``heat_tpu``'s
+collective census of a compiled program), keyed by the names of
+``redistribution.schedule.COLLECTIVE_STEP_KINDS``. Every wrapper but
+``allreduce`` moves bytes, never values: it sends a ``uint8`` view of its
+tensor, so every dtype (bool, bfloat16, complex) crosses bit for bit,
+whatever the backend supports.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = [
     "Communication",
     "MPI_WORLD",
     "TorchCommunication",
     "get_comm",
+    "init_distributed",
     "sanitize_comm",
     "use_comm",
 ]
@@ -42,48 +55,56 @@ class Communication:
         raise NotImplementedError()
 
 
-def _world_size() -> int:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        size = torch.distributed.get_world_size()
-        if size > 1:
-            raise NotImplementedError(
-                f"heat_tpu_torch runs at world size 1 so far; this process is one of "
-                f"{size} torch.distributed ranks. Multi-rank execution (the distributed "
-                "hsvd branch) is ROADMAP.md Queue 1, item 5."
-            )
-    return 1
+def _joined() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """The contiguous flat ``uint8`` view of ``t``."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _from_bytes(buf: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
+    return buf.view(dtype).reshape(tuple(shape))
 
 
 class TorchCommunication(Communication):
-    """World-size-1 communicator (counterpart of ``MeshCommunication``)."""
+    """The world communicator (counterpart of ``MeshCommunication``).
+
+    ``counts`` maps a collective's name (``"all-to-all"``, ``"all-gather"``,
+    ``"collective-permute"``, ``"all-reduce"``, ``"broadcast"``) to the
+    calls issued since it was last cleared."""
 
     def __init__(self) -> None:
-        pass
+        self.counts: Dict[str, int] = {}
 
     @property
     def size(self) -> int:
-        """Number of ranks (1)."""
-        return _world_size()
+        """Number of ranks."""
+        return dist.get_world_size() if _joined() else 1
 
     @property
     def rank(self) -> int:
-        """This process's rank (0)."""
-        _world_size()
-        return 0
+        """This process's rank."""
+        return dist.get_rank() if _joined() else 0
 
     def is_distributed(self) -> bool:
         return self.size > 1
 
+    # ------------------------------------------------------------------ #
+    # chunk geometry                                                     #
+    # ------------------------------------------------------------------ #
     def chunk(
         self, shape, split: Optional[int], rank: Optional[int] = None, w_size: Optional[int] = None
     ) -> Tuple[int, Tuple[int, ...], Tuple[slice, ...]]:
-        """The shard of ``shape`` along ``split`` owned by ``rank`` in a world
-        of ``w_size`` ranks (default: this world). Ceil-division blocks, as
-        ``heat_tpu`` places them. Returns (offset, local_shape, slices)."""
+        """The shard of ``shape`` along ``split`` owned by ``rank`` (default:
+        this rank) in a world of ``w_size`` ranks (default: this world).
+        Ceil-division blocks, as ``heat_tpu`` places them (reference
+        :382). Returns (offset, local_shape, slices)."""
         shape = tuple(int(s) for s in shape)
         size = self.size if w_size is None else w_size
         if rank is None:
-            rank = 0
+            rank = self.rank
         if split is None or size == 1:
             return 0, shape, tuple(slice(0, s) for s in shape)
         split = split % len(shape)
@@ -101,8 +122,8 @@ class TorchCommunication(Communication):
     def counts_displs_shape(
         self, shape, split: int
     ) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
-        """Per-rank counts and displacements along ``split`` plus the local
-        shape of rank 0 (reference: communication.py:215)."""
+        """Per-rank counts and displacements along ``split`` plus this
+        rank's local shape (reference :414)."""
         shape = tuple(int(s) for s in shape)
         n = shape[split]
         size = self.size
@@ -112,14 +133,156 @@ class TorchCommunication(Communication):
         _, lshape, _ = self.chunk(shape, split)
         return counts, displs, lshape
 
+    def lshape_map(self, gshape, split: Optional[int]) -> np.ndarray:
+        """(size, ndim) array of every rank's shard shape under the chunk
+        geometry (reference :429)."""
+        gshape = tuple(int(s) for s in gshape)
+        out = np.tile(np.array(gshape, dtype=np.int64), (self.size, 1))
+        if split is not None and len(gshape) > 0:
+            counts, _, _ = self.counts_displs_shape(gshape, split % len(gshape))
+            out[:, split % len(gshape)] = np.array(counts, dtype=np.int64)
+        return out
+
+    # ------------------------------------------------------------------ #
+    # collectives                                                        #
+    # ------------------------------------------------------------------ #
+    def _count(self, name: str) -> None:
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def allreduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Elementwise reduction of ``t`` over the ranks (``op`` one of
+        ``sum``, ``max``, ``min``, ``prod``); returns a new tensor."""
+        out = t.clone().contiguous()
+        if self.is_distributed():
+            dist.all_reduce(out, op=getattr(dist.ReduceOp, op.upper()))
+        self._count("all-reduce")
+        return out
+
+    def allgather(self, t: torch.Tensor, axis: int = 0, counts: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``axis``, in rank order.
+        Rank q's extent along ``axis`` is ``counts[q]`` (default: all equal
+        to this rank's); the shards are padded to the largest extent for
+        the one all-gather and trimmed after it."""
+        p = self.size
+        axis = axis % max(t.ndim, 1)
+        counts = [int(t.shape[axis])] * p if counts is None else [int(c) for c in counts]
+        width = max(counts)
+        moved = t.movedim(axis, 0)
+        if moved.shape[0] < width:
+            pad = moved.new_zeros((width - moved.shape[0],) + tuple(moved.shape[1:]))
+            moved = torch.cat([moved, pad])
+        src = _as_bytes(moved)
+        buf = torch.empty(p * src.numel(), dtype=torch.uint8, device=t.device)
+        if p > 1:
+            dist.all_gather_into_tensor(buf, src)
+        else:
+            buf.copy_(src)
+        self._count("all-gather")
+        blocks = _from_bytes(buf, t.dtype, (p, width) + tuple(moved.shape[1:]))
+        whole = torch.cat([blocks[q, : counts[q]] for q in range(p)])
+        return whole.movedim(0, axis)
+
+    def alltoall(
+        self,
+        send: torch.Tensor,
+        send_counts: Optional[Sequence[int]] = None,
+        recv_counts: Optional[Sequence[int]] = None,
+    ) -> torch.Tensor:
+        """All-to-all along dim 0: the ``send_counts[q]`` rows that follow
+        the ones before them go to rank q, and the result holds the rows
+        from rank 0, then rank 1, ... (``recv_counts[q]`` from rank q).
+        Without counts, dim 0 splits into ``size`` equal blocks."""
+        p = self.size
+        rows = tuple(send.shape[1:])
+        row_bytes = int(np.prod(rows, dtype=np.int64)) * send.element_size()
+        if send_counts is None:
+            if send.shape[0] % p:
+                raise ValueError(f"alltoall: dim 0 of {tuple(send.shape)} does not split into {p} blocks")
+            send_counts = recv_counts = [send.shape[0] // p] * p
+        src = _as_bytes(send)
+        n_out = int(sum(recv_counts))
+        buf = torch.empty(n_out * row_bytes, dtype=torch.uint8, device=send.device)
+        if p > 1:
+            dist.all_to_all_single(
+                buf, src,
+                output_split_sizes=[int(c) * row_bytes for c in recv_counts],
+                input_split_sizes=[int(c) * row_bytes for c in send_counts],
+            )
+        else:
+            buf.copy_(src)
+        self._count("all-to-all")
+        return _from_bytes(buf, send.dtype, (n_out,) + rows)
+
+    def ring_exchange(self, send: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+        """One hop of a ring: ``send`` goes to rank ``dst`` while a tensor
+        of the same shape arrives from rank ``src`` (one
+        ``batch_isend_irecv``)."""
+        out = _as_bytes(send)
+        buf = torch.empty_like(out)
+        if self.is_distributed():
+            reqs = dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, out, dst), dist.P2POp(dist.irecv, buf, src)]
+            )
+            for req in reqs:
+                req.wait()
+        else:
+            buf.copy_(out)
+        self._count("collective-permute")
+        return _from_bytes(buf, send.dtype, send.shape)
+
+    def bcast(self, t: torch.Tensor, root: int = 0) -> torch.Tensor:
+        """``t`` of rank ``root`` on every rank (same shape and dtype on
+        every rank); returns a new tensor."""
+        buf = _as_bytes(t).clone()
+        if self.is_distributed():
+            dist.broadcast(buf, src=root)
+        self._count("broadcast")
+        return _from_bytes(buf, t.dtype, t.shape)
+
     def __repr__(self) -> str:
-        return "TorchCommunication(size=1)"
+        return f"TorchCommunication(rank={self.rank}, size={self.size})"
 
 
 MPI_WORLD = TorchCommunication()
 """The world communicator."""
 
 __default_comm: Communication = MPI_WORLD
+
+
+def init_distributed(
+    backend: Optional[str] = None,
+    init_method: Optional[str] = None,
+    world_size: Optional[int] = None,
+    rank: Optional[int] = None,
+) -> TorchCommunication:
+    """Join the ``torch.distributed`` world and make it the default
+    communicator (counterpart of ``heat_tpu``'s ``init_distributed``,
+    :603). Call it once per process, before creating arrays.
+
+    ``backend`` defaults to NCCL when the default device is the GPU and to
+    gloo otherwise. For NCCL the default ``gpu`` device is bound to
+    ``cuda:LOCAL_RANK`` (the variable ``torchrun`` sets; else the rank
+    modulo the number of cards), so that every rank uses its own card.
+    ``init_method``, ``world_size`` and ``rank`` go to
+    ``torch.distributed.init_process_group``; left out, it reads them from
+    the environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``), as ``torchrun`` sets them."""
+    from . import devices
+
+    if backend is None:
+        backend = "nccl" if devices.get_device().device_type == "gpu" else "gloo"
+    if backend == "nccl":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed: the NCCL backend needs CUDA")
+        rank_now = rank if rank is not None else int(os.environ.get("RANK", "0"))
+        local = int(os.environ.get("LOCAL_RANK", rank_now % torch.cuda.device_count()))
+        devices._bind_gpu(local)
+        torch.cuda.set_device(local)
+    kwargs = {"init_method": init_method, "world_size": world_size, "rank": rank}
+    dist.init_process_group(backend, **{k: v for k, v in kwargs.items() if v is not None})
+    MPI_WORLD.counts.clear()
+    use_comm(MPI_WORLD)
+    return MPI_WORLD
 
 
 def get_comm() -> Communication:

@@ -86,7 +86,8 @@ cpu = Device("cpu", 0)
 """The CPU."""
 
 gpu = Device("gpu", 0)
-"""The first CUDA device."""
+"""This process's CUDA device: the first, or the one ``init_distributed``
+binds to its rank."""
 
 _registry = {"cpu": cpu, "gpu": gpu, "cuda": gpu}
 __default_device: Device = gpu
@@ -124,3 +125,9 @@ def use_device(device: Optional[Union[str, Device]] = None) -> None:
     """Set the globally used default device (reference: devices.py:171)."""
     global __default_device
     __default_device = sanitize_device(device)
+
+
+def _bind_gpu(index: int) -> None:
+    """Point ``gpu`` at ``cuda:index``, in place, so that every reference
+    to it (``ht.gpu``, the default device) follows: one card per rank."""
+    Device.__init__(gpu, "gpu", index)

@@ -3,9 +3,12 @@
 Port of ``heat_tpu.core.dndarray`` (Heat reference: heat/core/dndarray.py,
 class ``DNDarray`` at :38). As in the Heat reference, a ``DNDarray`` wraps
 the process-local ``torch.Tensor`` plus its global metadata: shape,
-``split`` axis, heat type, device and communicator. At world size 1 the
-local tensor is the whole array, so ``split`` is a label and ``resplit`` a
-relabel.
+``split`` axis, heat type, device and communicator. A split array holds on
+each rank only its shard along ``split``: the rank's ``chunk`` of the
+global shape (ceil-division blocks, ``heat_tpu``'s placement), unless
+``redistribute_`` gave it another map of shard shapes. An array with
+``split=None`` is whole on every rank. At world size 1 the local tensor is
+the whole array.
 """
 
 from __future__ import annotations
@@ -21,6 +24,13 @@ from .devices import Device
 from .stride_tricks import sanitize_axis
 
 __all__ = ["DNDarray"]
+
+
+def _gather_lshapes(comm: Communication, array: torch.Tensor) -> np.ndarray:
+    """(size, ndim) shard shapes of ``array`` on every rank (one
+    all-gather)."""
+    shape = torch.tensor([list(array.shape)], dtype=torch.int64, device=array.device)
+    return comm.allgather(shape).cpu().numpy()
 
 
 class DNDarray:
@@ -40,6 +50,9 @@ class DNDarray:
         Platform the array resides on.
     comm : Communication
         Communicator.
+    lshape_map : numpy array or None
+        (size, ndim) shard shapes of all ranks, where they differ from the
+        chunk geometry; None for the chunk geometry.
     """
 
     def __init__(
@@ -50,6 +63,7 @@ class DNDarray:
         split: Optional[int],
         device: Device,
         comm: Communication,
+        lshape_map: Optional[np.ndarray] = None,
     ):
         self.__array = array
         self.__gshape = tuple(int(s) for s in gshape)
@@ -57,6 +71,17 @@ class DNDarray:
         self.__split = split if split is None else int(split) % max(len(self.__gshape), 1)
         self.__device = device
         self.__comm = comm
+        self.__lmap = None
+        self.__set_lshape_map(lshape_map)
+
+    def __set_lshape_map(self, lmap: Optional[np.ndarray]) -> None:
+        """Keep ``lmap`` only where it differs from the chunk geometry."""
+        if lmap is not None and self.__split is not None:
+            lmap = np.asarray(lmap, dtype=np.int64)
+            if not np.array_equal(lmap, self.__comm.lshape_map(self.__gshape, self.__split)):
+                self.__lmap = lmap.copy()
+                return
+        self.__lmap = None
 
     # ------------------------------------------------------------------ #
     # properties                                                         #
@@ -88,19 +113,36 @@ class DNDarray:
 
     @larray.setter
     def larray(self, array: torch.Tensor) -> None:
-        """Rebind the data to a LOGICAL tensor; shape and type follow it
-        (reference dndarray.py:150)."""
+        """Rebind this rank's shard; type and shape follow it (reference
+        dndarray.py:150). A split array's global shape and map of shard
+        shapes are gathered from all ranks (every rank must call)."""
         self.__array = array
-        self.__gshape = tuple(int(s) for s in array.shape)
         self.__dtype = types.canonical_heat_type(array.dtype)
-        if self.__split is not None and self.__split >= len(self.__gshape):
+        if self.__split is not None and self.__split >= array.ndim:
             self.__split = None
+        if self.__split is None or not self.__comm.is_distributed():
+            self.__gshape = tuple(int(s) for s in array.shape)
+            self.__lmap = None
+            return
+        lmap = _gather_lshapes(self.__comm, array)
+        gshape = list(lmap[0])
+        gshape[self.__split] = int(lmap[:, self.__split].sum())
+        self.__gshape = tuple(int(s) for s in gshape)
+        self.__set_lshape_map(lmap)
 
     @property
     def lshape(self) -> Tuple[int, ...]:
-        """Shape of this process's shard (reference dndarray.py:295)."""
-        _, lshape, _ = self.__comm.chunk(self.__gshape, self.__split)
-        return lshape
+        """Shape of this rank's shard (reference dndarray.py:295)."""
+        return tuple(int(s) for s in self.__array.shape)
+
+    @property
+    def lshape_map(self) -> np.ndarray:
+        """(comm.size, ndim) map of all ranks' shard shapes (``heat_tpu``
+        dndarray.py:316): the chunk geometry, or the map ``redistribute_``
+        moved the array to."""
+        if self.__lmap is not None:
+            return self.__lmap.copy()
+        return self.__comm.lshape_map(self.__gshape, self.__split)
 
     @property
     def split(self) -> Optional[int]:
@@ -132,12 +174,15 @@ class DNDarray:
             return self
         if casted is self.__array:
             casted = casted.clone()
-        return DNDarray(casted, self.__gshape, dtype, self.__split, self.__device, self.__comm)
+        return DNDarray(casted, self.__gshape, dtype, self.__split, self.__device, self.__comm, self.__lmap)
 
     def numpy(self) -> np.ndarray:
-        """The global array as numpy (reference dndarray.py:1168). bfloat16
-        comes back as float32, which numpy can hold."""
-        arr = self.__array.detach()
+        """The global array as numpy, on every rank (reference
+        dndarray.py:1168; ``heat_tpu`` :463): a split array's shards are
+        gathered. bfloat16 comes back as float32, which numpy can hold."""
+        arr = self.__array.detach().resolve_conj().resolve_neg()
+        if self.is_distributed():
+            arr = self.__comm.allgather(arr, self.__split, self.lshape_map[:, self.__split])
         if arr.dtype == torch.bfloat16:
             arr = arr.float()
         return arr.cpu().numpy()
@@ -150,6 +195,8 @@ class DNDarray:
         """The single element as a Python scalar (reference dndarray.py:1143)."""
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
+        if self.is_distributed():
+            return self.numpy().reshape(()).item()
         return self.__array.reshape(()).item()
 
     def __float__(self) -> float:
@@ -167,27 +214,104 @@ class DNDarray:
     # distribution management                                            #
     # ------------------------------------------------------------------ #
     def is_distributed(self) -> bool:
-        """True if the data live on more than one device (reference
+        """True if the data live on more than one rank (reference
         dndarray.py:480)."""
         return self.__split is not None and self.__comm.is_distributed()
 
+    def counts_displs(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """Per-rank counts and displacements along split (``heat_tpu``
+        dndarray.py:532)."""
+        if self.__split is None:
+            raise ValueError("Non-distributed DNDarray. Cannot calculate counts and displacements.")
+        counts = tuple(int(c) for c in self.lshape_map[:, self.__split])
+        displs = tuple(int(d) for d in np.concatenate([[0], np.cumsum(counts)[:-1]]))
+        return counts, displs
+
+    def is_balanced(self, force_check: bool = False) -> bool:
+        """True if the shards follow the chunk geometry (``heat_tpu``
+        dndarray.py:518)."""
+        return self.__lmap is None
+
+    def balance_(self) -> None:
+        """Move the shards back to the chunk geometry (``heat_tpu``
+        dndarray.py:521)."""
+        if self.__lmap is not None:
+            self.redistribute_(target_map=self.__comm.lshape_map(self.__gshape, self.__split))
+
+    def redistribute_(self, lshape_map=None, target_map=None) -> None:
+        """Move the shards along split to the shard shapes of
+        ``target_map``, a (size, ndim) map that keeps every extent but
+        split's and conserves the split extent (reference dndarray.py:1207;
+        ``heat_tpu`` :581 validates only). The default target is the chunk
+        geometry. Rows keep their global order: one all-to-all with the
+        counts of the overlap of each source and target range."""
+        if self.__split is None:
+            return None
+        comm, split = self.__comm, self.__split
+        current = self.lshape_map if lshape_map is None else np.asarray(lshape_map, dtype=np.int64)
+        if target_map is None:
+            target_map = comm.lshape_map(self.__gshape, split)
+        target_map = np.asarray(target_map, dtype=np.int64)
+        if tuple(target_map.shape) != (comm.size, self.ndim):
+            raise ValueError(
+                f"target_map must have shape {(comm.size, self.ndim)}, got {tuple(target_map.shape)}"
+            )
+        if int(target_map[:, split].sum()) != self.__gshape[split]:
+            raise ValueError("target_map does not conserve the global split extent")
+        others = [a for a in range(self.ndim) if a != split]
+        if (target_map[:, others] != np.array(self.__gshape)[others]).any():
+            raise ValueError("target_map may change only the split axis's extents")
+        if comm.is_distributed():
+            src = np.concatenate([[0], np.cumsum(current[:, split])])
+            dst = np.concatenate([[0], np.cumsum(target_map[:, split])])
+            r = comm.rank
+
+            def overlap(a, b):
+                return int(max(0, min(a[1], b[1]) - max(a[0], b[0])))
+
+            send = [overlap(src[r : r + 2], dst[q : q + 2]) for q in range(comm.size)]
+            recv = [overlap(src[q : q + 2], dst[r : r + 2]) for q in range(comm.size)]
+            moved = comm.alltoall(self.__array.movedim(split, 0).contiguous(), send, recv)
+            self.__array = moved.movedim(0, split).contiguous()
+        self.__set_lshape_map(target_map)
+        return None
+
+    def _balanced_larray(self) -> torch.Tensor:
+        """This rank's shard in the chunk geometry (moved there, on a copy,
+        where ``redistribute_`` left the array elsewhere)."""
+        if self.__lmap is None:
+            return self.__array
+        twin = DNDarray(self.__array, self.__gshape, self.__dtype, self.__split, self.__device,
+                        self.__comm, self.__lmap)
+        twin.balance_()
+        return twin.larray
+
     def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
         """In-place redistribution along a new split axis (reference
-        dndarray.py:1406). At world size 1 no data move: a relabel."""
-        self.__split = self.__resplit_axis(axis)
+        dndarray.py:1406; ``heat_tpu`` :540), through the redistribution
+        planner and executor (``ht.redistribution.explain(self, axis)``
+        shows the plan). At world size 1 a relabel."""
+        axis = sanitize_axis(self.__gshape, axis)
+        if axis != self.__split:
+            if self.__comm.is_distributed():
+                self.__array = self.__moved(axis)
+            self.__split, self.__lmap = axis, None
         return self
 
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
-        """Out-of-place resplit, sharing the data (reference
-        manipulations.py:3479). At world size 1 a relabel."""
-        axis = self.__resplit_axis(axis)
-        return DNDarray(self.__array, self.__gshape, self.__dtype, axis, self.__device, self.__comm)
-
-    def __resplit_axis(self, axis: Optional[int]) -> Optional[int]:
+        """Out-of-place resplit (reference manipulations.py:3479), planned
+        and executed like ``resplit_``. At world size 1 it shares the
+        data."""
         axis = sanitize_axis(self.__gshape, axis)
-        if axis != self.__split and self.__comm.is_distributed():
-            raise NotImplementedError("resplit across ranks: see ROADMAP.md, Queue 1")
-        return axis
+        if axis == self.__split or not self.__comm.is_distributed():
+            return DNDarray(self.__array, self.__gshape, self.__dtype, axis, self.__device, self.__comm,
+                            self.__lmap if axis == self.__split else None)
+        return DNDarray(self.__moved(axis), self.__gshape, self.__dtype, axis, self.__device, self.__comm)
+
+    def __moved(self, axis: Optional[int]) -> torch.Tensor:
+        from ..redistribution import executor
+
+        return executor.resplit_local(self.__comm, self._balanced_larray(), self.__gshape, self.__split, axis)
 
     # ------------------------------------------------------------------ #
     # misc protocol                                                      #

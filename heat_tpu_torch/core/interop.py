@@ -2,7 +2,8 @@
 
 ``heat_tpu`` holds its arrays as sharded ``jax.Array``s; what carries
 across is their logical value, taken with ``DNDarray.numpy()``, with its
-split and dtype. The same goes for operators ``heat_tpu`` draws itself,
+split and dtype. ``from_numpy`` gives this rank its chunk of such a global
+array: rank r holds exactly the shard ``heat_tpu`` places on device r. The same goes for operators ``heat_tpu`` draws itself,
 such as the hSVD sketch operators ``g`` and ``Ω`` (``svdtools.py:308`` and
 ``:417``): the port's own draws come from ``torch.Generator``s and differ,
 so a caller that needs identical factors hands the drawn values across
@@ -36,10 +37,19 @@ from .factories import array
 __all__ = [
     "dbcsr_from_numpy",
     "dcsr_from_numpy",
+    "from_numpy",
     "from_numpy_state",
     "kcluster_from_numpy",
     "nn_params_from_numpy",
 ]
+
+
+def from_numpy(value: np.ndarray, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
+    """The DNDarray of a ``heat_tpu`` array taken as a global numpy array
+    (``DNDarray.numpy()``) with its ``split``: this rank keeps its chunk,
+    in the array's own dtype (no 64→32-bit narrowing)."""
+    value = np.asarray(value)
+    return array(value, dtype=value.dtype, split=split, device=device, comm=comm)
 
 
 def from_numpy_state(
@@ -54,9 +64,8 @@ def from_numpy_state(
     name to its split axis (entries it does not name get None)."""
     out = {}
     for name, value in values.items():
-        value = np.asarray(value)
         axis = split.get(name) if isinstance(split, Mapping) else split
-        out[name] = array(value, dtype=value.dtype, split=axis, device=device)
+        out[name] = from_numpy(value, split=axis, device=device)
     return out
 
 

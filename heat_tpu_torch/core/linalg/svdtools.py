@@ -20,7 +20,7 @@ The small products (Gram matrices, the projection ``z = A·Q``) are torch
 matmuls in the operand's full precision: torch's default
 ``allow_tf32=False`` keeps float32 products in FP32, as ``heat_tpu``'s
 ``precision="highest"`` does. The distributed branch (level-0 sketches and
-the TSQR merge ``_merge_svd``) is ROADMAP.md Queue 1, item 1.
+the TSQR merge ``_merge_svd``) is ROADMAP.md Queue 1, item 2.
 """
 
 from __future__ import annotations
@@ -146,7 +146,7 @@ def _cholqr2_refine(v: torch.Tensor) -> torch.Tensor:
         g = torch.conj(v).T @ v + eps * eye
         r = torch.linalg.cholesky(g)  # lower: g = r r^H
         v = torch.conj(torch.linalg.solve_triangular(r, torch.conj(v).T, upper=False)).T
-    return v
+    return v.resolve_conj().contiguous()
 
 
 def _normal(shape, like: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
@@ -416,8 +416,8 @@ def _hsvd_impl(
     single_pass: bool = False,
 ):
     dtype = types.float32 if types.heat_type_is_exact(A.dtype) else A.dtype
-    if A.is_distributed():  # unreachable until the communicator serves world size > 1
-        raise NotImplementedError("distributed hsvd: see ROADMAP.md, Queue 1")
+    if A.is_distributed():
+        raise NotImplementedError("distributed hsvd (level-0 sketches, TSQR merge): see ROADMAP.md Queue 1, item 2")
     arr = A.larray.to(dtype.torch_type()).contiguous()
     m, n = A.shape
     full_rank_cap = min(m, n)

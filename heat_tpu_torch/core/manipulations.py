@@ -1,12 +1,15 @@
-"""Array manipulations: the local sort family at world size 1.
+"""Array manipulations: ``reshape`` and ``resplit`` across ranks, and the
+local sort family.
 
 Port of part of ``heat_tpu.core.manipulations`` (Heat reference:
-heat/core/manipulations.py, ``sort`` at :2428, ``unique`` at :3202,
-``topk`` at :3981): ``sort``, ``unique`` and ``topk`` in their
-single-device branches, with the helpers they use (``flip``,
-``moveaxis``). All three run on the local sort engine of
-``heat_tpu_torch.kernels.sort``, whose radix pair-sort kernel K4 serves
-float32 and int32 on CUDA.
+heat/core/manipulations.py, ``reshape`` at :1994, ``sort`` at :2428,
+``unique`` at :3202, ``resplit`` at :3479, ``topk`` at :3981).
+``reshape(..., new_split=)`` and ``resplit`` go through the
+redistribution planner and executor (``heat_tpu_torch.redistribution``).
+``sort``, ``unique`` and ``topk`` are the single-device branches, with the
+helpers they use (``flip``, ``moveaxis``); all three run on the local sort
+engine of ``heat_tpu_torch.kernels.sort``, whose radix pair-sort kernel K4
+serves float32 and int32 on CUDA.
 
 They agree with ``heat_tpu``: indices exactly; values under ``lax.sort``'s
 comparator (values that pass through the key transform come back as +0.0
@@ -15,50 +18,108 @@ does, keeping the first of each group in input order; ``topk`` orders by
 IEEE totalOrder, as ``lax.top_k`` does, lower index first among ties.
 
 The distributed sorts (along the split axis of an array over more than one
-rank) wait for the distributed sort programs (ROADMAP.md, Queue 1).
+rank) wait for the distributed sort programs (ROADMAP.md Queue 1, item 4).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import types
 from .dndarray import DNDarray
 from .sanitation import sanitize_in
-from .stride_tricks import sanitize_axis
+from .stride_tricks import sanitize_axis, sanitize_shape
 from ..kernels import sort as _ksort
 
-__all__ = ["flip", "moveaxis", "sort", "topk", "unique"]
+__all__ = ["flip", "moveaxis", "reshape", "resplit", "sort", "topk", "unique"]
 
 
 def _wrap(result: torch.Tensor, split: Optional[int], ref: DNDarray, dtype=None) -> DNDarray:
-    """An output DNDarray of ``result``, placed like ``ref``."""
+    """An output DNDarray of this rank's ``result``, placed like ``ref``;
+    across ranks its global shape is gathered from all of them."""
+    from .factories import _from_shards
+
     if split is not None and result.ndim > 0:
         split = split % result.ndim
     else:
         split = None
-    return DNDarray(
-        result,
-        tuple(result.shape),
-        dtype if dtype is not None else types.canonical_heat_type(result.dtype),
-        split,
-        ref.device,
-        ref.comm,
-    )
+    dtype = dtype if dtype is not None else types.canonical_heat_type(result.dtype)
+    return _from_shards(result, dtype, split, ref.device, ref.comm)
 
 
-def _refuse_distributed(a: DNDarray, what: str) -> None:
+def _refuse_distributed(a: DNDarray, what: str, item: int = 4) -> None:
     if a.split is not None and a.comm.is_distributed():
-        raise NotImplementedError(f"distributed {what} along the split axis: see ROADMAP.md, Queue 1")
+        raise NotImplementedError(f"distributed {what} along the split axis: see ROADMAP.md Queue 1, item {item}")
+
+
+def _normalize_reshape_args(a: DNDarray, shape, new_split):
+    """Shape, -1 and ``new_split`` resolution shared by :func:`reshape` and
+    ``ht.redistribution.explain(reshape=...)`` (heat_tpu
+    manipulations.py:400)."""
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+        shape = tuple(shape[0])
+    shape = list(shape)
+    neg = [i for i, s in enumerate(shape) if s == -1]
+    if len(neg) > 1:
+        raise ValueError("can only specify one unknown dimension")
+    if neg:
+        known = int(np.prod([s for s in shape if s != -1])) if len(shape) > 1 else 1
+        if known == 0 or a.size % known != 0:
+            raise ValueError(f"cannot reshape array of size {a.size} into shape {tuple(shape)}")
+        shape[neg[0]] = a.size // known
+    shape = sanitize_shape(tuple(shape))
+    if int(np.prod(shape)) != a.size:
+        raise ValueError(f"cannot reshape array of size {a.size} into shape {tuple(shape)}")
+    if new_split is None:
+        new_split = a.split
+        if new_split is not None and new_split >= len(shape):
+            # fewer output dims than the old split axis: clamp to the last
+            new_split = len(shape) - 1
+    return shape, sanitize_axis(shape, new_split)
+
+
+def reshape(a: DNDarray, *shape, **kwargs) -> DNDarray:
+    """Reshape without changing data (reference: manipulations.py:1994;
+    heat_tpu :428). ``new_split=`` (default: the input's split, clamped to
+    the new rank) places the result; across ranks the move is planned and
+    run by ``heat_tpu_torch.redistribution`` (split-0 pivot, packed pivot
+    with kernels K5/K6, or the explicit gather), and
+    ``ht.redistribution.explain(a, reshape=shape, new_split=...)`` shows
+    the plan."""
+    sanitize_in(a)
+    new_split = kwargs.pop("new_split", None)
+    if kwargs:
+        raise TypeError(f"reshape got unexpected keyword arguments {list(kwargs)}")
+    shape, new_split = _normalize_reshape_args(a, shape, new_split)
+    if len(shape) == 0:
+        new_split = None
+    if a.comm.is_distributed() and (a.split is not None or new_split is not None):
+        from ..redistribution import executor
+
+        local = executor.reshape_local(a.comm, a._balanced_larray(), a.gshape, a.split, shape, new_split)
+    else:
+        local = a.larray.reshape(shape)
+    return DNDarray(local, shape, a.dtype, new_split, a.device, a.comm)
+
+
+def resplit(arr: DNDarray, axis: Optional[int] = None) -> DNDarray:
+    """Out-of-place resplit (reference: manipulations.py:3479)."""
+    sanitize_in(arr)
+    return arr.resplit(axis)
 
 
 def flip(a: DNDarray, axis: Optional[Union[int, Tuple[int, ...]]] = None) -> DNDarray:
-    """Reverse element order along axis (reference: manipulations.py flip)."""
+    """Reverse element order along axis (reference: manipulations.py flip).
+    A flip of the split axis across ranks moves shards between ranks and
+    waits for ROADMAP.md Queue 1, item 9."""
     sanitize_in(a)
     axis = sanitize_axis(a.shape, axis)
     dims = tuple(range(a.ndim)) if axis is None else (axis if isinstance(axis, tuple) else (axis,))
+    if a.split in dims:
+        _refuse_distributed(a, "flip", item=9)
     return _wrap(torch.flip(a.larray, dims), a.split, a, dtype=a.dtype)
 
 
@@ -236,6 +297,7 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
 
 
 # method attachment (reference attaches these on DNDarray)
+DNDarray.reshape = lambda self, *shape, **kwargs: reshape(self, *shape, **kwargs)
 DNDarray.flip = flip
 DNDarray.moveaxis = moveaxis
 DNDarray.sort = sort

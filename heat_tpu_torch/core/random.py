@@ -5,7 +5,10 @@ need (Heat reference: heat/core/random.py): ``seed``, ``get_state``,
 ``set_state``, ``randn``, ``rand``, ``normal``, ``randint`` and
 ``randperm``. A global (seed, counter) pair advances by the number of
 elements each draw takes, as in ``heat_tpu``; each draw runs on its own
-``torch.Generator`` on the target device, seeded from that pair. The
+``torch.Generator`` on the target device, seeded from that pair. A split
+draw makes the whole array on every rank and keeps this rank's chunk, so
+its global values do not depend on the world size (drawing only the
+chunk waits for a counter-based stream, ROADMAP.md Queue 1, item 5). The
 values are torch's stream for that device (Philox on CUDA, MT19937 on the
 CPU), not ``heat_tpu``'s Threefry stream: porting Threefry is ROADMAP.md
 Queue 1. The state names the port's stream as ``"TorchGenerator"``.
@@ -23,7 +26,8 @@ from . import types
 from .communication import sanitize_comm
 from .devices import sanitize_device
 from .dndarray import DNDarray
-from .stride_tricks import sanitize_axis, sanitize_shape
+from .factories import _wrap
+from .stride_tricks import sanitize_shape
 
 __all__ = ["get_state", "normal", "rand", "randint", "randn", "randperm", "seed", "set_state"]
 
@@ -91,7 +95,7 @@ def _draw(kind: str, shape, dtype, split, device, comm, mean=0.0, std=1.0) -> DN
     data = sampler(shape, generator=gen, dtype=dtype.torch_type(), device=tdev)
     if kind == "normal" and (mean != 0.0 or std != 1.0):
         data = data * std + mean
-    return DNDarray(data, shape, dtype, sanitize_axis(shape, split), device, sanitize_comm(comm))
+    return _wrap(data, dtype, split, device, sanitize_comm(comm))
 
 
 def normal(
@@ -141,7 +145,7 @@ def randint(
     tdev = device.torch_device
     gen = _next_generator(int(np.prod(shape)) if shape else 1, tdev)
     data = torch.randint(int(low), int(high), shape, generator=gen, dtype=dtype.torch_type(), device=tdev)
-    return DNDarray(data, shape, dtype, sanitize_axis(shape, split), device, sanitize_comm(comm))
+    return _wrap(data, dtype, split, device, sanitize_comm(comm))
 
 
 def randperm(n: int, dtype=types.int64, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
@@ -154,4 +158,4 @@ def randperm(n: int, dtype=types.int64, split: Optional[int] = None, device=None
     tdev = device.torch_device
     gen = _next_generator(int(n), tdev)
     data = torch.randperm(int(n), generator=gen, device=tdev).to(dtype.torch_type())
-    return DNDarray(data, (int(n),), dtype, sanitize_axis((int(n),), split), device, sanitize_comm(comm))
+    return _wrap(data, dtype, split, device, sanitize_comm(comm))

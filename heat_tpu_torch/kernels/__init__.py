@@ -6,11 +6,12 @@ support for the port's CUDA sources (``csrc/``).
 ``spmm`` holds the brick engine of the DBCSR format with its SpMM kernel K7
 and SDDMM kernel K8 (``csrc/spmm.cu``). ``attention`` holds exact softmax
 attention with its flash-attention forward kernel K9 (``csrc/attention.cu``)
-under ``ht.nn``. The launch counts stay on their modules (for example
+under ``ht.nn``. ``relayout`` holds the packed pivot's pack and unpack
+copies K5 and K6 (``csrc/relayout.cu``) under ``ht.redistribution``. The launch counts stay on their modules (for example
 ``attention.ATTENTION_LAUNCHES``): a name imported here would not follow them.
 """
 
-from . import attention, sort, spmm
+from . import attention, relayout, sort, spmm
 from .attention import (
     attention_serviceable,
     flash_attention,
@@ -32,6 +33,7 @@ from .spmm import (
 
 __all__ = [
     "attention",
+    "relayout",
     "sort",
     "spmm",
     "from_sortable",

@@ -140,7 +140,7 @@ def combine_partials(o1, lse1, o2, lse2) -> Tuple[torch.Tensor, torch.Tensor]:
     giving o = 0 and lse = −inf. o comes back in o1's dtype.
 
     No entry point of this package calls it yet: it is the combine step of
-    the distributed ring (ROADMAP.md, Queue 1, item 5), kept here as the
+    the distributed ring (ROADMAP.md Queue 1, item 3), kept here as the
     contract K9's ``(o, lse)`` must meet, which ``chip_smoke.py`` and the
     tests hold K9 and its plain version to."""
     lse = torch.logaddexp(lse1, lse2)

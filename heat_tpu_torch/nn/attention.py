@@ -8,7 +8,7 @@ size 1, where every split takes that route (``_single_device_attention``):
 one launch of kernel K9 (``kernels.attention.flash_attention``) for float32
 and bfloat16 operands on a card. The distributed ring (stationary Q, K/V
 rotated between ranks, K9's ``(o, lse)`` combined per step) comes with the
-multi-rank communicator (ROADMAP.md, Queue 1, item 5).
+multi-rank communicator (ROADMAP.md Queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ def ring_attention(
     if any(t.split is not None for t in (q, k, v)) and comm.is_distributed():
         raise NotImplementedError(
             "ring_attention across ranks (K/V rotated between ranks, K9's (o, lse) combined per step) "
-            "comes with the multi-rank communicator: see ROADMAP.md, Queue 1, item 5"
+            "is not ported yet: see ROADMAP.md Queue 1, item 3"
         )
     out = _single_device_attention(q.larray, k.larray, v.larray, causal, scale)
     return DNDarray(out, out_gshape, types.canonical_heat_type(out.dtype), q.split, q.device, comm)

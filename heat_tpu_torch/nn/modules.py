@@ -11,9 +11,9 @@ layouts, so that a ``heat_tpu`` parameter dict loads into them as it is
 (E, E), ``out_bias``. Each module takes ``device=`` (default
 ``ht.get_device()``, the card) and ``dtype=``, and draws its initial values
 from the ``generator=`` it is given: the draws have ``heat_tpu``'s
-distributions, not its Threefry values (ROADMAP.md, Queue 1, item 6).
+distributions, not its Threefry values (ROADMAP.md Queue 1, item 5).
 The other modules of ``heat_tpu.nn.modules`` wait for ROADMAP.md Queue 1,
-item 9.
+item 8.
 """
 
 from __future__ import annotations

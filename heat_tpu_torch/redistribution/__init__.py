@@ -1,0 +1,37 @@
+"""Planned redistribution (``ht.redistribution``; port of
+``heat_tpu.redistribution``).
+
+Split changes (``resplit``) and reshapes with repartition
+(``ht.reshape(..., new_split=)``) are planned before they run:
+
+- :mod:`~.spec`: :class:`RedistSpec`, the normalized problem statement;
+- :mod:`~.planner`: the cost model that chooses among all-to-all, chunked
+  all-to-all, the ring, the split-0 pivot, the packed pivot (kernels K5
+  and K6) and the explicit gather, with ``heat_tpu``'s plans byte for byte;
+- :mod:`~.schedule`: the inspectable plan, with its collective census;
+- :mod:`~.executor`: the per-rank programs over the communicator's
+  collectives.
+
+``ht.redistribution.explain(arr, axis)`` (or ``reshape=...``) returns the
+plan that the public call runs; ``.describe()`` renders it.
+"""
+
+from . import executor, planner, schedule, spec
+from .executor import LocalWorld, execute, reshape_local, resplit_local
+from .planner import budget_bytes, explain, golden_specs, plan
+from .schedule import Schedule, Step
+from .spec import RedistSpec
+
+__all__ = [
+    "LocalWorld",
+    "RedistSpec",
+    "Schedule",
+    "Step",
+    "budget_bytes",
+    "execute",
+    "explain",
+    "golden_specs",
+    "plan",
+    "reshape_local",
+    "resplit_local",
+]

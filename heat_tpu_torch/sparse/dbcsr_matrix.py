@@ -37,7 +37,7 @@ from ..core import types
 from ..core.communication import Communication, sanitize_comm
 from ..core.devices import Device, sanitize_device
 from ..core.dndarray import DNDarray
-from .dcsr_matrix import DCSR_matrix
+from .dcsr_matrix import DCSR_matrix, _refuse_distributed
 from .factories import _host_dtype, _host_numpy, _to_scipy_csr
 
 __all__ = ["DBCSR_matrix", "sparse_dbcsr_matrix", "to_dbcsr", "BRICK_SHAPE"]
@@ -75,6 +75,7 @@ class DBCSR_matrix:
     ):
         if split not in (None, 0):
             raise ValueError(f"DBCSR_matrix only supports split=0 or None, got {split}")
+        _refuse_distributed(split, comm)
         slab_meta = tuple(tuple(int(v) for v in t) for t in slab_meta)
         if len(slab_meta) != 1:
             raise ValueError(

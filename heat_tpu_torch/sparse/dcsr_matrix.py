@@ -24,6 +24,16 @@ from ..core.dndarray import DNDarray
 __all__ = ["DCSR_matrix"]
 
 
+def _refuse_distributed(split, comm) -> None:
+    """A sparse matrix holds every row on every rank: one split across
+    ranks is refused (ROADMAP.md Queue 1, item 15)."""
+    if split is not None and comm.is_distributed():
+        raise NotImplementedError(
+            "sparse matrices split across ranks (row slabs per rank, SpMM with a halo of x, PageRank "
+            "across ranks): see ROADMAP.md Queue 1, item 15"
+        )
+
+
 class DCSR_matrix:
     """CSR matrix distributed along axis 0 (reference dcsr_matrix.py:18).
 
@@ -59,6 +69,7 @@ class DCSR_matrix:
     ):
         if split not in (None, 0):
             raise ValueError(f"DCSR_matrix only supports split=0 or None, got {split}")
+        _refuse_distributed(split, comm)
         self.__indptr = indptr
         self.__indices = indices
         self.__data = data

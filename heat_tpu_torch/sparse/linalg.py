@@ -34,8 +34,13 @@ __all__ = ["matmul", "sddmm"]
 
 
 def _dense_operand(A, x) -> torch.Tensor:
-    """The dense operand as a tensor on ``A``'s device."""
+    """The dense operand as a tensor on ``A``'s device; a DNDarray split
+    across ranks is refused."""
     if isinstance(x, DNDarray):
+        if x.is_distributed():
+            raise NotImplementedError(
+                "a dense operand split across ranks: see ROADMAP.md Queue 1, item 15"
+            )
         x = x.larray
     elif not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))

@@ -27,6 +27,12 @@ __all__ = ["cdist", "manhattan", "rbf"]
 
 
 def _prepare(X: DNDarray, Y: Optional[DNDarray]):
+    for name, t in (("X", X), ("Y", Y)):
+        if isinstance(t, DNDarray) and t.is_distributed():
+            raise NotImplementedError(
+                f"pairwise distances of {name} split across ranks (the ring of spatial/distance.py): "
+                "see ROADMAP.md Queue 1, item 3"
+            )
     """Validate operands and resolve the compute dtype: float64 if either
     operand is float64, else float32 (reference distance.py:35)."""
     sanitize_in(X)

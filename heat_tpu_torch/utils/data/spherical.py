@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core import random as ht_random, types
+from ...core import factories, random as ht_random, types
 from ...core.dndarray import DNDarray
 
 __all__ = ["create_spherical_dataset"]
@@ -26,7 +26,7 @@ def create_spherical_dataset(
     """Four spherical clusters of ``num_samples_cluster`` 3-D points each,
     uniform inside spheres of the given ``radius`` centered at
     (s·offset, s·offset, s·offset) for s = −2, −1, 1, 2, in that order,
-    split along axis 0. Reseeds the global stream with ``random_state``,
+    split along axis 0 (each rank keeps its chunk). Reseeds the global stream with ``random_state``,
     as ``heat_tpu`` does; the points are the port's own draws."""
     ht_random.seed(random_state)
     dtype = types.canonical_heat_type(dtype)
@@ -40,4 +40,4 @@ def create_spherical_dataset(
         unit = d_arr / torch.clamp_min(torch.linalg.vector_norm(d_arr, dim=1, keepdim=True), 1e-30)
         parts.append(unit * (u.larray ** (1.0 / 3.0)) * radius + sign * offset)
     data = torch.cat(parts, dim=0)
-    return DNDarray(data, tuple(data.shape), dtype, 0, direction.device, direction.comm)
+    return factories.array(data, dtype=dtype, split=0, device=direction.device, comm=direction.comm)

@@ -384,3 +384,17 @@ def test_fused_assign_matches_plain_version_on_card(n, d, k):
     assert torch.equal(counts, pcounts)
     assert _rel(sums.cpu(), psums.cpu()) <= 1e-5
     assert abs(float(inertia) - float(pinertia)) <= 1e-5 * float(pinertia)
+
+
+@pytest.mark.parametrize("cls_name", ["KMeans", "KMedians", "KMedoids"])
+def test_random_init_refuses_more_clusters_than_samples(cls_name):
+    """heat_tpu fails in the fit from a (60, d) against (50, d) broadcast
+    (a ValueError in KMeans, a TypeError in the others); the port names
+    both counts in a ValueError, as scikit-learn refuses k > n."""
+    data = np.random.default_rng(0).standard_normal((50, 3)).astype(np.float32)
+    with pytest.raises((ValueError, TypeError)):
+        getattr(jht.cluster, cls_name)(n_clusters=60, init="random").fit(jht.array(data))
+    with pytest.raises(ValueError, match=r"n_clusters=60 .* only 50"):
+        getattr(ht.cluster, cls_name)(n_clusters=60, init="random").fit(ht.array(data))
+    model = getattr(ht.cluster, cls_name)(n_clusters=50, init="random", max_iter=1).fit(ht.array(data))
+    assert model.cluster_centers_.shape == (50, 3)

@@ -99,13 +99,6 @@ def test_chunk_geometry_matches_heat_tpu(shape, split, w_size):
         assert counts == (shape[split],) and displs == (0,) and lshape == shape
 
 
-def test_communicator_refuses_a_multi_rank_world(monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ht.get_comm().size
-
-
 def test_gpu_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here")

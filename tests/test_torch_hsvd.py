@@ -128,7 +128,7 @@ def test_one_view_params_consult_the_kernel_predicate_on_cuda():
 
 def _subspace(u, r=8):
     u = _np(u)[:, :r]
-    return u @ u.T
+    return u @ u.conj().T
 
 
 def _assert_rank8(U, sigma, V, err, r_final=R_FINAL):
@@ -225,3 +225,46 @@ def test_hsvd_rejects_what_heat_tpu_rejects():
     ):
         with pytest.raises((TypeError, ValueError)):
             bad()
+
+
+def _complex_rank8():
+    """A complex64 (320, 256) matrix of rank 8, σ = 8, 7, ..., 1."""
+    rng = np.random.default_rng(1)
+    u, _ = np.linalg.qr(rng.standard_normal((320, 8)) + 1j * rng.standard_normal((320, 8)))
+    v, _ = np.linalg.qr(rng.standard_normal((256, 8)) + 1j * rng.standard_normal((256, 8)))
+    return ((u * RANK8_SIGMA) @ v.conj().T).astype(np.complex64)
+
+
+@pytest.mark.parametrize("compute_sv", [True, False])
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda pkg, A, sv: pkg.linalg.hsvd_rank(A, R_FINAL, compute_sv=sv),
+        lambda pkg, A, sv: pkg.linalg.hsvd_rank(A, R_FINAL, compute_sv=sv, single_pass=True),
+        lambda pkg, A, sv: pkg.linalg.hsvd(A, maxrank=R_FINAL, compute_sv=sv),
+    ],
+    ids=["hsvd_rank-two-pass", "hsvd_rank-one-view", "hsvd"],
+)
+def test_complex64_hsvd_reads_back_and_matches_heat_tpu(call, compute_sv):
+    """U of a complex operand reads back with numpy(). U is unique only up
+    to a phase per column, so σ, the error estimate, ‖UᴴU − I‖ and the
+    reconstruction are compared, at the float32 tolerances of this file:
+    σ to 1e-4 relative, the error estimate to 1e-3 (its float32
+    cancellation), factors to 1e-3."""
+    a = _complex_rank8()
+    ref = call(jht, jht.array(a), compute_sv)
+    got = call(ht, ht.array(a), compute_sv)
+    assert len(got) == len(ref) == (4 if compute_sv else 2)
+    U, JU = got[0].numpy(), np.asarray(ref[0].numpy())
+    assert U.dtype == JU.dtype == np.complex64 and U.shape == JU.shape
+    assert np.abs(U[:, :8].conj().T @ U[:, :8] - np.eye(8)).max() <= 1e-3
+    err, jerr = float(got[-1]), float(ref[-1])
+    assert got[-1].dtype.__name__ == ref[-1].dtype.__name__ == "float32"
+    assert 0.0 <= err <= 1e-3 and abs(err - jerr) <= 1e-3
+    np.testing.assert_allclose(_subspace(U), _subspace(JU), atol=1e-3)
+    if compute_sv:
+        sigma, V = got[1].numpy(), got[2].numpy()
+        assert sigma.dtype == np.float32 and V.dtype == np.complex64
+        np.testing.assert_allclose(sigma[:8], np.asarray(ref[1].numpy())[:8], rtol=1e-4)
+        np.testing.assert_allclose(sigma[:8], RANK8_SIGMA, rtol=1e-4)
+        np.testing.assert_allclose((U * sigma) @ V.conj().T, a, atol=1e-3)
