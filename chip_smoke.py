@@ -49,11 +49,13 @@ Phases, each of which fails the run by raising:
      ``ht.random.randn(..., split=2)`` at bench.py's RA rows (4, 8, 4096,
      64) float32 and bf16 and its RAB row (1, 8, 16384, 128) bf16;
      ``ht.nn.functional.scaled_dot_product_attention`` on raw float32
-     tensors at RA, not causal; ``ht.nn.MultiheadAttention(1024, 8,
-     causal=True, dtype=bf16)`` on x (1, 16384, 1024), 8 heads of 128.
-     Each call must launch K9 exactly once and agree with the plain route
-     (MultiheadAttention: K9 on its strided heads against the plain
-     version, and its output against that o through out_proj);
+     tensors at RA, not causal, and on bf16 heads of 256 (1, 8, 4096,
+     256), causal; ``ht.nn.MultiheadAttention(1024, 8, causal=True,
+     dtype=bf16)`` on x (1, 16384, 1024), 8 heads of 128. Each call must
+     launch K9 exactly once, the bf16 calls at D = 64 and 128 on its Hopper
+     path (``attention_sm90.cu``) and the others not, and agree with the
+     plain route (MultiheadAttention: K9 on its strided heads against the
+     plain version, and its output against that o through out_proj);
    - relayout: the packed pivot of bench.py's 1 GB reshape row, (1000,
      250000) float32 split 1 -> (10,000,000, 25) new_split=1 and back,
      planned by the port's planner as heat_tpu plans them at 8 ranks
@@ -84,14 +86,20 @@ Phases, each of which fails the run by raising:
    against itself on a rerun bit for bit, at RA (f32 causal and not, bf16),
    RAB, ragged 1000 x 777 keys with D = 72, D_v = 40, ragged causal 1003,
    causal S_q < S_kv, D = 8, D = 256, S_q = 1, scores scaled by 10 and
-   S_kv = 0 (no launch); its lse through the ring's combine of two halves of
-   K/V; on the strided heads of a packed projection, bit for bit its
-   result on copies; and under autograd (one launch, gradients within 1e-5
-   of the plain version's). Its bound is the operations over 67 TFLOP/s (float32,
+   S_kv = 0 (no launch); its Hopper path also at 1000 x 1000 causal and
+   not, causal 300 x 1003, S_q = 1 against 4096 keys and scores x 10, each
+   at D = 64 and 128, and on MHA-1024's strided heads, and there also
+   against the mma.sync kernel on the same inputs under the same limit;
+   its lse through the ring's combine of two halves of K/V; on the strided
+   heads of a packed projection, bit for bit its result on copies; and
+   under autograd (one launch, gradients within 1e-5 of the plain
+   version's). Its bound is the operations over 67 TFLOP/s (float32,
    FP32 kept exact) or 989 TFLOP/s (bf16 tensor cores), or the bytes where
    larger; its library yardstick is ``scaled_dot_product_attention`` on
-   the same inputs, checked to agree first; the public calls are timed end
-   to end and one MultiheadAttention forward is profiled. K5 and K6 are held
+   the same inputs, checked to agree first; at RA bf16, RAB and MHA-1024
+   the Hopper path and the mma.sync kernel are timed side by side; the
+   public calls are timed end to end and one MultiheadAttention forward is
+   profiled. K5 and K6 are held
    against their plain versions bit for bit (raw words) at the per-rank
    shapes of the 1 GB move over 8 ranks and of (2048, 64) <-> (8192, 16)
    over 4, ragged and degenerate shapes (no rows, p = 1, c_in = c_out),
@@ -165,6 +173,7 @@ BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
 RA = (4, 8, 4096, 64)  # bench.py's RA_* rows (B, H, S, D), causal (bench.py:103)
 RAB = (1, 8, 16384, 128)  # bench.py's RAB_* 16k-token long-context row (bench.py:109)
 MHA_E, MHA_H = 1024, 8  # MultiheadAttention at RAB's attention shape: 8 heads of 128
+SDPA_D256 = (1, 8, 4096, 256)  # bf16 heads of 256 (B, H, S, D), causal: K9's mma.sync kernel on the main path
 # K9 against its plain version. float32: both sides sum float32 terms in
 # other orders over up to 16384 keys, and o is a convex combination of v
 # rows, so |Δo| <= 1e-5 max|v| of the (b, h) slice and |Δlse| <= 1e-5 (1 +
@@ -240,14 +249,14 @@ def build_kernels() -> None:
         lines = log.read_text().splitlines() if log.exists() else []
         # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59,
         # K3 k ≤ 8, K4's kernels of both regimes, K7 k = 1 and 4, K8, K9
-        # float32 at D_v = 64 and bf16 at D_v = 64 and 128, K5/K6 on 4-byte
-        # words with 32-bit offsets)
+        # float32 at D_v = 64, mma.sync bf16 at D_v = 256, the Hopper path
+        # at D = 64 and 128, K5/K6 on 4-byte words with 32-bit offsets)
         for i, line in enumerate(lines):
             main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E", "segment_sort_kernel",
                     "tile_hist_kernel", "scan_rows_kernel", "tile_scatter_kernel",
                     "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel",
-                    "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi64E", "attn_bf16_kernelILi128E",
-                    "11pack_kernelIjjE", "13unpack_kernelIjjE")
+                    "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi256E", "attn_sm90_kernelILi64ELi3E",
+                    "attn_sm90_kernelILi128ELi2E", "11pack_kernelIjjE", "13unpack_kernelIjjE")
             tags = [tag for tag in main if tag in line]
             if "Compiling entry function" in line and tags:
                 detail = " | ".join(s.split(":", 1)[-1].strip() for s in lines[i + 1 : i + 4])
@@ -1362,28 +1371,56 @@ def _lse_tol(dtype) -> float:
     return TOL_ATT_BF16_LSE if dtype == torch.bfloat16 else TOL_ATT_F32
 
 
-def _k9_case(ka, label, q, k, v, causal) -> float:
-    """K9 against its plain version and against itself on a rerun; returns
-    the largest absolute error of o."""
+def _hopper_shape(q, k, v) -> bool:
+    """Whether K9 should take its Hopper path (attention_sm90.cu) on these
+    operands: bfloat16 at D = D_v in {64, 128}, every base and every
+    stride but the last dim's on 16 bytes."""
     import torch
 
-    launches = ka.ATTENTION_LAUNCHES
+    aligned = all(t.data_ptr() % 16 == 0 and all(st * 2 % 16 == 0 for st in t.stride()[:-1]) for t in (q, k, v))
+    return q.dtype == torch.bfloat16 and q.shape[-1] == v.shape[-1] and q.shape[-1] in (64, 128) and aligned
+
+
+def _k9_case(ka, label, q, k, v, causal):
+    """K9 against its plain version and against itself on a rerun, on the
+    route its predicate picks. On the Hopper path the mma.sync kernel runs
+    on the same inputs too: held against the plain version, and the Hopper
+    path against it, each under the same limits. Returns the largest |Δo|
+    against the plain version of the route's kernel and of the mma.sync
+    kernel (None off the Hopper path)."""
+    import torch
+
+    launches, launches_sm90 = ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES
     o, lse = ka.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
+    hopper = _hopper_shape(q, k, v)
     _require(ka.ATTENTION_LAUNCHES == launches + 1, f"K9 ({label}) did not launch once")
+    _require(ka.ATTENTION_SM90_LAUNCHES == launches_sm90 + int(hopper),
+             f"K9 ({label}) {'did not take' if hopper else 'took'} the Hopper path")
     ro, rl = ka.flash_attention_plain(q, k, v, causal)
     eo, abs_o, el = _att_errors(ka, o, lse, ro, rl, q, k, v, causal)
     tol_l = _lse_tol(q.dtype)
     o2, l2 = ka.flash_attention(q, k, v, causal)
     rerun = bool(torch.equal(o, o2) and torch.equal(lse, l2))
+    route = "attention_sm90" if hopper else "attention"
+    vs_old, ok_old, abs_m = "", True, None
+    if hopper:
+        mo, ml = ka._flash_attention_mma_sync(q, k, v, causal)
+        em, abs_m, elm = _att_errors(ka, mo, ml, ro, rl, q, k, v, causal)
+        ex, abs_x, elx = _att_errors(ka, o, lse, mo, ml, q, k, v, causal)
+        ok_old = em <= 1 and elm <= tol_l and ex <= 1 and elx <= tol_l
+        vs_old = (f"; the mma.sync kernel against the plain version: max |Δo| {abs_m:.3e}, {em:.3f} of the limit, "
+                  f"lse err {elm:.3e}; the Hopper path against the mma.sync kernel: max |Δo| {abs_x:.3e}, "
+                  f"{ex:.3f} of the limit, lse err {elx:.3e}")
     print(
-        f"K9 ({label}, {tuple(q.shape)} x {tuple(v.shape)}, {str(q.dtype)[6:]}, causal={causal}): max |Δo| "
+        f"K9 {route} ({label}, {tuple(q.shape)} x {tuple(v.shape)}, {str(q.dtype)[6:]}, causal={causal}): max |Δo| "
         f"{abs_o:.3e}, {eo:.3f} of its limit {_o_tol_text(q.dtype)}; lse err {el:.3e} of 1+|lse| (tol {tol_l}); "
-        f"rerun identical {rerun}",
+        f"rerun identical {rerun}{vs_old}",
         flush=True,
     )
-    _require(eo <= 1 and el <= tol_l and rerun, f"K9 disagrees with its plain version or itself ({label})")
-    return abs_o
+    _require(eo <= 1 and el <= tol_l and rerun and ok_old,
+             f"K9 disagrees with its plain version, the mma.sync kernel or itself ({label})")
+    return abs_o, abs_m
 
 
 def check_attention(dev) -> dict:
@@ -1403,6 +1440,30 @@ def check_attention(dev) -> dict:
         errs[key] = _k9_case(ka, key, *_qkv(dev, gen, (b, h), s, s, d, d, dtype), causal)
     b, h, s, d = RAB
     errs["rab_bf16_causal"] = _k9_case(ka, "rab_bf16_causal", *_qkv(dev, gen, (b, h), s, s, d, d, bf16), True)
+    # the Hopper path at its ragged and boundary shapes, at both head dims
+    # (RA, RAB and the cases below at D = 64 take it too)
+    for d in (64, 128):
+        for causal in (True, False):
+            _k9_case(ka, f"ragged 1000, D = {d}", *_qkv(dev, gen, (2, 3), 1000, 1000, d, d, bf16), causal)
+        _k9_case(ka, f"causal, 300 x 1003, D = {d}", *_qkv(dev, gen, (4,), 300, 1003, d, d, bf16), True)
+        _k9_case(ka, f"S_q = 1, D = {d}", *_qkv(dev, gen, (4, 8), 1, 4096, d, d, bf16), False)
+        _k9_case(ka, f"scores x10, D = {d}", *_qkv(dev, gen, (2, 8), 2048, 2048, d, d, bf16, mult=10.0), True)
+        # the packed projection's heads, read in place by TMA: the bits of copies
+        qkv = torch.randn(2, 300, 3, 4, d, device=dev, generator=gen).to(bf16)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        _k9_case(ka, f"packed heads, D = {d}", q, k, v, True)
+        o, lse = ka.flash_attention(q, k, v, True)
+        oc, lc = ka.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), True)
+        _require(torch.equal(o, oc) and torch.equal(lse, lc),
+                 f"K9's Hopper path on strided views differs from it on copies (D = {d})")
+    # bfloat16 shapes the Hopper path refuses, on the mma.sync kernel, causal:
+    # its D_v <= 64 form (D = 48) and its 64 < D_v <= 128 form (D = 96, and
+    # D = 128 read from views that start 2 bytes off 16)
+    for d in (48, 96):
+        _k9_case(ka, f"mma.sync, ragged causal, D = {d}", *_qkv(dev, gen, (2, 3), 1003, 1003, d, d, bf16), True)
+        _k9_case(ka, f"mma.sync, causal, 300 x 1003, D = {d}", *_qkv(dev, gen, (4,), 300, 1003, d, d, bf16), True)
+    q, k, v = (t[..., 1:129] for t in _qkv(dev, gen, (2, 3), 1003, 1003, 136, 136, bf16))
+    _k9_case(ka, "mma.sync, causal, misaligned views, D = 128", q, k, v, True)
     for dtype in (f32, bf16):
         _k9_case(ka, "ragged", *_qkv(dev, gen, (6,), 1000, 777, 72, 40, dtype), False)
         _k9_case(ka, "ragged causal", *_qkv(dev, gen, (2, 3), 1003, 1003, 64, 64, dtype), True)
@@ -1442,6 +1503,14 @@ def check_attention(dev) -> dict:
         oc, lc = ka.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), True)
         _require(torch.equal(o, oc) and torch.equal(lse, lc), "K9 on strided views differs from K9 on copies")
 
+    # MultiheadAttention's strided heads at MHA-1024 (RAB's attention shape)
+    import heat_tpu_torch as ht
+
+    mha, x = _mha_inputs(dev, ht)
+    with torch.inference_mode():
+        errs["mha_1024_heads"] = _k9_case(ka, "mha_1024 heads", *_mha_heads(mha, x), True)
+    del mha, x
+
     # under autograd the public route launches K9 and differentiates the
     # plain version in the backward
     from heat_tpu_torch.nn.attention import _single_device_attention
@@ -1468,14 +1537,16 @@ def attention_path(dev):
     import heat_tpu_torch as ht
     from heat_tpu_torch.kernels import attention as ka
 
-    launches = {}
+    launches, launches_sm90, errs = {}, {}, {}
 
-    def run(label: str, call):
-        ka.ATTENTION_LAUNCHES = 0
+    def run(label: str, call, hopper: bool):
+        ka.ATTENTION_LAUNCHES = ka.ATTENTION_SM90_LAUNCHES = 0
         out = call()
         torch.cuda.synchronize()
-        launches[label] = ka.ATTENTION_LAUNCHES
+        launches[label], launches_sm90[label] = ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES
         _require(launches[label] == 1, f"{label} launched K9 {launches[label]} times, not once")
+        _require(launches_sm90[label] == int(hopper),
+                 f"{label} launched K9's Hopper path {launches_sm90[label]} times, not {int(hopper)}")
         return out
 
     def check(label, out, q, k, v, causal):
@@ -1483,9 +1554,11 @@ def attention_path(dev):
         _require(out.shape == ro.shape and out.dtype == ro.dtype and bool(torch.isfinite(out).all()),
                  f"{label}: shape, dtype or values")
         err, abs_o = _o_errors(ka, out, ro, q, k, v, causal)
-        print(f"{label}: {tuple(out.shape)} {str(out.dtype)[6:]}, K9 launches {launches[label]}, max |Δo| "
-              f"{abs_o:.3e} against the plain route, {err:.3f} of its limit {_o_tol_text(q.dtype)}", flush=True)
+        print(f"{label}: {tuple(out.shape)} {str(out.dtype)[6:]}, K9 launches {launches[label]} (Hopper path "
+              f"{launches_sm90[label]}), max |Δo| {abs_o:.3e} against the plain route, {err:.3f} of its limit "
+              f"{_o_tol_text(q.dtype)}", flush=True)
         _require(err <= 1, f"{label} disagrees with the plain route")
+        errs[label] = abs_o
         return abs_o
 
     ht.random.seed(5)
@@ -1494,7 +1567,7 @@ def attention_path(dev):
                                        (RAB, ht.bfloat16, "ring_attention_rab_bf16")):
         q, k, v = (ht.random.randn(b, h, s, d, dtype=dtype, split=2) for _ in range(3))
         _require(q.larray.device == dev and q.split == 2, "q is not a split-2 array on the card")
-        out = run(label, lambda: ht.nn.ring_attention(q, k, v, causal=True))
+        out = run(label, lambda: ht.nn.ring_attention(q, k, v, causal=True), dtype is ht.bfloat16)
         _require(out.split == 2 and out.dtype is dtype and out.gshape == (b, h, s, d), f"{label}: result metadata")
         check(label, out.larray, q.larray, k.larray, v.larray, True)
     del q, k, v, out
@@ -1503,31 +1576,36 @@ def attention_path(dev):
     gen.manual_seed(22)
     b, h, s, d = RA
     q, k, v = _qkv(dev, gen, (b, h), s, s, d, d, torch.float32)
-    out = run("sdpa_ra_f32", lambda: ht.nn.functional.scaled_dot_product_attention(q, k, v))
+    out = run("sdpa_ra_f32", lambda: ht.nn.functional.scaled_dot_product_attention(q, k, v), False)
     check("sdpa_ra_f32", out, q, k, v, False)
+    # bfloat16 heads of 256 (the widest K9 takes) stay on the mma.sync kernel
+    q, k, v = _qkv(dev, gen, SDPA_D256[:2], SDPA_D256[2], SDPA_D256[2], SDPA_D256[3], SDPA_D256[3], torch.bfloat16)
+    out = run("sdpa_bf16_d256", lambda: ht.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True),
+              False)
+    check("sdpa_bf16_d256", out, q, k, v, True)
     del q, k, v, out
 
     mha, x = _mha_inputs(dev, ht)
     with torch.inference_mode():
-        out = run("mha_1024", lambda: mha(x))
+        out = run("mha_1024", lambda: mha(x), True)
         # K9 on the module's strided heads of its packed projection, held
         # against the plain version elementwise; then the module's output
         # against that o through out_proj, the same ops on the same inputs
         # (at most one bf16 rounding apart, of the product and of the sum)
         q, k, v = _mha_heads(mha, x)
         o, _ = ka.flash_attention(q, k, v, True)
-        mha_err = check("mha_1024", o, q, k, v, True)
+        check("mha_1024", o, q, k, v, True)
         y = o.transpose(1, 2).reshape(x.shape) @ mha.out_proj
         ref = y + mha.out_bias
         bound = 2.0**-7 * (y.float().abs() + ref.float().abs())
         ok = bool(((out.float() - ref.float()).abs() <= bound).all()) and bool(torch.isfinite(out).all())
     print(f"MultiheadAttention({MHA_E}, {MHA_H}, causal, bf16) on {tuple(x.shape)}: {tuple(out.shape)}, "
-          f"K9 launches {launches['mha_1024']}, equal to K9's o through out_proj within one bf16 rounding: {ok}",
-          flush=True)
+          f"K9 launches {launches['mha_1024']} (Hopper path {launches_sm90['mha_1024']}), equal to K9's o through "
+          f"out_proj within one bf16 rounding: {ok}", flush=True)
     _require(ok and out.shape == x.shape, "MultiheadAttention is not K9's attention through its projections")
     del out, ref, y, o, q, k, v
     torch.cuda.empty_cache()
-    return launches, mha_err
+    return launches, launches_sm90, errs
 
 
 def _mha_inputs(dev, ht):
@@ -1551,13 +1629,22 @@ def _mha_heads(mha, x):
     return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
 
 
-def _k9_row(name, q, k, v, causal, launches, err):
-    """K9 beside its bound, its plain version and the library call on the
-    same inputs (whose agreement is checked first)."""
+def _k9_row(name, q, k, v, causal, launches: int, launches_sm90: int, errs: tuple):
+    """K9 at one of the main path's shapes, on the kernel its predicate
+    picks there, beside its bound, its plain version and the library call
+    on the same inputs (whose agreement is checked first). ``launches`` and
+    ``launches_sm90`` are K9's launches and the Hopper path's in the main
+    path's call at this shape; ``errs`` is the largest |Δo| against the
+    plain version of that kernel and of the mma.sync kernel (None off the
+    Hopper path). On the Hopper path the row also carries the mma.sync
+    kernel's time on the same inputs (``mma_sync_ms``) and its error
+    (``mma_sync_err``)."""
     import torch
 
     from heat_tpu_torch.kernels import attention as ka
 
+    hopper = _hopper_shape(q, k, v)
+    source = "heat_tpu_torch/csrc/attention_sm90.cu" if hopper else "heat_tpu_torch/csrc/attention.cu"
     *lead, s_q, d = q.shape
     s_kv, d_v = k.shape[-2], v.shape[-1]
     bh = math.prod(lead)
@@ -1580,23 +1667,32 @@ def _k9_row(name, q, k, v, causal, launches, err):
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    mma = ""
+    if hopper:
+        mma_ms = _median_ms(lambda: ka._flash_attention_mma_sync(q, k, v, causal), 10)
+        mma = f"; the mma.sync kernel {mma_ms:.4f} ms ({mma_ms / ms:.2f}x)"
     print(
-        f"{name} (K9, {tuple(q.shape)}, {str(q.dtype)[6:]}, causal={causal}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms (agrees to {lib_abs:.2e}, {lim:.3f} of its limit), bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s, "
-        f"{nbytes / 1e6:.1f} MB; {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s achieved)", flush=True,
+        f"{name} (K9 {source.rsplit('/', 1)[-1]}, {tuple(q.shape)}, {str(q.dtype)[6:]}, causal={causal}): "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms (agrees to "
+        f"{lib_abs:.2e}, {lim:.3f} of its limit), bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP at "
+        f"{peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB; {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s achieved, "
+        f"{bound_ms / ms:.1%} of the bound){mma}", flush=True,
     )
-    return {
-        "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/attention.cu",
-        "replaces": "heat_tpu/nn/attention.py:637, :537", "launches": launches, "max_abs_err": err,
+    row = {
+        "name": name, "route": "cuda", "source": source, "replaces": "heat_tpu/nn/attention.py:637, :537",
+        "launches": launches_sm90 if hopper else launches - launches_sm90, "max_abs_err": errs[0],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+    if hopper:
+        row.update(mma_sync_ms=mma_ms, mma_sync_err=errs[1])
+    return row
 
 
-def attention_timings(dev, launches: dict, errs: dict, mha_err: float) -> list:
+def attention_timings(dev, launches: dict, launches_sm90: dict, errs: dict, path_errs: dict) -> list:
     """K9 at the main path's shapes beside bound, plain version and
-    library call; the public calls end to end; a profile of one
-    MultiheadAttention forward. Returns the kernel rows."""
+    library call, the Hopper path also beside the mma.sync kernel; the
+    public calls end to end; a profile of one MultiheadAttention forward.
+    Returns the kernel rows."""
     import torch
 
     import heat_tpu_torch as ht
@@ -1604,17 +1700,21 @@ def attention_timings(dev, launches: dict, errs: dict, mha_err: float) -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(24)
     rows = []
+
+    def row(key, path, q, k, v, causal, errs_of):
+        rows.append(_k9_row(f"flash_attention_{key}", q, k, v, causal, launches[path], launches_sm90[path], errs_of))
+
     b, h, s, d = RA
     for dtype, causal, key, path in ((torch.float32, True, "ra_f32_causal", "ring_attention_ra_f32"),
                                      (torch.float32, False, "ra_f32", "sdpa_ra_f32"),
                                      (torch.bfloat16, True, "ra_bf16_causal", "ring_attention_ra_bf16")):
-        q, k, v = _qkv(dev, gen, (b, h), s, s, d, d, dtype)
-        rows.append(_k9_row(f"flash_attention_{key}", q, k, v, causal, launches[path], errs[key]))
+        row(key, path, *_qkv(dev, gen, (b, h), s, s, d, d, dtype), causal, errs[key])
     b, h, s, d = RAB
-    q, k, v = _qkv(dev, gen, (b, h), s, s, d, d, torch.bfloat16)
-    rows.append(_k9_row("flash_attention_rab_bf16_causal", q, k, v, True, launches["ring_attention_rab_bf16"],
-                        errs["rab_bf16_causal"]))
-    del q, k, v
+    row("rab_bf16_causal", "ring_attention_rab_bf16", *_qkv(dev, gen, (b, h), s, s, d, d, torch.bfloat16), True,
+        errs["rab_bf16_causal"])
+    b, h, s, d = SDPA_D256
+    row("bf16_d256", "sdpa_bf16_d256", *_qkv(dev, gen, (b, h), s, s, d, d, torch.bfloat16), True,
+        (path_errs["sdpa_bf16_d256"], None))
 
     ht.random.seed(6)
     for (b, h, s, d), dtype, label in ((RA, ht.float32, "RA f32"), (RA, ht.bfloat16, "RA bf16"),
@@ -1628,14 +1728,11 @@ def attention_timings(dev, launches: dict, errs: dict, mha_err: float) -> list:
     mha, x = _mha_inputs(dev, ht)
     with torch.inference_mode():
         fwd_ms = _median_ms(lambda: mha(x), 10)
-        q, k, v = _mha_heads(mha, x)
-        row = _k9_row("flash_attention_mha_1024", q, k, v, True, launches["mha_1024"], mha_err)
+        row("mha_1024", "mha_1024", *_mha_heads(mha, x), True, (path_errs["mha_1024"], errs["mha_1024_heads"][1]))
         proj_flops = 2.0 * RAB[2] * MHA_E * 4 * MHA_E
         print(f"MultiheadAttention({MHA_E}, {MHA_H}, causal, bf16) forward on {tuple(x.shape)}: {fwd_ms:.4f} ms "
               f"(CUDA events, median of 10); projections {proj_flops / 1e9:.1f} GFLOP, bound "
               f"{proj_flops / BF16_FLOP_PER_S * 1e3:.4f} ms", flush=True)
-        rows.append(row)
-        del q, k, v
         profile_breakdown(f"MultiheadAttention({MHA_E}, {MHA_H}) forward {tuple(x.shape)} bf16", lambda: mha(x))
     return rows
 
@@ -1869,13 +1966,13 @@ def main() -> int:
     assign_launches = kmeans_path(dev)
     sort_launches = sort_path(dev)
     sparse_launches = sparse_path(dev, inputs)
-    att_launches, mha_err = attention_path(dev)
+    att_launches, att_launches_sm90, att_path_errs = attention_path(dev)
     relayout_launches = relayout_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
     rows.extend(sort_timings(dev, sort_launches, sort_errs))
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
-    rows.extend(attention_timings(dev, att_launches, att_errs, mha_err))
+    rows.extend(attention_timings(dev, att_launches, att_launches_sm90, att_errs, att_path_errs))
     rows.extend(relayout_timings(dev, relayout_launches, relayout_errs))
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

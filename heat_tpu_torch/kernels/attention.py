@@ -1,5 +1,5 @@
 """Exact softmax attention: the flash-attention forward kernel K9, its
-plain version, predicate and launch count (port of the kernels behind
+plain version, predicates and launch counts (port of the kernels behind
 ``heat_tpu.nn.attention``).
 
 ``flash_attention(q, k, v, causal, scale)`` returns ``(o, lse)``: the
@@ -11,20 +11,31 @@ parts of K/V combine exactly (``combine_partials``). The causal mask is
 top-left aligned (key j is valid for query i when j ≤ i, also when
 S_q ≠ S_kv); a row with no valid key gives o = 0 and lse = −inf.
 
-On a card it launches kernel K9 (``csrc/attention.cu``), one hand-written
-CUDA C++ kernel for ``sm_90a`` that replaces both TPU kernels ``heat_tpu``
-calls: JAX's Pallas flash kernel for float32
+On a card K9 is hand-written CUDA C++ for ``sm_90a`` that replaces both TPU
+kernels ``heat_tpu`` calls: JAX's Pallas flash kernel for float32
 (``_pallas_attention_program``, ``:637``) and its splash kernel for
-bfloat16 (``_build_splash_mha``, ``:537``). float32 keeps FP32 exactness on
-the CUDA cores; bfloat16 multiplies on the tensor cores with float32
-scores and accumulators. The source notes what bounds it and how its
-design meets that.
+bfloat16 (``_build_splash_mha``, ``:537``). Which kernel a call takes is
+decided up front from dtype, head dims and layout:
+
+* bfloat16 with D = D_v ∈ {64, 128}, bases and (batch, head, row) strides
+  on 16 bytes (``sm90_serviceable``; this includes the strided heads of
+  ``MultiheadAttention``'s packed projection): the Hopper path,
+  ``csrc/attention_sm90.cu``, TMA loads and ``wgmma`` products in
+  warp-specialised blocks. Its launches also add one to
+  ``ATTENTION_SM90_LAUNCHES``.
+* every other bfloat16 shape (D = 8, 40/72, 256, D ≠ D_v, a misaligned
+  view): the ``mma.sync`` kernel of ``csrc/attention.cu``.
+* float32: the FP32 kernel of ``csrc/attention.cu`` on the CUDA cores,
+  which keeps float32 exact.
+
+The source of each notes what bounds it and how its design meets that.
 
 The wrapper runs its plain version only when the tensors lie on the CPU. A
-CUDA tensor launches the kernel or raises; there is no fallback. Each
-launch adds one to ``ATTENTION_LAUNCHES``. Callers choose up front with
+CUDA tensor launches a kernel or raises; there is no fallback from one
+kernel to another or to the plain version. Each launch adds one to
+``ATTENTION_LAUNCHES``. Callers choose up front with
 ``attention_serviceable``: float32 and bfloat16 with both head dims at most
-256 take the kernel; float64, float16, complex and wider heads take
+256 take K9; float64, float16, complex and wider heads take
 ``flash_attention_plain`` on any device, as ``heat_tpu`` takes its blocked
 program outside its kernels' gate.
 """
@@ -39,21 +50,28 @@ import torch
 
 __all__ = [
     "ATTENTION_LAUNCHES",
+    "ATTENTION_SM90_LAUNCHES",
     "CHUNK",
     "D_MAX",
+    "SM90_HEAD_DIMS",
     "attention_serviceable",
     "combine_partials",
     "flash_attention",
     "flash_attention_plain",
+    "sm90_serviceable",
 ]
 
-#: launches of K9 since the count was last set to 0
+#: launches of K9 (any of its kernels) since the count was last set to 0
 ATTENTION_LAUNCHES = 0
+#: launches of K9's Hopper path (``csrc/attention_sm90.cu``) since the count was last set to 0
+ATTENTION_SM90_LAUNCHES = 0
 
 #: K/V chunk of the plain version (``heat_tpu``'s blocked program: 1024)
 CHUNK = 1024
 #: largest head dim (of q/k and of v) the kernel takes
 D_MAX = 256
+#: head dims (D = D_v) of the Hopper path
+SM90_HEAD_DIMS = (64, 128)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -68,6 +86,23 @@ def attention_serviceable(dtype: torch.dtype, d_qk: int, d_v: int) -> bool:
     (q, k) and ``d_v`` (v) runs K9 on a card: float32 or bfloat16, both
     head dims from 1 to 256. Everything else takes the plain version."""
     return dtype in _KERNEL_DTYPES and 1 <= d_qk <= D_MAX and 1 <= d_v <= D_MAX
+
+
+def sm90_serviceable(dtype: torch.dtype, d_qk: int, d_v: int, ptrs, strides) -> bool:
+    """Whether K9 takes its Hopper path (``csrc/attention_sm90.cu``) for
+    operands of ``dtype`` with head dims ``d_qk`` and ``d_v``, data pointers
+    ``ptrs`` and (batch, head, row) element strides ``strides`` (one triple
+    an operand, each with a contiguous last dim): bfloat16, D = D_v ∈
+    {64, 128}, every base and stride on 16 bytes (the rule of TMA's tensor
+    maps). Everything else that ``attention_serviceable`` admits takes
+    ``csrc/attention.cu``."""
+    return (
+        dtype == torch.bfloat16
+        and d_qk == d_v
+        and d_qk in SM90_HEAD_DIMS
+        and all(p % 16 == 0 for p in ptrs)
+        and all(st * 2 % 16 == 0 for triple in strides for st in triple)
+    )
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -176,6 +211,28 @@ def _lib():
     return _LIB
 
 
+_LIB_SM90 = None
+
+
+def _lib_sm90():
+    global _LIB_SM90
+    if _LIB_SM90 is None:
+        from . import _build
+
+        lib = _build.load("attention_sm90")
+        lib.heat_flash_attention_sm90.argtypes = [
+            _P, _P, _P, _P, _P,  # q, k, v, o, lse
+            _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,  # (batch, head, row) strides of q, k, v
+            _I, _I, _LL, _LL, _I,  # B, H, S_q, S_kv, D
+            _F, _I, _I, _P,  # scale, causal, device, stream
+        ]
+        lib.heat_flash_attention_sm90.restype = _I
+        lib.heat_attention_sm90_error_string.argtypes = [_I]
+        lib.heat_attention_sm90_error_string.restype = ctypes.c_char_p
+        _LIB_SM90 = lib
+    return _LIB_SM90
+
+
 def _as_bhsd(t: torch.Tensor) -> torch.Tensor:
     """(..., S, D) → a (B, H, S, D) view (a copy only where the leading dims
     do not merge) whose last dim is contiguous."""
@@ -205,12 +262,29 @@ def flash_attention(
     q (..., S_q, D), k (..., S_kv, D), v (..., S_kv, D_v) with the same
     leading dims; o (..., S_q, D_v) in q's dtype, lse (..., S_q) float32.
     On CUDA: all three float32 or all bfloat16 on one device, 1 ≤ D,
-    D_v ≤ 256, any S_q and S_kv. Strided views (such as the heads of a
-    packed projection) are read in place when their leading dims merge into
-    (batch, head) and their last dim is contiguous. S_q = 0 or S_kv = 0
-    gives the result without a launch. A rerun gives the same bits. CPU
-    tensors take the plain version."""
-    global ATTENTION_LAUNCHES
+    D_v ≤ 256, any S_q and S_kv. bfloat16 at D = D_v ∈ {64, 128} with
+    bases and strides on 16 bytes takes the Hopper path
+    (``csrc/attention_sm90.cu``), other bfloat16 shapes the ``mma.sync``
+    kernel and float32 the FP32 kernel (``csrc/attention.cu``). Strided
+    views (such as the heads of a packed projection) are read in place when
+    their leading dims merge into (batch, head) and their last dim is
+    contiguous. S_q = 0 or S_kv = 0 gives the result without a launch. A
+    rerun gives the same bits. CPU tensors take the plain version."""
+    return _flash_attention(q, k, v, causal, scale, sm90=True)
+
+
+def _flash_attention_mma_sync(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` with the Hopper path shut off: a bfloat16 call
+    on CUDA launches the ``mma.sync`` kernel of ``csrc/attention.cu`` on
+    any shape, so that ``chip_smoke.py`` and the ``cuda`` tests can hold the
+    two kernels against each other on the same inputs."""
+    return _flash_attention(q, k, v, causal, scale, sm90=False)
+
+
+def _flash_attention(q, k, v, causal, scale, sm90: bool):
+    global ATTENTION_LAUNCHES, ATTENTION_SM90_LAUNCHES
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal, scale)
     dev = q.device
@@ -236,16 +310,28 @@ def flash_attention(
     if b * h >= 2**31 or max(s_q, s_kv) >= 2**31:
         raise ValueError(f"K9 takes fewer than 2^31 (batch, head) pairs and rows, got {b * h}, {s_q}, {s_kv}")
     sq, sk, sv = (_strides(t) for t in (q4, k4, v4))
-    lib = _lib()
+    ptrs = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr())
+    hopper = sm90 and sm90_serviceable(q.dtype, d, d_v, ptrs, (sq, sk, sv))
+    lib = _lib_sm90() if hopper else _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.heat_flash_attention(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        *sq, *sk, *sv, b, h, s_q, s_kv, d, d_v,
-        float(scale), int(bool(causal)), int(q.dtype == torch.bfloat16),
-        int(_vec(q4, sq)), int(_vec(k4, sk)), int(_vec(v4, sv)), dev.index, stream,
-    )
+    if hopper:
+        rc = lib.heat_flash_attention_sm90(
+            *ptrs, o.data_ptr(), lse.data_ptr(), *sq, *sk, *sv, b, h, s_q, s_kv, d,
+            float(scale), int(bool(causal)), dev.index, stream,
+        )
+        error_string = lib.heat_attention_sm90_error_string
+    else:
+        rc = lib.heat_flash_attention(
+            *ptrs, o.data_ptr(), lse.data_ptr(), *sq, *sk, *sv, b, h, s_q, s_kv, d, d_v,
+            float(scale), int(bool(causal)), int(q.dtype == torch.bfloat16),
+            int(_vec(q4, sq)), int(_vec(k4, sk)), int(_vec(v4, sv)), dev.index, stream,
+        )
+        error_string = lib.heat_attention_error_string
     if rc != 0:
-        msg = lib.heat_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc} ({msg})")
+        msg = error_string(rc).decode()
+        which = "attention_sm90" if hopper else "attention"
+        raise RuntimeError(f"flash_attention kernel ({which}) launch failed: error {rc} ({msg})")
     ATTENTION_LAUNCHES += 1
+    if hopper:
+        ATTENTION_SM90_LAUNCHES += 1
     return o, lse

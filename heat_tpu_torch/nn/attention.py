@@ -3,12 +3,13 @@
 ``ring_attention`` computes ``softmax(scale · q kᵀ [causal mask]) v`` on
 DNDarrays whose sequence axis (-2) may be split. ``heat_tpu`` shards that
 axis over its mesh and circulates K/V around a ring; at world size 1, or
-with an unsplit q, it runs the single-device program. The port serves world
-size 1, where every split takes that route (``_single_device_attention``):
-one launch of kernel K9 (``kernels.attention.flash_attention``) for float32
-and bfloat16 operands on a card. The distributed ring (stationary Q, K/V
-rotated between ranks, K9's ``(o, lse)`` combined per step) comes with the
-multi-rank communicator (ROADMAP.md Queue 1, item 3).
+with an unsplit q, it runs the single-device program. The port takes that
+route in both cases (``_single_device_attention``): one launch of kernel K9
+(``kernels.attention.flash_attention``) for float32 and bfloat16 operands
+on a card, after gathering a split k or v onto every rank
+(``resplit(None)``) when the world has more ranks. The distributed ring for
+a split q (stationary Q, K/V rotated between ranks, K9's ``(o, lse)``
+combined per step) is not ported yet (ROADMAP.md Queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -80,8 +81,10 @@ def ring_attention(
 
     ``q``/``k``/``v``: (..., S, D) DNDarrays, split along the S axis or
     not. The output has q's split and the global shape
-    ``q.gshape[:-1] + (v.gshape[-1],)``. At world size 1 this is one
-    single-device attention; more ranks raise ``NotImplementedError``.
+    ``q.gshape[:-1] + (v.gshape[-1],)``. At world size 1, or with an
+    unsplit q at any world size (``heat_tpu``'s rule, ``nn/attention.py:817``),
+    this is one single-device attention on every rank, a split k or v
+    gathered first; a split q across ranks raises ``NotImplementedError``.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, DNDarray):
@@ -105,11 +108,13 @@ def ring_attention(
         scale = 1.0 / math.sqrt(q.shape[-1])
 
     comm = q.comm
-    if any(t.split is not None for t in (q, k, v)) and comm.is_distributed():
-        raise NotImplementedError(
-            "ring_attention across ranks (K/V rotated between ranks, K9's (o, lse) combined per step) "
-            "is not ported yet: see ROADMAP.md Queue 1, item 3"
-        )
+    if comm.is_distributed():
+        if q.split is not None:
+            raise NotImplementedError(
+                "ring_attention with q split across ranks (K/V rotated between ranks, K9's (o, lse) combined "
+                "per step) is not ported yet: see ROADMAP.md Queue 1, item 3"
+            )
+        k, v = k.resplit(None), v.resplit(None)  # q is whole on every rank: so are k and v then
     out = _single_device_attention(q.larray, k.larray, v.larray, causal, scale)
     return DNDarray(out, out_gshape, types.canonical_heat_type(out.dtype), q.split, q.device, comm)
 

@@ -226,6 +226,97 @@ def test_cuda_tensors_launch_or_raise_never_compute_on_cpu(monkeypatch):
     assert ka.ATTENTION_LAUNCHES == launches
 
 
+def _layout(t):
+    """(data pointers, strides) of one operand as the wrapper reads it."""
+    t4 = ka._as_bhsd(t)
+    return t4.data_ptr(), ka._strides(t4)
+
+
+def _sm90(dtype, *ts):
+    layouts = [_layout(t) for t in ts]
+    return ka.sm90_serviceable(dtype, ts[0].shape[-1], ts[-1].shape[-1], [p for p, _ in layouts],
+                               [st for _, st in layouts])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_predicate_accepts_aligned_bf16_at_64_and_128(d):
+    bf = torch.bfloat16
+    q = torch.zeros(2, 4, 100, d, dtype=bf)
+    assert _sm90(bf, q, q, q)
+    assert _sm90(bf, q[:, :, :1], q, q)  # S_q = 1: a row stride along an extent of 1
+    assert _sm90(bf, q[0], q[0], q[0])  # (H, S, D)
+    # MultiheadAttention's heads: strided views of the packed projection
+    # (nn/modules.py: a row stride of 3 E elements, a head stride of D)
+    e, heads = 8 * d, 8
+    qkv = torch.zeros(1, 37, 3 * e, dtype=bf).reshape(1, 37, 3, heads, d)
+    hq, hk, hv = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert hq.stride() == (37 * 3 * e, d, 3 * e, 1)
+    assert _sm90(bf, hq, hk, hv)
+
+
+def test_sm90_predicate_refuses_other_dtypes_dims_and_misaligned_views():
+    bf = torch.bfloat16
+    x = torch.zeros(2, 4, 100, 64, dtype=bf)
+    assert not _sm90(torch.float32, x.float(), x.float(), x.float())
+    for d in (8, 40, 72, 256):
+        y = torch.zeros(2, 4, 100, d, dtype=bf)
+        assert not _sm90(bf, y, y, y)
+    assert not _sm90(bf, x, x, torch.zeros(2, 4, 100, 128, dtype=bf))  # D != D_v
+    assert not _sm90(bf, torch.zeros(2, 4, 100, 128, dtype=bf), torch.zeros(2, 4, 100, 128, dtype=bf), x)
+    flat = torch.zeros(2 * 4 * 100 * 64 + 1, dtype=bf)
+    odd = flat[1:].view(2, 4, 100, 64)  # starts 2 bytes past an aligned base
+    assert odd.data_ptr() % 16 == 2
+    assert not _sm90(bf, odd, x, x) and not _sm90(bf, x, x, odd)
+    # a row stride of 65 elements: rows that do not start on 16 bytes
+    rows = torch.zeros(2, 4, 100, 65, dtype=bf)[..., :64]
+    assert not _sm90(bf, rows, x, x)
+
+
+def test_cuda_bf16_at_64_and_128_takes_the_hopper_path_or_raises(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the fake CUDA tensors below would be launched")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    class Sm90(RuntimeError):
+        pass
+
+    class MmaSync(RuntimeError):
+        pass
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA operand reached the plain version")
+
+    def sm90_lib():
+        raise Sm90("the Hopper path was chosen")
+
+    def old_lib():
+        raise MmaSync("attention.cu was chosen")
+
+    monkeypatch.setattr(ka, "flash_attention_plain", refuse)
+    monkeypatch.setattr(ka, "_lib_sm90", sm90_lib)
+    monkeypatch.setattr(ka, "_lib", old_lib)
+    launches, launches_sm90 = ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES
+    with FakeTensorMode():
+        for d in (64, 128):
+            q = torch.empty(2, 8, 64, d, device="cuda", dtype=torch.bfloat16)
+            with pytest.raises(Sm90):
+                ka.flash_attention(q, q, q, True)
+            with pytest.raises(Sm90):  # the public route too
+                natt._single_device_attention(q, q, q, True)
+            with pytest.raises(MmaSync):  # the private helper reaches the old kernel on the same shape
+                ka._flash_attention_mma_sync(q, q, q, True)
+            with pytest.raises(MmaSync):  # float32 keeps the FP32 kernel
+                ka.flash_attention(q.float(), q.float(), q.float(), True)
+        for d in (8, 40, 72, 256):
+            q = torch.empty(2, 8, 64, d, device="cuda", dtype=torch.bfloat16)
+            with pytest.raises(MmaSync):
+                ka.flash_attention(q, q, q)
+        q = torch.empty(2, 8, 64, 128, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(MmaSync):  # D != D_v
+            ka.flash_attention(q, q, torch.empty(2, 8, 64, 64, device="cuda", dtype=torch.bfloat16))
+    assert (ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES) == (launches, launches_sm90)
+
+
 def test_gradients_flow_through_the_kernel_route():
     q, k, v = (t.requires_grad_() for t in _t(*_qkv((2, 3, 20, 8), 20, 8, seed=5)))
     out = natt._single_device_attention(q, k, v, True)

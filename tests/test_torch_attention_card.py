@@ -1,0 +1,102 @@
+"""K9's bfloat16 kernels on a card: the Hopper path (``csrc/attention_sm90.cu``)
+and the ``mma.sync`` kernel (``csrc/attention.cu``), each against the plain
+version and against each other on the same inputs.
+
+This module imports neither JAX nor heat_tpu, so that it runs where only
+PyTorch and a card are (the repo's ``conftest.py`` imports JAX, so there it
+runs as ``python -m pytest --noconftest -m cuda tests/test_torch_attention_card.py``).
+Without a card every test skips.
+
+Limits, as in ``chip_smoke.py``: elementwise |Δo| ≤ 3 · 2^-8 (|ro| + A), A
+the float32 attention of |v| on the same q and k (p is rounded to bf16 for
+the second product, o to bf16 on both sides), and |Δlse| ≤ 1e-4 (1 + |lse|);
+reruns bit for bit.
+"""
+
+import pytest
+import torch
+
+from heat_tpu_torch.kernels import attention as ka
+
+pytestmark = pytest.mark.cuda
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K9 has no CPU mode")
+    return torch.device("cuda")
+
+
+def _bf16_qkv(bh, s_q, s_kv, d, seed, width=None):
+    """bf16 q, k and v on the card; with ``width``, views of D columns
+    that start one element into rows of ``width`` (bases off 16 bytes)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = width or d
+    off = 1 if width else 0
+    return tuple(
+        torch.randn(bh + (s, w), device=dev, generator=gen).to(torch.bfloat16)[..., off:off + d]
+        for s in (s_q, s_kv, s_kv)
+    )
+
+
+def _assert_within(o, lse, ro, rl, q, k, v, causal):
+    a, _ = ka.flash_attention_plain(q.float(), k.float(), v.float().abs(), causal)
+    limit = 3 * 2.0**-8 * (ro.float().abs() + a)
+    assert bool(((o.float() - ro.float()).abs() <= limit).all())
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(rl))
+    live = ~torch.isneginf(rl)
+    assert bool(((lse - rl).abs()[live] <= 1e-4 * (1 + rl.abs()[live])).all())
+
+
+@pytest.mark.parametrize("bh,s_q,s_kv,d,causal", [
+    ((2, 3), 1000, 1000, 64, True), ((2, 3), 1000, 1000, 64, False), ((2, 3), 1000, 1000, 128, True),
+    ((2, 3), 1000, 1000, 128, False), ((4,), 300, 1003, 64, True), ((4,), 300, 1003, 128, True),
+    ((4, 8), 1, 4096, 64, False), ((4, 8), 1, 4096, 128, False), ((4, 8), 4096, 4096, 64, True),
+])
+def test_hopper_path_matches_plain_version_and_mma_sync_kernel_on_card(bh, s_q, s_kv, d, causal):
+    """The Hopper path against the plain version and against the mma.sync
+    kernel, and the mma.sync kernel against the plain version."""
+    q, k, v = _bf16_qkv(bh, s_q, s_kv, d, s_q + d)
+    launches = ka.ATTENTION_SM90_LAUNCHES
+    o, lse = ka.flash_attention(q, k, v, causal)
+    assert ka.ATTENTION_SM90_LAUNCHES == launches + 1
+    ro, rl = ka.flash_attention_plain(q, k, v, causal)
+    mo, ml = ka._flash_attention_mma_sync(q, k, v, causal)
+    assert ka.ATTENTION_SM90_LAUNCHES == launches + 1
+    _assert_within(o, lse, ro, rl, q, k, v, causal)
+    _assert_within(mo, ml, ro, rl, q, k, v, causal)
+    _assert_within(o, lse, mo, ml, q, k, v, causal)
+    o2, l2 = ka.flash_attention(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, l2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_hopper_path_reads_packed_heads_in_place_on_card(d):
+    """MultiheadAttention's strided heads give the bits of contiguous copies."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    qkv = torch.randn(2, 300, 3, 4, d, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    launches = ka.ATTENTION_SM90_LAUNCHES
+    o, lse = ka.flash_attention(q, k, v, True)
+    oc, lc = ka.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), True)
+    assert ka.ATTENTION_SM90_LAUNCHES == launches + 2
+    assert torch.equal(o, oc) and torch.equal(lse, lc)
+
+
+@pytest.mark.parametrize("bh,s_q,s_kv,d,width", [
+    ((2, 3), 1003, 1003, 48, None), ((4,), 300, 1003, 48, None), ((2, 3), 1003, 1003, 96, None),
+    ((4,), 300, 1003, 96, None), ((2, 3), 1003, 1003, 128, 136),
+])
+def test_mma_sync_kernel_serves_bf16_shapes_off_the_hopper_path_on_card(bh, s_q, s_kv, d, width):
+    """Causal bf16 shapes that the Hopper path refuses (D = 48, D = 96, and
+    D = 128 views whose bases are off 16 bytes) launch the mma.sync kernel,
+    within the limits of the plain version; reruns bit for bit."""
+    q, k, v = _bf16_qkv(bh, s_q, s_kv, d, s_q + d, width)
+    launches, launches_sm90 = ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES
+    o, lse = ka.flash_attention(q, k, v, True)
+    assert (ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES) == (launches + 1, launches_sm90)
+    _assert_within(o, lse, *ka.flash_attention_plain(q, k, v, True), q, k, v, True)
+    o2, l2 = ka.flash_attention(q, k, v, True)
+    assert torch.equal(o, o2) and torch.equal(lse, l2)

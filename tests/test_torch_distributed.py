@@ -9,8 +9,11 @@ jax.devices()[:4])``: rank r's shard is the shard heat_tpu places on
 device r, bit for bit for every redistribution; ``arange(N,
 split=0).sum()`` is exact for integers and within 1e-6 Σ|x| for float32;
 the collectives each rank issued equal the plan's ``collective_counts()``;
-and every entry point of slices 1–5 on a split operand either matches
-heat_tpu or raises ``NotImplementedError`` naming its ROADMAP item."""
+every entry point of slices 1–5 on a split operand either matches
+heat_tpu or raises ``NotImplementedError`` naming its ROADMAP item; and
+``ring_attention`` with a whole q and a split k/v equals heat_tpu's result
+within test_torch_attention.py's float32 tolerance (rtol 2e-5, atol 2e-6:
+both sides are float32 online softmaxes that sum in other orders)."""
 
 import fcntl
 import os
@@ -333,3 +336,20 @@ def test_entry_points_along_other_axes_match_heat_tpu(ranks, jcomm):
         lm, mshape, msplit = res["moveaxis"]
         assert (mshape, msplit) == (m.gshape, m.split)
         np.testing.assert_array_equal(lm, m.numpy()[_slices(m.gshape, m.split, r)])
+
+
+# --------------------------------------------------------------------- #
+# ring_attention with a whole q at world size 4                         #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("causal, k_split, v_split", worker.ATTENTION_UNSPLIT_Q)
+def test_ring_attention_with_unsplit_q_matches_heat_tpu(ranks, jcomm, causal, k_split, v_split):
+    q, k, v = (worker._array(worker.ATTENTION_SHAPE, "float32", seed) for seed in (31, 32, 33))
+    jq, jk, jv = (jht.array(a, split=split, comm=jcomm) for a, split in ((q, None), (k, k_split), (v, v_split)))
+    ref = jht.nn.ring_attention(jq, jk, jv, causal=causal)
+    assert ref.split is None
+    want = ref.numpy()
+    for res in _result(ranks, f"attention_unsplit_q_{causal}_{k_split}_{v_split}"):
+        assert res["split"] is None and res["gshape"] == ref.gshape == worker.ATTENTION_SHAPE
+        assert (res["k_split"], res["v_split"]) == (k_split, v_split)  # the caller's operands keep their split
+        np.testing.assert_allclose(res["local"], want, rtol=2e-5, atol=2e-6)
+        np.testing.assert_allclose(res["global"], want, rtol=2e-5, atol=2e-6)

@@ -15,6 +15,10 @@ import traceback
 import numpy as np
 
 
+ATTENTION_SHAPE = (2, 3, 37, 8)  # (B, H, S, D): a ragged S over 4 ranks
+ATTENTION_UNSPLIT_Q = ((False, 2, 2), (True, 2, 2), (True, None, 2))  # (causal, k's split, v's split)
+
+
 def _np(t):
     """numpy of a tensor (bfloat16 widened to float32, which is exact)."""
     import torch
@@ -206,6 +210,17 @@ def _cases(ht):
     }
     for name, call in entry.items():
         cases[f"entry_{name}"] = lambda call=call: {"value": call()}
+
+    # ring_attention with a whole q and a split k/v: heat_tpu's single-device
+    # route at any world size (its nn/attention.py:817)
+    for causal, k_split, v_split in ATTENTION_UNSPLIT_Q:
+        def attention_case(causal=causal, k_split=k_split, v_split=v_split):
+            q, k, v = (ht.array(_array(ATTENTION_SHAPE, "float32", seed), split=split)
+                       for seed, split in ((31, None), (32, k_split), (33, v_split)))
+            out = ht.nn.ring_attention(q, k, v, causal=causal)
+            return {"local": _np(out.larray), "split": out.split, "gshape": out.gshape, "global": out.numpy(),
+                    "k_split": k.split, "v_split": v.split}
+        cases[f"attention_unsplit_q_{causal}_{k_split}_{v_split}"] = attention_case
 
     def served():
         x = split_x((12, 8), 0)
