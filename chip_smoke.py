@@ -34,7 +34,8 @@ Phases, each of which fails the run by raising:
      ``ht.unique`` of ``ht.random.randint(0, 1000, ...)`` of the same
      length, with its inverse, and of the float32 array; ``ht.topk(x,
      1000)`` both ways, which must equal the prefix of the sort. Each call
-     must launch K4;
+     must launch K4, and a float32 ``ht.sort`` must run nothing on the card
+     but K4's kernels and memsets (profiled);
    - sparse: bench.py's ``spmm_1gb`` (16384^2, 16,384 full (8, 128)
      bricks, seed 0x18): ``ht.sparse.sparse_dbcsr_matrix(bsr, split=0) @
      x`` with k = 4 (K7 once), ``ht.sparse.sddmm(S, u, v)`` with d = 64
@@ -73,8 +74,16 @@ Phases, each of which fails the run by raising:
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
    peaks; and a profile of one call or fit of each main path. K4 is
    checked for exact equality with its plain version (it moves integers)
-   at both regimes' main shapes, ragged and boundary segment lengths,
-   adversarial float32 keys and n = 1, and on a rerun. K7 and K8 are held
+   at both regimes' main shapes, ragged and boundary segment lengths, the
+   one-sweep tile boundaries and an odd size of 3,000,017, adversarial
+   float32 keys, int32 extremes, constant digit places (all-equal keys,
+   keys differing only in the top byte, randint(0, 1000)) and n = 1, and
+   on a rerun; its fused entry against the plain composition of the key
+   transforms and the pair sort in each transform mode, order and output;
+   and one segment of 2^30 pairs against the invariants of a stable sort.
+   Its rows time the fused entry the main path launches (values and int64
+   indices, bound 16 B a pair) beside torch.sort, the words-only entry and
+   the first design of K4 (``pr3_ms``). K7 and K8 are held
    against their plain versions within 1e-5 of each element's absolute-sum
    scale, and against themselves on a rerun bit for bit, at the main-path
    shapes, ragged 1003 x 777, empty brick rows, all-zero and pad bricks,
@@ -248,12 +257,13 @@ def build_kernels() -> None:
         log = _build._library_path(name).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59,
-        # K3 k ≤ 8, K4's kernels of both regimes, K7 k = 1 and 4, K8, K9
-        # float32 at D_v = 64, mma.sync bf16 at D_v = 256, the Hopper path
-        # at D = 64 and 128, K5/K6 on 4-byte words with 32-bit offsets)
+        # K3 k ≤ 8, K4's kernels of both regimes (rows of 512: two warps a
+        # row), K7 k = 1 and 4, K8, K9 float32 at D_v = 64, mma.sync bf16 at
+        # D_v = 256, the Hopper path at D = 64 and 128, K5/K6 on 4-byte
+        # words with 32-bit offsets)
         for i, line in enumerate(lines):
-            main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E", "segment_sort_kernel",
-                    "tile_hist_kernel", "scan_rows_kernel", "tile_scatter_kernel",
+            main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E", "seg_sort_kernelILi8ELi2E",
+                    "sweep_hist_kernel", "sweep_plan_kernel", "sweep_pass_kernel",
                     "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel",
                     "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi256E", "attn_sm90_kernelILi64ELi3E",
                     "attn_sm90_kernelILi128ELi2E", "11pack_kernelIjjE", "13unpack_kernelIjjE")
@@ -432,6 +442,75 @@ def _k4_case(ks, label: str, keys, pays=None, seg_len=None, pay_bytes=0) -> int:
     return err
 
 
+# K4's fused entry in each transform mode, order and output: (total, descending, out)
+K4_FUSED_MODES = ((False, False, "values"), (False, True, "values"), (False, False, "words"),
+                  (True, True, None), (True, True, "values"), (True, False, "values"))
+
+
+def _bits_of(t):
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _fused_case(ks, label: str, x, seg_len=None, modes=K4_FUSED_MODES) -> int:
+    """K4's fused entry against its plain composition (sort_key,
+    pair_sort_plain, from_sortable) bit for bit, and against itself on a
+    rerun, in each (total, descending, out) of ``modes``. Returns the
+    largest absolute difference of the raw bits."""
+    import torch
+
+    err, rerun = 0, True
+    for total, descending, out in modes:
+        got = ks.fused_sort(x, seg_len, total=total, descending=descending, out=out)
+        ref = ks.fused_sort_plain(x, seg_len, total=total, descending=descending, out=out)
+        again = ks.fused_sort(x, seg_len, total=total, descending=descending, out=out)
+        torch.cuda.synchronize()
+        for g, r, a in zip(got, ref, again):
+            _require((g is None) == (r is None) and (g is None or g.dtype == r.dtype), f"K4 fused ({label}) types")
+            if g is not None:
+                err = max(err, int((_bits_of(g).long() - _bits_of(r).long()).abs().max()))
+                rerun = rerun and torch.equal(_bits_of(g), _bits_of(a))
+    print(f"K4 fused ({label}, {len(modes)} transform/order/output modes): max |difference| of the bits from "
+          f"the plain composition {err} (tol 0), rerun identical {rerun}", flush=True)
+    _require(err == 0 and rerun, f"K4's fused entry disagrees with its plain composition or itself ({label})")
+    return err
+
+
+def _k4_huge_case(ks, gen, dev, n: int) -> None:
+    """One segment of n pairs, too large for the plain version: the result
+    must be a stable sort, which the invariants below pin exactly (keys
+    non-decreasing, payloads a permutation, keys equal to the input at the
+    payloads, payloads increasing within each run of equal keys), and a
+    rerun must give the same bits."""
+    import torch
+
+    keys = _random_words(gen, n, dev)
+    t0 = time.perf_counter()
+    out_k, out_p = ks.pair_sort(keys)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    seen = torch.zeros(n, dtype=torch.bool, device=dev)
+    step = 1 << 26
+    ok = True
+    for s in range(0, n, step):
+        e = min(n, s + step + 1)
+        k, p = _unsigned(out_k[s:e]), out_p[s:e].long()
+        ok &= bool((k[1:] >= k[:-1]).all())
+        ties = k[1:] == k[:-1]
+        ok &= bool((p[1:][ties] > p[:-1][ties]).all())
+        ok &= torch.equal(keys[p[: step]], out_k[s : s + step])
+        seen[p[: step]] = True
+        del k, p, ties
+    ok &= bool(seen.all())
+    del seen
+    again_k, again_p = ks.pair_sort(keys)
+    rerun = torch.equal(out_k, again_k) and torch.equal(out_p, again_p)
+    print(f"K4 (n={n}, one segment, {-(-n // 4096)} tiles in the look-back): a stable sort of the keys {ok}, "
+          f"rerun identical {rerun} (first call {ms:.1f} ms by the host clock)", flush=True)
+    _require(ok and rerun, f"K4 at n={n} is not the stable sort of its keys, or a rerun differs")
+
+
 def check_sort(dev) -> dict:
     """K4 against its plain version at the listed shapes; returns the
     largest error of each regime's main shape."""
@@ -443,20 +522,50 @@ def check_sort(dev) -> dict:
     gen.manual_seed(8)
     errs = {}
     keys = _random_words(gen, SORT_N, dev)
-    errs["pair_sort_one_segment"] = _k4_case(ks, f"n={SORT_N}, one segment", keys)
+    errs["pair_sort_one_segment"] = max(_k4_case(ks, f"n={SORT_N}, one segment", keys),
+                                        _fused_case(ks, f"n={SORT_N} float32 randn, one segment",
+                                                    torch.randn(SORT_N, device=dev, generator=gen)))
     del keys
     keys, pays = _random_words(gen, SORT_N, dev, 1000), _random_words(gen, SORT_N, dev)
     _k4_case(ks, f"n={SORT_N}, 1000 key values, pay_bytes=4", keys, pays, pay_bytes=4)
     del keys, pays
     keys = _random_words(gen, SORT_ROWS * SORT_SEG, dev)
-    errs["pair_sort_segments"] = _k4_case(ks, f"{SORT_ROWS} segments of {SORT_SEG}", keys, seg_len=SORT_SEG)
+    errs["pair_sort_segments"] = max(
+        _k4_case(ks, f"{SORT_ROWS} segments of {SORT_SEG}", keys, seg_len=SORT_SEG),
+        _fused_case(ks, f"{SORT_ROWS} float32 randn segments of {SORT_SEG}",
+                    torch.randn(SORT_ROWS * SORT_SEG, device=dev, generator=gen), SORT_SEG))
     del keys
-    for rows, seg in ((10_007, 777), (2048, ks.SEG_MAX), (1, ks.SEG_MAX + 1), (1, 1)):
-        _k4_case(ks, f"{rows} segment(s) of {seg}", _random_words(gen, rows * seg, dev, 3000), seg_len=seg)
+    for rows, seg in ((10_007, 777), (2048, ks.SEG_MAX), (1, ks.SEG_MAX + 1), (1, 1), (100_003, 100),
+                      (1, 2 * 4096 - 1), (1, 2 * 4096), (1, 2 * 4096 + 1), (1, 3_000_017)):
+        words = _random_words(gen, rows * seg, dev, 3000)
+        _k4_case(ks, f"{rows} segment(s) of {seg}", words, seg_len=seg)
+        _fused_case(ks, f"{rows} segment(s) of {seg}, the words as float32", words.view(torch.float32), seg)
     for kind in ("sorted", "reverse", "const", "fewuniq", "nan", "specials"):
-        u = ks.to_sortable(_adversarial_f32(kind, gen, dev))
+        x = _adversarial_f32(kind, gen, dev)
+        u = ks.to_sortable(x)
         _k4_case(ks, f"{kind} float32 keys, one segment of {ADV_N}", u)
         _k4_case(ks, f"{kind} float32 keys, segments of {SORT_SEG}", u, seg_len=SORT_SEG)
+        _fused_case(ks, f"{kind} float32, one segment of {ADV_N}", x)
+        _fused_case(ks, f"{kind} float32, segments of {SORT_SEG}", x, SORT_SEG)
+    ints = _random_words(gen, ADV_N, dev)
+    ends = torch.tensor([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1], device=dev, dtype=torch.int32)
+    pick = torch.rand(ADV_N, device=dev, generator=gen) < 0.5
+    ints[pick] = ends[torch.randint(0, len(ends), (int(pick.sum()),), device=dev, generator=gen)]
+    _fused_case(ks, f"int32 with its extremes, one segment of {ADV_N}", ints)
+    _fused_case(ks, f"int32 with its extremes, segments of {SORT_SEG}", ints, SORT_SEG)
+    # constant digit places, whose passes the one-sweep regime skips
+    n = ADV_N + 3
+    top = torch.randint(0, 256, (n,), device=dev, generator=gen, dtype=torch.int32)
+    for label, words in (
+        ("all-equal keys (every place constant)", torch.full((n,), 0x3F800000, device=dev, dtype=torch.int32)),
+        ("keys that differ only in the top byte", (top << 24) | 0x123456),
+        ("randint(0, 1000) (the top two bytes constant)", _random_words(gen, n, dev, 1000)),
+    ):
+        _k4_case(ks, f"{label}, one segment of {n}", words)
+        _fused_case(ks, f"{label} as float32, one segment of {n}", words.view(torch.float32))
+        _fused_case(ks, f"{label} as int32, one segment of {n}", words)
+    del x, u, ints, top, words
+    _k4_huge_case(ks, gen, dev, 1 << 30)
     return errs
 
 
@@ -524,9 +633,17 @@ def sort_path(dev) -> dict:
     return {"one_segment": one, "segments": rows}
 
 
+# K4's kernels and the memsets of its state: all that ht.sort of float32
+# may run on the card (csrc/radix_sort.cu)
+K4_KERNELS = ("sweep_hist_kernel", "sweep_plan_kernel", "sweep_pass_kernel", "seg_sort_kernel", "Memset")
+FIRST_SORT_MS = 18.8688  # ht.sort(randn(2^27)) on K4's first design (PERF.md §5)
+
+
 def sort_timings(dev, launches: dict, errs: dict) -> list:
-    """K4 in both regimes beside its plain version and torch.sort, then the
-    public calls end to end and a profile of ht.sort; returns K4's rows."""
+    """K4 in both regimes (the fused entry the main path launches) beside
+    its plain version, torch.sort, the words-only entry and K4's first design,
+    then the public calls end to end and a profile of ht.sort; returns
+    K4's rows."""
     import torch
 
     import heat_tpu_torch as ht
@@ -541,40 +658,54 @@ def sort_timings(dev, launches: dict, errs: dict) -> list:
         ("pair_sort_one_segment", "one_segment", None, lambda: torch.sort(x, stable=True)),
         ("pair_sort_segments", "segments", SORT_SEG, lambda: torch.sort(X, dim=1, stable=True)),
     ):
-        words = ks.to_sortable(x if seg is None else X.reshape(-1))
+        vals = x if seg is None else X.reshape(-1)
+        words = ks.to_sortable(vals)
         plan = ks.sort_plan(SORT_N, seg_len=seg)
-        ms = _median_ms(lambda: ks.pair_sort(words, seg_len=seg), 10)
-        plain_ms = _median_ms(lambda: ks.pair_sort_plain(words, seg_len=seg), 2)
+        # in turns: old, new, new, old
+        pr3_ms = _median_ms(lambda: ks._pair_sort_pr3(words, seg_len=seg), 10)
+        ms = _median_ms(lambda: ks.fused_sort(vals, seg_len=seg), 10)
+        words_ms = _median_ms(lambda: ks.pair_sort(words, seg_len=seg), 10)
+        pr3_again_ms = _median_ms(lambda: ks._pair_sort_pr3(words, seg_len=seg), 10)
+        plain_ms = _median_ms(lambda: ks.fused_sort_plain(vals, seg_len=seg), 2)
         library_ms = _median_ms(library, 10)
-        # with a generated payload: read each key once, write each key and payload once
-        bound_ms, bound_by = _bound(12.0 * SORT_N, 0.0)
+        # the fused entry: read each value once, write each value and int64 index once
+        bound_ms, bound_by = _bound(16.0 * SORT_N, 0.0)
         model_ms = plan["hbm_bytes"] / HBM_BYTES_PER_S * 1e3
         print(
-            f"{name} (K4, {plan['path']}, n={SORT_N}{'' if seg is None else f' in segments of {seg}'}): {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, 12 B a pair); "
-            f"pass model {plan['passes']} passes, {plan['hbm_bytes'] / 1e9:.4f} GB, {model_ms:.4f} ms at 3.35 TB/s "
-            f"({plan['hbm_bytes'] / (ms * 1e-3) / 1e9:.1f} GB/s of model bytes achieved)", flush=True,
+            f"{name} (K4 fused, {plan['path']}, n={SORT_N} float32{'' if seg is None else f' in segments of {seg}'}, "
+            f"values and int64 indices): {ms:.4f} ms, torch.sort(stable=True) {library_ms:.4f} ms "
+            f"(K4 faster: {ms <= library_ms}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, 16 B a "
+            f"pair); words in and out (12 B a pair): this design {words_ms:.4f} ms, the first design {pr3_ms:.4f} / "
+            f"{pr3_again_ms:.4f} ms; pass model {plan['passes']} passes, {plan['hbm_bytes'] / 1e9:.4f} GB, "
+            f"{model_ms:.4f} ms at 3.35 TB/s ({plan['hbm_bytes'] / (ms * 1e-3) / 1e9:.1f} GB/s of model bytes "
+            f"achieved)", flush=True,
         )
         rows.append({
             "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/radix_sort.cu",
             "replaces": "heat_tpu/kernels/sort.py:253", "launches": launches[key], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "words_ms": words_ms, "pr3_ms": min(pr3_ms, pr3_again_ms),
         })
         del words
     A = ht.array(x, split=0)
     floor_ms = ks.sort_plan(SORT_N)["floor_bytes"] / HBM_BYTES_PER_S * 1e3
     sort_ms = _median_ms(lambda: ht.sort(A), 5)
+    desc_ms = _median_ms(lambda: ht.sort(A, descending=True), 5)
     unique_ms = _median_ms(lambda: ht.unique(A), 5)
     topk_ms = _median_ms(lambda: ht.topk(A, TOPK_K), 5)
     torch_topk_ms = _median_ms(lambda: torch.topk(x, TOPK_K), 5)
     rows_ms = _median_ms(lambda: ht.sort(ht.array(X, split=0), axis=1), 5)
     print(
-        f"ht.sort(randn({SORT_N})): {sort_ms:.4f} ms (median of 5, CUDA events), floor {floor_ms:.4f} ms "
-        f"(read 4, write 4 + 8 B an element); ht.sort(randn({SORT_ROWS}, {SORT_SEG}), axis=1): {rows_ms:.4f} ms; "
-        f"ht.unique: {unique_ms:.4f} ms; ht.topk(x, {TOPK_K}): {topk_ms:.4f} ms beside torch.topk {torch_topk_ms:.4f} ms",
-        flush=True,
+        f"ht.sort(randn({SORT_N})): {sort_ms:.4f} ms (median of 5, CUDA events; on the first design: "
+        f"{FIRST_SORT_MS} ms), floor {floor_ms:.4f} ms (read 4, write 4 + 8 B an element); descending {desc_ms:.4f} ms; "
+        f"ht.sort(randn({SORT_ROWS}, {SORT_SEG}), axis=1): {rows_ms:.4f} ms; ht.unique: {unique_ms:.4f} ms; "
+        f"ht.topk(x, {TOPK_K}): {topk_ms:.4f} ms beside torch.topk {torch_topk_ms:.4f} ms", flush=True,
     )
-    profile_breakdown(f"ht.sort(randn({SORT_N}))", lambda: ht.sort(A))
+    kernels = profile_breakdown(f"ht.sort(randn({SORT_N}))", lambda: ht.sort(A))
+    others = [k for k in kernels if not any(tag in k for tag in K4_KERNELS)]
+    print(f"ht.sort(randn({SORT_N})) ran {len(kernels)} kinds of device work, none outside K4: {not others}",
+          flush=True)
+    _require(not others, f"ht.sort of float32 ran device work outside K4: {others}")
     return rows
 
 
@@ -1918,10 +2049,10 @@ def relayout_timings(dev, launches: dict, errs: dict) -> list:
     return rows_out
 
 
-def profile_breakdown(label: str, call) -> None:
+def profile_breakdown(label: str, call) -> list:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
-    cost)."""
+    cost); returns the names of the device work that ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1943,6 +2074,7 @@ def profile_breakdown(label: str, call) -> None:
         f"profile {label}: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); by kernel: {top}", flush=True,
     )
+    return [key for _, _, key in rows]
 
 
 def main() -> int:

@@ -173,8 +173,9 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
     NaN with its sign bit set below −inf, and the lower index first among
     ties; ``largest=False`` is the ascending order. The result is sorted
     whatever ``sorted`` says, as in ``heat_tpu``. One stable sort of the
-    totalOrder key (K4 for float32 and int32 on CUDA) gives it; the values
-    are gathered from the input, bit for bit."""
+    totalOrder key gives it (K4's fused entry for float32 and int32 on
+    CUDA, which writes only the indices); the values are gathered from the
+    input, bit for bit."""
     sanitize_in(a)
     dim = sanitize_axis(a.shape, dim)
     if a.ndim == 0:
@@ -187,9 +188,7 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
     if a.larray.is_complex():
         raise TypeError("topk of a complex array: complex has no order")
     x = a.larray.movedim(dim, -1).contiguous()
-    key = _ksort.sort_key(x, total=True)
-    _, order = _ksort.sort_keys(~key if largest else key)
-    order = order[..., :k].contiguous()
+    order = _ksort.argsort(x, total=True, descending=largest).narrow(-1, 0, k).contiguous()
     values = x.gather(-1, order).movedim(-1, dim).contiguous()
     indices = order.movedim(-1, dim).contiguous().to(types.index_torch_type())
     vals = _wrap(values, a.split, a, dtype=a.dtype)
@@ -211,23 +210,27 @@ def _nan_canonical(t: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(t), torch.full_like(t, complex(float("nan"), 0.0)), t)
 
 
-def _keys_of(t: torch.Tensor):
-    """Sort keys of a 1-D tensor, most significant first: one, or (real,
-    imag) for complex."""
+def _columns_of(t: torch.Tensor):
+    """Real columns of a 1-D tensor, most significant first: itself, or
+    (real, imag) for complex."""
     if t.is_complex():
-        return [_ksort.sort_key(t.real.contiguous()), _ksort.sort_key(t.imag.contiguous())]
-    return [_ksort.sort_key(t)]
+        return [t.real.contiguous(), t.imag.contiguous()]
+    return [t]
 
 
-def _lex_sort(keys):
-    """Stable lexicographic argsort of rows whose columns are the 1-D
-    ``keys`` (most significant first): one stable sort per key, the last
-    key first, carrying the row permutation. Returns the permutation and
-    the keys in its order."""
+def _lex_sort(cols):
+    """Stable lexicographic argsort of rows whose columns are the 1-D real
+    ``cols`` (most significant first), by their sort keys: one stable sort
+    per column, the last column first, carrying the row permutation (the
+    first of them K4's fused entry for float32 and int32 on CUDA). Returns
+    the permutation and the columns' keys in its order."""
     perm = None
-    for key in reversed(keys):
-        last, perm = _ksort.sort_keys(key if perm is None else key[perm], perm)
-    return perm, [last] + [key[perm] for key in keys[1:]]
+    for col in reversed(cols):
+        if perm is None:
+            last, perm = _ksort.sort_with_key(col)
+        else:
+            last, perm = _ksort.sort_keys(_ksort.sort_key(col[perm]), perm)
+    return perm, [last] + [_ksort.sort_key(col[perm]) for col in cols[1:]]
 
 
 def _groups(sorted_keys, n: int, device) -> torch.Tensor:
@@ -241,11 +244,12 @@ def _groups(sorted_keys, n: int, device) -> torch.Tensor:
     return start
 
 
-def _unique_sorted(items: torch.Tensor, keys):
-    """Unique items (rows of ``items`` along dim 0) by their keys: the first
-    of each group in input order, and each item's group."""
+def _unique_sorted(items: torch.Tensor, cols):
+    """Unique items (rows of ``items`` along dim 0) by the keys of their
+    columns: the first of each group in input order, and each item's
+    group."""
     n = items.shape[0]
-    perm, sorted_keys = _lex_sort(keys)
+    perm, sorted_keys = _lex_sort(cols)
     start = _groups(sorted_keys, n, items.device)
     inverse = torch.empty(n, dtype=types.index_torch_type(), device=items.device)
     inverse[perm] = torch.cumsum(start, 0) - 1
@@ -276,7 +280,7 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
             values = flat
             inverse = torch.zeros(x.shape, dtype=types.index_torch_type(), device=x.device)
         else:
-            values, inverse = _unique_sorted(flat, _keys_of(flat))
+            values, inverse = _unique_sorted(flat, _columns_of(flat))
             inverse = inverse.reshape(x.shape)
     else:
         moved = _nan_canonical(x.movedim(axis, 0).contiguous())
@@ -287,8 +291,8 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
             inverse = torch.zeros(n, dtype=types.index_torch_type(), device=x.device)
         else:
             rows = moved.reshape(n, -1)
-            keys = [k for j in range(rows.shape[1]) for k in _keys_of(rows[:, j].contiguous())]
-            values, inverse = _unique_sorted(moved, keys)
+            cols = [c for j in range(rows.shape[1]) for c in _columns_of(rows[:, j].contiguous())]
+            values, inverse = _unique_sorted(moved, cols)
         values = values.movedim(0, axis).contiguous()
     vals = _wrap(values, 0 if a.split is not None else None, a, dtype=a.dtype)
     if return_inverse:

@@ -2,7 +2,8 @@
 support for the port's CUDA sources (``csrc/``).
 
 ``sort`` holds the local sort engine under ``ht.sort``, ``ht.unique`` and
-``ht.topk`` with its radix pair-sort kernel K4 (``csrc/radix_sort.cu``).
+``ht.topk`` with its radix sort kernel K4 (``csrc/radix_sort.cu``): the
+pair sort of u32 words and the fused sort of float32 and int32 values.
 ``spmm`` holds the brick engine of the DBCSR format with its SpMM kernel K7
 and SDDMM kernel K8 (``csrc/spmm.cu``). ``attention`` holds exact softmax
 attention with its flash-attention forward kernel K9 (``csrc/attention.cu``)
@@ -19,6 +20,7 @@ from .attention import (
 )
 from .sort import (
     from_sortable,
+    fused_sort,
     local_sort,
     pair_sort,
     sort_plan,
@@ -37,6 +39,7 @@ __all__ = [
     "sort",
     "spmm",
     "from_sortable",
+    "fused_sort",
     "local_sort",
     "pair_sort",
     "sort_plan",

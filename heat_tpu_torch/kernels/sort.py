@@ -2,29 +2,34 @@
 plain version, and the engine under ``ht.sort``, ``ht.unique`` and
 ``ht.topk`` (port of ``heat_tpu.kernels.sort``).
 
-``pair_sort`` (kernel K4, ``csrc/radix_sort.cu``) is a stable LSD radix-256
-sort of (u32 key, u32 payload) pairs in independent segments, lexicographic
-in (key, payload). It replaces the Pallas TPU kernel
+Kernel K4 (``csrc/radix_sort.cu``) is a stable LSD radix-256 sort of
+(u32 key, u32 payload) pairs in independent segments, lexicographic in
+(key, payload). It replaces the Pallas TPU kernel
 ``heat_tpu/kernels/sort.py::_pallas_block_call``, which sorts 512-pair
 blocks in VMEM and serves the TPU only as a base case. On Hopper the kernel
-is the engine of the whole local sort: one thread block per segment of at
-most ``SEG_MAX`` pairs, or a multi-block pass sequence for one segment of
-any length below 2^31. The source notes what bounds it and how the design
-meets that.
+is the engine of the whole local sort: a group of warps per segment of at
+most ``SEG_MAX`` pairs, or a one-sweep pass sequence with decoupled
+look-back for one segment of any length below 2^31. The source notes what
+bounds it and how the design meets that. Two entries reach it:
+``pair_sort`` sorts u32 words (the plain contract), and ``fused_sort``
+sorts float32 or int32 values with the key transforms in the kernel's
+first and last passes (the function of ``fused_sort_plain``, the
+composition of ``sort_key``, ``pair_sort_plain`` and ``from_sortable``).
+``_pair_sort_pr3`` keeps K4's first design for timing beside the new one.
 
-The wrapper runs its plain version only when the tensors lie on the CPU. A
-CUDA tensor launches the kernel or raises; there is no fallback. Each call
-that launches adds one to ``SORT_LAUNCHES``.
+The wrappers run their plain versions only when the tensors lie on the
+CPU. A CUDA tensor launches the kernel or raises; there is no fallback.
+Each call that launches adds one to ``SORT_LAUNCHES``.
 
 Dispatch is decided up front by shape and dtype (``sort_serviceable``):
-float32 and int32 sort on their u32 transform through ``pair_sort`` when
-the sort axis is the only one, or its rows hold at most ``SEG_MAX``
-elements; every other case takes ``torch.sort(stable=True)`` on a signed
-int64 key, the counterpart of the ``lax.sort`` that ``heat_tpu`` runs
-outside any Pallas kernel. Every route gives ``lax.sort``'s stable order:
-−0.0 ties +0.0 and every NaN sorts last, tied. Values that come back
-through the transform are canonical in those two tie classes (+0.0, the
-quiet NaN), as on ``heat_tpu``'s kernel paths.
+float32 and int32 sort through ``fused_sort`` when the sort axis is the
+only one, or its rows hold at most ``SEG_MAX`` elements; every other case
+takes ``torch.sort(stable=True)`` on a signed int64 key, the counterpart
+of the ``lax.sort`` that ``heat_tpu`` runs outside any Pallas kernel.
+Every route gives ``lax.sort``'s stable order: −0.0 ties +0.0 and every
+NaN sorts last, tied. Values that come back through the transform are
+canonical in those two tie classes (+0.0, the quiet NaN), as on
+``heat_tpu``'s kernel paths.
 
 The distributed sorts (``block_sort``, the blocked columnsort) wait for the
 distributed programs (ROADMAP.md, Queue 1).
@@ -40,7 +45,10 @@ import torch
 __all__ = [
     "SEG_MAX",
     "SORT_LAUNCHES",
+    "argsort",
     "from_sortable",
+    "fused_sort",
+    "fused_sort_plain",
     "local_sort",
     "pair_sort",
     "pair_sort_plain",
@@ -48,6 +56,7 @@ __all__ = [
     "sort_keys",
     "sort_plan",
     "sort_serviceable",
+    "sort_with_key",
     "to_sortable",
     "transformable",
 ]
@@ -64,6 +73,8 @@ _RADIX = 256
 
 # dtypes whose u32 transform K4 sorts
 _WORD_DTYPES = (torch.float32, torch.int32)
+# K4's key transforms (csrc/radix_sort.cu, enum Mode)
+_MODE_WORDS, _MODE_COMPARATOR, _MODE_TOTAL, _MODE_INT32 = 0, 1, 2, 3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -275,6 +286,46 @@ def pair_sort_plain(keys: torch.Tensor, pays: Optional[torch.Tensor] = None, seg
     return _to_words(k).reshape(-1), _to_words(p).reshape(-1)
 
 
+def _from_total(u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``sort_key(x, total=True)`` for float32 and int32 words:
+    every bit pattern comes back as it was."""
+    if dtype == torch.int32:
+        return to_sortable(u)  # the sign flip is its own inverse
+    return (u ^ (~(u >> 31) | -(1 << 31))).view(dtype)
+
+
+def fused_sort_plain(x: torch.Tensor, seg_len: Optional[int] = None, total: bool = False,
+                     descending: bool = False, out: Optional[str] = "values"):
+    """K4's fused entry with torch ops: the composition that ``local_sort``
+    ran before the transforms moved into the kernel. The key of the 1-D
+    float32 or int32 ``x`` (``sort_key``: the comparator's order, or with
+    ``total`` IEEE totalOrder), complemented when ``descending``, sorted
+    stably in each segment of ``seg_len`` by ``pair_sort_plain``. Returns
+    (first, indices): indices the int64 argsort within each segment; first
+    the sorted values (``out="values"``, through the inverse transform,
+    canonical +0.0 and quiet NaN in the comparator's tie classes), the
+    sorted key words as int32 (``out="words"``), or None (``out=None``)."""
+    _fused_args(x, out)
+    key = sort_key(x, total)
+    sk, sp = pair_sort_plain(~key if descending else key, seg_len=seg_len)
+    idx = sp.to(torch.int64)
+    if out is None:
+        return None, idx
+    if out == "words":
+        return sk, idx
+    u = ~sk if descending else sk
+    return (_from_total(u, x.dtype) if total else from_sortable(u, x.dtype)), idx
+
+
+def _fused_args(x: torch.Tensor, out: Optional[str]) -> None:
+    if x.dtype not in _WORD_DTYPES:
+        raise TypeError(f"the fused sort takes float32 or int32, got {x.dtype}")
+    if x.ndim != 1:
+        raise ValueError(f"the fused sort takes a 1-D tensor, got shape {tuple(x.shape)}")
+    if out not in ("values", "words", None):
+        raise ValueError(f"out must be 'values', 'words' or None, got {out!r}")
+
+
 _LIB = None
 
 
@@ -286,16 +337,62 @@ def _lib():
         lib = _build.load("radix_sort")
         lib.heat_radix_seg_max.argtypes = []
         lib.heat_radix_seg_max.restype = _I
-        lib.heat_radix_scratch_words.argtypes = [_LL, _I]
-        lib.heat_radix_scratch_words.restype = _LL
-        lib.heat_radix_pair_sort.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]
-        lib.heat_radix_pair_sort.restype = _I
+        for name in ("heat_radix_scratch_words", "heat_radix_scratch_words_pr3"):
+            getattr(lib, name).argtypes = [_LL, _I]
+            getattr(lib, name).restype = _LL
+        lib.heat_radix_sort.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P]
+        lib.heat_radix_sort.restype = _I
+        lib.heat_radix_pair_sort_pr3.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]
+        lib.heat_radix_pair_sort_pr3.restype = _I
         lib.heat_radix_error_string.argtypes = [_I]
         lib.heat_radix_error_string.restype = ctypes.c_char_p
         if lib.heat_radix_seg_max() != SEG_MAX:
             raise RuntimeError(f"csrc/radix_sort.cu sorts segments of {lib.heat_radix_seg_max()}, not {SEG_MAX}")
         _LIB = lib
     return _LIB
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _refuse_long_segments(n_seg: int, seg_len: int) -> None:
+    if seg_len > SEG_MAX and n_seg > 1:
+        raise ValueError(f"segments longer than SEG_MAX={SEG_MAX} must be alone, got {n_seg} of {seg_len}")
+
+
+def _check_cuda(tensors) -> None:
+    for name, t in tensors:
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(f"the CUDA pair sort needs CUDA tensors, {name} lies on {t.device}")
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.heat_radix_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def _launch(keys, pays, out_v, out_i, n_seg: int, seg_len: int, pay_bytes: int, mode: int, descending: bool,
+            words: bool) -> None:
+    """One call of K4's C entry on the current stream; counts the launch."""
+    global SORT_LAUNCHES
+    dev = keys.device
+    lib = _lib()
+    n_words = lib.heat_radix_scratch_words(n_seg, seg_len)
+    scratch = torch.empty((n_words,), dtype=torch.int32, device=dev) if n_words else None
+    rc = lib.heat_radix_sort(
+        keys.data_ptr(), _ptr(pays), _ptr(out_v), out_i.data_ptr(), _ptr(scratch), n_seg, seg_len, pay_bytes,
+        mode, int(descending), int(words), int(out_i.dtype == torch.int64), dev.index, _stream(dev),
+    )
+    _raise_on(lib, rc, "K4")
+    SORT_LAUNCHES += 1
 
 
 def pair_sort(keys: torch.Tensor, pays: Optional[torch.Tensor] = None, seg_len: Optional[int] = None,
@@ -311,34 +408,70 @@ def pair_sort(keys: torch.Tensor, pays: Optional[torch.Tensor] = None, seg_len: 
     Segments longer than ``SEG_MAX`` must be alone, and shorter than 2^31.
     Returns the sorted keys and payloads as int32 words. CPU tensors take
     the plain version."""
-    global SORT_LAUNCHES
     n_seg, seg_len = _segments(keys, pays, seg_len, pay_bytes)
-    if seg_len > SEG_MAX and n_seg > 1:
-        raise ValueError(f"segments longer than SEG_MAX={SEG_MAX} must be alone, got {n_seg} of {seg_len}")
+    _refuse_long_segments(n_seg, seg_len)
     if keys.device.type == "cpu":
         return pair_sort_plain(keys, pays, seg_len, pay_bytes)
-    if keys.device.type != "cuda":
-        raise ValueError(f"the CUDA pair sort needs CUDA tensors, got {keys.device}")
-    for name, t in (("keys", keys), ("pays", pays)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cuda((("keys", keys), ("pays", pays)))
     if n_seg == 0:
         return keys.clone(), torch.empty_like(keys)
+    out_k, out_p = torch.empty_like(keys), torch.empty_like(keys)
+    _launch(keys, pays, out_k, out_p, n_seg, seg_len, pay_bytes, _MODE_WORDS, False, True)
+    return out_k, out_p
+
+
+def fused_sort(x: torch.Tensor, seg_len: Optional[int] = None, total: bool = False, descending: bool = False,
+               out: Optional[str] = "values"):
+    """Stable sort of the 1-D float32 or int32 ``x`` in each segment of
+    ``seg_len`` (default: one), K4 with the key transforms in its first and
+    last passes: the function of :func:`fused_sort_plain`, bit for bit.
+    The first pass turns the raw bits into the comparator's key (with
+    ``total``, the totalOrder key; int32 takes the sign flip either way),
+    complemented when ``descending``; the last writes the values through
+    the inverse transform (``out="values"``), the key words
+    (``out="words"``) or nothing (``out=None``), and the indices as int64.
+    CPU tensors take the plain version; a CUDA tensor launches K4 or
+    raises."""
+    _fused_args(x, out)
+    n_seg, seg_len = _segments(x.view(torch.int32), None, seg_len, 0)
+    _refuse_long_segments(n_seg, seg_len)
+    if x.device.type == "cpu":
+        return fused_sort_plain(x, seg_len, total, descending, out)
+    _check_cuda((("x", x),))
+    idx = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    first = None
+    if out is not None:
+        first = torch.empty(x.shape, dtype=x.dtype if out == "values" else torch.int32, device=x.device)
+    if n_seg == 0:
+        return first, idx
+    mode = _MODE_INT32 if x.dtype == torch.int32 else _MODE_TOTAL if total else _MODE_COMPARATOR
+    _launch(x, None, first, idx, n_seg, seg_len, 0, mode, descending, out == "words")
+    return first, idx
+
+
+def _pair_sort_pr3(keys: torch.Tensor, pays: Optional[torch.Tensor] = None, seg_len: Optional[int] = None,
+                   pay_bytes: int = 0):
+    """:func:`pair_sort` through K4's first design (a block of 8 warps a
+    segment; three launches a pass over one long segment), kept to time the
+    old kernels beside the new ones. No entry point reaches it, and it adds
+    nothing to ``SORT_LAUNCHES``."""
+    n_seg, seg_len = _segments(keys, pays, seg_len, pay_bytes)
+    _refuse_long_segments(n_seg, seg_len)
+    if keys.device.type == "cpu":
+        return pair_sort_plain(keys, pays, seg_len, pay_bytes)
+    _check_cuda((("keys", keys), ("pays", pays)))
+    out_k, out_p = torch.empty_like(keys), torch.empty_like(keys)
+    if n_seg == 0:
+        return out_k, out_p
     dev = keys.device
     lib = _lib()
-    out_k = torch.empty_like(keys)
-    out_p = torch.empty_like(keys)
-    words = lib.heat_radix_scratch_words(n_seg, seg_len)
-    scratch = torch.empty((words,), dtype=torch.int32, device=dev) if words else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.heat_radix_pair_sort(
-        keys.data_ptr(), None if pays is None else pays.data_ptr(), out_k.data_ptr(), out_p.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), n_seg, seg_len, pay_bytes, dev.index, stream,
+    n_words = lib.heat_radix_scratch_words_pr3(n_seg, seg_len)
+    scratch = torch.empty((n_words,), dtype=torch.int32, device=dev) if n_words else None
+    rc = lib.heat_radix_pair_sort_pr3(
+        keys.data_ptr(), _ptr(pays), out_k.data_ptr(), out_p.data_ptr(), _ptr(scratch), n_seg, seg_len, pay_bytes,
+        dev.index, _stream(dev),
     )
-    if rc != 0:
-        msg = lib.heat_radix_error_string(rc).decode()
-        raise RuntimeError(f"pair_sort kernel launch failed: CUDA error {rc} ({msg})")
-    SORT_LAUNCHES += 1
+    _raise_on(lib, rc, "K4's first design")
     return out_k, out_p
 
 
@@ -387,22 +520,32 @@ def sort_keys(key: torch.Tensor, pays: Optional[torch.Tensor] = None):
     return key.gather(-1, idx), idx if pays is None else pays.gather(-1, idx)
 
 
+def _fusable(x: torch.Tensor) -> bool:
+    """``x`` (the sort axis last) sorts through K4's fused entry."""
+    return x.dtype in _WORD_DTYPES and _words_serviceable(x.shape)
+
+
 def local_sort(arr: torch.Tensor, axis: int = -1, descending: bool = False):
     """Values and stable argsort (int64) of ``arr`` along ``axis`` — the
     single-device engine under ``ht.sort``.
 
     The order is ``lax.sort``'s; ``descending`` sorts the complemented key
     in the same single pass, so ties keep their input order and NaNs come
-    first. float32 and int32 sort on their u32 transform (K4 where
-    ``sort_serviceable``) and come back through the inverse transform, with
-    no gather. Other dtypes gather their values by the argsort of their
-    int64 key; complex sorts lexicographically in (real, imag) by two
-    stable sorts, as ``jnp.argsort`` orders it."""
+    first. float32 and int32 of a ``sort_serviceable`` shape take K4's
+    fused entry, which transforms the keys in its first pass and writes
+    the values back through the inverse transform and the int64 indices in
+    its last, with no elementwise kernel around it. Other dtypes gather
+    their values by the argsort of their int64 key; complex sorts
+    lexicographically in (real, imag) by two stable sorts, as
+    ``jnp.argsort`` orders it."""
     if arr.ndim == 0:
         return arr.clone(), torch.zeros((), dtype=torch.int64, device=arr.device)
     axis %= arr.ndim
     x = arr.movedim(axis, -1).contiguous()
-    if x.is_complex():
+    if _fusable(x):
+        values, idx = fused_sort(x.reshape(-1), seg_len=x.shape[-1], descending=descending)
+        values, idx = values.reshape(x.shape), idx.reshape(x.shape)
+    elif x.is_complex():
         idx = None
         for part in (x.imag, x.real):  # least significant first
             k = sort_key(part.contiguous())
@@ -419,6 +562,31 @@ def local_sort(arr: torch.Tensor, axis: int = -1, descending: bool = False):
     return values.movedim(-1, axis).contiguous(), idx.movedim(-1, axis).contiguous()
 
 
+def argsort(x: torch.Tensor, total: bool = False, descending: bool = False) -> torch.Tensor:
+    """Stable argsort (int64) of ``x`` along its last axis by its sort key
+    (``sort_key(x, total)``), descending on the complemented key. float32
+    and int32 of a serviceable shape take K4's fused entry and write only
+    the indices; the engine under ``ht.topk``."""
+    x = x.contiguous()
+    if _fusable(x):
+        _, idx = fused_sort(x.reshape(-1), seg_len=x.shape[-1], total=total, descending=descending, out=None)
+        return idx.reshape(x.shape)
+    key = sort_key(x, total)
+    return sort_keys(~key if descending else key)[1]
+
+
+def sort_with_key(x: torch.Tensor):
+    """Stable ascending sort of ``x`` along its last axis by
+    ``sort_key(x)``: the sorted keys and the int64 argsort. float32 and
+    int32 of a serviceable shape take K4's fused entry, which writes the
+    key words; the first sort under ``ht.unique``, which groups on keys."""
+    x = x.contiguous()
+    if _fusable(x):
+        sk, idx = fused_sort(x.reshape(-1), seg_len=x.shape[-1], out="words")
+        return sk.reshape(x.shape), idx.reshape(x.shape)
+    return sort_keys(sort_key(x))
+
+
 # --------------------------------------------------------------------- #
 # pass-count model (PERF.md arithmetic)                                 #
 # --------------------------------------------------------------------- #
@@ -428,12 +596,16 @@ def sort_plan(n: int, dtype: torch.dtype = torch.float32, seg_len: Optional[int]
     and the floor of any sort that returns values and int64 indices: one
     read of the values and one write of values and indices.
 
-    ``radix_a`` (rows of at most ``SEG_MAX``): one read of each key into
-    shared memory and one write of each pair, every pass in shared memory.
-    ``radix_b`` (one long row): per 8-bit pass a histogram read of the
-    keys, a scatter that reads and writes keys and payloads, and the
-    (256 x tiles) table written, scanned and read; the first pass reads no
-    payload (it is generated). ``torch``: the library sort, not modelled."""
+    ``radix_a`` (rows of at most ``SEG_MAX``): one read of each value and
+    one write of each value and index, every pass in shared memory: the
+    floor. ``radix_b`` (one long row): the histogram launch reads the
+    values (4 B a pair); pass 1 reads them and writes key and payload words
+    (4 + 8), passes 2 and 3 read and write both (8 + 8), pass 4 reads both
+    and writes the value and the int64 index (8 + 12): 68 B a pair, with a
+    place of constant digit skipped on the card (not modelled). Besides,
+    ``lookback_bytes``: each tile's 256 status words of 8 B, written twice
+    and read at least once a pass. ``torch``: the library sort, not
+    modelled."""
     seg_len = n if seg_len is None else seg_len
     floor = n * (2 * torch.empty((), dtype=dtype).element_size() + 8)
     shape = (n,) if seg_len == n else (n // seg_len, seg_len)
@@ -441,10 +613,11 @@ def sort_plan(n: int, dtype: torch.dtype = torch.float32, seg_len: Optional[int]
         return {"path": "torch", "passes": None, "hbm_bytes": None, "floor_bytes": floor,
                 "model": "torch.sort(stable=True): the library's radix sort, not modelled"}
     if seg_len <= SEG_MAX:
-        return {"path": "radix_a", "passes": 4, "hbm_bytes": 12 * n, "floor_bytes": floor,
-                "model": "one read of each key and one write of each pair; all 8-bit passes in shared memory"}
+        return {"path": "radix_a", "passes": 4, "hbm_bytes": 16 * n, "floor_bytes": floor,
+                "model": "one read of each value, one write of each value and int64 index; "
+                         "all 8-bit passes in shared memory"}
     tiles = -(-n // _TILE)
-    per_pass = 20 * n + 16 * _RADIX * tiles  # keys 4 + 8 + 8 B a pair; table written, scanned, read
-    return {"path": "radix_b", "passes": 4, "tiles": tiles, "hbm_bytes": 4 * per_pass - 4 * n,
-            "floor_bytes": floor,
-            "model": "per 8-bit pass: histogram read 4, scatter read 8 and write 8 B a pair, and the table"}
+    return {"path": "radix_b", "passes": 4, "tiles": tiles, "hbm_bytes": (4 + 12 + 16 + 16 + 20) * n,
+            "lookback_bytes": 4 * 3 * 8 * _RADIX * tiles, "floor_bytes": floor,
+            "model": "histogram read 4; pass 1 read 4, write 8; passes 2-3 read 8, write 8; "
+                     "pass 4 read 8, write 4 + 8 B a pair"}

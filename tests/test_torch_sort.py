@@ -11,6 +11,8 @@ for bit. The kernel itself runs only on a card: the ``cuda`` test compares
 it with the plain version there.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -306,14 +308,262 @@ def test_sort_serviceable(shape, dtype, axis, k4):
 
 
 def test_sort_plan_bytes():
+    """The one-sweep model: histogram 4, pass 1 4 + 8, passes 2-3 8 + 8,
+    pass 4 8 + 12 B a pair; the row sort reads and writes once."""
     n = 1 << 27
     b = ks.sort_plan(n)
     assert b["path"] == "radix_b" and b["passes"] == 4 and b["floor_bytes"] == 16 * n
-    assert b["hbm_bytes"] == 4 * (20 * n + 16 * 256 * (n // 4096)) - 4 * n
+    assert b["hbm_bytes"] == 68 * n == 9_126_805_504
+    assert b["lookback_bytes"] == 4 * 3 * 8 * 256 * (n // 4096)
     a = ks.sort_plan(n, seg_len=512)
-    assert a["path"] == "radix_a" and a["hbm_bytes"] == 12 * n
+    assert a["path"] == "radix_a" and a["hbm_bytes"] == 16 * n == a["floor_bytes"]
     assert ks.sort_plan(n, torch.float64)["path"] == "torch"
     assert ks.sort_plan(2 * 5000, seg_len=5000)["path"] == "torch"  # long rows of an N-D array
+
+
+# --------------------------------------------------------------------- #
+# K4's fused entry: the key transforms in its first and last passes     #
+# --------------------------------------------------------------------- #
+I32_EXTREMES = np.array([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1], np.int32)
+FUSED_KINDS = ["specials", "sorted", "reverse", "fewuniq", "nan"]
+FUSED_LAYOUTS = {"one_segment": (2 * ks.SEG_MAX + 3,), "rows_of_512": (6, 512)}
+
+
+def _fused_input(kind: str, shape, dtype: str, subnormals: bool = True) -> np.ndarray:
+    """The kinds of ``_adversarial``, and ``specials``: randn or random
+    int32 with half the elements drawn from the special bit patterns (NaNs
+    with payloads and either sign bit, ±0, subnormals, ±inf, ±max; the
+    int32 extremes). Without ``subnormals`` the pool has none: heat_tpu's
+    CPU sort flushes them to zero, where the port orders them strictly."""
+    n = int(np.prod(shape))
+    if kind != "specials":
+        return _adversarial(kind, n, dtype).reshape(shape)
+    rng = np.random.default_rng(n)
+    x = _adversarial("random", n, dtype)
+    pool = F32_SPECIALS.view(np.float32) if dtype == "float32" else I32_EXTREMES
+    if not subnormals:
+        pool = pool[~((pool != 0) & (np.abs(pool) < np.finfo(np.float32).tiny))]
+    pick = rng.random(n) < 0.5
+    x[pick] = pool[rng.integers(0, len(pool), int(pick.sum()))]
+    return x.reshape(shape)
+
+
+def _fused(x: np.ndarray, **kwargs):
+    """``ks.fused_sort`` of ``x`` along its last axis, reshaped back."""
+    v, i = ks.fused_sort(torch.from_numpy(x.reshape(-1).copy()), seg_len=x.shape[-1], **kwargs)
+    return (None if v is None else v.numpy().reshape(x.shape)), i.numpy().reshape(x.shape)
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("layout", list(FUSED_LAYOUTS))
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("kind", FUSED_KINDS)
+def test_fused_sort_plain_matches_heat_tpu_sort(kind, dtype, layout, descending):
+    """The fused route's plain version (what a CPU tensor takes) against
+    ``heat_tpu.sort``: indices exactly, values under the comparator and
+    canonical in its tie classes."""
+    x = _fused_input(kind, FUSED_LAYOUTS[layout], dtype, subnormals=False)
+    v, i = _fused(x, descending=descending)
+    ref_v, ref_i = jht.sort(jht.array(x), axis=-1, descending=descending)
+    np.testing.assert_array_equal(i, ref_i.numpy())
+    _assert_same_under_comparator(v, ref_v.numpy())
+    if dtype == "float32":
+        bits = v.view(np.uint32)
+        assert not (bits == 0x80000000).any() and (bits[np.isnan(v)] == 0x7FC00000).all()
+    else:
+        np.testing.assert_array_equal(v, np.take_along_axis(x, i, -1))
+
+
+@pytest.mark.parametrize("largest", [True, False])
+@pytest.mark.parametrize("layout", list(FUSED_LAYOUTS))
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_fused_sort_plain_total_order_matches_heat_tpu_topk(dtype, layout, largest):
+    """totalOrder (``topk``'s key): the values come back bit for bit, the
+    prefix is ``heat_tpu.topk``'s, and the index-only output is the same."""
+    x = _fused_input("specials", FUSED_LAYOUTS[layout], dtype)
+    if dtype == "int32" and not largest:
+        x[x == np.iinfo(np.int32).min] = 0  # heat_tpu negates for the smallest: keep clear of overflow
+    v, i = _fused(x, total=True, descending=largest)
+    _assert_bits_equal(v, np.take_along_axis(x, i, -1))
+    k = 37
+    ref_v, ref_i = jht.topk(jht.array(x), k, dim=-1, largest=largest)
+    np.testing.assert_array_equal(i[..., :k], ref_i.numpy())
+    _assert_bits_equal(v[..., :k], ref_v.numpy())
+    none, only = _fused(x, total=True, descending=largest, out=None)
+    assert none is None
+    np.testing.assert_array_equal(only, i)
+
+
+@pytest.mark.parametrize("n", [2 * ks.SEG_MAX + 3, 500])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("kind", ["specials", "fewuniq"])
+def test_fused_sort_plain_words_match_heat_tpu_unique(kind, dtype, n):
+    """The key words (``unique``'s output): grouped on, they give
+    ``heat_tpu.unique``'s values and inverse."""
+    x = _fused_input(kind, (n,), dtype, subnormals=False)
+    words, perm = _fused(x, out="words")
+    np.testing.assert_array_equal(words, ks.sort_key(torch.from_numpy(x)).numpy()[perm])
+    start = np.r_[True, words[1:] != words[:-1]]
+    inverse = np.empty(n, np.int64)
+    inverse[perm] = np.cumsum(start) - 1
+    values = x[perm[start]]
+    ref_v, ref_inv = (t.numpy() for t in jht.unique(jht.array(x), return_inverse=True))
+    if dtype == "float32":
+        nan = np.isnan(ref_v)
+        np.testing.assert_array_equal(np.isnan(values), nan)
+        _assert_bits_equal(values[~nan], ref_v[~nan])
+    else:
+        np.testing.assert_array_equal(values, ref_v)
+    np.testing.assert_array_equal(inverse, ref_inv)
+
+
+def _total_key(x: np.ndarray) -> np.ndarray:
+    s = x.view(np.int32)
+    return (s ^ ((s >> 31) | np.int32(-(2**31)))).view(np.uint32)
+
+
+@pytest.mark.parametrize("seg_len", [None, 500])
+@pytest.mark.parametrize("total", [False, True])
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_fused_sort_plain_is_heat_tpus_transform_composition(dtype, descending, total, seg_len):
+    """Bit for bit, subnormals included: heat_tpu's ``to_sortable`` (or the
+    totalOrder bijection), complemented when descending, numpy's stable
+    argsort per segment, and heat_tpu's ``from_sortable`` (or the bits of
+    the input in that order)."""
+    x = _fused_input("specials", (3000,), dtype)
+    if total and dtype == "float32":
+        key = _total_key(x)
+    else:
+        key = np.asarray(jsort.to_sortable(jnp.asarray(x)))
+    key = ~key if descending else key
+    seg = seg_len or len(x)
+    order = np.argsort(key.reshape(-1, seg), axis=1, kind="stable").reshape(-1)
+    rows = np.repeat(np.arange(len(x) // seg) * seg, seg)
+    t = torch.from_numpy(x)
+    v, i = ks.fused_sort(t, seg_len=seg_len, total=total, descending=descending)
+    np.testing.assert_array_equal(i.numpy(), order)
+    sk = key[rows + order]
+    if total:
+        _assert_bits_equal(v.numpy(), x[rows + order])
+    else:
+        ref = np.asarray(jsort.from_sortable(jnp.asarray(~sk if descending else sk), x.dtype))
+        _assert_bits_equal(v.numpy(), ref)
+    words, _ = ks.fused_sort(t, seg_len=seg_len, total=total, descending=descending, out="words")
+    np.testing.assert_array_equal(_unsigned(words), sk)
+
+
+def test_fused_sort_checks_its_arguments():
+    x = torch.zeros(12)
+    with pytest.raises(TypeError):
+        ks.fused_sort(x.double())
+    with pytest.raises(ValueError):
+        ks.fused_sort(x.reshape(3, 4))
+    with pytest.raises(ValueError):
+        ks.fused_sort(x, out="keys")
+    with pytest.raises(ValueError):
+        ks.fused_sort(x, seg_len=5)
+    with pytest.raises(ValueError):
+        ks.fused_sort(torch.zeros(2 * (ks.SEG_MAX + 1)), seg_len=ks.SEG_MAX + 1)
+    v, i = ks.fused_sort(torch.zeros(0))
+    assert v.shape == i.shape == (0,) and i.dtype == torch.int64
+
+
+@pytest.mark.parametrize("seg_len, pay_bytes", [(None, 0), (777, 4), (2 * ks.SEG_MAX + 1, 2)])
+def test_first_design_helper_is_the_pair_sort_on_cpu(seg_len, pay_bytes):
+    rng = np.random.default_rng(7)
+    n = 3 * 777 if seg_len in (None, 777) else seg_len
+    keys, pays = _words(_u32(rng, n, 40)), _words(_u32(rng, n))
+    p = pays if pay_bytes else None
+    for g, r in zip(ks._pair_sort_pr3(keys, p, seg_len, pay_bytes), ks.pair_sort(keys, p, seg_len, pay_bytes)):
+        assert torch.equal(g, r)
+
+
+def test_cuda_sorts_reach_the_fused_entry_with_no_elementwise_transform(monkeypatch):
+    """On CUDA tensors, ``ht.sort``, ``ht.topk`` and ``ht.unique`` of
+    float32 and int32 call K4's fused entry once, with the transform,
+    order and output flags of their route, and run no transform and no
+    elementwise kernel over the array: every op that makes a tensor of the
+    array's size is an allocation or a view."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the fake CUDA tensors below would be launched")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from heat_tpu_torch.core.dndarray import DNDarray
+
+    class Stop(Exception):
+        pass
+
+    calls, made = [], []
+    stop_at_entry = [False]
+
+    class Lib:
+        def heat_radix_scratch_words(self, n_seg, seg_len):
+            return 0 if seg_len <= ks.SEG_MAX else 2 * seg_len + 4096
+
+        def heat_radix_sort(self, keys, pays, out_v, out_i, scratch, n_seg, seg_len, pay_bytes, mode, descending,
+                            words, idx64, device, stream):
+            calls.append((n_seg, seg_len, pays is None, pay_bytes, mode, descending, out_v is not None, words, idx64))
+            if stop_at_entry[0]:
+                raise Stop
+            return 0
+
+        def heat_radix_error_string(self, code):
+            return b"none"
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            made.extend((str(func), t.numel()) for t in tree_leaves(out) if isinstance(t, torch.Tensor))
+            return out
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a transform or plain version ran on a CUDA operand")
+
+    for name in ("to_sortable", "from_sortable", "sort_key", "sort_keys", "_from_total", "pair_sort_plain",
+                 "fused_sort_plain"):
+        monkeypatch.setattr(ks, name, refuse)
+    monkeypatch.setattr(ks, "_lib", Lib)
+    monkeypatch.setattr(ks, "_stream", lambda dev: 0)
+    views = ("aten.view", "aten.permute", "aten.detach", "aten.slice", "aten.empty", "aten.alias", "prim.")
+    ref = ht.zeros(1)
+    n = 3 * ks.SEG_MAX + 5
+    launches = ks.SORT_LAUNCHES
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # FakeTensor.data_ptr() is deprecated
+        with FakeTensorMode():
+            for dtype, mode in ((torch.float32, 1), (torch.int32, 3)):
+                for shape, seg in (((n,), n), ((64, 512), 512)):
+                    x = torch.empty(shape, dtype=dtype, device="cuda")
+                    a = DNDarray(x, shape, ht.float32 if dtype == torch.float32 else ht.int32, 0, ref.device,
+                                 ref.comm)
+                    n_seg = x.numel() // seg
+                    total = 3 if dtype == torch.int32 else 2
+                    # (call, (mode, descending, values written, words), stop at the entry): the
+                    # fake tensors cannot run what follows unique's sort or a row topk's
+                    cases = [
+                        (lambda: ht.sort(a), (mode, 0, True, 0), False),
+                        (lambda: ht.sort(a, descending=True), (mode, 1, True, 0), False),
+                        (lambda: ht.topk(a, 5), (total, 1, False, 0), len(shape) > 1),
+                        (lambda: ht.topk(a, 5, largest=False), (total, 0, False, 0), len(shape) > 1),
+                    ]
+                    if len(shape) == 1:
+                        cases.append((lambda: ht.unique(a, return_inverse=True), (mode, 0, True, 1), True))
+                    for call, flags, stop in cases:
+                        calls.clear()
+                        made.clear()
+                        stop_at_entry[0] = stop
+                        with Ops():
+                            try:
+                                call()
+                            except Stop:
+                                pass
+                        assert calls == [(n_seg, seg, True, 0, *flags, 1)]
+                        big = [op for op, numel in made if numel == x.numel() and not op.startswith(views)]
+                        assert big == [], big
+    assert ks.SORT_LAUNCHES == launches + 12  # the calls that did not stop at the entry
 
 
 # --------------------------------------------------------------------- #
@@ -503,23 +753,3 @@ def test_flip_and_moveaxis_match_heat_tpu():
     ref = jht.moveaxis(jht.array(x, split=2), [0, 1], [2, 0])
     np.testing.assert_array_equal(got.numpy(), ref.numpy())
     assert got.split == ref.split and got.larray.is_contiguous()
-
-
-# --------------------------------------------------------------------- #
-# the kernel on a card                                                  #
-# --------------------------------------------------------------------- #
-@pytest.mark.cuda
-@pytest.mark.parametrize("n, seg_len, pay_bytes", [(1 << 16, None, 0), (30 * 777, 777, 4), (ks.SEG_MAX + 1, None, 0)])
-def test_kernel_matches_plain_version_on_card(n, seg_len, pay_bytes):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K4 has no CPU mode")
-    rng = np.random.default_rng(n)
-    dev = torch.device("cuda")
-    keys = _words(_u32(rng, n, 1000)).to(dev)
-    pays = _words(_u32(rng, n)).to(dev) if pay_bytes else None
-    launches = ks.SORT_LAUNCHES
-    got = ks.pair_sort(keys, pays, seg_len, pay_bytes)
-    ref = ks.pair_sort_plain(keys, pays, seg_len, pay_bytes)
-    assert ks.SORT_LAUNCHES == launches + 1
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
