@@ -53,10 +53,11 @@ Phases, each of which fails the run by raising:
      tensors at RA, not causal, and on bf16 heads of 256 (1, 8, 4096,
      256), causal; ``ht.nn.MultiheadAttention(1024, 8, causal=True,
      dtype=bf16)`` on x (1, 16384, 1024), 8 heads of 128. Each call must
-     launch K9 exactly once, the bf16 calls at D = 64 and 128 on its Hopper
-     path (``attention_sm90.cu``) and the others not, and agree with the
-     plain route (MultiheadAttention: K9 on its strided heads against the
-     plain version, and its output against that o through out_proj);
+     launch K9 exactly once, every one of them on its Hopper path
+     (``attention_sm90.cu``: bf16 at D = 64, 128 and 256, float32 at D =
+     64 in 3xTF32), and agree with the plain route (MultiheadAttention: K9
+     on its strided heads against the plain version, and its output
+     against that o through out_proj);
    - relayout: the packed pivot of bench.py's 1 GB reshape row, (1000,
      250000) float32 split 1 -> (10,000,000, 25) new_split=1 and back,
      planned by the port's planner as heat_tpu plans them at 8 ranks
@@ -97,18 +98,23 @@ Phases, each of which fails the run by raising:
    causal S_q < S_kv, D = 8, D = 256, S_q = 1, scores scaled by 10 and
    S_kv = 0 (no launch); its Hopper path also at 1000 x 1000 causal and
    not, causal 300 x 1003, S_q = 1 against 4096 keys and scores x 10, each
-   at D = 64 and 128, and on MHA-1024's strided heads, and there also
-   against the mma.sync kernel on the same inputs under the same limit;
-   its lse through the ring's combine of two halves of K/V; on the strided
-   heads of a packed projection, bit for bit its result on copies; and
-   under autograd (one launch, gradients within 1e-5 of the plain
-   version's). Its bound is the operations over 67 TFLOP/s (float32,
-   FP32 kept exact) or 989 TFLOP/s (bf16 tensor cores), or the bytes where
-   larger; its library yardstick is ``scaled_dot_product_attention`` on
-   the same inputs, checked to agree first; at RA bf16, RAB and MHA-1024
-   the Hopper path and the mma.sync kernel are timed side by side; the
-   public calls are timed end to end and one MultiheadAttention forward is
-   profiled. K5 and K6 are held
+   at bf16 D = 64, 128 and 256 and at float32 D = 64, and on MHA-1024's
+   strided heads, and wherever it runs also against attention.cu's kernel
+   on the same inputs (mma.sync for bf16, the FP32 kernel for float32)
+   under the same limit, that kernel also against the plain version; the
+   float32 cases print the library call's own error against the plain
+   version beside K9's; attention.cu on the shapes the Hopper path
+   refuses; its lse through the ring's combine of two halves of K/V; on
+   the strided heads of a packed projection, bit for bit its result on
+   copies; and under autograd (one launch, gradients within 1e-5 of the
+   plain version's). Its bound is the operations over 989 TFLOP/s (bf16
+   tensor cores) or, for float32, three times the operations over 495
+   TFLOP/s (3xTF32 on the tensor cores; the FP32 CUDA-core bound, the
+   operations over 67 TFLOP/s, beside it), or the bytes where larger; its
+   library yardstick is ``scaled_dot_product_attention`` on the same
+   inputs, checked to agree first; at every main shape the Hopper path
+   and attention.cu's kernel are timed side by side; the public calls are
+   timed end to end and one MultiheadAttention forward is profiled. K5 and K6 are held
    against their plain versions bit for bit (raw words) at the per-rank
    shapes of the 1 GB move over 8 ranks and of (2048, 64) <-> (8192, 16)
    over 4, ragged and degenerate shapes (no rows, p = 1, c_in = c_out),
@@ -179,10 +185,11 @@ TOL_SPARSE = 1e-5
 TOL_RANKS = 1e-6  # PageRank against a float64 power iteration, absolute
 
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
+TF32_FLOP_PER_S = 495e12  # dense TF32 tensor cores, the same; 3xTF32 runs each float32 product three times
 RA = (4, 8, 4096, 64)  # bench.py's RA_* rows (B, H, S, D), causal (bench.py:103)
 RAB = (1, 8, 16384, 128)  # bench.py's RAB_* 16k-token long-context row (bench.py:109)
 MHA_E, MHA_H = 1024, 8  # MultiheadAttention at RAB's attention shape: 8 heads of 128
-SDPA_D256 = (1, 8, 4096, 256)  # bf16 heads of 256 (B, H, S, D), causal: K9's mma.sync kernel on the main path
+SDPA_D256 = (1, 8, 4096, 256)  # bf16 heads of 256 (B, H, S, D), causal: K9's Hopper path at its widest head
 # K9 against its plain version. float32: both sides sum float32 terms in
 # other orders over up to 16384 keys, and o is a convex combination of v
 # rows, so |Δo| <= 1e-5 max|v| of the (b, h) slice and |Δlse| <= 1e-5 (1 +
@@ -258,15 +265,20 @@ def build_kernels() -> None:
         lines = log.read_text().splitlines() if log.exists() else []
         # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59,
         # K3 k ≤ 8, K4's kernels of both regimes (rows of 512: two warps a
-        # row), K7 k = 1 and 4, K8, K9 float32 at D_v = 64, mma.sync bf16 at
-        # D_v = 256, the Hopper path at D = 64 and 128, K5/K6 on 4-byte
-        # words with 32-bit offsets)
+        # row), K7 k = 1 and 4, K8, K9's Hopper path at bf16 D = 64, 128
+        # and 256 and float32 D = 64, attention.cu's kernels timed beside it
+        # (float32 at D_v = 64, mma.sync bf16 at D_v = 256), K5/K6 on
+        # 4-byte words with 32-bit offsets); and any wgmma that ptxas
+        # serialised
         for i, line in enumerate(lines):
             main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E", "seg_sort_kernelILi8ELi2E",
                     "sweep_hist_kernel", "sweep_plan_kernel", "sweep_pass_kernel",
                     "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel",
                     "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi256E", "attn_sm90_kernelILi64ELi3E",
-                    "attn_sm90_kernelILi128ELi2E", "11pack_kernelIjjE", "13unpack_kernelIjjE")
+                    "attn_sm90_kernelILi128ELi2E", "attn_sm90_kernelILi256ELi2E", "attn_sm90_f32_kernelILi2E",
+                    "11pack_kernelIjjE", "13unpack_kernelIjjE")
+            if "serializ" in line.lower():
+                print(f"ptxas {name}: {line.strip()}", flush=True)
             tags = [tag for tag in main if tag in line]
             if "Compiling entry function" in line and tags:
                 detail = " | ".join(s.split(":", 1)[-1].strip() for s in lines[i + 1 : i + 4])
@@ -1504,21 +1516,32 @@ def _lse_tol(dtype) -> float:
 
 def _hopper_shape(q, k, v) -> bool:
     """Whether K9 should take its Hopper path (attention_sm90.cu) on these
-    operands: bfloat16 at D = D_v in {64, 128}, every base and every
-    stride but the last dim's on 16 bytes."""
+    operands: bfloat16 at D = D_v in {64, 128, 256} or float32 at D = D_v
+    = 64, every base and every stride but the last dim's on 16 bytes."""
     import torch
 
-    aligned = all(t.data_ptr() % 16 == 0 and all(st * 2 % 16 == 0 for st in t.stride()[:-1]) for t in (q, k, v))
-    return q.dtype == torch.bfloat16 and q.shape[-1] == v.shape[-1] and q.shape[-1] in (64, 128) and aligned
+    es = q.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 and all(st * es % 16 == 0 for st in t.stride()[:-1]) for t in (q, k, v))
+    dims = {torch.bfloat16: (64, 128, 256), torch.float32: (64,)}.get(q.dtype, ())
+    return q.shape[-1] == v.shape[-1] and q.shape[-1] in dims and aligned
+
+
+def _old_kernel(dtype) -> str:
+    """attention.cu's kernel for ``dtype``."""
+    import torch
+
+    return "the mma.sync kernel" if dtype == torch.bfloat16 else "the FP32 kernel"
 
 
 def _k9_case(ka, label, q, k, v, causal):
     """K9 against its plain version and against itself on a rerun, on the
-    route its predicate picks. On the Hopper path the mma.sync kernel runs
-    on the same inputs too: held against the plain version, and the Hopper
-    path against it, each under the same limits. Returns the largest |Δo|
-    against the plain version of the route's kernel and of the mma.sync
-    kernel (None off the Hopper path)."""
+    route its predicate picks. On the Hopper path attention.cu's kernel
+    runs on the same inputs too: held against the plain version, and the
+    Hopper path against it, each under the same limits. In float32 the
+    library call's own error against the plain version is printed beside
+    K9's. Returns the largest |Δo| against the plain version of the
+    route's kernel and of attention.cu's kernel (None off the Hopper
+    path)."""
     import torch
 
     launches, launches_sm90 = ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES
@@ -1536,13 +1559,24 @@ def _k9_case(ka, label, q, k, v, causal):
     route = "attention_sm90" if hopper else "attention"
     vs_old, ok_old, abs_m = "", True, None
     if hopper:
-        mo, ml = ka._flash_attention_mma_sync(q, k, v, causal)
+        old = _old_kernel(q.dtype)
+        mo, ml = ka._flash_attention_attention_cu(q, k, v, causal)
         em, abs_m, elm = _att_errors(ka, mo, ml, ro, rl, q, k, v, causal)
         ex, abs_x, elx = _att_errors(ka, o, lse, mo, ml, q, k, v, causal)
         ok_old = em <= 1 and elm <= tol_l and ex <= 1 and elx <= tol_l
-        vs_old = (f"; the mma.sync kernel against the plain version: max |Δo| {abs_m:.3e}, {em:.3f} of the limit, "
-                  f"lse err {elm:.3e}; the Hopper path against the mma.sync kernel: max |Δo| {abs_x:.3e}, "
+        vs_old = (f"; {old} against the plain version: max |Δo| {abs_m:.3e}, {em:.3f} of the limit, "
+                  f"lse err {elm:.3e}; the Hopper path against {old}: max |Δo| {abs_x:.3e}, "
                   f"{ex:.3f} of the limit, lse err {elx:.3e}")
+    if q.dtype == torch.float32:
+        # on copies: the library faults on views whose bases lie off 16 bytes
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        lo = torch.nn.functional.scaled_dot_product_attention(qc, kc, vc, is_causal=causal, scale=scale)
+        del qc, kc, vc
+        el_lib, abs_lib = _o_errors(ka, lo, ro, q, k, v, causal)
+        vs_old += (f"; scaled_dot_product_attention against the plain version: max |Δo| {abs_lib:.3e}, "
+                   f"{el_lib:.3f} of the limit")
+        del lo
     print(
         f"K9 {route} ({label}, {tuple(q.shape)} x {tuple(v.shape)}, {str(q.dtype)[6:]}, causal={causal}): max |Δo| "
         f"{abs_o:.3e}, {eo:.3f} of its limit {_o_tol_text(q.dtype)}; lse err {el:.3e} of 1+|lse| (tol {tol_l}); "
@@ -1550,7 +1584,7 @@ def _k9_case(ka, label, q, k, v, causal):
         flush=True,
     )
     _require(eo <= 1 and el <= tol_l and rerun and ok_old,
-             f"K9 disagrees with its plain version, the mma.sync kernel or itself ({label})")
+             f"K9 disagrees with its plain version, attention.cu's kernel or itself ({label})")
     return abs_o, abs_m
 
 
@@ -1571,22 +1605,26 @@ def check_attention(dev) -> dict:
         errs[key] = _k9_case(ka, key, *_qkv(dev, gen, (b, h), s, s, d, d, dtype), causal)
     b, h, s, d = RAB
     errs["rab_bf16_causal"] = _k9_case(ka, "rab_bf16_causal", *_qkv(dev, gen, (b, h), s, s, d, d, bf16), True)
-    # the Hopper path at its ragged and boundary shapes, at both head dims
-    # (RA, RAB and the cases below at D = 64 take it too)
-    for d in (64, 128):
+    b, h, s, d = SDPA_D256
+    errs["bf16_d256"] = _k9_case(ka, "bf16_d256", *_qkv(dev, gen, (b, h), s, s, d, d, bf16), True)
+    # the Hopper path at its ragged and boundary shapes, at every head dim
+    # and dtype it takes (RA, RAB, heads of 256 and the cases below at
+    # D = 64 take it too)
+    for dtype, d in ((bf16, 64), (bf16, 128), (bf16, 256), (f32, 64)):
+        tag = f"D = {d}" if dtype == bf16 else f"float32, D = {d}"
         for causal in (True, False):
-            _k9_case(ka, f"ragged 1000, D = {d}", *_qkv(dev, gen, (2, 3), 1000, 1000, d, d, bf16), causal)
-        _k9_case(ka, f"causal, 300 x 1003, D = {d}", *_qkv(dev, gen, (4,), 300, 1003, d, d, bf16), True)
-        _k9_case(ka, f"S_q = 1, D = {d}", *_qkv(dev, gen, (4, 8), 1, 4096, d, d, bf16), False)
-        _k9_case(ka, f"scores x10, D = {d}", *_qkv(dev, gen, (2, 8), 2048, 2048, d, d, bf16, mult=10.0), True)
+            _k9_case(ka, f"ragged 1000, {tag}", *_qkv(dev, gen, (2, 3), 1000, 1000, d, d, dtype), causal)
+        _k9_case(ka, f"causal, 300 x 1003, {tag}", *_qkv(dev, gen, (4,), 300, 1003, d, d, dtype), True)
+        _k9_case(ka, f"S_q = 1, {tag}", *_qkv(dev, gen, (4, 8), 1, 4096, d, d, dtype), False)
+        _k9_case(ka, f"scores x10, {tag}", *_qkv(dev, gen, (2, 8), 2048, 2048, d, d, dtype, mult=10.0), True)
         # the packed projection's heads, read in place by TMA: the bits of copies
-        qkv = torch.randn(2, 300, 3, 4, d, device=dev, generator=gen).to(bf16)
+        qkv = torch.randn(2, 300, 3, 4, d, device=dev, generator=gen).to(dtype)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        _k9_case(ka, f"packed heads, D = {d}", q, k, v, True)
+        _k9_case(ka, f"packed heads, {tag}", q, k, v, True)
         o, lse = ka.flash_attention(q, k, v, True)
         oc, lc = ka.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), True)
         _require(torch.equal(o, oc) and torch.equal(lse, lc),
-                 f"K9's Hopper path on strided views differs from it on copies (D = {d})")
+                 f"K9's Hopper path on strided views differs from it on copies ({tag})")
     # bfloat16 shapes the Hopper path refuses, on the mma.sync kernel, causal:
     # its D_v <= 64 form (D = 48) and its 64 < D_v <= 128 form (D = 96, and
     # D = 128 read from views that start 2 bytes off 16)
@@ -1595,6 +1633,12 @@ def check_attention(dev) -> dict:
         _k9_case(ka, f"mma.sync, causal, 300 x 1003, D = {d}", *_qkv(dev, gen, (4,), 300, 1003, d, d, bf16), True)
     q, k, v = (t[..., 1:129] for t in _qkv(dev, gen, (2, 3), 1003, 1003, 136, 136, bf16))
     _k9_case(ka, "mma.sync, causal, misaligned views, D = 128", q, k, v, True)
+    # float32 shapes the Hopper path refuses, on the FP32 kernel, causal:
+    # D = 128 (its 64 < D_v <= 128 form) and D = 64 read from views that
+    # start 4 bytes off 16 (its D_v <= 64 form)
+    _k9_case(ka, "FP32 kernel, ragged causal, D = 128", *_qkv(dev, gen, (2, 3), 1003, 1003, 128, 128, f32), True)
+    q, k, v = (t[..., 1:65] for t in _qkv(dev, gen, (2, 3), 1003, 1003, 72, 72, f32))
+    _k9_case(ka, "FP32 kernel, causal, misaligned views, D = 64", q, k, v, True)
     for dtype in (f32, bf16):
         _k9_case(ka, "ragged", *_qkv(dev, gen, (6,), 1000, 777, 72, 40, dtype), False)
         _k9_case(ka, "ragged causal", *_qkv(dev, gen, (2, 3), 1003, 1003, 64, 64, dtype), True)
@@ -1698,7 +1742,7 @@ def attention_path(dev):
                                        (RAB, ht.bfloat16, "ring_attention_rab_bf16")):
         q, k, v = (ht.random.randn(b, h, s, d, dtype=dtype, split=2) for _ in range(3))
         _require(q.larray.device == dev and q.split == 2, "q is not a split-2 array on the card")
-        out = run(label, lambda: ht.nn.ring_attention(q, k, v, causal=True), dtype is ht.bfloat16)
+        out = run(label, lambda: ht.nn.ring_attention(q, k, v, causal=True), True)
         _require(out.split == 2 and out.dtype is dtype and out.gshape == (b, h, s, d), f"{label}: result metadata")
         check(label, out.larray, q.larray, k.larray, v.larray, True)
     del q, k, v, out
@@ -1707,12 +1751,12 @@ def attention_path(dev):
     gen.manual_seed(22)
     b, h, s, d = RA
     q, k, v = _qkv(dev, gen, (b, h), s, s, d, d, torch.float32)
-    out = run("sdpa_ra_f32", lambda: ht.nn.functional.scaled_dot_product_attention(q, k, v), False)
+    out = run("sdpa_ra_f32", lambda: ht.nn.functional.scaled_dot_product_attention(q, k, v), True)
     check("sdpa_ra_f32", out, q, k, v, False)
-    # bfloat16 heads of 256 (the widest K9 takes) stay on the mma.sync kernel
+    # bfloat16 heads of 256, the widest K9 takes
     q, k, v = _qkv(dev, gen, SDPA_D256[:2], SDPA_D256[2], SDPA_D256[2], SDPA_D256[3], SDPA_D256[3], torch.bfloat16)
     out = run("sdpa_bf16_d256", lambda: ht.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True),
-              False)
+              True)
     check("sdpa_bf16_d256", out, q, k, v, True)
     del q, k, v, out
 
@@ -1766,10 +1810,12 @@ def _k9_row(name, q, k, v, causal, launches: int, launches_sm90: int, errs: tupl
     on the same inputs (whose agreement is checked first). ``launches`` and
     ``launches_sm90`` are K9's launches and the Hopper path's in the main
     path's call at this shape; ``errs`` is the largest |Δo| against the
-    plain version of that kernel and of the mma.sync kernel (None off the
-    Hopper path). On the Hopper path the row also carries the mma.sync
-    kernel's time on the same inputs (``mma_sync_ms``) and its error
-    (``mma_sync_err``)."""
+    plain version of that kernel and of attention.cu's kernel (None off the
+    Hopper path). On the Hopper path the row also carries attention.cu's
+    kernel's time on the same inputs (``attention_cu_ms``: mma.sync for
+    bf16, the FP32 kernel for float32) and its error
+    (``attention_cu_err``). A float32 row's bound is that of 3xTF32 on the
+    tensor cores (``bound_fp32_ms``: FP32 on the CUDA cores)."""
     import torch
 
     from heat_tpu_torch.kernels import attention as ka
@@ -1795,33 +1841,37 @@ def _k9_row(name, q, k, v, causal, launches: int, launches_sm90: int, errs: tupl
     flops = 2.0 * (d + d_v) * bh * pairs
     es = q.element_size()
     nbytes = es * bh * (s_q * d + s_kv * (d + d_v) + s_q * d_v) + 4 * bh * s_q
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    bf16 = q.dtype == torch.bfloat16
+    peak = BF16_FLOP_PER_S if bf16 else TF32_FLOP_PER_S / 3  # float32 as 3xTF32
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    mma = ""
+    fp32_ms = max(flops / FP32_FLOP_PER_S * 1e3, t_bytes)
+    extra = "" if bf16 else f"; FP32 on the CUDA cores {fp32_ms:.4f} ms"
     if hopper:
-        mma_ms = _median_ms(lambda: ka._flash_attention_mma_sync(q, k, v, causal), 10)
-        mma = f"; the mma.sync kernel {mma_ms:.4f} ms ({mma_ms / ms:.2f}x)"
+        old_ms = _median_ms(lambda: ka._flash_attention_attention_cu(q, k, v, causal), 10)
+        extra += f"; {_old_kernel(q.dtype)} of attention.cu {old_ms:.4f} ms ({old_ms / ms:.2f}x)"
     print(
         f"{name} (K9 {source.rsplit('/', 1)[-1]}, {tuple(q.shape)}, {str(q.dtype)[6:]}, causal={causal}): "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms (agrees to "
         f"{lib_abs:.2e}, {lim:.3f} of its limit), bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP at "
-        f"{peak / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB; {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s achieved, "
-        f"{bound_ms / ms:.1%} of the bound){mma}", flush=True,
+        f"{peak / 1e12:.0f} TFLOP/s{'' if bf16 else ' (3xTF32)'}, {nbytes / 1e6:.1f} MB; "
+        f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s achieved, {bound_ms / ms:.1%} of the bound){extra}", flush=True,
     )
     row = {
         "name": name, "route": "cuda", "source": source, "replaces": "heat_tpu/nn/attention.py:637, :537",
         "launches": launches_sm90 if hopper else launches - launches_sm90, "max_abs_err": errs[0],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+    if not bf16:
+        row.update(bound_fp32_ms=fp32_ms)
     if hopper:
-        row.update(mma_sync_ms=mma_ms, mma_sync_err=errs[1])
+        row.update(attention_cu_ms=old_ms, attention_cu_err=errs[1])
     return row
 
 
 def attention_timings(dev, launches: dict, launches_sm90: dict, errs: dict, path_errs: dict) -> list:
     """K9 at the main path's shapes beside bound, plain version and
-    library call, the Hopper path also beside the mma.sync kernel; the
+    library call, the Hopper path also beside attention.cu's kernel; the
     public calls end to end; a profile of one MultiheadAttention forward.
     Returns the kernel rows."""
     import torch
@@ -1845,7 +1895,7 @@ def attention_timings(dev, launches: dict, launches_sm90: dict, errs: dict, path
         errs["rab_bf16_causal"])
     b, h, s, d = SDPA_D256
     row("bf16_d256", "sdpa_bf16_d256", *_qkv(dev, gen, (b, h), s, s, d, d, torch.bfloat16), True,
-        (path_errs["sdpa_bf16_d256"], None))
+        (path_errs["sdpa_bf16_d256"], errs["bf16_d256"][1]))
 
     ht.random.seed(6)
     for (b, h, s, d), dtype, label in ((RA, ht.float32, "RA f32"), (RA, ht.bfloat16, "RA bf16"),
@@ -1854,6 +1904,11 @@ def attention_timings(dev, launches: dict, launches_sm90: dict, errs: dict, path
         call_ms = _median_ms(lambda: ht.nn.ring_attention(q, k, v, causal=True), 10)
         print(f"ring_attention {label} causal {tuple(q.shape)}: {call_ms:.4f} ms a call (CUDA events, median of 10)",
               flush=True)
+    b, h, s, d = SDPA_D256
+    q, k, v = _qkv(dev, gen, (b, h), s, s, d, d, torch.bfloat16)
+    call_ms = _median_ms(lambda: ht.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True), 10)
+    print(f"scaled_dot_product_attention bf16 causal {tuple(q.shape)}: {call_ms:.4f} ms a call (CUDA events, median "
+          f"of 10)", flush=True)
     del q, k, v
 
     mha, x = _mha_inputs(dev, ht)

@@ -12,6 +12,13 @@
 //   (B*H, S_q) in float32. A row with no valid key gets o = 0 and
 //   lse = -inf. 1 <= D, D_v <= 256, any S_q, S_kv >= 1; the ragged edges
 //   are masked here, not padded by the caller.
+//   Which shapes reach it: attention_sm90.cu (TMA and wgmma) serves
+//   bfloat16 at D = D_v in {64, 128, 256} and float32 at D = D_v = 64
+//   (3xTF32) whenever bases and strides lie on 16 bytes, which covers the
+//   main path (RA in both dtypes, RAB, MHA-1024, heads of 256). This file
+//   serves every other shape: bfloat16 at other head dims, D != D_v or a
+//   misaligned view; float32 at D != 64 (D = 128 does not fit the Hopper
+//   kernel's registers and shared memory), D != D_v or a misaligned view.
 //   Replaces the TPU kernels heat_tpu/nn/attention.py calls: JAX's Pallas
 //   flash kernel for float32 (_pallas_attention_program, :637) and its
 //   splash kernel for bfloat16 (_build_splash_mha, :537), both also in

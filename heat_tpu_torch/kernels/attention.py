@@ -17,16 +17,17 @@ kernels ``heat_tpu`` calls: JAX's Pallas flash kernel for float32
 bfloat16 (``_build_splash_mha``, ``:537``). Which kernel a call takes is
 decided up front from dtype, head dims and layout:
 
-* bfloat16 with D = D_v ∈ {64, 128}, bases and (batch, head, row) strides
-  on 16 bytes (``sm90_serviceable``; this includes the strided heads of
-  ``MultiheadAttention``'s packed projection): the Hopper path,
-  ``csrc/attention_sm90.cu``, TMA loads and ``wgmma`` products in
-  warp-specialised blocks. Its launches also add one to
-  ``ATTENTION_SM90_LAUNCHES``.
-* every other bfloat16 shape (D = 8, 40/72, 256, D ≠ D_v, a misaligned
-  view): the ``mma.sync`` kernel of ``csrc/attention.cu``.
-* float32: the FP32 kernel of ``csrc/attention.cu`` on the CUDA cores,
-  which keeps float32 exact.
+* bfloat16 with D = D_v ∈ {64, 128, 256} and float32 with D = D_v = 64,
+  bases and (batch, head, row) strides on 16 bytes (``sm90_serviceable``;
+  this includes the strided heads of ``MultiheadAttention``'s packed
+  projection): the Hopper path, ``csrc/attention_sm90.cu``, TMA loads and
+  ``wgmma`` products in warp-specialised blocks; float32 there runs each
+  product as three TF32 products (3xTF32), which keeps float32 accuracy.
+  Its launches also add one to ``ATTENTION_SM90_LAUNCHES``.
+* every other bfloat16 shape (D = 8, 40/72, D ≠ D_v, a misaligned view):
+  the ``mma.sync`` kernel of ``csrc/attention.cu``.
+* every other float32 shape (D ≠ 64, D ≠ D_v, a misaligned view): the
+  FP32 kernel of ``csrc/attention.cu`` on the CUDA cores.
 
 The source of each notes what bounds it and how its design meets that.
 
@@ -70,8 +71,8 @@ ATTENTION_SM90_LAUNCHES = 0
 CHUNK = 1024
 #: largest head dim (of q/k and of v) the kernel takes
 D_MAX = 256
-#: head dims (D = D_v) of the Hopper path
-SM90_HEAD_DIMS = (64, 128)
+#: head dims (D = D_v) of the Hopper path, by dtype
+SM90_HEAD_DIMS = {torch.bfloat16: (64, 128, 256), torch.float32: (64,)}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -92,17 +93,13 @@ def sm90_serviceable(dtype: torch.dtype, d_qk: int, d_v: int, ptrs, strides) -> 
     """Whether K9 takes its Hopper path (``csrc/attention_sm90.cu``) for
     operands of ``dtype`` with head dims ``d_qk`` and ``d_v``, data pointers
     ``ptrs`` and (batch, head, row) element strides ``strides`` (one triple
-    an operand, each with a contiguous last dim): bfloat16, D = D_v ∈
-    {64, 128}, every base and stride on 16 bytes (the rule of TMA's tensor
-    maps). Everything else that ``attention_serviceable`` admits takes
-    ``csrc/attention.cu``."""
-    return (
-        dtype == torch.bfloat16
-        and d_qk == d_v
-        and d_qk in SM90_HEAD_DIMS
-        and all(p % 16 == 0 for p in ptrs)
-        and all(st * 2 % 16 == 0 for triple in strides for st in triple)
-    )
+    an operand, each with a contiguous last dim): bfloat16 at D = D_v ∈
+    {64, 128, 256} or float32 at D = D_v = 64 (``SM90_HEAD_DIMS``), every
+    base and stride on 16 bytes (the rule of TMA's tensor maps). Everything
+    else that ``attention_serviceable`` admits takes ``csrc/attention.cu``."""
+    if d_qk != d_v or d_qk not in SM90_HEAD_DIMS.get(dtype, ()):
+        return False
+    return all(p % 16 == 0 for p in ptrs) and all(st * dtype.itemsize % 16 == 0 for triple in strides for st in triple)
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -224,7 +221,7 @@ def _lib_sm90():
             _P, _P, _P, _P, _P,  # q, k, v, o, lse
             _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,  # (batch, head, row) strides of q, k, v
             _I, _I, _LL, _LL, _I,  # B, H, S_q, S_kv, D
-            _F, _I, _I, _P,  # scale, causal, device, stream
+            _F, _I, _I, _I, _P,  # scale, causal, float32, device, stream
         ]
         lib.heat_flash_attention_sm90.restype = _I
         lib.heat_attention_sm90_error_string.argtypes = [_I]
@@ -262,10 +259,11 @@ def flash_attention(
     q (..., S_q, D), k (..., S_kv, D), v (..., S_kv, D_v) with the same
     leading dims; o (..., S_q, D_v) in q's dtype, lse (..., S_q) float32.
     On CUDA: all three float32 or all bfloat16 on one device, 1 ≤ D,
-    D_v ≤ 256, any S_q and S_kv. bfloat16 at D = D_v ∈ {64, 128} with
-    bases and strides on 16 bytes takes the Hopper path
-    (``csrc/attention_sm90.cu``), other bfloat16 shapes the ``mma.sync``
-    kernel and float32 the FP32 kernel (``csrc/attention.cu``). Strided
+    D_v ≤ 256, any S_q and S_kv. bfloat16 at D = D_v ∈ {64, 128, 256} and
+    float32 at D = D_v = 64 with bases and strides on 16 bytes take the
+    Hopper path (``csrc/attention_sm90.cu``), other bfloat16 shapes the
+    ``mma.sync`` kernel and other float32 shapes the FP32 kernel
+    (``csrc/attention.cu``). Strided
     views (such as the heads of a packed projection) are read in place when
     their leading dims merge into (batch, head) and their last dim is
     contiguous. S_q = 0 or S_kv = 0 gives the result without a launch. A
@@ -273,13 +271,14 @@ def flash_attention(
     return _flash_attention(q, k, v, causal, scale, sm90=True)
 
 
-def _flash_attention_mma_sync(
+def _flash_attention_attention_cu(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False, scale: Optional[float] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``flash_attention`` with the Hopper path shut off: a bfloat16 call
-    on CUDA launches the ``mma.sync`` kernel of ``csrc/attention.cu`` on
-    any shape, so that ``chip_smoke.py`` and the ``cuda`` tests can hold the
-    two kernels against each other on the same inputs."""
+    """``flash_attention`` with the Hopper path shut off: a call on CUDA
+    launches a kernel of ``csrc/attention.cu`` on any shape (``mma.sync``
+    for bfloat16, the FP32 kernel for float32), so that ``chip_smoke.py``
+    and the ``cuda`` tests can hold the two routes against each other on
+    the same inputs."""
     return _flash_attention(q, k, v, causal, scale, sm90=False)
 
 
@@ -317,7 +316,7 @@ def _flash_attention(q, k, v, causal, scale, sm90: bool):
     if hopper:
         rc = lib.heat_flash_attention_sm90(
             *ptrs, o.data_ptr(), lse.data_ptr(), *sq, *sk, *sv, b, h, s_q, s_kv, d,
-            float(scale), int(bool(causal)), dev.index, stream,
+            float(scale), int(bool(causal)), int(q.dtype == torch.float32), dev.index, stream,
         )
         error_string = lib.heat_attention_sm90_error_string
     else:

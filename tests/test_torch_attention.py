@@ -19,7 +19,12 @@ the same numpy inputs. Tolerances:
   atol 5e-2, heat_tpu's own bound (``tests/test_types_printing_misc.py:376``).
 
 The kernel itself runs only on a card: the ``cuda`` test compares it with
-the plain version there.
+the plain version there. Here the arithmetic of its float32 Hopper kernel
+(3xTF32: each operand split into two TF32 halves, each product three TF32
+products, the small terms first) is emulated with numpy on float32 bits and
+held against a float64 result at ``chip_smoke.py``'s float32 limits,
+|Δo| ≤ 1e-5 max|v| and |Δlse| ≤ 1e-5 (1 + |lse|); one-pass TF32 is shown to
+miss them.
 """
 
 import math
@@ -238,31 +243,48 @@ def _sm90(dtype, *ts):
                                [st for _, st in layouts])
 
 
-@pytest.mark.parametrize("d", [64, 128])
-def test_sm90_predicate_accepts_aligned_bf16_at_64_and_128(d):
-    bf = torch.bfloat16
-    q = torch.zeros(2, 4, 100, d, dtype=bf)
-    assert _sm90(bf, q, q, q)
-    assert _sm90(bf, q[:, :, :1], q, q)  # S_q = 1: a row stride along an extent of 1
-    assert _sm90(bf, q[0], q[0], q[0])  # (H, S, D)
+def _assert_sm90_accepts(dtype, d):
+    q = torch.zeros(2, 4, 100, d, dtype=dtype)
+    assert _sm90(dtype, q, q, q)
+    assert _sm90(dtype, q[:, :, :1], q, q)  # S_q = 1: a row stride along an extent of 1
+    assert _sm90(dtype, q[0], q[0], q[0])  # (H, S, D)
+    padded = torch.zeros(2, 4, 100, d + 16 // dtype.itemsize, dtype=dtype)[..., :d]  # rows 16 bytes apart
+    assert _sm90(dtype, padded, padded, padded)
     # MultiheadAttention's heads: strided views of the packed projection
     # (nn/modules.py: a row stride of 3 E elements, a head stride of D)
     e, heads = 8 * d, 8
-    qkv = torch.zeros(1, 37, 3 * e, dtype=bf).reshape(1, 37, 3, heads, d)
+    qkv = torch.zeros(1, 37, 3 * e, dtype=dtype).reshape(1, 37, 3, heads, d)
     hq, hk, hv = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     assert hq.stride() == (37 * 3 * e, d, 3 * e, 1)
-    assert _sm90(bf, hq, hk, hv)
+    assert _sm90(dtype, hq, hk, hv)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_predicate_accepts_aligned_bf16_at_64_and_128(d):
+    _assert_sm90_accepts(torch.bfloat16, d)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256), (torch.float32, 64)])
+def test_sm90_predicate_accepts_aligned_bf16_at_256_and_float32_at_64(dtype, d):
+    _assert_sm90_accepts(dtype, d)
 
 
 def test_sm90_predicate_refuses_other_dtypes_dims_and_misaligned_views():
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     x = torch.zeros(2, 4, 100, 64, dtype=bf)
-    assert not _sm90(torch.float32, x.float(), x.float(), x.float())
-    for d in (8, 40, 72, 256):
+    assert not _sm90(torch.float16, x.half(), x.half(), x.half())
+    for d in (8, 40, 72):
         y = torch.zeros(2, 4, 100, d, dtype=bf)
         assert not _sm90(bf, y, y, y)
+    for d in (8, 32, 128, 256):  # float32 takes the Hopper path at D = 64 only
+        y = torch.zeros(2, 4, 100, d, dtype=f32)
+        assert not _sm90(f32, y, y, y)
     assert not _sm90(bf, x, x, torch.zeros(2, 4, 100, 128, dtype=bf))  # D != D_v
     assert not _sm90(bf, torch.zeros(2, 4, 100, 128, dtype=bf), torch.zeros(2, 4, 100, 128, dtype=bf), x)
+    w = torch.zeros(2, 4, 100, 256, dtype=bf)
+    assert not _sm90(bf, w, w, x)  # D = 256 with D_v = 64
+    xf = x.float()
+    assert not _sm90(f32, xf, xf, torch.zeros(2, 4, 100, 32, dtype=f32))  # D != D_v
     flat = torch.zeros(2 * 4 * 100 * 64 + 1, dtype=bf)
     odd = flat[1:].view(2, 4, 100, 64)  # starts 2 bytes past an aligned base
     assert odd.data_ptr() % 16 == 2
@@ -270,6 +292,15 @@ def test_sm90_predicate_refuses_other_dtypes_dims_and_misaligned_views():
     # a row stride of 65 elements: rows that do not start on 16 bytes
     rows = torch.zeros(2, 4, 100, 65, dtype=bf)[..., :64]
     assert not _sm90(bf, rows, x, x)
+    # float32: bases 4, 8 and 12 bytes past 16, and a row stride of 66
+    # elements (264 bytes)
+    flat = torch.zeros(2 * 4 * 100 * 64 + 3, dtype=f32)
+    for off in (1, 2, 3):
+        odd = flat[off:off + 2 * 4 * 100 * 64].view(2, 4, 100, 64)
+        assert odd.data_ptr() % 16 == 4 * off
+        assert not _sm90(f32, odd, xf, xf) and not _sm90(f32, xf, odd, xf) and not _sm90(f32, xf, xf, odd)
+    rows = torch.zeros(2, 4, 100, 66, dtype=f32)[..., :64]
+    assert not _sm90(f32, rows, xf, xf)
 
 
 def test_cuda_bf16_at_64_and_128_takes_the_hopper_path_or_raises(monkeypatch):
@@ -280,21 +311,10 @@ def test_cuda_bf16_at_64_and_128_takes_the_hopper_path_or_raises(monkeypatch):
     class Sm90(RuntimeError):
         pass
 
-    class MmaSync(RuntimeError):
+    class AttentionCu(RuntimeError):
         pass
 
-    def refuse(*args, **kwargs):
-        raise AssertionError("a CUDA operand reached the plain version")
-
-    def sm90_lib():
-        raise Sm90("the Hopper path was chosen")
-
-    def old_lib():
-        raise MmaSync("attention.cu was chosen")
-
-    monkeypatch.setattr(ka, "flash_attention_plain", refuse)
-    monkeypatch.setattr(ka, "_lib_sm90", sm90_lib)
-    monkeypatch.setattr(ka, "_lib", old_lib)
+    _fake_libraries(monkeypatch, Sm90, AttentionCu)
     launches, launches_sm90 = ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES
     with FakeTensorMode():
         for d in (64, 128):
@@ -303,18 +323,190 @@ def test_cuda_bf16_at_64_and_128_takes_the_hopper_path_or_raises(monkeypatch):
                 ka.flash_attention(q, q, q, True)
             with pytest.raises(Sm90):  # the public route too
                 natt._single_device_attention(q, q, q, True)
-            with pytest.raises(MmaSync):  # the private helper reaches the old kernel on the same shape
-                ka._flash_attention_mma_sync(q, q, q, True)
-            with pytest.raises(MmaSync):  # float32 keeps the FP32 kernel
-                ka.flash_attention(q.float(), q.float(), q.float(), True)
-        for d in (8, 40, 72, 256):
+            with pytest.raises(AttentionCu):  # the private helper reaches the old kernel on the same shape
+                ka._flash_attention_attention_cu(q, q, q, True)
+            qf = torch.empty(2, 8, 64, d, device="cuda", dtype=torch.float32)
+            # float32 takes the Hopper path at D = 64, the FP32 kernel at 128
+            with pytest.raises(Sm90 if d == 64 else AttentionCu):
+                ka.flash_attention(qf, qf, qf, True)
+        for d in (8, 40, 72):
             q = torch.empty(2, 8, 64, d, device="cuda", dtype=torch.bfloat16)
-            with pytest.raises(MmaSync):
+            with pytest.raises(AttentionCu):
                 ka.flash_attention(q, q, q)
+        q = torch.empty(2, 8, 64, 256, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(Sm90):  # heads of 256 take the Hopper path
+            ka.flash_attention(q, q, q)
         q = torch.empty(2, 8, 64, 128, device="cuda", dtype=torch.bfloat16)
-        with pytest.raises(MmaSync):  # D != D_v
+        with pytest.raises(AttentionCu):  # D != D_v
             ka.flash_attention(q, q, torch.empty(2, 8, 64, 64, device="cuda", dtype=torch.bfloat16))
     assert (ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES) == (launches, launches_sm90)
+
+
+def _fake_libraries(monkeypatch, sm90_error, attention_cu_error):
+    """Replace both kernel libraries with loaders that raise, each its own
+    error, and the plain version with one that fails the test."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA operand reached the plain version")
+
+    def sm90_lib():
+        raise sm90_error("the Hopper path was chosen")
+
+    def old_lib():
+        raise attention_cu_error("attention.cu was chosen")
+
+    monkeypatch.setattr(ka, "flash_attention_plain", refuse)
+    monkeypatch.setattr(ka, "_lib_sm90", sm90_lib)
+    monkeypatch.setattr(ka, "_lib", old_lib)
+
+
+def test_cuda_float32_at_64_and_bf16_at_256_take_the_hopper_path_or_raises(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the fake CUDA tensors below would be launched")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    class Sm90(RuntimeError):
+        pass
+
+    class AttentionCu(RuntimeError):
+        pass
+
+    _fake_libraries(monkeypatch, Sm90, AttentionCu)
+    launches, launches_sm90 = ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES
+    with FakeTensorMode():
+        for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+            q = torch.empty(2, 8, 300, d, device="cuda", dtype=dtype)
+            for causal in (False, True):
+                with pytest.raises(Sm90):
+                    ka.flash_attention(q, q, q, causal)
+                with pytest.raises(Sm90):  # the public route too
+                    natt._single_device_attention(q, q, q, causal)
+            with pytest.raises(Sm90):  # S_q = 1 against 4096 keys
+                kv = torch.empty(2, 8, 4096, d, device="cuda", dtype=dtype)
+                ka.flash_attention(torch.empty(2, 8, 1, d, device="cuda", dtype=dtype), kv, kv)
+            with pytest.raises(AttentionCu):  # the private helper reaches attention.cu on the same shape
+                ka._flash_attention_attention_cu(q, q, q, True)
+            # MultiheadAttention's packed heads, read in place: (B, H, S, D)
+            # views with a row stride of 3 E elements and a head stride of D
+            e = 4 * d
+            heads = torch.empty_strided((2, 4, 37, d), (37 * 3 * e, d, 3 * e, 1), device="cuda", dtype=dtype)
+            with pytest.raises(Sm90):
+                ka.flash_attention(heads, heads, heads, True)
+            # rows 8 bytes longer than their data, so that they start off
+            # 16 bytes: attention.cu
+            stride = d + 8 // dtype.itemsize
+            rows = torch.empty_strided((2, 8, 300, d), (8 * 300 * stride, 300 * stride, stride, 1), device="cuda",
+                                       dtype=dtype)
+            with pytest.raises(AttentionCu):
+                ka.flash_attention(rows, q, q, True)
+        w = torch.empty(2, 8, 300, 256, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(AttentionCu):  # D = 256 with D_v = 64
+            ka.flash_attention(w, w, torch.empty(2, 8, 300, 64, device="cuda", dtype=torch.bfloat16))
+        qf = torch.empty(2, 8, 300, 64, device="cuda", dtype=torch.float32)
+        with pytest.raises(AttentionCu):  # float32 D != D_v
+            ka.flash_attention(qf, qf, torch.empty(2, 8, 300, 32, device="cuda", dtype=torch.float32))
+        for d in (8, 128, 256):  # float32 at other head dims
+            qf = torch.empty(2, 8, 300, d, device="cuda", dtype=torch.float32)
+            with pytest.raises(AttentionCu):
+                ka.flash_attention(qf, qf, qf, True)
+    assert (ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES) == (launches, launches_sm90)
+
+
+# --------------------------------------------------------------------- #
+# the 3xTF32 arithmetic of the float32 Hopper kernel, emulated          #
+# --------------------------------------------------------------------- #
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on float32 bits: to 10 explicit mantissa bits,
+    to nearest with ties away from zero (the 13 low bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_split(x):
+    """x = big + small, each TF32, as the kernel splits Q, K, V and P."""
+    x = np.asarray(x, np.float32)
+    big = _tf32_rna(x)
+    return big, _tf32_rna(x - big)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as three TF32 products into one float32 accumulator, the small
+    terms first: a_s b_b + a_b b_s + a_b b_b (products of TF32 values are
+    exact in float32)."""
+    ab, a_s = _tf32_split(a)
+    bb, b_s = _tf32_split(b)
+    acc = a_s @ bb
+    acc = acc + ab @ b_s
+    return acc + ab @ bb
+
+
+def _mm_1xtf32(a, b):
+    return _tf32_rna(a) @ _tf32_rna(b)
+
+
+def _kernel_f32_attention(q, k, v, causal, mm, bn=64):
+    """The float32 Hopper kernel's arithmetic on one (S, D) slice: tiles of
+    ``bn`` keys, the online softmax on the raw scores with the scale in log2
+    units and the shift in one fused multiply-add ahead of exp2, both
+    products by ``mm``; o and lse in float32."""
+    s_q, d = q.shape
+    sl2 = np.float32(np.float32(1 / math.sqrt(d)) * np.float32(math.log2(math.e)))
+    m = np.full(s_q, -np.inf, np.float32)
+    l = np.zeros(s_q, np.float32)
+    o = np.zeros((s_q, v.shape[1]), np.float32)
+    rows = np.arange(s_q)[:, None]
+    for k0 in range(0, k.shape[0], bn):
+        s = mm(q, k[k0:k0 + bn].T)
+        if causal:
+            s = np.where(k0 + np.arange(s.shape[1])[None, :] > rows, np.float32(-np.inf), s)
+        m_new = np.maximum(m, s.max(1) * sl2)
+        shift = np.where(np.isneginf(m_new), np.float32(0), m_new)
+        corr = np.exp2(m - shift)
+        with np.errstate(invalid="ignore"):  # -inf - shift on masked scores
+            p = np.exp2((s.astype(np.float64) * sl2 - shift[:, None]).astype(np.float32))
+        l = l * corr + p.sum(1, dtype=np.float32)
+        o = o * corr[:, None] + mm(p, v[k0:k0 + bn])
+        m = m_new
+    return o / l[:, None], (m + np.log2(l)) * np.float32(math.log(2))
+
+
+def _f32_limit_shares(mm, mult, causal, seed=11):
+    """(max |Δo| / (1e-5 max|v|), max |Δlse| / (1e-5 (1 + |lse|))) of the
+    emulated kernel against float64, at D = 64, S = 512, two heads."""
+    q, k, v = _qkv((2, 512, 64), 512, 64, seed=seed)
+    q = (q * mult).astype(np.float32)
+    eo = el = 0.0
+    for i in range(q.shape[0]):
+        o, lse = _kernel_f32_attention(q[i], k[i], v[i], causal, mm)
+        ro, rl = _dense(q[i], k[i], v[i], causal)
+        eo = max(eo, float(np.abs(o - ro).max() / (1e-5 * np.abs(v[i]).max())))
+        el = max(el, float((np.abs(lse - rl) / (1e-5 * (1 + np.abs(rl)))).max()))
+    return eo, el
+
+
+def test_tf32_rounding_emulation():
+    one = np.float32(1)
+    ulp = np.float32(2.0**-10)  # TF32's spacing above 1
+    x = np.array([1 + 2.0**-11, 1 + 2.0**-12, 1 + 3 * 2.0**-12, -(1 + 2.0**-11), 3.0, 0.0], np.float32)
+    np.testing.assert_array_equal(_tf32_rna(x), [one + ulp, one, one + ulp, -(one + ulp), 3.0, 0.0])
+    r = np.random.default_rng(3).standard_normal(10_000).astype(np.float32) * 1e3
+    big, small = _tf32_split(r)
+    assert not (big.view(np.uint32) & 0x1FFF).any() and not (small.view(np.uint32) & 0x1FFF).any()
+    assert (np.abs(r - big) <= 2.0**-11 * np.abs(r)).all()
+    assert (np.abs(r.astype(np.float64) - big - small) <= 2.0**-22 * np.abs(r)).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("mult", [1.0, 10.0])
+def test_3xtf32_attention_stays_within_the_float32_limits(mult, causal):
+    eo, el = _f32_limit_shares(_mm_3xtf32, mult, causal)
+    assert eo <= 1 and el <= 1, (eo, el)
+
+
+@pytest.mark.parametrize("mult", [1.0, 10.0])
+def test_one_pass_tf32_attention_misses_the_float32_limits(mult):
+    eo, el = _f32_limit_shares(_mm_1xtf32, mult, True)
+    assert eo > 1, (eo, el)
 
 
 def test_gradients_flow_through_the_kernel_route():
