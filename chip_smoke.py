@@ -10,13 +10,22 @@ Phases, each of which fails the run by raising:
    register line of each main-path instantiation;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and at ragged ones, and against itself on a rerun
-   (its cross-block sums run in a fixed order);
+   (its cross-block sums run in a fixed order). K2 and K8 run on their
+   Hopper kernels (``sketch_sm90.cu``, ``sddmm_sm90.cu``: 3xTF32 ``wgmma``,
+   TMA-fed) wherever their predicates admit the shape, and there the
+   kernels they replace (``sketch.cu``, ``spmm.cu``) run on the same inputs
+   under the same limits; K2 at 1000 x 777 (n % 4 != 0) stays on
+   ``sketch.cu``, at 1000 x 776 and 65536 x 8192 takes its Hopper kernel
+   (also at ℓ = 64, k̂ = 32 and at ℓ = k̂ = 1 on inputs x 1e3); K8 takes
+   d = 4, 60, 64, 72 and 128 on its Hopper kernel and d = 1 and 30 on
+   ``spmm.cu``;
 4. the main paths at full size, each kernel count set to 0 just before
    each call and read just after:
    - hSVD: ``ht.random.randn(65536, 8192, split=0)`` (the 2.1 GB float32
      per-chip shard of the north-star operation), then
      ``ht.linalg.hsvd_rank(A, 10, compute_sv=True)`` in the 2-pass form
-     and with ``single_pass=True``. The factors must be orthonormal, and
+     and with ``single_pass=True`` (K2 on its Hopper kernel, counted
+     apart). The factors must be orthonormal, and
      an exactly rank-8 operand of the same size, and a small one held
      against numpy's SVD, must give their singular values back;
    - KMeans: ``ht.random.randn(15_625_000, 64, split=0)`` (the 4.0 GB
@@ -39,7 +48,7 @@ Phases, each of which fails the run by raising:
    - sparse: bench.py's ``spmm_1gb`` (16384^2, 16,384 full (8, 128)
      bricks, seed 0x18): ``ht.sparse.sparse_dbcsr_matrix(bsr, split=0) @
      x`` with k = 4 (K7 once), ``ht.sparse.sddmm(S, u, v)`` with d = 64
-     (K8 once) and the DCSR form ``sparse_csr_matrix(...) @ x``, each
+     (K8 once, on its Hopper kernel, counted apart) and the DCSR form ``sparse_csr_matrix(...) @ x``, each
      against a float64 reference; a card-scale matrix (131072^2,
      1,048,576 bricks, built on the card through the raw constructor),
      ``S @ x`` with k = 1 and 4 and ``sddmm`` with d = 64; bench.py's
@@ -88,7 +97,12 @@ Phases, each of which fails the run by raising:
    against their plain versions within 1e-5 of each element's absolute-sum
    scale, and against themselves on a rerun bit for bit, at the main-path
    shapes, ragged 1003 x 777, empty brick rows, all-zero and pad bricks,
-   an empty matrix and bf16 bricks; K7's library yardstick is PyTorch's
+   an empty matrix and bf16 bricks; K8's rows time its Hopper kernel
+   beside spmm.cu's (``pr4_ms``), K2's beside sketch.cu's (``pr1_ms``) and
+   the three library calls that compute its outputs apart
+   (``composed_ms``: g @ a, a @ omega, a.square().sum(); context, not a
+   yardstick), both with the 3xTF32 and the FP32 CUDA-core operation
+   bounds beside their byte bound; K7's library yardstick is PyTorch's
    sparse tensor of the same matrix, and PageRank is timed as its host
    build and its fixpoint. K9 is held against its plain version (float32
    |Δo| ≤ 1e-5 max|v|, |Δlse| ≤ 1e-5 (1 + |lse|); bf16 elementwise |Δo| ≤
@@ -144,7 +158,8 @@ FP32_FLOP_PER_S = 67e12
 
 M, N = 65536, 8192  # the north-star per-chip shard, float32
 MAXRANK = 10
-RAGGED = (1000, 777)
+RAGGED = (1000, 777)  # n % 4 != 0: K2 keeps sketch.cu's kernel here
+K2_RAGGED_SM90 = (1000, 776)  # ragged rows and columns on K2's Hopper kernel
 RANK8_SIGMA = [8.0, 7.0, 6.0, 5.0, 4.0, 3.0, 2.0, 1.0]
 
 # kernel against plain version, both float32 with other summation orders
@@ -174,6 +189,9 @@ ADV_N = 1 << 22  # adversarial keys, as one segment and as rows of 512
 SPARSE_SEED = 0x18  # bench.py's seed of spmm_1gb and pagerank_2m
 SPMM_N, SPMM_OCC, SPMM_K = 16384, 0.0625, 4  # spmm_1gb (bench.py:117-122): 16,384 full bricks
 SDDMM_D = 64
+# d at K8's edges: 4 and 60 take its Hopper kernel below one pass of 64, 72
+# and 128 in two passes; 30 (not a multiple of 4) keeps spmm.cu's kernel
+K8_EDGE_D = (4, 30, 60, 72, 128)
 CARD_N, CARD_BRICKS = 131072, 1 << 20  # 6.25% brick fill: 64 bricks per brick row, 4.29 GB
 PR_N, PR_DEG, PR_TOL = 8192, 256, 1e-8  # pagerank_2m (bench.py:123-125)
 PR_HEAT_TPU_ITERATIONS = 10  # heat_tpu's count on the CPU (docs/PERF.md:334)
@@ -263,17 +281,19 @@ def build_kernels() -> None:
     for name in _build.sources():
         log = _build._library_path(name).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
-        # register use of the main paths' instantiations (K1 l=25, K2 ℓ=59,
-        # K3 k ≤ 8, K4's kernels of both regimes (rows of 512: two warps a
-        # row), K7 k = 1 and 4, K8, K9's Hopper path at bf16 D = 64, 128
-        # and 256 and float32 D = 64, attention.cu's kernels timed beside it
-        # (float32 at D_v = 64, mma.sync bf16 at D_v = 256), K5/K6 on
-        # 4-byte words with 32-bit offsets); and any wgmma that ptxas
-        # serialised
+        # register use and spills (-Xptxas -v) of the main paths'
+        # instantiations (K1 l=25, K2's Hopper kernel at k̂ ≤ 24 and
+        # sketch.cu's ℓ=59 timed beside it, K3 k ≤ 8, K4's kernels of both
+        # regimes (rows of 512: two warps a row), K7 k = 1 and 4, K8's
+        # Hopper kernel and spmm.cu's timed beside it, K9's Hopper path at
+        # bf16 D = 64, 128 and 256 and float32 D = 64, attention.cu's
+        # kernels timed beside it (float32 at D_v = 64, mma.sync bf16 at
+        # D_v = 256), K5/K6 on 4-byte words with 32-bit offsets); and any
+        # wgmma that ptxas serialised
         for i, line in enumerate(lines):
-            main = ("ILi25ELb0E", "ILi59ELb1E", "assign_kernelILi8E", "seg_sort_kernelILi8ELi2E",
-                    "sweep_hist_kernel", "sweep_plan_kernel", "sweep_pass_kernel",
-                    "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel",
+            main = ("ILi25ELb0E", "ILi59ELb1E", "dual_sm90_kernelILi24E", "assign_kernelILi8E",
+                    "seg_sort_kernelILi8ELi2E", "sweep_hist_kernel", "sweep_plan_kernel", "sweep_pass_kernel",
+                    "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel", "sddmm_sm90_kernel",
                     "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi256E", "attn_sm90_kernelILi64ELi3E",
                     "attn_sm90_kernelILi128ELi2E", "attn_sm90_kernelILi256ELi2E", "attn_sm90_f32_kernelILi2E",
                     "11pack_kernelIjjE", "13unpack_kernelIjjE")
@@ -283,6 +303,48 @@ def build_kernels() -> None:
             if "Compiling entry function" in line and tags:
                 detail = " | ".join(s.split(":", 1)[-1].strip() for s in lines[i + 1 : i + 4])
                 print(f"ptxas {line.split(chr(39))[1][:48]} ({tags[0]}): {detail}", flush=True)
+
+
+def _k2_case(cs, a, gen, l: int = 59, k: int = 24) -> dict:
+    """K2 on ``a`` against its plain version, on the kernel its predicate
+    picks (its Hopper launch count must show which), and against itself on
+    a rerun; on the Hopper kernel sketch.cu's kernel runs on the same inputs
+    too, held to the plain version under the same limits. Returns the main
+    shape's largest errors (empty elsewhere)."""
+    import torch
+
+    m, n = a.shape
+    g = torch.randn(l, m, device=a.device, generator=gen)
+    omega = torch.randn(n, k, device=a.device, generator=gen)
+    hopper = cs.dual_sketch_sm90_serviceable(l, k, a)
+    before = cs.DUAL_SM90_LAUNCHES
+    w, y, norm = cs.dual_sketch_with_norm(g, omega, a)
+    pw, py, pnorm = cs.dual_sketch_with_norm_plain(g, omega, a)
+    torch.cuda.synchronize()
+    _require(cs.DUAL_SM90_LAUNCHES == before + int(hopper),
+             f"K2 ({m}x{n}) {'did not take' if hopper else 'took'} the Hopper kernel")
+    ew, ey, en = _rel(w, pw), _rel(y, py), abs(float(norm) - float(pnorm)) / float(pnorm)
+    rerun = all(map(torch.equal, (w, y, norm), cs.dual_sketch_with_norm(g, omega, a)))
+    route, old = "sketch_sm90" if hopper else "sketch", ""
+    ok_old = True
+    if hopper:
+        ow, oy, onorm = cs._dual_sketch_with_norm_sketch_cu(g, omega, a)
+        torch.cuda.synchronize()
+        eow, eoy, eon = _rel(ow, pw), _rel(oy, py), abs(float(onorm) - float(pnorm)) / float(pnorm)
+        ok_old = eow <= TOL_W and eoy <= TOL_W and eon <= TOL_NORM
+        old = f"; sketch.cu's kernel: w rel {eow:.3e}, y rel {eoy:.3e}, norm rel {eon:.3e}"
+    print(
+        f"K2 {route} ({m}x{n}, l={l}, k={k}): w rel {ew:.3e}, y rel {ey:.3e} (tol {TOL_W}), "
+        f"norm rel {en:.3e} (tol {TOL_NORM}), rerun identical {rerun}{old}", flush=True,
+    )
+    _require(ew <= TOL_W and ey <= TOL_W and en <= TOL_NORM and rerun and ok_old,
+             f"K2 disagrees with its plain version or itself at {m}x{n}, l={l}, k={k}")
+    if (m, n, l, k) != (M, N, 59, 24):
+        return {}
+    errs = {"dual_sketch_with_norm": max(float((w - pw).abs().max()), float((y - py).abs().max()))}
+    if hopper:
+        errs["dual_sketch_with_norm_pr1"] = max(float((ow - pw).abs().max()), float((oy - py).abs().max()))
+    return errs
 
 
 def check_kernels(dev) -> dict:
@@ -308,21 +370,15 @@ def check_kernels(dev) -> dict:
                 errs["sketch_with_norm"] = float((w - pw).abs().max())
                 # partials are summed in a fixed order: a rerun gives the same bits
                 _require(all(map(torch.equal, (w, norm), cs.sketch_with_norm(g, a))), "K1 is not repeatable")
-        g = torch.randn(59, m, device=dev, generator=gen)
-        omega = torch.randn(n, 24, device=dev, generator=gen)
-        w, y, norm = cs.dual_sketch_with_norm(g, omega, a)
-        pw, py, pnorm = cs.dual_sketch_with_norm_plain(g, omega, a)
-        torch.cuda.synchronize()
-        ew, ey, en = _rel(w, pw), _rel(y, py), abs(float(norm) - float(pnorm)) / float(pnorm)
-        print(
-            f"K2 ({m}x{n}, l=59, k=24): w rel {ew:.3e}, y rel {ey:.3e} (tol {TOL_W}), "
-            f"norm rel {en:.3e} (tol {TOL_NORM})", flush=True,
-        )
-        _require(ew <= TOL_W and ey <= TOL_W and en <= TOL_NORM, f"K2 disagrees with its plain version at {m}x{n}")
-        if (m, n) == (M, N):
-            errs["dual_sketch_with_norm"] = max(float((w - pw).abs().max()), float((y - py).abs().max()))
-            _require(all(map(torch.equal, (w, y, norm), cs.dual_sketch_with_norm(g, omega, a))), "K2 is not repeatable")
+        errs.update(_k2_case(cs, a, gen))
         del a
+    # a ragged shape the Hopper kernel serves (n % 4 == 0), and the widest
+    # row and column sketches it takes
+    a = torch.randn(*K2_RAGGED_SM90, device=dev, generator=gen)
+    _k2_case(cs, a, gen)
+    _k2_case(cs, a, gen, l=64, k=32)
+    _k2_case(cs, a * 1e3, gen, l=1, k=1)
+    del a
     return errs
 
 
@@ -854,10 +910,11 @@ def main_path(dev) -> dict:
     _require(A.larray.device == dev and A.dtype is ht.float32 and A.split == 0, "A is not a float32 split-0 array on the card")
     launches = {}
     for single_pass, kernel in ((False, "sketch_with_norm"), (True, "dual_sketch_with_norm")):
-        cs.SKETCH_LAUNCHES = cs.DUAL_LAUNCHES = 0
+        cs.SKETCH_LAUNCHES = cs.DUAL_LAUNCHES = cs.DUAL_SM90_LAUNCHES = 0
         U, sigma, V, err = ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True, single_pass=single_pass)
         torch.cuda.synchronize()
-        counts = {"sketch_with_norm": cs.SKETCH_LAUNCHES, "dual_sketch_with_norm": cs.DUAL_LAUNCHES}
+        counts = {"sketch_with_norm": cs.SKETCH_LAUNCHES, "dual_sketch_with_norm": cs.DUAL_LAUNCHES,
+                  "dual_sketch_sm90": cs.DUAL_SM90_LAUNCHES}
         launches[kernel] = counts[kernel]
         s = sigma.larray
         ou, ov = _orthonormal_err(U.larray), _orthonormal_err(V.larray)
@@ -867,6 +924,8 @@ def main_path(dev) -> dict:
             f"sigma[0]={float(s[0]):.4f} sigma[-1]={float(s[-1]):.4f}, err={float(err):.6f}", flush=True,
         )
         _require(counts[kernel] > 0, f"the main path ran without kernel {kernel}")
+        _require(not single_pass or counts["dual_sketch_sm90"] == counts[kernel],
+                 "the one-view hsvd_rank ran K2 off its Hopper kernel")
         _require(U.shape == (M, MAXRANK) and V.shape == (N, MAXRANK) and sigma.shape == (MAXRANK,), "factor shapes")
         _require(bool(torch.isfinite(U.larray).all() and torch.isfinite(V.larray).all() and torch.isfinite(s).all()), "non-finite factors")
         # the 2-pass estimate is exact, so at most 1; the one-view one is a
@@ -907,32 +966,50 @@ def timings(dev, launches: dict, errs: dict) -> list:
     omega = torch.randn(N, 24, device=dev, generator=gen)
     mn = float(M) * N
     rows = []
-    specs = (
-        ("sketch_with_norm", "heat_tpu/core/linalg/_pallas_sketch.py:56",
-         lambda: cs.sketch_with_norm(g1, a), lambda: cs.sketch_with_norm_plain(g1, a),
-         lambda: torch.matmul(g1, a),
-         4 * (mn + 25 * M + 25 * N + 1), 2 * 25 * mn + 2 * mn),
-        ("dual_sketch_with_norm", "heat_tpu/core/linalg/_pallas_sketch.py:105",
-         lambda: cs.dual_sketch_with_norm(g2, omega, a), lambda: cs.dual_sketch_with_norm_plain(g2, omega, a),
-         None,
-         4 * (mn + 59 * M + 24 * N + 59 * N + 24 * M + 1), 2 * (59 + 24) * mn + 2 * mn),
+    # K1 (sketch.cu): bound the larger of the bytes and the FP32 operations
+    ms = _median_ms(lambda: cs.sketch_with_norm(g1, a), 10)
+    plain_ms = _median_ms(lambda: cs.sketch_with_norm_plain(g1, a), 5)
+    library_ms = _median_ms(lambda: torch.matmul(g1, a), 10)
+    bound_ms, bound_by = _bound(4 * (mn + 25 * M + 25 * N + 1), 2 * 25 * mn + 2 * mn)
+    print(f"sketch_with_norm: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (g @ a) {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    rows.append({
+        "name": "sketch_with_norm", "route": "cuda", "source": "heat_tpu_torch/csrc/sketch.cu",
+        "replaces": "heat_tpu/core/linalg/_pallas_sketch.py:56", "launches": launches["sketch_with_norm"],
+        "max_abs_err": errs["sketch_with_norm"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+    })
+    # K2 on its Hopper kernel (sketch_sm90.cu, 3xTF32 on the tensor cores):
+    # bound the read of A (the bytes), beside the 3xTF32 operation bound and
+    # the FP32 CUDA-core bound that held sketch.cu's kernel (pr1_ms: that
+    # kernel on the same inputs); composed_ms: g @ a, a @ omega and
+    # a.square().sum() back to back, context only (three reads of A)
+    _require(cs.dual_sketch_sm90_serviceable(59, 24, a), "K2's main shape is off its Hopper kernel")
+    flops = 2 * (59 + 24) * mn + 2 * mn
+    nbytes = 4 * (mn + 59 * M + 24 * N + 59 * N + 24 * M + 1)
+    ms = _median_ms(lambda: cs.dual_sketch_with_norm(g2, omega, a), 10)
+    pr1_ms = _median_ms(lambda: cs._dual_sketch_with_norm_sketch_cu(g2, omega, a), 10)
+    ms_again = _median_ms(lambda: cs.dual_sketch_with_norm(g2, omega, a), 10)
+    pr1_again = _median_ms(lambda: cs._dual_sketch_with_norm_sketch_cu(g2, omega, a), 10)
+    plain_ms = _median_ms(lambda: cs.dual_sketch_with_norm_plain(g2, omega, a), 5)
+    composed_ms = _median_ms(lambda: (torch.matmul(g2, a), torch.matmul(a, omega), a.square().sum()), 10)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    tf32_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    fp32_ms = flops / FP32_FLOP_PER_S * 1e3
+    print(
+        f"dual_sketch_with_norm (K2 sketch_sm90.cu): {ms:.4f} ms [{ms_again:.4f}], sketch.cu's kernel (pr1_ms) "
+        f"{pr1_ms:.4f} ms [{pr1_again:.4f}], plain {plain_ms:.4f} ms, composed (g @ a, a @ omega, a.square().sum()) "
+        f"{composed_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes: {nbytes / 1e9:.4f} GB), 3xTF32 operations "
+        f"{tf32_ms:.4f} ms, FP32 CUDA cores {fp32_ms:.4f} ms; {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved, "
+        f"{bound_ms / ms:.1%} of the bound", flush=True,
     )
-    for name, replaces, kernel, plain, library, nbytes, flops in specs:
-        ms = _median_ms(kernel, 10)
-        plain_ms = _median_ms(plain, 5)
-        library_ms = _median_ms(library, 10) if library is not None else None
-        bound_ms, bound_by = _bound(nbytes, flops)
-        print(
-            f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bound_ms:.4f} ms ({bound_by})",
-            flush=True,
-        )
-        rows.append({
-            "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/sketch.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-        })
+    rows.append({
+        "name": "dual_sketch_with_norm", "route": "cuda", "source": "heat_tpu_torch/csrc/sketch_sm90.cu",
+        "replaces": "heat_tpu/core/linalg/_pallas_sketch.py:105", "launches": launches["dual_sketch_with_norm"],
+        "max_abs_err": errs["dual_sketch_with_norm"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": None, "pr1_ms": pr1_ms, "pr1_err": errs["dual_sketch_with_norm_pr1"],
+        "composed_ms": composed_ms, "bound_3xtf32_ms": tf32_ms, "bound_fp32_ms": fp32_ms,
+    })
     A = ht.array(a, split=0)
     for single_pass, passes in ((False, 2), (True, 1)):
         t0 = time.perf_counter()
@@ -1081,30 +1158,46 @@ def _k7_case(ks, label: str, S, k: int, gen, dtype=None) -> float:
     return err
 
 
-def _k8_case(ks, label: str, S, d: int, gen) -> float:
+def _k8_case(ks, label: str, S, d: int, gen) -> tuple:
     """K8 against its plain version, within TOL_SPARSE of the scale
-    |s|·(|u|·|v|ᵀ), and on a rerun bit for bit; returns the largest
-    absolute error."""
+    |s|·(|u|·|v|ᵀ), and on a rerun bit for bit, on the kernel its predicate
+    picks (its Hopper launch count must show which); on the Hopper kernel
+    spmm.cu's kernel runs on the same inputs too, held to the plain version
+    under the same limit. Returns the largest absolute errors of the route's
+    kernel and of spmm.cu's (None off the Hopper kernel)."""
     import torch
 
     sdata, bcol, brow, _ = S._phys_components
     sd = sdata.float()
     u = torch.randn(S.shape[0], d, device=sd.device, generator=gen)
     v = torch.randn(S.shape[1], d, device=sd.device, generator=gen)
+    hopper = ks.sddmm_sm90_serviceable(d, S.shape[0], (u.data_ptr(), v.data_ptr(), sd.data_ptr()))
+    before = ks.SDDMM_SM90_LAUNCHES
     out = ks.brick_sddmm(sd, brow, bcol, *S._brick_colorder, u, v)
     again = ks.brick_sddmm(sd, brow, bcol, *S._brick_colorder, u, v)
+    _require(ks.SDDMM_SM90_LAUNCHES == before + 2 * int(hopper),
+             f"K8 ({label}, d={d}) {'did not take' if hopper else 'took'} the Hopper kernel")
     ref = ks.brick_sddmm_plain(sd, brow, bcol, u, v)
     scale = ks.brick_sddmm_plain(sd.abs(), brow, bcol, u.abs(), v.abs())
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     rel = float(((out - ref).abs() / scale.clamp_min(1e-30)).max())
     rerun = torch.equal(out, again)
-    print(f"K8 ({label}, d={d}): max |err| {err:.3e}, max err/scale {rel:.3e} (tol {TOL_SPARSE}), rerun identical "
-          f"{rerun}", flush=True)
-    _require(bool(((out - ref).abs() <= TOL_SPARSE * scale).all()) and rerun,
+    ok_old, old, old_err = True, "", None
+    if hopper:
+        del again
+        again = ks._brick_sddmm_spmm_cu(sd, brow, bcol, *S._brick_colorder, u, v)
+        torch.cuda.synchronize()
+        old_err = float((again - ref).abs().max())
+        old_rel = float(((again - ref).abs() / scale.clamp_min(1e-30)).max())
+        ok_old = old_rel <= TOL_SPARSE
+        old = f"; spmm.cu's kernel: max |err| {old_err:.3e}, max err/scale {old_rel:.3e}"
+    print(f"K8 {'sddmm_sm90' if hopper else 'spmm'} ({label}, d={d}): max |err| {err:.3e}, max err/scale {rel:.3e} "
+          f"(tol {TOL_SPARSE}), rerun identical {rerun}{old}", flush=True)
+    _require(bool(((out - ref).abs() <= TOL_SPARSE * scale).all()) and rerun and ok_old,
              f"K8 disagrees with its plain version or itself ({label}, d={d})")
     del out, again, ref, scale
-    return err
+    return err, old_err
 
 
 def check_spmm(dev, inputs: dict) -> dict:
@@ -1163,7 +1256,7 @@ def check_spmm(dev, inputs: dict) -> dict:
                      ("empty 37x300, one pad brick", empty), ("bf16 bricks, 1003x777", half)):
         for k in (1, SPMM_K, 64):
             _k7_case(ks, label, A, k, gen)
-        for d in (1, SDDMM_D):
+        for d in (1, SDDMM_D) + K8_EDGE_D:
             _k8_case(ks, label, A, d, gen)
     return errs
 
@@ -1212,11 +1305,13 @@ def sparse_path(dev, inputs: dict) -> dict:
     from heat_tpu_torch.kernels import spmm as ks
 
     def run(label: str, call):
-        ks.SPMM_LAUNCHES = ks.SDDMM_LAUNCHES = 0
+        ks.SPMM_LAUNCHES = ks.SDDMM_LAUNCHES = ks.SDDMM_SM90_LAUNCHES = 0
         out = call()
         torch.cuda.synchronize()
         counts = (ks.SPMM_LAUNCHES, ks.SDDMM_LAUNCHES)
-        print(f"{label}: K7 launches {counts[0]}, K8 launches {counts[1]}", flush=True)
+        print(f"{label}: K7 launches {counts[0]}, K8 launches {counts[1]} (on its Hopper kernel "
+              f"{ks.SDDMM_SM90_LAUNCHES})", flush=True)
+        _require(ks.SDDMM_SM90_LAUNCHES == counts[1], f"{label}: K8 ran off its Hopper kernel")
         return out, counts
 
     launches = {}
@@ -1365,7 +1460,12 @@ def _k7_row(name, S, x, launches, err):
     }
 
 
-def _k8_row(name, S, d, gen, launches, err):
+def _k8_row(name, S, d, gen, launches, errs):
+    """K8's Hopper kernel at one of the main path's shapes beside its bound
+    (the bricks read and written, u and v once: bytes; the 3xTF32 operation
+    bound and the FP32 CUDA-core one beside it), its plain version and
+    spmm.cu's kernel on the same inputs (``pr4_ms``), timed in turns.
+    ``errs`` is the largest error of each kernel against the plain version."""
     import torch
 
     from heat_tpu_torch.kernels import spmm as ks
@@ -1374,21 +1474,31 @@ def _k8_row(name, S, d, gen, launches, err):
     m, n = S.shape
     u = torch.randn(m, d, device=sdata.device, generator=gen)
     v = torch.randn(n, d, device=sdata.device, generator=gen)
+    _require(ks.sddmm_sm90_serviceable(d, m, (u.data_ptr(), v.data_ptr(), sdata.data_ptr())),
+             f"{name} is off K8's Hopper kernel")
     colorder = S._brick_colorder
     ms = _median_ms(lambda: ks.brick_sddmm(sdata, brow, bcol, *colorder, u, v), 10)
+    pr4_ms = _median_ms(lambda: ks._brick_sddmm_spmm_cu(sdata, brow, bcol, *colorder, u, v), 10)
+    ms_again = _median_ms(lambda: ks.brick_sddmm(sdata, brow, bcol, *colorder, u, v), 10)
+    pr4_again = _median_ms(lambda: ks._brick_sddmm_spmm_cu(sdata, brow, bcol, *colorder, u, v), 10)
     plain_ms = _median_ms(lambda: ks.brick_sddmm_plain(sdata, brow, bcol, u, v), 3)
     B = S.slab_bricks
     nbytes = 2 * 4096 * B + 8 * B + 4 * d * (m + n)
-    bound_ms, bound_by = _bound(nbytes, 1024.0 * B * (2 * d + 1))
+    flops = 1024.0 * B * (2 * d + 1)
+    t_bytes, tf32_ms, fp32_ms = nbytes / HBM_BYTES_PER_S * 1e3, 3 * flops / TF32_FLOP_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= tf32_ms else (tf32_ms, "operations")
     print(
-        f"{name} (K8, {B} bricks, d={d}): {ms:.4f} ms, plain {plain_ms:.4f} ms, library — (none), bound "
-        f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e9:.4f} GB, {1024.0 * B * (2 * d + 1) / 1e9:.1f} GFLOP; "
-        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved)", flush=True,
+        f"{name} (K8 sddmm_sm90.cu, {B} bricks, d={d}): {ms:.4f} ms [{ms_again:.4f}], spmm.cu's kernel (pr4_ms) "
+        f"{pr4_ms:.4f} ms [{pr4_again:.4f}], plain {plain_ms:.4f} ms, library — (none), bound {bound_ms:.4f} ms "
+        f"({bound_by}; {nbytes / 1e9:.4f} GB, {flops / 1e9:.1f} GFLOP: 3xTF32 {tf32_ms:.4f} ms, FP32 CUDA cores "
+        f"{fp32_ms:.4f} ms; {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved, {bound_ms / ms:.1%} of the bound)",
+        flush=True,
     )
     return {
-        "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/spmm.cu",
-        "replaces": "heat_tpu/kernels/spmm.py:265", "launches": launches, "max_abs_err": err,
+        "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/sddmm_sm90.cu",
+        "replaces": "heat_tpu/kernels/spmm.py:265", "launches": launches, "max_abs_err": errs[0],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "pr4_ms": pr4_ms, "pr4_err": errs[1], "bound_3xtf32_ms": tf32_ms, "bound_fp32_ms": fp32_ms,
     }
 
 

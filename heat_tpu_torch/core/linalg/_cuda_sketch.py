@@ -6,12 +6,18 @@ and ``‖a‖²_F`` from one read of ``a``; it replaces the Pallas TPU kernel
 ``heat_tpu/core/linalg/_pallas_sketch.py::_fused_call``.
 ``dual_sketch_with_norm`` (kernel K2) adds the column sketch
 ``y = a @ omega`` to the same read; it replaces ``_pallas_sketch.py::
-_dual_call``. The source notes what bounds each kernel on an H100 and how
-the design meets it.
+_dual_call``. Which of K2's two kernels a call takes is decided up front
+(``dual_sketch_sm90_serviceable``): n % 4 == 0 with ``a`` on 16 bytes
+takes the Hopper kernel ``csrc/sketch_sm90.cu`` (3xTF32 ``wgmma``,
+TMA-fed, warp-specialised); other shapes take ``csrc/sketch.cu``'s FP32
+kernel, as K1 always does. The sources note what bounds each kernel on an
+H100 and how the design meets it.
 
 Each wrapper runs its plain version only when the tensors lie on the CPU.
-A CUDA tensor launches the kernel or raises; there is no fallback. Each
-launch adds one to ``SKETCH_LAUNCHES`` / ``DUAL_LAUNCHES``.
+A CUDA tensor launches a kernel or raises; there is no fallback from one
+kernel to another or to the plain version. Each launch adds one to
+``SKETCH_LAUNCHES`` / ``DUAL_LAUNCHES``, and a launch of K2's Hopper
+kernel also to ``DUAL_SM90_LAUNCHES``.
 
 The plain versions (``*_plain``) compute the same function with torch ops in
 the tile order of ``svdtools._pass1_tiles`` / ``_pass2_tiles`` /
@@ -27,8 +33,10 @@ import torch
 
 __all__ = [
     "DUAL_LAUNCHES",
+    "DUAL_SM90_LAUNCHES",
     "SKETCH_LAUNCHES",
     "dual_sketch_serviceable",
+    "dual_sketch_sm90_serviceable",
     "dual_sketch_with_norm",
     "dual_sketch_with_norm_plain",
     "sketch_serviceable",
@@ -36,9 +44,11 @@ __all__ = [
     "sketch_with_norm_plain",
 ]
 
-#: launches of K1 / K2 since the count was last set to 0
+#: launches of K1 / K2 (either kernel) since the count was last set to 0
 SKETCH_LAUNCHES = 0
 DUAL_LAUNCHES = 0
+#: launches of K2's Hopper kernel (``csrc/sketch_sm90.cu``) since the count was last set to 0
+DUAL_SM90_LAUNCHES = 0
 
 # Hopper bounds, in place of the TPU's VMEM bound: each thread keeps the
 # l row-sketch accumulators of its column in registers beside its share of
@@ -102,10 +112,19 @@ def dual_sketch_serviceable(l_total: int, k_hat: int, a: torch.Tensor) -> bool:
     )
 
 
+def dual_sketch_sm90_serviceable(l_total: int, k_hat: int, a: torch.Tensor) -> bool:
+    """Whether ``dual_sketch_with_norm`` takes K2's Hopper kernel
+    (``csrc/sketch_sm90.cu``): what ``dual_sketch_serviceable`` admits,
+    with n a multiple of 4 and ``a`` on 16 bytes (the rules of TMA's tensor
+    maps). Other shapes take ``csrc/sketch.cu``'s kernel."""
+    return dual_sketch_serviceable(l_total, k_hat, a) and a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0
+
+
 # --------------------------------------------------------------------- #
 # kernel wrappers                                                       #
 # --------------------------------------------------------------------- #
 _LIB = None
+_LIB_SM90 = None
 
 
 def _lib():
@@ -128,6 +147,26 @@ def _lib():
         lib.heat_sketch_tile_rows.restype = _I
         _LIB = lib
     return _LIB
+
+
+def _lib_sm90():
+    global _LIB_SM90
+    if _LIB_SM90 is None:
+        from ...kernels import _build
+
+        lib = _build.load("sketch_sm90")
+        lib.heat_dual_sketch_sm90.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _LL, _I, _P
+        ]
+        lib.heat_dual_sketch_sm90.restype = _I
+        lib.heat_sketch_error_string.argtypes = [_I]
+        lib.heat_sketch_error_string.restype = ctypes.c_char_p
+        for f in ("heat_dual_sketch_sm90_block_cols", "heat_dual_sketch_sm90_band_rows"):
+            getattr(lib, f).restype = _I
+        lib.heat_dual_sketch_sm90_k_rows.argtypes = [_I]
+        lib.heat_dual_sketch_sm90_k_rows.restype = _I
+        _LIB_SM90 = lib
+    return _LIB_SM90
 
 
 def _check_operand(name: str, x: torch.Tensor, device: torch.device, ndim: int = 2) -> None:
@@ -198,14 +237,42 @@ def sketch_with_norm(g: torch.Tensor, a: torch.Tensor):
     return w, norm
 
 
+def _geometry_sm90(lib, a: torch.Tensor):
+    """(column blocks, row splits, rows per split) for the Hopper kernel's
+    grid: blocks of 512 columns, and as many row splits as fill the card's
+    SMs in one wave (one block an SM), each a whole number of 64-row bands."""
+    m, n = a.shape
+    bc, band = lib.heat_dual_sketch_sm90_block_cols(), lib.heat_dual_sketch_sm90_band_rows()
+    cblocks = -(-n // bc)
+    bands = -(-m // band)
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits = max(1, min(bands, sms // cblocks))
+    rows = -(-bands // splits) * band
+    return cblocks, -(-m // rows), rows
+
+
 def dual_sketch_with_norm(g: torch.Tensor, omega: torch.Tensor, a: torch.Tensor):
     """``(g @ a, a @ omega, ‖a‖²_F)`` in one read of ``a`` (kernel K2 on
     CUDA).
 
     ``g``: (ℓ, m) with ℓ ≤ 64, ``omega``: (n, k̂) with k̂ ≤ 32, ``a``: (m, n),
-    all float32 and contiguous on one CUDA device. CPU tensors take the
-    plain version."""
-    global DUAL_LAUNCHES
+    all float32 and contiguous on one CUDA device. n % 4 == 0 with ``a`` on
+    16 bytes takes the Hopper kernel (``csrc/sketch_sm90.cu``, 3xTF32 on the
+    tensor cores), other shapes ``csrc/sketch.cu``'s FP32 kernel. A rerun
+    gives the same bits. CPU tensors take the plain version."""
+    return _dual_sketch_with_norm(g, omega, a, sm90=True)
+
+
+def _dual_sketch_with_norm_sketch_cu(g: torch.Tensor, omega: torch.Tensor, a: torch.Tensor):
+    """``dual_sketch_with_norm`` with the Hopper kernel shut off: a call on
+    CUDA launches ``csrc/sketch.cu``'s FP32 kernel on any shape, so that
+    ``chip_smoke.py`` and the ``cuda`` tests can hold the two kernels
+    against each other on the same inputs."""
+    return _dual_sketch_with_norm(g, omega, a, sm90=False)
+
+
+def _dual_sketch_with_norm(g: torch.Tensor, omega: torch.Tensor, a: torch.Tensor, sm90: bool):
+    global DUAL_LAUNCHES, DUAL_SM90_LAUNCHES
     if a.device.type == "cpu" and g.device.type == "cpu" and omega.device.type == "cpu":
         return dual_sketch_with_norm_plain(g, omega, a)
     _check_a(a)
@@ -217,21 +284,29 @@ def dual_sketch_with_norm(g: torch.Tensor, omega: torch.Tensor, a: torch.Tensor)
         raise ValueError(f"g must be (ℓ ≤ {DUAL_MAX_L}, {a.shape[0]}), got {tuple(g.shape)}")
     if n != a.shape[1] or not 1 <= k <= DUAL_MAX_K:
         raise ValueError(f"omega must be ({a.shape[1]}, k̂ ≤ {DUAL_MAX_K}), got {tuple(omega.shape)}")
-    lib = _lib()
-    cblocks, splits, rows = _geometry(lib, a)
+    hopper = sm90 and dual_sketch_sm90_serviceable(l, k, a)
+    lib = _lib_sm90() if hopper else _lib()
     dev = a.device
     w = torch.empty((l, n), dtype=torch.float32, device=dev)
     y = torch.empty((m, k), dtype=torch.float32, device=dev)
     norm = torch.empty((), dtype=torch.float32, device=dev)
+    cblocks, splits, rows = (_geometry_sm90 if hopper else _geometry)(lib, a)
     wpart = torch.empty((splits, l, n), dtype=torch.float32, device=dev)
     ypart = torch.empty((cblocks, m, k), dtype=torch.float32, device=dev)
     npart = torch.empty((splits * cblocks,), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.heat_dual_sketch_with_norm_f32(
-        g.data_ptr(), omega.data_ptr(), a.data_ptr(), w.data_ptr(), y.data_ptr(),
-        norm.data_ptr(), wpart.data_ptr(), ypart.data_ptr(), npart.data_ptr(),
-        l, k, m, n, splits, rows, dev.index, stream,
-    )
-    _raise_on(lib, rc, "dual_sketch_with_norm")
+    parts = (wpart.data_ptr(), ypart.data_ptr(), npart.data_ptr())
+    outs = (g.data_ptr(), omega.data_ptr(), a.data_ptr(), w.data_ptr(), y.data_ptr(), norm.data_ptr())
+    if hopper:  # and g's and omega's TF32 halves
+        gh = torch.empty((2, 64, -(-m // 4) * 4), dtype=torch.int32, device=dev)
+        oh = torch.empty((2, lib.heat_dual_sketch_sm90_k_rows(k), -(-n // 8) * 8), dtype=torch.int32, device=dev)
+        rc = lib.heat_dual_sketch_sm90(
+            *outs, gh.data_ptr(), oh.data_ptr(), *parts, l, k, m, n, splits, rows, dev.index, stream
+        )
+    else:
+        rc = lib.heat_dual_sketch_with_norm_f32(*outs, *parts, l, k, m, n, splits, rows, dev.index, stream)
+    _raise_on(lib, rc, "dual_sketch_with_norm (sketch_sm90)" if hopper else "dual_sketch_with_norm")
     DUAL_LAUNCHES += 1
+    if hopper:
+        DUAL_SM90_LAUNCHES += 1
     return w, y, norm

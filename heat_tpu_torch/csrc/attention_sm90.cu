@@ -122,14 +122,14 @@
 // beyond the run-to-run spread), an intra-tile split of the softmax, TMA
 // stores of o.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int BM = 128;  // query rows of a block (two consumer warpgroups of 64)
 constexpr int NT = 384;  // threads: producer warpgroup + two consumer warpgroups
@@ -149,92 +149,7 @@ struct Args {
   int causal;
 };
 
-// ------------------------------------------------------------ PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-      "[%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// generic-proxy writes to shared memory, made visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
-__device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
-__device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of wgmma's registers across
-// the asynchronous product: each register is "rewritten" here.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptor for a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
-}
-
-#define F8(d, i) \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
-      "+f"(d[i + 7])
-#define F32(d) F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
-#define F64(d) F32(d), F8(d, 32), F8(d, 40), F8(d, 48), F8(d, 56)
-#define R32                                                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31}"
-#define R40                                                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
-#define R64                                                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "  \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
+// ------------------------- bf16 products and helpers (the shared ones: sm90_common.cuh)
 // d (64 x 128, f32) (+)= A (64 x 16, smem, K-major) B (16 x 128, smem, K-major)
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
@@ -272,32 +187,10 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x 64, f32) (+)= A (64 x 8, registers, TF32) B (8 x 64, smem, K-major, TF32)
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t* a, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " R32 ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : F32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// x rounded to TF32 (10 explicit mantissa bits), to nearest, ties away
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return y;
-}
-
-// x = big + small, each TF32
-__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -490,13 +383,13 @@ __global__ void __launch_bounds__(NT, 1)
       mbar_init(k_empty(s), 8);  // one arrival from each consumer warp
       mbar_init(v_empty(s), 8);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // ---------------------------------------------------------- producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, QTILE);
 #pragma unroll
@@ -516,7 +409,7 @@ __global__ void __launch_bounds__(NT, 1)
     }
   } else {
     // ---------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    setmaxnreg_inc<240>();
     const int w = (threadIdx.x >> 7) - 1;  // consumer warpgroup 0 or 1
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
@@ -615,13 +508,6 @@ constexpr uint32_t F_TILE = 2 * F_CHUNK;      // 16 KB
 constexpr uint32_t F_STAGE = 5 * F_TILE;      // K big (landed here), K small, V landed, V^T big, V^T small
 constexpr int F_SPLIT_WARPS = 3;              // warps 1-3 of warpgroup 0
 
-// byte offset of element (row, col) of a 128-byte-swizzled float32 tile
-// stored as chunks of 32 columns, `chunk` bytes apart
-__device__ __forceinline__ uint32_t f32_swz(int row, int col, uint32_t chunk) {
-  return (uint32_t)(col >> 5) * chunk + (uint32_t)row * 128u + ((((col & 31) >> 2) ^ (row & 7)) << 4) +
-         ((col & 3) << 2);
-}
-
 // component c (a constant once unrolled) of v
 __device__ __forceinline__ float component(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
@@ -670,12 +556,12 @@ __global__ void __launch_bounds__(NT, 1)
       mbar_init(k_empty(s), 8);  // one arrival from each consumer warp
       mbar_init(v_empty(s), 8);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       // ------------------------------------------------------ TMA thread
       mbar_expect_tx(q_full, F_QTILE);
@@ -754,7 +640,7 @@ __global__ void __launch_bounds__(NT, 1)
     }
   } else {
     // ---------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    setmaxnreg_inc<232>();
     const int w = (threadIdx.x >> 7) - 1;  // consumer warpgroup 0 or 1
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
@@ -854,24 +740,6 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // ---------------------------------------------------------------- host side
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                                           &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
-constexpr int ERR_ENCODE = 100000;  // + the CUresult of a refused tensor map
-
 // A 4-D tensor map over (D, S, H, B) in the operand's own element strides
 // (cuTensorMapEncodeTiled takes them unsorted, and 0 along an extent of 1)
 // with a box of 128 bytes (64 bfloat16 or 32 float32 columns) x `rows`
@@ -946,9 +814,6 @@ int heat_flash_attention_sm90(const void* q, const void* k, const void* v, void*
   return launch(attn_sm90_kernel<64, 3>, bf16_smem<64, 3>(), tq, tk, tv, a, blocks, s);
 }
 
-const char* heat_attention_sm90_error_string(int code) {
-  if (code >= ERR_ENCODE) return "cuTensorMapEncodeTiled refused the tensor map (or was not found)";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* heat_attention_sm90_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "sketch_sums.cuh"
+
 namespace {
 
 constexpr int TM = 32;        // rows per tile
@@ -225,41 +227,6 @@ sketch_kernel(const float* __restrict__ g, const float* __restrict__ omega,
     for (int w = 0; w < THREADS / 32; ++w) s += red[w];
     npart[(size_t)split * gridDim.x + cb] = s;
   }
-}
-
-// out[k] = sum_p parts[p * count + k], p in order
-__global__ void sum_parts_kernel(float* __restrict__ out, const float* __restrict__ parts,
-                                 int nparts, size_t count) {
-  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < count;
-       k += (size_t)gridDim.x * blockDim.x) {
-    float v = parts[k];
-    for (int p = 1; p < nparts; ++p) v += parts[(size_t)p * count + k];
-    out[k] = v;
-  }
-}
-
-// out[0] = sum of the FP64 norm partials, fixed order, one block
-__global__ void sum_norm_kernel(float* __restrict__ out, const double* __restrict__ parts,
-                                int nparts) {
-  __shared__ double red[256];
-  double s = 0.0;
-  for (int p = threadIdx.x; p < nparts; p += blockDim.x) s += parts[p];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int h = blockDim.x / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = (float)red[0];
-}
-
-int launch_sum_parts(float* out, const float* parts, int nparts, size_t count,
-                     cudaStream_t stream) {
-  if (count == 0) return (int)cudaGetLastError();
-  size_t blocks = (count + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  sum_parts_kernel<<<(unsigned)blocks, 256, 0, stream>>>(out, parts, nparts, count);
-  return (int)cudaGetLastError();
 }
 
 template <int L, bool DUAL>

@@ -3,8 +3,9 @@
 Each ``heat_tpu_torch/csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded with
 ``ctypes``. The library goes into ``build/heat_tpu_torch/`` at the root of
-the checkout, named by a hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is. Nothing is built
+the checkout, named by a hash of the source, the ``csrc/*.cuh`` headers it
+includes (followed through their own includes) and the flags, so a changed
+source or header is rebuilt and an unchanged one is loaded as it is. Nothing is built
 when a module is imported: the first wrapper call (or ``build_all``) builds.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,9 +55,26 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _headers(src: bytes) -> list:
+    """The ``csrc/`` headers that ``src`` includes with quotes, directly or
+    through another header, each once, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop()):
+            name = inc.decode()
+            if name not in seen and (_CSRC / name).is_file():
+                seen.append(name)
+                todo.append((_CSRC / name).read_bytes())
+    return seen
+
+
 def _library_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    blob = src + b"".join((_CSRC / h).read_bytes() for h in _headers(src))
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"{name}-{digest}.so"
 
 

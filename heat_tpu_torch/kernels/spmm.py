@@ -15,13 +15,19 @@ The compute unit is the (8, 128) brick of ``sparse/dbcsr_matrix.py``:
 launch: the brick products and the masked row sums, one block per brick
 row, with no atomics, so a rerun repeats the bits. It replaces the Pallas
 TPU kernel ``heat_tpu/kernels/spmm.py::_brick_spmm_call`` and the XLA
-segment-sum after it in ``_local_spmm``. ``brick_sddmm`` (kernel K8, same
-source) replaces ``_brick_sddmm_call``. The source notes what bounds each
-and how its design meets that.
+segment-sum after it in ``_local_spmm``. ``brick_sddmm`` (kernel K8)
+replaces ``_brick_sddmm_call``. Which of K8's two kernels a call takes is
+decided up front (``sddmm_sm90_serviceable``): d % 4 == 0 with u, v and
+sdata on 16 bytes takes the Hopper kernel ``csrc/sddmm_sm90.cu`` (3xTF32
+``wgmma``, TMA-fed, a persistent grid over the column-ordered bricks);
+every other d takes ``csrc/spmm.cu``'s FP32 kernel. The sources note what
+bounds each and how its design meets that.
 
 The wrappers run their plain version only when the tensors lie on the
-CPU. A CUDA tensor launches the kernel or raises; there is no fallback.
-Each launch adds one to ``SPMM_LAUNCHES`` or ``SDDMM_LAUNCHES``. The
+CPU. A CUDA tensor launches a kernel or raises; there is no fallback from
+one kernel to another or to the plain version. Each launch adds one to
+``SPMM_LAUNCHES`` or ``SDDMM_LAUNCHES``, and a launch of K8's Hopper
+kernel also to ``SDDMM_SM90_LAUNCHES``. The
 kernels take float32; callers widen bfloat16/float16 to float32 first and
 cast back after (``acc_dtype``), and choose between kernel and torch form
 up front with ``spmm_serviceable``/``sddmm_serviceable``: float64, integer
@@ -41,6 +47,7 @@ __all__ = [
     "BR",
     "BC",
     "SDDMM_LAUNCHES",
+    "SDDMM_SM90_LAUNCHES",
     "SPMM_LAUNCHES",
     "acc_dtype",
     "brick_contrib_plain",
@@ -49,6 +56,7 @@ __all__ = [
     "brick_spmm",
     "brick_spmm_plain",
     "sddmm_serviceable",
+    "sddmm_sm90_serviceable",
     "spmm_serviceable",
 ]
 
@@ -56,8 +64,10 @@ BR, BC = 8, 128  # brick rows x columns (sparse.dbcsr_matrix.BRICK_SHAPE)
 
 #: launches of K7 since the count was last set to 0
 SPMM_LAUNCHES = 0
-#: launches of K8 since the count was last set to 0
+#: launches of K8 (either kernel) since the count was last set to 0
 SDDMM_LAUNCHES = 0
+#: launches of K8's Hopper kernel (``csrc/sddmm_sm90.cu``) since the count was last set to 0
+SDDMM_SM90_LAUNCHES = 0
 
 # dtypes whose products the kernels compute (in float32)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -86,6 +96,15 @@ def sddmm_serviceable(s_dtype: torch.dtype, u_dtype: torch.dtype, v_dtype: torch
     """Whether ``sddmm(S, u, v)`` runs K8 on a card: all three float32,
     bfloat16 or float16 (computed in float32), and d ≥ 1."""
     return all(t in _KERNEL_DTYPES for t in (s_dtype, u_dtype, v_dtype)) and d >= 1
+
+
+def sddmm_sm90_serviceable(d: int, m: int, ptrs) -> bool:
+    """Whether K8 takes its Hopper kernel (``csrc/sddmm_sm90.cu``) for
+    float32 operands u (m, d), v and sdata at the data pointers ``ptrs``:
+    d a multiple of 4 (TMA's 16-byte row pitch), m ≥ 1 and every pointer
+    on 16 bytes. Everything else that ``sddmm_serviceable`` admits takes
+    ``csrc/spmm.cu``'s kernel."""
+    return d >= 4 and d % 4 == 0 and m >= 1 and all(p % 16 == 0 for p in ptrs)
 
 
 # --------------------------------------------------------------------- #
@@ -153,6 +172,7 @@ def brick_sddmm_plain(sdata, brow, bcol, u, v) -> torch.Tensor:
 # the kernels' wrappers                                                 #
 # --------------------------------------------------------------------- #
 _LIB = None
+_LIB_SM90 = None
 
 
 def _lib():
@@ -169,6 +189,20 @@ def _lib():
         lib.heat_spmm_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _lib_sm90():
+    global _LIB_SM90
+    if _LIB_SM90 is None:
+        from . import _build
+
+        lib = _build.load("sddmm_sm90")
+        lib.heat_brick_sddmm_sm90.argtypes = [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P]
+        lib.heat_brick_sddmm_sm90.restype = _I
+        lib.heat_spmm_error_string.argtypes = [_I]
+        lib.heat_spmm_error_string.restype = ctypes.c_char_p
+        _LIB_SM90 = lib
+    return _LIB_SM90
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype, shape) -> None:
@@ -243,15 +277,29 @@ def brick_sddmm(sdata, brow, bcol, corder, colptr, longest: int, u, v) -> torch.
     (B, 8, 128) for every brick of the slab, u (m, d) and v (n, d) read as
     zero past their last rows (kernel K8 on CUDA).
 
-    The kernel walks the bricks by brick column: ``corder`` lists every
+    The kernels walk the bricks by brick column: ``corder`` lists every
     brick grouped by ``bcol``, column c's run being
     ``corder[colptr[c] : colptr[c+1]]``, and ``longest`` is the longest run
     (``DBCSR_matrix._brick_colorder``); the plain version takes each brick
     by its ``bcol``. On CUDA: sdata (B, 8, 128), u and v float32,
     brow/bcol/corder (B,) and colptr (nb + 1,) int32, all contiguous on one
-    device, d ≥ 1. A rerun gives the same bits. CPU tensors take the plain
-    version."""
-    global SDDMM_LAUNCHES
+    device, d ≥ 1. d % 4 == 0 with u, v and sdata on 16 bytes takes the
+    Hopper kernel (``csrc/sddmm_sm90.cu``, 3xTF32 on the tensor cores),
+    every other d ``csrc/spmm.cu``'s FP32 kernel. A rerun gives the same
+    bits. CPU tensors take the plain version."""
+    return _brick_sddmm(sdata, brow, bcol, corder, colptr, longest, u, v, sm90=True)
+
+
+def _brick_sddmm_spmm_cu(sdata, brow, bcol, corder, colptr, longest: int, u, v) -> torch.Tensor:
+    """``brick_sddmm`` with the Hopper kernel shut off: a call on CUDA
+    launches ``csrc/spmm.cu``'s FP32 kernel on any d, so that
+    ``chip_smoke.py`` and the ``cuda`` tests can hold the two kernels
+    against each other on the same inputs."""
+    return _brick_sddmm(sdata, brow, bcol, corder, colptr, longest, u, v, sm90=False)
+
+
+def _brick_sddmm(sdata, brow, bcol, corder, colptr, longest: int, u, v, sm90: bool) -> torch.Tensor:
+    global SDDMM_LAUNCHES, SDDMM_SM90_LAUNCHES
     if sdata.device.type == "cpu" and u.device.type == "cpu" and v.device.type == "cpu":
         return brick_sddmm_plain(sdata, brow, bcol, u, v)
     dev = _cuda_device(sdata, u, v)
@@ -269,13 +317,22 @@ def brick_sddmm(sdata, brow, bcol, corder, colptr, longest: int, u, v) -> torch.
     _check("v", v, dev, torch.float32, (n, d))
     if d < 1 or B < 1 or nb < 1 or not 1 <= longest <= B:
         raise ValueError(f"K8 takes d ≥ 1 and a run of 1 to B bricks, got d={d}, B={B}, longest={longest}")
-    lib = _lib()
+    hopper = sm90 and sddmm_sm90_serviceable(d, m, (u.data_ptr(), v.data_ptr(), sdata.data_ptr()))
+    lib = _lib_sm90() if hopper else _lib()
     out = torch.empty_like(sdata)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.heat_brick_sddmm_f32(
-        sdata.data_ptr(), brow.data_ptr(), corder.data_ptr(), colptr.data_ptr(), u.data_ptr(), v.data_ptr(),
-        out.data_ptr(), nb, longest, m, n, d, dev.index, stream,
-    )
-    _raise_on(lib, rc, "brick_sddmm kernel launch")
+    if hopper:
+        rc = lib.heat_brick_sddmm_sm90(
+            sdata.data_ptr(), brow.data_ptr(), bcol.data_ptr(), corder.data_ptr(), u.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, m, n, d, dev.index, stream,
+        )
+    else:
+        rc = lib.heat_brick_sddmm_f32(
+            sdata.data_ptr(), brow.data_ptr(), corder.data_ptr(), colptr.data_ptr(), u.data_ptr(), v.data_ptr(),
+            out.data_ptr(), nb, longest, m, n, d, dev.index, stream,
+        )
+    _raise_on(lib, rc, "brick_sddmm kernel (sddmm_sm90) launch" if hopper else "brick_sddmm kernel launch")
     SDDMM_LAUNCHES += 1
+    if hopper:
+        SDDMM_SM90_LAUNCHES += 1
     return out

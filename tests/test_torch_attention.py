@@ -41,6 +41,7 @@ import heat_tpu_torch as ht
 from heat_tpu.nn import attention as jatt
 from heat_tpu_torch.kernels import attention as ka
 from heat_tpu_torch.nn import attention as natt
+from tf32_emulation import mm_1xtf32, mm_3xtf32, tf32_rna, tf32_split
 
 RTOL, ATOL = 2e-5, 2e-6
 
@@ -415,35 +416,6 @@ def test_cuda_float32_at_64_and_bf16_at_256_take_the_hopper_path_or_raises(monke
 # --------------------------------------------------------------------- #
 # the 3xTF32 arithmetic of the float32 Hopper kernel, emulated          #
 # --------------------------------------------------------------------- #
-def _tf32_rna(x):
-    """``cvt.rna.tf32.f32`` on float32 bits: to 10 explicit mantissa bits,
-    to nearest with ties away from zero (the 13 low bits cleared)."""
-    bits = np.asarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _tf32_split(x):
-    """x = big + small, each TF32, as the kernel splits Q, K, V and P."""
-    x = np.asarray(x, np.float32)
-    big = _tf32_rna(x)
-    return big, _tf32_rna(x - big)
-
-
-def _mm_3xtf32(a, b):
-    """a @ b as three TF32 products into one float32 accumulator, the small
-    terms first: a_s b_b + a_b b_s + a_b b_b (products of TF32 values are
-    exact in float32)."""
-    ab, a_s = _tf32_split(a)
-    bb, b_s = _tf32_split(b)
-    acc = a_s @ bb
-    acc = acc + ab @ b_s
-    return acc + ab @ bb
-
-
-def _mm_1xtf32(a, b):
-    return _tf32_rna(a) @ _tf32_rna(b)
-
-
 def _kernel_f32_attention(q, k, v, causal, mm, bn=64):
     """The float32 Hopper kernel's arithmetic on one (S, D) slice: tiles of
     ``bn`` keys, the online softmax on the raw scores with the scale in log2
@@ -488,9 +460,9 @@ def test_tf32_rounding_emulation():
     one = np.float32(1)
     ulp = np.float32(2.0**-10)  # TF32's spacing above 1
     x = np.array([1 + 2.0**-11, 1 + 2.0**-12, 1 + 3 * 2.0**-12, -(1 + 2.0**-11), 3.0, 0.0], np.float32)
-    np.testing.assert_array_equal(_tf32_rna(x), [one + ulp, one, one + ulp, -(one + ulp), 3.0, 0.0])
+    np.testing.assert_array_equal(tf32_rna(x), [one + ulp, one, one + ulp, -(one + ulp), 3.0, 0.0])
     r = np.random.default_rng(3).standard_normal(10_000).astype(np.float32) * 1e3
-    big, small = _tf32_split(r)
+    big, small = tf32_split(r)
     assert not (big.view(np.uint32) & 0x1FFF).any() and not (small.view(np.uint32) & 0x1FFF).any()
     assert (np.abs(r - big) <= 2.0**-11 * np.abs(r)).all()
     assert (np.abs(r.astype(np.float64) - big - small) <= 2.0**-22 * np.abs(r)).all()
@@ -499,13 +471,13 @@ def test_tf32_rounding_emulation():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("mult", [1.0, 10.0])
 def test_3xtf32_attention_stays_within_the_float32_limits(mult, causal):
-    eo, el = _f32_limit_shares(_mm_3xtf32, mult, causal)
+    eo, el = _f32_limit_shares(mm_3xtf32, mult, causal)
     assert eo <= 1 and el <= 1, (eo, el)
 
 
 @pytest.mark.parametrize("mult", [1.0, 10.0])
 def test_one_pass_tf32_attention_misses_the_float32_limits(mult):
-    eo, el = _f32_limit_shares(_mm_1xtf32, mult, True)
+    eo, el = _f32_limit_shares(mm_1xtf32, mult, True)
     assert eo > 1, (eo, el)
 
 

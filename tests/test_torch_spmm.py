@@ -11,7 +11,14 @@ within 1e-5 of the reference relative to its own magnitude scale,
 |A|·|x| for SpMM and |s|·(|u|·|v|ᵀ) for SDDMM, elementwise: float32
 rounding of a sum grows with the sum of the absolute terms, and 1e-5 is
 about 80 float32 ulps of it. The kernels themselves run only on a card:
-the ``cuda`` tests compare them with the plain versions there.
+the ``cuda`` tests compare them with the plain versions there
+(``tests/test_torch_spmm_card.py`` holds K8's Hopper kernel against both).
+Here the 3xTF32 arithmetic of that kernel (each operand split into two
+TF32 halves, three TF32 products in K8's pass order, passes of 64 along d
+added in float32, then the scale by sdata) is emulated with numpy on
+float32 bits and held against a float64 result at ``chip_smoke.py``'s
+limit, 1e-5 of |s|·(|u|·|v|ᵀ) elementwise; one-pass TF32 is shown to miss
+it.
 """
 
 import numpy as np
@@ -24,6 +31,7 @@ import heat_tpu as jht
 import heat_tpu_torch as ht
 from heat_tpu.kernels import spmm as jspmm
 from heat_tpu_torch.kernels import spmm as ks
+from tf32_emulation import mm_1xtf32_steps, mm_3xtf32_passes
 
 TOL = 1e-5
 
@@ -171,6 +179,59 @@ def test_sddmm_plain_matches_interpret_kernel_and_xla(d):
 
 
 # --------------------------------------------------------------------- #
+# the 3xTF32 arithmetic of K8's Hopper kernel, emulated                 #
+# --------------------------------------------------------------------- #
+def _sddmm_sm90_emulated(sdata, brow, bcol, u, v, mm):
+    """K8's Hopper kernel on numpy bricks: per brick outᵀ = v-brick @
+    u-brickᵀ, d in passes of 64 each multiplied by ``mm`` in steps of 8,
+    the passes added in float32, then scaled by sdata; u and v read as zero
+    past their last rows."""
+    d = u.shape[1]
+    ub = np.zeros((-(-u.shape[0] // 8) * 8, d), np.float32)
+    ub[: u.shape[0]] = u
+    vb = np.zeros((-(-v.shape[0] // 128) * 128, d), np.float32)
+    vb[: v.shape[0]] = v
+    U, V = ub.reshape(-1, 8, d)[brow], vb.reshape(-1, 128, d)[bcol]
+    out = None
+    for j0 in range(0, d, 64):
+        part = mm(V[..., j0 : j0 + 64], U[..., j0 : j0 + 64].transpose(0, 2, 1))
+        out = part if out is None else out + part
+    return sdata * out.transpose(0, 2, 1)
+
+
+def _sddmm_limit_share(d, mult, mm, seed=0):
+    """max |emulated − float64| / (1e-5 |s|·(|u|·|v|ᵀ)) on a ragged slab
+    (45 x 300: rows past m in the last brick row, a zero brick, pad bricks)."""
+    m, n = 45, 300
+    sdata, bcol, brow, _ = _bricks(m, n, 11, pads=2, zero_bricks=1, seed=d)
+    rng = np.random.default_rng(seed + d)
+    u = (rng.standard_normal((m, d)) * mult).astype(np.float32)
+    v = (rng.standard_normal((n, d)) * mult).astype(np.float32)
+    got = _sddmm_sm90_emulated(sdata, brow, bcol, u, v, mm)
+    ref = ks.brick_sddmm_plain(*_t(sdata.astype(np.float64), brow, bcol, u.astype(np.float64),
+                                   v.astype(np.float64))).numpy()
+    scale = ks.brick_sddmm_plain(*_t(np.abs(sdata).astype(np.float64), brow, bcol, np.abs(u).astype(np.float64),
+                                     np.abs(v).astype(np.float64))).numpy()
+    assert not got[-2:].any()  # pad bricks come out zero
+    err = np.abs(got - ref)
+    assert (err[scale == 0] == 0).all()
+    return float((err[scale > 0] / (TOL * scale[scale > 0])).max())
+
+
+@pytest.mark.parametrize("mult", [1e-3, 1.0, 1e3])
+@pytest.mark.parametrize("d", [4, 8, 60, 64, 72, 128])
+def test_sddmm_3xtf32_stays_within_the_sparse_limit(d, mult):
+    share = _sddmm_limit_share(d, mult, mm_3xtf32_passes)
+    assert share <= 1, share
+
+
+@pytest.mark.parametrize("d", [4, 64, 128])
+def test_sddmm_one_pass_tf32_misses_the_sparse_limit(d):
+    share = _sddmm_limit_share(d, 1.0, mm_1xtf32_steps)
+    assert share > 1, share
+
+
+# --------------------------------------------------------------------- #
 # predicates, dispatch and the wrappers on the CPU                      #
 # --------------------------------------------------------------------- #
 F32, BF16, F16, F64, I32 = torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int32
@@ -209,6 +270,58 @@ def test_spmm_serviceable_table(a, x, k, expect):
 )
 def test_sddmm_serviceable_table(s, u, v, d, expect):
     assert ks.sddmm_serviceable(s, u, v, d) is expect
+
+
+@pytest.mark.parametrize(
+    "d, m, ptrs, expect",
+    [
+        (64, 131072, (0, 16, 4096), True),
+        (4, 1, (16, 32, 48), True),
+        (72, 1003, (0, 0, 0), True),
+        (128, 45, (0, 0, 0), True),
+        (60, 45, (0, 0, 0), True),
+        (30, 45, (0, 0, 0), False),  # rows of u off 16 bytes: no tensor map
+        (1, 45, (0, 0, 0), False),
+        (64, 0, (0, 0, 0), False),  # no rows of u
+        (64, 45, (4, 0, 0), False),  # u off 16 bytes
+        (64, 45, (0, 8, 0), False),  # v off 16 bytes
+        (64, 45, (0, 0, 4), False),  # sdata off 16 bytes
+    ],
+)
+def test_sddmm_sm90_serviceable_table(d, m, ptrs, expect):
+    assert ks.sddmm_sm90_serviceable(d, m, ptrs) is expect
+
+
+def test_sddmm_dispatch_picks_the_kernel_up_front(monkeypatch):
+    """On (fake) CUDA tensors the route is chosen before any launch: the
+    Hopper kernel's library for d % 4 == 0 on aligned operands, spmm.cu's
+    for the rest and whenever the Hopper kernel is shut off."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the fake CUDA tensors below would be launched")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    class Loaded(Exception):
+        pass
+
+    def loader(name):
+        def load():
+            raise Loaded(name)
+
+        return load
+
+    monkeypatch.setattr(ks, "_lib_sm90", loader("sddmm_sm90"))
+    monkeypatch.setattr(ks, "_lib", loader("spmm"))
+    with FakeTensorMode():
+        dev = "cuda"
+        sdata = torch.empty(4, 8, 128, device=dev)
+        idx = torch.zeros(4, dtype=torch.int32, device=dev)
+        colptr = torch.zeros(2, dtype=torch.int32, device=dev)
+        for d, want in ((64, "sddmm_sm90"), (4, "sddmm_sm90"), (72, "sddmm_sm90"), (30, "spmm"), (1, "spmm")):
+            u, v = torch.empty(8, d, device=dev), torch.empty(128, d, device=dev)
+            with pytest.raises(Loaded, match=want):
+                ks.brick_sddmm(sdata, idx, idx, idx, colptr, 4, u, v)
+            with pytest.raises(Loaded, match="spmm"):
+                ks._brick_sddmm_spmm_cu(sdata, idx, idx, idx, colptr, 4, u, v)
 
 
 def test_acc_dtype():
