@@ -10,22 +10,25 @@ Phases, each of which fails the run by raising:
    register line of each main-path instantiation;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and at ragged ones, and against itself on a rerun
-   (its cross-block sums run in a fixed order). K2 and K8 run on their
-   Hopper kernels (``sketch_sm90.cu``, ``sddmm_sm90.cu``: 3xTF32 ``wgmma``,
-   TMA-fed) wherever their predicates admit the shape, and there the
-   kernels they replace (``sketch.cu``, ``spmm.cu``) run on the same inputs
-   under the same limits; K2 at 1000 x 777 (n % 4 != 0) stays on
-   ``sketch.cu``, at 1000 x 776 and 65536 x 8192 takes its Hopper kernel
-   (also at ℓ = 64, k̂ = 32 and at ℓ = k̂ = 1 on inputs x 1e3); K8 takes
-   d = 4, 60, 64, 72 and 128 on its Hopper kernel and d = 1 and 30 on
-   ``spmm.cu``;
+   (its cross-block sums run in a fixed order). K1, K2 and K8 run on
+   their Hopper kernels (``sketch_sm90.cu``, ``sddmm_sm90.cu``: 3xTF32
+   ``wgmma``, TMA-fed) wherever their predicates admit the shape, and there
+   the kernels they replace (``sketch.cu``, ``spmm.cu``) run on the same
+   inputs under the same limits; K1 and K2 at 1000 x 777 (n % 4 != 0) stay
+   on ``sketch.cu``, at 1000 x 776 and 65536 x 8192 take their Hopper
+   kernel (K2 also at ℓ = 64, k̂ = 32 and at ℓ = k̂ = 1 on inputs x 1e3, K1
+   at l = 1, 25, 32, on inputs x 1e-3 and at 130 x 8); K8 takes d = 4, 60,
+   64, 72 and 128 on its Hopper kernel and d = 1 and 30 on ``spmm.cu``; K7
+   (``spmm.cu``) takes k = 1, 4 and 64, also on rows whose mask is clear
+   holding NaN; every instantiation of K1's Hopper kernel must compile
+   without spills;
 4. the main paths at full size, each kernel count set to 0 just before
    each call and read just after:
    - hSVD: ``ht.random.randn(65536, 8192, split=0)`` (the 2.1 GB float32
      per-chip shard of the north-star operation), then
      ``ht.linalg.hsvd_rank(A, 10, compute_sv=True)`` in the 2-pass form
-     and with ``single_pass=True`` (K2 on its Hopper kernel, counted
-     apart). The factors must be orthonormal, and
+     and with ``single_pass=True`` (K1 and K2 on their Hopper kernels,
+     counted apart). The factors must be orthonormal, and
      an exactly rank-8 operand of the same size, and a small one held
      against numpy's SVD, must give their singular values back;
    - KMeans: ``ht.random.randn(15_625_000, 64, split=0)`` (the 4.0 GB
@@ -97,14 +100,17 @@ Phases, each of which fails the run by raising:
    against their plain versions within 1e-5 of each element's absolute-sum
    scale, and against themselves on a rerun bit for bit, at the main-path
    shapes, ragged 1003 x 777, empty brick rows, all-zero and pad bricks,
-   an empty matrix and bf16 bricks; K8's rows time its Hopper kernel
-   beside spmm.cu's (``pr4_ms``), K2's beside sketch.cu's (``pr1_ms``) and
-   the three library calls that compute its outputs apart
-   (``composed_ms``: g @ a, a @ omega, a.square().sum(); context, not a
-   yardstick), both with the 3xTF32 and the FP32 CUDA-core operation
-   bounds beside their byte bound; K7's library yardstick is PyTorch's
-   sparse tensor of the same matrix, and PageRank is timed as its host
-   build and its fixpoint. K9 is held against its plain version (float32
+   an empty matrix and bf16 bricks; K8's row times its Hopper kernel
+   beside spmm.cu's (``pr4_ms``, in turns), K1's and K2's beside
+   sketch.cu's (``pr1_ms``), K1 beside ``g @ a`` (the library call that
+   gives its w alone) and K2 beside the three library calls that compute
+   its outputs apart (``composed_ms``: g @ a, a @ omega, a.square().sum();
+   context, not a yardstick), both with the 3xTF32 and the FP32 CUDA-core
+   operation bounds beside their byte bound; K7's library yardstick is
+   PyTorch's sparse tensor of the same matrix, and its rows also carry
+   K7's device time from torch.profiler (``device_ms``: a CUDA-event median
+   of a call this short times the host's launch); PageRank is timed as its
+   host build and its fixpoint. K9 is held against its plain version (float32
    |Δo| ≤ 1e-5 max|v|, |Δlse| ≤ 1e-5 (1 + |lse|); bf16 elementwise |Δo| ≤
    3 · 2^-8 (|o| + the attention of |v|) and |Δlse| ≤ 1e-4 (1 + |lse|)) and
    against itself on a rerun bit for bit, at RA (f32 causal and not, bf16),
@@ -147,6 +153,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -226,6 +233,10 @@ RELAYOUT_P8 = (1_250_000, 25, 32, 8)  # K5's per-rank (rows, c_in, c_out, p) of 
 RELAYOUT_WIDE = (67_108_865, 31, 32, 8)  # rows x 32 > 2^31: the kernels' 64-bit index path
 
 
+# kernels whose every instantiation must compile without spills (K1's Hopper kernel)
+NO_SPILLS = ("sketch_sm90_kernelILi0ELb0E",)
+
+
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
@@ -245,6 +256,24 @@ def _median_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device time of one ``fn()`` (every kernel it launches), from
+    torch.profiler over ``reps`` calls: unlike the CUDA-event median it
+    leaves out the host's time to launch, which sets the event time of a
+    call shorter than about 0.1 ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def _bound(nbytes: float, flops: float):
@@ -282,18 +311,20 @@ def build_kernels() -> None:
         log = _build._library_path(name).with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         # register use and spills (-Xptxas -v) of the main paths'
-        # instantiations (K1 l=25, K2's Hopper kernel at k̂ ≤ 24 and
-        # sketch.cu's ℓ=59 timed beside it, K3 k ≤ 8, K4's kernels of both
-        # regimes (rows of 512: two warps a row), K7 k = 1 and 4, K8's
+        # instantiations (K1's and K2's Hopper kernels, K2 at k̂ ≤ 24, and
+        # sketch.cu's K1 l=25 and K2 ℓ=59 timed beside them, K3 k ≤ 8, K4's
+        # kernels of both regimes (rows of 512: two warps a row), K7 k = 1
+        # and 4, K8's
         # Hopper kernel and spmm.cu's timed beside it, K9's Hopper path at
         # bf16 D = 64, 128 and 256 and float32 D = 64, attention.cu's
         # kernels timed beside it (float32 at D_v = 64, mma.sync bf16 at
         # D_v = 256), K5/K6 on 4-byte words with 32-bit offsets); and any
         # wgmma that ptxas serialised
         for i, line in enumerate(lines):
-            main = ("ILi25ELb0E", "ILi59ELb1E", "dual_sm90_kernelILi24E", "assign_kernelILi8E",
-                    "seg_sort_kernelILi8ELi2E", "sweep_hist_kernel", "sweep_plan_kernel", "sweep_pass_kernel",
-                    "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel", "sddmm_sm90_kernel",
+            main = ("ILi25ELb0E", "ILi59ELb1E", "sketch_sm90_kernelILi24ELb1E", "sketch_sm90_kernelILi0ELb0E",
+                    "assign_kernelILi8E", "seg_sort_kernelILi8ELi2E", "sweep_hist_kernel", "sweep_plan_kernel",
+                    "sweep_pass_kernel", "brick_spmm_kernelILi1E", "brick_spmm_kernelILi4E", "brick_sddmm_kernel",
+                    "sddmm_sm90_kernel",
                     "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi256E", "attn_sm90_kernelILi64ELi3E",
                     "attn_sm90_kernelILi128ELi2E", "attn_sm90_kernelILi256ELi2E", "attn_sm90_f32_kernelILi2E",
                     "11pack_kernelIjjE", "13unpack_kernelIjjE")
@@ -303,6 +334,10 @@ def build_kernels() -> None:
             if "Compiling entry function" in line and tags:
                 detail = " | ".join(s.split(":", 1)[-1].strip() for s in lines[i + 1 : i + 4])
                 print(f"ptxas {line.split(chr(39))[1][:48]} ({tags[0]}): {detail}", flush=True)
+            # K1's Hopper kernel (every instantiation) must not spill
+            if "Compiling entry function" in line and any(t in line for t in NO_SPILLS):
+                spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", " ".join(lines[i + 1 : i + 4]))
+                _require(len(spills) == 2 and spills == ["0", "0"], f"ptxas spills in {line.split(chr(39))[1]}")
 
 
 def _k2_case(cs, a, gen, l: int = 59, k: int = 24) -> dict:
@@ -347,6 +382,45 @@ def _k2_case(cs, a, gen, l: int = 59, k: int = 24) -> dict:
     return errs
 
 
+def _k1_case(cs, a, gen, l: int) -> dict:
+    """K1 on ``a`` against its plain version, on the kernel its predicate
+    picks (its Hopper launch count must show which), and against itself on
+    a rerun; on the Hopper kernel sketch.cu's kernel runs on the same inputs
+    too, held to the plain version under the same limits. Returns the main
+    shape's largest errors (empty elsewhere)."""
+    import torch
+
+    m, n = a.shape
+    g = torch.randn(l, m, device=a.device, generator=gen)
+    hopper = cs.sketch_sm90_serviceable(l, a)
+    before = cs.SKETCH_SM90_LAUNCHES
+    w, norm = cs.sketch_with_norm(g, a)
+    pw, pnorm = cs.sketch_with_norm_plain(g, a)
+    torch.cuda.synchronize()
+    _require(cs.SKETCH_SM90_LAUNCHES == before + int(hopper),
+             f"K1 ({m}x{n}) {'did not take' if hopper else 'took'} the Hopper kernel")
+    ew, en = _rel(w, pw), abs(float(norm) - float(pnorm)) / float(pnorm)
+    # partials are summed in a fixed order: a rerun gives the same bits
+    rerun = all(map(torch.equal, (w, norm), cs.sketch_with_norm(g, a)))
+    route, old, ok_old = "sketch_sm90" if hopper else "sketch", "", True
+    if hopper:
+        ow, onorm = cs._sketch_with_norm_sketch_cu(g, a)
+        torch.cuda.synchronize()
+        eow, eon = _rel(ow, pw), abs(float(onorm) - float(pnorm)) / float(pnorm)
+        ok_old = eow <= TOL_W and eon <= TOL_NORM
+        old = f"; sketch.cu's kernel: w rel {eow:.3e}, norm rel {eon:.3e}"
+    print(f"K1 {route} ({m}x{n}, l={l}): w rel {ew:.3e} (tol {TOL_W}), norm rel {en:.3e} (tol {TOL_NORM}), "
+          f"rerun identical {rerun}{old}", flush=True)
+    _require(ew <= TOL_W and en <= TOL_NORM and rerun and ok_old,
+             f"K1 disagrees with its plain version or itself at {m}x{n}, l={l}")
+    if (m, n, l) != (M, N, 25):
+        return {}
+    errs = {"sketch_with_norm": float((w - pw).abs().max())}
+    if hopper:
+        errs["sketch_with_norm_pr1"] = float((ow - pw).abs().max())
+    return errs
+
+
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version; returns the main-shape errors."""
     import torch
@@ -359,25 +433,19 @@ def check_kernels(dev) -> dict:
     for m, n in (RAGGED, (M, N)):
         a = torch.randn(m, n, device=dev, generator=gen)
         for l in (7, 25):
-            g = torch.randn(l, m, device=dev, generator=gen)
-            w, norm = cs.sketch_with_norm(g, a)
-            pw, pnorm = cs.sketch_with_norm_plain(g, a)
-            torch.cuda.synchronize()
-            ew, en = _rel(w, pw), abs(float(norm) - float(pnorm)) / float(pnorm)
-            print(f"K1 ({m}x{n}, l={l}): w rel {ew:.3e} (tol {TOL_W}), norm rel {en:.3e} (tol {TOL_NORM})", flush=True)
-            _require(ew <= TOL_W and en <= TOL_NORM, f"K1 disagrees with its plain version at {m}x{n}, l={l}")
-            if (m, n, l) == (M, N, 25):
-                errs["sketch_with_norm"] = float((w - pw).abs().max())
-                # partials are summed in a fixed order: a rerun gives the same bits
-                _require(all(map(torch.equal, (w, norm), cs.sketch_with_norm(g, a))), "K1 is not repeatable")
+            errs.update(_k1_case(cs, a, gen, l))
         errs.update(_k2_case(cs, a, gen))
         del a
-    # a ragged shape the Hopper kernel serves (n % 4 == 0), and the widest
-    # row and column sketches it takes
+    # a ragged shape the Hopper kernels serve (n % 4 == 0), and the widest
+    # row and column sketches they take
     a = torch.randn(*K2_RAGGED_SM90, device=dev, generator=gen)
     _k2_case(cs, a, gen)
     _k2_case(cs, a, gen, l=64, k=32)
     _k2_case(cs, a * 1e3, gen, l=1, k=1)
+    for l in (1, 25, 32):
+        _k1_case(cs, a, gen, l)
+    _k1_case(cs, a * 1e-3, gen, 32)
+    _k1_case(cs, torch.randn(130, 8, device=dev, generator=gen), gen, 7)
     del a
     return errs
 
@@ -910,11 +978,11 @@ def main_path(dev) -> dict:
     _require(A.larray.device == dev and A.dtype is ht.float32 and A.split == 0, "A is not a float32 split-0 array on the card")
     launches = {}
     for single_pass, kernel in ((False, "sketch_with_norm"), (True, "dual_sketch_with_norm")):
-        cs.SKETCH_LAUNCHES = cs.DUAL_LAUNCHES = cs.DUAL_SM90_LAUNCHES = 0
+        cs.SKETCH_LAUNCHES = cs.DUAL_LAUNCHES = cs.SKETCH_SM90_LAUNCHES = cs.DUAL_SM90_LAUNCHES = 0
         U, sigma, V, err = ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True, single_pass=single_pass)
         torch.cuda.synchronize()
         counts = {"sketch_with_norm": cs.SKETCH_LAUNCHES, "dual_sketch_with_norm": cs.DUAL_LAUNCHES,
-                  "dual_sketch_sm90": cs.DUAL_SM90_LAUNCHES}
+                  "sketch_sm90": cs.SKETCH_SM90_LAUNCHES, "dual_sketch_sm90": cs.DUAL_SM90_LAUNCHES}
         launches[kernel] = counts[kernel]
         s = sigma.larray
         ou, ov = _orthonormal_err(U.larray), _orthonormal_err(V.larray)
@@ -924,8 +992,8 @@ def main_path(dev) -> dict:
             f"sigma[0]={float(s[0]):.4f} sigma[-1]={float(s[-1]):.4f}, err={float(err):.6f}", flush=True,
         )
         _require(counts[kernel] > 0, f"the main path ran without kernel {kernel}")
-        _require(not single_pass or counts["dual_sketch_sm90"] == counts[kernel],
-                 "the one-view hsvd_rank ran K2 off its Hopper kernel")
+        _require(counts["sketch_sm90" if not single_pass else "dual_sketch_sm90"] == counts[kernel],
+                 f"hsvd_rank(single_pass={single_pass}) ran {'K2' if single_pass else 'K1'} off its Hopper kernel")
         _require(U.shape == (M, MAXRANK) and V.shape == (N, MAXRANK) and sigma.shape == (MAXRANK,), "factor shapes")
         _require(bool(torch.isfinite(U.larray).all() and torch.isfinite(V.larray).all() and torch.isfinite(s).all()), "non-finite factors")
         # the 2-pass estimate is exact, so at most 1; the one-view one is a
@@ -966,18 +1034,35 @@ def timings(dev, launches: dict, errs: dict) -> list:
     omega = torch.randn(N, 24, device=dev, generator=gen)
     mn = float(M) * N
     rows = []
-    # K1 (sketch.cu): bound the larger of the bytes and the FP32 operations
+    # K1 on its Hopper kernel (sketch_sm90.cu, 3xTF32 on the tensor cores):
+    # bound the read of A (the bytes), beside the 3xTF32 operation bound (N =
+    # 32: L rounded up) and the FP32 CUDA-core bound that held sketch.cu's
+    # kernel (pr1_ms: that kernel on the same inputs, timed in turns)
+    _require(cs.sketch_sm90_serviceable(25, a), "K1's main shape is off its Hopper kernel")
     ms = _median_ms(lambda: cs.sketch_with_norm(g1, a), 10)
+    pr1_ms = _median_ms(lambda: cs._sketch_with_norm_sketch_cu(g1, a), 10)
+    ms_again = _median_ms(lambda: cs.sketch_with_norm(g1, a), 10)
+    pr1_again = _median_ms(lambda: cs._sketch_with_norm_sketch_cu(g1, a), 10)
     plain_ms = _median_ms(lambda: cs.sketch_with_norm_plain(g1, a), 5)
     library_ms = _median_ms(lambda: torch.matmul(g1, a), 10)
-    bound_ms, bound_by = _bound(4 * (mn + 25 * M + 25 * N + 1), 2 * 25 * mn + 2 * mn)
-    print(f"sketch_with_norm: {ms:.4f} ms, plain {plain_ms:.4f} ms, library (g @ a) {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    nbytes = 4 * (mn + 25 * M + 25 * N + 1)
+    flops = 2 * 25 * mn + 2 * mn
+    bound_ms, bound_by = _bound(nbytes, flops)
+    tf32_ms = 3 * 2 * 32 * mn / TF32_FLOP_PER_S * 1e3
+    fp32_ms = flops / FP32_FLOP_PER_S * 1e3
+    print(
+        f"sketch_with_norm (K1 sketch_sm90.cu): {ms:.4f} ms [{ms_again:.4f}], sketch.cu's kernel (pr1_ms) "
+        f"{pr1_ms:.4f} ms [{pr1_again:.4f}], plain {plain_ms:.4f} ms, library (g @ a, w only) {library_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.4f} GB), 3xTF32 operations at N = 32 {tf32_ms:.4f} ms, "
+        f"FP32 CUDA cores {fp32_ms:.4f} ms; {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved, "
+        f"{bound_ms / ms:.1%} of the bound", flush=True,
+    )
     rows.append({
-        "name": "sketch_with_norm", "route": "cuda", "source": "heat_tpu_torch/csrc/sketch.cu",
+        "name": "sketch_with_norm", "route": "cuda", "source": "heat_tpu_torch/csrc/sketch_sm90.cu",
         "replaces": "heat_tpu/core/linalg/_pallas_sketch.py:56", "launches": launches["sketch_with_norm"],
         "max_abs_err": errs["sketch_with_norm"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
+        "bound_by": bound_by, "library_ms": library_ms, "pr1_ms": pr1_ms, "pr1_err": errs["sketch_with_norm_pr1"],
+        "bound_3xtf32_ms": tf32_ms, "bound_fp32_ms": fp32_ms,
     })
     # K2 on its Hopper kernel (sketch_sm90.cu, 3xTF32 on the tensor cores):
     # bound the read of A (the bytes), beside the 3xTF32 operation bound and
@@ -1134,19 +1219,20 @@ def card_matrix(dev, ht):
                                   (CARD_N, CARD_N), ht.float32, 0, ht.gpu, ht.get_comm())
 
 
-def _k7_case(ks, label: str, S, k: int, gen, dtype=None) -> float:
-    """K7 against its plain version on S's bricks (widened from ``dtype``
-    when given), within TOL_SPARSE of the absolute-sum scale, and against
-    itself on a rerun, bit for bit. Returns the largest absolute error."""
+def _k7_case(ks, label: str, S, k: int, gen) -> float:
+    """K7 against its plain version on S's bricks (widened to float32),
+    within TOL_SPARSE of the absolute-sum scale, and against itself on a
+    rerun, bit for bit. Returns the largest absolute error."""
     import torch
 
     bdata, bcol, brow, bmask = S._phys_components
     bd = bdata.float()
+    m = S.shape[0]
     x = torch.randn(S.shape[1], k, device=bd.device, generator=gen)
-    y = ks.brick_spmm(bd, bcol, brow, bmask, S._brick_rowptr, x, S.shape[0])
-    again = ks.brick_spmm(bd, bcol, brow, bmask, S._brick_rowptr, x, S.shape[0])
-    ref = ks.brick_spmm_plain(bd, bcol, brow, bmask, x, S.shape[0])
-    scale = ks.brick_spmm_plain(bd.abs(), bcol, brow, bmask, x.abs(), S.shape[0])
+    y = ks.brick_spmm(bd, bcol, brow, bmask, S._brick_rowptr, x, m)
+    again = ks.brick_spmm(bd, bcol, brow, bmask, S._brick_rowptr, x, m)
+    ref = ks.brick_spmm_plain(bd, bcol, brow, bmask, x, m)
+    scale = ks.brick_spmm_plain(bd.abs(), bcol, brow, bmask, x.abs(), m)
     torch.cuda.synchronize()
     err = float((y - ref).abs().max()) if y.numel() else 0.0
     rel = float(((y - ref).abs() / scale.clamp_min(1e-30)).max()) if y.numel() else 0.0
@@ -1217,8 +1303,7 @@ def check_spmm(dev, inputs: dict) -> dict:
     errs = {}
     S = ht.sparse.sparse_dbcsr_matrix(inputs["bsr"], split=0)
     for k in (1, SPMM_K, 64):
-        e = _k7_case(ks, f"spmm_1gb, {S.nbricks} bricks", S, k, gen)
-        errs.setdefault(f"spmm_1gb_k{k}", e)
+        errs[f"spmm_1gb_k{k}"] = _k7_case(ks, f"spmm_1gb, {S.nbricks} bricks", S, k, gen)
     for d in (1, SDDMM_D):
         errs[f"sddmm_1gb_d{d}"] = _k8_case(ks, f"spmm_1gb, {S.nbricks} bricks", S, d, gen)
     M = ht.sparse.sparse_dbcsr_matrix(_transition(inputs["graph"], np.float32)[0], split=0)
@@ -1252,12 +1337,22 @@ def check_spmm(dev, inputs: dict) -> dict:
     empty = ht.sparse.sparse_dbcsr_matrix(sp.csr_matrix((37, 300), dtype=np.float32))
     _require(empty.slab_bricks == 1 and empty.nbricks == 0, "the empty matrix is not one pad brick")
     half = R.astype(ht.bfloat16)
+    # rows that bmask clears (every 7th brick's row 3, and the rows past m)
+    # hold NaN: they must add nothing
+    bdata, bcol, brow, bmask = R._phys_components
+    bmask = bmask.clone()
+    bmask[::7, 3] = False
+    masked = torch.where(bmask[:, :, None], bdata, float("nan"))
+    Q = ht.sparse.DBCSR_matrix(masked, bcol, brow, bmask, ((0, R.mb, R.nbricks),), R.gnnz, R.nbricks, R.shape,
+                               ht.float32, None, ht.gpu, ht.get_comm())
     for label, A in (("ragged 1003x777", R), ("4096^2 with empty rows", E), ("zero and pad bricks", Z),
-                     ("empty 37x300, one pad brick", empty), ("bf16 bricks, 1003x777", half)):
+                     ("empty 37x300, one pad brick", empty), ("bf16 bricks, 1003x777", half),
+                     ("masked rows holding NaN, 1003x777", Q)):
         for k in (1, SPMM_K, 64):
             _k7_case(ks, label, A, k, gen)
-        for d in (1, SDDMM_D) + K8_EDGE_D:
-            _k8_case(ks, label, A, d, gen)
+        if A is not Q:  # K8 scales every row of a brick, masked or not
+            for d in (1, SDDMM_D) + K8_EDGE_D:
+                _k8_case(ks, label, A, d, gen)
     return errs
 
 
@@ -1429,18 +1524,22 @@ def _library_spmm(S, x):
 
 
 def _k7_row(name, S, x, launches, err):
-    import torch
-
+    """K7 (``spmm.cu``) at one of the main path's shapes beside its bound
+    (the bricks, indices, masks, x and y once: bytes), its plain version and
+    the library's sparse product: its CUDA-event median, which for a call
+    this short times the host's launch, and its device time (profiler)."""
     from heat_tpu_torch.kernels import spmm as ks
 
     bdata, bcol, brow, bmask = S._phys_components
     m, n = S.shape
     k = x.shape[1]
     rowptr = S._brick_rowptr
-    ms = _median_ms(lambda: ks.brick_spmm(bdata, bcol, brow, bmask, rowptr, x, m), 20)
+    call = lambda: ks.brick_spmm(bdata, bcol, brow, bmask, rowptr, x, m)
+    ms = _median_ms(call, 20)
+    dev_ms = _device_ms(call, 20)
     plain_ms = _median_ms(lambda: ks.brick_spmm_plain(bdata, bcol, brow, bmask, x, m), 3)
     lib_name, lib_call = _library_spmm(S, x)
-    y, y_lib = ks.brick_spmm(bdata, bcol, brow, bmask, rowptr, x, m), lib_call()
+    y, y_lib = call(), lib_call()
     scale = ks.brick_spmm_plain(bdata.abs(), bcol, brow, bmask, x.abs(), m)
     _require(bool(((y - y_lib).abs() <= TOL_SPARSE * scale).all()), f"{lib_name} does not compute S @ x")
     del y, y_lib, scale
@@ -1449,14 +1548,17 @@ def _k7_row(name, S, x, launches, err):
     nbytes = 4096 * B + 12 * B + 4 * (S.mb + 1) + 4 * k * (n + m)
     bound_ms, bound_by = _bound(nbytes, 2.0 * 1024 * nreal * k)
     print(
-        f"{name} (K7, {nreal} bricks, k={k}): {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.4f} GB; {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved)",
+        f"{name} (K7, {nreal} bricks, k={k}): {ms:.4f} ms (CUDA events, host launch included), device time "
+        f"(profiler) {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {library_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by}, {nbytes / 1e9:.4f} GB; {nbytes / (dev_ms * 1e-3) / 1e9:.1f} GB/s achieved on the device, "
+        f"{bound_ms / dev_ms:.1%} of the bound)",
         flush=True,
     )
     return {
         "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/spmm.cu",
         "replaces": "heat_tpu/kernels/spmm.py:238", "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "device_ms": dev_ms,
     }
 
 

@@ -25,6 +25,14 @@ from .stride_tricks import sanitize_axis
 
 __all__ = ["DNDarray"]
 
+# operands that ==/!= compare elementwise without broadcasting machinery
+_SCALARS = (bool, int, float, complex, np.number, np.bool_)
+
+
+class _ScalarCastError(TypeError, ValueError):
+    """A cast of an array of size other than 1 to a Python scalar:
+    ``heat_tpu`` raises TypeError there, numpy ValueError; this is both."""
+
 
 def _gather_lshapes(comm: Communication, array: torch.Tensor) -> np.ndarray:
     """(size, ndim) shard shapes of ``array`` on every rank (one
@@ -204,6 +212,49 @@ class DNDarray:
 
     def __int__(self) -> int:
         return int(self.item())
+
+    def __bool__(self) -> bool:
+        """The truth value of a size-1 array (``heat_tpu`` dndarray.py:484);
+        any other size raises, as a cast to a Python scalar does there."""
+        if self.size != 1:
+            raise _ScalarCastError(
+                f"only size-1 arrays can be converted to Python scalars, got shape {self.__gshape}"
+            )
+        return bool(self.item())
+
+    # elementwise ==, != (``heat_tpu`` relational.py:93-94); a DNDarray is
+    # unhashable there and here
+    __hash__ = None
+
+    def __eq__(self, other) -> "DNDarray":
+        return self.__compare(torch.eq, other, "==")
+
+    def __ne__(self, other) -> "DNDarray":
+        return self.__compare(torch.ne, other, "!=")
+
+    def __compare(self, op, other, symbol: str) -> "DNDarray":
+        """``op`` elementwise against a Python or numpy scalar, or against a
+        DNDarray of the same shape and split, as a bool DNDarray with
+        ``heat_tpu``'s split: the operand's, dropped where the split axis
+        has extent ≤ 1."""
+        if isinstance(other, _SCALARS):
+            out, lmap = op(self.__array, other), self.__lmap
+        elif isinstance(other, DNDarray) and other.gshape == self.__gshape and other.split == self.__split:
+            out, lmap = op(self._balanced_larray(), other._balanced_larray()), None
+        else:
+            what = f" of shape {other.gshape}, split {other.split}" if isinstance(other, DNDarray) else ""
+            raise NotImplementedError(
+                f"DNDarray {symbol} {type(other).__name__}{what} (this array: shape {self.__gshape}, split "
+                f"{self.__split}): only a scalar or a DNDarray of the same shape and split is compared so far; "
+                "broadcasting and mixed splits come with the binary-op machinery, ROADMAP.md Queue 1 item 6"
+            )
+        res = DNDarray(out, self.__gshape, types.bool, self.__split, self.__device, self.__comm, lmap)
+        split = self.__split
+        if split is None or self.__gshape[split] > 1:
+            return res
+        if res.is_distributed():  # an extent-1 split axis cannot carry the split: the array goes whole
+            out = self.__comm.allgather(out, split, res.lshape_map[:, split])
+        return DNDarray(out, self.__gshape, types.bool, None, self.__device, self.__comm)
 
     def __len__(self) -> int:
         if self.ndim == 0:

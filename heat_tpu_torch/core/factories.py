@@ -134,7 +134,7 @@ def array(
         if np_data.dtype == object:
             raise TypeError(f"cannot create a DNDarray from {type(obj)}")
         # a copy: the DNDarray never aliases the caller's numpy buffer
-        data = torch.from_numpy(np.array(np_data, order="C")).to(device.torch_device)
+        data = _tensor_of(np.array(np_data, order="C")).to(device.torch_device)
     if dtype is None:
         dtype = types.canonical_heat_type(data.dtype)
     data = data.to(dtype.torch_type())
@@ -145,6 +145,15 @@ def array(
     if is_split is not None:
         return _from_shards(data, dtype, is_split, device, comm)
     return _wrap(data, dtype, split, device, comm)
+
+
+def _tensor_of(np_data: np.ndarray) -> torch.Tensor:
+    """``torch.from_numpy``, which refuses bfloat16 (an extension type
+    numpy holds through ``ml_dtypes``): its bits go across as uint16 and
+    are viewed as torch.bfloat16, value for value."""
+    if np_data.dtype.name == "bfloat16":
+        return torch.from_numpy(np_data.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np_data)
 
 
 def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order: str = "C") -> DNDarray:

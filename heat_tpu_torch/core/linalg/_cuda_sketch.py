@@ -1,23 +1,23 @@
 """Fused sketch streams of the hSVD: hand-written CUDA kernels and their
 plain PyTorch versions.
 
-``sketch_with_norm`` (kernel K1, ``csrc/sketch.cu``) computes ``w = g @ a``
-and ``‖a‖²_F`` from one read of ``a``; it replaces the Pallas TPU kernel
+``sketch_with_norm`` (kernel K1) computes ``w = g @ a`` and ``‖a‖²_F``
+from one read of ``a``; it replaces the Pallas TPU kernel
 ``heat_tpu/core/linalg/_pallas_sketch.py::_fused_call``.
 ``dual_sketch_with_norm`` (kernel K2) adds the column sketch
 ``y = a @ omega`` to the same read; it replaces ``_pallas_sketch.py::
-_dual_call``. Which of K2's two kernels a call takes is decided up front
-(``dual_sketch_sm90_serviceable``): n % 4 == 0 with ``a`` on 16 bytes
-takes the Hopper kernel ``csrc/sketch_sm90.cu`` (3xTF32 ``wgmma``,
-TMA-fed, warp-specialised); other shapes take ``csrc/sketch.cu``'s FP32
-kernel, as K1 always does. The sources note what bounds each kernel on an
-H100 and how the design meets it.
+_dual_call``. Which of each one's two kernels a call takes is decided up
+front (``sketch_sm90_serviceable``, ``dual_sketch_sm90_serviceable``): n %
+4 == 0 with ``a`` on 16 bytes takes the Hopper kernel ``csrc/sketch_sm90.cu``
+(3xTF32 ``wgmma``, TMA-fed, warp-specialised, one template for both);
+other shapes take ``csrc/sketch.cu``'s FP32 kernels. The sources note what
+bounds each kernel on an H100 and how the design meets it.
 
 Each wrapper runs its plain version only when the tensors lie on the CPU.
 A CUDA tensor launches a kernel or raises; there is no fallback from one
 kernel to another or to the plain version. Each launch adds one to
-``SKETCH_LAUNCHES`` / ``DUAL_LAUNCHES``, and a launch of K2's Hopper
-kernel also to ``DUAL_SM90_LAUNCHES``.
+``SKETCH_LAUNCHES`` / ``DUAL_LAUNCHES``, and a launch of a Hopper kernel
+also to ``SKETCH_SM90_LAUNCHES`` / ``DUAL_SM90_LAUNCHES``.
 
 The plain versions (``*_plain``) compute the same function with torch ops in
 the tile order of ``svdtools._pass1_tiles`` / ``_pass2_tiles`` /
@@ -35,11 +35,13 @@ __all__ = [
     "DUAL_LAUNCHES",
     "DUAL_SM90_LAUNCHES",
     "SKETCH_LAUNCHES",
+    "SKETCH_SM90_LAUNCHES",
     "dual_sketch_serviceable",
     "dual_sketch_sm90_serviceable",
     "dual_sketch_with_norm",
     "dual_sketch_with_norm_plain",
     "sketch_serviceable",
+    "sketch_sm90_serviceable",
     "sketch_with_norm",
     "sketch_with_norm_plain",
 ]
@@ -47,13 +49,16 @@ __all__ = [
 #: launches of K1 / K2 (either kernel) since the count was last set to 0
 SKETCH_LAUNCHES = 0
 DUAL_LAUNCHES = 0
-#: launches of K2's Hopper kernel (``csrc/sketch_sm90.cu``) since the count was last set to 0
+#: launches of K1's / K2's Hopper kernel (``csrc/sketch_sm90.cu``) since the count was last set to 0
+SKETCH_SM90_LAUNCHES = 0
 DUAL_SM90_LAUNCHES = 0
 
-# Hopper bounds, in place of the TPU's VMEM bound: each thread keeps the
-# l row-sketch accumulators of its column in registers beside its share of
-# the A tile, which caps l at 32 (K1) and 64 (K2) for two 256-thread blocks
-# per SM; K2's omega slice (256 columns x k̂) lives in shared memory, k̂ ≤ 32.
+# Hopper bounds, in place of the TPU's VMEM bound: sketch.cu's threads keep
+# the l row-sketch accumulators of their column in registers beside their
+# share of the A tile, which caps l at 32 (K1) and 64 (K2) for two
+# 256-thread blocks per SM; K2's omega slice (256 columns x k̂) lives in
+# shared memory, k̂ ≤ 32. The Hopper kernels take the same l and k̂ (N = 32
+# or 64 of their row-sketch products).
 SKETCH_MAX_L = 32
 DUAL_MAX_L = 64
 DUAL_MAX_K = 32
@@ -103,6 +108,18 @@ def sketch_serviceable(l: int, a: torch.Tensor) -> bool:
     return _kernel_operand(a) and 1 <= l <= SKETCH_MAX_L
 
 
+def sketch_sm90_serviceable(l: int, a: torch.Tensor) -> bool:
+    """Whether ``sketch_with_norm`` takes K1's Hopper kernel
+    (``csrc/sketch_sm90.cu``): what ``sketch_serviceable`` admits, with n a
+    multiple of 4 and ``a`` on 16 bytes (the rules of TMA's tensor maps).
+    Other shapes take ``csrc/sketch.cu``'s kernel."""
+    return sketch_serviceable(l, a) and _tma_operand(a)
+
+
+def _tma_operand(a: torch.Tensor) -> bool:
+    return a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0
+
+
 def dual_sketch_serviceable(l_total: int, k_hat: int, a: torch.Tensor) -> bool:
     """Whether ``dual_sketch_with_norm`` runs kernel K2: a non-empty
     float32 matrix on CUDA, ℓ ≤ 64 row-sketch rows, k̂ ≤ 32 columns. Ragged
@@ -117,7 +134,7 @@ def dual_sketch_sm90_serviceable(l_total: int, k_hat: int, a: torch.Tensor) -> b
     (``csrc/sketch_sm90.cu``): what ``dual_sketch_serviceable`` admits,
     with n a multiple of 4 and ``a`` on 16 bytes (the rules of TMA's tensor
     maps). Other shapes take ``csrc/sketch.cu``'s kernel."""
-    return dual_sketch_serviceable(l_total, k_hat, a) and a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0
+    return dual_sketch_serviceable(l_total, k_hat, a) and _tma_operand(a)
 
 
 # --------------------------------------------------------------------- #
@@ -155,13 +172,16 @@ def _lib_sm90():
         from ...kernels import _build
 
         lib = _build.load("sketch_sm90")
+        lib.heat_sketch_sm90.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _LL, _I, _P]
+        lib.heat_sketch_sm90.restype = _I
         lib.heat_dual_sketch_sm90.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _LL, _I, _P
         ]
         lib.heat_dual_sketch_sm90.restype = _I
         lib.heat_sketch_error_string.argtypes = [_I]
         lib.heat_sketch_error_string.restype = ctypes.c_char_p
-        for f in ("heat_dual_sketch_sm90_block_cols", "heat_dual_sketch_sm90_band_rows"):
+        for f in ("heat_sketch_sm90_block_cols", "heat_dual_sketch_sm90_block_cols", "heat_sketch_sm90_band_rows",
+                  "heat_sketch_sm90_g_rows"):
             getattr(lib, f).restype = _I
         lib.heat_dual_sketch_sm90_k_rows.argtypes = [_I]
         lib.heat_dual_sketch_sm90_k_rows.restype = _I
@@ -210,9 +230,24 @@ def sketch_with_norm(g: torch.Tensor, a: torch.Tensor):
     """``(g @ a, ‖a‖²_F)`` in one read of ``a`` (kernel K1 on CUDA).
 
     ``g``: (l, m) with l ≤ 32, ``a``: (m, n), both float32 and contiguous on
-    one CUDA device. Returns ``w`` (l, n) and the norm as a 0-d tensor. CPU
-    tensors take the plain version."""
-    global SKETCH_LAUNCHES
+    one CUDA device. n % 4 == 0 with ``a`` on 16 bytes takes the Hopper
+    kernel (``csrc/sketch_sm90.cu``, 3xTF32 on the tensor cores), other
+    shapes ``csrc/sketch.cu``'s FP32 kernel. Returns ``w`` (l, n) and the
+    norm as a 0-d tensor. A rerun gives the same bits. CPU tensors take the
+    plain version."""
+    return _sketch_with_norm(g, a, sm90=True)
+
+
+def _sketch_with_norm_sketch_cu(g: torch.Tensor, a: torch.Tensor):
+    """``sketch_with_norm`` with the Hopper kernel shut off: a call on CUDA
+    launches ``csrc/sketch.cu``'s FP32 kernel on any shape, so that
+    ``chip_smoke.py`` and the ``cuda`` tests can hold the two kernels
+    against each other on the same inputs."""
+    return _sketch_with_norm(g, a, sm90=False)
+
+
+def _sketch_with_norm(g: torch.Tensor, a: torch.Tensor, sm90: bool):
+    global SKETCH_LAUNCHES, SKETCH_SM90_LAUNCHES
     if a.device.type == "cpu" and g.device.type == "cpu":
         return sketch_with_norm_plain(g, a)
     _check_a(a)
@@ -221,28 +256,42 @@ def sketch_with_norm(g: torch.Tensor, a: torch.Tensor):
     n = a.shape[1]
     if m != a.shape[0] or not 1 <= l <= SKETCH_MAX_L:
         raise ValueError(f"g must be (l ≤ {SKETCH_MAX_L}, {a.shape[0]}), got {tuple(g.shape)}")
-    lib = _lib()
-    cblocks, splits, rows = _geometry(lib, a)
-    w = torch.empty((l, n), dtype=torch.float32, device=a.device)
-    norm = torch.empty((), dtype=torch.float32, device=a.device)
-    wpart = torch.empty((splits, l, n), dtype=torch.float32, device=a.device)
-    npart = torch.empty((splits * cblocks,), dtype=torch.float64, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = lib.heat_sketch_with_norm_f32(
-        g.data_ptr(), a.data_ptr(), w.data_ptr(), norm.data_ptr(), wpart.data_ptr(),
-        npart.data_ptr(), l, m, n, splits, rows, a.device.index, stream,
+    hopper = sm90 and sketch_sm90_serviceable(l, a)
+    lib = _lib_sm90() if hopper else _lib()
+    dev = a.device
+    cblocks, splits, rows = (
+        _geometry_sm90(a, lib.heat_sketch_sm90_block_cols(), lib.heat_sketch_sm90_band_rows())
+        if hopper else _geometry(lib, a)
     )
-    _raise_on(lib, rc, "sketch_with_norm")
+    w = torch.empty((l, n), dtype=torch.float32, device=dev)
+    norm = torch.empty((), dtype=torch.float32, device=dev)
+    wpart = torch.empty((splits, l, n), dtype=torch.float32, device=dev)
+    npart = torch.empty((splits * cblocks,), dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if hopper:  # and g's TF32 halves
+        gh = torch.empty((2, lib.heat_sketch_sm90_g_rows(), -(-m // 4) * 4), dtype=torch.int32, device=dev)
+        rc = lib.heat_sketch_sm90(
+            g.data_ptr(), a.data_ptr(), w.data_ptr(), norm.data_ptr(), gh.data_ptr(), wpart.data_ptr(),
+            npart.data_ptr(), l, m, n, splits, rows, dev.index, stream,
+        )
+    else:
+        rc = lib.heat_sketch_with_norm_f32(
+            g.data_ptr(), a.data_ptr(), w.data_ptr(), norm.data_ptr(), wpart.data_ptr(),
+            npart.data_ptr(), l, m, n, splits, rows, dev.index, stream,
+        )
+    _raise_on(lib, rc, "sketch_with_norm (sketch_sm90)" if hopper else "sketch_with_norm")
     SKETCH_LAUNCHES += 1
+    if hopper:
+        SKETCH_SM90_LAUNCHES += 1
     return w, norm
 
 
-def _geometry_sm90(lib, a: torch.Tensor):
-    """(column blocks, row splits, rows per split) for the Hopper kernel's
-    grid: blocks of 512 columns, and as many row splits as fill the card's
-    SMs in one wave (one block an SM), each a whole number of 64-row bands."""
+def _geometry_sm90(a: torch.Tensor, bc: int, band: int):
+    """(column blocks, row splits, rows per split) for a Hopper kernel's
+    grid: blocks of ``bc`` columns, and as many row splits as fill the
+    card's SMs in one wave (one block an SM), each a whole number of
+    ``band``-row bands."""
     m, n = a.shape
-    bc, band = lib.heat_dual_sketch_sm90_block_cols(), lib.heat_dual_sketch_sm90_band_rows()
     cblocks = -(-n // bc)
     bands = -(-m // band)
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
@@ -290,7 +339,10 @@ def _dual_sketch_with_norm(g: torch.Tensor, omega: torch.Tensor, a: torch.Tensor
     w = torch.empty((l, n), dtype=torch.float32, device=dev)
     y = torch.empty((m, k), dtype=torch.float32, device=dev)
     norm = torch.empty((), dtype=torch.float32, device=dev)
-    cblocks, splits, rows = (_geometry_sm90 if hopper else _geometry)(lib, a)
+    cblocks, splits, rows = (
+        _geometry_sm90(a, lib.heat_dual_sketch_sm90_block_cols(), lib.heat_sketch_sm90_band_rows())
+        if hopper else _geometry(lib, a)
+    )
     wpart = torch.empty((splits, l, n), dtype=torch.float32, device=dev)
     ypart = torch.empty((cblocks, m, k), dtype=torch.float32, device=dev)
     npart = torch.empty((splits * cblocks,), dtype=torch.float64, device=dev)

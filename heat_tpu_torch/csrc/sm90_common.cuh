@@ -1,5 +1,5 @@
 // Helpers shared by the port's Hopper (sm_90a) kernels: attention_sm90.cu
-// (K9), sddmm_sm90.cu (K8) and sketch_sm90.cu (K2). PTX wrappers for
+// (K9), sddmm_sm90.cu (K8) and sketch_sm90.cu (K1, K2). PTX wrappers for
 // mbarriers, TMA (tensor and plain bulk copies), proxy fences, named
 // barriers, setmaxnreg and wgmma (TF32 with A from registers), the TF32
 // split of 3xTF32, and the host side of TMA's tensor maps. Each source
@@ -99,6 +99,11 @@ __device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.a
 // named barriers over 256 threads (two warpgroups)
 __device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
 __device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+// a named barrier over N threads
+template <int N>
+__device__ __forceinline__ void named_sync_n(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
 
 // a warpgroup gives registers away or takes them (all its threads at once)
 template <int N>
@@ -173,12 +178,12 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t* a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t* a, uint64_t db) {
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t* a, uint64_t db, int accumulate = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " R16 ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
       : F8(d, 0), F8(d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ void wgmma_tf32_n24(float (&d)[12], const uint32_t* a, uint64_t db) {

@@ -2,8 +2,8 @@
 
 Each ``heat_tpu_torch/csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded with
-``ctypes``. The library goes into ``build/heat_tpu_torch/`` at the root of
-the checkout, named by a hash of the source, the ``csrc/*.cuh`` headers it
+``ctypes``. The library goes into ``build_dir()`` (``build/heat_tpu_torch/``
+at the root of a checkout), named by a hash of the source, the ``csrc/*.cuh`` headers it
 includes (followed through their own includes) and the flags, so a changed
 source or header is rebuilt and an unchanged one is loaded as it is. Nothing is built
 when a module is imported: the first wrapper call (or ``build_all``) builds.
@@ -36,8 +36,16 @@ _lock = threading.Lock()
 
 
 def build_dir() -> Path:
-    """``build/heat_tpu_torch/`` beside the package (listed in .gitignore)."""
-    return _PKG.parent / "build" / "heat_tpu_torch"
+    """Where the libraries go: ``build/heat_tpu_torch/`` at the root of a
+    checkout (the directory that holds ``pyproject.toml``; .gitignore lists
+    it), or, for a package in an install tree, the per-user cache
+    directory ``$XDG_CACHE_HOME/heat_tpu_torch`` (``~/.cache`` without
+    that variable), so that nothing is written into site-packages."""
+    root = _PKG.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "heat_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "heat_tpu_torch"
 
 
 def sources() -> list:

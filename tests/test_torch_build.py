@@ -42,3 +42,41 @@ def test_the_hopper_sources_share_one_header():
         assert "sm90_common.cuh" in _build._headers((_build._CSRC / f"{name}.cu").read_bytes())
     for name in ("sketch", "sketch_sm90"):
         assert "sketch_sums.cuh" in _build._headers((_build._CSRC / f"{name}.cu").read_bytes())
+
+
+def _package_data_globs():
+    import tomllib
+
+    with open(_build._PKG.parent / "pyproject.toml", "rb") as f:
+        return tomllib.load(f)["tool"]["setuptools"]["package-data"]["heat_tpu_torch"]
+
+
+@pytest.mark.parametrize("name", _build.sources())
+def test_every_included_header_ships_with_the_package(name):
+    from fnmatch import fnmatch
+
+    globs = _package_data_globs()
+    assert any(fnmatch(f"csrc/{name}.cu", g) for g in globs)
+    for header in _build._headers((_build._CSRC / f"{name}.cu").read_bytes()):
+        assert any(fnmatch(f"csrc/{header}", g) for g in globs), f"csrc/{header} (included by {name}.cu) is not shipped"
+
+
+def test_build_dir_lies_in_the_checkout_here():
+    assert (_build._PKG.parent / "pyproject.toml").is_file()
+    assert _build.build_dir() == _build._PKG.parent / "build" / "heat_tpu_torch"
+
+
+@pytest.mark.parametrize("xdg", [None, "cache-home"])
+def test_build_dir_of_an_installed_package_lies_outside_its_install_tree(tmp_path, monkeypatch, xdg):
+    site = tmp_path / "site-packages"
+    (site / "heat_tpu_torch").mkdir(parents=True)
+    monkeypatch.setattr(_build, "_PKG", site / "heat_tpu_torch")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    if xdg is None:
+        monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+        expected = tmp_path / "home" / ".cache" / "heat_tpu_torch"
+    else:
+        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / xdg))
+        expected = tmp_path / xdg / "heat_tpu_torch"
+    assert _build.build_dir() == expected
+    assert site not in _build.build_dir().parents

@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 of heat_tpu_torch (``csrc/sketch.cu``).
+"""Kernels K1 and K2 of heat_tpu_torch (``csrc/sketch.cu``, and their
+Hopper kernels in ``csrc/sketch_sm90.cu``).
 
 Here, without a card, their plain versions are held against heat_tpu's
 tiled streams (``_pass1_tiles`` plus the ``_pass2_tiles`` norm carry for
@@ -15,7 +16,9 @@ sketch a fresh sum added to a float32 running one, the column sketch over a
 warpgroup's 256 columns, the two warpgroups and the 512-column blocks added
 in order) and held against float64 at ``chip_smoke.py``'s limits, relative
 Frobenius error 1e-5 for w and y and relative error 1e-6 for the norm;
-one-pass TF32 is shown to miss them.
+one-pass TF32 is shown to miss them. K1's Hopper kernel, the same template
+without the column sketch, is emulated the same way (N = 32, each band a
+fresh sum, the row splits added in order).
 """
 
 import numpy as np
@@ -162,6 +165,75 @@ def test_dual_sketch_one_pass_tf32_misses_the_limits(shape, l, k):
     assert ew > TOL_W and ey > TOL_W, (ew, ey)
 
 
+# --------------------------------------------------------------------- #
+# the 3xTF32 arithmetic of K1's Hopper kernel, emulated                 #
+# --------------------------------------------------------------------- #
+K1_BLOCK_COLS = 512  # two consumer warpgroups of 256 columns
+
+
+def _sketch_sm90_emulated(g, a, mm, splits=None):
+    """K1's Hopper kernel on numpy arrays: ``mm(x, y)`` multiplies in steps
+    of 8 along K into a fresh float32 accumulator. Row splits as the wrapper
+    chooses them for an H100 (or ``splits``), each 64-row band's wᵀ a fresh
+    sum added to the split's float32 one, the splits' partials added in
+    order; the norm in float32 over a 64 x 64 tile and float64 across
+    tiles."""
+    (m, n), l = a.shape, g.shape[0]
+    bands, cblocks = -(-m // BAND), -(-n // K1_BLOCK_COLS)
+    splits = splits or max(1, min(bands, SMS // cblocks))
+    rows = -(-bands // splits) * BAND
+    ap = np.zeros((bands * BAND, n), np.float32)
+    ap[:m] = a
+    gp = np.zeros((l, bands * BAND), np.float32)
+    gp[:, :m] = g
+    w = None
+    norm = 0.0
+    for r0 in range(0, m, rows):
+        wsum = np.zeros((n, l), np.float32)
+        for b0 in range(r0, min(m, r0 + rows), BAND):
+            band = ap[b0 : b0 + BAND]
+            wsum = wsum + mm(band.T, gp[:, b0 : b0 + BAND].T)
+            for c0 in range(0, n, 64):
+                norm += float(np.square(band[:, c0 : c0 + 64]).sum(dtype=np.float32))
+        w = wsum if w is None else w + wsum
+    return w.T, norm
+
+
+def _sketch_errors(shape, l, mult, mm, splits=None, seed=0):
+    a, g, _ = _inputs(shape, l, seed=seed)
+    a = (a * mult).astype(np.float32)
+    w, norm = _sketch_sm90_emulated(g, a, mm, splits)
+    a64 = a.astype(np.float64)
+    ref_norm = float(np.square(a64).sum())
+    return _rel(w, g.astype(np.float64) @ a64), abs(norm - ref_norm) / ref_norm
+
+
+# (shape, l, scale, row splits): ragged rows and columns (n % 4 == 0, the
+# kernel's rule), l at its ends and the 2-pass hSVD's 25, inputs scaled by
+# 1e±3, and one split of 8192 rows (the main shape's) over 512 columns
+SKETCH_SM90_CASES = [
+    ((1000, 776), 25, 1.0, None),
+    ((1003, 776), 1, 1.0, None),
+    ((1000, 776), 32, 1e3, None),
+    ((1000, 1032), 25, 1e-3, None),
+    ((130, 8), 7, 1.0, None),
+    ((1003, 1032), 32, 1.0, 1),
+    ((8192, 512), 25, 1.0, 1),
+]
+
+
+@pytest.mark.parametrize("shape, l, mult, splits", SKETCH_SM90_CASES)
+def test_sketch_3xtf32_stays_within_the_limits(shape, l, mult, splits):
+    ew, en = _sketch_errors(shape, l, mult, mm_3xtf32_stepwise, splits)
+    assert ew <= TOL_W and en <= TOL_NORM, (ew, en)
+
+
+@pytest.mark.parametrize("shape, l", [((1000, 776), 25), ((1003, 776), 1), ((1000, 1032), 32)])
+def test_sketch_one_pass_tf32_misses_the_limits(shape, l):
+    ew, _ = _sketch_errors(shape, l, 1.0, mm_1xtf32_steps)
+    assert ew > TOL_W, ew
+
+
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
     a, g, omega = (torch.from_numpy(x) for x in _inputs((700, 530), 59, 24))
     launches = (cs.SKETCH_LAUNCHES, cs.DUAL_LAUNCHES)
@@ -183,21 +255,54 @@ def test_cuda_tensors_launch_or_raise_never_compute_on_cpu(monkeypatch):
 
     monkeypatch.setattr(cs, "sketch_with_norm_plain", refuse)
     monkeypatch.setattr(cs, "dual_sketch_with_norm_plain", refuse)
-    launches = (cs.SKETCH_LAUNCHES, cs.DUAL_LAUNCHES)
+    launches = (cs.SKETCH_LAUNCHES, cs.DUAL_LAUNCHES, cs.SKETCH_SM90_LAUNCHES, cs.DUAL_SM90_LAUNCHES)
     host_g = torch.zeros((7, 64))
     with FakeTensorMode():
         a = torch.empty((64, 48), device="cuda")
         g = torch.empty((7, 64), device="cuda")
         omega = torch.empty((48, 5), device="cuda")
-        with pytest.raises(RuntimeError):  # nothing here can build or launch the kernel
-            cs.sketch_with_norm(g, a)
-        with pytest.raises(RuntimeError):
-            cs.dual_sketch_with_norm(g, omega, a)
+        for a_ in (a, torch.empty((64, 47), device="cuda")):  # the Hopper kernels' route and sketch.cu's
+            with pytest.raises(RuntimeError):  # nothing here can build or launch the kernel
+                cs.sketch_with_norm(g, a_)
+            with pytest.raises(RuntimeError):
+                cs._sketch_with_norm_sketch_cu(g, a_)
+            with pytest.raises(RuntimeError):
+                cs.dual_sketch_with_norm(g, omega[: a_.shape[1]], a_)
         with pytest.raises(ValueError):  # operands on two devices
             cs.sketch_with_norm(host_g, a)
         with pytest.raises(TypeError):  # the kernels take float32 only
             cs.sketch_with_norm(g.double(), a.double())
-    assert (cs.SKETCH_LAUNCHES, cs.DUAL_LAUNCHES) == launches
+    assert (cs.SKETCH_LAUNCHES, cs.DUAL_LAUNCHES, cs.SKETCH_SM90_LAUNCHES, cs.DUAL_SM90_LAUNCHES) == launches
+
+
+def test_sketch_dispatch_picks_the_kernel_up_front(monkeypatch):
+    """On (fake) CUDA tensors K1's route is chosen before any launch: the
+    Hopper kernel's library for n % 4 == 0, sketch.cu's for the rest and
+    whenever the Hopper kernel is shut off."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the fake CUDA tensors below would be launched")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    class Loaded(Exception):
+        pass
+
+    def loader(name):
+        def load():
+            raise Loaded(name)
+
+        return load
+
+    monkeypatch.setattr(cs, "_lib_sm90", loader("sketch_sm90"))
+    monkeypatch.setattr(cs, "_lib", loader("sketch.cu"))
+    with FakeTensorMode():
+        for n, want in ((8192, "sketch_sm90"), (776, "sketch_sm90"), (4, "sketch_sm90"), (777, "sketch.cu"),
+                        (2, "sketch.cu")):
+            a = torch.empty((300, n), device="cuda")
+            g = torch.empty((25, 300), device="cuda")
+            with pytest.raises(Loaded, match=want):
+                cs.sketch_with_norm(g, a)
+            with pytest.raises(Loaded, match="sketch.cu"):
+                cs._sketch_with_norm_sketch_cu(g, a)
 
 
 @pytest.mark.parametrize(
@@ -219,6 +324,19 @@ def test_dispatch_predicates(l, k, dtype, cuda, k1, k2):
         a = torch.empty((1000, 777), dtype=dtype, device="cuda" if cuda else "cpu")
         assert cs.sketch_serviceable(l, a) is k1
         assert cs.dual_sketch_serviceable(l, k, a) is k2
+        # the Hopper kernels also need n % 4 == 0
+        assert not cs.sketch_sm90_serviceable(l, a) and not cs.dual_sketch_sm90_serviceable(l, k, a)
+        a = torch.empty((1000, 776), dtype=dtype, device="cuda" if cuda else "cpu")
+        assert cs.sketch_sm90_serviceable(l, a) is k1
+        assert cs.dual_sketch_sm90_serviceable(l, k, a) is k2
+
+
+@pytest.mark.parametrize("offset, n, expect", [(0, 776, True), (4, 776, True), (1, 776, False), (0, 777, False)])
+def test_the_hopper_kernels_take_rows_of_whole_16_byte_units(offset, n, expect):
+    base = torch.empty(1000 * 777 + 8)
+    start = (-base.data_ptr() // 4) % 4 + offset  # base aligned to 16 bytes, then `offset` floats on
+    a = base[start : start + 10 * n].view(10, n)
+    assert cs._tma_operand(a) is expect
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
-"""K2's kernels on a card: the Hopper kernel (``csrc/sketch_sm90.cu``, 3xTF32
-``wgmma``, TMA-fed) and ``csrc/sketch.cu``'s FP32 kernel, each against the
-plain version and against each other on the same inputs.
+"""K1's and K2's kernels on a card: the Hopper kernels (``csrc/sketch_sm90.cu``,
+3xTF32 ``wgmma``, TMA-fed) and ``csrc/sketch.cu``'s FP32 kernels, each
+against the plain version and against each other on the same inputs.
 
 This module imports neither JAX nor heat_tpu, so that it runs where only
 PyTorch and a card are (the repo's ``conftest.py`` imports JAX, so there it
@@ -24,7 +24,7 @@ TOL_W, TOL_NORM = 1e-5, 1e-6
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K2 has no CPU mode")
+        pytest.skip("needs a CUDA card: K1 and K2 have no CPU mode")
     return torch.device("cuda")
 
 
@@ -87,3 +87,49 @@ def test_a_off_16_bytes_takes_sketch_cu():
     moved = buf[1:].view(a.shape)  # contiguous, 4 bytes past 16
     moved.copy_(a)
     _check(moved, g, omega, hopper=False)
+
+
+def _check_k1(a, g, hopper):
+    """K1 on the route its predicate picks (its counters must show which)
+    against the plain version in float64 and against itself on a rerun; on
+    the Hopper kernel sketch.cu's kernel too, on the same inputs."""
+    assert cs.sketch_sm90_serviceable(g.shape[0], a) is hopper
+    launches, sm90 = cs.SKETCH_LAUNCHES, cs.SKETCH_SM90_LAUNCHES
+    w, norm = cs.sketch_with_norm(g, a)
+    assert (cs.SKETCH_LAUNCHES, cs.SKETCH_SM90_LAUNCHES) == (launches + 1, sm90 + int(hopper))
+    rw, rn = cs.sketch_with_norm_plain(g.double(), a.double())
+    assert _rel(w, rw) <= TOL_W and abs(float(norm) - float(rn)) <= TOL_NORM * float(rn)
+    assert all(map(torch.equal, (w, norm), cs.sketch_with_norm(g, a)))
+    if hopper:
+        ow, on = cs._sketch_with_norm_sketch_cu(g, a)
+        assert _rel(ow, rw) <= TOL_W and abs(float(on) - float(rn)) <= TOL_NORM * float(rn)
+
+
+@pytest.mark.parametrize("mult", [1e-3, 1.0, 1e3])
+@pytest.mark.parametrize("l", [1, 7, 25, 32])
+def test_k1_hopper_kernel_at_ragged_shapes(l, mult):
+    # 1003 rows (past the last 64-row band), 776 columns (past a block of columns)
+    a, g, _ = _inputs(1003, 776, l, 1, seed=100 + l, mult=mult)
+    _check_k1(a, g, hopper=True)
+
+
+@pytest.mark.parametrize("m, n", [(1, 4), (64, 512), (130, 8), (5000, 2048)])
+def test_k1_hopper_kernel_at_block_edges(m, n):
+    a, g, _ = _inputs(m, n, 25, 1, seed=m + n + 1)
+    _check_k1(a, g, hopper=True)
+
+
+def test_k1_hopper_kernel_at_the_main_shape():
+    # 65536 x 8192 at the 2-pass hSVD's l = 25
+    a, g, _ = _inputs(65536, 8192, 25, 1, seed=14)
+    _check_k1(a, g, hopper=True)
+
+
+def test_k1_off_the_hopper_rules_takes_sketch_cu():
+    a, g, _ = _inputs(1000, 777, 25, 1, seed=15)
+    _check_k1(a, g, hopper=False)
+    a, g, _ = _inputs(1000, 776, 25, 1, seed=16)
+    buf = torch.empty(a.numel() + 1, device="cuda")
+    moved = buf[1:].view(a.shape)  # contiguous, 4 bytes past 16
+    moved.copy_(a)
+    _check_k1(moved, g, hopper=False)
