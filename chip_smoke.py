@@ -108,8 +108,9 @@ Phases, each of which fails the run by raising:
    context, not a yardstick), both with the 3xTF32 and the FP32 CUDA-core
    operation bounds beside their byte bound; K7's library yardstick is
    PyTorch's sparse tensor of the same matrix, and its rows also carry
-   K7's device time from torch.profiler (``device_ms``: a CUDA-event median
-   of a call this short times the host's launch); PageRank is timed as its
+   K7's device time (``device_ms``: CUDA events around calls queued behind a
+   spin kernel, since a CUDA-event median of one call this short times the
+   host's launch); PageRank is timed as its
    host build and its fixpoint. K9 is held against its plain version (float32
    |Δo| ≤ 1e-5 max|v|, |Δlse| ≤ 1e-5 (1 + |lse|); bf16 elementwise |Δo| ≤
    3 · 2^-8 (|o| + the attention of |v|) and |Δlse| ≤ 1e-4 (1 + |lse|)) and
@@ -259,21 +260,37 @@ def _median_ms(fn, reps: int) -> float:
 
 
 def _device_ms(fn, reps: int) -> float:
-    """Device time of one ``fn()`` (every kernel it launches), from
-    torch.profiler over ``reps`` calls: unlike the CUDA-event median it
-    leaves out the host's time to launch, which sets the event time of a
-    call shorter than about 0.1 ms."""
+    """Device time of one ``fn()`` (every kernel it launches): CUDA events
+    around ``reps`` calls queued behind a spin kernel (``torch.cuda._sleep``)
+    that keeps the card busy while the host submits them, so that the calls
+    run back to back and the span leaves out the host's launch, which sets
+    the event time of a lone call shorter than about 0.1 ms. The span keeps
+    the card's own gap between queued launches (a few microseconds). The
+    spin is checked to outlast the submission (the start event has not
+    fired when the last call is queued) and lengthened until it does."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    # twice the host's time for the reps calls, at a clock of at most 2 GHz
+    cycles = int(4e9 * (time.perf_counter() - t0)) + 1_000_000
+    for _ in range(4):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(reps):
             fn()
+        stop.record()
+        queued = not start.query()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3 / reps
+        if queued:
+            return start.elapsed_time(stop) / reps
+        cycles *= 4
+    raise RuntimeError("chip_smoke: the spin kernel never outlasted the host's submission of the timed calls")
 
 
 def _bound(nbytes: float, flops: float):
@@ -1527,7 +1544,7 @@ def _k7_row(name, S, x, launches, err):
     """K7 (``spmm.cu``) at one of the main path's shapes beside its bound
     (the bricks, indices, masks, x and y once: bytes), its plain version and
     the library's sparse product: its CUDA-event median, which for a call
-    this short times the host's launch, and its device time (profiler)."""
+    this short times the host's launch, and its device time (``_device_ms``)."""
     from heat_tpu_torch.kernels import spmm as ks
 
     bdata, bcol, brow, bmask = S._phys_components
@@ -1549,7 +1566,7 @@ def _k7_row(name, S, x, launches, err):
     bound_ms, bound_by = _bound(nbytes, 2.0 * 1024 * nreal * k)
     print(
         f"{name} (K7, {nreal} bricks, k={k}): {ms:.4f} ms (CUDA events, host launch included), device time "
-        f"(profiler) {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {library_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"(calls queued behind a spin) {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {library_ms:.4f} ms, bound {bound_ms:.4f} "
         f"ms ({bound_by}, {nbytes / 1e9:.4f} GB; {nbytes / (dev_ms * 1e-3) / 1e9:.1f} GB/s achieved on the device, "
         f"{bound_ms / dev_ms:.1%} of the bound)",
         flush=True,
