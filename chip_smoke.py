@@ -82,6 +82,24 @@ Phases, each of which fails the run by raising:
      ht.arange(2**27, split=0).sum() equal to its closed form in int64,
      and resplit and reshape(new_split=) of the 1 GB array against
      torch.reshape;
+   - the distributed hSVD as a 4-rank world on this one card
+     (``world_path``): 4 spawned workers join a gloo world
+     (``init_method=file://``) with every rank's tensors on ``cuda:0``,
+     each makes its own 65536 x 8192 float32 shard and declares it with
+     ``ht.array(local, is_split=...)``: 262144 x 8192 split 0, 2-pass and
+     one-view, 8192 x 262144 split 1, and an exactly rank-8 operand of the
+     first size, both forms, each through ``hsvd_rank(A, 10,
+     compute_sv=True)``. Every rank must launch K1 (2-pass) or K2
+     (one-view), all on the Hopper kernel; U and V must be orthonormal
+     across ranks within 1e-4 (the Gram all-reduced), σ positive,
+     descending and equal bit for bit on every rank, the rank-8 σ within
+     ``RANK8_TOL``. A worker that raises, or a world that does not finish
+     within ``WORLD_TIMEOUT_S``, fails the run. It prints the world's call
+     time (CUDA events on rank 0 between barriers) beside the bound of the
+     four shards' reads on one card, each rank's level-0 time in the call
+     and alone, the one-view copy of Sᵀ alone, and the bytes each rank put
+     into each collective; four processes time-share the card and gloo
+     crosses the host, so these are not a distributed timing;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -232,6 +250,22 @@ TOL_ATT_BF16_LSE = 1e-4
 RESHAPE_1GB = ((1000, 250000), (10_000_000, 25))  # bench.py's reshape_split1_1gb row
 RELAYOUT_P8 = (1_250_000, 25, 32, 8)  # K5's per-rank (rows, c_in, c_out, p) of that move over 8 ranks
 RELAYOUT_WIDE = (67_108_865, 31, 32, 8)  # rows x 32 > 2^31: the kernels' 64-bit index path
+
+
+# the north star as a 4-rank world on the one card: each rank's shard is the
+# per-chip shard above (BASELINE.json), made on the card from its own seed
+WORLD = 4
+WORLD_TIMEOUT_S = 480  # the workers' limit, from the spawn to the last result
+WORLD_REPS = 5
+# (name, each rank's shard, split, single_pass, exactly rank 8)
+WORLD_CONFIGS = (
+    ("split0_2pass", (M, N), 0, False, False),
+    ("split0_one_view", (M, N), 0, True, False),
+    ("split1_2pass", (N, M), 1, False, False),
+    ("rank8_2pass", (M, N), 0, False, True),
+    ("rank8_one_view", (M, N), 0, True, True),
+    ("rank8_split1_2pass", (N, M), 1, False, True),
+)
 
 
 # kernels whose every instantiation must compile without spills (K1's Hopper kernel)
@@ -463,6 +497,13 @@ def check_kernels(dev) -> dict:
         _k1_case(cs, a, gen, l)
     _k1_case(cs, a * 1e-3, gen, 32)
     _k1_case(cs, torch.randn(130, 8, device=dev, generator=gen), gen, 7)
+    del a
+    # the world phase's level-0 shapes that differ from the main path's: a
+    # split-1 shard's pass 1 (g 25 x 8192 over a 8192 x 65536 column block)
+    # and the one-view on a split-0 shard's copied Sᵀ (the same shape)
+    a = torch.randn(N, M, device=dev, generator=gen)
+    _k1_case(cs, a, gen, 25)
+    _k2_case(cs, a, gen)
     del a
     return errs
 
@@ -1037,6 +1078,265 @@ def main_path(dev) -> dict:
     return launches
 
 
+def _count_bytes(comm) -> dict:
+    """Wrap ``comm``'s collectives so that each adds the bytes this rank
+    puts into it to ``moved[name]``; returns ``moved``."""
+    moved = {}
+    for method, key in (("allgather", "all-gather"), ("alltoall", "all-to-all"), ("allreduce", "all-reduce"),
+                        ("bcast", "broadcast")):
+        def wrapped(t, *args, _real=getattr(comm, method), _key=key, **kwargs):
+            moved[_key] = moved.get(_key, 0) + t.numel() * t.element_size()
+            return _real(t, *args, **kwargs)
+        setattr(comm, method, wrapped)
+    return moved
+
+
+def _time_level0(svdtools, events: list) -> None:
+    """Wrap ``svdtools._level0`` so that each call leaves a pair of CUDA
+    events around its device work in ``events`` (read after a sync)."""
+    import torch
+
+    real = svdtools._level0
+
+    def timed(*args, **kwargs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    svdtools._level0 = timed
+
+
+def _world_shard(rank: int, shape, split: int, rank8: bool):
+    """This rank's shard: a standard normal draw from the rank's own seed,
+    or its rows (split 0) or columns (split 1) of an exactly rank-8 matrix
+    (L·diag(σ)·Rᵀ, L and R drawn from one seed on every rank,
+    orthonormalized on the card)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    if not rank8:
+        gen.manual_seed(1000 + rank)
+        return torch.randn(shape, device=dev, generator=gen)
+    gen.manual_seed(2)
+    glob = [shape[0], shape[1]]
+    glob[split] *= WORLD
+    left, _ = torch.linalg.qr(torch.randn(glob[0], 8, device=dev, generator=gen))
+    right, _ = torch.linalg.qr(torch.randn(glob[1], 8, device=dev, generator=gen))
+    block = slice(rank * shape[split], (rank + 1) * shape[split])
+    left, right = (left[block], right) if split == 0 else (left, right[block])
+    return (left * torch.tensor(RANK8_SIGMA, device=dev)) @ right.T
+
+
+def _alone(rank: int, fn, reps: int = 3) -> float:
+    """``fn``'s CUDA-event median on this rank while the other ranks wait
+    at a barrier: the ranks take turns."""
+    import torch.distributed as dist
+
+    ms = None
+    for q in range(WORLD):
+        dist.barrier()
+        if q == rank:
+            ms = _median_ms(fn, reps)
+        dist.barrier()
+    return ms
+
+
+def _world_config(ht, cs, svdtools, comm, moved: dict, level0: list, rank: int, config, profile: bool) -> dict:
+    """One configuration of the world phase on this rank: the counted
+    call, its checks, level 0 alone, then the timed calls (and, with
+    ``profile``, one call profiled on rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    name, shape, split, single_pass, rank8 = config
+    A = ht.array(_world_shard(rank, shape, split, rank8), is_split=split)
+    gshape = (WORLD * shape[0], shape[1]) if split == 0 else (shape[0], WORLD * shape[1])
+    _require(A.shape == gshape and A.split == split and A.larray.is_cuda, f"{name}: A is not the {gshape} split-{split} array on the card")
+    cs.SKETCH_LAUNCHES = cs.DUAL_LAUNCHES = cs.SKETCH_SM90_LAUNCHES = cs.DUAL_SM90_LAUNCHES = 0
+    comm.counts.clear()
+    moved.clear()
+    level0.clear()
+    U, sigma, V, err = ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True, single_pass=single_pass)
+    torch.cuda.synchronize()
+    launches = {"sketch_with_norm": cs.SKETCH_LAUNCHES, "sketch_sm90": cs.SKETCH_SM90_LAUNCHES,
+                "dual_sketch_with_norm": cs.DUAL_LAUNCHES, "dual_sketch_sm90": cs.DUAL_SM90_LAUNCHES}
+    counts, nbytes = dict(comm.counts), dict(moved)
+    kernel, other = ("dual_sketch_with_norm", "sketch_with_norm") if single_pass else ("sketch_with_norm", "dual_sketch_with_norm")
+    sm90 = "dual_sketch_sm90" if single_pass else "sketch_sm90"
+    _require(launches[kernel] > 0 and launches[sm90] == launches[kernel] and launches[other] == 0,
+             f"{name} rank {rank}: launches {launches}, not all on {kernel}'s Hopper kernel")
+    _require(U.shape == (gshape[0], MAXRANK) and V.shape == (gshape[1], MAXRANK) and sigma.shape == (MAXRANK,)
+             and U.split == 0 and V.split == 0, f"{name}: factor shapes or splits")
+    s = sigma.larray
+    _require(bool(torch.isfinite(U.larray).all() and torch.isfinite(V.larray).all() and torch.isfinite(s).all()),
+             f"{name}: non-finite factors")
+    cols = 8 if rank8 else MAXRANK  # past rank 8 σ ≈ 0 and the columns may be zero
+
+    def gram_err(x):
+        xl = x.larray[:, :cols].double()
+        g = comm.allreduce(xl.T @ xl)
+        return float((g - torch.eye(cols, dtype=g.dtype, device=g.device)).abs().max())
+
+    ou, ov = gram_err(U), gram_err(V)
+    _require(max(ou, ov) <= 1e-4, f"{name}: factors not orthonormal across ranks ({ou:.2e}, {ov:.2e})")
+    every = comm.allgather(s.reshape(1, -1))
+    _require(all(torch.equal(every[q], every[0]) for q in range(WORLD)), f"{name}: sigma differs between ranks")
+    e = float(err)
+    if rank8:
+        s_tol, e_tol = RANK8_TOL[single_pass]
+        ref = torch.tensor(RANK8_SIGMA, dtype=torch.float64)
+        rel = float(((s[:8].double().cpu() - ref).abs() / ref).max())
+        _require(rel <= s_tol and 0.0 <= e <= e_tol, f"{name}: sigma rel err {rel:.3e} (tol {s_tol}), err {e} (tol {e_tol})")
+    else:
+        rel = None
+        _require(bool((s[:-1] >= s[1:]).all() and s[-1] > 0), f"{name}: spectrum not positive and descending")
+        _require(0.0 < e <= (float("inf") if single_pass else 1.0), f"{name}: error estimate {e} out of range")
+    level0_first = [a.elapsed_time(b) for a, b in level0]
+    del U, sigma, V, err
+    # level 0 and the one-view copy of Sᵀ on this rank alone, the other
+    # ranks waiting at a barrier (inside the call the card time-slices
+    # the four ranks' contexts)
+    transposed = split == 0
+    m, n = (gshape[1], gshape[0]) if transposed else gshape
+    params = svdtools._level0_params(m, n, WORLD, MAXRANK, 5, None, single_pass, A.larray)
+    level0_alone_ms = _alone(rank, lambda: svdtools._level0(A.larray, transposed, *params))
+    copy_ms = _alone(rank, lambda: A.larray.T.contiguous()) if single_pass and transposed else None
+    # the world's call: CUDA events on each rank between barriers
+    call_ms, level0_ms = [], []
+    for _ in range(WORLD_REPS):
+        level0.clear()
+        dist.barrier()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True, single_pass=single_pass)
+        stop.record()
+        torch.cuda.synchronize()
+        dist.barrier()
+        call_ms.append(start.elapsed_time(stop))
+        level0_ms.append(sum(a.elapsed_time(b) for a, b in level0))
+    if profile and rank == 0:
+        profile_breakdown(f"world {name} on rank 0", lambda: ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True))
+    elif profile:
+        ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True)
+        torch.cuda.synchronize()
+    return {
+        "launches": launches, "counts": counts, "bytes": nbytes, "orthonormality": (ou, ov),
+        "sigma": [float(x) for x in s.cpu()], "sigma_rel_err": rel, "err": e, "copy_ms": copy_ms,
+        "call_ms": statistics.median(call_ms), "level0_ms": statistics.median(level0_ms),
+        "level0_first_ms": level0_first, "level0_alone_ms": level0_alone_ms,
+    }
+
+
+def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
+    """One rank of the world phase: joins a gloo world of WORLD processes
+    on ``cuda:0`` and runs every configuration; writes its results (or its
+    traceback) to ``out_dir/rank<r>.json``."""
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    result = {"rank": rank}
+    try:
+        import heat_tpu_torch as ht
+        from heat_tpu_torch.core.linalg import _cuda_sketch as cs
+        from heat_tpu_torch.core.linalg import svdtools
+
+        torch.cuda.set_device(0)
+        ht.use_device(ht.gpu)
+        ht.init_distributed(backend="gloo", init_method=f"file://{init_file}", world_size=WORLD, rank=rank)
+        comm = ht.get_comm()
+        moved, level0 = _count_bytes(comm), []
+        _time_level0(svdtools, level0)
+        for i, config in enumerate(WORLD_CONFIGS):
+            result[config[0]] = _world_config(ht, cs, svdtools, comm, moved, level0, rank, config, profile=i == 0)
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 (the parent fails the run with it)
+        result["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    if "error" in result:
+        raise SystemExit(1)
+
+
+def world_path(dev) -> dict:
+    """The north star as a WORLD-rank world on this one card: the parent
+    has built every kernel; WORLD spawned workers join a gloo world
+    (``init_method=file://``) with every rank's tensors on ``cuda:0`` and
+    each run ``hsvd_rank`` on its per-chip shard (``WORLD_CONFIGS``). Four
+    processes share one card and gloo moves the bytes through the host, so
+    the times are the port's on one card, not a distributed timing.
+    Returns each configuration's per-rank launches of its kernel."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="heat_world_")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_world_worker, args=(os.path.join(work, "init"), work), nprocs=WORLD, join=False,
+                             start_method="spawn")
+    failure = None
+    try:
+        deadline = time.monotonic() + WORLD_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the {WORLD}-rank world did not finish in {WORLD_TIMEOUT_S} s")
+    except Exception as e:  # noqa: BLE001 (reported with the workers' tracebacks below)
+        failure = e
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+        for proc in ctx.processes:
+            proc.join(10)
+    results = []
+    for r in range(WORLD):
+        path = os.path.join(work, f"rank{r}.json")
+        results.append(json.load(open(path)) if os.path.exists(path) else {"error": "no result"})
+    shutil.rmtree(work, ignore_errors=True)
+    errors = [f"rank {r}: {res['error']}" for r, res in enumerate(results) if "error" in res]
+    if failure is not None or errors:
+        raise RuntimeError(f"chip_smoke: the {WORLD}-rank world failed: {failure}\n" + "\n".join(errors))
+    print(f"world of {WORLD} ranks on one card (gloo, cuda:0 for every rank): {time.perf_counter() - t0:.1f} s "
+          f"from the spawn", flush=True)
+    launches = {}
+    for name, shape, split, single_pass, rank8 in WORLD_CONFIGS:
+        per = [res[name] for res in results]
+        kernel = "dual_sketch_with_norm" if single_pass else "sketch_with_norm"
+        launches[name] = [p["launches"][kernel] for p in per]
+        passes = 1 if single_pass else 2
+        bound = WORLD * passes * 4.0 * shape[0] * shape[1] / HBM_BYTES_PER_S * 1e3
+        gshape = (WORLD * shape[0], shape[1]) if split == 0 else (shape[0], WORLD * shape[1])
+        copy = (f", Sᵀ copy alone {[round(p['copy_ms'], 4) for p in per]} ms a rank"
+                if per[0]["copy_ms"] is not None else "")
+        print(
+            f"world {name}: hsvd_rank({gshape[0]}x{gshape[1]} split {split}, {MAXRANK}, single_pass={single_pass}) "
+            f"call {per[0]['call_ms']:.4f} ms (rank 0, median of {WORLD_REPS}; ranks "
+            f"{[round(p['call_ms'], 4) for p in per]}), bound {bound:.4f} ms ({WORLD} x {passes} read(s) of a "
+            f"{4 * shape[0] * shape[1] / 1e9:.4f} GB shard); level 0 a rank {[round(p['level0_ms'], 4) for p in per]} ms "
+            f"in the call, {[round(p['level0_alone_ms'], 4) for p in per]} ms alone{copy}; launches of {kernel} a rank {launches[name]} (all on its Hopper kernel); collectives a rank "
+            f"{per[0]['counts']}, bytes a rank put in {per[0]['bytes']}; orthonormality "
+            f"{max(max(p['orthonormality']) for p in per):.2e} (tol 1e-4); sigma[0]={per[0]['sigma'][0]:.4f} "
+            f"sigma[-1]={per[0]['sigma'][-1]:.4f} (equal on every rank)"
+            + (f", sigma rel err {per[0]['sigma_rel_err']:.3e} (tol {RANK8_TOL[single_pass][0]})" if rank8 else "")
+            + f", err={per[0]['err']:.6f}",
+            flush=True,
+        )
+    return launches
+
+
 def timings(dev, launches: dict, errs: dict) -> list:
     import torch
 
@@ -1080,6 +1380,7 @@ def timings(dev, launches: dict, errs: dict) -> list:
         "max_abs_err": errs["sketch_with_norm"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms, "pr1_ms": pr1_ms, "pr1_err": errs["sketch_with_norm_pr1"],
         "bound_3xtf32_ms": tf32_ms, "bound_fp32_ms": fp32_ms,
+        "world_launches": {k: v for k, v in launches.get("world", {}).items() if "one_view" not in k},
     })
     # K2 on its Hopper kernel (sketch_sm90.cu, 3xTF32 on the tensor cores):
     # bound the read of A (the bytes), beside the 3xTF32 operation bound and
@@ -1111,6 +1412,7 @@ def timings(dev, launches: dict, errs: dict) -> list:
         "max_abs_err": errs["dual_sketch_with_norm"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": None, "pr1_ms": pr1_ms, "pr1_err": errs["dual_sketch_with_norm_pr1"],
         "composed_ms": composed_ms, "bound_3xtf32_ms": tf32_ms, "bound_fp32_ms": fp32_ms,
+        "world_launches": {k: v for k, v in launches.get("world", {}).items() if "one_view" in k},
     })
     A = ht.array(a, split=0)
     for single_pass, passes in ((False, 2), (True, 1)):
@@ -2384,6 +2686,7 @@ def main() -> int:
     sparse_launches = sparse_path(dev, inputs)
     att_launches, att_launches_sm90, att_path_errs = attention_path(dev)
     relayout_launches = relayout_path(dev)
+    launches["world"] = world_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
     rows.extend(sort_timings(dev, sort_launches, sort_errs))

@@ -77,6 +77,7 @@ class TorchCommunication(Communication):
 
     def __init__(self) -> None:
         self.counts: Dict[str, int] = {}
+        self._groups: Dict[Tuple[int, int], tuple] = {}
 
     @property
     def size(self) -> int:
@@ -158,12 +159,31 @@ class TorchCommunication(Communication):
         self._count("all-reduce")
         return out
 
-    def allgather(self, t: torch.Tensor, axis: int = 0, counts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    def subgroups(self, n_groups: int, width: int):
+        """This rank's two process groups of a ``n_groups`` x ``width`` grid
+        of the world: ``within`` (the ``width`` consecutive ranks of its
+        row) and ``across`` (the ranks of its column, one a row). Every
+        rank makes every group, in one order, on the first call for a
+        grid; later calls reuse them."""
+        key = (n_groups, width)
+        if key not in self._groups:
+            rows = [[g * width + j for j in range(width)] for g in range(n_groups)]
+            cols = [[g * width + j for g in range(n_groups)] for j in range(width)]
+            made_rows = [dist.new_group(r) for r in rows]
+            made_cols = [dist.new_group(c) for c in cols]
+            g, j = divmod(self.rank, width)
+            self._groups[key] = (made_rows[g], made_cols[j])
+        return self._groups[key]
+
+    def allgather(
+        self, t: torch.Tensor, axis: int = 0, counts: Optional[Sequence[int]] = None, group=None
+    ) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``axis``, in rank order.
         Rank q's extent along ``axis`` is ``counts[q]`` (default: all equal
         to this rank's); the shards are padded to the largest extent for
-        the one all-gather and trimmed after it."""
-        p = self.size
+        the one all-gather and trimmed after it. ``group`` (one of
+        ``subgroups``) gathers over its members only."""
+        p = self.size if group is None else dist.get_world_size(group)
         axis = axis % max(t.ndim, 1)
         counts = [int(t.shape[axis])] * p if counts is None else [int(c) for c in counts]
         width = max(counts)
@@ -174,7 +194,7 @@ class TorchCommunication(Communication):
         src = _as_bytes(moved)
         buf = torch.empty(p * src.numel(), dtype=torch.uint8, device=t.device)
         if p > 1:
-            dist.all_gather_into_tensor(buf, src)
+            dist.all_gather_into_tensor(buf, src, group=group)
         else:
             buf.copy_(src)
         self._count("all-gather")
@@ -281,6 +301,7 @@ def init_distributed(
     kwargs = {"init_method": init_method, "world_size": world_size, "rank": rank}
     dist.init_process_group(backend, **{k: v for k, v in kwargs.items() if v is not None})
     MPI_WORLD.counts.clear()
+    MPI_WORLD._groups.clear()
     use_comm(MPI_WORLD)
     return MPI_WORLD
 

@@ -1,26 +1,42 @@
-"""Hierarchical SVD, the north-star operation, on one device.
+"""Hierarchical SVD, the north-star operation.
 
-Port of the single-device branch of ``heat_tpu.core.linalg.svdtools``
-(``_hsvd_impl`` :969; Heat reference: heat/core/linalg/svdtools.py,
-``hsvd_rank`` :31, ``hsvd_rtol`` :124, ``hsvd`` :259). At world size 1
-every array is whole on one device, so ``split=None`` and ``split=0`` both
-take this branch, as they do in ``heat_tpu`` on one chip:
+Port of ``heat_tpu.core.linalg.svdtools`` (``_hsvd_impl`` :969; Heat
+reference: heat/core/linalg/svdtools.py, ``hsvd_rank`` :31, ``hsvd_rtol``
+:124, ``hsvd`` :259).
 
-- a small rank budget runs a randomized sketch: the 2-pass HMT range
-  finder (``_sketched_uds_both`` then ``_projection_tail``), or with
-  ``single_pass=True`` Tropp's one-view sketch (``_one_view_uds_both`` then
-  ``_one_view_tail``);
-- otherwise a full SVD.
+One device (world size 1, or an unsplit operand): a small rank budget
+runs a randomized sketch, the 2-pass HMT range finder
+(``_sketched_uds_both`` then ``_projection_tail``) or with
+``single_pass=True`` Tropp's one-view sketch (``_one_view_uds_both`` then
+``_one_view_tail``); otherwise a full SVD. Both factors come out of the
+same passes.
+
+Across ranks (a split operand, ``heat_tpu`` svdtools.py:1086-1185):
+
+1. level 0: every rank reduces its column block of A (of Aᵀ for a split-0
+   operand: its row shard S is a column block of Aᵀ) to ``B_r = U_r·Σ_r``
+   (m × rloc) with a sketch or a full SVD, and the block's discarded
+   energy and ‖·‖²_F (``_level0``). The widths come from the global shape
+   and the world size (``_level0_params``), so every rank takes one route;
+2. the merge: B = [B_1 ∥ … ∥ B_p], split 1, is resplit to rows and
+   factored by TSQR (``qr``); the SVD of the small R gives σ and
+   U = Q·U_R (``_merge_svd``);
+3. truncation and the error estimate from the ``allreduce``d level-0 sums;
+4. the other factor, ``A·V/σ`` or ``Aᴴ·U/σ`` (``_postprocess_v``),
+   re-orthonormalized by Cholesky-QR with the Gram ``allreduce``d.
 
 The streaming reads of A go through the hand-written CUDA kernels of
 ``_cuda_sketch`` where their predicates hold (float32 on CUDA, widths in
 range); everywhere else, and on the CPU, through the fixed-grain tiled
 torch streams ``_pass1_tiles`` / ``_pass2_tiles`` / ``_oneview_tiles``.
-The small products (Gram matrices, the projection ``z = A·Q``) are torch
+On a split-0 operand the 2-pass sketch runs with the passes' roles
+swapped on S (``_sketched_uds_swapped``), so that K1 takes pass 2 in its
+own form and no copy of Sᵀ is made; the one-view sketch copies Sᵀ once a
+rank, since K2 caps the column sketch at k̂ ≤ 32 (``DUAL_MAX_K``). The
+small products (Gram matrices, the projection ``z = A·Q``) are torch
 matmuls in the operand's full precision: torch's default
 ``allow_tf32=False`` keeps float32 products in FP32, as ``heat_tpu``'s
-``precision="highest"`` does. The distributed branch (level-0 sketches and
-the TSQR merge ``_merge_svd``) is ROADMAP.md Queue 1, item 2.
+``precision="highest"`` does.
 """
 
 from __future__ import annotations
@@ -36,6 +52,8 @@ from ..dndarray import DNDarray
 from ..sanitation import sanitize_in
 from . import _cuda_sketch
 from ._lapack import safe_svd
+from .basics import _whole, matmul, transpose
+from .qr import qr
 
 __all__ = ["hsvd", "hsvd_rank", "hsvd_rtol"]
 
@@ -136,14 +154,19 @@ def _gram_orthonormalize(z: torch.Tensor) -> torch.Tensor:
     return z
 
 
-def _cholqr2_refine(v: torch.Tensor) -> torch.Tensor:
+def _cholqr2_refine(v: torch.Tensor, comm=None) -> torch.Tensor:
     """Re-orthonormalize a near-orthonormal ``v`` by two rounds of
     Cholesky-QR; the correction R ≈ I keeps each column paired with its
-    σ. The tiny ridge keeps exact-zero columns at zero instead of NaN."""
+    σ. The tiny ridge keeps exact-zero columns at zero instead of NaN.
+    With ``comm``, ``v`` is this rank's row block of a matrix split 0, and
+    each round's (r, r) Gram is the ``allreduce``d sum of the blocks'."""
     eps = torch.finfo(v.real.dtype if v.is_complex() else v.dtype).eps
     eye = torch.eye(v.shape[1], dtype=v.dtype, device=v.device)
     for _ in range(2):
-        g = torch.conj(v).T @ v + eps * eye
+        g = torch.conj(v).T @ v
+        if comm is not None:
+            g = comm.allreduce(g)
+        g = g + eps * eye
         r = torch.linalg.cholesky(g)  # lower: g = r r^H
         v = torch.conj(torch.linalg.solve_triangular(r, torch.conj(v).T, upper=False)).T
     return v.resolve_conj().contiguous()
@@ -162,11 +185,8 @@ def _sketched_uds_both(a, keep: int, sketch_l: int, want: str = "left", g=None):
     ``g`` (sketch_l, m) defaults to a draw from a generator seeded
     ``0x5BD`` on ``a``'s device; tests pass ``heat_tpu``'s operator.
     Returns (u|None, v|None, s, err_sq, norm_sq)."""
-    m = a.shape[0]
     if g is None:
-        gen = torch.Generator(device=a.device)
-        gen.manual_seed(_SKETCH_SEED)
-        g = _normal((sketch_l, m), a, gen)
+        g = _sketch_operator(sketch_l, a.shape[0], a)
     if _cuda_sketch.sketch_serviceable(sketch_l, a):
         w, norm_sq = _cuda_sketch.sketch_with_norm(g, a)  # pass 1 + norm in one read
         qw = _gram_orthonormalize(torch.conj(w).T)
@@ -176,6 +196,35 @@ def _sketched_uds_both(a, keep: int, sketch_l: int, want: str = "left", g=None):
         qw = _gram_orthonormalize(torch.conj(w).T)
         z, norm_sq = _pass2_tiles(a, qw, _real_zero(a))
     return _projection_tail(z, qw, norm_sq, keep, want)
+
+
+def _sketch_operator(sketch_l: int, m: int, like: torch.Tensor) -> torch.Tensor:
+    """The 2-pass row sketch g (sketch_l, m), drawn from a generator seeded
+    ``0x5BD`` on ``like``'s device (the same draw on every rank)."""
+    gen = torch.Generator(device=like.device)
+    gen.manual_seed(_SKETCH_SEED)
+    return _normal((sketch_l, m), like, gen)
+
+
+def _sketched_uds_swapped(s_loc, keep: int, sketch_l: int, want: str = "left", g=None):
+    """``_sketched_uds_both`` of the block ``a = s_locᵀ`` (m × n_blk)
+    without forming it: pass 1, ``w = g·Sᵀ = (S·gᵀ)ᵀ``, is the tall-skinny
+    stream over S's 512-row tiles; pass 2, ``z = Sᵀ·qw = (qwᵀ·S)ᵀ``, is
+    kernel K1's own form ``sketch_with_norm(qwᵀ, S)``, which takes ‖S‖²_F
+    in the same read. Where K1 does not serve, the norm rides pass 1's
+    stream and pass 2 is ``_pass1_tiles(qwᵀ, S)``."""
+    m = s_loc.shape[1]
+    if g is None:
+        g = _sketch_operator(sketch_l, m, s_loc)
+    if _cuda_sketch.sketch_serviceable(sketch_l, s_loc):
+        w_t, _ = _pass2_tiles(s_loc, g.T, None)  # pass 1: (n_blk, l)
+        qw = _gram_orthonormalize(torch.conj(w_t))
+        z_t, norm_sq = _cuda_sketch.sketch_with_norm(qw.T.contiguous(), s_loc)  # pass 2 + norm in one read
+    else:
+        w_t, norm_sq = _pass2_tiles(s_loc, g.T, _real_zero(s_loc))
+        qw = _gram_orthonormalize(torch.conj(w_t))
+        z_t = _pass1_tiles(qw.T, s_loc)
+    return _projection_tail(z_t.T, qw, norm_sq, keep, want)
 
 
 def _projection_tail(z, qw, norm_sq, keep: int, want: str):
@@ -214,20 +263,24 @@ def _one_view_params(keep: int, cap: int, a: Optional[torch.Tensor] = None):
     return k_hat, l_row
 
 
-def _one_view_uds_both(a, keep: int, k_hat: int, sketch_l: int, want: str = "left", g=None, omega=None):
+def _one_view_uds_both(
+    a, keep: int, k_hat: int, sketch_l: int, want: str = "left", g=None, omega=None, n_draw: Optional[int] = None
+):
     """One-view (single-pass) randomized truncated SVD (Tropp et al.;
     ``heat_tpu`` svdtools.py:387): ``Y = A·Ω``, ``W = Ψ·A`` and ``‖A‖²`` from
     one read of A (kernel K2 where it serves), then ``_one_view_tail``.
 
     ``g`` (sketch_l + 10, m) and ``omega`` (n, k̂) default to draws from one
-    generator seeded ``0x5BD1`` on ``a``'s device; tests pass
+    generator seeded ``0x5BD1`` on ``a``'s device; ``omega`` is drawn
+    ``n_draw`` ≥ n rows wide (default n) and cut to its first n rows, so a
+    short last shard reads the rows the full-width blocks read. Tests pass
     ``heat_tpu``'s operators. Returns (u|None, v|None, s, err_sq, norm_sq)."""
     m, n = a.shape
     if g is None or omega is None:
         gen = torch.Generator(device=a.device)
         gen.manual_seed(_ONEVIEW_SEED)
         g = _normal((sketch_l + _ONEVIEW_ERRQ, m), a, gen)
-        omega = _normal((n, k_hat), a, gen)
+        omega = _normal((n if n_draw is None else n_draw, k_hat), a, gen)[:n].contiguous()
     if _cuda_sketch.dual_sketch_serviceable(g.shape[0], k_hat, a):
         w_full, y, norm_sq = _cuda_sketch.dual_sketch_with_norm(g, omega, a)
     else:
@@ -417,7 +470,7 @@ def _hsvd_impl(
 ):
     dtype = types.float32 if types.heat_type_is_exact(A.dtype) else A.dtype
     if A.is_distributed():
-        raise NotImplementedError("distributed hsvd (level-0 sketches, TSQR merge): see ROADMAP.md Queue 1, item 2")
+        return _hsvd_distributed(A, dtype, maxrank, rtol, safetyshift, compute_sv, single_pass)
     arr = A.larray.to(dtype.torch_type()).contiguous()
     m, n = A.shape
     full_rank_cap = min(m, n)
@@ -472,3 +525,139 @@ def _hsvd_impl(
         return U, err
     sigma = DNDarray(s_t, (int(s_t.shape[0]),), types.canonical_heat_type(s_t.dtype), None, A.device, A.comm)
     return U, sigma, wrap(v_t, (n, r_final)), err
+
+
+# --------------------------------------------------------------------- #
+# across ranks                                                          #
+# --------------------------------------------------------------------- #
+def _level0_params(m: int, n: int, p: int, maxrank: Optional[int], safetyshift: int, rtol: Optional[float],
+                   single_pass: bool, like: Optional[torch.Tensor] = None):
+    """(rloc, lcols, sketch_l, one_view) of the level-0 blocks of an m x n
+    operand (oriented: its n columns split over p ranks), from the global
+    shape and p alone, as ``heat_tpu`` takes them from its padded blocks
+    (svdtools.py:1088-1106): every block counts lcols = ⌈n/p⌉ columns, so a
+    short last shard takes the route of the others. ``like`` gives the
+    dtype and device for K2's predicate (``_one_view_params``)."""
+    lcols = -(-n // p)
+    rloc = min(m, lcols)
+    if maxrank is not None:
+        rloc = min(rloc, maxrank + safetyshift)
+    sketch_l = None
+    if maxrank is not None and not _needs_exact_spectrum(rtol):
+        lmin = min(m, lcols)
+        l = min(rloc + _SKETCH_OVERSAMPLE, lmin)
+        if 4 * l <= lmin:
+            sketch_l = l
+    one_view = None
+    if single_pass and sketch_l is not None:
+        probe = None if like is None else torch.empty((1, 1), dtype=like.dtype, device=like.device)
+        one_view = _one_view_params(min(rloc, lcols), min(m, lcols), probe)
+    return rloc, lcols, sketch_l, one_view
+
+
+def _level0(s_loc: torch.Tensor, transposed: bool, rloc: int, lcols: int, sketch_l, one_view, g=None, omega=None):
+    """Level 0 on this rank (``heat_tpu``'s ``_local_svd_fn`` kernel,
+    svdtools.py:754-779): ``B_r = u·s`` (m x rloc, zero columns past the
+    kept rank), the block's discarded energy and its ‖·‖²_F. The block is
+    ``s_locᵀ`` when ``transposed`` (the shard of a split-0 operand), else
+    ``s_loc``. An empty shard is ``heat_tpu``'s all-zero pad block."""
+    m, ncols = (s_loc.shape[1], s_loc.shape[0]) if transposed else tuple(s_loc.shape)
+    zero = _real_zero(s_loc)
+    if ncols == 0:
+        return torch.zeros((m, rloc), dtype=s_loc.dtype, device=s_loc.device), zero, zero
+    if sketch_l is not None:
+        keep = min(rloc, m, lcols)
+        if one_view is not None:
+            # K2 cannot take the swapped roles (k̂ would be ℓ + 10 > DUAL_MAX_K): Sᵀ is copied once
+            a_blk = s_loc.T.contiguous() if transposed else s_loc
+            u, _, s, err_sq, norm_sq = _one_view_uds_both(a_blk, keep, *one_view, "left", g=g, omega=omega,
+                                                          n_draw=lcols)
+        elif transposed:
+            u, _, s, err_sq, norm_sq = _sketched_uds_swapped(s_loc, keep, sketch_l, "left", g=g)
+        else:
+            u, _, s, err_sq, norm_sq = _sketched_uds_both(s_loc, keep, sketch_l, "left", g=g)
+        b = u * s
+    else:
+        u, s, _ = safe_svd(s_loc.T if transposed else s_loc, full_matrices=False)
+        keep = min(rloc, s.shape[0])
+        b = u[:, :keep] * s[:keep]
+        err_sq, norm_sq = torch.sum(s[keep:] ** 2), torch.sum(s * s)
+    if b.shape[1] < rloc:
+        b = torch.cat([b, b.new_zeros((m, rloc - b.shape[1]))], dim=1)
+    return b.contiguous(), err_sq, norm_sq
+
+
+def _merge_svd(B: DNDarray):
+    """SVD of the stacked level-0 factors B (m x K, split 1): resplit to
+    rows, TSQR, and the SVD of the small (K, K) R, so U = Q·U_R split 0
+    (``heat_tpu`` svdtools.py:818). A short-fat B (m < K) is gathered.
+    The small SVD's factors are broadcast from rank 0, so that σ and U_R
+    are the same bits on every rank. Returns (U, σ)."""
+    comm = B.comm
+    m, K = B.shape
+    if m >= K:
+        q, r = qr(B.resplit(0))
+        u_r, s, _ = safe_svd(r.larray, full_matrices=False)
+        u_r, s = comm.bcast(u_r.contiguous()), comm.bcast(s.contiguous())
+        return DNDarray(q.larray @ u_r, (m, int(u_r.shape[1])), q.dtype, 0, B.device, comm), s
+    u, s, _ = safe_svd(_whole(B), full_matrices=False)
+    u, s = comm.bcast(u.contiguous()), comm.bcast(s.contiguous())
+    rows = comm.chunk((m, int(u.shape[1])), 0)[2]
+    return DNDarray(u[rows].contiguous(), tuple(u.shape), B.dtype, 0, B.device, comm), s
+
+
+def _hsvd_distributed(A: DNDarray, dtype, maxrank, rtol, safetyshift: int, compute_sv: bool, single_pass: bool):
+    """``_hsvd_impl`` for an operand split across ranks (``heat_tpu``
+    svdtools.py:1086-1185): U and V come out split 0."""
+    comm = A.comm
+    p = comm.size
+    transposed = A.split == 0
+    m, n = (A.shape[1], A.shape[0]) if transposed else A.shape
+    full_rank_cap = min(m, n)
+    s_loc = A._balanced_larray().to(dtype.torch_type()).contiguous()
+    rloc, lcols, sketch_l, one_view = _level0_params(m, n, p, maxrank, safetyshift, rtol, single_pass, s_loc)
+    b, err_sq, norm_sq = _level0(s_loc, transposed, rloc, lcols, sketch_l, one_view)
+    sums = comm.allreduce(torch.stack([err_sq, norm_sq]))
+    U_merged, s_all = _merge_svd(DNDarray(b, (m, p * rloc), dtype, 1, A.device, comm))
+    if rtol is None:
+        r_final = max(1, min(maxrank, min(int(s_all.shape[0]), full_rank_cap)))
+        err = _err_scalar(
+            torch.sqrt(sums[0] + torch.sum(s_all[r_final:] ** 2)) / torch.clamp(torch.sqrt(sums[1]), min=1e-30), A
+        )
+    else:
+        s_host = s_all.cpu().numpy()
+        level_err_sq, nrm_sq = (float(x) for x in sums.cpu())
+        a_norm = float(np.sqrt(max(nrm_sq, 0.0)))
+        r_final = _choose_rank(s_host, maxrank, rtol, a_norm, level_err_sq, full_rank_cap)
+        merge_err_sq = float(np.sum(s_host[r_final:] ** 2))
+        err = _err_scalar(float(np.sqrt(level_err_sq + merge_err_sq)) / max(a_norm, 1e-30), A)
+    u_arr = DNDarray(U_merged.larray[:, :r_final].contiguous(), (m, r_final), dtype, 0, A.device, comm)
+    s_t = s_all[:r_final]
+    sigma = DNDarray(s_t, (r_final,), types.canonical_heat_type(s_t.dtype), None, A.device, comm)
+    if transposed:
+        # the left factors of Aᵀ are conj(V) (Aᵀ = conj(V) Σ Uᵀ): complex inputs conjugate on the relabel
+        v_of_a = DNDarray(torch.conj(u_arr.larray).resolve_conj(), u_arr.shape, dtype, 0, A.device, comm)
+        U = _postprocess_v(A, v_of_a, sigma, left=True)
+        return (U, sigma, v_of_a, err) if compute_sv else (U, err)
+    if not compute_sv:
+        return u_arr, err
+    return u_arr, sigma, _postprocess_v(A, u_arr, sigma, left=False), err
+
+
+def _postprocess_v(A: DNDarray, factor: DNDarray, sigma: DNDarray, left: bool) -> DNDarray:
+    """The complementary factor (``heat_tpu`` svdtools.py:1188):
+    ``U = A·V/σ`` (``left``) or ``V = Aᴴ·U/σ``, then two rounds of
+    Cholesky-QR. The product is split 0, so each round's Gram is the
+    ``allreduce``d sum of the ranks' row blocks: without it each rank would
+    orthonormalize its own block alone."""
+    if left:
+        prod = matmul(A, factor)
+    else:
+        at = transpose(A)
+        if types.heat_type_is_complexfloating(A.dtype):
+            at = DNDarray(torch.conj(at.larray).resolve_conj(), at.shape, at.dtype, at.split, at.device, at.comm)
+        prod = matmul(at, factor)
+    s = sigma.larray
+    scaled = prod.larray * torch.where(s > 0, 1.0 / s, 0.0)
+    scaled = _cholqr2_refine(scaled, prod.comm if prod.is_distributed() else None)
+    return DNDarray(scaled, prod.shape, prod.dtype, prod.split, prod.device, prod.comm)

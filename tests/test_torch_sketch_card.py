@@ -133,3 +133,22 @@ def test_k1_off_the_hopper_rules_takes_sketch_cu():
     moved = buf[1:].view(a.shape)  # contiguous, 4 bytes past 16
     moved.copy_(a)
     _check_k1(moved, g, hopper=False)
+
+
+@pytest.mark.parametrize("rows, m", [(65536, 8192), (1003, 776), (248, 256)])
+def test_k1_in_the_swapped_roles_of_a_split_0_shard(rows, m):
+    # pass 2 of the distributed 2-pass level 0 on a shard S (rows x m):
+    # z = Sᵀ·qw = (qwᵀ·S)ᵀ, K1 with g = qwᵀ (25 x rows) over S, as
+    # svdtools._sketched_uds_swapped calls it (qw orthonormal columns)
+    gen = torch.Generator(device=_card()).manual_seed(rows + m)
+    s = torch.randn(rows, m, device="cuda", generator=gen)
+    qw, _ = torch.linalg.qr(torch.randn(rows, 25, device="cuda", generator=gen))
+    _check_k1(s, qw.T.contiguous(), hopper=True)
+
+
+def test_k1_and_k2_at_the_level_0_shape_of_the_world():
+    # 8192 x 65536: a split-1 shard's 2-pass level 0 (K1, l = 25) and the
+    # one-view level 0 on a split-0 shard's copied Sᵀ (K2, l = 59, k = 24)
+    a, g, omega = _inputs(8192, 65536, 59, 24, seed=16)
+    _check(a, g, omega, hopper=True)
+    _check_k1(a, g[:25].contiguous(), hopper=True)

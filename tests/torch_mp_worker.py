@@ -15,6 +15,63 @@ import traceback
 import numpy as np
 
 
+# linear algebra and the distributed hSVD (tests/test_torch_hsvd_dist.py)
+MATMUL_SHAPES = {"ragged": ((13, 7), (7, 5)), "even": ((16, 12), (12, 8)), "wide": ((6, 40), (40, 3)),
+                 "small_a": ((3, 20), (20, 30)), "thin_k": ((24, 2), (2, 40))}
+# the other functions of linalg/basics.py on split operands: (name, call on
+# either package given x (7, 6), v (9,), w (9,) and c (6, 3) of one split)
+BASICS = {
+    "tril": lambda lib, x, v, w, c: lib.tril(x, 1), "triu": lambda lib, x, v, w, c: lib.triu(x, -2),
+    "tril_vector": lambda lib, x, v, w, c: lib.tril(v, 0), "trace": lambda lib, x, v, w, c: lib.trace(x, offset=1),
+    "transpose": lambda lib, x, v, w, c: x.T, "norm": lambda lib, x, v, w, c: lib.norm(x),
+    "vector_norm_0": lambda lib, x, v, w, c: lib.vector_norm(x, axis=0),
+    "vector_norm_1_inf": lambda lib, x, v, w, c: lib.vector_norm(x, axis=1, ord=float("inf")),
+    "vector_norm_min": lambda lib, x, v, w, c: lib.vector_norm(x, ord=-float("inf")),
+    "matrix_norm_1": lambda lib, x, v, w, c: lib.matrix_norm(x, ord=1),
+    "inv": lambda lib, x, v, w, c: lib.inv(lib.matmul(x.T, x)),
+    "det": lambda lib, x, v, w, c: lib.det(lib.matmul(x.T, x)),
+    "dot": lambda lib, x, v, w, c: lib.dot(v, w), "vdot": lambda lib, x, v, w, c: lib.vdot(x, x),
+    "outer": lambda lib, x, v, w, c: lib.outer(v, w), "projection": lambda lib, x, v, w, c: lib.projection(v, w),
+    "vecdot_0": lambda lib, x, v, w, c: lib.vecdot(x, x, axis=0),
+    "vecdot_1": lambda lib, x, v, w, c: lib.vecdot(x, x, axis=1, keepdims=True),
+    "cross": lambda lib, x, v, w, c: lib.cross(c, lib.tril(c, 1)),
+}
+
+
+def basics_operands(lib, split, **kw):
+    """x (7, 6), v and w (9,), c (6, 3) for BASICS, split like ``split``
+    (vectors split 0 where ``split`` is not None)."""
+    vs = None if split is None else 0
+    return (lib.array(_array((7, 6), "float32", 51), split=split, **kw),
+            lib.array(_array((9,), "float32", 52), split=vs, **kw),
+            lib.array(_array((9,), "float32", 53), split=vs, **kw),
+            lib.array(_array((6, 3), "float32", 54), split=split, **kw))
+QR_SHAPES = {"tall": (50, 7), "short_last": (9, 3), "ragged_rows": (61, 16)}
+HSVD_SHAPE = (995, 256)  # split 0 (and its transpose split 1): blocks of 249 rows, the last 248
+HSVD_BOUNDARY = (397, 128)  # blocks of 100 (sketch: 4 l = 100 ≤ 100), the last 97 (alone it would take the full SVD)
+HSVD_CALLS = ("rank", "rank_one_view", "rtol", "hsvd")
+RANK8_SIGMA = np.arange(8, 0, -1.0)
+
+
+def rank8(shape, seed=1):
+    """An exactly rank-8 float32 matrix with σ = 8, 7, ..., 1."""
+    rng = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(rng.standard_normal((shape[0], 8)))
+    v, _ = np.linalg.qr(rng.standard_normal((shape[1], 8)))
+    return ((u * RANK8_SIGMA) @ v.T).astype(np.float32)
+
+
+def hsvd_call(lib, x, call: str, compute_sv: bool):
+    """One of HSVD_CALLS on either package."""
+    if call == "rank":
+        return lib.linalg.hsvd_rank(x, 10, compute_sv=compute_sv)
+    if call == "rank_one_view":
+        return lib.linalg.hsvd_rank(x, 10, compute_sv=compute_sv, single_pass=True)
+    if call == "rtol":
+        return lib.linalg.hsvd_rtol(x, 0.01, compute_sv=compute_sv)
+    return lib.linalg.hsvd(x, maxrank=10, compute_sv=compute_sv)
+
+
 ATTENTION_SHAPE = (2, 3, 37, 8)  # (B, H, S, D): a ragged S over 4 ranks
 ATTENTION_UNSPLIT_Q = ((False, 2, 2), (True, 2, 2), (True, None, 2))  # (causal, k's split, v's split)
 
@@ -188,8 +245,6 @@ def _cases(ht):
         return ht.array(_array(shape, "float32", 8), split=split)
 
     entry = {
-        "hsvd_rank": lambda: ht.linalg.hsvd_rank(split_x((64, 16)), 4),
-        "hsvd": lambda: ht.linalg.hsvd(split_x((64, 16)), maxrank=4),
         "sort_split_axis": lambda: ht.sort(split_x((40,))),
         "topk_split_axis": lambda: ht.topk(split_x((40,)), 3),
         "unique": lambda: ht.unique(split_x((40,))),
@@ -231,6 +286,107 @@ def _cases(ht):
         return {"sort": (_np(v.larray), _np(i.larray), v.gshape, v.split), "topk": (_np(tv.larray), _np(ti.larray)),
                 "flip": _np(f.larray), "moveaxis": (_np(m.larray), m.gshape, m.split), "sort_global": v.numpy()}
     cases["entry_served"] = served
+    cases.update(_linalg_cases(ht))
+    return cases
+
+
+def _linalg_cases(ht):
+    """matmul over split pairs, TSQR, QR and the distributed hSVD."""
+    import importlib
+    from unittest import mock
+
+    import torch
+
+    comm = ht.get_comm()
+    psvd = importlib.import_module("heat_tpu_torch.core.linalg.svdtools")
+    pqr = importlib.import_module("heat_tpu_torch.core.linalg.qr")
+    cases = {}
+
+    def arr(x):
+        return {"local": _np(x.larray), "split": x.split, "gshape": x.gshape, "global": x.numpy(),
+                "dtype": x.dtype.__name__}
+
+    for label, (sa_shape, sb_shape) in MATMUL_SHAPES.items():
+        for sa in (None, 0, 1):
+            for sb in (None, 0, 1):
+                def matmul_case(sa_shape=sa_shape, sb_shape=sb_shape, sa=sa, sb=sb):
+                    a = ht.array(_array(sa_shape, "float32", 41), split=sa)
+                    b = ht.array(_array(sb_shape, "float32", 42), split=sb)
+                    comm.counts.clear()
+                    c = ht.matmul(a, b)
+                    counts = dict(comm.counts)
+                    return {**arr(c), "counts": counts}
+                cases[f"matmul_{label}_{sa}_{sb}"] = matmul_case
+
+    for name, fn in BASICS.items():
+        for split in (None, 0, 1):
+            def basics_case(fn=fn, split=split):
+                return arr(fn(ht, *basics_operands(ht, split)))
+            cases[f"basics_{name}_{split}"] = basics_case
+
+    for label, shape in QR_SHAPES.items():
+        for s in (1, 2):
+            def tsqr_case(shape=shape, s=s):
+                x = ht.array(_array(shape, "float32", 43), split=0)
+                block = -(-shape[0] // comm.size)
+                comm.counts.clear()
+                q, r = pqr._tsqr_local(comm, x.larray, block, True, s)
+                counts = dict(comm.counts)
+                _, r_only = pqr._tsqr_local(comm, x.larray, block, False, s)
+                q_arr = ht.DNDarray(q, (shape[0], q.shape[1]), ht.float32, 0, x.device, comm)
+                return {"q": arr(q_arr), "r": _np(r), "r_only": _np(r_only), "counts": counts}
+            cases[f"tsqr_{label}_{s}"] = tsqr_case
+        for split in (None, 0, 1):
+            def qr_case(shape=shape, split=split):
+                q, r = ht.linalg.qr(ht.array(_array(shape, "float32", 43), split=split))
+                return {"q": arr(q), "r": arr(r)}
+            cases[f"qr_{label}_{split}"] = qr_case
+
+    seen = []
+
+    def recording(fn):
+        def wrapped(s_loc, transposed, rloc, lcols, sketch_l, one_view, *args, **kw):
+            seen.append({"rows": int(s_loc.shape[0]), "cols": int(s_loc.shape[1]), "rloc": rloc, "lcols": lcols,
+                         "sketch_l": sketch_l, "one_view": one_view})
+            return fn(s_loc, transposed, rloc, lcols, sketch_l, one_view, *args, **kw)
+        return wrapped
+
+    for split in (0, 1):
+        a = rank8(HSVD_SHAPE) if split == 0 else rank8(HSVD_SHAPE).T.copy()
+        for call in HSVD_CALLS:
+            for compute_sv in (True, False):
+                def hsvd_case(a=a, split=split, call=call, compute_sv=compute_sv):
+                    seen.clear()
+                    with mock.patch.object(psvd, "_level0", recording(psvd._level0)):
+                        out = hsvd_call(ht, ht.array(a, split=split), call, compute_sv)
+                    res = {"U": arr(out[0]), "err": float(out[-1]), "err_dtype": out[-1].dtype.__name__,
+                           "err_split": out[-1].split, "level0": list(seen)}
+                    if compute_sv:
+                        res.update(sigma=arr(out[1]), V=arr(out[2]))
+                    return res
+                cases[f"hsvd_{split}_{call}_{compute_sv}"] = hsvd_case
+
+    def boundary():
+        seen.clear()
+        with mock.patch.object(psvd, "_level0", recording(psvd._level0)):
+            U, s, V, err = ht.linalg.hsvd_rank(ht.array(rank8(HSVD_BOUNDARY), split=0), 10, compute_sv=True)
+        return {"level0": list(seen), "sigma": _np(s.larray), "U": arr(U), "V": arr(V)}
+    cases["hsvd_boundary"] = boundary
+
+    def refine():
+        # a split-0 near-orthonormal matrix: the refine with the Gram
+        # allreduced against the refine of the whole matrix on one rank
+        rng = np.random.default_rng(44)
+        q, _ = np.linalg.qr(rng.standard_normal((37, 5)))
+        v = (q + 1e-3 * rng.standard_normal((37, 5))).astype(np.float32)
+        mine = torch.from_numpy(v[comm.chunk((37, 5), 0)[2]].copy())
+        together = psvd._cholqr2_refine(mine, comm)
+        alone = psvd._cholqr2_refine(mine, None)
+        whole = psvd._cholqr2_refine(torch.from_numpy(v), None)
+        gather = comm.allgather
+        return {"together": _np(gather(together, 0, comm.lshape_map((37, 5), 0)[:, 0])),
+                "alone": _np(gather(alone, 0, comm.lshape_map((37, 5), 0)[:, 0])), "whole": _np(whole)}
+    cases["refine"] = refine
     return cases
 
 
