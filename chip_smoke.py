@@ -99,7 +99,26 @@ Phases, each of which fails the run by raising:
      four shards' reads on one card, each rank's level-0 time in the call
      and alone, the one-view copy of Sᵀ alone, and the bytes each rank put
      into each collective; four processes time-share the card and gloo
-     crosses the host, so these are not a distributed timing;
+     crosses the host, so these are not a distributed timing. The same
+     world then runs, each rank's shards made on the card from its own
+     seed: ``KMeans(8, init="kmeans++")`` for 20 iterations and
+     ``predict`` on 15,625,000 x 64 float32 a rank (BASELINE #4 at world
+     size 4), where every rank must launch K3 ``n_iter_`` times and hold
+     the same centers bit for bit, eight planted blobs (two a rank) must
+     be recovered, and a fit from one point per blob must equal a Lloyd
+     loop on the plain assignment with the same all-reduce; then
+     ``ring_attention`` with q, k and v split 2 at bench.py's RA row
+     (float32 causal and not, bf16 causal), its RAB row (bf16 causal) and
+     a ragged 4097-token RA (float32 causal), where rank r must launch K9
+     r + 1 times causal and 4 times not, all on the Hopper path, and the
+     gathered output must agree with the plain version on the whole q, k
+     and v; then ``cdist(X, ring=True)`` (the half ring),
+     ``cdist(X, Y, quadratic_expansion=True, ring=True)`` and ``rbf(X,
+     ring=False)`` on 65536 x 64 float32 split 0, each rank's rows within
+     1e-5 of the scale of a float64 result on sampled rows and of the
+     other route (ring against gather). Each prints its time beside its
+     bound, the collectives and bytes a rank, and the bytes gloo's
+     send/receive staged through the host;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -255,7 +274,7 @@ RELAYOUT_WIDE = (67_108_865, 31, 32, 8)  # rows x 32 > 2^31: the kernels' 64-bit
 # the north star as a 4-rank world on the one card: each rank's shard is the
 # per-chip shard above (BASELINE.json), made on the card from its own seed
 WORLD = 4
-WORLD_TIMEOUT_S = 480  # the workers' limit, from the spawn to the last result
+WORLD_TIMEOUT_S = 720  # the workers' limit, from the spawn to the last result
 WORLD_REPS = 5
 # (name, each rank's shard, split, single_pass, exactly rank 8)
 WORLD_CONFIGS = (
@@ -1083,7 +1102,7 @@ def _count_bytes(comm) -> dict:
     puts into it to ``moved[name]``; returns ``moved``."""
     moved = {}
     for method, key in (("allgather", "all-gather"), ("alltoall", "all-to-all"), ("allreduce", "all-reduce"),
-                        ("bcast", "broadcast")):
+                        ("bcast", "broadcast"), ("ring_exchange", "collective-permute")):
         def wrapped(t, *args, _real=getattr(comm, method), _key=key, **kwargs):
             moved[_key] = moved.get(_key, 0) + t.numel() * t.element_size()
             return _real(t, *args, **kwargs)
@@ -1231,6 +1250,238 @@ def _world_config(ht, cs, svdtools, comm, moved: dict, level0: list, rank: int, 
     }
 
 
+def _world_ms(fn, reps: int) -> float:
+    """``fn``'s time on this rank (CUDA events on its stream around each
+    call, the ranks starting together after a barrier), median of ``reps``."""
+    import torch
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        dist.barrier()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def _every_rank_ok(comm, ok: bool, what: str) -> None:
+    """Fail every rank where any rank's check failed (one all-reduce), so
+    that no rank waits at the next collective for one that has raised."""
+    import torch
+
+    bad = int(comm.allreduce(torch.tensor([0 if ok else 1])).item())
+    _require(bad == 0, f"{what} (failed on {bad} rank(s))")
+
+
+def _world_kmeans(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """BASELINE #4 at world size 4 on this one card: each rank's 15,625,000 x
+    64 float32 shard from its own seed, ``KMeans(8, kmeans++)`` for 20
+    iterations and ``predict``; then eight planted blobs, two a rank."""
+    import functools
+
+    import torch
+
+    from heat_tpu_torch.cluster import _cuda_assign as ca
+    from heat_tpu_torch.cluster._kcluster import _kmeanspp, _Rows, make_fit_loop
+    from heat_tpu_torch.cluster.kmeans import _lloyd_step
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3000 + rank)
+    X = ht.array(torch.randn(KM_N, KM_D, device=dev, generator=gen), is_split=0)
+    _require(X.shape == (WORLD * KM_N, KM_D) and X.split == 0 and X.larray.is_cuda, "KMeans: X is not split 0 on the card")
+
+    def fit():
+        return ht.cluster.KMeans(n_clusters=KM_K, init="kmeans++", max_iter=KM_ITERS, tol=-1.0, random_state=0).fit(X)
+
+    ca.ASSIGN_LAUNCHES = 0
+    comm.counts.clear()
+    moved.clear()
+    km = fit()
+    torch.cuda.synchronize()
+    launches, counts, nbytes = ca.ASSIGN_LAUNCHES, dict(comm.counts), dict(moved)
+    _require(km.n_iter_ == KM_ITERS and launches == km.n_iter_,
+             f"KMeans rank {rank}: n_iter {km.n_iter_}, K3 launches {launches}")
+    centers = km.cluster_centers_.larray
+    every = comm.allgather(centers[None])
+    same = all(torch.equal(every[q], every[0]) for q in range(WORLD))
+    finite = bool(torch.isfinite(centers).all()) and math.isfinite(km.inertia_)
+    predicted = torch.equal(km.predict(X).larray, km.labels_.larray) and km.labels_.split == 0
+    _every_rank_ok(comm, same and finite and predicted, "KMeans across ranks: centers not equal bit for bit on every "
+                   "rank, not finite, or predict(X) not labels_")
+    fit_ms = _world_ms(fit, 2)
+    x, rows = X.larray, _Rows.of(X)
+    seed_ms = _world_ms(lambda: _kmeanspp(x, KM_K, ht.random._next_generator(KM_K, dev), rows), 2)
+    loop = make_fit_loop(functools.partial(_lloyd_step, comm=comm), -1.0, KM_ITERS, True)
+    loop_ms = _world_ms(lambda: loop(x, centers), 3)
+    inertia = km.inertia_
+    del X, x, km, every
+
+    # eight blobs of the same size, two a rank, means from one seed
+    gen_m = torch.Generator(device=dev)
+    gen_m.manual_seed(6)
+    means = torch.randn(KM_K, KM_D, device=dev, generator=gen_m) * 8.0
+    per = KM_K // WORLD
+    gen.manual_seed(4000 + rank)
+    x = _blobs(gen, KM_N, means[rank * per : (rank + 1) * per])
+    B = ht.array(x, is_split=0)
+
+    def recovered(labels) -> bool:
+        blocks = labels.reshape(per, -1)
+        local = bool((blocks == blocks[:, :1]).all())
+        firsts = comm.allgather(blocks[:, 0].contiguous())
+        return bool(comm.allreduce(torch.tensor([int(local)], device=dev)).item() == WORLD) and \
+            len(torch.unique(firsts)) == KM_K
+
+    km = ht.cluster.KMeans(n_clusters=KM_K, init="kmeans++", random_state=1).fit(B)
+    pp_iter, pp_ok = km.n_iter_, recovered(km.labels_.larray)
+    _require(pp_ok, "kmeans++ across ranks did not recover the eight blobs")
+    init = comm.allgather(x[:: KM_N // per].contiguous())  # the first row of each blob
+    km = ht.cluster.KMeans(n_clusters=KM_K, init=ht.array(init)).fit(B)
+    c = init
+    for _ in range(km.n_iter_):
+        sums, cnt, inr = ca.fused_assign_plain(x, c)
+        packed = comm.allreduce(torch.cat([sums.reshape(-1), cnt, inr.reshape(1)]).double()).float()
+        sums, cnt, inr = packed[: KM_K * KM_D].reshape(KM_K, KM_D), packed[KM_K * KM_D : -1], packed[-1]
+        c = torch.where(cnt[:, None] > 0, sums / torch.clamp_min(cnt[:, None], 1), c)
+    ec = _rel(km.cluster_centers_.larray, c)
+    ei = abs(km.inertia_ - float(inr)) / float(inr)
+    _require(ec <= TOL_SUMS and ei <= TOL_INERTIA and recovered(km.labels_.larray),
+             f"KMeans across ranks from one point per blob: centers rel {ec:.3e}, inertia rel {ei:.3e}")
+    out = {"launches": launches, "n_iter": KM_ITERS, "counts": counts, "bytes": nbytes, "inertia": inertia,
+           "fit_ms": fit_ms, "seed_ms": seed_ms, "loop_ms": loop_ms, "pp_iter": pp_iter, "blob_iter": km.n_iter_,
+           "blob_err": (ec, ei)}
+    del x, B, km
+    return out
+
+
+# ring attention with q split 2 over the ranks: (name, (B, H, S, D), dtype, causal)
+WORLD_ATTENTION = (
+    ("ra_f32_causal", RA, "float32", True),
+    ("ra_f32", RA, "float32", False),
+    ("ra_bf16_causal", RA, "bfloat16", True),
+    ("rab_bf16_causal", RAB, "bfloat16", True),
+    ("ra_f32_causal_4097", RA[:2] + (4097,) + RA[3:], "float32", True),  # ragged: 1025 rows a rank, 1022 on the last
+)
+
+
+def _world_attention(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """``ring_attention`` with q, k and v split along the sequence over the
+    ranks, each rank's shards from its own seed: K9's launches on this rank
+    (r + 1 causal, WORLD not), all on the Hopper path, and the gathered
+    output against the plain version on the whole q, k, v."""
+    import torch
+
+    from heat_tpu_torch.kernels import attention as ka
+
+    gen = torch.Generator(device=dev)
+    out = {}
+    for name, shape, dt, causal in WORLD_ATTENTION:
+        dtype = getattr(torch, dt)
+        lshape = comm.chunk(shape, 2)[1]
+        gen.manual_seed(5000 + rank)
+        q, k, v = (ht.array(torch.randn(lshape, device=dev, generator=gen).to(dtype), is_split=2) for _ in range(3))
+        ka.ATTENTION_LAUNCHES = ka.ATTENTION_SM90_LAUNCHES = 0
+        comm.counts.clear()
+        moved.clear()
+        comm.staged_bytes = 0
+        o = ht.nn.ring_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        launches, sm90 = ka.ATTENTION_LAUNCHES, ka.ATTENTION_SM90_LAUNCHES
+        counts, nbytes, staged = dict(comm.counts), dict(moved), comm.staged_bytes
+        want = rank + 1 if causal else WORLD
+        _every_rank_ok(comm, launches == want and sm90 == launches and o.split == 2 and o.gshape == shape
+                       and o.larray.dtype == dtype and bool(torch.isfinite(o.larray).all()),
+                       f"ring_attention {name}: K9 launches, Hopper path, split, shape or values")
+        sizes = comm.lshape_map(shape, 2)[:, 2]
+        qw, kw, vw, ow = (comm.allgather(t.larray, 2, sizes) for t in (q, k, v, o))
+        err = torch.zeros(2, device=dev, dtype=torch.float64)
+        if rank == 0:
+            ro, _ = ka.flash_attention_plain(qw, kw, vw, causal)
+            err = torch.tensor(_o_errors(ka, ow, ro, qw, kw, vw, causal), device=dev, dtype=torch.float64)
+            del ro
+        err = comm.bcast(err, root=0)
+        del qw, kw, vw, ow
+        _require(float(err[0]) <= 1, f"ring_attention {name} disagrees with the plain version ({float(err[1]):.3e})")
+        ms = _world_ms(lambda: ht.nn.ring_attention(q, k, v, causal=causal), 3)
+        out[name] = {"launches": launches, "sm90": sm90, "err": float(err[0]), "abs_err": float(err[1]),
+                     "counts": counts, "bytes": nbytes, "staged": staged, "ms": ms}
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    return out
+
+
+DIST_N, DIST_D = 65536, 64  # X (and Y): 16384 rows a rank
+DIST_SAMPLE = 64  # rows at each end of a rank's block held against float64
+# (name, the call given ring, the route measured, what is compared: distances, their squares, or rbf values)
+WORLD_DISTANCE = (
+    ("cdist_half_ring", lambda ht, X, Y, ring: ht.spatial.cdist(X, ring=ring), True, "d"),
+    ("cdist_quadratic_ring", lambda ht, X, Y, ring: ht.spatial.cdist(X, Y, quadratic_expansion=True, ring=ring),
+     True, "d2"),
+    ("rbf_gather", lambda ht, X, Y, ring: ht.spatial.rbf(X, ring=ring), False, "rbf"),
+)
+
+
+def _max_abs_diff(a, b, squares: bool, chunk: int = 2048) -> float:
+    """max |a - b| (of their squares with ``squares``), in row chunks: no
+    temporary of a's size."""
+    diffs = []
+    for s in range(0, a.shape[0], chunk):
+        x, y = a[s : s + chunk], b[s : s + chunk]
+        diffs.append(float((x.square() - y.square() if squares else x - y).abs().max()))
+    return max(diffs, default=0.0)
+
+
+def _world_distance(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """The pairwise-distance ring on X = 65536 x 64 float32 split 0 (and Y of
+    the same size): each rank's rows against a float64 reference on sampled
+    rows and against the other route (ring against gather)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6000 + rank)
+    rows = DIST_N // WORLD
+    X = ht.array(torch.randn(rows, DIST_D, device=dev, generator=gen), is_split=0)
+    Y = ht.array(torch.randn(rows, DIST_D, device=dev, generator=gen), is_split=0)
+    out = {}
+    for name, call, ring, kind in WORLD_DISTANCE:
+        comm.counts.clear()
+        moved.clear()
+        comm.staged_bytes = 0
+        D = call(ht, X, Y, ring)
+        torch.cuda.synchronize()
+        counts, nbytes, staged = dict(comm.counts), dict(moved), comm.staged_bytes
+        shape_ok = D.split == 0 and D.gshape == (DIST_N, DIST_N) and D.lshape == (rows, DIST_N)
+        other = Y if kind == "d2" else X
+        whole = comm.allgather(other.larray).double()
+        sample = torch.cat([X.larray[:DIST_SAMPLE], X.larray[-DIST_SAMPLE:]]).double()
+        got = torch.cat([D.larray[:DIST_SAMPLE], D.larray[-DIST_SAMPLE:]]).double()
+        ref = torch.cdist(sample, whole, compute_mode="donot_use_mm_for_euclid_dist")
+        if kind == "d2":
+            got, ref = got.square(), ref.square()
+        elif kind == "rbf":
+            ref = torch.exp(-ref.square() / 2.0)
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max()) / scale
+        routed = call(ht, X, Y, not ring)
+        err_route = _max_abs_diff(D.larray, routed.larray, kind == "d2") / scale
+        del routed, whole
+        _every_rank_ok(comm, shape_ok and err <= 1e-5 and err_route <= 1e-5,
+                       f"{name}: split or shape, or against float64 ({err:.3e}) or the other route "
+                       f"({err_route:.3e}), tol 1e-5 of the scale")
+        del D
+        torch.cuda.empty_cache()
+        ms = _world_ms(lambda: call(ht, X, Y, ring), 3)
+        out[name] = {"counts": counts, "bytes": nbytes, "staged": staged, "err": err, "err_route": err_route,
+                     "ms": ms}
+        torch.cuda.empty_cache()
+    return out
+
+
 def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
     """One rank of the world phase: joins a gloo world of WORLD processes
     on ``cuda:0`` and runs every configuration; writes its results (or its
@@ -1255,6 +1506,9 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
         _time_level0(svdtools, level0)
         for i, config in enumerate(WORLD_CONFIGS):
             result[config[0]] = _world_config(ht, cs, svdtools, comm, moved, level0, rank, config, profile=i == 0)
+            torch.cuda.empty_cache()
+        for phase, run in (("kmeans", _world_kmeans), ("attention", _world_attention), ("distance", _world_distance)):
+            result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
         dist.destroy_process_group()
@@ -1334,7 +1588,54 @@ def world_path(dev) -> dict:
             + f", err={per[0]['err']:.6f}",
             flush=True,
         )
-    return launches
+    shared = "four contexts share one card over gloo, not a distributed timing"
+    per = [res["kmeans"] for res in results]
+    km_bound = WORLD * 4.0 * KM_N * KM_D / HBM_BYTES_PER_S * 1e3
+    print(
+        f"world kmeans: KMeans({WORLD * KM_N}x{KM_D} split 0, k={KM_K}, kmeans++, {KM_ITERS} iterations).fit: "
+        f"{per[0]['fit_ms']:.4f} ms (rank 0, median of 2), seeding {per[0]['seed_ms']:.4f} ms, Lloyd loop "
+        f"{per[0]['loop_ms']:.4f} ms = {per[0]['loop_ms'] / KM_ITERS:.4f} ms an iteration (bound {km_bound:.4f} ms: one "
+        f"read of the {WORLD} shards, {WORLD * 4.0 * KM_N * KM_D / 1e9:.1f} GB); K3 launches a rank "
+        f"{[p['launches'] for p in per]} (= n_iter {KM_ITERS}); centers equal bit for bit on every rank; collectives "
+        f"a rank in the fit {per[0]['counts']}, bytes a rank put in {per[0]['bytes']}; inertia {per[0]['inertia']:.6e}; "
+        f"eight blobs recovered by kmeans++ (n_iter {per[0]['pp_iter']}) and from one point per blob (n_iter "
+        f"{per[0]['blob_iter']}; against a plain Lloyd loop with the same all-reduce: centers rel "
+        f"{per[0]['blob_err'][0]:.3e}, inertia rel {per[0]['blob_err'][1]:.3e}, tol {TOL_SUMS}); {shared}", flush=True,
+    )
+    world = {"hsvd": launches, "kmeans": [p["launches"] for p in per], "attention": {}}
+    for name, shape, dt, causal in WORLD_ATTENTION:
+        per = [res["attention"][name] for res in results]
+        b, h, s, d = shape
+        pairs = s * (s + 1) // 2 if causal else s * s
+        flops = 4.0 * b * h * pairs * d
+        peak = BF16_FLOP_PER_S if dt == "bfloat16" else TF32_FLOP_PER_S / 3
+        world["attention"][name] = [p["launches"] for p in per]
+        print(
+            f"world ring_attention {name}: {shape} {dt} split 2, causal={causal}: {per[0]['ms']:.4f} ms a call "
+            f"(rank 0, median of 3; ranks {[round(p['ms'], 4) for p in per]}), bound {flops / peak * 1e3:.4f} ms "
+            f"({flops / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s{'' if dt == 'bfloat16' else ' (3xTF32)'}); K9 "
+            f"launches a rank {world['attention'][name]} (Hopper path {[p['sm90'] for p in per]}); against the plain "
+            f"version on the whole q, k, v: max |Δo| {per[0]['abs_err']:.3e}, {per[0]['err']:.3f} of its limit "
+            f"{_o_tol_text(getattr(torch, dt))}; collectives a rank {per[0]['counts']}, bytes a rank put "
+            f"in {per[0]['bytes']}, staged through the host {[p['staged'] for p in per]} B a rank; {shared}",
+            flush=True,
+        )
+    for name, _, ring, kind in WORLD_DISTANCE:
+        per = [res["distance"][name] for res in results]
+        share = (WORLD // 2 + 1) / WORLD if name == "cdist_half_ring" else 1.0
+        flops = (2.0 if kind == "d2" else 3.0) * share * DIST_N * DIST_N * DIST_D
+        nbytes = 4.0 * DIST_N * DIST_N
+        bound_ms, bound_by = _bound(nbytes, flops)
+        print(
+            f"world {name}: {DIST_N}x{DIST_N} from {DIST_N}x{DIST_D} float32 split 0, ring={ring}: {per[0]['ms']:.4f} ms "
+            f"a call (rank 0, median of 3; ranks {[round(p['ms'], 4) for p in per]}), bound {bound_ms:.4f} ms "
+            f"({bound_by}: {flops / 1e9:.1f} GFLOP at FP32's 67 TFLOP/s, the output's {nbytes / 1e9:.1f} GB); against "
+            f"float64 on sampled rows {max(p['err'] for p in per):.3e}, against the other route "
+            f"{max(p['err_route'] for p in per):.3e} of the scale (tol 1e-5); collectives a rank {per[0]['counts']}, "
+            f"bytes a rank put in {per[0]['bytes']}, staged through the host {[p['staged'] for p in per]} B a rank; "
+            f"{shared}", flush=True,
+        )
+    return world
 
 
 def timings(dev, launches: dict, errs: dict) -> list:
@@ -1380,7 +1681,7 @@ def timings(dev, launches: dict, errs: dict) -> list:
         "max_abs_err": errs["sketch_with_norm"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms, "pr1_ms": pr1_ms, "pr1_err": errs["sketch_with_norm_pr1"],
         "bound_3xtf32_ms": tf32_ms, "bound_fp32_ms": fp32_ms,
-        "world_launches": {k: v for k, v in launches.get("world", {}).items() if "one_view" not in k},
+        "world_launches": {k: v for k, v in launches["world"]["hsvd"].items() if "one_view" not in k},
     })
     # K2 on its Hopper kernel (sketch_sm90.cu, 3xTF32 on the tensor cores):
     # bound the read of A (the bytes), beside the 3xTF32 operation bound and
@@ -1412,7 +1713,7 @@ def timings(dev, launches: dict, errs: dict) -> list:
         "max_abs_err": errs["dual_sketch_with_norm"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": None, "pr1_ms": pr1_ms, "pr1_err": errs["dual_sketch_with_norm_pr1"],
         "composed_ms": composed_ms, "bound_3xtf32_ms": tf32_ms, "bound_fp32_ms": fp32_ms,
-        "world_launches": {k: v for k, v in launches.get("world", {}).items() if "one_view" in k},
+        "world_launches": {k: v for k, v in launches["world"]["hsvd"].items() if "one_view" in k},
     })
     A = ht.array(a, split=0)
     for single_pass, passes in ((False, 2), (True, 1)):
@@ -2689,9 +2990,16 @@ def main() -> int:
     launches["world"] = world_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
+    rows[-1]["world_launches"] = {"kmeans_fit": launches["world"]["kmeans"]}
     rows.extend(sort_timings(dev, sort_launches, sort_errs))
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
-    rows.extend(attention_timings(dev, att_launches, att_launches_sm90, att_errs, att_path_errs))
+    att_rows = attention_timings(dev, att_launches, att_launches_sm90, att_errs, att_path_errs)
+    for row in att_rows:  # K9's launches a rank in the world's ring at the row's shape
+        key = row["name"].removeprefix("flash_attention_")
+        world = {n: v for n, v in launches["world"]["attention"].items() if n.removesuffix("_4097") == key}
+        if world:
+            row["world_launches"] = world
+    rows.extend(att_rows)
     rows.extend(relayout_timings(dev, relayout_launches, relayout_errs))
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

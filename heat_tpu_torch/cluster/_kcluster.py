@@ -10,12 +10,21 @@ iteration.
 
 Temporaries that XLA never built are not built here either: the
 k-means++ candidate distances are taken one candidate at a time, in row
-chunks, and the L1 distances of the median and medoid steps one center at
-a time.
+chunks, and the L1 distances through ``torch.cdist``.
+
+``heat_tpu`` runs a fit on a mesh-sharded operand as one program. The
+port runs one process per rank: on an operand split along axis 0 each
+rank holds its rows, and every step that needs all of them takes a
+collective (``_Rows``), so that every rank keeps the same centers: the
+k-means++ draws and potentials, the k random rows, the Lloyd step's sums,
+counts and inertia, and the functional value. Only ``KMeans`` has such a
+step; ``KMedians`` and ``KMedoids`` need an exact median across ranks and
+refuse a split operand (ROADMAP.md Queue 1, item 18).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -75,43 +84,109 @@ def _sqdist_to(arr: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _choice(gen: torch.Generator, probs: torch.Tensor, size: int) -> torch.Tensor:
-    """``size`` indices drawn with replacement with probabilities ``probs``,
-    as ``jax.random.choice(p=)`` computes them: the float64 cumulative sum,
-    then a search for ``total · (1 − u)`` with u uniform in [0, 1)."""
-    cum = torch.cumsum(probs.to(torch.float64), dim=0)
-    u = torch.rand(size, generator=gen, dtype=torch.float64, device=probs.device)
-    r = cum[-1] * (1.0 - u)
-    return torch.searchsorted(cum, r).clamp_max(probs.shape[0] - 1)
+class _Rows:
+    """Where the rows of an operand lie: ``comm`` is None for an operand
+    whole on this rank, else the communicator of one split along axis 0
+    with ``counts[q]`` rows on rank q. ``n`` is the global row count and
+    ``offset`` the global index of this rank's first row."""
+
+    def __init__(self, comm, counts):
+        self.comm = comm
+        self.counts = [int(c) for c in counts]
+        self.n = sum(self.counts)
+        self.rank = 0 if comm is None else comm.rank
+        self.offset = sum(self.counts[: self.rank])
+
+    @classmethod
+    def of(cls, x: DNDarray) -> "_Rows":
+        return cls(x.comm, x.counts_displs()[0]) if x.is_distributed() else cls(None, [x.shape[0]])
+
+    def allreduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks (``t`` itself for a whole operand)."""
+        return t if self.comm is None else self.comm.allreduce(t)
+
+    def row(self, arr: torch.Tensor, i: int) -> torch.Tensor:
+        """Global row ``i`` on every rank: one broadcast from its owner."""
+        if self.comm is None:
+            return arr[i]
+        owner = int(np.searchsorted(np.cumsum(self.counts), i, side="right"))
+        mine = arr[i - self.offset] if owner == self.rank else arr.new_zeros(arr.shape[1])
+        return self.comm.bcast(mine.contiguous(), root=owner)
 
 
-def _kmeanspp(arr: torch.Tensor, k: int, gen: torch.Generator) -> torch.Tensor:
+def _draw_rows(arr: torch.Tensor, d2: torch.Tensor, size: int, gen: torch.Generator, rows: _Rows) -> torch.Tensor:
+    """``size`` rows drawn with replacement with probability proportional to
+    ``d2``, as ``jax.random.choice(p=)`` draws them: the float64 cumulative
+    sum, then a search for ``total · (1 − u)`` with u uniform in [0, 1).
+    Across ranks every rank draws the same u; the cumulative sum is each
+    rank's own, after the totals of the ranks before it (one all-gather of
+    the per-rank totals, float64); only the owner of a draw searches its
+    rows, and the drawn rows reach every rank in one all-gather."""
+    cum = torch.cumsum(d2.to(torch.float64), dim=0)
+    u = torch.rand(size, generator=gen, dtype=torch.float64, device=arr.device)
+    if rows.comm is None:
+        return arr[torch.searchsorted(cum, cum[-1] * (1.0 - u)).clamp_max(arr.shape[0] - 1)]
+    comm = rows.comm
+    mine = cum[-1:] if cum.numel() else torch.zeros(1, dtype=torch.float64, device=arr.device)
+    totals = comm.allgather(mine)
+    ends = torch.cumsum(totals, dim=0)
+    r = ends[-1] * (1.0 - u)
+    # a rank without rows owns no draw, also when every total is 0
+    holders = torch.tensor([q for q, c in enumerate(rows.counts) if c], device=arr.device)
+    owner = holders[torch.searchsorted(ends[holders], r).clamp_max(holders.numel() - 1)]
+    picked = arr.new_zeros((size, arr.shape[1]))
+    if arr.shape[0]:
+        start = ends[rows.rank] - totals[rows.rank]
+        local = torch.searchsorted(cum, r - start).clamp_max(arr.shape[0] - 1)
+        picked = torch.where((owner == rows.rank)[:, None], arr[local], picked)
+    every = comm.allgather(picked)  # (p · size, d): rank q's picks at [q · size, (q + 1) · size)
+    return every[owner * size + torch.arange(size, device=arr.device)]
+
+
+def _kmeanspp(arr: torch.Tensor, k: int, gen: torch.Generator, rows: Optional[_Rows] = None) -> torch.Tensor:
     """Greedy k-means++ seeding (``heat_tpu``'s ``_kmeanspp_program``,
     _kcluster.py:150): each step draws 2 + ⌊ln k⌋ candidates with
     probability proportional to the current squared distance and keeps the
-    one that minimizes the potential."""
-    n = arr.shape[0]
+    one that minimizes the potential. ``arr`` holds this rank's rows
+    (``rows``; a whole operand by default): every rank draws the same
+    candidates from the same stream, the first row comes from its owner,
+    and the candidates' potentials are one all-reduce a step, so every rank
+    keeps the same centers."""
+    rows = _Rows(None, [arr.shape[0]]) if rows is None else rows
     n_candidates = 2 + int(np.log(max(k, 2)))
-    first = torch.randint(0, n, (), generator=gen, device=arr.device)
+    first = int(torch.randint(0, rows.n, (), generator=gen, device=arr.device))
     centers = torch.zeros((k, arr.shape[1]), dtype=arr.dtype, device=arr.device)
-    centers[0] = arr[first]
+    centers[0] = rows.row(arr, first)
     d2 = _sqdist_to(arr, centers[0])
     for i in range(1, k):
-        probs = d2 / torch.clamp_min(torch.sum(d2), 1e-30)
-        cand_pts = arr[_choice(gen, probs, n_candidates)]  # (L, d)
+        cand_pts = _draw_rows(arr, d2, n_candidates, gen, rows)  # (L, d)
         cand_d2 = torch.stack([_sqdist_to(arr, p) for p in cand_pts])  # (L, n)
-        potentials = torch.stack([torch.sum(torch.minimum(d2, c)) for c in cand_d2])
+        potentials = rows.allreduce(torch.stack([torch.sum(torch.minimum(d2, c)) for c in cand_d2]))
         best = torch.argmin(potentials)
         centers[i] = cand_pts[best]
         d2 = torch.minimum(d2, cand_d2[best])
     return centers
 
 
+def _random_rows(arr: torch.Tensor, idx: torch.Tensor, rows: _Rows) -> torch.Tensor:
+    """The rows of global indices ``idx`` on every rank: each rank fills
+    the rows it owns, and one all-reduce sums them."""
+    if rows.comm is None:
+        return arr[idx]
+    local = idx - rows.offset
+    here = (local >= 0) & (local < arr.shape[0])
+    picked = arr.new_zeros((idx.numel(), arr.shape[1]))
+    if arr.shape[0]:
+        picked = torch.where(here[:, None], arr[local.clamp(0, arr.shape[0] - 1)], picked)
+    return rows.allreduce(picked)
+
+
 def _pairwise(arr: torch.Tensor, c: torch.Tensor, metric: str = "euclidean") -> torch.Tensor:
     """Sample × center distances: Euclidean through the quadratic
-    expansion, or Manhattan one center at a time."""
+    expansion, or Manhattan through ``torch.cdist`` (no (n, k, d)
+    temporary)."""
     if metric == "manhattan":
-        return torch.stack([torch.sum(torch.abs(arr - cj), dim=1) for cj in c], dim=1)
+        return torch.cdist(arr, c, p=1)
     x2 = torch.sum(arr * arr, dim=1, keepdim=True)
     c2 = torch.sum(c * c, dim=1, keepdim=True).T
     return torch.sqrt(torch.clamp_min(x2 + c2 - 2.0 * (arr @ c.T), 0.0))
@@ -140,35 +215,25 @@ def _masked_median(arr: torch.Tensor, mask: torch.Tensor):
     return lo_v * (1 - w_hi) + hi_v * w_hi, cnt
 
 
-def _predict(arr: torch.Tensor, centers: torch.Tensor, metric: str, eval_fv: bool):
-    """Labels (int64, first-index argmin) and, with ``eval_fv``, the
-    functional value: Σ min d for Manhattan, Σ (min d)² for Euclidean
-    (``heat_tpu``'s ``_predict_program``, _kcluster.py:109)."""
+def _predict(arr: torch.Tensor, centers: torch.Tensor, metric: str, eval_fv: bool, rows: Optional[_Rows] = None):
+    """Labels (int64, first-index argmin) of this rank's rows and, with
+    ``eval_fv``, the functional value over every rank's (one all-reduce):
+    Σ min d for Manhattan, Σ (min d)² for Euclidean (``heat_tpu``'s
+    ``_predict_program``, _kcluster.py:109)."""
     d = _pairwise(arr, centers, metric)
     labels = torch.argmin(d, dim=1)
     if not eval_fv:
         return labels
     dmin = torch.gather(d, 1, labels[:, None])
     fun = torch.sum(dmin) if metric == "manhattan" else torch.sum(dmin**2)
-    return labels, fun
-
-
-def _float_operand(x: DNDarray) -> torch.Tensor:
-    """The operand as a contiguous tensor; integer data become float32.
-    An operand split across ranks is refused: the fit would run on one
-    shard as if it were the whole array."""
-    if x.is_distributed():
-        raise NotImplementedError(
-            "k-clustering of an array split across ranks (the all-reduce of K3's sums, counts and "
-            "inertia, seeding across ranks): see ROADMAP.md Queue 1, item 3"
-        )
-    arr = x.larray
-    arr = arr.to(torch.float32) if types.heat_type_is_exact(x.dtype) else arr
-    return arr.contiguous()
+    return labels, fun if rows is None else rows.allreduce(fun)
 
 
 class _KCluster(BaseEstimator, ClusteringMixin):
     """Base class for k-statistics clustering (reference: _kcluster.py)."""
+
+    #: whether the estimator's fit serves an operand split across ranks
+    _serves_split = False
 
     def __init__(
         self,
@@ -247,20 +312,45 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         return None if self._n_iter is None else int(self._n_iter)
 
     # ------------------------------------------------------------------ #
+    # the operand                                                        #
+    # ------------------------------------------------------------------ #
+    def _operand(self, x: DNDarray):
+        """``(x_rows, arr, rows)``: ``x`` with its samples along axis 0 (an
+        operand split along its features is resplit to 0 first), this
+        rank's rows as a contiguous float tensor (integer data become
+        float32), and where the rows lie. An estimator whose step has no
+        form across ranks refuses a split operand rather than fit one
+        shard as if it were the whole array."""
+        if x.is_distributed():
+            if not self._serves_split:
+                raise NotImplementedError(
+                    f"{type(self).__name__} of an array split across ranks needs an exact median of each "
+                    "cluster's column across ranks: see ROADMAP.md Queue 1, item 18"
+                )
+            if x.split != 0:
+                x = x.resplit(0)
+        arr = x.larray
+        arr = arr.to(torch.float32) if types.heat_type_is_exact(x.dtype) else arr
+        return x, arr.contiguous(), _Rows.of(x)
+
+    # ------------------------------------------------------------------ #
     # initialization (reference: _kcluster.py:87-187)                    #
     # ------------------------------------------------------------------ #
     def _initialize_cluster_centers(self, x: DNDarray) -> None:
+        self._init_centers(*self._operand(x))
+
+    def _init_centers(self, x: DNDarray, arr: torch.Tensor, rows: _Rows) -> None:
+        """The initial centers, the same on every rank: the given array
+        (gathered when split), k rows of one global permutation, or
+        k-means++ over every rank's rows."""
         k = self.n_clusters
         n, d = x.shape
-        arr = _float_operand(x)
         if isinstance(self.init, DNDarray):
-            if self.init.is_distributed():
-                raise NotImplementedError("initial centers split across ranks: see ROADMAP.md Queue 1, item 3")
             if self.init.shape != (k, d):
                 raise ValueError(
                     f"passed centroids need to be of shape ({k}, {d}), got {self.init.shape}"
                 )
-            centers = self.init.larray.to(device=arr.device, dtype=arr.dtype)
+            centers = self.init.resplit(None).larray.to(device=arr.device, dtype=arr.dtype)
         elif isinstance(self.init, str) and self.init == "random":
             # k observations drawn at random from the data
             if k > n:
@@ -268,9 +358,9 @@ class _KCluster(BaseEstimator, ClusteringMixin):
                     f"init='random' draws n_clusters={k} distinct samples, but the data hold only {n}"
                 )
             idx = self._with_stream(lambda: ht_random.randperm(n, device=x.device).larray[:k])
-            centers = arr[idx]
+            centers = _random_rows(arr, idx.to(arr.device), rows)
         elif isinstance(self.init, str) and self.init in _SEEDED_INITS:
-            centers = _kmeanspp(arr, k, self._with_stream(lambda: _seed_generator(k, arr.device)))
+            centers = _kmeanspp(arr, k, self._with_stream(lambda: _seed_generator(k, arr.device)), rows)
         else:
             raise ValueError(
                 f"initialization needs to be 'random', 'probability_based' or a DNDarray, got {self.init}"
@@ -286,8 +376,11 @@ class _KCluster(BaseEstimator, ClusteringMixin):
 
     @staticmethod
     def _labels_of(labels: torch.Tensor, x: DNDarray) -> DNDarray:
+        """Labels of ``x``'s rows (``x`` as ``_operand`` returns it), split
+        0 when ``x`` is split, each rank's shard the labels of its rows."""
         split = 0 if x.split is not None else None
-        return DNDarray(labels, (x.shape[0],), types.int64, split, x.device, x.comm)
+        lmap = x.lshape_map[:, :1] if x.is_distributed() else None
+        return DNDarray(labels, (x.shape[0],), types.int64, split, x.device, x.comm, lmap)
 
     # ------------------------------------------------------------------ #
     # assignment (reference: _kcluster.py:196-209)                       #
@@ -297,12 +390,12 @@ class _KCluster(BaseEstimator, ClusteringMixin):
     def _assign_to_cluster(self, x: DNDarray, eval_functional_value: bool = False) -> DNDarray:
         """Label of the closest center for every sample, with the subclass's
         assignment metric; with ``eval_functional_value`` also sets
-        ``inertia_``."""
+        ``inertia_`` (over every rank's rows)."""
         sanitize_in(x)
-        arr = _float_operand(x)
+        x, arr, rows = self._operand(x)
         c = self._cluster_centers.larray.to(device=arr.device)
         if eval_functional_value:
-            labels, self._inertia = _predict(arr, c, self._assignment_metric, True)
+            labels, self._inertia = _predict(arr, c, self._assignment_metric, True, rows)
         else:
             labels = _predict(arr, c, self._assignment_metric, False)
         return self._labels_of(labels, x)
@@ -314,19 +407,26 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         """The whole fit (``heat_tpu``'s ``_fused_fit_program``,
         _kcluster.py:80): seeding or the given init, the convergence loop
         over ``step(arr, centers)`` (Lloyd / median / medoid), then the
-        final assignment. ``inertia_`` is the last step's when
-        ``returns_inertia``, else the final assignment's functional value."""
+        final assignment. On a split operand the step also takes the
+        communicator (``comm=``) and gives the same centers on every rank.
+        ``inertia_`` is the last step's when ``returns_inertia``, else the
+        final assignment's functional value."""
         sanitize_in(x)
         if x.ndim != 2:
             raise ValueError(f"input needs to be 2-dimensional, got {x.ndim}")
-        arr = _float_operand(x)
-        self._initialize_cluster_centers(x)
+        x, arr, rows = self._operand(x)
+        self._init_centers(x, arr, rows)
+        if rows.comm is not None:
+            step = functools.partial(step, comm=rows.comm)
         loop = make_fit_loop(step, float(self.tol), int(self.max_iter), returns_inertia)
         res = loop(arr, self._cluster_centers.larray)
         centers, n_iter = res[0], res[1]
-        labels, fun = _predict(arr, centers, self._assignment_metric, True)
+        if returns_inertia:
+            labels, inertia = _predict(arr, centers, self._assignment_metric, False), res[2]
+        else:
+            labels, inertia = _predict(arr, centers, self._assignment_metric, True, rows)
         self._n_iter = n_iter
-        self._inertia = res[2] if returns_inertia else fun
+        self._inertia = inertia
         self._cluster_centers = self._replicated(centers, x)
         self._labels = self._labels_of(labels, x)
         return self

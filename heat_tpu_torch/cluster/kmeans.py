@@ -26,7 +26,7 @@ import torch
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
 from . import _cuda_assign
-from ._kcluster import _KCluster, _float_operand
+from ._kcluster import _KCluster
 
 __all__ = ["KMeans"]
 
@@ -40,26 +40,48 @@ def _assign(arr: torch.Tensor, centers: torch.Tensor):
     return _cuda_assign.fused_assign_plain(arr, centers)
 
 
-def _lloyd_step(arr: torch.Tensor, centers: torch.Tensor):
+def _summed(comm, dtype: torch.dtype, *parts: torch.Tensor):
+    """``parts`` summed over the ranks in one all-reduce of one packed
+    float64 buffer (``heat_tpu`` issues one all-reduce a step, independent
+    of k), in ``dtype`` and their own shapes, the same bits on every rank."""
+    flat = comm.allreduce(torch.cat([p.reshape(-1) for p in parts]).to(torch.float64)).to(dtype)
+    return [f.reshape(p.shape) for f, p in zip(flat.split([p.numel() for p in parts]), parts)]
+
+
+def _assign_across(arr: torch.Tensor, centers: torch.Tensor, comm=None):
+    """``_assign`` of this rank's rows, with ``comm`` summed over the ranks
+    (``_summed``, k·d + k + 1 values); a rank without rows adds zeros and
+    launches nothing. Returns sums, counts and inertia in ``arr``'s dtype."""
+    k, d = centers.shape
+    if comm is not None and not arr.shape[0]:
+        zeros = arr.new_zeros(k * d + k + 1)
+        sums, counts, inertia = zeros[: k * d].reshape(k, d), zeros[k * d : -1], zeros[-1]
+    else:
+        sums, counts, inertia = _assign(arr, centers)
+    if comm is None:
+        return sums.to(arr.dtype), counts.to(arr.dtype), inertia.to(arr.dtype)
+    return _summed(comm, arr.dtype, sums, counts, inertia)
+
+
+def _lloyd_step(arr: torch.Tensor, centers: torch.Tensor, comm=None):
     """One Lloyd iteration: ``(arr, centers) -> (new_centers, shift²,
-    inertia)`` (``heat_tpu`` kmeans.py:40). Empty clusters keep their
-    center."""
-    sums, counts, inertia = _assign(arr, centers)
-    sums = sums.to(arr.dtype)
-    counts = counts.to(arr.dtype)
+    inertia)`` (``heat_tpu`` kmeans.py:40), over every rank's rows with
+    ``comm``. Empty clusters keep their center."""
+    sums, counts, inertia = _assign_across(arr, centers, comm)
     new_centers = torch.where(
         counts[:, None] > 0, sums / torch.clamp_min(counts[:, None], 1), centers
     )
     shift = torch.sum((new_centers - centers) ** 2)
-    return new_centers, shift, inertia.to(arr.dtype)
+    return new_centers, shift, inertia
 
 
-def _partial_fit_step(arr: torch.Tensor, centers: torch.Tensor, counts: torch.Tensor):
+def _partial_fit_step(arr: torch.Tensor, centers: torch.Tensor, counts: torch.Tensor, comm=None):
     """One streaming minibatch update: ``(arr, centers, counts) ->
-    (new_centers, new_counts, inertia)`` (``heat_tpu`` kmeans.py:92). Every
+    (new_centers, new_counts, inertia)`` (``heat_tpu`` kmeans.py:92), the
+    batch's sums and counts over every rank's rows with ``comm``. Every
     center is the mean of all samples ever assigned to it; counts and the
     mix run in float32 whatever the data's dtype."""
-    sums, bcounts, inertia = _assign(arr, centers)
+    sums, bcounts, inertia = _assign_across(arr, centers, comm)
     new_counts = counts + bcounts.to(torch.float32)
     c32 = centers.to(torch.float32)
     new_centers = torch.where(
@@ -67,7 +89,7 @@ def _partial_fit_step(arr: torch.Tensor, centers: torch.Tensor, counts: torch.Te
         (c32 * counts[:, None] + sums.to(torch.float32)) / torch.clamp_min(new_counts[:, None], 1),
         c32,
     ).to(arr.dtype)
-    return new_centers, new_counts, inertia.to(arr.dtype)
+    return new_centers, new_counts, inertia
 
 
 def _refuse_unported(x, ckpt) -> None:
@@ -87,8 +109,11 @@ class KMeans(_KCluster):
 
     Parameters follow the reference: n_clusters, init
     ('random' | 'probability_based'/'kmeans++' | DNDarray), max_iter, tol,
-    random_state.
+    random_state. An operand split along axis 0 is fitted across the ranks,
+    K3 on each rank's rows; every rank ends with the same centers.
     """
+
+    _serves_split = True
 
     def __init__(
         self,
@@ -113,12 +138,15 @@ class KMeans(_KCluster):
 
     def _update_centroids(self, x: DNDarray, matching_centroids: DNDarray) -> DNDarray:
         """Masked-mean centroid update for given labels (reference:
-        kmeans.py:74-100); ``fit`` uses the fused step."""
-        arr = _float_operand(x)
+        kmeans.py:74-100), over every rank's rows (the labels split like
+        ``x``'s rows); ``fit`` uses the fused step."""
+        x, arr, rows = self._operand(x)
         labels = matching_centroids.larray.to(device=arr.device, dtype=torch.int64)
         onehot = torch.nn.functional.one_hot(labels, self.n_clusters).to(arr.dtype)
         sums = onehot.T @ arr
         counts = torch.sum(onehot, dim=0)
+        if rows.comm is not None:
+            sums, counts = _summed(rows.comm, arr.dtype, sums, counts)
         centers = self._cluster_centers.larray
         new_centers = torch.where(
             counts[:, None] > 0, sums / torch.clamp_min(counts[:, None], 1), centers
@@ -141,9 +169,9 @@ class KMeans(_KCluster):
         sanitize_in(x)
         if x.ndim != 2:
             raise ValueError(f"input needs to be 2-dimensional, got {x.ndim}")
-        arr = _float_operand(x)
+        x, arr, rows = self._operand(x)
         if self._cluster_centers is None:
-            self._initialize_cluster_centers(x)
+            self._init_centers(x, arr, rows)
         if self._partial_counts is None:
             # a fresh stream, also after fit(): it refines the fitted
             # centers from count zero
@@ -152,7 +180,7 @@ class KMeans(_KCluster):
             )
         centers = self._cluster_centers.larray.to(device=arr.device, dtype=arr.dtype)
         centers, self._partial_counts, self._inertia = _partial_fit_step(
-            arr, centers, self._partial_counts
+            arr, centers, self._partial_counts, rows.comm
         )
         self._cluster_centers = self._replicated(centers, x)
         return self

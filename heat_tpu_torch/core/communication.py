@@ -73,10 +73,13 @@ class TorchCommunication(Communication):
 
     ``counts`` maps a collective's name (``"all-to-all"``, ``"all-gather"``,
     ``"collective-permute"``, ``"all-reduce"``, ``"broadcast"``) to the
-    calls issued since it was last cleared."""
+    calls issued since it was last cleared; ``staged_bytes`` the bytes
+    ``ring_exchange`` staged through host memory since it was last set to
+    0."""
 
     def __init__(self) -> None:
         self.counts: Dict[str, int] = {}
+        self.staged_bytes = 0
         self._groups: Dict[Tuple[int, int], tuple] = {}
 
     @property
@@ -236,15 +239,31 @@ class TorchCommunication(Communication):
     def ring_exchange(self, send: torch.Tensor, dst: int, src: int) -> torch.Tensor:
         """One hop of a ring: ``send`` goes to rank ``dst`` while a tensor
         of the same shape arrives from rank ``src`` (one
-        ``batch_isend_irecv``)."""
+        ``batch_isend_irecv``).
+
+        Gloo's send and receive read and write host memory only: given a
+        CUDA tensor they fail ("Bad address" from gloo's TCP transport,
+        torch 2.11 on an H100), where its collectives take CUDA tensors.
+        So under gloo a CUDA tensor is staged through pinned host buffers,
+        and ``staged_bytes`` adds the bytes copied each way (sent plus
+        received). NCCL exchanges the device tensors themselves."""
         out = _as_bytes(send)
         buf = torch.empty_like(out)
         if self.is_distributed():
+            staged = out.is_cuda and dist.get_backend() == "gloo"
+            wire_out, wire_in = out, buf
+            if staged:
+                wire_out = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+                wire_out.copy_(out)
+                wire_in = torch.empty_like(wire_out, pin_memory=True)
             reqs = dist.batch_isend_irecv(
-                [dist.P2POp(dist.isend, out, dst), dist.P2POp(dist.irecv, buf, src)]
+                [dist.P2POp(dist.isend, wire_out, dst), dist.P2POp(dist.irecv, wire_in, src)]
             )
             for req in reqs:
                 req.wait()
+            if staged:
+                buf.copy_(wire_in)
+                self.staged_bytes += 2 * out.numel()
         else:
             buf.copy_(out)
         self._count("collective-permute")
@@ -301,6 +320,7 @@ def init_distributed(
     kwargs = {"init_method": init_method, "world_size": world_size, "rank": rank}
     dist.init_process_group(backend, **{k: v for k, v in kwargs.items() if v is not None})
     MPI_WORLD.counts.clear()
+    MPI_WORLD.staged_bytes = 0
     MPI_WORLD._groups.clear()
     use_comm(MPI_WORLD)
     return MPI_WORLD

@@ -12,6 +12,11 @@ chunk waits for a counter-based stream, ROADMAP.md Queue 1, item 5). The
 values are torch's stream for that device (Philox on CUDA, MT19937 on the
 CPU), not ``heat_tpu``'s Threefry stream: porting Threefry is ROADMAP.md
 Queue 1. The state names the port's stream as ``"TorchGenerator"``.
+
+``heat_tpu`` is one controller over its mesh and so has one stream. The
+port runs a process per rank, so a seed taken from the clock is rank 0's,
+broadcast to every rank (``seed()``); an explicit ``seed(n)`` stays
+rank-local and issues no collective.
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ import numpy as np
 import torch
 
 from . import types
-from .communication import sanitize_comm
-from .devices import sanitize_device
+from .communication import get_comm, sanitize_comm
+from .devices import get_device, sanitize_device
 from .dndarray import DNDarray
 from .factories import _wrap
 from .stride_tricks import sanitize_shape
@@ -42,10 +47,18 @@ _INTS = (types.int8, types.int16, types.int32, types.int64, types.uint8)
 
 
 def seed(seed: Optional[int] = None) -> None:
-    """Seed the generator (reference: random.py seed)."""
+    """Seed the generator (reference: random.py seed). Without a seed the
+    clock gives one; in a world of more than one rank it is rank 0's,
+    broadcast through the default communicator, so every rank must call
+    (the first draw or ``get_state`` of an unseeded stream calls it on
+    every rank alike)."""
     global __seed, __counter
     if seed is None:
         seed = int(time.time() * 1000) % (2**32)
+        comm = get_comm()
+        if comm.is_distributed():
+            mine = torch.tensor([seed], dtype=torch.int64, device=get_device().torch_device)
+            seed = int(comm.bcast(mine, root=0).item())
     __seed = int(seed)
     __counter = 0
 

@@ -168,18 +168,16 @@ def flash_attention_plain(
 def combine_partials(o1, lse1, o2, lse2) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` of attention over the union of two disjoint key sets
     from the two partial results: the ring's combine (``heat_tpu``
-    ``nn/attention.py:418-425``), in float32, with a pair of −inf rows
-    giving o = 0 and lse = −inf. o comes back in o1's dtype.
-
-    No entry point of this package calls it yet: it is the combine step of
-    the distributed ring (ROADMAP.md Queue 1, item 3), kept here as the
-    contract K9's ``(o, lse)`` must meet, which ``chip_smoke.py`` and the
-    tests hold K9 and its plain version to."""
+    ``nn/attention.py:418-425``), in float32 (in their own dtype for
+    float64 and complex partials), with a pair of −inf rows giving o = 0
+    and lse = −inf. o comes back in o1's dtype. ``nn.ring_attention``
+    combines its ring steps with it."""
     lse = torch.logaddexp(lse1, lse2)
     dead = torch.isneginf(lse)
     a = torch.where(dead, 0.0, torch.exp(lse1 - lse))[..., None]
     b = torch.where(dead, 0.0, torch.exp(lse2 - lse))[..., None]
-    o = o1.float() * a + o2.float() * b
+    ct = _compute_dtype(o1.dtype)
+    o = o1.to(ct) * a + o2.to(ct) * b
     return o.to(o1.dtype), lse
 
 

@@ -3,13 +3,26 @@
 ``ring_attention`` computes ``softmax(scale · q kᵀ [causal mask]) v`` on
 DNDarrays whose sequence axis (-2) may be split. ``heat_tpu`` shards that
 axis over its mesh and circulates K/V around a ring; at world size 1, or
-with an unsplit q, it runs the single-device program. The port takes that
-route in both cases (``_single_device_attention``): one launch of kernel K9
-(``kernels.attention.flash_attention``) for float32 and bfloat16 operands
-on a card, after gathering a split k or v onto every rank
-(``resplit(None)``) when the world has more ranks. The distributed ring for
-a split q (stationary Q, K/V rotated between ranks, K9's ``(o, lse)``
-combined per step) is not ported yet (ROADMAP.md Queue 1, item 3).
+with an unsplit q, it runs the single-device program. The port does the
+same:
+
+* world size 1 or a whole q (``_single_device_attention``): one launch of
+  kernel K9 (``kernels.attention.flash_attention``) for float32 and
+  bfloat16 operands on a card, after gathering a split k or v onto every
+  rank (``resplit(None)``) when the world has more ranks;
+* q split across ranks (``_ring``): q stays in place, and k and v (split
+  along the sequence axis first if they arrive whole) pass around the
+  ring, packed into one buffer of ⌈S_kv/p⌉ rows a rank. At step t rank r
+  holds the block of rank (r + t) mod p, which it passes to rank r − 1
+  (``heat_tpu``'s ``perm = [((i + 1) % p, i)]``); the last rotation is
+  skipped, so there are p − 1 hops. Each step runs K9 on the block's
+  valid rows, and the steps' ``(o, lse)`` combine in float32
+  (``combine_partials``). The causal mask is global (key j is visible to
+  query i iff j ≤ i, in global positions), and ``_decompose`` serves a
+  block at any offset with K9's top-left mask: a block wholly behind the
+  queries is one unmasked call, one wholly ahead is skipped, and one that
+  straddles them is an unmasked call and a causal one. The ring has no
+  backward (ROADMAP.md Queue 1, item 19).
 """
 
 from __future__ import annotations
@@ -69,6 +82,72 @@ def _single_device_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return katt.flash_attention(q, k, v, bool(causal), float(scale))[0]
 
 
+def _decompose(bq: int, bk: int, delta: int, causal: bool):
+    """The K9 calls that give a block of ``bq`` queries its attention over
+    a block of ``bk`` keys whose global offset lies ``delta`` below the
+    queries' (query i sees key j iff j ≤ i + delta when ``causal``), as
+    ``(first query, first key, end key, causal)`` each: one unmasked call
+    for a block wholly visible, none for a block wholly masked, else an
+    unmasked call on the keys every query sees and a causal call whose
+    top-left mask is exact on the rest. Queries before the first of a call
+    see no key of it."""
+    if bq == 0 or bk == 0 or (causal and delta <= -bq):
+        return []
+    if not causal or delta >= bk:
+        return [(0, 0, bk, False)]
+    if delta < 0:
+        return [(-delta, 0, bk, True)]
+    return ([(0, 0, delta, False)] if delta else []) + [(0, delta, min(delta + bq, bk), True)]
+
+
+def _fold(acc, r0: int, o: torch.Tensor, lse: torch.Tensor):
+    """``acc`` (o in the combine's dtype, lse over every query row; None
+    before the first call) with the partial ``(o, lse)`` of rows ``r0:``
+    folded in through ``combine_partials``. The first partial is taken
+    as it is."""
+    if acc is None and r0 == 0:
+        return o.to(katt._compute_dtype(o.dtype)), lse
+    if acc is None:
+        lead, s_q = o.shape[:-2], r0 + o.shape[-2]
+        acc_o = o.new_zeros(lead + (s_q, o.shape[-1]), dtype=katt._compute_dtype(o.dtype))
+        acc_lse = lse.new_full(lead + (s_q,), -math.inf)
+        acc_o[..., r0:, :], acc_lse[..., r0:] = o, lse
+        return acc_o, acc_lse
+    acc_o, acc_lse = acc
+    acc_o[..., r0:, :], acc_lse[..., r0:] = katt.combine_partials(acc_o[..., r0:, :], acc_lse[..., r0:], o, lse)
+    return acc_o, acc_lse
+
+
+def _ring(q: DNDarray, k: DNDarray, v: DNDarray, causal: bool, scale: float) -> torch.Tensor:
+    """This rank's rows of the attention of q, k and v, each split along the
+    sequence axis, through the ring (module docstring). ``attention_serviceable``
+    decides up front: K9 on every step, or the plain version on every step
+    (float64, complex, heads wider than 256)."""
+    comm = q.comm
+    p, r = comm.size, comm.rank
+    dtype = q.larray.dtype if (q.larray.is_floating_point() or q.larray.is_complex()) else torch.float32
+    ql, kl, vl = (t.larray.to(dtype) for t in (q, k, v))
+    d, d_v = kl.shape[-1], vl.shape[-1]
+    q_off = q.counts_displs()[1][r]
+    k_counts, k_offs = k.counts_displs()
+    # k and v rotate together: one buffer of the largest shard's rows
+    buf = kl.new_zeros(kl.shape[:-2] + (max(k_counts), d + d_v))
+    buf[..., : kl.shape[-2], :d] = kl
+    buf[..., : kl.shape[-2], d:] = vl
+    attend = katt.flash_attention if katt.attention_serviceable(dtype, d, d_v) else katt.flash_attention_plain
+    acc = None
+    for t in range(p):
+        src = (r + t) % p
+        for r0, k0, k1, masked in _decompose(ql.shape[-2], k_counts[src], q_off - k_offs[src], causal):
+            o, lse = attend(ql[..., r0:, :], buf[..., k0:k1, :d], buf[..., k0:k1, d:], masked, scale)
+            acc = _fold(acc, r0, o, lse)
+        if t < p - 1:
+            buf = comm.ring_exchange(buf, dst=(r - 1) % p, src=(r + 1) % p)
+    if acc is None:
+        return ql.new_zeros(ql.shape[:-1] + (d_v,))
+    return acc[0].to(dtype)
+
+
 def ring_attention(
     q: DNDarray,
     k: DNDarray,
@@ -84,7 +163,8 @@ def ring_attention(
     ``q.gshape[:-1] + (v.gshape[-1],)``. At world size 1, or with an
     unsplit q at any world size (``heat_tpu``'s rule, ``nn/attention.py:817``),
     this is one single-device attention on every rank, a split k or v
-    gathered first; a split q across ranks raises ``NotImplementedError``.
+    gathered first. A split q across ranks runs the ring (module
+    docstring); under autograd it raises ``NotImplementedError``.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, DNDarray):
@@ -108,12 +188,17 @@ def ring_attention(
         scale = 1.0 / math.sqrt(q.shape[-1])
 
     comm = q.comm
-    if comm.is_distributed():
-        if q.split is not None:
+    if q.is_distributed():
+        if torch.is_grad_enabled() and any(t.larray.requires_grad for t in (q, k, v)):
             raise NotImplementedError(
-                "ring_attention with q split across ranks (K/V rotated between ranks, K9's (o, lse) combined "
-                "per step) is not ported yet: see ROADMAP.md Queue 1, item 3"
+                "the backward of ring_attention with q split across ranks (dK and dV rotated back): "
+                "see ROADMAP.md Queue 1, item 19"
             )
+        out = _ring(q, k.resplit(seq_axis), v.resplit(seq_axis), bool(causal), float(scale))
+        lmap = q.lshape_map
+        lmap[:, -1] = out.shape[-1]
+        return DNDarray(out, out_gshape, types.canonical_heat_type(out.dtype), seq_axis, q.device, comm, lmap)
+    if comm.is_distributed():
         k, v = k.resplit(None), v.resplit(None)  # q is whole on every rank: so are k and v then
     out = _single_device_attention(q.larray, k.larray, v.larray, causal, scale)
     return DNDarray(out, out_gshape, types.canonical_heat_type(out.dtype), q.split, q.device, comm)

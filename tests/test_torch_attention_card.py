@@ -158,3 +158,47 @@ def test_fp32_kernel_serves_float32_shapes_off_the_hopper_path_on_card(d, d_v, w
     _assert_within(o, lse, *ka.flash_attention_plain(q, k, v, True), q, k, v, True)
     o2, l2 = ka.flash_attention(q, k, v, True)
     assert torch.equal(o, o2) and torch.equal(lse, l2)
+
+
+def _global_mask_reference(q, k, v, delta):
+    """(o, lse, the attention of |v|) in float64 with query i seeing key j
+    iff j ≤ i + delta: a key block at another global offset than the
+    queries', as the ring across ranks meets it."""
+    q, k, v = (t.double() for t in (q, k, v))
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    i = torch.arange(q.shape[-2], device=q.device)[:, None]
+    j = torch.arange(k.shape[-2], device=q.device)[None, :]
+    s = s.masked_fill(j > i + delta, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    live = ~torch.isneginf(lse)
+    w = torch.where(live[..., None], torch.exp(s - torch.where(live, lse, 0.0)[..., None]), 0.0)
+    return w @ v, lse, w @ v.abs()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("delta", [-201, -37, 0, 50, 130, 180])
+def test_ring_blocks_at_any_offset_through_k9_on_card(dtype, delta):
+    """The K9 calls of ``nn.attention._decompose`` (200 queries, a block of
+    130 keys ``delta`` below them), combined through ``_fold``, give
+    attention under the global causal mask at K9's limits against a float64
+    result, every call on the Hopper path."""
+    from heat_tpu_torch.nn import attention as natt
+
+    q, k, v = _qkv((2, 4), 200, 130, 64, 31 + delta, dtype=dtype)
+    calls = natt._decompose(200, 130, delta, True)
+    launches = ka.ATTENTION_SM90_LAUNCHES
+    acc = None
+    for r0, k0, k1, masked in calls:
+        acc = natt._fold(acc, r0, *ka.flash_attention(q[..., r0:, :], k[..., k0:k1, :], v[..., k0:k1, :], masked))
+    assert ka.ATTENTION_SM90_LAUNCHES == launches + len(calls)
+    ro, rl, a = _global_mask_reference(q, k, v, delta)
+    if acc is None:
+        assert bool(torch.isneginf(rl).all())
+        return
+    o, lse = acc
+    limit = 1e-5 * v.float().abs().amax() if dtype == torch.float32 else 3 * 2.0**-8 * (ro.abs() + a)
+    tol_l = 1e-5 if dtype == torch.float32 else 1e-4
+    assert bool(((o.double() - ro).abs() <= limit).all())
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(rl))
+    live = ~torch.isneginf(rl)
+    assert bool(((lse.double() - rl).abs()[live] <= tol_l * (1 + rl.abs()[live])).all())

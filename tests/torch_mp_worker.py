@@ -116,6 +116,7 @@ def _cases(ht):
     cases = {}
 
     cases["world"] = lambda: {"rank": comm.rank, "size": comm.size, "distributed": comm.is_distributed()}
+    cases["seed_unseeded"] = lambda: _unseeded_draw(ht)
 
     for n in (1000, 1003):
         for dt in ("int32", "float32"):
@@ -249,11 +250,8 @@ def _cases(ht):
         "topk_split_axis": lambda: ht.topk(split_x((40,)), 3),
         "unique": lambda: ht.unique(split_x((40,))),
         "flip_split_axis": lambda: ht.flip(split_x(), 0),
-        "kmeans_fit": lambda: ht.cluster.KMeans(3).fit(split_x()),
         "kmedians_fit": lambda: ht.cluster.KMedians(3).fit(split_x()),
         "kmedoids_fit": lambda: ht.cluster.KMedoids(3).fit(split_x()),
-        "kmeans_predict": lambda: ht.cluster.KMeans(3, init="kmeans++").fit(split_x(split=None)).predict(split_x()),
-        "cdist": lambda: ht.spatial.cdist(split_x(), split_x(split=None)),
         "sparse_csr_split": lambda: ht.sparse.sparse_csr_matrix(np.eye(8, dtype=np.float32), split=0),
         "sparse_dbcsr_split": lambda: ht.sparse.sparse_dbcsr_matrix(np.eye(8, dtype=np.float32), split=0),
         "sparse_matmul_split_x": lambda: ht.sparse.matmul(
@@ -261,7 +259,6 @@ def _cases(ht):
         "sddmm_split_u": lambda: ht.sparse.sddmm(
             ht.sparse.sparse_dbcsr_matrix(np.eye(40, 6, dtype=np.float32)), split_x((40, 4)), split_x((6, 4), None)),
         "pagerank": lambda: ht.graph.pagerank(np.ones((8, 8), dtype=np.float32)),
-        "ring_attention": lambda: ht.nn.ring_attention(*(split_x((2, 8, 4), 1) for _ in range(3))),
     }
     for name, call in entry.items():
         cases[f"entry_{name}"] = lambda call=call: {"value": call()}
@@ -287,6 +284,7 @@ def _cases(ht):
                 "flip": _np(f.larray), "moveaxis": (_np(m.larray), m.gshape, m.split), "sort_global": v.numpy()}
     cases["entry_served"] = served
     cases.update(_linalg_cases(ht))
+    cases.update(_ring_cases(ht))
     return cases
 
 
@@ -387,6 +385,159 @@ def _linalg_cases(ht):
         return {"together": _np(gather(together, 0, comm.lshape_map((37, 5), 0)[:, 0])),
                 "alone": _np(gather(alone, 0, comm.lshape_map((37, 5), 0)[:, 0])), "whole": _np(whole)}
     cases["refine"] = refine
+    return cases
+
+
+# KMeans, the distance ring and ring attention across ranks (tests/test_torch_ring.py)
+KM_ROWS = {"ragged": 37, "last_empty": 9}  # over 4 ranks: 10, 10, 10, 7 and 3, 3, 3, 0 rows
+KM_K, KM_D = 3, 4
+KM_SEEDED = ("kmeans++", "random")
+DIST_X, DIST_Y = (9, 5), (10, 5)  # X's last rank holds no row, Y's holds one
+DIST_CALLS = {
+    "cdist": lambda lib, X, Y, ring: lib.spatial.cdist(X, Y, ring=ring),
+    "cdist_quadratic": lambda lib, X, Y, ring: lib.spatial.cdist(X, Y, quadratic_expansion=True, ring=ring),
+    "manhattan": lambda lib, X, Y, ring: lib.spatial.manhattan(X, Y, ring=ring),
+    "rbf": lambda lib, X, Y, ring: lib.spatial.rbf(X, Y, sigma=1.5, ring=ring),
+    "rbf_quadratic": lambda lib, X, Y, ring: lib.spatial.rbf(X, Y, sigma=1.5, quadratic_expansion=True, ring=ring),
+}
+DIST_X_SPLITS = (0, None, 1)
+DIST_Y_KINDS = ("self", "whole", "split0", "split1")  # "self": Y=None, X against itself
+ATT_SHAPES = {"even": (16, 16), "ragged": (10, 10), "cross": (12, 20)}  # (S_q, S_kv) at (2, 3, S, 8)
+ATT_BF16 = ("even", "ragged")
+
+
+def km_blobs(n: int, seed: int = 61) -> np.ndarray:
+    """n float32 points in KM_D dimensions, row i in blob i % KM_K; the
+    blobs' centers lie 20 apart, each point within a few units of its own."""
+    rng = np.random.default_rng(seed)
+    centers = 20.0 * np.eye(KM_K, KM_D)
+    return (centers[np.arange(n) % KM_K] + rng.standard_normal((n, KM_D))).astype(np.float32)
+
+
+def dist_operands(lib, x_split, y_kind, dtype="float32", **kw):
+    """X (DIST_X) and Y (DIST_Y, or None for "self") on either package."""
+    X = lib.array(_array(DIST_X, dtype, 71), split=x_split, **kw)
+    if y_kind == "self":
+        return X, None
+    return X, lib.array(_array(DIST_Y, dtype, 72), split={"whole": None, "split0": 0, "split1": 1}[y_kind], **kw)
+
+
+def att_operands(lib, label, dtype="float32", kv_split=2, **kw):
+    """q, k and v (2, 3, S, 8) of ATT_SHAPES[label], q split along S."""
+    s_q, s_kv = ATT_SHAPES[label]
+    q, k, v = (_array((2, 3, s, 8), "float32", seed) for s, seed in ((s_q, 81), (s_kv, 82), (s_kv, 83)))
+    return tuple(lib.array(a, split=split, dtype=getattr(lib, dtype), **kw)
+                 for a, split in ((q, 2), (k, kv_split), (v, kv_split)))
+
+
+def _unseeded_draw(ht):
+    """The first draw of a process: an unseeded split randn."""
+    import importlib
+
+    rmod = importlib.import_module("heat_tpu_torch.core.random")
+    was_unseeded = getattr(rmod, "__seed") is None
+    x = ht.random.randn(40, split=0)
+    return {"unseeded": was_unseeded, "state": ht.random.get_state(), "local": _np(x.larray), "global": x.numpy()}
+
+
+def _ring_cases(ht):
+    import torch
+
+    comm = ht.get_comm()
+    cases = {}
+
+    def arr(x):
+        return {"local": _np(x.larray), "split": x.split, "gshape": x.gshape, "global": x.numpy()}
+
+    def every_rank(t):
+        return _np(comm.allgather(t[None]))
+
+    def fitted(km):
+        c = km.cluster_centers_.larray
+        return {"centers": _np(c), "every": every_rank(c), "n_iter": km.n_iter_, "inertia": km.inertia_,
+                "labels": arr(km.labels_)}
+
+    for label, n in KM_ROWS.items():
+        data = km_blobs(n)
+        for init_split in (None, 0):
+            def km_fit(data=data, init_split=init_split):
+                init = ht.array(data[:KM_K], split=init_split)
+                comm.counts.clear()
+                km = ht.cluster.KMeans(KM_K, init=init).fit(ht.array(data, split=0))
+                counts = dict(comm.counts)
+                return {**fitted(km), "counts": counts}
+            cases[f"km_fit_{label}_{init_split}"] = km_fit
+
+        def km_predict(data=data, n=n):
+            km = ht.cluster.KMeans(KM_K, init=ht.array(data[:KM_K])).fit(ht.array(data))
+            return arr(km.predict(ht.array(km_blobs(n, seed=62), split=0)))
+        cases[f"km_predict_{label}"] = km_predict
+
+        def km_partial(data=data, n=n):
+            km = ht.cluster.KMeans(KM_K, init=ht.array(data[:KM_K]))
+            out = []
+            for batch in (data, km_blobs(n, seed=63)):
+                km.partial_fit(ht.array(batch, split=0))
+                out.append({"centers": _np(km.cluster_centers_.larray), "inertia": km.inertia_})
+            return {"batches": out, "every": every_rank(km.cluster_centers_.larray)}
+        cases[f"km_partial_{label}"] = km_partial
+
+        def km_update(data=data, n=n):
+            km = ht.cluster.KMeans(KM_K, init=ht.array(data[:KM_K]))
+            km._initialize_cluster_centers(ht.array(data))
+            labels = ht.array(np.arange(n) % KM_K, split=0)
+            return {"centers": _np(km._update_centroids(ht.array(data, split=0), labels).larray)}
+        cases[f"km_update_{label}"] = km_update
+
+        for init in KM_SEEDED:
+            def km_seeded(data=data, init=init):
+                return fitted(ht.cluster.KMeans(KM_K, init=init, random_state=5).fit(ht.array(data, split=0)))
+            cases[f"km_seeded_{label}_{init}"] = km_seeded
+
+    for name, call in DIST_CALLS.items():
+        for x_split in DIST_X_SPLITS:
+            for y_kind in DIST_Y_KINDS:
+                for ring in (False, True):
+                    def dist_case(call=call, x_split=x_split, y_kind=y_kind, ring=ring):
+                        X, Y = dist_operands(ht, x_split, y_kind)
+                        comm.counts.clear()
+                        out = call(ht, X, Y, ring)
+                        counts = dict(comm.counts)
+                        return {**arr(out), "counts": counts, "dtype": out.dtype.__name__}
+                    cases[f"dist_{name}_{x_split}_{y_kind}_{ring}"] = dist_case
+    for y_kind in ("self", "split0"):
+        for ring in (False, True):
+            def dist_f64(y_kind=y_kind, ring=ring):
+                X, Y = dist_operands(ht, 0, y_kind, "float64")
+                out = ht.spatial.cdist(X, Y, ring=ring)
+                return {**arr(out), "dtype": out.dtype.__name__}
+            cases[f"dist_f64_{y_kind}_{ring}"] = dist_f64
+
+    for label in ATT_SHAPES:
+        for causal in (False, True):
+            def att_case(label=label, causal=causal):
+                q, k, v = att_operands(ht, label)
+                comm.counts.clear()
+                out = ht.nn.ring_attention(q, k, v, causal=causal)
+                counts = dict(comm.counts)
+                return {**arr(out), "counts": counts}
+            cases[f"att_{label}_{causal}"] = att_case
+
+            def att_whole_kv(label=label, causal=causal):
+                return arr(ht.nn.ring_attention(*att_operands(ht, label, kv_split=None), causal=causal))
+            cases[f"att_whole_kv_{label}_{causal}"] = att_whole_kv
+    for label in ATT_BF16:
+        for causal in (False, True):
+            def att_bf16(label=label, causal=causal):
+                out = ht.nn.ring_attention(*att_operands(ht, label, "bfloat16"), causal=causal)
+                return {**arr(out), "dtype": out.dtype.__name__}
+            cases[f"att_bf16_{label}_{causal}"] = att_bf16
+
+    def att_grad():
+        q, k, v = att_operands(ht, "even")
+        k.larray.requires_grad_()
+        return ht.nn.ring_attention(q, k, v)
+    cases["att_grad"] = att_grad
     return cases
 
 
