@@ -116,9 +116,21 @@ Phases, each of which fails the run by raising:
      ``cdist(X, Y, quadratic_expansion=True, ring=True)`` and ``rbf(X,
      ring=False)`` on 65536 x 64 float32 split 0, each rank's rows within
      1e-5 of the scale of a float64 result on sampled rows and of the
-     other route (ring against gather). Each prints its time beside its
+     other route (ring against gather); then the sort family along the
+     split axis: ``ht.sort`` of bench.py's ``sort_1gb`` row split 0
+     (134,217,728 float32, 2^25 a rank: columnsort) ascending and
+     descending, ``ht.topk(x, 1000)`` and ``ht.unique``, ``ht.sort`` of
+     2^27 + 2 elements (2^25 + 1 a rank: the odd-even network, 4 rounds),
+     and ``ht.unique(X, return_inverse=True, axis=0)`` of (2^22, 4) int32 in
+     [0, 8), where each rank must launch K4 once a local step of its
+     schedule (both directions), twice in ``topk`` and flat ``unique`` (its
+     local pass and its merge) and twice a column in ``unique(axis=0)``, and
+     the gathered results must equal ``torch.sort(stable=True)`` and
+     ``torch.unique`` on the card (indices bit for bit; the descending sort
+     is the flip of the ascending one). Each prints its time beside its
      bound, the collectives and bytes a rank, and the bytes gloo's
-     send/receive staged through the host;
+     send/receive staged through the host; the sorts also print each
+     rank's local steps (``block_sort``) under CUDA events;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -127,13 +139,18 @@ Phases, each of which fails the run by raising:
    at both regimes' main shapes, ragged and boundary segment lengths, the
    one-sweep tile boundaries and an odd size of 3,000,017, adversarial
    float32 keys, int32 extremes, constant digit places (all-equal keys,
-   keys differing only in the top byte, randint(0, 1000)) and n = 1, and
+   keys differing only in the top byte, randint(0, 1000)) and n = 1, at
+   the local steps of the distributed sort networks (one segment of 2^25
+   and of 2(2^25 + 1) pairs, 1000 segments of 3000; keys with heavy ties
+   and NaN, the global index as payload ordered by 2 and 4 bytes), and
    on a rerun; its fused entry against the plain composition of the key
    transforms and the pair sort in each transform mode, order and output;
    and one segment of 2^30 pairs against the invariants of a stable sort.
    Its rows time the fused entry the main path launches (values and int64
    indices, bound 16 B a pair) beside torch.sort, the words-only entry and
-   the first design of K4 (``pr3_ms``). K7 and K8 are held
+   the first design of K4 (``pr3_ms``), and the networks' local steps
+   alone: ``block_sort`` and its ``pair_sort`` on 2^25 and 2(2^25 + 1)
+   (value, index) pairs ordered by 4 index bytes. K7 and K8 are held
    against their plain versions within 1e-5 of each element's absolute-sum
    scale, and against themselves on a rerun bit for bit, at the main-path
    shapes, ragged 1003 x 777, empty brick rows, all-zero and pad bricks,
@@ -778,6 +795,21 @@ def check_sort(dev) -> dict:
         _fused_case(ks, f"{label} as float32, one segment of {n}", words.view(torch.float32))
         _fused_case(ks, f"{label} as int32, one segment of {n}", words)
     del x, u, ints, top, words
+    # the local steps of the distributed sort networks (core.parallel): keys with heavy ties and NaN, the
+    # global indices as payload ordered by their low 2 or 4 bytes; one segment of B (a columnsort step of
+    # sort_1gb over WORLD ranks), of 2(B + 1) (an odd-even merge of sort_1gb_ragged), and 2B segments
+    block = SORT_N // WORLD
+    for n, seg, label in ((block, None, "a columnsort step"), (2 * (block + 1), None, "an odd-even merge"),
+                          (1000 * 2 * 1500, 2 * 1500, "batch lanes of 2B = 3000")):
+        ties = torch.randint(-50, 50, (n,), device=dev, generator=gen).float()
+        ties[torch.rand(n, device=dev, generator=gen) < 0.1] = float("nan")
+        pos = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+        for pay_bytes in (2, 4):
+            pays = pos & 0xFFFF if pay_bytes == 2 else pos
+            errs["pair_sort_one_segment"] = max(errs["pair_sort_one_segment"], _k4_case(
+                ks, f"{label}: {n} pairs, heavy ties and NaN keys, index payload, pay_bytes={pay_bytes}",
+                ks.sort_key(ties), pays, seg, pay_bytes))
+        del ties, pos, pays
     _k4_huge_case(ks, gen, dev, 1 << 30)
     return errs
 
@@ -900,6 +932,7 @@ def sort_timings(dev, launches: dict, errs: dict) -> list:
             "words_ms": words_ms, "pr3_ms": min(pr3_ms, pr3_again_ms),
         })
         del words
+    rows[0]["network_steps"] = _network_step_timings(dev, gen)
     A = ht.array(x, split=0)
     floor_ms = ks.sort_plan(SORT_N)["floor_bytes"] / HBM_BYTES_PER_S * 1e3
     sort_ms = _median_ms(lambda: ht.sort(A), 5)
@@ -920,6 +953,36 @@ def sort_timings(dev, launches: dict, errs: dict) -> list:
           flush=True)
     _require(not others, f"ht.sort of float32 ran device work outside K4: {others}")
     return rows
+
+
+def _network_step_timings(dev, gen) -> dict:
+    """The local steps of the world's sort networks alone on the card: a
+    columnsort step of ``sort_1gb`` (B = 2^25 pairs) and an odd-even merge
+    of ``sort_1gb_ragged`` (2(2^25 + 1) pairs), each as ``block_sort`` of
+    (float32 value, int64 global index) and as the K4 ``pair_sort`` inside
+    it (4 index bytes), beside ``torch.sort(stable=True)`` of the values;
+    median of 10 CUDA-event readings. Returns the times by step."""
+    import torch
+
+    from heat_tpu_torch.kernels import sort as ks
+
+    out = {}
+    for label, n, extent in (("columnsort_step", SORT_N // WORLD, SORT_N),
+                             ("oddeven_merge", 2 * (SORT_N // WORLD + 1), SORT_N + 2)):
+        v = torch.randn(n, device=dev, generator=gen)
+        idx = torch.randperm(n, device=dev, generator=gen) + (extent - n)
+        keys, pays = ks.sort_key(v), idx.to(torch.int32)
+        step_ms = _median_ms(lambda: ks.block_sort((v, idx), 0, 2, extent=extent), 10)
+        k4_ms = _median_ms(lambda: ks.pair_sort(keys, pays, n, 4), 10)
+        library_ms = _median_ms(lambda: torch.sort(v, stable=True), 10)
+        bound_ms = (n * (4 + 8) * 2) / HBM_BYTES_PER_S * 1e3  # float32 values and int64 indices in and out
+        print(f"K4 at the networks' {label} ({n} pairs of float32 randn and int64 index, alone on the card): "
+              f"block_sort {step_ms:.4f} ms, its pair_sort (pay_bytes=4) {k4_ms:.4f} ms, torch.sort(stable=True) "
+              f"of the values {library_ms:.4f} ms, bound {bound_ms:.4f} ms (24 B a pair)", flush=True)
+        out[label] = {"n": n, "block_sort_ms": step_ms, "pair_sort_ms": k4_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms}
+        del v, idx, keys, pays
+    return out
 
 
 def _recovered(labels, k: int) -> bool:
@@ -1102,7 +1165,8 @@ def _count_bytes(comm) -> dict:
     puts into it to ``moved[name]``; returns ``moved``."""
     moved = {}
     for method, key in (("allgather", "all-gather"), ("alltoall", "all-to-all"), ("allreduce", "all-reduce"),
-                        ("bcast", "broadcast"), ("ring_exchange", "collective-permute")):
+                        ("bcast", "broadcast"), ("ring_exchange", "collective-permute"),
+                        ("permute", "collective-permute")):
         def wrapped(t, *args, _real=getattr(comm, method), _key=key, **kwargs):
             moved[_key] = moved.get(_key, 0) + t.numel() * t.element_size()
             return _real(t, *args, **kwargs)
@@ -1110,22 +1174,30 @@ def _count_bytes(comm) -> dict:
     return moved
 
 
-def _time_level0(svdtools, events: list) -> None:
-    """Wrap ``svdtools._level0`` so that each call leaves a pair of CUDA
-    events around its device work in ``events`` (read after a sync)."""
+def _timed(fn, events: list):
+    """``fn`` wrapped so that each call leaves a pair of CUDA events around
+    its device work in ``events`` (read after a sync); the wrapper's
+    ``__wrapped__`` is ``fn``."""
+    import functools
+
     import torch
 
-    real = svdtools._level0
-
+    @functools.wraps(fn)
     def timed(*args, **kwargs):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = real(*args, **kwargs)
+        out = fn(*args, **kwargs)
         stop.record()
         events.append((start, stop))
         return out
 
-    svdtools._level0 = timed
+    return timed
+
+
+def _time_level0(svdtools, events: list) -> None:
+    """Wrap ``svdtools._level0`` so that each call leaves a pair of CUDA
+    events around its device work in ``events``."""
+    svdtools._level0 = _timed(svdtools._level0, events)
 
 
 def _world_shard(rank: int, shape, split: int, rank8: bool):
@@ -1482,6 +1554,121 @@ def _world_distance(ht, comm, moved: dict, rank: int, dev) -> dict:
     return out
 
 
+# the distributed sort family: (name, global length) of bench.py's sort_1gb
+# row (bench.py:111, :1280) split 0 over the ranks; 2^27 gives B = 2^25 rows
+# a rank (columnsort), 2^27 + 2 gives B = 2^25 + 1 (the odd-even network)
+WORLD_SORTS = (("sort_1gb_split0", SORT_N), ("sort_1gb_ragged", SORT_N + 2))
+WORLD_UNIQUE_ROWS = (1 << 22, 4)  # unique(axis=0) of int32 in [0, 8), split 0
+
+
+def _k4_steps(network: str, rank: int) -> int:
+    """K4 launches of one distributed sort on this rank: the local sorts of
+    the network's schedule."""
+    if network == "columnsort":
+        return 3 + (rank > 0) + (rank < WORLD - 1)
+    rounds = 0
+    for t in range(WORLD):
+        pairs = [(a, a + 1) for a in range(t % 2, WORLD - 1, 2)]
+        rounds += bool(pairs) and t % 2 <= rank <= pairs[-1][1]
+    return 1 + rounds
+
+
+def _same_sorted(a, b) -> bool:
+    """Equal, NaN matching NaN."""
+    import torch
+
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _world_sort(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """``ht.sort``, ``ht.topk`` and ``ht.unique`` along the split axis over
+    the ranks, each rank's shard from its own seed: both networks, each
+    rank's K4 launches (one a local step of the schedule), and each rank's
+    part of the results against ``torch.sort(stable=True)``/``torch.unique``
+    of the gathered input on the card (indices bit for bit, values equal,
+    NaN matching NaN)."""
+    import torch
+
+    from heat_tpu_torch.core import parallel
+    from heat_tpu_torch.kernels import sort as ks
+
+    gen = torch.Generator(device=dev)
+    out = {}
+
+    def counted(call):
+        ks.SORT_LAUNCHES = 0
+        comm.counts.clear()
+        moved.clear()
+        comm.staged_bytes = 0
+        res = call()
+        torch.cuda.synchronize()
+        return res, {"launches": ks.SORT_LAUNCHES, "counts": dict(comm.counts), "bytes": dict(moved),
+                     "staged": comm.staged_bytes}
+
+    def mine(whole, n):  # this rank's chunk along dim 0 of a global result of length n
+        return whole[comm.chunk((n,) + tuple(whole.shape[1:]), 0)[2]]
+
+    for name, n in WORLD_SORTS:
+        gen.manual_seed(7000 + rank)
+        x = ht.array(torch.randn(comm.chunk((n,), 0)[1], device=dev, generator=gen), is_split=0)
+        network = "columnsort" if parallel.columnsort_applicable(WORLD, -(-n // WORLD)) else "odd-even"
+        (v, i), info = counted(lambda: ht.sort(x))
+        whole = comm.allgather(x.larray, 0, comm.lshape_map((n,), 0)[:, 0])
+        ref = torch.sort(whole, stable=True).indices
+        want = _k4_steps(network, rank)
+        _every_rank_ok(comm, torch.equal(i.larray, mine(ref, n)) and _same_sorted(v.larray, mine(whole[ref], n))
+                       and info["launches"] == want and v.split == 0 and i.split == 0,
+                       f"{name}: {network} sort against torch.sort(stable=True), or K4 launches "
+                       f"{info['launches']} != {want} on rank {rank}")
+        del v, i
+        res = {**info, "network": network, "ms": _world_ms(lambda: ht.sort(x), 3)}
+        steps = []
+        ks.block_sort = _timed(ks.block_sort, steps)
+        try:
+            _world_ms(lambda: ht.sort(x), 1)
+        finally:
+            ks.block_sort = ks.block_sort.__wrapped__
+        res["step_ms"] = [round(a.elapsed_time(b), 4) for a, b in steps]
+        if name == "sort_1gb_split0":
+            (vd, idd), res["descending"] = counted(lambda: ht.sort(x, descending=True))
+            ok = torch.equal(idd.larray, mine(ref.flip(0), n))  # the flip of the ascending sort
+            ok = ok and res["descending"]["launches"] == want
+            del vd, idd
+            (tv, ti), res["topk"] = counted(lambda: ht.topk(x, TOPK_K))
+            top = torch.sort(whole, descending=True, stable=True).indices[:TOPK_K]  # the lower index first
+            ok = ok and tv.split is None and torch.equal(ti.larray, top) and torch.equal(tv.larray, whole[top])
+            ok = ok and res["topk"]["launches"] == 2  # the local top-k and the final selection
+            u, res["unique"] = counted(lambda: ht.unique(x))
+            distinct = torch.unique(whole)
+            ok = ok and u.split == 0 and u.shape == distinct.shape and torch.equal(u.larray, mine(distinct,
+                                                                                                 u.shape[0]))
+            ok = ok and res["unique"]["launches"] == 2  # the local dedup and the merge of the candidates
+            del u, distinct
+            _every_rank_ok(comm, ok, f"{name}: descending, topk or unique against torch on the card, or K4 "
+                                     f"launches (descending {want}, topk 2, unique 2) on rank {rank}")
+            res["descending_ms"] = _world_ms(lambda: ht.sort(x, descending=True), 3)
+            res["topk_ms"] = _world_ms(lambda: ht.topk(x, TOPK_K), 3)
+            res["unique_ms"] = _world_ms(lambda: ht.unique(x), 3)
+        out[name] = res
+        del x, whole, ref
+        torch.cuda.empty_cache()
+    rows, width = WORLD_UNIQUE_ROWS
+    gen.manual_seed(7100 + rank)
+    X = ht.array(torch.randint(0, 8, (comm.chunk((rows, width), 0)[1][0], width), device=dev, generator=gen,
+                               dtype=torch.int32), is_split=0)
+    (u, inv), info = counted(lambda: ht.unique(X, return_inverse=True, axis=0))
+    ru, rinv = torch.unique(comm.allgather(X.larray, 0, comm.lshape_map((rows, width), 0)[:, 0]), dim=0,
+                            return_inverse=True)
+    # K4 sorts each column once in the local dedup and once in the merge
+    _every_rank_ok(comm, u.split == 0 and inv.split == 0 and info["launches"] == 2 * width and u.shape == ru.shape
+                   and torch.equal(u.larray, mine(ru, ru.shape[0])) and torch.equal(inv.larray, mine(rinv, rows)),
+                   f"unique(axis=0) against torch.unique on the card, or K4 launches {info['launches']} != "
+                   f"{2 * width} on rank {rank}")
+    out["unique_rows"] = {**info, "distinct": int(u.shape[0]),
+                          "ms": _world_ms(lambda: ht.unique(X, return_inverse=True, axis=0), 3)}
+    return out
+
+
 def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
     """One rank of the world phase: joins a gloo world of WORLD processes
     on ``cuda:0`` and runs every configuration; writes its results (or its
@@ -1507,7 +1694,8 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
         for i, config in enumerate(WORLD_CONFIGS):
             result[config[0]] = _world_config(ht, cs, svdtools, comm, moved, level0, rank, config, profile=i == 0)
             torch.cuda.empty_cache()
-        for phase, run in (("kmeans", _world_kmeans), ("attention", _world_attention), ("distance", _world_distance)):
+        for phase, run in (("kmeans", _world_kmeans), ("attention", _world_attention), ("distance", _world_distance),
+                           ("sort", _world_sort)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -1518,6 +1706,45 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
         json.dump(result, f)
     if "error" in result:
         raise SystemExit(1)
+
+
+def _report_world_sort(per: list, shared: str) -> dict:
+    """Print the sort phase of the world from every rank's results; returns
+    K4's launches a rank in each call."""
+    launches = {}
+    for name, n in WORLD_SORTS:
+        each = [p[name] for p in per]
+        launches[name] = [e["launches"] for e in each]
+        nbytes = 2.0 * n * 8  # float32 values read and written, int64 indices written: 16 B an element
+        print(
+            f"world {name}: ht.sort(randn({n}) split 0), {each[0]['network']} at {-(-n // WORLD)} rows a rank: "
+            f"{each[0]['ms']:.4f} ms a call (rank 0, median of 3; ranks {[round(e['ms'], 4) for e in each]}), bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (the {WORLD} shards' float32 values read and written and their "
+            f"int64 indices written, 16 B an element, {nbytes / 1e9:.4f} GB); K4 launches a rank {launches[name]} "
+            f"(one a local step of the schedule); the local steps (block_sort, CUDA events on the rank's stream "
+            f"in one more call, the other contexts sharing the card meanwhile) ms a rank "
+            f"{[e['step_ms'] for e in each]}, summed {[round(sum(e['step_ms']), 4) for e in each]}; indices equal torch.sort(stable=True)'s bit for bit, values equal; collectives a rank "
+            f"{each[0]['counts']}, bytes a rank put in {each[0]['bytes']}, staged through the host "
+            f"{[e['staged'] for e in each]} B a rank; {shared}", flush=True,
+        )
+        if "descending" in each[0]:
+            for key, what in (("descending", "ht.sort(x, descending=True) (the flip of the ascending sort)"),
+                              ("topk", f"ht.topk(x, {TOPK_K}) (whole on every rank)"), ("unique", "ht.unique(x)")):
+                print(
+                    f"world {name}: {what}: {each[0][key + '_ms']:.4f} ms a call (rank 0, median of 3); K4 launches a "
+                    f"rank {[e[key]['launches'] for e in each]}; equal to torch on the card; collectives a rank "
+                    f"{each[0][key]['counts']}, bytes a rank put in {each[0][key]['bytes']}; {shared}", flush=True,
+                )
+    each = [p["unique_rows"] for p in per]
+    launches["unique_rows"] = [e["launches"] for e in each]
+    rows, width = WORLD_UNIQUE_ROWS
+    print(
+        f"world unique_rows: ht.unique(randint(0, 8, ({rows}, {width})) int32 split 0, return_inverse=True, axis=0): "
+        f"{each[0]['ms']:.4f} ms a call (rank 0, median of 3), {each[0]['distinct']} distinct rows, equal to "
+        f"torch.unique(dim=0) with its inverse; K4 launches a rank {launches['unique_rows']}; collectives a rank "
+        f"{each[0]['counts']}, bytes a rank put in {each[0]['bytes']}; {shared}", flush=True,
+    )
+    return launches
 
 
 def world_path(dev) -> dict:
@@ -1635,6 +1862,7 @@ def world_path(dev) -> dict:
             f"bytes a rank put in {per[0]['bytes']}, staged through the host {[p['staged'] for p in per]} B a rank; "
             f"{shared}", flush=True,
         )
+    world["sort"] = _report_world_sort([res["sort"] for res in results], shared)
     return world
 
 
@@ -2992,6 +3220,7 @@ def main() -> int:
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
     rows[-1]["world_launches"] = {"kmeans_fit": launches["world"]["kmeans"]}
     rows.extend(sort_timings(dev, sort_launches, sort_errs))
+    next(row for row in rows if row["name"] == "pair_sort_one_segment")["world_launches"] = launches["world"]["sort"]
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
     att_rows = attention_timings(dev, att_launches, att_launches_sm90, att_errs, att_path_errs)
     for row in att_rows:  # K9's launches a rank in the world's ring at the row's shape

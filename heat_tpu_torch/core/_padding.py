@@ -35,9 +35,9 @@ def phys_shape(gshape: Tuple[int, ...], split: Optional[int], size: int) -> Tupl
     return tuple(out)
 
 
-def pad_to(t: torch.Tensor, axis: int, extent: int) -> torch.Tensor:
-    """``t`` zero-padded at the end of ``axis`` to ``extent`` (``t``
-    itself when it is that long already)."""
+def pad_to(t: torch.Tensor, axis: int, extent: int, fill=0) -> torch.Tensor:
+    """``t`` padded with ``fill`` at the end of ``axis`` to ``extent``
+    (``t`` itself when it is that long already)."""
     n = t.shape[axis]
     if n == extent:
         return t
@@ -45,7 +45,7 @@ def pad_to(t: torch.Tensor, axis: int, extent: int) -> torch.Tensor:
         raise ValueError(f"pad_to: axis {axis} holds {n} > {extent}")
     shape = list(t.shape)
     shape[axis] = extent - n
-    return torch.cat([t, t.new_zeros(shape)], dim=axis)
+    return torch.cat([t, t.new_full(shape, fill)], dim=axis)
 
 
 def trim_to(t: torch.Tensor, axis: int, extent: int) -> torch.Tensor:

@@ -74,8 +74,8 @@ class TorchCommunication(Communication):
     ``counts`` maps a collective's name (``"all-to-all"``, ``"all-gather"``,
     ``"collective-permute"``, ``"all-reduce"``, ``"broadcast"``) to the
     calls issued since it was last cleared; ``staged_bytes`` the bytes
-    ``ring_exchange`` staged through host memory since it was last set to
-    0."""
+    ``ring_exchange`` and ``permute`` staged through host memory since it
+    was last set to 0."""
 
     def __init__(self) -> None:
         self.counts: Dict[str, int] = {}
@@ -247,24 +247,50 @@ class TorchCommunication(Communication):
         So under gloo a CUDA tensor is staged through pinned host buffers,
         and ``staged_bytes`` adds the bytes copied each way (sent plus
         received). NCCL exchanges the device tensors themselves."""
+        return self._exchange(send, dst, src)
+
+    def permute(self, send: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """``lax.ppermute``'s exchange: for each (src, dst) of ``pairs``,
+        rank src's ``send`` goes to rank dst. Every rank calls it with the
+        same pairs and a tensor of the same shape and dtype; a rank sends
+        to at most one rank and receives from at most one, and one that
+        receives nothing gets zeros (the ends of a shift that is not
+        cyclic). Staged through host memory under gloo as
+        :meth:`ring_exchange` is."""
+        srcs, dsts = [int(s) for s, _ in pairs], [int(d) for _, d in pairs]
+        if len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts) or not set(srcs + dsts) <= set(range(self.size)):
+            raise ValueError(f"permute: {list(pairs)} is not a partial permutation of {self.size} ranks")
+        me = self.rank
+        dst = [d for s, d in zip(srcs, dsts) if s == me]
+        src = [s for s, d in zip(srcs, dsts) if d == me]
+        return self._exchange(send, dst[0] if dst else None, src[0] if src else None)
+
+    def _exchange(self, send: torch.Tensor, dst: Optional[int], src: Optional[int]) -> torch.Tensor:
+        """Send ``send`` to ``dst`` and receive a tensor like it from
+        ``src`` (either may be None) in one ``batch_isend_irecv``; zeros
+        where nothing arrives. Under gloo a CUDA tensor crosses the host
+        only in the directions used. Counted as one collective-permute."""
         out = _as_bytes(send)
-        buf = torch.empty_like(out)
-        if self.is_distributed():
+        buf = torch.zeros_like(out) if src is None else torch.empty_like(out)
+        me = self.rank
+        if self.is_distributed() and (dst, src) != (me, me):
             staged = out.is_cuda and dist.get_backend() == "gloo"
             wire_out, wire_in = out, buf
-            if staged:
+            if staged and dst is not None:
                 wire_out = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
                 wire_out.copy_(out)
-                wire_in = torch.empty_like(wire_out, pin_memory=True)
-            reqs = dist.batch_isend_irecv(
-                [dist.P2POp(dist.isend, wire_out, dst), dist.P2POp(dist.irecv, wire_in, src)]
-            )
-            for req in reqs:
-                req.wait()
+            if staged and src is not None:
+                wire_in = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+            ops = ([] if dst is None else [dist.P2POp(dist.isend, wire_out, dst)]) + (
+                [] if src is None else [dist.P2POp(dist.irecv, wire_in, src)])
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
             if staged:
-                buf.copy_(wire_in)
-                self.staged_bytes += 2 * out.numel()
-        else:
+                if src is not None:
+                    buf.copy_(wire_in)
+                self.staged_bytes += out.numel() * ((dst is not None) + (src is not None))
+        elif src == me:
             buf.copy_(out)
         self._count("collective-permute")
         return _from_bytes(buf, send.dtype, send.shape)

@@ -1,24 +1,30 @@
-"""Array manipulations: ``reshape`` and ``resplit`` across ranks, and the
-local sort family.
+"""Array manipulations: ``reshape`` and ``resplit`` across ranks, ``flip``,
+``moveaxis`` and the sort family.
 
 Port of part of ``heat_tpu.core.manipulations`` (Heat reference:
 heat/core/manipulations.py, ``reshape`` at :1994, ``sort`` at :2428,
 ``unique`` at :3202, ``resplit`` at :3479, ``topk`` at :3981).
 ``reshape(..., new_split=)`` and ``resplit`` go through the
 redistribution planner and executor (``heat_tpu_torch.redistribution``).
-``sort``, ``unique`` and ``topk`` are the single-device branches, with the
-helpers they use (``flip``, ``moveaxis``); all three run on the local sort
-engine of ``heat_tpu_torch.kernels.sort``, whose radix pair-sort kernel K4
-serves float32 and int32 on CUDA.
+``sort``, ``unique`` and ``topk`` run on the local sort engine of
+``heat_tpu_torch.kernels.sort``, whose radix pair-sort kernel K4 serves
+float32 and int32 on CUDA; along the split axis of an array over more than
+one rank they run the programs of ``heat_tpu_torch.core.parallel`` (the
+columnsort or odd-even network, K4 sorting each rank's blocks, and
+candidate all-gathers for ``topk`` and ``unique``). ``flip`` of the split
+axis moves rows between ranks in one all-to-all.
 
 They agree with ``heat_tpu``: indices exactly; values under ``lax.sort``'s
 comparator (values that pass through the key transform come back as +0.0
 and the quiet NaN); ``unique`` collapses every NaN and ±0 as ``jnp.unique``
 does, keeping the first of each group in input order; ``topk`` orders by
 IEEE totalOrder, as ``lax.top_k`` does, lower index first among ties.
-
-The distributed sorts (along the split axis of an array over more than one
-rank) wait for the distributed sort programs (ROADMAP.md Queue 1, item 4).
+Across ranks they follow ``heat_tpu``'s distributed branches: a descending
+sort is the flip of the ascending one (NaNs first, ties in descending
+index order); ``topk`` returns its result whole on every rank; a flat
+``unique`` returns a 1-D inverse split 0, and ``unique(axis=)`` returns
+canonical values (+0.0, the quiet NaN), as ``heat_tpu``'s rows
+formulation does.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from . import types
+from . import _padding, parallel, types
 from .dndarray import DNDarray
 from .sanitation import sanitize_in
 from .stride_tricks import sanitize_axis, sanitize_shape
@@ -50,9 +56,13 @@ def _wrap(result: torch.Tensor, split: Optional[int], ref: DNDarray, dtype=None)
     return _from_shards(result, dtype, split, ref.device, ref.comm)
 
 
-def _refuse_distributed(a: DNDarray, what: str, item: int = 4) -> None:
-    if a.split is not None and a.comm.is_distributed():
-        raise NotImplementedError(f"distributed {what} along the split axis: see ROADMAP.md Queue 1, item {item}")
+def _chunk_of(whole: torch.Tensor, split: Optional[int], ref: DNDarray, dtype=None) -> DNDarray:
+    """An output DNDarray of the global tensor ``whole``, which every rank
+    holds; each keeps its chunk along ``split``."""
+    from .factories import _wrap as _keep_chunk
+
+    dtype = dtype if dtype is not None else types.canonical_heat_type(whole.dtype)
+    return _keep_chunk(whole, dtype, split, ref.device, ref.comm)
 
 
 def _normalize_reshape_args(a: DNDarray, shape, new_split):
@@ -112,15 +122,36 @@ def resplit(arr: DNDarray, axis: Optional[int] = None) -> DNDarray:
 
 
 def flip(a: DNDarray, axis: Optional[Union[int, Tuple[int, ...]]] = None) -> DNDarray:
-    """Reverse element order along axis (reference: manipulations.py flip).
-    A flip of the split axis across ranks moves shards between ranks and
-    waits for ROADMAP.md Queue 1, item 9."""
+    """Reverse element order along axis (reference: manipulations.py flip;
+    ``heat_tpu`` :260). Across ranks a flip of the split axis is one
+    all-to-all: global row g goes to n − 1 − g."""
     sanitize_in(a)
     axis = sanitize_axis(a.shape, axis)
     dims = tuple(range(a.ndim)) if axis is None else (axis if isinstance(axis, tuple) else (axis,))
-    if a.split in dims:
-        _refuse_distributed(a, "flip", item=9)
+    if a.split in dims and a.is_distributed():
+        local = _flip_split(a, torch.flip(a._balanced_larray(), dims))
+        return DNDarray(local, a.gshape, a.dtype, a.split, a.device, a.comm)
     return _wrap(torch.flip(a.larray, dims), a.split, a, dtype=a.dtype)
+
+
+def _flip_split(a: DNDarray, local: torch.Tensor) -> torch.Tensor:
+    """Move this rank's rows, flipped in place (``local``), to the ranks that
+    own their mirrored positions along the split axis."""
+    comm, split, n = a.comm, a.split, a.gshape[a.split]
+    counts, displs, _ = comm.counts_displs_shape(a.gshape, split)
+
+    def overlap(lo: int, hi: int, q: int) -> int:
+        return max(0, min(hi, displs[q] + counts[q]) - max(lo, displs[q]))
+
+    def mirrored(q: int):  # where rank q's rows land, ascending
+        return n - displs[q] - counts[q], n - displs[q]
+
+    r = comm.rank
+    send = [overlap(*mirrored(r), q) for q in range(comm.size)]
+    recv = [overlap(*mirrored(q), r) for q in range(comm.size)]
+    got = comm.alltoall(local.movedim(split, 0).contiguous(), send, recv)
+    # the higher a source rank, the lower its rows land
+    return torch.cat(torch.split(got, recv)[::-1]).movedim(0, split).contiguous()
 
 
 def moveaxis(x: DNDarray, source, destination) -> DNDarray:
@@ -143,26 +174,66 @@ def moveaxis(x: DNDarray, source, destination) -> DNDarray:
 
 def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
     """Sort along an axis; returns (values, indices), the indices the
-    stable argsort as int64 (reference: manipulations.py:2428).
+    stable argsort as int64 (reference: manipulations.py:2428; ``heat_tpu``
+    :560).
 
     ``descending`` keeps ties in input order and puts NaNs first. On CUDA,
     float32 and int32 sort through kernel K4 when the axis is the only one,
     or its rows hold at most ``SEG_MAX`` elements; values coming back
     through the key transform are +0.0 for −0.0 and the quiet NaN for any
-    NaN. Complex values sort lexicographically in (real, imag)."""
+    NaN. Complex values sort lexicographically in (real, imag).
+
+    Along the split axis across ranks it runs ``parallel.distributed_sort``
+    on each rank's block, padded to ⌈n/p⌉ rows with the dtype's sentinel
+    (columnsort where Leighton's bound admits it, else the odd-even
+    network), and a descending sort is that result flipped, so that ties
+    come in descending index order; complex values are gathered and
+    argsorted, as ``heat_tpu`` does."""
     sanitize_in(a)
     axis = sanitize_axis(a.shape, axis)
     if axis is None:
         axis = a.ndim - 1
-    if a.split == axis:
-        _refuse_distributed(a, "sort")
-    values, indices = _ksort.local_sort(a.larray, axis=axis, descending=descending)
-    vals = _wrap(values, a.split, a, dtype=a.dtype)
-    idx = _wrap(indices.to(types.index_torch_type()), a.split, a)
+    if a.split == axis and a.is_distributed() and a.size > 0:
+        vals, idx = _sort_split(a, axis, descending)
+    else:
+        values, indices = _ksort.local_sort(a.larray, axis=axis, descending=descending)
+        vals = _wrap(values, a.split, a, dtype=a.dtype)
+        idx = _wrap(indices.to(types.index_torch_type()), a.split, a)
     if out is not None:
         out.larray = vals.larray
         return out, idx
     return vals, idx
+
+
+def _sort_split(a: DNDarray, axis: int, descending: bool):
+    """``sort`` along the split axis of an array over more than one rank
+    (``heat_tpu`` manipulations.py:580-597)."""
+    comm = a.comm
+    if a.larray.is_complex():
+        values, indices = _ksort.local_sort(a.resplit(None).larray, axis=axis, descending=descending)
+        return _chunk_of(values, axis, a, a.dtype), _chunk_of(indices, axis, a)
+    block = -(-a.gshape[axis] // comm.size)
+    padded = _padding.pad_to(a._balanced_larray(), axis, block, _ksort.sentinel(a.larray.dtype))
+    sv, si = parallel.distributed_sort(padded, comm, axis)
+    mine = comm.chunk(a.gshape, axis)[1][axis]
+    vals = DNDarray(_padding.trim_to(sv, axis, mine).contiguous(), a.gshape, a.dtype, axis, a.device, comm)
+    idx = DNDarray(_padding.trim_to(si, axis, mine).contiguous(), a.gshape, types.canonical_heat_type(si.dtype),
+                   axis, a.device, comm)
+    if descending:
+        vals, idx = flip(vals, axis), flip(idx, axis)
+    return vals, idx
+
+
+def _losing(dtype: torch.dtype, largest: bool):
+    """The value a pad holds in a distributed ``topk``: the dtype's least
+    (``largest``) or greatest, as ``heat_tpu``'s ``_resolve_neutral``
+    gives it."""
+    if dtype.is_floating_point:
+        return -float("inf") if largest else float("inf")
+    if dtype == torch.bool:
+        return not largest
+    info = torch.iinfo(dtype)
+    return info.min if largest else info.max
 
 
 def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool = True, out=None):
@@ -175,24 +246,35 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
     whatever ``sorted`` says, as in ``heat_tpu``. One stable sort of the
     totalOrder key gives it (K4's fused entry for float32 and int32 on
     CUDA, which writes only the indices); the values are gathered from the
-    input, bit for bit."""
+    input, bit for bit.
+
+    Along the split axis across ranks it runs ``parallel.distributed_topk``
+    on each rank's block padded to ⌈n/p⌉ with the losing value (−inf or
+    +inf, the integer extremes), and returns the result whole on every
+    rank (split None), as ``heat_tpu`` does."""
     sanitize_in(a)
     dim = sanitize_axis(a.shape, dim)
     if a.ndim == 0:
         raise ValueError("topk needs an array of at least one dimension")
-    if a.split == dim:
-        _refuse_distributed(a, "topk")
     n = a.shape[dim]
     if not 0 <= k <= n:
         raise ValueError(f"k must lie in [0, {n}] along axis {dim} of shape {a.shape}, got k={k}")
     if a.larray.is_complex():
         raise TypeError("topk of a complex array: complex has no order")
-    x = a.larray.movedim(dim, -1).contiguous()
-    order = _ksort.argsort(x, total=True, descending=largest).narrow(-1, 0, k).contiguous()
-    values = x.gather(-1, order).movedim(-1, dim).contiguous()
-    indices = order.movedim(-1, dim).contiguous().to(types.index_torch_type())
-    vals = _wrap(values, a.split, a, dtype=a.dtype)
-    idx = _wrap(indices, a.split, a)
+    if a.split == dim and a.is_distributed():
+        block = -(-n // a.comm.size)
+        padded = _padding.pad_to(a._balanced_larray(), dim, block, _losing(a.larray.dtype, largest))
+        values, indices = parallel.distributed_topk(padded, a.comm, dim, k, largest)
+        gshape = tuple(k if i == dim else s for i, s in enumerate(a.gshape))
+        vals = DNDarray(values, gshape, a.dtype, None, a.device, a.comm)
+        idx = DNDarray(indices, gshape, types.canonical_heat_type(indices.dtype), None, a.device, a.comm)
+    else:
+        x = a.larray.movedim(dim, -1).contiguous()
+        order = _ksort.argsort(x, total=True, descending=largest).narrow(-1, 0, k).contiguous()
+        values = x.gather(-1, order).movedim(-1, dim).contiguous()
+        indices = order.movedim(-1, dim).contiguous().to(types.index_torch_type())
+        vals = _wrap(values, a.split, a, dtype=a.dtype)
+        idx = _wrap(indices, a.split, a)
     if out is not None:
         if not isinstance(out, tuple) or len(out) != 2:
             raise TypeError("out must be a (values, indices) tuple of DNDarrays")
@@ -200,60 +282,6 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
         out[1].larray = idx.larray
         return out
     return vals, idx
-
-
-def _nan_canonical(t: torch.Tensor) -> torch.Tensor:
-    """Complex values with a NaN in either part become nan+0j, as
-    ``jnp.unique`` makes them before it sorts."""
-    if not t.is_complex():
-        return t
-    return torch.where(torch.isnan(t), torch.full_like(t, complex(float("nan"), 0.0)), t)
-
-
-def _columns_of(t: torch.Tensor):
-    """Real columns of a 1-D tensor, most significant first: itself, or
-    (real, imag) for complex."""
-    if t.is_complex():
-        return [t.real.contiguous(), t.imag.contiguous()]
-    return [t]
-
-
-def _lex_sort(cols):
-    """Stable lexicographic argsort of rows whose columns are the 1-D real
-    ``cols`` (most significant first), by their sort keys: one stable sort
-    per column, the last column first, carrying the row permutation (the
-    first of them K4's fused entry for float32 and int32 on CUDA). Returns
-    the permutation and the columns' keys in its order."""
-    perm = None
-    for col in reversed(cols):
-        if perm is None:
-            last, perm = _ksort.sort_with_key(col)
-        else:
-            last, perm = _ksort.sort_keys(_ksort.sort_key(col[perm]), perm)
-    return perm, [last] + [_ksort.sort_key(col[perm]) for col in cols[1:]]
-
-
-def _groups(sorted_keys, n: int, device) -> torch.Tensor:
-    """True where a run of equal keys begins."""
-    start = torch.ones(n, dtype=torch.bool, device=device)
-    if n > 1:
-        differ = torch.zeros(n - 1, dtype=torch.bool, device=device)
-        for key in sorted_keys:
-            differ |= key[1:] != key[:-1]
-        start[1:] = differ
-    return start
-
-
-def _unique_sorted(items: torch.Tensor, cols):
-    """Unique items (rows of ``items`` along dim 0) by the keys of their
-    columns: the first of each group in input order, and each item's
-    group."""
-    n = items.shape[0]
-    perm, sorted_keys = _lex_sort(cols)
-    start = _groups(sorted_keys, n, items.device)
-    inverse = torch.empty(n, dtype=types.index_torch_type(), device=items.device)
-    inverse[perm] = torch.cumsum(start, 0) - 1
-    return items[perm[start]], inverse
 
 
 def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis: Optional[int] = None):
@@ -265,39 +293,79 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
     member in input order (``[-0., 0.]`` gives ``-0.``). The inverse has
     the input's shape, or the length of ``axis``. Slices sort
     lexicographically by one stable sort per column, last column first
-    (K4 for float32 and int32 columns on CUDA)."""
+    (K4 for float32 and int32 columns on CUDA).
+
+    A split array over more than one rank takes ``heat_tpu``'s distributed
+    branches (manipulations.py:813-949): each rank dedups its own items,
+    and only the candidates are all-gathered and merged
+    (``parallel.distributed_unique``). The values come back split 0; the
+    flat inverse is 1-D, of length ``a.size``, split 0. Slices come back as
+    the canonical values of ``heat_tpu``'s rows formulation; slices of
+    more than 256 elements or of a dtype without a sortable transform are
+    gathered, and their inverse is whole on every rank."""
     sanitize_in(a)
     if axis is not None:
         axis = sanitize_axis(a.shape, axis)
         if a.ndim == 1:
             axis = None  # 1-D slices are the elements
-    if 0 not in a.gshape:
-        _refuse_distributed(a, "unique")
+    if a.is_distributed() and 0 not in a.gshape:
+        return _unique_split(a, axis, return_inverse)
     x = a.larray
     if axis is None:
-        flat = _nan_canonical(x.reshape(-1))
+        flat = x.reshape(-1)
         if flat.numel() == 0:
             values = flat
             inverse = torch.zeros(x.shape, dtype=types.index_torch_type(), device=x.device)
         else:
-            values, inverse = _unique_sorted(flat, _columns_of(flat))
+            values, inverse = parallel.sorted_dedup(flat)
             inverse = inverse.reshape(x.shape)
     else:
-        moved = _nan_canonical(x.movedim(axis, 0).contiguous())
-        n = moved.shape[0]
+        moved = x.movedim(axis, 0).contiguous()
         if moved.numel() == 0:
             # jnp.unique keeps one empty slice of an axis that has any
             values = moved[:1]
-            inverse = torch.zeros(n, dtype=types.index_torch_type(), device=x.device)
+            inverse = torch.zeros(moved.shape[0], dtype=types.index_torch_type(), device=x.device)
         else:
-            rows = moved.reshape(n, -1)
-            cols = [c for j in range(rows.shape[1]) for c in _columns_of(rows[:, j].contiguous())]
-            values, inverse = _unique_sorted(moved, cols)
+            values, inverse = parallel.sorted_dedup(moved)
         values = values.movedim(0, axis).contiguous()
     vals = _wrap(values, 0 if a.split is not None else None, a, dtype=a.dtype)
     if return_inverse:
         return vals, _wrap(inverse, None, a)
     return vals
+
+
+def _unique_split(a: DNDarray, axis: Optional[int], return_inverse: bool):
+    """``unique`` of a split array over more than one rank."""
+    comm = a.comm
+    if axis is None:
+        arr = a if a.split == 0 else a.resplit(0)
+        values, inverse = parallel.distributed_unique(arr._balanced_larray().reshape(-1), comm)
+        vals = _chunk_of(values, 0, a, a.dtype)
+        if not return_inverse:
+            return vals
+        # this rank's elements are a run of the flattened array: move them to its chunks
+        lmap = np.prod(comm.lshape_map(arr.gshape, 0), axis=1, keepdims=True)
+        inv = DNDarray(inverse, (a.size,), types.canonical_heat_type(inverse.dtype), 0, a.device, comm, lmap)
+        inv.balance_()
+        return vals, inv
+    width = int(np.prod([s for i, s in enumerate(a.gshape) if i != axis]))
+    dtype = a.larray.dtype
+    if width > 256 or not (_ksort.transformable(dtype) or dtype == torch.bool):
+        # heat_tpu's jnp.unique of the whole array (manipulations.py:940-949)
+        vals, inv = unique(a.resplit(None), return_inverse=True, axis=axis)
+        vals = _chunk_of(vals.larray, 0, a, a.dtype)
+        return (vals, inv) if return_inverse else vals
+    arr = a if axis == 0 else moveaxis(a, axis, 0)
+    if arr.split != 0:
+        arr = arr.resplit(0)
+    values, inverse = parallel.distributed_unique(arr._balanced_larray(), comm)
+    if dtype != torch.bool:  # the rows formulation compares the transformed words
+        values = _ksort.from_sortable(_ksort.to_sortable(values), dtype)
+    vals = _chunk_of(values.movedim(0, axis).contiguous(), 0, a, a.dtype)
+    if not return_inverse:
+        return vals
+    inv = DNDarray(inverse, (arr.gshape[0],), types.canonical_heat_type(inverse.dtype), 0, a.device, comm)
+    return vals, inv
 
 
 # method attachment (reference attaches these on DNDarray)

@@ -31,8 +31,10 @@ NaN sorts last, tied. Values that come back through the transform are
 canonical in those two tie classes (+0.0, the quiet NaN), as on
 ``heat_tpu``'s kernel paths.
 
-The distributed sorts (``block_sort``, the blocked columnsort) wait for the
-distributed programs (ROADMAP.md, Queue 1).
+``block_sort`` is the local step of the distributed sort networks
+(``heat_tpu_torch.core.parallel``): K4 sorts the (value, global index)
+pairs of a block, or its values alone. ``_columnsort_local`` is the
+columnsort schedule of those networks in one process.
 """
 
 from __future__ import annotations
@@ -46,12 +48,14 @@ __all__ = [
     "SEG_MAX",
     "SORT_LAUNCHES",
     "argsort",
+    "block_sort",
     "from_sortable",
     "fused_sort",
     "fused_sort_plain",
     "local_sort",
     "pair_sort",
     "pair_sort_plain",
+    "sentinel",
     "sort_key",
     "sort_keys",
     "sort_plan",
@@ -585,6 +589,108 @@ def sort_with_key(x: torch.Tensor):
         sk, idx = fused_sort(x.reshape(-1), seg_len=x.shape[-1], out="words")
         return sk.reshape(x.shape), idx.reshape(x.shape)
     return sort_keys(sort_key(x))
+
+
+# --------------------------------------------------------------------- #
+# the local step of the distributed networks                            #
+# --------------------------------------------------------------------- #
+def sentinel(dtype: torch.dtype):
+    """The pad value that sorts after every value of ``dtype`` under the
+    comparator, or ties the largest: NaN for floats, True for bool,
+    type-max for integers (``heat_tpu`` manipulations.py:523)."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).max
+
+
+def block_sort(operands, dimension: int = 0, num_keys: int = 1, extent: Optional[int] = None):
+    """``lax.sort``'s contract for the local steps of the distributed sort
+    networks (``heat_tpu`` kernels/sort.py:672): ``operands`` are the
+    values, or with ``num_keys=2`` the values and their int64 global
+    indices, sorted along ``dimension`` (other dims are batch lanes) into
+    the lexicographic order of (value under the comparator, index); every
+    route is stable. With two keys the indices must lie in [0,
+    ``extent``).
+
+    float32 and int32 values of a shape K4 serves (one lane, or lanes of
+    at most ``SEG_MAX``) take K4: values alone its fused entry, pairs its
+    pair sort on (``sort_key(value)``, index) ordered by the index's low 2
+    bytes when ``extent`` ≤ 2^16 and 4 below 2^31, as ``heat_tpu``'s
+    ``_run_pair_path`` sizes it. Values that come back through the key
+    transform are +0.0 for −0.0 and the quiet NaN for any NaN. Every other
+    case takes ``torch.sort(stable=True)`` on the int64 key, after a stable
+    sort by index where there is one. The route is decided by dtype, shape
+    and ``extent``; a CUDA tensor that K4 should serve launches K4 or
+    raises."""
+    operands = tuple(operands)
+    if num_keys not in (1, 2) or len(operands) != num_keys:
+        raise ValueError(f"block_sort takes num_keys 1 or 2 and as many operands, got {num_keys} and {len(operands)}")
+    if num_keys == 2 and extent is None:
+        raise ValueError("block_sort with an index key needs the indices' extent")
+    v = operands[0].movedim(dimension, -1).contiguous()
+    idx = operands[1].movedim(dimension, -1).contiguous() if num_keys == 2 else None
+    if v.numel() == 0:
+        return tuple(t.clone() for t in operands)
+    if _fusable(v) and (idx is None or extent <= 2**31):
+        n = v.shape[-1]
+        if idx is None:
+            sv, _ = fused_sort(v.reshape(-1), seg_len=n)
+            out = (sv.reshape(v.shape),)
+        else:
+            pay_bytes = 2 if extent - 1 <= 0xFFFF else 4
+            sk, sp = pair_sort(sort_key(v).reshape(-1), idx.to(torch.int32).reshape(-1), n, pay_bytes)
+            out = (from_sortable(sk, v.dtype).reshape(v.shape), sp.reshape(v.shape).to(idx.dtype))
+    else:
+        if idx is not None:
+            order = torch.sort(idx, dim=-1, stable=True).indices
+            v, idx = v.gather(-1, order), idx.gather(-1, order)
+        order = torch.sort(_wide_key(v, False), dim=-1, stable=True).indices
+        out = (v.gather(-1, order),) + (() if idx is None else (idx.gather(-1, order),))
+    return tuple(t.movedim(-1, dimension).contiguous() for t in out)
+
+
+def _columnsort_local(operands, num_keys: int, p: int, b: int, n: int):
+    """Leighton's columnsort of the 1-D ``operands`` (values, and with
+    ``num_keys=2`` their indices in [0, n)) in one process, as ``heat_tpu``
+    kernels/sort.py:415 runs it: the schedule of the distributed
+    columnsort (``core.parallel``) on a (p, b) matrix whose rows are the
+    ranks' blocks, with the all-to-alls as transposes and the boundary
+    windows as one batched sort of (p − 1, b). Sorted for any input when
+    p | b and b ≥ 2(p − 1)². The p·b − n pads hold the dtype's
+    ``sentinel`` and indices n, n + 1, ...; they sort after every real
+    pair and are cut. Returns the sorted operands."""
+    pad = p * b - n
+    dev = operands[0].device
+    padded = [torch.cat([operands[0], torch.full((pad,), sentinel(operands[0].dtype), dtype=operands[0].dtype,
+                                                 device=dev)])]
+    if num_keys == 2:
+        padded.append(torch.cat([operands[1], torch.arange(n, p * b, dtype=operands[1].dtype, device=dev)]))
+    padded = [t.reshape(p, b) for t in padded]
+
+    def srt(ts):
+        return list(block_sort(ts, 1, num_keys, extent=p * b))
+
+    def deal(t):  # row c: [t[r, q·p + c] for r, then q]
+        return t.reshape(p, b // p, p).permute(2, 0, 1).reshape(p, b)
+
+    def undeal(t):  # row d, position q·p + r: t[r, d·(b/p) + q]
+        return t.reshape(p, p, b // p).permute(1, 2, 0).reshape(p, b)
+
+    ts = srt(padded)
+    ts = srt([deal(t) for t in ts])
+    ts = srt([undeal(t) for t in ts])
+    h = b // 2
+    tops = [t[:, : b - h] for t in ts]
+    bots = [t[:, b - h :] for t in ts]
+    mid = srt([torch.cat([bt[:-1], tp[1:]], dim=1) for bt, tp in zip(bots, tops)])
+    out = []
+    for tp, bt, md in zip(tops, bots, mid):
+        up = torch.cat([tp[:1], md[:, h:]])
+        dn = torch.cat([md[:, :h], bt[p - 1 :]])
+        out.append(torch.cat([up, dn], dim=1).reshape(p * b)[:n])
+    return tuple(out)
 
 
 # --------------------------------------------------------------------- #

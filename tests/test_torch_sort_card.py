@@ -6,7 +6,9 @@ plain versions, bit for bit.
 last passes) against ``fused_sort_plain``, the composition of ``sort_key``,
 ``pair_sort_plain`` and ``from_sortable``: in every transform mode and both
 orders, at the tile boundaries of the one-sweep regime, on keys whose digit
-places are constant (passes the kernel skips), and on reruns. K4 moves
+places are constant (passes the kernel skips), and on reruns; the pair
+sort at the shapes of the distributed networks' local steps, and
+``block_sort`` on the card against its route on the CPU. K4 moves
 integers, so every comparison is exact.
 
 This module imports neither JAX nor heat_tpu, so that it runs where only
@@ -168,3 +170,51 @@ def test_new_design_matches_first_design_on_card(n, seg_len):
     _same(new, old)
     _same(new, ks.pair_sort(words, None, seg_len))
     _same(old, ks._pair_sort_pr3(words, None, seg_len))
+
+
+def _network_keys(n: int, seed: int):
+    """float32 keys of the distributed networks' local steps: heavy ties
+    (100 values) and 10% NaN."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-50, 50, n).astype(np.float32)
+    x[rng.random(n) < 0.1] = np.nan
+    return x, rng
+
+
+@pytest.mark.parametrize("pay_bytes", [2, 4])
+@pytest.mark.parametrize("n, seg_len", [(1 << 25, None), (2 * ((1 << 25) + 1), None), (1000 * 3000, 3000)])
+def test_network_steps_match_plain_version_on_card(n, seg_len, pay_bytes):
+    """K4 at the shapes of the distributed sort networks' local steps: a
+    columnsort step of sort_1gb over 4 ranks (2^25 pairs), an odd-even
+    merge of its ragged twin (2(2^25 + 1) pairs) and batch lanes of 2B;
+    the global index as payload, ordered by its low 2 or 4 bytes."""
+    dev = _card()
+    x, rng = _network_keys(n, n + pay_bytes)
+    pays = rng.permutation(n).astype(np.int32)
+    if pay_bytes == 2:
+        pays &= 0xFFFF
+    keys, pays = ks.sort_key(torch.from_numpy(x)).to(dev), torch.from_numpy(pays).to(dev)
+    got = ks.pair_sort(keys, pays, seg_len, pay_bytes)
+    _same(got, ks.pair_sort_plain(keys, pays, seg_len, pay_bytes))
+
+
+@pytest.mark.parametrize("num_keys", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("shape, dim", [((2 * 4097,), 0), ((3000, 5), 0), ((5, 2 * 1500), 1)])
+def test_block_sort_launches_k4_and_equals_its_cpu_route_on_card(shape, dim, dtype, num_keys):
+    """``block_sort`` on CUDA tensors launches K4 once and gives, bit for
+    bit, what it gives on CPU copies (K4's plain version there)."""
+    dev = _card()
+    n = int(np.prod(shape))
+    x, rng = _network_keys(n, n)
+    if dtype == "int32":  # the NaNs become type-max, the sentinel's value
+        x = np.where(np.isnan(x), 0, x).astype(np.int32) | np.where(np.isnan(x), 2**31 - 1, 0).astype(np.int32)
+    x = x.reshape(shape)
+    pos = np.broadcast_to(np.expand_dims(rng.permutation(70_000)[: shape[dim]], 1 - dim) if len(shape) == 2
+                          else rng.permutation(70_000)[:n], shape)
+    ops = [torch.from_numpy(x), torch.from_numpy(pos.astype(np.int64).copy())][:num_keys]
+    launches = ks.SORT_LAUNCHES
+    got = ks.block_sort([t.to(dev) for t in ops], dim, num_keys, extent=70_000)
+    assert ks.SORT_LAUNCHES == launches + 1
+    want = ks.block_sort(ops, dim, num_keys, extent=70_000)
+    _same([g.cpu() for g in got], want)

@@ -246,10 +246,6 @@ def _cases(ht):
         return ht.array(_array(shape, "float32", 8), split=split)
 
     entry = {
-        "sort_split_axis": lambda: ht.sort(split_x((40,))),
-        "topk_split_axis": lambda: ht.topk(split_x((40,)), 3),
-        "unique": lambda: ht.unique(split_x((40,))),
-        "flip_split_axis": lambda: ht.flip(split_x(), 0),
         "kmedians_fit": lambda: ht.cluster.KMedians(3).fit(split_x()),
         "kmedoids_fit": lambda: ht.cluster.KMedoids(3).fit(split_x()),
         "sparse_csr_split": lambda: ht.sparse.sparse_csr_matrix(np.eye(8, dtype=np.float32), split=0),
@@ -285,6 +281,7 @@ def _cases(ht):
     cases["entry_served"] = served
     cases.update(_linalg_cases(ht))
     cases.update(_ring_cases(ht))
+    cases.update(_sort_cases(ht))
     return cases
 
 
@@ -538,6 +535,156 @@ def _ring_cases(ht):
         k.larray.requires_grad_()
         return ht.nn.ring_attention(q, k, v)
     cases["att_grad"] = att_grad
+    return cases
+
+
+# the distributed sort family (tests/test_torch_sort_dist.py): over 4 ranks
+# 5 leaves the last rank empty, 37 and 40 take the odd-even network, 95 and
+# 1021 columnsort with pads at the tail, 96 and 1024 columnsort without
+SORT_NS = (5, 37, 40, 95, 96, 1024, 1021)
+SORT_DTYPES = ("float32", "int32", "float64", "int64", "bool", "complex64")
+SORT_2D = ((37, 3), (96, 5))  # split 0, sorted along 0: batch lanes
+VALUES_NS = (37, 96, 1021)  # the values-only programs: odd-even, columnsort
+TOPK = ((37, 0), (37, 3), (37, 15), (1021, 5), (1021, 300))  # (n, k): k <= B and k > B
+TOPK_DTYPES = ("float32", "int32", "float64", "negnan")
+UNIQUE_FLAT = (((5,), 0, "float32"), ((37,), 0, "float32"), ((1021,), 0, "float32"), ((96,), 0, "int32"),
+               ((40,), 0, "bool"), ((37,), 0, "float64"), ((37,), 0, "complex64"), ((13, 3), 0, "float32"),
+               ((7, 9), 1, "int32"))  # (shape, split, dtype)
+UNIQUE_AXIS = (((37, 3), 0, 0, "int32"), ((96, 2), 0, 0, "float32"), ((5, 40), 1, 1, "float32"),
+               ((40, 3), 0, 1, "int64"), ((9, 2, 3), 0, 0, "bool"), ((9, 300), 0, 0, "float32"),
+               ((13, 2), 0, 0, "complex64"))  # (shape, split, axis, dtype); (9, 300) and complex are gathered
+UNIQUE_COMPLEX_NAN = (37, 1021)  # flat unique of complex with NaN parts, split 0, against jnp.unique
+FLIPS = (((5,), 0, 0), ((37,), 0, 0), ((40,), 0, None), ((7, 5), 0, 0), ((7, 5), 0, None), ((5, 9), 1, 1),
+         ((6, 4, 5), 2, (0, 2)))  # (shape, split, axis)
+
+
+def sort_data(shape, dtype: str, seed: int) -> np.ndarray:
+    """Sort inputs with heavy duplicates: float32 also with NaN, ±0 and ±inf
+    ("negnan": NaNs with the sign bit set as well), integers with their
+    type-max, complex with ties in the real part."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    if dtype == "bool":
+        return (rng.random(n) < 0.5).reshape(shape)
+    if dtype == "complex64":
+        return (rng.integers(-3, 3, n) + 1j * rng.integers(-3, 3, n)).astype(np.complex64).reshape(shape)
+    base = rng.integers(-5, 5, n)
+    if dtype in ("int32", "int64"):
+        x = base.astype(dtype)
+        x[rng.random(n) < 0.1] = np.iinfo(dtype).max
+        return x.reshape(shape)
+    x = (base / 2).astype("float32" if dtype == "negnan" else dtype)
+    specials = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf], x.dtype)
+    pick = rng.random(n) < 0.2
+    x[pick] = specials[rng.integers(0, len(specials), int(pick.sum()))]
+    if dtype == "negnan":
+        x[rng.random(n) < 0.3] = -np.float32(np.nan)
+    return x.reshape(shape)
+
+
+def complex_nan_data(n: int, seed: int) -> np.ndarray:
+    """complex64 with ties, a third of it NaN in the real part, the
+    imaginary part or both."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-2, 2, n) + 1j * rng.integers(-2, 2, n)).astype(np.complex64)
+    pick = np.nonzero(rng.random(n) < 0.3)[0]
+    kind = rng.integers(0, 3, len(pick))
+    x.real[pick[kind != 1]] = np.nan
+    x.imag[pick[kind != 0]] = np.nan
+    return x
+
+
+def _sort_cases(ht):
+    import torch
+
+    from heat_tpu_torch.core import parallel
+
+    comm = ht.get_comm()
+    cases = {}
+
+    def arr(x):
+        return {"local": _np(x.larray), "split": x.split, "gshape": x.gshape, "global": x.numpy(),
+                "dtype": x.dtype.__name__}
+
+    def counted(call):
+        comm.counts.clear()
+        out = call()
+        return out, dict(comm.counts)
+
+    for n in SORT_NS:
+        for dt in SORT_DTYPES:
+            for descending in (False, True):
+                def sort_case(n=n, dt=dt, descending=descending):
+                    x = ht.array(sort_data((n,), dt, n), split=0)
+                    (v, i), counts = counted(lambda: ht.sort(x, descending=descending))
+                    return {"v": arr(v), "i": arr(i), "counts": counts}
+                cases[f"sort_{n}_{dt}_{descending}"] = sort_case
+    for shape in SORT_2D:
+        for dt in ("float32", "int32"):
+            def sort_2d(shape=shape, dt=dt):
+                v, i = ht.sort(ht.array(sort_data(shape, dt, shape[0]), split=0), axis=0)
+                return {"v": arr(v), "i": arr(i)}
+            cases[f"sort2d_{shape[0]}_{dt}"] = sort_2d
+    for n in VALUES_NS:
+        def values_case(n=n):
+            B = -(-n // comm.size)
+            x = ht.array(sort_data((n,), "float32", n), split=0)
+            padded = torch.cat([x.larray, torch.full((B - x.lshape[0],), float("nan"))])
+            out, counts = counted(lambda: parallel.distributed_sort(padded, comm, 0, with_indices=False))
+            return {"block": _np(out), "counts": counts}
+        cases[f"sort_values_{n}"] = values_case
+    for n, k in TOPK:
+        for dt in TOPK_DTYPES:
+            for largest in (True, False):
+                def topk_case(n=n, k=k, dt=dt, largest=largest):
+                    x = ht.array(sort_data((n,), dt, n + k), split=0)
+                    (v, i), counts = counted(lambda: ht.topk(x, k, largest=largest))
+                    return {"v": arr(v), "i": arr(i), "counts": counts}
+                cases[f"topk_{n}_{k}_{dt}_{largest}"] = topk_case
+
+    def topk_2d():
+        v, i = ht.topk(ht.array(sort_data((37, 3), "float32", 7), split=0), 4, dim=0)
+        return {"v": arr(v), "i": arr(i)}
+    cases["topk_2d"] = topk_2d
+    for shape, split, dt in UNIQUE_FLAT:
+        def unique_flat(shape=shape, split=split, dt=dt):
+            x = ht.array(sort_data(shape, dt, shape[0]), split=split)
+            (u, inv), counts = counted(lambda: ht.unique(x, return_inverse=True))
+            return {"u": arr(u), "inv": arr(inv), "counts": counts, "plain": arr(ht.unique(x))}
+        cases[f"unique_{'x'.join(map(str, shape))}_{split}_{dt}"] = unique_flat
+    for n in UNIQUE_COMPLEX_NAN:
+        def unique_complex_nan(n=n):
+            u, inv = ht.unique(ht.array(complex_nan_data(n, n), split=0), return_inverse=True)
+            return {"u": arr(u), "inv": arr(inv)}
+        cases[f"unique_complex_nan_{n}"] = unique_complex_nan
+    for shape, split, axis, dt in UNIQUE_AXIS:
+        def unique_axis(shape=shape, split=split, axis=axis, dt=dt):
+            data = sort_data(shape, dt, shape[0])
+            if dt == "int32":
+                data = data % 3  # few distinct rows
+            x = ht.array(data, split=split)
+            (u, inv), counts = counted(lambda: ht.unique(x, return_inverse=True, axis=axis))
+            return {"u": arr(u), "inv": arr(inv), "counts": counts}
+        cases[f"unique_axis_{'x'.join(map(str, shape))}_{split}_{axis}_{dt}"] = unique_axis
+    for shape, split, axis in FLIPS:
+        def flip_case(shape=shape, split=split, axis=axis):
+            x = ht.array(np.arange(int(np.prod(shape)), dtype=np.int32).reshape(shape), split=split)
+            out, counts = counted(lambda: ht.flip(x, axis))
+            return {**arr(out), "counts": counts}
+        cases[f"flip_{'x'.join(map(str, shape))}_{split}_{axis}"] = flip_case
+
+    def permute_case():
+        t = torch.full((3,), float(comm.rank + 1))
+        p = comm.size
+        out, counts = counted(lambda: [_np(comm.permute(t, pairs)) for pairs in (
+            [(i, i + 1) for i in range(p - 1)], [(i + 1, i) for i in range(p - 1)], [(0, 1), (1, 0)])])
+        try:
+            comm.permute(t, [(0, 1), (0, 2)])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        return {"got": out, "counts": counts, "refused": refused}
+    cases["permute"] = permute_case
     return cases
 
 
