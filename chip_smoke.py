@@ -22,8 +22,17 @@ Phases, each of which fails the run by raising:
    (``spmm.cu``) takes k = 1, 4 and 64, also on rows whose mask is clear
    holding NaN; every instantiation of K1's Hopper kernel must compile
    without spills;
+   R1 (``threefry.cu``, heat_tpu's Threefry stream) draws the main paths'
+   operands at full size, each in one launch, held against its plain
+   version bit for bit (normals too) at the first and last 2^20 elements:
+   the north star's float32 normal A, the KMeans shard as chip 4's chunk
+   of BASELINE's 1B x 64 draw (also the 2^20 elements across flat index
+   2^32, the counter's high word), and sort_1gb's randint keys;
 4. the main paths at full size, each kernel count set to 0 just before
-   each call and read just after:
+   each call and read just after; every ``ht.random`` draw of a path must
+   launch R1 once for its elements (the operands below, the hSVD's
+   sketch operators: one launch 2-pass, two one-view; k-means++: k
+   launches; the attention q, k, v; MultiheadAttention's two inits):
    - hSVD: ``ht.random.randn(65536, 8192, split=0)`` (the 2.1 GB float32
      per-chip shard of the north-star operation), then
      ``ht.linalg.hsvd_rank(A, 10, compute_sv=True)`` in the 2-pass form
@@ -94,7 +103,10 @@ Phases, each of which fails the run by raising:
      across ranks within 1e-4 (the Gram all-reduced), σ positive,
      descending and equal bit for bit on every rank, the rank-8 σ within
      ``RANK8_TOL``. A worker that raises, or a world that does not finish
-     within ``WORLD_TIMEOUT_S``, fails the run. It prints the world's call
+     within ``WORLD_TIMEOUT_S``, fails the run. The world first draws one
+     global ``ht.random.randn(4 x 65536, 8192, split=0)``: each rank must
+     launch R1 once for exactly its chunk's elements, issue no collective,
+     and hold the chunk of the plain version's draw at its ends. It prints the world's call
      time (CUDA events on rank 0 between barriers) beside the bound of the
      four shards' reads on one card, each rank's level-0 time in the call
      and alone, the one-view copy of Sᵀ alone, and the bytes each rank put
@@ -197,7 +209,12 @@ Phases, each of which fails the run by raising:
    complex128, and float32 NaN payloads and -0.0; their bound is the bytes
    read and written over 3.35 TB/s, and a clone() of the 160 MB buffer
    stands beside them as the card's copy rate (no single PyTorch call pads
-   and block-transposes).
+   and block-transposes). R1's rows time its draws at the main shapes
+   beside the plain version (in pieces of 2^25 elements) and torch's own
+   generator on the same shape (context only: another stream, so no
+   library yardstick); its bound is the larger of the output written once
+   and the Threefry blocks' ALU instructions (counted in the built SASS
+   with cuobjdump) over 132 SMs x 128 lanes at the maximum SM clock.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -269,6 +286,15 @@ TF32_FLOP_PER_S = 495e12  # dense TF32 tensor cores, the same; 3xTF32 runs each 
 RA = (4, 8, 4096, 64)  # bench.py's RA_* rows (B, H, S, D), causal (bench.py:103)
 RAB = (1, 8, 16384, 128)  # bench.py's RAB_* 16k-token long-context row (bench.py:109)
 MHA_E, MHA_H = 1024, 8  # MultiheadAttention at RAB's attention shape: 8 heads of 128
+MHA_SEED = 23  # its parameters' key, seed_key(23)
+
+# the random stream's kernel R1 (csrc/threefry.cu)
+R1_SOURCE = "heat_tpu_torch/csrc/threefry.cu"
+R1_REPLACES = "heat_tpu/core/random.py:67 (_next_key; XLA's threefry2x32, no Pallas kernel)"
+R1_SAMPLE = 1 << 20  # elements held against the plain version at each end and across 2^32
+KM_GLOBAL_ROWS, KM_CHIP = 1_000_000_000, 4  # BASELINE #4's 1B x 64; chip 4's shard crosses flat index 2^32
+#: R1's launches and element counts on each main path's draws, filled by the paths
+R1_PATH = {}
 SDPA_D256 = (1, 8, 4096, 256)  # bf16 heads of 256 (B, H, S, D), causal: K9's Hopper path at its widest head
 # K9 against its plain version. float32: both sides sum float32 terms in
 # other orders over up to 16384 keys, and o is a convex combination of v
@@ -405,7 +431,8 @@ def build_kernels() -> None:
         # Hopper kernel and spmm.cu's timed beside it, K9's Hopper path at
         # bf16 D = 64, 128 and 256 and float32 D = 64, attention.cu's
         # kernels timed beside it (float32 at D_v = 64, mma.sync bf16 at
-        # D_v = 256), K5/K6 on 4-byte words with 32-bit offsets); and any
+        # D_v = 256), K5/K6 on 4-byte words with 32-bit offsets, R1's float32
+        # normal and int32 randint on contiguous chunks); and any
         # wgmma that ptxas serialised
         for i, line in enumerate(lines):
             main = ("ILi25ELb0E", "ILi59ELb1E", "sketch_sm90_kernelILi24ELb1E", "sketch_sm90_kernelILi0ELb0E",
@@ -414,7 +441,8 @@ def build_kernels() -> None:
                     "sddmm_sm90_kernel",
                     "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi256E", "attn_sm90_kernelILi64ELi3E",
                     "attn_sm90_kernelILi128ELi2E", "attn_sm90_kernelILi256ELi2E", "attn_sm90_f32_kernelILi2E",
-                    "11pack_kernelIjjE", "13unpack_kernelIjjE")
+                    "11pack_kernelIjjE", "13unpack_kernelIjjE", "threefry_kernelILi2EfLb1E",
+                    "threefry_kernelILi3EiLb1E")
             if "serializ" in line.lower():
                 print(f"ptxas {name}: {line.strip()}", flush=True)
             tags = [tag for tag in main if tag in line]
@@ -814,6 +842,205 @@ def check_sort(dev) -> dict:
     return errs
 
 
+# --------------------------------------------------------------------- #
+# the random stream (kernel R1)                                         #
+# --------------------------------------------------------------------- #
+def _r1_zero():
+    from heat_tpu_torch.kernels import threefry as kt
+
+    kt.THREEFRY_LAUNCHES = 0
+    kt.THREEFRY_ELEMENTS.clear()
+
+
+def _r1_read(label: str, launches: int, elements: list = None) -> dict:
+    """R1's launches since ``_r1_zero``, which must be ``launches`` (one a
+    draw), and their element counts, which must be ``elements`` where
+    given; kept in ``R1_PATH[label]``."""
+    from heat_tpu_torch.kernels import threefry as kt
+
+    got = {"launches": kt.THREEFRY_LAUNCHES, "elements": list(kt.THREEFRY_ELEMENTS)}
+    print(f"{label}: R1 launches {got['launches']}, elements {got['elements']}", flush=True)
+    _require(got["launches"] == launches and (elements is None or got["elements"] == elements),
+             f"{label}: R1 launched {got}, not {launches} time(s) of {elements} elements")
+    R1_PATH[label] = got
+    return got
+
+
+def _r1_sample_err(kt, out, mode: str, key, chunk, dtype, args, label: str) -> float:
+    """R1's draw ``out`` of a contiguous ``chunk`` against its plain version
+    at the first and last R1_SAMPLE elements and, where the chunk's flat
+    indices cross 2^32, the R1_SAMPLE around the crossing; bits, uniforms
+    and integers must be equal, normals too (0 ulp). Returns the largest
+    |difference| (0)."""
+    import torch
+
+    outer, _, start, _, inner = chunk.geometry()
+    _require(outer == 1, f"{label}: the sampled chunk is not contiguous")
+    base, n = start * inner, chunk.numel
+    flat = out.reshape(-1)
+    spans = [(0, min(n, R1_SAMPLE)), (max(0, n - R1_SAMPLE), n)]
+    if base < 2**32 < base + n:
+        mid = 2**32 - base
+        spans.append((max(0, mid - R1_SAMPLE // 2), min(n, mid + R1_SAMPLE // 2)))
+    err = 0.0
+    for lo, hi in spans:
+        idx = torch.arange(base + lo, base + hi, device=out.device, dtype=torch.int64)
+        want = kt.plain_at(mode, key, idx, dtype, args)
+        got = flat[lo:hi]
+        word = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+        same = torch.equal(got.view(word), want.view(word))
+        err = max(err, float((got.double() - want.double()).abs().max()))
+        _require(same, f"{label}: R1 differs from its plain version at flat indices [{base + lo}, {base + hi})")
+    crosses = len(spans) == 3
+    print(f"{label}: R1 equal to its plain version bit for bit at {len(spans)} spans of {R1_SAMPLE} elements"
+          f"{' (one across flat index 2^32)' if crosses else ''}", flush=True)
+    return err
+
+
+def _stream_key(seed: int, counter: int):
+    """The key of the global stream's draw at (seed, counter), as
+    ``ht.random`` takes it (``_next_key``)."""
+    from heat_tpu_torch.core import _threefry as tf
+
+    return tf.fold_in(tf.fold_in(tf.seed_key(seed), counter & 0xFFFFFFFF), counter >> 32)
+
+
+def _mha_bounds():
+    """MultiheadAttention's uniform bounds of in_proj and out_proj."""
+    return math.sqrt(6.0 / (4 * MHA_E)), 1.0 / math.sqrt(MHA_E)
+
+
+def _r1_draws():
+    """The main paths' draws at full size: (label, mode, key, chunk, dtype,
+    args): the north star's A and sort_1gb's keys as the paths draw them
+    after ``seed(0)``; the KMeans shard as chip 4's chunk of BASELINE's
+    1B x 64 draw, whose flat indices cross 2^32; the attention path's
+    bfloat16 RAB q after ``seed(5)`` and the RA draws; and
+    MultiheadAttention(1024)'s bfloat16 in_proj from ``seed_key(23)``."""
+    import torch
+
+    from heat_tpu_torch.core import _threefry as tf
+
+    km = tf.Chunk((KM_GLOBAL_ROWS, KM_D), 0, KM_CHIP * KM_N, KM_N)
+    bound = _mha_bounds()[0]
+    return [
+        ("r1_normal_north_star", "normal", _stream_key(0, 0), tf.Chunk.whole((M, N)), torch.float32, (0.0, 1.0)),
+        ("r1_normal_kmeans_chip4", "normal", _stream_key(0, 0), km, torch.float32, (0.0, 1.0)),
+        ("r1_randint_sort_1gb", "randint", _stream_key(1, 0), tf.Chunk.whole((SORT_N,)), torch.int32, (0, 1000)),
+        ("r1_normal_bf16_rab", "normal", _stream_key(5, 6 * math.prod(RA)), tf.Chunk.whole(RAB), torch.bfloat16,
+         (0.0, 1.0)),
+        ("r1_uniform_bf16_mha_in_proj", "uniform", tf.split(tf.seed_key(MHA_SEED))[0],
+         tf.Chunk.whole((MHA_E, 3 * MHA_E)), torch.bfloat16, (-bound, bound)),
+    ]
+
+
+def check_random(dev) -> dict:
+    """R1 against its plain version on the card at the main paths' full
+    sizes (sampled: see ``_r1_sample_err``), one launch each; returns the
+    largest |difference| of each."""
+    import torch
+
+    from heat_tpu_torch.kernels import threefry as kt
+
+    errs = {}
+    for label, mode, key, chunk, dtype, args in _r1_draws():
+        before = kt.THREEFRY_LAUNCHES
+        out = kt.draw(mode, key, chunk, dtype, dev, args)
+        torch.cuda.synchronize()
+        _require(kt.THREEFRY_LAUNCHES == before + 1 and tuple(out.shape) == chunk.lshape, f"{label}: one launch")
+        errs[label] = _r1_sample_err(kt, out, mode, key, chunk, dtype, args, label)
+        del out
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _r1_block_instructions() -> float:
+    """ALU instructions (SHF, LOP3, IADD3, IMAD, VIADD) of one Threefry-2x32
+    block, from the SASS of R1's 32-bit bits kernel (cuobjdump -sass of the
+    built library): the kernel's count over its ITEMS = 4 elements a loop
+    iteration. Every mode runs at least this per element (randint twice)."""
+    import shutil
+
+    from heat_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build._library_path("threefry"))], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", sass) if "threefry_kernelILi0EjLb1E" in f.split("\n", 1)[0])
+    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+    count = sum(op in ("SHF", "LOP3", "IADD3", "IMAD", "VIADD") for op in ops) / 4
+    print(f"R1 SASS: {count:.1f} ALU instructions (SHF, LOP3, IADD3, IMAD, VIADD) a Threefry block, "
+          f"{len(ops)} instructions in the 32-bit bits kernel", flush=True)
+    return count
+
+
+def _sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def random_timings(dev, errs: dict) -> list:
+    """R1's rows: its time at each main-path draw (CUDA-event median), the
+    plain version's (the draw in pieces of 2^25 elements, one after the
+    other, so that its int64 temporaries fit), torch's own generator on the
+    same shape as context only (another stream: no library call computes
+    heat_tpu's), and the bound: the larger of the output written once over
+    3.35 TB/s and the Threefry blocks' ALU instructions over the card's
+    issue rate (132 SMs x 4 schedulers x 32 lanes x the maximum SM clock)."""
+    import torch
+
+    from heat_tpu_torch.kernels import threefry as kt
+
+    per_block = _r1_block_instructions()
+    clock = _sm_clock_hz()
+    issue_rate = 132 * 4 * 32 * clock
+    # the main-path calls whose R1 launches each row reports
+    main = {"r1_normal_north_star": ("hsvd_draw", "hsvd_2pass", "hsvd_one_view", "ring_attention_ra_f32_draw"),
+            "r1_normal_kmeans_chip4": ("kmeans_draw", "kmeans_fit"),
+            "r1_randint_sort_1gb": ("sort_draw", "sort_ints_draw", "sort_rows_draw"),
+            "r1_normal_bf16_rab": ("ring_attention_ra_bf16_draw", "ring_attention_rab_bf16_draw"),
+            "r1_uniform_bf16_mha_in_proj": ("mha_1024_init",)}
+    rows = []
+    for label, mode, key, chunk, dtype, args in _r1_draws():
+        n = chunk.numel
+        ms = _median_ms(lambda: kt.draw(mode, key, chunk, dtype, dev, args), 10)
+        outer, _, start, _, inner = chunk.geometry()
+        piece = 1 << 25
+
+        def plain():
+            for lo in range(0, n, piece):
+                idx = torch.arange(start * inner + lo, start * inner + min(n, lo + piece), device=dev)
+                kt.plain_at(mode, key, idx, dtype, args)
+
+        plain_ms = _median_ms(plain, 3)
+        if mode == "randint":
+            context = lambda: torch.randint(*args, chunk.lshape, device=dev, dtype=dtype)  # noqa: E731
+        elif mode == "normal":
+            context = lambda: torch.randn(chunk.lshape, device=dev, dtype=dtype)  # noqa: E731
+        else:
+            context = lambda: torch.rand(chunk.lshape, device=dev, dtype=dtype)  # noqa: E731
+        torch_ms = _median_ms(context, 10)
+        nbytes = float(n) * torch.empty((), dtype=dtype).element_size()
+        blocks = 2 if mode == "randint" else 1
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, blocks * per_block * n / issue_rate * 1e3
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        path = {call: R1_PATH[call]["launches"] for call in main[label]}
+        print(
+            f"{label}: {mode} {tuple(chunk.lshape)} {str(dtype)[6:]}: R1 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch's own generator {torch_ms:.4f} ms (context: another stream), bound {bound_ms:.4f} ms "
+            f"({bound_by}; bytes {t_bytes:.4f} ms, {blocks} x {per_block:.1f} ALU instructions an element at "
+            f"{issue_rate / 1e12:.2f} T/s {t_ops:.4f} ms); main-path launches {path}", flush=True,
+        )
+        rows.append({
+            "name": label, "route": "cuda", "source": R1_SOURCE, "replaces": R1_REPLACES,
+            "launches": sum(path.values()), "max_abs_err": errs[label], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "context_torch_generator_ms": torch_ms,
+        })
+    return rows
+
+
 def sort_path(dev) -> dict:
     """The sort family's main path through the public entry points; returns
     K4's launches in the one-segment calls and in the row sort."""
@@ -832,7 +1059,10 @@ def sort_path(dev) -> dict:
         return out, launches
 
     ht.random.seed(0)
+    _r1_zero()
     x = ht.random.randn(SORT_N, split=0)
+    torch.cuda.synchronize()
+    _r1_read("sort_draw", 1, [SORT_N])
     xt = x.larray
     _require(xt.device == dev and x.dtype is ht.float32 and x.split == 0, "x is not a float32 split-0 array on the card")
     one = 0
@@ -861,7 +1091,10 @@ def sort_path(dev) -> dict:
     one += n
     _require(torch.equal(uf.larray, torch.unique_consecutive(v.larray)), "ht.unique(x) is not x's sorted distinct values")
     del v, uf
+    _r1_zero()
     ints = ht.random.randint(0, 1000, (SORT_N,), split=0)
+    torch.cuda.synchronize()
+    _r1_read("sort_ints_draw", 1, [SORT_N])
     _require(ints.dtype is ht.int32, "randint did not give int32")
     u, n = run("ht.unique(randint(0, 1000))", lambda: ht.unique(ints))
     one += n
@@ -871,7 +1104,10 @@ def sort_path(dev) -> dict:
     _require(inv.shape == (SORT_N,) and torch.equal(u.larray[inv.larray], ints.larray), "values[inverse] does not rebuild the input")
     del ints, u, inv, x, xt
 
+    _r1_zero()
     X = ht.random.randn(SORT_ROWS, SORT_SEG, split=0)
+    torch.cuda.synchronize()
+    _r1_read("sort_rows_draw", 1, [SORT_ROWS * SORT_SEG])
     (V, I), rows = run(f"ht.sort(X, axis=1), X = randn({SORT_ROWS}, {SORT_SEG})", lambda: ht.sort(X, axis=1))
     _require(torch.equal(I.larray, torch.sort(X.larray, dim=1, stable=True).indices), "row sort indices differ from the stable argsort")
     _require(bool((V.larray[:, 1:] >= V.larray[:, :-1]).all()), "row sort values not sorted")
@@ -1004,11 +1240,17 @@ def kmeans_path(dev) -> int:
     from heat_tpu_torch.cluster import _cuda_assign as ca
 
     ht.random.seed(0)
+    _r1_zero()
     X = ht.random.randn(KM_N, KM_D, split=0)
+    torch.cuda.synchronize()
+    _r1_read("kmeans_draw", 1, [KM_N * KM_D])
     _require(X.larray.device == dev and X.dtype is ht.float32 and X.split == 0, "X is not a float32 split-0 array on the card")
     ca.ASSIGN_LAUNCHES = 0
+    _r1_zero()
     km = ht.cluster.KMeans(n_clusters=KM_K, init="kmeans++", max_iter=KM_ITERS, tol=-1.0, random_state=0).fit(X)
     torch.cuda.synchronize()
+    # k-means++: the first row's randint, then the candidates' uniform of each later step
+    _r1_read("kmeans_fit", KM_K, [1] + [2 + int(math.log(KM_K))] * (KM_K - 1))
     launches = ca.ASSIGN_LAUNCHES
     centers, labels = km.cluster_centers_.larray, km.labels_.larray
     print(
@@ -1114,13 +1356,19 @@ def main_path(dev) -> dict:
     from heat_tpu_torch.core.linalg import _cuda_sketch as cs
 
     ht.random.seed(0)
+    _r1_zero()
     A = ht.random.randn(M, N, split=0)
+    torch.cuda.synchronize()
+    _r1_read("hsvd_draw", 1, [M * N])
     _require(A.larray.device == dev and A.dtype is ht.float32 and A.split == 0, "A is not a float32 split-0 array on the card")
     launches = {}
     for single_pass, kernel in ((False, "sketch_with_norm"), (True, "dual_sketch_with_norm")):
         cs.SKETCH_LAUNCHES = cs.DUAL_LAUNCHES = cs.SKETCH_SM90_LAUNCHES = cs.DUAL_SM90_LAUNCHES = 0
+        _r1_zero()
         U, sigma, V, err = ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True, single_pass=single_pass)
         torch.cuda.synchronize()
+        # the sketch operators: g (2-pass), g and Ω (one-view), heat_tpu's draws
+        _r1_read("hsvd_one_view" if single_pass else "hsvd_2pass", 1 + single_pass)
         counts = {"sketch_with_norm": cs.SKETCH_LAUNCHES, "dual_sketch_with_norm": cs.DUAL_LAUNCHES,
                   "sketch_sm90": cs.SKETCH_SM90_LAUNCHES, "dual_sketch_sm90": cs.DUAL_SM90_LAUNCHES}
         launches[kernel] = counts[kernel]
@@ -1350,6 +1598,42 @@ def _every_rank_ok(comm, ok: bool, what: str) -> None:
     _require(bad == 0, f"{what} (failed on {bad} rank(s))")
 
 
+WORLD_RANDOM = (WORLD * M, N)  # one global randn of four north-star shards, split 0
+
+
+def _world_random(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """One global ``ht.random.randn(4 · 65536, 8192, split=0)``: each rank
+    must launch R1 once, for exactly its chunk's elements, issue no
+    collective, and hold the chunk of heat_tpu's draw (the first and last
+    R1_SAMPLE elements of every rank's chunk against the plain version at
+    their global flat indices)."""
+    import torch
+
+    from heat_tpu_torch.core import _threefry as tf
+    from heat_tpu_torch.kernels import threefry as kt
+
+    ht.random.seed(0)
+    key = tf.fold_in(tf.fold_in(tf.seed_key(0), 0), 0)
+    chunk = tf.Chunk.of(WORLD_RANDOM, 0, comm)
+    _r1_zero()
+    comm.counts.clear()
+    moved.clear()
+    x = ht.random.randn(*WORLD_RANDOM, split=0)
+    torch.cuda.synchronize()
+    launches, elements, counts = kt.THREEFRY_LAUNCHES, list(kt.THREEFRY_ELEMENTS), dict(comm.counts)
+    ok = launches == 1 and elements == [chunk.numel] and tuple(x.lshape) == chunk.lshape and not counts
+    try:
+        err = _r1_sample_err(kt, x.larray, "normal", key, chunk, torch.float32, (0.0, 1.0), f"world randn, rank {rank}")
+    except RuntimeError:
+        ok, err = False, float("nan")
+    _every_rank_ok(comm, ok, "world randn: a rank launched R1 other than once for its chunk, issued a collective, "
+                   "or differs from the plain version")
+    del x
+    ms = _world_ms(lambda: ht.random.randn(*WORLD_RANDOM, split=0), 3)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "elements": elements, "ms": ms, "err": err, "start": chunk.start}
+
+
 def _world_kmeans(ht, comm, moved: dict, rank: int, dev) -> dict:
     """BASELINE #4 at world size 4 on this one card: each rank's 15,625,000 x
     64 float32 shard from its own seed, ``KMeans(8, kmeans++)`` for 20
@@ -1359,7 +1643,7 @@ def _world_kmeans(ht, comm, moved: dict, rank: int, dev) -> dict:
     import torch
 
     from heat_tpu_torch.cluster import _cuda_assign as ca
-    from heat_tpu_torch.cluster._kcluster import _kmeanspp, _Rows, make_fit_loop
+    from heat_tpu_torch.cluster._kcluster import _kmeanspp, _Rows, _seed_key, make_fit_loop
     from heat_tpu_torch.cluster.kmeans import _lloyd_step
 
     gen = torch.Generator(device=dev)
@@ -1387,7 +1671,7 @@ def _world_kmeans(ht, comm, moved: dict, rank: int, dev) -> dict:
                    "rank, not finite, or predict(X) not labels_")
     fit_ms = _world_ms(fit, 2)
     x, rows = X.larray, _Rows.of(X)
-    seed_ms = _world_ms(lambda: _kmeanspp(x, KM_K, ht.random._next_generator(KM_K, dev), rows), 2)
+    seed_ms = _world_ms(lambda: _kmeanspp(x, KM_K, _seed_key(KM_K), rows), 2)
     loop = make_fit_loop(functools.partial(_lloyd_step, comm=comm), -1.0, KM_ITERS, True)
     loop_ms = _world_ms(lambda: loop(x, centers), 3)
     inertia = km.inertia_
@@ -1694,8 +1978,8 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
         for i, config in enumerate(WORLD_CONFIGS):
             result[config[0]] = _world_config(ht, cs, svdtools, comm, moved, level0, rank, config, profile=i == 0)
             torch.cuda.empty_cache()
-        for phase, run in (("kmeans", _world_kmeans), ("attention", _world_attention), ("distance", _world_distance),
-                           ("sort", _world_sort)):
+        for phase, run in (("random", _world_random), ("kmeans", _world_kmeans), ("attention", _world_attention),
+                           ("distance", _world_distance), ("sort", _world_sort)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -1816,6 +2100,16 @@ def world_path(dev) -> dict:
             flush=True,
         )
     shared = "four contexts share one card over gloo, not a distributed timing"
+    per = [res["random"] for res in results]
+    nbytes = 4.0 * WORLD_RANDOM[0] * WORLD_RANDOM[1]
+    print(
+        f"world random: ht.random.randn({WORLD_RANDOM[0]}, {WORLD_RANDOM[1]}, split=0): {per[0]['ms']:.4f} ms a "
+        f"call (rank 0, median of 3; ranks {[round(p['ms'], 4) for p in per]}), bound (bytes) "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (the {WORLD} chunks written once, {nbytes / 1e9:.2f} GB); R1 "
+        f"launches a rank {[p['launches'] for p in per]} of {[p['elements'] for p in per]} elements (each rank its "
+        f"chunk alone, rows from {[p['start'] for p in per]}), no collective; every rank's chunk equal to the plain "
+        f"version at its ends; {shared}", flush=True,
+    )
     per = [res["kmeans"] for res in results]
     km_bound = WORLD * 4.0 * KM_N * KM_D / HBM_BYTES_PER_S * 1e3
     print(
@@ -1829,7 +2123,8 @@ def world_path(dev) -> dict:
         f"{per[0]['blob_iter']}; against a plain Lloyd loop with the same all-reduce: centers rel "
         f"{per[0]['blob_err'][0]:.3e}, inertia rel {per[0]['blob_err'][1]:.3e}, tol {TOL_SUMS}); {shared}", flush=True,
     )
-    world = {"hsvd": launches, "kmeans": [p["launches"] for p in per], "attention": {}}
+    world = {"hsvd": launches, "kmeans": [p["launches"] for p in per], "attention": {},
+             "random": [res["random"]["launches"] for res in results]}
     for name, shape, dt, causal in WORLD_ATTENTION:
         per = [res["attention"][name] for res in results]
         b, h, s, d = shape
@@ -1968,7 +2263,7 @@ def kmeans_timings(dev, launches: int, err: float) -> dict:
 
     import heat_tpu_torch as ht
     from heat_tpu_torch.cluster import _cuda_assign as ca
-    from heat_tpu_torch.cluster._kcluster import _kmeanspp, _predict, make_fit_loop
+    from heat_tpu_torch.cluster._kcluster import _kmeanspp, _predict, _seed_key, make_fit_loop
     from heat_tpu_torch.cluster.kmeans import _lloyd_step
 
     gen = torch.Generator(device=dev)
@@ -2001,7 +2296,7 @@ def kmeans_timings(dev, launches: int, err: float) -> dict:
         ).fit(X)
 
     fit_ms = _median_ms(fit, 3)
-    seed_ms = _median_ms(lambda: _kmeanspp(x, KM_K, ht.random._next_generator(KM_K, dev)), 3)
+    seed_ms = _median_ms(lambda: _kmeanspp(x, KM_K, _seed_key(KM_K)), 3)
     loop = make_fit_loop(_lloyd_step, -1.0, KM_ITERS, True)
     loop_ms = _median_ms(lambda: loop(x, c), 3)
     final_ms = _median_ms(lambda: _predict(x, c, "euclidean", True), 3)
@@ -2741,7 +3036,10 @@ def check_attention(dev) -> dict:
     # MultiheadAttention's strided heads at MHA-1024 (RAB's attention shape)
     import heat_tpu_torch as ht
 
+    _r1_zero()
     mha, x = _mha_inputs(dev, ht)
+    torch.cuda.synchronize()
+    _r1_read("mha_1024_init", 2, [3 * MHA_E * MHA_E, MHA_E * MHA_E])  # in_proj and out_proj, heat_tpu's init
     with torch.inference_mode():
         errs["mha_1024_heads"] = _k9_case(ka, "mha_1024 heads", *_mha_heads(mha, x), True)
     del mha, x
@@ -2770,7 +3068,9 @@ def attention_path(dev):
     import torch
 
     import heat_tpu_torch as ht
+    from heat_tpu_torch.core import _threefry as tf
     from heat_tpu_torch.kernels import attention as ka
+    from heat_tpu_torch.kernels import threefry as kt
 
     launches, launches_sm90, errs = {}, {}, {}
 
@@ -2800,7 +3100,21 @@ def attention_path(dev):
     for (b, h, s, d), dtype, label in ((RA, ht.float32, "ring_attention_ra_f32"),
                                        (RA, ht.bfloat16, "ring_attention_ra_bf16"),
                                        (RAB, ht.bfloat16, "ring_attention_rab_bf16")):
-        q, k, v = (ht.random.randn(b, h, s, d, dtype=dtype, split=2) for _ in range(3))
+        _r1_zero()
+        drawn = []
+        for _ in range(3):
+            _, seed, counter, _, _ = ht.random.get_state()
+            drawn.append((ht.random.randn(b, h, s, d, dtype=dtype, split=2), _stream_key(seed, counter)))
+        torch.cuda.synchronize()
+        _r1_read(f"{label}_draw", 3, [b * h * s * d] * 3)
+        # each operand bit for bit against R1's plain version (one rank
+        # holds the whole draw)
+        for name, (x, key) in zip("qkv", drawn):
+            _require(x.lshape == x.gshape, f"{label}: {name} is not whole on one rank")
+            _r1_sample_err(kt, x.larray, "normal", key, tf.Chunk.whole(x.gshape), dtype.torch_type(), (0.0, 1.0),
+                           f"{label}_draw {name}")
+        q, k, v = (x for x, _ in drawn)
+        del drawn
         _require(q.larray.device == dev and q.split == 2, "q is not a split-2 array on the card")
         out = run(label, lambda: ht.nn.ring_attention(q, k, v, causal=True), True)
         _require(out.split == 2 and out.dtype is dtype and out.gshape == (b, h, s, d), f"{label}: result metadata")
@@ -2820,7 +3134,15 @@ def attention_path(dev):
     check("sdpa_bf16_d256", out, q, k, v, True)
     del q, k, v, out
 
+    _r1_zero()
     mha, x = _mha_inputs(dev, ht)
+    torch.cuda.synchronize()
+    _r1_read("mha_1024_init", 2, [3 * MHA_E * MHA_E, MHA_E * MHA_E])  # in_proj and out_proj, heat_tpu's init
+    k_in, k_out = tf.split(tf.seed_key(MHA_SEED))
+    for name, w, key, bound in (("in_proj", mha.in_proj, k_in, _mha_bounds()[0]),
+                                ("out_proj", mha.out_proj, k_out, _mha_bounds()[1])):
+        _r1_sample_err(kt, w.detach(), "uniform", key, tf.Chunk.whole(tuple(w.shape)), torch.bfloat16,
+                       (-bound, bound), f"mha_1024_init {name}")
     with torch.inference_mode():
         out = run("mha_1024", lambda: mha(x), True)
         # K9 on the module's strided heads of its packed projection, held
@@ -2846,9 +3168,11 @@ def attention_path(dev):
 def _mha_inputs(dev, ht):
     import torch
 
+    from heat_tpu_torch.core._threefry import seed_key
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
-    mha = ht.nn.MultiheadAttention(MHA_E, MHA_H, causal=True, dtype=ht.bfloat16, generator=gen)
+    mha = ht.nn.MultiheadAttention(MHA_E, MHA_H, causal=True, dtype=ht.bfloat16, key=seed_key(MHA_SEED))
     with torch.no_grad():  # non-zero biases, so that they are exercised
         mha.in_bias.uniform_(-0.1, 0.1, generator=gen)
         mha.out_bias.uniform_(-0.1, 0.1, generator=gen)
@@ -2971,7 +3295,10 @@ def attention_timings(dev, launches: dict, launches_sm90: dict, errs: dict, path
           f"of 10)", flush=True)
     del q, k, v
 
+    _r1_zero()
     mha, x = _mha_inputs(dev, ht)
+    torch.cuda.synchronize()
+    _r1_read("mha_1024_init", 2, [3 * MHA_E * MHA_E, MHA_E * MHA_E])  # in_proj and out_proj, heat_tpu's init
     with torch.inference_mode():
         fwd_ms = _median_ms(lambda: mha(x), 10)
         row("mha_1024", "mha_1024", *_mha_heads(mha, x), True, (path_errs["mha_1024"], errs["mha_1024_heads"][1]))
@@ -3209,6 +3536,7 @@ def main() -> int:
     spmm_errs = check_spmm(dev, inputs)
     att_errs = check_attention(dev)
     relayout_errs = check_relayout(dev)
+    random_errs = check_random(dev)
     launches = main_path(dev)
     assign_launches = kmeans_path(dev)
     sort_launches = sort_path(dev)
@@ -3230,6 +3558,10 @@ def main() -> int:
             row["world_launches"] = world
     rows.extend(att_rows)
     rows.extend(relayout_timings(dev, relayout_launches, relayout_errs))
+    r1_rows = random_timings(dev, random_errs)
+    r1_rows[0]["world_launches"] = launches["world"]["random"]
+    rows.extend(r1_rows)
+    print(f"R1 on the main paths: {R1_PATH}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -30,10 +30,11 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from ..core import random as ht_random, types
+from ..core import _threefry, random as ht_random, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
+from ..kernels import threefry as _r1
 
 __all__ = ["_KCluster"]
 
@@ -44,11 +45,14 @@ _SEEDED_INITS = ("probability_based", "kmeans++", "k-means++")
 _ROW_CHUNK = 1 << 20
 
 
-def _seed_generator(k: int, device: torch.device) -> torch.Generator:
-    """The seeding generator, derived from the current stream, which then
-    advances by the k draws the ++-seeding consumes (``heat_tpu``'s
-    ``_seed_key``, _kcluster.py:33)."""
-    return ht_random._next_generator(k, device)
+def _seed_key(k: int) -> _threefry.Key:
+    """The seeding key, ``fold_in(key(seed), counter)`` of the current
+    stream, which then advances by the k draws the ++-seeding consumes
+    (``heat_tpu``'s ``_seed_key``, _kcluster.py:33)."""
+    state = ht_random.get_state()
+    key = _threefry.fold_in(_threefry.seed_key(state[1]), state[2])
+    ht_random.set_state((state[0], state[1], state[2] + k, 0, 0.0))
+    return key
 
 
 def make_fit_loop(step: Callable, tol: float, max_iter: int, returns_inertia: bool):
@@ -114,20 +118,23 @@ class _Rows:
         return self.comm.bcast(mine.contiguous(), root=owner)
 
 
-def _draw_rows(arr: torch.Tensor, d2: torch.Tensor, size: int, gen: torch.Generator, rows: _Rows) -> torch.Tensor:
+def _draw_rows(arr: torch.Tensor, d2: torch.Tensor, size: int, key, rows: _Rows) -> torch.Tensor:
     """``size`` rows drawn with replacement with probability proportional to
-    ``d2``, as ``jax.random.choice(p=)`` draws them: the float64 cumulative
-    sum, then a search for ``total · (1 − u)`` with u uniform in [0, 1).
-    Across ranks every rank draws the same u; the cumulative sum is each
-    rank's own, after the totals of the ranks before it (one all-gather of
-    the per-rank totals, float64); only the owner of a draw searches its
-    rows, and the drawn rows reach every rank in one all-gather."""
-    cum = torch.cumsum(d2.to(torch.float64), dim=0)
-    u = torch.rand(size, generator=gen, dtype=torch.float64, device=arr.device)
+    ``d2``, as ``jax.random.choice(key, n, (size,), p=d2 / max(Σd2, 1e-30))``
+    draws them (random.py:806-808), in d2's dtype: the cumulative sum of the
+    probabilities, then a search for ``total · (1 − u)`` with u
+    ``jax.random.uniform(key, (size,))``. Across ranks Σd2 is all-reduced,
+    every rank draws the same u, and the cumulative sum is each rank's own,
+    after the totals of the ranks before it (one all-gather of the
+    per-rank totals); only the owner of a draw searches its rows, and the
+    drawn rows reach every rank in one all-gather."""
+    probs = d2 / torch.clamp_min(rows.allreduce(torch.sum(d2)), 1e-30)
+    cum = torch.cumsum(probs, dim=0)
+    u = _r1.draw("uniform", key, _threefry.Chunk.whole((size,)), d2.dtype, arr.device, (0.0, 1.0))
     if rows.comm is None:
-        return arr[torch.searchsorted(cum, cum[-1] * (1.0 - u)).clamp_max(arr.shape[0] - 1)]
+        return arr[torch.searchsorted(cum, cum[-1] * (1 - u)).clamp_max(arr.shape[0] - 1)]
     comm = rows.comm
-    mine = cum[-1:] if cum.numel() else torch.zeros(1, dtype=torch.float64, device=arr.device)
+    mine = cum[-1:] if cum.numel() else torch.zeros(1, dtype=cum.dtype, device=arr.device)
     totals = comm.allgather(mine)
     ends = torch.cumsum(totals, dim=0)
     r = ends[-1] * (1.0 - u)
@@ -143,23 +150,25 @@ def _draw_rows(arr: torch.Tensor, d2: torch.Tensor, size: int, gen: torch.Genera
     return every[owner * size + torch.arange(size, device=arr.device)]
 
 
-def _kmeanspp(arr: torch.Tensor, k: int, gen: torch.Generator, rows: Optional[_Rows] = None) -> torch.Tensor:
+def _kmeanspp(arr: torch.Tensor, k: int, key, rows: Optional[_Rows] = None) -> torch.Tensor:
     """Greedy k-means++ seeding (``heat_tpu``'s ``_kmeanspp_program``,
-    _kcluster.py:150): each step draws 2 + ⌊ln k⌋ candidates with
-    probability proportional to the current squared distance and keeps the
-    one that minimizes the potential. ``arr`` holds this rank's rows
-    (``rows``; a whole operand by default): every rank draws the same
-    candidates from the same stream, the first row comes from its owner,
-    and the candidates' potentials are one all-reduce a step, so every rank
-    keeps the same centers."""
+    _kcluster.py:150) from ``key`` (``_seed_key``): ``split(key, k)``, the
+    first row ``randint(keys[0], (), 0, n)``, then step i draws 2 + ⌊ln k⌋
+    candidates with ``keys[i]`` with probability proportional to the
+    current squared distance and keeps the one that minimizes the
+    potential. ``arr`` holds this rank's rows (``rows``; a whole operand by
+    default): every rank draws the same candidates from the same keys, the
+    first row comes from its owner, and the candidates' potentials are one
+    all-reduce a step, so every rank keeps the same centers."""
     rows = _Rows(None, [arr.shape[0]]) if rows is None else rows
     n_candidates = 2 + int(np.log(max(k, 2)))
-    first = int(torch.randint(0, rows.n, (), generator=gen, device=arr.device))
+    keys = _threefry.split(key, k)
+    first = int(_r1.draw("randint", keys[0], _threefry.Chunk.whole(()), torch.int64, arr.device, (0, rows.n)))
     centers = torch.zeros((k, arr.shape[1]), dtype=arr.dtype, device=arr.device)
     centers[0] = rows.row(arr, first)
     d2 = _sqdist_to(arr, centers[0])
     for i in range(1, k):
-        cand_pts = _draw_rows(arr, d2, n_candidates, gen, rows)  # (L, d)
+        cand_pts = _draw_rows(arr, d2, n_candidates, keys[i], rows)  # (L, d)
         cand_d2 = torch.stack([_sqdist_to(arr, p) for p in cand_pts])  # (L, n)
         potentials = rows.allreduce(torch.stack([torch.sum(torch.minimum(d2, c)) for c in cand_d2]))
         best = torch.argmin(potentials)
@@ -277,8 +286,9 @@ class _KCluster(BaseEstimator, ClusteringMixin):
 
     @property
     def rng_state(self):
-        """The model's private stream state ``("TorchGenerator", seed,
-        counter, 0, 0.0)``, or None for a model on the global stream."""
+        """The model's private stream state ``("Threefry", seed, counter, 0,
+        0.0)`` (``heat_tpu``'s, so a ``heat_tpu`` model's carries across), or
+        None for a model on the global stream."""
         return self._rng_state
 
     @rng_state.setter
@@ -360,7 +370,7 @@ class _KCluster(BaseEstimator, ClusteringMixin):
             idx = self._with_stream(lambda: ht_random.randperm(n, device=x.device).larray[:k])
             centers = _random_rows(arr, idx.to(arr.device), rows)
         elif isinstance(self.init, str) and self.init in _SEEDED_INITS:
-            centers = _kmeanspp(arr, k, self._with_stream(lambda: _seed_generator(k, arr.device)), rows)
+            centers = _kmeanspp(arr, k, self._with_stream(lambda: _seed_key(k)), rows)
         else:
             raise ValueError(
                 f"initialization needs to be 'random', 'probability_based' or a DNDarray, got {self.init}"

@@ -3,16 +3,18 @@
 ``heat_tpu`` holds its arrays as sharded ``jax.Array``s; what carries
 across is their logical value, taken with ``DNDarray.numpy()``, with its
 split and dtype. ``from_numpy`` gives this rank its chunk of such a global
-array: rank r holds exactly the shard ``heat_tpu`` places on device r. The same goes for operators ``heat_tpu`` draws itself,
-such as the hSVD sketch operators ``g`` and ``Ω`` (``svdtools.py:308`` and
-``:417``): the port's own draws come from ``torch.Generator``s and differ,
-so a caller that needs identical factors hands the drawn values across
-and passes them to ``svdtools._sketched_uds_both(..., g=)`` /
-``_one_view_uds_both(..., g=, omega=)``.
+array: rank r holds exactly the shard ``heat_tpu`` places on device r.
+
+Random draws need nothing carried: the port draws ``heat_tpu``'s Threefry
+stream, so the same seed gives the same values (the hSVD sketch operators
+``g`` and ``Ω`` of ``svdtools.py:308`` and ``:417`` included), and
+``ht.random.set_state(heat_tpu.random.get_state())`` continues
+``heat_tpu``'s global stream where it stands.
 
 A fitted k-clustering estimator carries across as its state
-(``kcluster_from_numpy``); ``predict`` and ``partial_fit`` then continue
-from the same centers.
+(``kcluster_from_numpy``), its private stream ``rng_state`` included;
+``predict`` and ``partial_fit`` then continue from the same centers, and
+its next init draws what ``heat_tpu``'s would.
 
 A sparse matrix carries across as its components: a DCSR matrix as its
 CSR arrays (``dcsr_from_numpy``), a DBCSR matrix as its physical brick
@@ -73,8 +75,9 @@ def kcluster_from_numpy(cls, state: Mapping[str, np.ndarray], **params):
     """A fitted ``cls`` (``ht.cluster.KMeans``, ``KMedians`` or
     ``KMedoids``) built with ``params`` from the state of a ``heat_tpu``
     estimator, taken as numpy: ``cluster_centers_``, plus
-    ``_partial_counts`` for a KMeans stream, and ``labels_``, ``n_iter_``
-    and ``inertia_`` where present. Arrays keep their dtype and go to the
+    ``_partial_counts`` for a KMeans stream, and ``labels_``, ``n_iter_``,
+    ``inertia_`` and ``rng_state`` (the private stream's state tuple) where
+    present. Arrays keep their dtype and go to the
     default device; the labels come back as int64 with split None."""
     est = cls(**params)
     centers = array(np.asarray(state["cluster_centers_"]), split=None)
@@ -89,6 +92,8 @@ def kcluster_from_numpy(cls, state: Mapping[str, np.ndarray], **params):
         est._n_iter = int(state["n_iter_"])
     if state.get("inertia_") is not None:
         est._inertia = float(state["inertia_"])
+    if state.get("rng_state") is not None:
+        est.rng_state = state["rng_state"]
     return est
 
 

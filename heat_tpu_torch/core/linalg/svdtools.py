@@ -41,15 +41,17 @@ matmuls in the operand's full precision: torch's default
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .. import types
+from .. import _threefry, types
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_in
+from ...kernels import threefry
 from . import _cuda_sketch
 from ._lapack import safe_svd
 from .basics import _whole, matmul, transpose
@@ -65,8 +67,8 @@ _SKETCH_OVERSAMPLE = 10
 _PASS_TILE = 512
 _ONEVIEW_GAP = 9  # k̂ = keep + GAP column-sketch oversample (Tropp one-view)
 _ONEVIEW_ERRQ = 10  # extra Ψ rows reserved for the unbiased error estimator
-_SKETCH_SEED = 0x5BD
-_ONEVIEW_SEED = 0x5BD1
+_SKETCH_SEED = 0x5BD  # heat_tpu's jax.random.key(0x5BD) of the 2-pass sketch
+_ONEVIEW_SEED = 0x5BD1  # and split(key(0x5BD1)) of the one-view operators
 
 
 def _sumsq(blk: torch.Tensor) -> torch.Tensor:
@@ -172,8 +174,27 @@ def _cholqr2_refine(v: torch.Tensor, comm=None) -> torch.Tensor:
     return v.resolve_conj().contiguous()
 
 
-def _normal(shape, like: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=like.dtype, device=like.device)
+def _inv_sigma(s: torch.Tensor, n: int) -> torch.Tensor:
+    """1/σ of the descending ``s`` from the eigenvalues of an n × n Gram,
+    and 0 where σ² lies within that eigen-solver's rounding (n·eps·σ²_max)
+    of zero: such a column is truncation noise and stays zero, as
+    ``heat_tpu`` keeps a σ = 0 column at zero, instead of rounding blown up
+    into a direction that leaves Cholesky-QR's Gram singular."""
+    eps = torch.finfo(s.dtype).eps
+    return torch.where(s * s > n * eps * torch.max(s * s), 1.0 / s, 0.0) if s.numel() else s
+
+
+def _normal(key, shape, like: torch.Tensor) -> torch.Tensor:
+    """``jax.random.normal(key, shape, like.dtype)`` on ``like``'s device
+    (kernel R1 on a card); a complex dtype takes ``normal``'s two subkeys
+    for the real and imaginary parts and divides by √2."""
+    chunk = _threefry.Chunk.whole(shape)
+    if like.dtype.is_complex:
+        real = torch.float32 if like.dtype == torch.complex64 else torch.float64
+        k_re, k_im = _threefry.split(key)
+        re, im = (threefry.draw("normal", k, chunk, real, like.device, (0.0, 1.0)) for k in (k_re, k_im))
+        return torch.complex(re, im) / math.sqrt(2.0)
+    return threefry.draw("normal", key, chunk, like.dtype, like.device, (0.0, 1.0))
 
 
 def _sketched_uds_both(a, keep: int, sketch_l: int, want: str = "left", g=None):
@@ -182,8 +203,8 @@ def _sketched_uds_both(a, keep: int, sketch_l: int, want: str = "left", g=None):
     same read where kernel K1 serves it), ``Q = orth(wᴴ)``, ``z = a·Q``
     (pass 2, with ``‖a‖²`` folded in otherwise), then ``_projection_tail``.
 
-    ``g`` (sketch_l, m) defaults to a draw from a generator seeded
-    ``0x5BD`` on ``a``'s device; tests pass ``heat_tpu``'s operator.
+    ``g`` (sketch_l, m) defaults to ``heat_tpu``'s draw from
+    ``key(0x5BD)`` (svdtools.py:308); tests may pass another operator.
     Returns (u|None, v|None, s, err_sq, norm_sq)."""
     if g is None:
         g = _sketch_operator(sketch_l, a.shape[0], a)
@@ -199,11 +220,10 @@ def _sketched_uds_both(a, keep: int, sketch_l: int, want: str = "left", g=None):
 
 
 def _sketch_operator(sketch_l: int, m: int, like: torch.Tensor) -> torch.Tensor:
-    """The 2-pass row sketch g (sketch_l, m), drawn from a generator seeded
-    ``0x5BD`` on ``like``'s device (the same draw on every rank)."""
-    gen = torch.Generator(device=like.device)
-    gen.manual_seed(_SKETCH_SEED)
-    return _normal((sketch_l, m), like, gen)
+    """The 2-pass row sketch g (sketch_l, m): ``jax.random.normal(key(0x5BD),
+    (sketch_l, m))`` in ``like``'s dtype on its device, the same draw on
+    every rank (``heat_tpu`` svdtools.py:308-309)."""
+    return _normal(_threefry.seed_key(_SKETCH_SEED), (sketch_l, m), like)
 
 
 def _sketched_uds_swapped(s_loc, keep: int, sketch_l: int, want: str = "left", g=None):
@@ -238,8 +258,7 @@ def _projection_tail(z, qw, norm_sq, keep: int, want: str):
     s = torch.sqrt(lam)
     u = v = None
     if want in ("left", "both"):
-        inv_s = torch.where(s > 0, 1.0 / s, 0.0)
-        u = _cholqr2_refine((z @ u_z) * inv_s)
+        u = _cholqr2_refine((z @ u_z) * _inv_sigma(s, z.shape[1]))
     if want in ("right", "both"):
         v = qw @ u_z
     err_sq = torch.clamp(norm_sq - torch.sum(lam), min=0.0)
@@ -263,24 +282,22 @@ def _one_view_params(keep: int, cap: int, a: Optional[torch.Tensor] = None):
     return k_hat, l_row
 
 
-def _one_view_uds_both(
-    a, keep: int, k_hat: int, sketch_l: int, want: str = "left", g=None, omega=None, n_draw: Optional[int] = None
-):
+def _one_view_uds_both(a, keep: int, k_hat: int, sketch_l: int, want: str = "left", g=None, omega=None):
     """One-view (single-pass) randomized truncated SVD (Tropp et al.;
     ``heat_tpu`` svdtools.py:387): ``Y = A·Ω``, ``W = Ψ·A`` and ``‖A‖²`` from
     one read of A (kernel K2 where it serves), then ``_one_view_tail``.
 
-    ``g`` (sketch_l + 10, m) and ``omega`` (n, k̂) default to draws from one
-    generator seeded ``0x5BD1`` on ``a``'s device; ``omega`` is drawn
-    ``n_draw`` ≥ n rows wide (default n) and cut to its first n rows, so a
-    short last shard reads the rows the full-width blocks read. Tests pass
-    ``heat_tpu``'s operators. Returns (u|None, v|None, s, err_sq, norm_sq)."""
+    ``g`` (sketch_l + 10, m) and ``omega`` (n, k̂) default to ``heat_tpu``'s
+    draws from ``split(key(0x5BD1))`` (svdtools.py:417-420). The stream is
+    partitionable, so the (n, k̂) draw of a short last shard is the first n
+    rows of the draw of ``heat_tpu``'s padded block, whose other rows meet
+    its zero columns. Tests may pass other operators. Returns (u|None,
+    v|None, s, err_sq, norm_sq)."""
     m, n = a.shape
     if g is None or omega is None:
-        gen = torch.Generator(device=a.device)
-        gen.manual_seed(_ONEVIEW_SEED)
-        g = _normal((sketch_l + _ONEVIEW_ERRQ, m), a, gen)
-        omega = _normal((n if n_draw is None else n_draw, k_hat), a, gen)[:n].contiguous()
+        kg, ko = _threefry.split(_threefry.seed_key(_ONEVIEW_SEED))
+        g = _normal(kg, (sketch_l + _ONEVIEW_ERRQ, m), a)
+        omega = _normal(ko, (n, k_hat), a)
     if _cuda_sketch.dual_sketch_serviceable(g.shape[0], k_hat, a):
         w_full, y, norm_sq = _cuda_sketch.dual_sketch_with_norm(g, omega, a)
     else:
@@ -307,8 +324,7 @@ def _one_view_tail(w_full, y, norm_sq, g, keep: int, sketch_l: int, want: str):
     if want in ("left", "both"):
         u = _cholqr2_refine(q @ u_b)
     if want in ("right", "both"):
-        inv_s = torch.where(s > 0, 1.0 / s, 0.0)
-        v = _cholqr2_refine((torch.conj(b).T @ u_b) * inv_s)
+        v = _cholqr2_refine((torch.conj(b).T @ u_b) * _inv_sigma(s, b.shape[0]))
     # Ψ₂A − (Ψ₂Q)B with the kept-rank reconstruction
     b_keep = torch.conj(u_b).T @ b  # (keep, n)
     resid = w_err - ((g_err @ q) @ u_b) @ b_keep
@@ -570,8 +586,7 @@ def _level0(s_loc: torch.Tensor, transposed: bool, rloc: int, lcols: int, sketch
         if one_view is not None:
             # K2 cannot take the swapped roles (k̂ would be ℓ + 10 > DUAL_MAX_K): Sᵀ is copied once
             a_blk = s_loc.T.contiguous() if transposed else s_loc
-            u, _, s, err_sq, norm_sq = _one_view_uds_both(a_blk, keep, *one_view, "left", g=g, omega=omega,
-                                                          n_draw=lcols)
+            u, _, s, err_sq, norm_sq = _one_view_uds_both(a_blk, keep, *one_view, "left", g=g, omega=omega)
         elif transposed:
             u, _, s, err_sq, norm_sq = _sketched_uds_swapped(s_loc, keep, sketch_l, "left", g=g)
         else:

@@ -1,17 +1,20 @@
 """Pseudo-random number generation.
 
-Port of the draws of ``heat_tpu.core.random`` that the ported slices
-need (Heat reference: heat/core/random.py): ``seed``, ``get_state``,
-``set_state``, ``randn``, ``rand``, ``normal``, ``randint`` and
-``randperm``. A global (seed, counter) pair advances by the number of
-elements each draw takes, as in ``heat_tpu``; each draw runs on its own
-``torch.Generator`` on the target device, seeded from that pair. A split
-draw makes the whole array on every rank and keeps this rank's chunk, so
-its global values do not depend on the world size (drawing only the
-chunk waits for a counter-based stream, ROADMAP.md Queue 1, item 5). The
-values are torch's stream for that device (Philox on CUDA, MT19937 on the
-CPU), not ``heat_tpu``'s Threefry stream: porting Threefry is ROADMAP.md
-Queue 1. The state names the port's stream as ``"TorchGenerator"``.
+Port of ``heat_tpu.core.random`` (Heat reference: heat/core/random.py): its
+15 exports, drawing ``heat_tpu``'s stream, JAX's partitionable
+Threefry-2x32 (``core/_threefry.py``). A global (seed, counter) pair gives
+each draw its key, ``fold_in(fold_in(key(seed), lo), hi)`` of the counter's
+words, and the counter then advances by the elements drawn, as in
+``heat_tpu`` (random.py:67-79). A seeded draw therefore gives ``heat_tpu``'s
+values (normals within a few ulp: the erf⁻¹ polynomial's log1p and
+rounding are torch's), and ``set_state(heat_tpu.random.get_state())``
+continues ``heat_tpu``'s stream; the state's algorithm is ``"Threefry"``.
+
+Every element's random bits depend only on the key and its global flat
+index, so a split draw makes only this rank's chunk: on a card one launch
+of kernel R1 (``kernels/threefry.py``) of the chunk's element count, none
+for an empty chunk. A permutation is computed whole on every rank, as
+``heat_tpu`` does.
 
 ``heat_tpu`` is one controller over its mesh and so has one stream. The
 port runs a process per rank, so a seed taken from the clock is rank 0's,
@@ -21,23 +24,40 @@ rank-local and issues no collective.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Optional, Tuple, Type, Union
 
 import numpy as np
 import torch
 
-from . import types
+from . import _threefry, types
+from ..kernels import threefry as _r1
 from .communication import get_comm, sanitize_comm
 from .devices import get_device, sanitize_device
 from .dndarray import DNDarray
-from .factories import _wrap
-from .stride_tricks import sanitize_shape
+from .stride_tricks import sanitize_axis, sanitize_shape
 
-__all__ = ["get_state", "normal", "rand", "randint", "randn", "randperm", "seed", "set_state"]
+__all__ = [
+    "get_state",
+    "normal",
+    "permutation",
+    "rand",
+    "ranf",
+    "randint",
+    "random_integer",
+    "randn",
+    "random",
+    "random_sample",
+    "randperm",
+    "sample",
+    "seed",
+    "set_state",
+    "standard_normal",
+]
 
-#: name of the port's stream in the state tuple (``heat_tpu``'s is "Threefry")
-ALGORITHM = "TorchGenerator"
+#: name of the stream in the state tuple, ``heat_tpu``'s
+ALGORITHM = "Threefry"
 
 __seed: Optional[int] = None
 __counter: int = 0
@@ -64,8 +84,8 @@ def seed(seed: Optional[int] = None) -> None:
 
 
 def get_state() -> Tuple[str, int, int, int, float]:
-    """The generator's state ``(ALGORITHM, seed, counter, 0, 0.0)``, in the
-    shape of ``heat_tpu``'s (reference: random.py get_state)."""
+    """The generator's state ``("Threefry", seed, counter, 0, 0.0)``, as
+    ``heat_tpu``'s (reference: random.py get_state)."""
     if __seed is None:
         seed()
     return (ALGORITHM, __seed, __counter, 0, 0.0)
@@ -73,8 +93,8 @@ def get_state() -> Tuple[str, int, int, int, float]:
 
 def set_state(state: Tuple[str, int, int, int, float]) -> None:
     """Set the generator's state from a 3- or 5-tuple (reference: random.py
-    set_state). The algorithm must be the port's own: a ``"Threefry"``
-    state of ``heat_tpu`` names another stream."""
+    set_state); a ``heat_tpu`` state continues its stream. The algorithm
+    must be ``"Threefry"``."""
     global __seed, __counter
     if not isinstance(state, tuple) or len(state) not in (3, 5):
         raise ValueError("state needs to be a 3- or 5-tuple")
@@ -84,36 +104,62 @@ def set_state(state: Tuple[str, int, int, int, float]) -> None:
     __counter = int(state[2])
 
 
-def _next_generator(numel: int, device: torch.device) -> torch.Generator:
-    """A generator for the next draw, seeded from (seed, counter); the
-    counter then advances by ``numel``."""
+def _next_key(numel: int) -> _threefry.Key:
+    """The key of the next draw: both 32-bit words of the counter folded
+    into the seed's key (``heat_tpu`` random.py:67); the counter then
+    advances by ``numel``."""
     global __counter
     if __seed is None:
         seed()
-    gen = torch.Generator(device=device)
-    gen.manual_seed((__seed * 0x9E3779B97F4A7C15 + __counter) % 2**63)
+    key = _threefry.seed_key(__seed)
+    key = _threefry.fold_in(key, __counter & 0xFFFFFFFF)
+    key = _threefry.fold_in(key, (__counter >> 32) & 0xFFFFFFFF)
     __counter += int(numel)
-    return gen
+    return key
 
 
-def _draw(kind: str, shape, dtype, split, device, comm, mean=0.0, std=1.0) -> DNDarray:
+def _numel(shape) -> int:
+    return math.prod(shape) if shape else 1
+
+
+def _draw(mode: str, shape, dtype, split, device, comm, args=()) -> DNDarray:
+    """One draw of global ``shape``: this rank makes its chunk alone."""
+    device = sanitize_device(device)
+    comm = sanitize_comm(comm)
+    shape = tuple(int(s) for s in shape)
+    split = sanitize_axis(shape, split)
+    key = _next_key(_numel(shape))
+    chunk = _threefry.Chunk.of(shape, split, comm)
+    data = _r1.draw(mode, key, chunk, dtype.torch_type(), device.torch_device, args)
+    return DNDarray(data, shape, dtype, split, device, comm)
+
+
+def _float_type(dtype):
     dtype = types.canonical_heat_type(dtype)
     if dtype not in _FLOATS:
         raise ValueError(f"dtype must be a float type, got {dtype}")
-    device = sanitize_device(device)
-    tdev = device.torch_device
-    shape = tuple(shape)
-    gen = _next_generator(int(np.prod(shape)) if shape else 1, tdev)
-    sampler = torch.randn if kind == "normal" else torch.rand
-    data = sampler(shape, generator=gen, dtype=dtype.torch_type(), device=tdev)
-    if kind == "normal" and (mean != 0.0 or std != 1.0):
-        data = data * std + mean
-    return _wrap(data, dtype, split, device, sanitize_comm(comm))
+    return dtype
+
+
+def _moment(value, shape, split, name: str):
+    """A moment of ``normal`` as this rank's operand: a number, or a
+    DNDarray of the draw's shape and split (its local tensor) or of one
+    element (broadcast)."""
+    if not isinstance(value, DNDarray):
+        return value
+    if value.shape == tuple(shape) and value.split == split:
+        return value.larray
+    if value.size == 1 and value.split is None:
+        return value.larray.reshape(())
+    raise NotImplementedError(
+        f"normal's {name} of shape {value.shape} split {value.split} against a draw of shape {tuple(shape)} "
+        f"split {split}: broadcasting operands waits for the NumPy surface, ROADMAP.md Queue 1, item 6"
+    )
 
 
 def normal(
-    mean: float = 0.0,
-    std: float = 1.0,
+    mean=0.0,
+    std=1.0,
     shape: Optional[Tuple[int, ...]] = None,
     dtype: Type[types.datatype] = types.float32,
     split: Optional[int] = None,
@@ -121,19 +167,69 @@ def normal(
     comm=None,
 ) -> DNDarray:
     """Normal samples with the given mean and standard deviation
-    (reference: random.py normal)."""
-    shape = sanitize_shape(shape) if shape is not None else ()
-    return _draw("normal", shape, dtype, split, device, comm, float(mean), float(std))
+    (reference: random.py normal): ``jax.random.normal(key) * std + mean``.
+    ``mean`` and ``std`` are numbers, or DNDarrays of the draw's shape and
+    split or of one element, as ``heat_tpu`` takes them (random.py:200-207);
+    without ``shape`` the draw takes the moments' shape."""
+    if shape is None:
+        shape = getattr(mean, "shape", None) or getattr(std, "shape", None) or ()
+    shape = sanitize_shape(shape) if shape != () else ()
+    dtype = _float_type(dtype)
+    if isinstance(mean, DNDarray) or isinstance(std, DNDarray):
+        base = _draw("normal", shape, dtype, split, device, comm, (0.0, 1.0))
+        m = _moment(mean, shape, base.split, "mean")
+        s = _moment(std, shape, base.split, "std")
+        values = (base.larray * s + m).to(dtype.torch_type())
+        return DNDarray(values, base.shape, dtype, base.split, base.device, base.comm)
+    return _draw("normal", shape, dtype, split, device, comm, (float(mean), float(std)))
+
+
+def permutation(x) -> DNDarray:
+    """A random permutation of arange(x), or a copy of ``x`` with its rows
+    (axis 0) shuffled (reference: random.py permutation). The permutation
+    is computed whole on every rank; a split-0 array then moves its rows
+    with one all-to-all, any other array takes them locally."""
+    if isinstance(x, (int, np.integer)):
+        return randperm(int(x))
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"expected int or DNDarray, got {type(x)}")
+    n = x.shape[0] if x.ndim else 1
+    perm = _r1.shuffle(_next_key(n), n, x.larray.device)
+    if x.split != 0 or not x.comm.is_distributed():
+        values = torch.index_select(x.larray, 0, perm)
+        return DNDarray(values, x.shape, x.dtype, x.split, x.device, x.comm)
+    return _permute_rows(x, perm)
+
+
+def _permute_rows(x: DNDarray, perm: torch.Tensor) -> DNDarray:
+    """``x[perm]`` of a split-0 ``x``, each rank keeping its chunk: row i of
+    the result is global row perm[i], which its owner sends in one
+    all-to-all."""
+    comm, dev = x.comm, perm.device
+    counts, displs = x.counts_displs()  # where the rows lie now
+    r_counts, r_displs, r_lshape = comm.counts_displs_shape(x.shape, 0)  # where the result's rows go
+    owner = torch.searchsorted(torch.tensor(np.cumsum(counts), device=dev), perm, right=True)
+    dest = torch.searchsorted(torch.tensor(np.cumsum(r_counts), device=dev), torch.arange(x.shape[0], device=dev),
+                              right=True)
+    # the rows this rank sends, by destination rank and then by their place
+    # in the result (nonzero is ascending; the stable sort keeps that order)
+    out_pos = torch.nonzero(owner == comm.rank).reshape(-1)
+    out_pos = out_pos[torch.sort(dest[out_pos], stable=True).indices]
+    send = x.larray[perm[out_pos] - displs[comm.rank]]
+    send_counts = torch.bincount(dest[out_pos], minlength=comm.size).tolist()
+    # the rows this rank receives: its result rows, grouped by their owner
+    src = owner[r_displs[comm.rank] : r_displs[comm.rank] + r_counts[comm.rank]]
+    recv_counts = torch.bincount(src, minlength=comm.size).tolist()
+    got = comm.alltoall(send.contiguous(), send_counts, recv_counts)
+    values = x.larray.new_empty(r_lshape)
+    values[torch.sort(src, stable=True).indices] = got
+    return DNDarray(values, x.shape, x.dtype, 0, x.device, comm)
 
 
 def rand(*args, dtype=types.float32, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
     """Uniform [0, 1) samples of the given shape (reference: random.py rand)."""
-    return _draw("uniform", sanitize_shape(args) if args else (), dtype, split, device, comm)
-
-
-def randn(*args, dtype=types.float32, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
-    """Standard-normal samples of the given shape (reference: random.py randn)."""
-    return _draw("normal", sanitize_shape(args) if args else (), dtype, split, device, comm)
+    shape = sanitize_shape(args) if args else ()
+    return _draw("uniform", shape, _float_type(dtype), split, device, comm, (0.0, 1.0))
 
 
 def randint(
@@ -154,21 +250,49 @@ def randint(
     dtype = types.canonical_heat_type(dtype if dtype is not None else types.int32)
     if dtype not in _INTS:
         raise ValueError(f"dtype must be an integer type, got {dtype}")
-    device = sanitize_device(device)
-    tdev = device.torch_device
-    gen = _next_generator(int(np.prod(shape)) if shape else 1, tdev)
-    data = torch.randint(int(low), int(high), shape, generator=gen, dtype=dtype.torch_type(), device=tdev)
-    return _wrap(data, dtype, split, device, sanitize_comm(comm))
+    return _draw("randint", shape, dtype, split, device, comm, (int(low), int(high)))
+
+
+random_integer = randint
+
+
+def randn(*args, dtype=types.float32, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
+    """Standard-normal samples of the given shape (reference: random.py randn)."""
+    shape = sanitize_shape(args) if args else ()
+    return _draw("normal", shape, _float_type(dtype), split, device, comm, (0.0, 1.0))
+
+
+def random_sample(shape=None, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    """Uniform [0, 1) samples (reference: random.py random_sample); the
+    default shape is (1,)."""
+    shape = sanitize_shape(shape if shape is not None else (1,))
+    return rand(*shape, dtype=dtype, split=split, device=device, comm=comm)
+
+
+random = random_sample
+ranf = random_sample
+sample = random_sample
 
 
 def randperm(n: int, dtype=types.int64, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
-    """Random permutation of arange(n) (reference: random.py randperm); the
-    counter advances by n, as in ``heat_tpu``."""
+    """Random permutation of arange(n) (reference: random.py randperm),
+    computed whole on every rank (``jax.random.permutation``'s sort rounds,
+    K4 on a card); the counter advances by n."""
     if not isinstance(n, (int, np.integer)):
         raise TypeError(f"n must be an integer, got {type(n)}")
     dtype = types.canonical_heat_type(dtype)
     device = sanitize_device(device)
-    tdev = device.torch_device
-    gen = _next_generator(int(n), tdev)
-    data = torch.randperm(int(n), generator=gen, device=tdev).to(dtype.torch_type())
-    return _wrap(data, dtype, split, device, sanitize_comm(comm))
+    comm = sanitize_comm(comm)
+    data = _r1.shuffle(_next_key(int(n)), int(n), device.torch_device).to(dtype.torch_type())
+    split = sanitize_axis(data.shape, split)
+    if split is not None and comm.is_distributed():
+        _, _, slices = comm.chunk(data.shape, split)
+        data = data[slices].clone()
+    return DNDarray(data, (int(n),), dtype, split, device, comm)
+
+
+def standard_normal(shape=None, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    """Standard-normal samples (reference: random.py standard_normal); the
+    default shape is (1,)."""
+    shape = sanitize_shape(shape if shape is not None else (1,))
+    return randn(*shape, dtype=dtype, split=split, device=device, comm=comm)

@@ -8,11 +8,17 @@ pair sort of u32 words and the fused sort of float32 and int32 values.
 and SDDMM kernel K8 (``csrc/spmm.cu``). ``attention`` holds exact softmax
 attention with its flash-attention forward kernel K9 (``csrc/attention.cu``)
 under ``ht.nn``. ``relayout`` holds the packed pivot's pack and unpack
-copies K5 and K6 (``csrc/relayout.cu``) under ``ht.redistribution``. The launch counts stay on their modules (for example
+copies K5 and K6 (``csrc/relayout.cu``) under ``ht.redistribution``.
+``threefry`` holds kernel R1 (``csrc/threefry.cu``), which draws
+``heat_tpu``'s Threefry-2x32 stream on a card under ``ht.random`` and every
+seeded draw of the port (the hSVD sketch operators, k-means++ seeding,
+module inits) through its one entry point ``threefry.draw`` (and
+``threefry.shuffle`` for permutations), one launch a draw of this rank's
+chunk; it replaces no Pallas kernel. The launch counts stay on their modules (for example
 ``attention.ATTENTION_LAUNCHES``): a name imported here would not follow them.
 """
 
-from . import attention, relayout, sort, spmm
+from . import attention, relayout, sort, spmm, threefry
 from .attention import (
     attention_serviceable,
     flash_attention,
@@ -38,6 +44,7 @@ __all__ = [
     "relayout",
     "sort",
     "spmm",
+    "threefry",
     "from_sortable",
     "fused_sort",
     "local_sort",

@@ -10,8 +10,11 @@ layouts, so that a ``heat_tpu`` parameter dict loads into them as it is
 ``MultiheadAttention``'s ``in_proj`` (E, 3E), ``in_bias``, ``out_proj``
 (E, E), ``out_bias``. Each module takes ``device=`` (default
 ``ht.get_device()``, the card) and ``dtype=``, and draws its initial values
-from the ``generator=`` it is given: the draws have ``heat_tpu``'s
-distributions, not its Threefry values (ROADMAP.md Queue 1, item 5).
+from the Threefry key it is given (``key=``, a key of
+``core._threefry``: ``seed_key``, ``split``, ``fold_in``) as ``heat_tpu``'s
+``init(key)`` draws them, bit for bit, on the module's device (kernel R1
+on a card); without a key it takes the next key of the global stream
+(``ht.random``), which then advances by the elements drawn.
 The other modules of ``heat_tpu.nn.modules`` wait for ROADMAP.md Queue 1,
 item 8.
 """
@@ -19,12 +22,11 @@ item 8.
 from __future__ import annotations
 
 import math
-from typing import Optional
-
 import torch
 
-from ..core import types
+from ..core import _threefry, random as ht_random, types
 from ..core.devices import sanitize_device
+from ..kernels import threefry as _r1
 
 __all__ = ["Embedding", "LayerNorm", "Linear", "MultiheadAttention"]
 
@@ -33,13 +35,15 @@ def _placement(device, dtype):
     return sanitize_device(device).torch_device, types.canonical_heat_type(dtype).torch_type()
 
 
-def _draw(shape, generator: Optional[torch.Generator], device, dtype, bound: Optional[float] = None):
-    """Uniform(-bound, bound), or N(0, 1) without a bound, drawn in float32
-    on the generator's device and then placed."""
-    gdev = generator.device if generator is not None else torch.device("cpu")
-    t = torch.empty(shape, dtype=torch.float32, device=gdev)
-    t = t.uniform_(-bound, bound, generator=generator) if bound is not None else t.normal_(generator=generator)
-    return torch.nn.Parameter(t.to(device=device, dtype=dtype))
+def _key(key, numel: int):
+    """The module's key: the one given, or the global stream's next."""
+    return ht_random._next_key(numel) if key is None else key
+
+
+def _uniform(key, shape, device, dtype, bound: float) -> torch.nn.Parameter:
+    """``jax.random.uniform(key, shape, minval=-bound, maxval=bound, dtype)``."""
+    chunk = _threefry.Chunk.whole(shape)
+    return torch.nn.Parameter(_r1.draw("uniform", key, chunk, dtype, device, (-bound, bound)))
 
 
 class Linear(torch.nn.Module):
@@ -48,13 +52,14 @@ class Linear(torch.nn.Module):
     Kaiming-uniform bound 1/sqrt(in_features) for weight and bias."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype=types.float32,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, key=None):
         super().__init__()
         self.in_features, self.out_features = int(in_features), int(out_features)
         dev, dt = _placement(device, dtype)
         bound = 1.0 / math.sqrt(self.in_features)
-        self.weight = _draw((self.in_features, self.out_features), generator, dev, dt, bound)
-        self.bias = _draw((self.out_features,), generator, dev, dt, bound) if bias else None
+        wkey, bkey = _threefry.split(_key(key, (self.in_features + bias) * self.out_features))
+        self.weight = _uniform(wkey, (self.in_features, self.out_features), dev, dt, bound)
+        self.bias = _uniform(bkey, (self.out_features,), dev, dt, bound) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.weight
@@ -72,7 +77,7 @@ class MultiheadAttention(torch.nn.Module):
     1/sqrt(E) bounds as ``heat_tpu`` draws them, zero biases."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True, causal: bool = False,
-                 dtype=types.float32, device=None, generator: Optional[torch.Generator] = None):
+                 dtype=types.float32, device=None, key=None):
         super().__init__()
         if embed_dim % num_heads != 0:
             raise ValueError(f"embed_dim ({embed_dim}) must be divisible by num_heads ({num_heads})")
@@ -81,8 +86,9 @@ class MultiheadAttention(torch.nn.Module):
         self.causal = bool(causal)
         dev, dt = _placement(device, dtype)
         e = self.embed_dim
-        self.in_proj = _draw((e, 3 * e), generator, dev, dt, math.sqrt(6.0 / (e + 3 * e)))
-        self.out_proj = _draw((e, e), generator, dev, dt, 1.0 / math.sqrt(e))
+        k_in, k_out = _threefry.split(_key(key, 4 * e * e))
+        self.in_proj = _uniform(k_in, (e, 3 * e), dev, dt, math.sqrt(6.0 / (e + 3 * e)))
+        self.out_proj = _uniform(k_out, (e, e), dev, dt, 1.0 / math.sqrt(e))
         if bias:
             self.in_bias = torch.nn.Parameter(torch.zeros(3 * e, device=dev, dtype=dt))
             self.out_bias = torch.nn.Parameter(torch.zeros(e, device=dev, dtype=dt))
@@ -144,12 +150,13 @@ class Embedding(torch.nn.Module):
     ``Embedding``, ``:334``); an id outside [0, num_embeddings) raises
     ``IndexError``."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int, dtype=types.float32, device=None,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, num_embeddings: int, embedding_dim: int, dtype=types.float32, device=None, key=None):
         super().__init__()
         self.num_embeddings, self.embedding_dim = int(num_embeddings), int(embedding_dim)
         dev, dt = _placement(device, dtype)
-        self.weight = _draw((self.num_embeddings, self.embedding_dim), generator, dev, dt)
+        shape = (self.num_embeddings, self.embedding_dim)
+        weight = _r1.draw("normal", _key(key, math.prod(shape)), _threefry.Chunk.whole(shape), dt, dev, (0.0, 1.0))
+        self.weight = torch.nn.Parameter(weight)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         ids = torch.as_tensor(ids, device=self.weight.device)

@@ -27,7 +27,7 @@ def create_spherical_dataset(
     uniform inside spheres of the given ``radius`` centered at
     (s·offset, s·offset, s·offset) for s = −2, −1, 1, 2, in that order,
     split along axis 0 (each rank keeps its chunk). Reseeds the global stream with ``random_state``,
-    as ``heat_tpu`` does; the points are the port's own draws."""
+    as ``heat_tpu`` does, and draws ``heat_tpu``'s values from it."""
     ht_random.seed(random_state)
     dtype = types.canonical_heat_type(dtype)
     n = int(num_samples_cluster)

@@ -11,9 +11,11 @@ there.
 
 Fits from the same initial centers agree with heat_tpu: centers within
 1e-5, labels and iteration counts equal, inertia within relative error
-1e-5; medians and medoids within 1e-6. Seeded inits draw from different
-streams in the two packages (torch's generator, heat_tpu's Threefry), so
-those tests check what the draws must give instead.
+1e-5; medians and medoids within 1e-6. Seeded inits draw heat_tpu's
+Threefry stream in both packages, so a seeded fit starts from heat_tpu's
+centers (kmeans++ and random, each estimator), a heat_tpu model's
+``rng_state`` carried across draws heat_tpu's next init, and
+``create_spherical_dataset`` gives heat_tpu's points.
 """
 
 import numpy as np
@@ -313,7 +315,7 @@ def test_same_random_state_gives_the_same_centers(init):
     np.testing.assert_array_equal(a.cluster_centers_.numpy(), b.cluster_centers_.numpy())
     assert not np.array_equal(a.cluster_centers_.numpy(), c.cluster_centers_.numpy())
     assert ht.random.get_state() == before  # the private streams leave the global one alone
-    assert a.rng_state[0] == "TorchGenerator" and a.rng_state[2] > 0
+    assert a.rng_state[0] == "Threefry" and a.rng_state[2] > 0
 
 
 def test_random_init_draws_data_rows_and_fits_like_heat_tpu_from_them():
@@ -329,18 +331,85 @@ def test_random_init_draws_data_rows_and_fits_like_heat_tpu_from_them():
     np.testing.assert_array_equal(seeded.labels_.numpy(), jm.labels_.numpy())
 
 
+@pytest.mark.parametrize("init", ["kmeans++", "random"])
+@pytest.mark.parametrize("cls_name", ["KMeans", "KMedians", "KMedoids"])
+def test_seeded_init_and_fit_are_heat_tpus(cls_name, init):
+    """Each package draws its own seeded init, nothing injected: the same
+    initial centers (k-means++'s candidates are drawn from the cumulative
+    sum of d²/Σd², which the two packages round in their own orders, so a
+    draw within that rounding of a boundary between two rows could pick
+    another row; no such draw occurs on these inputs), then the same
+    labels and n_iter and centers within 1e-5."""
+    data = _blobs(8)
+    jx, tx = _both(data, None)
+    jm = getattr(jht.cluster, cls_name)(n_clusters=4, init=init, random_state=21)
+    tm = getattr(ht.cluster, cls_name)(n_clusters=4, init=init, random_state=21)
+    jm._initialize_cluster_centers(jx)
+    tm._initialize_cluster_centers(tx)
+    np.testing.assert_array_equal(tm.cluster_centers_.numpy(), jm.cluster_centers_.numpy())
+    assert tm.rng_state == jm.rng_state
+    jm = getattr(jht.cluster, cls_name)(n_clusters=4, init=init, random_state=21).fit(jx)
+    tm = getattr(ht.cluster, cls_name)(n_clusters=4, init=init, random_state=21).fit(tx)
+    np.testing.assert_array_equal(tm.labels_.numpy(), jm.labels_.numpy())
+    assert tm.n_iter_ == jm.n_iter_
+    np.testing.assert_allclose(tm.cluster_centers_.numpy(), jm.cluster_centers_.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_kmeanspp_from_the_global_stream_is_heat_tpus():
+    data = _gaussian(seed=12, n=300, d=5)
+    jht.random.seed(33)
+    ht.random.seed(33)
+    jx, tx = _both(data, None)
+    jm = jht.cluster.KMeans(n_clusters=6, init="kmeans++")
+    tm = ht.cluster.KMeans(n_clusters=6, init="kmeans++")
+    jm._initialize_cluster_centers(jx)
+    tm._initialize_cluster_centers(tx)
+    np.testing.assert_array_equal(tm.cluster_centers_.numpy(), jm.cluster_centers_.numpy())
+    assert ht.random.get_state() == jht.random.get_state()
+
+
+def test_a_heat_tpu_models_rng_state_carries_across():
+    """A heat_tpu KMeans that has drawn inits carries its private stream
+    into the port (``kcluster_from_numpy``): the next init is heat_tpu's."""
+    data = _blobs(9)
+    jx, tx = _both(data, None)
+    jm = jht.cluster.KMeans(n_clusters=4, init="kmeans++", random_state=7).fit(jx)
+    state = {"cluster_centers_": jm.cluster_centers_.numpy(), "rng_state": jm.rng_state}
+    tm = interop.kcluster_from_numpy(ht.cluster.KMeans, state, n_clusters=4, init="kmeans++")
+    assert tm.rng_state == jm.rng_state and tm.rng_state[0] == "Threefry" and tm.rng_state[2] > 0
+    jm._initialize_cluster_centers(jx)
+    tm._initialize_cluster_centers(tx)
+    np.testing.assert_array_equal(tm.cluster_centers_.numpy(), jm.cluster_centers_.numpy())
+    assert tm.rng_state == jm.rng_state
+
+
+def test_spherical_dataset_is_heat_tpus():
+    """The points of ``create_spherical_dataset(random_state=1)``: its
+    uniform draws are heat_tpu's bit for bit and its directions' normals
+    within 4 ulp, so the points agree within 1e-6 of their scale (the norm
+    and the cube root round in each package's own way)."""
+    for kw in ({}, {"radius": 0.5, "offset": 6.0}):
+        ref = jht.utils.data.create_spherical_dataset(50, random_state=1, **kw).numpy()
+        got = ht.utils.data.create_spherical_dataset(50, random_state=1, **kw).numpy()
+        assert got.shape == ref.shape == (200, 3) and got.dtype == ref.dtype
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+        assert ht.random.get_state() == jht.random.get_state()
+
+
 def test_state_round_trip_and_foreign_stream_refused():
     ht.random.seed(5)
     ht.random.randn(10)
     state = ht.random.get_state()
-    assert state == ("TorchGenerator", 5, 10, 0, 0.0)
+    assert state == ("Threefry", 5, 10, 0, 0.0)
     x = ht.random.randint(0, 100, (7,)).numpy()
     ht.random.set_state(state)
     np.testing.assert_array_equal(ht.random.randint(0, 100, (7,)).numpy(), x)
     perm = ht.random.randperm(50)
     assert perm.dtype is ht.int64 and sorted(perm.numpy().tolist()) == list(range(50))
+    ht.random.set_state(("Threefry", 5, 10, 0, 0.0))  # heat_tpu's algorithm is the port's own
+    np.testing.assert_array_equal(ht.random.randint(0, 100, (7,)).numpy(), x)
     with pytest.raises(ValueError):
-        ht.random.set_state(("Threefry", 5, 10, 0, 0.0))
+        ht.random.set_state(("MT19937", 5, 10, 0, 0.0))
 
 
 # --------------------------------------------------------------------- #

@@ -2,10 +2,9 @@
 
 Two levels:
 
-- the sketch chains with the operators injected: heat_tpu's draws
-  (``jax.random``) and the port's (``torch.Generator``) differ, so both
-  sides get the same numpy ``g`` / ``Ω``; the heat_tpu side composes its
-  own stream and tail functions. Float32, on a full-rank matrix with
+- the sketch chains with the operators injected: both sides get the same
+  numpy ``g`` / ``Ω``; the heat_tpu side composes its own stream and tail
+  functions. Float32, on a full-rank matrix with
   spectrum σ_i = 2^{-i/2}: σ within relative error 1e-4, U and V up to
   column sign within 1e-3, the error estimate within 1e-4 absolute;
 - the public ``hsvd_rank`` / ``hsvd_rtol`` / ``hsvd`` on both packages,
@@ -13,7 +12,10 @@ Two levels:
   maxrank 10, where any sketch is exact: σ within relative error 1e-4,
   equal subspaces, error estimate ≤ 1e-4. These run in float64: in
   float32 the estimate ‖A‖² − Σσ² of an exact-rank input cancels to
-  about 4e-4 on both packages alike.
+  about 4e-4 on both packages alike;
+- the public calls on a full-rank matrix, each package drawing its own
+  operators: the port draws heat_tpu's Threefry stream, so the factors
+  agree within the injected chains' tolerances.
 
 heat_tpu arrays with ``split=0`` are distributed over the 8-device CPU
 mesh of ``conftest.py`` and take its TSQR-merge branch; the port's
@@ -110,6 +112,30 @@ def test_one_view_chain_with_injected_sketch(shape):
         g=torch.from_numpy(g), omega=torch.from_numpy(omega),
     )
     _assert_factors(psvd._truncate_with_err(res, R_FINAL), ref)
+
+
+@pytest.mark.parametrize("shape", [(600, 300), (300, 700)])
+@pytest.mark.parametrize("call", ["rank", "rank_one_view", "hsvd"])
+def test_public_hsvd_draws_heat_tpus_sketch(shape, call):
+    """Each package draws its own sketch operators, nothing injected, on a
+    full-rank float32 matrix, whose factors depend on the sketch: the
+    port's are heat_tpu's ``key(0x5BD)`` / ``split(key(0x5BD1))`` draws, so
+    σ, U, V and the error estimate agree within the tolerances of the
+    injected chains above. Unsplit, so that both take the single-device
+    branch."""
+    a = _decaying(*shape)
+    jht.zeros(1)  # heat_tpu's policy (x64 on the CPU) before its keys are made
+    outs = []
+    for lib in (jht, ht):
+        x = lib.array(a)
+        if call == "rank":
+            u, s, v, err = lib.linalg.hsvd_rank(x, R_FINAL, compute_sv=True)
+        elif call == "rank_one_view":
+            u, s, v, err = lib.linalg.hsvd_rank(x, R_FINAL, compute_sv=True, single_pass=True)
+        else:
+            u, s, v, err = lib.linalg.hsvd(x, maxrank=R_FINAL, compute_sv=True)
+        outs.append((u, v, s, err))
+    _assert_factors(outs[1], outs[0])
 
 
 def test_one_view_params_consult_the_kernel_predicate_on_cuda():
@@ -268,3 +294,45 @@ def test_complex64_hsvd_reads_back_and_matches_heat_tpu(call, compute_sv):
         np.testing.assert_allclose(sigma[:8], np.asarray(ref[1].numpy())[:8], rtol=1e-4)
         np.testing.assert_allclose(sigma[:8], RANK8_SIGMA, rtol=1e-4)
         np.testing.assert_allclose((U * sigma) @ V.conj().T, a, atol=1e-3)
+
+
+# σ₈² = 5.8e-6 lies below n·eps·σ²_max = 25 · 1.19e-7 · 64 = 1.9e-4, where
+# the (25, 25) Gram's eigen-solver cannot resolve it
+SUB_RESOLUTION_SIGMA = np.array([8.0, 7.0, 6.0, 5.0, 4.0, 3.0, 2.0, 2.4e-3])
+
+
+@pytest.mark.parametrize("seed, vs_heat_tpu", [(2, True), (5, True), (7, True), (8, True), (9, False)])
+def test_a_sigma_below_the_gram_resolution_keeps_its_column_zero(seed, vs_heat_tpu, monkeypatch):
+    """The projection tail of a (256, 25) float32 z with seven σ of order 1
+    and an eighth below the Gram eigen-solver's resolution, the case of an
+    exactly rank-8 level-0 block. ``heat_tpu``'s rule, 1/σ wherever σ > 0,
+    blows that column's rounding up into directions that leave
+    Cholesky-QR's Gram singular: torch's Cholesky raises on these seeds,
+    where XLA's returns NaN (on seed 9 for all of U, so that seed is held
+    against numpy's SVD alone) or refines the noise into a unit column.
+    The port keeps every column with σ² ≤ n·eps·σ²_max at zero: the kept
+    columns and σ match ``heat_tpu``'s and the exact SVD's within this
+    file's float32 tolerances (σ 1e-4 relative, U up to column sign 1e-3,
+    the error 1e-4 absolute)."""
+    z_np = _matrix(256, SKETCH_L, SUB_RESOLUTION_SIGMA, seed, np.float32)
+    z = torch.from_numpy(z_np)
+    qw, norm_sq = torch.eye(SKETCH_L), torch.sum(z * z)
+    with monkeypatch.context() as patched:
+        patched.setattr(psvd, "_inv_sigma", lambda s, n: torch.where(s > 0, 1.0 / s, 0.0))
+        with pytest.raises(torch.linalg.LinAlgError):
+            psvd._projection_tail(z, qw, norm_sq, KEEP, "left")
+    u, _, s, err_sq, _ = psvd._projection_tail(z, qw, norm_sq, KEEP, "left")
+    u, s = u.numpy(), s.numpy()
+    kept = s * s > SKETCH_L * np.finfo(np.float32).eps * s[0] ** 2
+    assert kept.tolist() == [True] * 7 + [False] * (KEEP - 7)
+    assert np.all(u[:, 7:] == 0.0) and np.all(np.isfinite(u))
+    assert np.abs(u[:, :7].T @ u[:, :7] - np.eye(7)).max() <= 1e-5
+    exact_u, exact_s, _ = np.linalg.svd(z_np.astype(np.float64), full_matrices=False)
+    np.testing.assert_allclose(s[:7], exact_s[:7], rtol=1e-4)
+    _assert_up_to_sign(u[:, :7], exact_u[:, :7], 1e-3)
+    if vs_heat_tpu:
+        ju, _, js, jerr_sq, _ = jsvd._projection_tail(jnp.asarray(z_np), jnp.eye(SKETCH_L),
+                                                      jnp.float32(norm_sq), KEEP, "left")
+        np.testing.assert_allclose(s[:7], np.asarray(js)[:7], rtol=1e-4)
+        _assert_up_to_sign(u[:, :7], np.asarray(ju)[:, :7], 1e-3)
+        assert abs(float(err_sq) - float(jerr_sq)) <= 1e-4

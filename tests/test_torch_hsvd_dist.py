@@ -22,6 +22,10 @@ Two levels:
   - the distributed Cholesky-QR refine equal within 1e-5 to the refine of
     the whole matrix, where each rank refining alone is off by more than
     1e-3;
+- ``hsvd_rank`` (2-pass and one-view) and ``hsvd`` at split 0 and 1 on a
+  full-rank float32 matrix, each package drawing its own operators:
+  σ within 1e-4, U and V up to sign within 1e-3, the error estimate
+  within 1e-4 of heat_tpu's (the port draws heat_tpu's stream);
 - one process: the level-0 body on a split-0 shard (K1's swapped roles,
   K2 on the copied Sᵀ), with heat_tpu's own draws injected, against
   heat_tpu's ``_sketched_uds`` and ``_one_view_uds_both`` on the same
@@ -185,6 +189,27 @@ def test_hsvd_at_world_size_4_matches_heat_tpu(ranks, jcomm, split, call, comput
             # σ and the rank: the same bits on every rank
             np.testing.assert_array_equal(s["local"], results[0]["sigma"]["local"])
         assert U["gshape"] == results[0]["U"]["gshape"]
+
+
+DRAW_CASES = [(split, call) for split in (0, 1) for call in ("rank", "rank_one_view", "hsvd")]
+
+
+@pytest.mark.parametrize("split, call", DRAW_CASES, ids=[f"{s}-{c}" for s, c in DRAW_CASES])
+def test_hsvd_at_world_size_4_draws_heat_tpus_sketches(ranks, jcomm, split, call):
+    """Each package draws its own level-0 operators, nothing injected, on a
+    full-rank float32 matrix (σ_i = 2^(-i/2)), whose factors depend on the
+    sketch: the port's ranks draw heat_tpu's ``key(0x5BD)`` /
+    ``split(key(0x5BD1))`` operators, so σ within 1e-4, U and V up to
+    sign within 1e-3 and the error estimate within 1e-4 of heat_tpu's."""
+    a = worker.decaying(worker.HSVD_DECAYING)
+    a = a if split == 0 else a.T.copy()
+    U, s, V, err = worker.hsvd_call(jht, jht.array(a, split=split, comm=_jcomm()), call, True)
+    k = min(8, U.shape[1])
+    for res in _result(ranks, f"random_hsvd_{split}_{call}"):
+        np.testing.assert_allclose(res["sigma"][:k], s.numpy()[:k], rtol=1e-4)
+        _up_to_sign(res["U"][:, :k], U.numpy()[:, :k], 1e-3)
+        _up_to_sign(res["V"][:, :k], V.numpy()[:, :k], 1e-3)
+        assert abs(res["err"] - float(err)) <= 1e-4
 
 
 def test_hsvd_routes_split_1_two_pass_and_one_view_as_heat_tpu(ranks):

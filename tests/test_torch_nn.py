@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import heat_tpu as jht
 import heat_tpu_torch as ht
 from heat_tpu.nn import modules as jm
+from heat_tpu_torch.core._threefry import seed_key
 from heat_tpu_torch.core.interop import nn_params_from_numpy
 
 RTOL, ATOL = 2e-5, 2e-6
@@ -146,7 +147,7 @@ def test_multihead_attention_matches_torch_causal_unbatched():
 def test_multihead_attention_checks_and_gradients():
     with pytest.raises(ValueError):
         ht.nn.MultiheadAttention(10, 3)
-    mha = ht.nn.MultiheadAttention(8, 2, causal=True, generator=torch.Generator().manual_seed(0))
+    mha = ht.nn.MultiheadAttention(8, 2, causal=True, key=seed_key(0))
     assert sorted(n for n, _ in mha.named_parameters()) == ["in_bias", "in_proj", "out_bias", "out_proj"]
     assert tuple(mha.in_proj.shape) == (8, 24) and tuple(mha.out_proj.shape) == (8, 8)
     x = torch.from_numpy(_x((2, 5, 8), 7))
@@ -160,9 +161,8 @@ def test_multihead_attention_checks_and_gradients():
 # --------------------------------------------------------------------- #
 def test_initialization_from_a_generator():
     def make(seed):
-        g = torch.Generator().manual_seed(seed)
-        return (ht.nn.Linear(64, 32, generator=g), ht.nn.MultiheadAttention(16, 4, generator=g),
-                ht.nn.Embedding(50, 8, generator=g))
+        k = seed_key(seed)
+        return ht.nn.Linear(64, 32, key=k), ht.nn.MultiheadAttention(16, 4, key=k), ht.nn.Embedding(50, 8, key=k)
 
     a, b, c = make(3), make(3), make(4)
     for ma, mb, mc in zip(a, b, c):
@@ -173,6 +173,46 @@ def test_initialization_from_a_generator():
     assert float(lin.weight.abs().max()) <= 1 / 8 and float(lin.bias.abs().max()) <= 1 / 8
     assert float(mha.in_proj.abs().max()) <= (6 / 64) ** 0.5 and float(mha.out_proj.abs().max()) <= 0.25
     assert 0.7 < float(emb.weight.std()) < 1.3  # N(0, 1) rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_module_inits_from_a_key_are_heat_tpus_bit_for_bit(dtype):
+    """``Linear`` and ``MultiheadAttention`` built with ``key=`` hold
+    heat_tpu's ``init(key)`` parameters bit for bit; ``Embedding``'s normal
+    rows bit for bit in bfloat16 and within the normal draws' limit of
+    tests/test_torch_random.py (4 ulp in float32, 32 in float64, relative)
+    in the wider types."""
+    jht.zeros(1)  # heat_tpu's policy (x64 on the CPU) before any key is made
+    jdt, tdt = getattr(jnp, dtype), getattr(ht, dtype)
+    for seed in (0, 5):
+        jk, tk = jax.random.PRNGKey(seed), seed_key(seed)
+        pairs = ((jm.Linear(13, 6, dtype=jdt).init(jk), ht.nn.Linear(13, 6, dtype=tdt, key=tk)),
+                 (jm.Linear(4, 9, bias=False, dtype=jdt).init(jk), ht.nn.Linear(4, 9, bias=False, dtype=tdt, key=tk)),
+                 (jm.MultiheadAttention(16, 4, dtype=jdt).init(jk), ht.nn.MultiheadAttention(16, 4, dtype=tdt, key=tk)),
+                 (jm.Embedding(11, 5, dtype=jdt).init(jk), ht.nn.Embedding(11, 5, dtype=tdt, key=tk)))
+        for ref, module in pairs:
+            got = dict(module.named_parameters())
+            assert sorted(got) == sorted(ref)
+            for name, value in ref.items():
+                want = np.asarray(value)
+                have = got[name].detach()
+                if dtype == "bfloat16":
+                    assert np.array_equal(have.view(torch.int16).numpy(), want.view(np.int16)), name
+                elif isinstance(module, ht.nn.Embedding):
+                    ulps = {"float32": 4, "float64": 32}[dtype]
+                    np.testing.assert_allclose(have.numpy(), want, rtol=ulps * np.finfo(want.dtype).eps, atol=0)
+                else:
+                    assert np.array_equal(have.numpy(), want), name
+
+
+def test_a_module_without_a_key_takes_the_global_streams_next():
+    ht.random.seed(4)
+    a = ht.nn.Linear(6, 3)
+    assert ht.random.get_state()[2] == 6 * 3 + 3  # the counter advanced by the elements drawn
+    b = ht.nn.Linear(6, 3)
+    ht.random.seed(4)
+    c = ht.nn.Linear(6, 3, key=ht.random._next_key(21))
+    assert torch.equal(a.weight, c.weight) and not torch.equal(a.weight, b.weight)
 
 
 def test_modules_take_device_and_dtype():

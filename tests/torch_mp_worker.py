@@ -282,6 +282,7 @@ def _cases(ht):
     cases.update(_linalg_cases(ht))
     cases.update(_ring_cases(ht))
     cases.update(_sort_cases(ht))
+    cases.update(_random_cases(ht))
     return cases
 
 
@@ -685,6 +686,83 @@ def _sort_cases(ht):
             refused = str(e)
         return {"got": out, "counts": counts, "refused": refused}
     cases["permute"] = permute_case
+    return cases
+
+
+# the random stream across ranks (tests/test_torch_random.py): draws of
+# each kind split 0 and 1, ragged and with an empty last rank
+RANDOM_SEED = 11
+RANDOM_SHAPES = {"ragged": (10, 7), "last_empty": (9, 5), "cols": (5, 9)}  # 3,3,3,1 and 3,3,3,0 rows; 3,3,3,0 cols
+RANDOM_DRAWS = {
+    "randn": lambda lib, shape, split, **kw: lib.random.randn(*shape, split=split, **kw),
+    "rand": lambda lib, shape, split, **kw: lib.random.rand(*shape, split=split, **kw),
+    "randint": lambda lib, shape, split, **kw: lib.random.randint(-50, 1000, shape, split=split, **kw),
+    "normal": lambda lib, shape, split, **kw: lib.random.normal(2.0, 0.5, shape, split=split, **kw),
+    "normal_arrays": lambda lib, shape, split, **kw: lib.random.normal(
+        lib.array(_array(shape, "float32", 71), split=split, **kw),
+        lib.array(np.abs(_array(shape, "float32", 72)), split=split, **kw), split=split, **kw),
+}
+RANDPERM_N = 23
+HSVD_DECAYING = (995, 256)  # a full-rank float32 matrix with σ_i = 2^(-i/2): the result depends on the sketch
+
+
+def decaying(shape, seed=2):
+    """A float32 matrix of the given shape with singular values 2^(-i/2)."""
+    rng = np.random.default_rng(seed)
+    k = min(shape)
+    u, _ = np.linalg.qr(rng.standard_normal((shape[0], k)))
+    v, _ = np.linalg.qr(rng.standard_normal((shape[1], k)))
+    return ((u * 2.0 ** (-np.arange(k) / 2)) @ v.T).astype(np.float32)
+
+
+def _random_cases(ht):
+    """Split draws of heat_tpu's stream: each rank's shard, the global
+    array, the state after, and the element counts the plain generator
+    made on this rank (each draw: this rank's chunk only)."""
+    import importlib
+    from unittest import mock
+
+    kt = importlib.import_module("heat_tpu_torch.kernels.threefry")
+    comm = ht.get_comm()
+    cases = {}
+    made = []
+
+    def counted(draw):
+        def wrapped(mode, key, chunk, dtype, device, args=()):
+            made.append(chunk.numel)
+            return draw(mode, key, chunk, dtype, device, args)
+        return wrapped
+
+    def drawn(call):
+        made.clear()
+        ht.random.seed(RANDOM_SEED)
+        with mock.patch.object(kt, "draw_plain", counted(kt.draw_plain)):
+            comm.counts.clear()
+            x = call()
+            counts = dict(comm.counts)
+        return {"local": _np(x.larray), "split": x.split, "gshape": x.gshape, "global": x.numpy(),
+                "state": ht.random.get_state(), "made": list(made), "counts": counts}
+
+    for kind, draw in RANDOM_DRAWS.items():
+        for label, shape in RANDOM_SHAPES.items():
+            for split in (0, 1):
+                def draw_case(draw=draw, shape=shape, split=split):
+                    return drawn(lambda: draw(ht, shape, split))
+                cases[f"random_{kind}_{label}_{split}"] = draw_case
+
+    cases["random_randperm"] = lambda: drawn(lambda: ht.random.randperm(RANDPERM_N, split=0))
+    for label, shape in RANDOM_SHAPES.items():
+        def permute_case(shape=shape):
+            return drawn(lambda: ht.random.permutation(ht.array(_array(shape, "float32", 73), split=0)))
+        cases[f"random_permutation_{label}"] = permute_case
+
+    a = decaying(HSVD_DECAYING)
+    for split in (0, 1):
+        for call in ("rank", "rank_one_view", "hsvd"):
+            def hsvd_case(a=a if split == 0 else a.T.copy(), split=split, call=call):
+                U, s, V, err = hsvd_call(ht, ht.array(a, split=split), call, True)
+                return {"U": U.numpy(), "sigma": s.numpy(), "V": V.numpy(), "err": float(err)}
+            cases[f"random_hsvd_{split}_{call}"] = hsvd_case
     return cases
 
 
