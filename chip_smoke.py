@@ -91,6 +91,19 @@ Phases, each of which fails the run by raising:
      ht.arange(2**27, split=0).sum() equal to its closed form in int64,
      and resplit and reshape(new_split=) of the 1 GB array against
      torch.reshape;
+   - the NumPy surface (``surface_path``): on ``ht.random.randn(65536,
+     8192, split=0)``, ``A + A``, ``A * 2.0``, ``(A - A.mean(axis=0)) /
+     A.std(axis=0)``, ``ht.exp(A)``, ``(A > 0).sum()``, ``abs(A).max()``,
+     ``A.argmax(axis=1)``, ``ht.cumsum(A, axis=0)`` and ``A.var()``, each
+     against an independent torch formula on the same card tensor (float64
+     for the reductions; exactly for integers, comparisons, argmax and the
+     extremes; a stated relative tolerance for the rest) and timed under
+     CUDA events beside its byte bound (each operand read once, the result
+     written once, over 3.35 TB/s); then ``ht.median`` and
+     ``ht.percentile(x, [5, 50, 95])`` (linear and nearest) of sort_1gb's
+     2^27 float32, each launching K4 and equal to the sorted values'
+     interpolation; the rows print as one JSON line, ``{"surface": ...}``,
+     before the kernels line;
    - the distributed hSVD as a 4-rank world on this one card
      (``world_path``): 4 spawned workers join a gloo world
      (``init_method=file://``) with every rank's tensors on ``cuda:0``,
@@ -142,7 +155,13 @@ Phases, each of which fails the run by raising:
      is the flip of the ascending one). Each prints its time beside its
      bound, the collectives and bytes a rank, and the bytes gloo's
      send/receive staged through the host; the sorts also print each
-     rank's local steps (``block_sort``) under CUDA events;
+     rank's local steps (``block_sort``) under CUDA events. Last, the
+     surface across ranks (``_world_surface``): a 65536 x 8192 operand
+     split across the world, A (split 0) + B (split 1) with B resplit,
+     ``ht.cumsum(A, 0)`` along the split axis, ``A.mean(0)``, ``A.var(0)``
+     and ``A.argmax(axis=0)`` across ranks, and ``ht.median`` of sort_1gb
+     split 0 (the distributed sort, K4 a local step), each rank checking its
+     part against the whole operand regenerated from the shared seed;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -208,8 +227,12 @@ Phases, each of which fails the run by raising:
    64-bit offsets, bool, int8, bf16, float32, float64, complex64 and
    complex128, and float32 NaN payloads and -0.0; their bound is the bytes
    read and written over 3.35 TB/s, and a clone() of the 160 MB buffer
-   stands beside them as the card's copy rate (no single PyTorch call pads
-   and block-transposes). R1's rows time its draws at the main shapes
+   stands beside them as the card's copy rate; no single PyTorch call pads
+   and block-transposes, so ``composed_ms`` times the two calls that do
+   (``F.pad`` and a permuted view's ``.contiguous()``, or that and a
+   slice's). K8's library yardstick is ``torch.sparse.sampled_addmm`` on a
+   CSR mask of S's nonzeros (u·vᵀ there; times S's values it is checked
+   against K8's bricks at up to 2^22 of them). R1's rows time its draws at the main shapes
    beside the plain version (in pieces of 2^25 elements) and torch's own
    generator on the same shape (context only: another stream, so no
    library yardstick); its bound is the larger of the output written once
@@ -1953,6 +1976,101 @@ def _world_sort(ht, comm, moved: dict, rank: int, dev) -> dict:
     return out
 
 
+# the surface phase of the world: one north-star operand (M x N float32)
+# split across the ranks, and sort_1gb's 2^27 float32 split 0
+WORLD_SURFACE_SEED = 9100
+
+
+def _world_surface(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """The op machinery across ranks, each rank's operands made on the card
+    from seeds every rank shares, so that each can regenerate the whole
+    operand and check its own part: A (split 0) + B (split 1), one resplit
+    of B; ``ht.cumsum(A, 0)`` along the split axis; ``A.mean(0)``,
+    ``A.var(0)`` and ``A.argmax(axis=0)`` across ranks; ``ht.median`` of
+    sort_1gb's 2^27 float32 split 0 (the distributed sort, K4 a local
+    step)."""
+    import torch
+
+    from heat_tpu_torch.kernels import sort as ks
+
+    gen = torch.Generator(device=dev)
+    (r0, r1), (c0, c1) = [(comm.chunk((M, N), ax)[0], comm.chunk((M, N), ax)[0] + comm.chunk((M, N), ax)[1][ax])
+                          for ax in (0, 1)]
+    gen.manual_seed(WORLD_SURFACE_SEED)
+    full_a = torch.randn(M, N, device=dev, generator=gen)
+    gen.manual_seed(WORLD_SURFACE_SEED + 1)
+    full_b = torch.randn(M, N, device=dev, generator=gen)
+    A = ht.array(full_a[r0:r1].clone(), is_split=0)
+    B = ht.array(full_b[:, c0:c1].clone(), is_split=1)
+    out = {}
+
+    def counted(call):
+        ks.SORT_LAUNCHES = 0
+        comm.counts.clear()
+        moved.clear()
+        comm.staged_bytes = 0
+        res = call()
+        torch.cuda.synchronize()
+        return res, {"launches": ks.SORT_LAUNCHES, "counts": dict(comm.counts), "bytes": dict(moved),
+                     "staged": comm.staged_bytes}
+
+    S, info = counted(lambda: A + B)
+    ok = S.split == 0 and torch.equal(S.larray, full_a[r0:r1] + full_b[r0:r1])
+    _every_rank_ok(comm, ok, f"A (split 0) + B (split 1) differs from the torch sum on rank {rank}")
+    del S
+    out["add_split0_split1"] = {**info, "ms": _world_ms(lambda: A + B, 3)}
+    del B, full_b
+
+    C, info = counted(lambda: ht.cumsum(A, 0))
+    head = full_a[:r0].double()
+    ref = head.sum(0) + torch.cumsum(full_a[r0:r1].double(), 0)
+    scale = head.abs().sum(0) + torch.cumsum(full_a[r0:r1].double().abs(), 0)
+    err = float(((C.larray.double() - ref).abs() / scale).max()) if r1 > r0 else 0.0
+    _every_rank_ok(comm, C.split == 0 and err <= 1e-5, f"cumsum along the split axis: {err:.3e} of the running "
+                                                       f"sum of |x| on rank {rank} (tol 1e-5)")
+    del C, head, ref, scale
+    out["cumsum_split0"] = {**info, "err": err, "ms": _world_ms(lambda: ht.cumsum(A, 0), 3)}
+
+    mean64 = torch.zeros(N, dtype=torch.float64, device=dev)
+    var64 = torch.zeros(N, dtype=torch.float64, device=dev)
+    for j in range(0, N, 1024):  # float64 in column blocks
+        block = full_a[:, j: j + 1024].double()
+        mean64[j: j + 1024] = block.mean(0)
+        var64[j: j + 1024] = block.var(0, unbiased=False)
+    first = torch.cat([_first_index_of_max(full_a[:, j: j + 1024], 0) for j in range(0, N, 1024)])
+    for name, call, check in (
+        ("mean_axis0", lambda: A.mean(axis=0),
+         lambda o: float(((o.larray.double() - mean64).abs()).max()) / 1e-5),
+        ("var_axis0", lambda: A.var(axis=0), lambda o: float(((o.larray.double() - var64).abs() / var64).max()) / 1e-5),
+        ("argmax_axis0", lambda: A.argmax(axis=0), lambda o: 0.0 if torch.equal(o.larray, first) else 2.0),
+    ):
+        res, info = counted(call)
+        err = check(res)
+        _every_rank_ok(comm, res.split is None and err <= 1.0,
+                       f"{name} across ranks: {err:.3f} of its limit on rank {rank}")
+        out[name] = {**info, "err": err, "ms": _world_ms(call, 3)}
+        del res
+    del A, full_a, first, mean64, var64
+    torch.cuda.empty_cache()
+
+    gen.manual_seed(WORLD_SURFACE_SEED + 2)
+    full_x = torch.randn(SORT_N, device=dev, generator=gen)
+    x0, (cnt,), _ = comm.chunk((SORT_N,), 0)
+    X = ht.array(full_x[x0: x0 + cnt].clone(), is_split=0)
+    med, info = counted(lambda: ht.median(X))
+    s = torch.sort(full_x).values
+    pos = 0.5 * (SORT_N - 1)  # heat_tpu's split-axis formula: vlo + frac (vhi - vlo) in float32
+    lo, hi = math.floor(pos), math.ceil(pos)
+    want = s[lo] + torch.tensor(pos - lo, device=dev, dtype=torch.float32) * (s[hi] - s[lo])
+    ok = med.split is None and torch.equal(med.larray.reshape(()), want) and info["launches"] > 0
+    _every_rank_ok(comm, ok, f"median of the split sort_1gb against the sorted values, or no K4 launch "
+                             f"({info['launches']}) on rank {rank}")
+    out["median_sort_1gb"] = {**info, "ms": _world_ms(lambda: ht.median(X), 3)}
+    del X, full_x, s, med
+    torch.cuda.empty_cache()
+    return out
+
+
 def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
     """One rank of the world phase: joins a gloo world of WORLD processes
     on ``cuda:0`` and runs every configuration; writes its results (or its
@@ -1979,7 +2097,7 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
             result[config[0]] = _world_config(ht, cs, svdtools, comm, moved, level0, rank, config, profile=i == 0)
             torch.cuda.empty_cache()
         for phase, run in (("random", _world_random), ("kmeans", _world_kmeans), ("attention", _world_attention),
-                           ("distance", _world_distance), ("sort", _world_sort)):
+                           ("distance", _world_distance), ("sort", _world_sort), ("surface", _world_surface)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -2029,6 +2147,32 @@ def _report_world_sort(per: list, shared: str) -> dict:
         f"{each[0]['counts']}, bytes a rank put in {each[0]['bytes']}; {shared}", flush=True,
     )
     return launches
+
+
+def _report_world_surface(per: list, shared: str) -> dict:
+    """Print the surface phase of the world; returns K4's launches a rank
+    under the median."""
+    gb = 4.0 * M * N
+    bounds = {"add_split0_split1": 3 * gb, "cumsum_split0": 2 * gb, "mean_axis0": gb, "var_axis0": gb,
+              "argmax_axis0": gb, "median_sort_1gb": 4.0 * SORT_N}
+    what = {"add_split0_split1": f"A + B, A {M}x{N} split 0, B split 1 (B resplit to 0)",
+            "cumsum_split0": "ht.cumsum(A, 0) along the split axis (1e-5 of the running sum of |x|)",
+            "mean_axis0": "A.mean(axis=0) across ranks (|Δ| <= 1e-5 of float64)",
+            "var_axis0": "A.var(axis=0) across ranks (rel 1e-5 of float64)",
+            "argmax_axis0": "A.argmax(axis=0) across ranks (the first index of the maximum, exactly)",
+            "median_sort_1gb": f"ht.median(x), x = randn({SORT_N}) split 0 (distributed sort; equal to the sorted "
+                               f"values' interpolation)"}
+    for name in bounds:
+        each = [p[name] for p in per]
+        print(
+            f"world surface {name}: {what[name]}: {each[0]['ms']:.4f} ms a call (rank 0, median of 3; ranks "
+            f"{[round(e['ms'], 4) for e in each]}), bound {bounds[name] / HBM_BYTES_PER_S * 1e3:.4f} ms (each "
+            f"operand read once, the result written once: {bounds[name] / 1e9:.4f} GB); K4 launches a rank "
+            f"{[e['launches'] for e in each]}; collectives a rank {each[0]['counts']}, bytes a rank put in "
+            f"{each[0]['bytes']}, staged through the host {[e['staged'] for e in each]} B a rank; {shared}",
+            flush=True,
+        )
+    return {"median_sort_1gb": [p["median_sort_1gb"]["launches"] for p in per]}
 
 
 def world_path(dev) -> dict:
@@ -2158,6 +2302,7 @@ def world_path(dev) -> dict:
             f"{shared}", flush=True,
         )
     world["sort"] = _report_world_sort([res["sort"] for res in results], shared)
+    world["surface"] = _report_world_surface([res["surface"] for res in results], shared)
     return world
 
 
@@ -2623,10 +2768,10 @@ def sparse_path(dev, inputs: dict) -> dict:
     return launches
 
 
-def _library_spmm(S, x):
-    """One PyTorch call computing S @ x: the BSR tensor with (8, 128)
-    blocks, or, where PyTorch refuses those on CUDA, the CSR tensor of the
-    same matrix's nonzeros (built on the card). Returns (name, call)."""
+def _csr_of(S, device, with_slots: bool = False):
+    """The CSR tensor (int32 indices) of the brick matrix ``S``'s nonzeros,
+    built on the card, and (``with_slots``) the flat brick slot of each of
+    its entries (int32), else None."""
     import torch
 
     bdata, bcol, brow, _ = S._phys_components
@@ -2634,36 +2779,52 @@ def _library_spmm(S, x):
     rowptr = S._brick_rowptr
     m, n = S.mb * 8, S.nb * 128
     _require(S.shape == (m, n), "the library yardstick takes whole bricks")
-    warnings.filterwarnings("ignore", message="Sparse (BSR|CSR) tensor support is in beta")
-    warnings.filterwarnings("ignore", message="Sparse invariant checks are implicitly disabled")
-    try:
-        bsr = torch.sparse_bsr_tensor(rowptr, bcol[:nreal], bdata[:nreal], size=(m, n))
-        bsr @ x
-        return "torch.sparse_bsr_tensor (8, 128) blocks @ x", lambda: bsr @ x
-    except RuntimeError as e:
-        print(f"library yardstick: torch.sparse_bsr_tensor @ x refused on CUDA ({str(e).splitlines()[0][:120]}); "
-              f"using torch.sparse_csr_tensor of the same matrix", flush=True)
     per_row = (rowptr[1:] - rowptr[:-1]).long()
     start = rowptr[:-1].long()
-    crow = torch.empty(m + 1, dtype=torch.int64, device=x.device)
-    crow[:-1] = (1024 * start[:, None] + 128 * per_row[:, None] * torch.arange(8, device=x.device)).reshape(-1)
+    crow = torch.empty(m + 1, dtype=torch.int64, device=device)
+    crow[:-1] = (1024 * start[:, None] + 128 * per_row[:, None] * torch.arange(8, device=device)).reshape(-1)
     crow[-1] = 1024 * nreal
-    values = torch.empty(1024 * nreal, dtype=bdata.dtype, device=x.device)
-    cols = torch.empty(1024 * nreal, dtype=torch.int32, device=x.device)
-    lane = torch.arange(128, device=x.device)
+    values = torch.empty(1024 * nreal, dtype=bdata.dtype, device=device)
+    cols = torch.empty(1024 * nreal, dtype=torch.int32, device=device)
+    slots = torch.empty(1024 * nreal, dtype=torch.int32, device=device) if with_slots else None
+    lane = torch.arange(128, device=device)
     for t0 in range(0, nreal, 1 << 16):
-        t = torch.arange(t0, min(nreal, t0 + (1 << 16)), device=x.device)
+        t = torch.arange(t0, min(nreal, t0 + (1 << 16)), device=device)
         g = brow[t].long()
         base = crow[:-1].reshape(-1, 8)[g] + 128 * (t - start[g])[:, None]  # (T, 8): each row's slot of brick t
         pos = (base[:, :, None] + lane).reshape(-1)
         values[pos] = bdata[t].reshape(-1)
         cols[pos] = (128 * bcol[t].long()[:, None, None] + lane).expand(-1, 8, -1).reshape(-1).to(torch.int32)
+        if with_slots:
+            slots[pos] = (1024 * t[:, None] + torch.arange(1024, device=device)).reshape(-1).to(torch.int32)
     # the stored zeros of the bricks are no entries of the CSR matrix
     nz = values != 0
-    counts = torch.zeros(1024 * nreal + 1, dtype=torch.int64, device=x.device)
+    counts = torch.zeros(1024 * nreal + 1, dtype=torch.int64, device=device)
     counts[1:] = torch.cumsum(nz, 0)
     csr = torch.sparse_csr_tensor(counts[crow].to(torch.int32), cols[nz], values[nz], size=(m, n))
-    return f"torch.sparse_csr_tensor ({int(counts[-1])} nonzeros) @ x", lambda: csr @ x
+    return csr, slots[nz] if with_slots else None
+
+
+def _library_spmm(S, x):
+    """One PyTorch call computing S @ x: the BSR tensor with (8, 128)
+    blocks, or, where PyTorch refuses those on CUDA, the CSR tensor of the
+    same matrix's nonzeros (built on the card). Returns (name, call)."""
+    import torch
+
+    bdata, bcol, _, _ = S._phys_components
+    nreal = S._slab_meta[0][2]
+    m, n = S.mb * 8, S.nb * 128
+    warnings.filterwarnings("ignore", message="Sparse (BSR|CSR) tensor support is in beta")
+    warnings.filterwarnings("ignore", message="Sparse invariant checks are implicitly disabled")
+    try:
+        bsr = torch.sparse_bsr_tensor(S._brick_rowptr, bcol[:nreal], bdata[:nreal], size=(m, n))
+        bsr @ x
+        return "torch.sparse_bsr_tensor (8, 128) blocks @ x", lambda: bsr @ x
+    except RuntimeError as e:
+        print(f"library yardstick: torch.sparse_bsr_tensor @ x refused on CUDA ({str(e).splitlines()[0][:120]}); "
+              f"using torch.sparse_csr_tensor of the same matrix", flush=True)
+    csr, _ = _csr_of(S, x.device)
+    return f"torch.sparse_csr_tensor ({csr.values().numel()} nonzeros) @ x", lambda: csr @ x
 
 
 def _k7_row(name, S, x, launches, err):
@@ -2727,6 +2888,23 @@ def _k8_row(name, S, d, gen, launches, errs):
     ms_again = _median_ms(lambda: ks.brick_sddmm(sdata, brow, bcol, *colorder, u, v), 10)
     pr4_again = _median_ms(lambda: ks._brick_sddmm_spmm_cu(sdata, brow, bcol, *colorder, u, v), 10)
     plain_ms = _median_ms(lambda: ks.brick_sddmm_plain(sdata, brow, bcol, u, v), 3)
+    # the library's SDDMM: torch.sparse.sampled_addmm on a CSR mask of S's
+    # nonzeros gives u·vᵀ at each of them (beta=0); times S's values it must
+    # equal K8's bricks there
+    csr, slots = _csr_of(S, sdata.device, with_slots=True)
+    vt = v.T
+    library = lambda: torch.sparse.sampled_addmm(csr, u, vt, beta=0.0)
+    nnz = slots.numel()
+    at = torch.arange(0, nnz, max(1, nnz // (1 << 22)), device=u.device)  # up to 2^22 entries, evenly spread
+    sampled = library().values()[at] * csr.values()[at]
+    out = ks.brick_sddmm(sdata, brow, bcol, *colorder, u, v).reshape(-1)[slots[at].long()]
+    scale = torch.sparse.sampled_addmm(csr, u.abs(), v.abs().T, beta=0.0).values()[at] * csr.values()[at].abs()
+    lib_err = float(((sampled - out).abs() / scale).max())
+    _require(lib_err <= TOL_SPARSE, f"torch.sparse.sampled_addmm times S's values is {lib_err:.3e} of the scale off "
+                                    f"K8's bricks (tol {TOL_SPARSE})")
+    del sampled, out, scale
+    library_ms = _median_ms(library, 10)
+    del csr, slots
     B = S.slab_bricks
     nbytes = 2 * 4096 * B + 8 * B + 4 * d * (m + n)
     flops = 1024.0 * B * (2 * d + 1)
@@ -2734,7 +2912,10 @@ def _k8_row(name, S, d, gen, launches, errs):
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= tf32_ms else (tf32_ms, "operations")
     print(
         f"{name} (K8 sddmm_sm90.cu, {B} bricks, d={d}): {ms:.4f} ms [{ms_again:.4f}], spmm.cu's kernel (pr4_ms) "
-        f"{pr4_ms:.4f} ms [{pr4_again:.4f}], plain {plain_ms:.4f} ms, library — (none), bound {bound_ms:.4f} ms "
+        f"{pr4_ms:.4f} ms [{pr4_again:.4f}], plain {plain_ms:.4f} ms, library torch.sparse.sampled_addmm on a CSR "
+        f"mask of S's {nnz} nonzeros (u·vᵀ there; S's values times it within {lib_err:.2e} of K8's scale at "
+        f"{at.numel()} of them) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}; {nbytes / 1e9:.4f} GB, {flops / 1e9:.1f} GFLOP: 3xTF32 {tf32_ms:.4f} ms, FP32 CUDA cores "
         f"{fp32_ms:.4f} ms; {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved, {bound_ms / ms:.1%} of the bound)",
         flush=True,
@@ -2742,8 +2923,8 @@ def _k8_row(name, S, d, gen, launches, errs):
     return {
         "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/sddmm_sm90.cu",
         "replaces": "heat_tpu/kernels/spmm.py:265", "launches": launches, "max_abs_err": errs[0],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "pr4_ms": pr4_ms, "pr4_err": errs[1], "bound_3xtf32_ms": tf32_ms, "bound_fp32_ms": fp32_ms,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "library": "torch.sparse.sampled_addmm (CSR mask, beta=0)", "pr4_ms": pr4_ms, "pr4_err": errs[1], "bound_3xtf32_ms": tf32_ms, "bound_fp32_ms": fp32_ms,
     }
 
 
@@ -3455,8 +3636,15 @@ def relayout_path(dev) -> dict:
 def relayout_timings(dev, launches: dict, errs: dict) -> list:
     """K5 and K6 at the per-rank shape of the 1 GB move over 8 ranks,
     beside their bound (bytes read and written over 3.35 TB/s), their plain
-    versions and a clone() of the 160 MB buffer (the card's copy rate);
-    no single PyTorch call pads and block-transposes, so no library row."""
+    versions and a clone() of the 160 MB buffer (the card's copy rate).
+    At this shape each row's 25 columns are padded to 32: the packed
+    layout holds zeros the shard does not, so it is no permuted view of
+    the shard (K5), and K6 drops them, so its output is no view of the
+    packed buffer: no single PyTorch call computes either, and
+    ``library_ms`` stays null. Beside them, ``composed_ms`` times the two
+    calls that do (K5: ``F.pad``, then the permuted view's
+    ``.contiguous()``; K6: the permuted view's ``.contiguous()``, then the
+    slice's)."""
     import torch
 
     from heat_tpu_torch.kernels import relayout as kr
@@ -3471,6 +3659,17 @@ def relayout_timings(dev, launches: dict, errs: dict) -> list:
     clone_ms = _median_ms(lambda: packed.clone(), 20)
     print(f"copy rate: clone() of the {packed.numel() * 4 / 1e6:.0f} MB packed buffer {clone_ms:.4f} ms "
           f"({2 * packed.numel() * 4 / (clone_ms * 1e-3) / 1e12:.3f} TB/s read + write)", flush=True)
+    import torch.nn.functional as F
+
+    cpp_out = c_out // p
+    composed = {
+        "relayout_pack": lambda: F.pad(x.view(rows, c_in), (0, c_out - c_in)).view(rows, p, cpp_out).permute(
+            1, 0, 2).contiguous(),
+        "relayout_unpack": lambda: packed.view(p, rows, cpp_out).permute(1, 0, 2).contiguous().view(rows, c_out)[
+            :, :c_in].contiguous(),
+    }
+    _require(torch.equal(composed["relayout_pack"]().reshape(-1), packed.reshape(-1))
+             and torch.equal(composed["relayout_unpack"]().reshape(-1), x), "the composed calls differ from K5/K6")
     rows_out = []
     for name, kernel, (c_from, c_to), call, plain, line in (
         ("relayout_pack", "K5", (c_in, c_out), lambda: kr.pack_rows(x, rows, c_in, c_out, p),
@@ -3480,15 +3679,162 @@ def relayout_timings(dev, launches: dict, errs: dict) -> list:
     ):
         ms = _median_ms(call, 20)
         plain_ms = _median_ms(plain, 5)
+        composed_ms = _median_ms(composed[name], 20)
         print(f"{name} ({kernel}, {rows} rows, {c_from} -> {c_to} columns over p={p}, float32): {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, clone {clone_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"plain {plain_ms:.4f} ms, composed (two calls; no single call) {composed_ms:.4f} ms, "
+              f"clone {clone_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{nbytes / 1e6:.0f} MB; {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)", flush=True)
         rows_out.append({
             "name": name, "route": "cuda", "source": "heat_tpu_torch/csrc/relayout.cu", "replaces": line,
             "launches": launches["pack" if kernel == "K5" else "unpack"], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "composed_ms": composed_ms, "clone_ms": clone_ms,
         })
     return rows_out
+
+
+# --------------------------------------------------------------------- #
+# the NumPy surface (op machinery, arithmetic, statistics)               #
+# --------------------------------------------------------------------- #
+SURFACE_SEED = 16  # the seed of the surface phase's draws
+SURFACE_REPS = 5
+SURFACE_Q = [5.0, 50.0, 95.0]
+
+
+def _first_index_of_max(t, dim: int):
+    """The first index of each lane's maximum along ``dim`` (no NaN in
+    ``t``): an independent formula for ``argmax``."""
+    import torch
+
+    m = t.amax(dim=dim, keepdim=True)
+    shape = [1] * t.ndim
+    shape[dim] = t.shape[dim]
+    at = torch.arange(t.shape[dim], device=t.device).reshape(shape)
+    return torch.where(t == m, at, t.shape[dim]).amin(dim=dim)
+
+
+def _quantile_ref(sorted_values, q, method: str):
+    """``jnp.percentile``'s value of sorted float32 values (one lane): the
+    positions q·(n − 1) in float64, linear interpolation in float64 rounded
+    to float32, ``nearest`` the lower element up to half way."""
+    import torch
+
+    n = sorted_values.numel()
+    out = []
+    for qi in q:
+        pos = qi / 100.0 * (n - 1)
+        lo, hi = math.floor(pos), math.ceil(pos)
+        vlo, vhi = sorted_values[lo].double(), sorted_values[hi].double()
+        w = pos - lo
+        if method == "nearest":
+            out.append(sorted_values[lo] if w <= 0.5 else sorted_values[hi])
+        else:
+            out.append((vlo * (1.0 - w) + vhi * w).float())
+    return torch.stack(out)
+
+
+def surface_path(dev) -> dict:
+    """The op machinery and the NumPy surface on the north-star operand
+    (``ht.random.randn(65536, 8192, split=0)``, 2.15 GB float32): A + A,
+    A * 2.0, (A − A.mean(axis=0)) / A.std(axis=0), ht.exp(A), (A > 0).sum(),
+    abs(A).max(), A.argmax(axis=1), ht.cumsum(A, axis=0) and A.var(); then
+    ht.median and ht.percentile(x, [5, 50, 95]) (linear and nearest) of
+    sort_1gb's 2^27 float32, which sort through K4. Each result is held
+    against an independent torch formula on the same card tensor
+    (float64 for the reductions; exactly for integers, comparisons,
+    argmax, the extremes and the nearest percentile; a stated relative
+    tolerance otherwise) and timed under CUDA events beside its byte
+    bound (each operand read once, the result written once, over 3.35
+    TB/s). Returns the rows and K4's launches a call."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.kernels import sort as ks
+
+    ht.random.seed(SURFACE_SEED)
+    _r1_zero()
+    A = ht.random.randn(M, N, split=0)
+    torch.cuda.synchronize()
+    _r1_read("surface_draw", 1, [M * N])
+    a = A.larray
+    _require(a.device == dev and A.dtype is ht.float32, "the surface operand is not float32 on the card")
+    a64 = a.double()
+    gb = 4.0 * M * N
+    rows = []
+
+    def record(label: str, call, nbytes: float, check, tol_text: str):
+        out = call()
+        torch.cuda.synchronize()
+        err = check(out)
+        ok = err is not None and err <= 0 if tol_text == "exact" else err is not None and err <= 1.0
+        del out
+        ms = _median_ms(call, SURFACE_REPS)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"name": label, "ms": round(ms, 4), "bound_ms": round(bound, 4), "bound_by": "bytes",
+               "bytes": nbytes, "err": err, "tol": tol_text}
+        rows.append(row)
+        print(f"surface {label}: {ms:.4f} ms (CUDA events, median of {SURFACE_REPS}), bound {bound:.4f} ms "
+              f"({nbytes / 1e9:.4f} GB over 3.35 TB/s); against the torch formula: {tol_text}, "
+              f"{format(err, '.3e') + ' of its limit' if tol_text != 'exact' else ('equal' if ok else 'DIFFERS')}", flush=True)
+        _require(ok, f"surface {label} disagrees with its torch formula ({err} against {tol_text})")
+
+    def rel(out, ref, scale):  # |Δ| over the scale, in units of the tolerance
+        return lambda tol: float(((out.double() - ref).abs() / scale).max()) / tol
+
+    record("A + A", lambda: A + A, 2 * gb,
+           lambda o: 0.0 if o.split == 0 and torch.equal(o.larray, a * 2) else 1.0, "exact")
+    record("A * 2.0", lambda: A * 2.0, 2 * gb,
+           lambda o: 0.0 if o.split == 0 and torch.equal(o.larray, a + a) else 1.0, "exact")
+    ref = (a64 - a64.mean(0)) / a64.std(0, unbiased=False)
+    record("(A - A.mean(axis=0)) / A.std(axis=0)", lambda: (A - A.mean(axis=0)) / A.std(axis=0), 2 * gb,
+           lambda o: rel(o.larray, ref, ref.abs() + 1.0)(1e-5), "|Δ| <= 1e-5 (1 + |ref|), ref in float64")
+    del ref
+    ref = torch.exp(a64)
+    record("ht.exp(A)", lambda: ht.exp(A), 2 * gb, lambda o: rel(o.larray, ref, ref.abs())(1e-6),
+           "rel 1e-6 of float64 exp")
+    del ref
+    positive = int((a64 > 0).sum())
+    record("(A > 0).sum()", lambda: (A > 0).sum(), gb,
+           lambda o: 0.0 if o.dtype is ht.int64 and int(o.item()) == positive else 1.0, "exact")
+    top = float(max(a64.max(), -a64.min()))
+    record("abs(A).max()", lambda: abs(A).max(), gb, lambda o: 0.0 if float(o.item()) == top else 1.0, "exact")
+    first = _first_index_of_max(a, 1)
+    record("A.argmax(axis=1)", lambda: A.argmax(axis=1), gb + 8.0 * M,
+           lambda o: 0.0 if o.split == 0 and torch.equal(o.larray, first) else 1.0, "exact")
+    del first
+    ref = torch.cumsum(a64, 0)
+    scale = torch.cumsum(a64.abs(), 0)
+    record("ht.cumsum(A, axis=0)", lambda: ht.cumsum(A, axis=0), 2 * gb,
+           lambda o: rel(o.larray, ref, scale)(1e-5), "|Δ| <= 1e-5 of the running sum of |x|")
+    del ref, scale
+    var = float(a64.var(unbiased=False))
+    record("A.var()", lambda: A.var(), gb, lambda o: abs(float(o.item()) - var) / var / 1e-5,
+           "rel 1e-5 of the float64 variance")
+    del a64, A, a
+    torch.cuda.empty_cache()
+
+    _r1_zero()
+    x = ht.random.randn(SORT_N, split=0)
+    torch.cuda.synchronize()
+    _r1_read("surface_sort_draw", 1, [SORT_N])
+    sorted_x = torch.sort(x.larray).values
+    launches = {}
+    for label, call, q, method in (("ht.median(x)", lambda: ht.median(x), [50.0], "linear"),
+                                   (f"ht.percentile(x, {SURFACE_Q})", lambda: ht.percentile(x, SURFACE_Q), SURFACE_Q,
+                                    "linear"),
+                                   (f"ht.percentile(x, {SURFACE_Q}, nearest)",
+                                    lambda: ht.percentile(x, SURFACE_Q, interpolation="nearest"), SURFACE_Q, "nearest")):
+        want = _quantile_ref(sorted_x, q, method)
+        ks.SORT_LAUNCHES = 0
+        got = call()
+        torch.cuda.synchronize()
+        launches[label] = ks.SORT_LAUNCHES
+        print(f"{label}: K4 launches {launches[label]}", flush=True)
+        _require(launches[label] > 0, f"{label} ran without K4")
+        record(label, call, 4.0 * SORT_N, lambda o: 0.0 if torch.equal(o.larray.reshape(-1), want) else 1.0, "exact")
+    del x, sorted_x
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches}
 
 
 def profile_breakdown(label: str, call) -> list:
@@ -3543,12 +3889,15 @@ def main() -> int:
     sparse_launches = sparse_path(dev, inputs)
     att_launches, att_launches_sm90, att_path_errs = attention_path(dev)
     relayout_launches = relayout_path(dev)
+    surface = surface_path(dev)
     launches["world"] = world_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
     rows[-1]["world_launches"] = {"kmeans_fit": launches["world"]["kmeans"]}
     rows.extend(sort_timings(dev, sort_launches, sort_errs))
-    next(row for row in rows if row["name"] == "pair_sort_one_segment")["world_launches"] = launches["world"]["sort"]
+    k4_row = next(row for row in rows if row["name"] == "pair_sort_one_segment")
+    k4_row["world_launches"] = {**launches["world"]["sort"], **launches["world"]["surface"]}
+    k4_row["surface_launches"] = surface["launches"]
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
     att_rows = attention_timings(dev, att_launches, att_launches_sm90, att_errs, att_path_errs)
     for row in att_rows:  # K9's launches a rank in the world's ring at the row's shape
@@ -3563,6 +3912,7 @@ def main() -> int:
     rows.extend(r1_rows)
     print(f"R1 on the main paths: {R1_PATH}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"surface": surface["rows"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -1,5 +1,5 @@
 """heat_tpu_torch core: array, type system, devices, communicator,
-factories, reductions (port of ``heat_tpu.core``)."""
+factories, elementwise operations, reductions and statistics (port of ``heat_tpu.core``)."""
 
 from .base import *
 from .communication import *
@@ -10,6 +10,13 @@ from .dndarray import *
 from .factories import *
 from .manipulations import *
 from .arithmetics import *
+from .complex_math import *
+from .exponential import *
+from .logical import *
+from .relational import *
+from .rounding import *
+from .statistics import *
+from .trigonometrics import *
 from .sanitation import *
 from .stride_tricks import *
 

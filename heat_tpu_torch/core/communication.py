@@ -158,7 +158,7 @@ class TorchCommunication(Communication):
         ``sum``, ``max``, ``min``, ``prod``); returns a new tensor."""
         out = t.clone().contiguous()
         if self.is_distributed():
-            dist.all_reduce(out, op=getattr(dist.ReduceOp, op.upper()))
+            dist.all_reduce(out, op=getattr(dist.ReduceOp, {"prod": "PRODUCT"}.get(op, op.upper())))
         self._count("all-reduce")
         return out
 

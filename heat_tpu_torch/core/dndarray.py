@@ -25,10 +25,6 @@ from .stride_tricks import sanitize_axis
 
 __all__ = ["DNDarray"]
 
-# operands that ==/!= compare elementwise without broadcasting machinery
-_SCALARS = (bool, int, float, complex, np.number, np.bool_)
-
-
 class _ScalarCastError(TypeError, ValueError):
     """A cast of an array of size other than 1 to a Python scalar:
     ``heat_tpu`` raises TypeError there, numpy ValueError; this is both."""
@@ -138,6 +134,13 @@ class DNDarray:
         self.__gshape = tuple(int(s) for s in gshape)
         self.__set_lshape_map(lmap)
 
+    def _set_shard(self, array: torch.Tensor) -> None:
+        """Rebind this rank's shard to ``array``, of the shard's shape and
+        the array's type: no collective, the metadata stays."""
+        if tuple(array.shape) != self.lshape or array.dtype != self.__dtype.torch_type():
+            raise ValueError(f"_set_shard: {tuple(array.shape)} {array.dtype} for a shard {self.lshape} {self.__dtype}")
+        self.__array = array
+
     @property
     def lshape(self) -> Tuple[int, ...]:
         """Shape of this rank's shard (reference dndarray.py:295)."""
@@ -222,44 +225,56 @@ class DNDarray:
             )
         return bool(self.item())
 
-    # elementwise ==, != (``heat_tpu`` relational.py:93-94); a DNDarray is
-    # unhashable there and here
+    def __complex__(self) -> complex:
+        return complex(self.item())
+
+    # ``==``, ``!=`` and the other comparisons are attached by relational.py
+    # (``heat_tpu`` relational.py:93-98); a DNDarray is unhashable there and
+    # here
     __hash__ = None
-
-    def __eq__(self, other) -> "DNDarray":
-        return self.__compare(torch.eq, other, "==")
-
-    def __ne__(self, other) -> "DNDarray":
-        return self.__compare(torch.ne, other, "!=")
-
-    def __compare(self, op, other, symbol: str) -> "DNDarray":
-        """``op`` elementwise against a Python or numpy scalar, or against a
-        DNDarray of the same shape and split, as a bool DNDarray with
-        ``heat_tpu``'s split: the operand's, dropped where the split axis
-        has extent ≤ 1."""
-        if isinstance(other, _SCALARS):
-            out, lmap = op(self.__array, other), self.__lmap
-        elif isinstance(other, DNDarray) and other.gshape == self.__gshape and other.split == self.__split:
-            out, lmap = op(self._balanced_larray(), other._balanced_larray()), None
-        else:
-            what = f" of shape {other.gshape}, split {other.split}" if isinstance(other, DNDarray) else ""
-            raise NotImplementedError(
-                f"DNDarray {symbol} {type(other).__name__}{what} (this array: shape {self.__gshape}, split "
-                f"{self.__split}): only a scalar or a DNDarray of the same shape and split is compared so far; "
-                "broadcasting and mixed splits come with the binary-op machinery, ROADMAP.md Queue 1 item 6"
-            )
-        res = DNDarray(out, self.__gshape, types.bool, self.__split, self.__device, self.__comm, lmap)
-        split = self.__split
-        if split is None or self.__gshape[split] > 1:
-            return res
-        if res.is_distributed():  # an extent-1 split axis cannot carry the split: the array goes whole
-            out = self.__comm.allgather(out, split, res.lshape_map[:, split])
-        return DNDarray(out, self.__gshape, types.bool, None, self.__device, self.__comm)
 
     def __len__(self) -> int:
         if self.ndim == 0:
             raise TypeError("len() of unsized object")
         return self.__gshape[0]
+
+    def __iter__(self):
+        """The rows along axis 0 (``heat_tpu`` dndarray.py:506): a row of a
+        split-0 array comes whole to every rank from its owner (one
+        broadcast a row); a row of another array keeps the split, one axis
+        lower."""
+        for i in range(len(self)):
+            yield self.__row(i)
+
+    def __row(self, i: int) -> "DNDarray":
+        shape = self.__gshape[1:]
+        if self.__split == 0:
+            if not self.is_distributed():
+                return DNDarray(self.__array[i].clone(), shape, self.__dtype, None, self.__device, self.__comm)
+            counts, displs = self.counts_displs()
+            owner = int(np.searchsorted(np.cumsum(counts), i, side="right"))
+            local = self.__array.new_empty(shape) if self.__comm.rank != owner else self.__array[i - displs[owner]]
+            row = self.__comm.bcast(local.contiguous(), root=owner)
+            return DNDarray(row, shape, self.__dtype, None, self.__device, self.__comm)
+        split = None if self.__split is None else self.__split - 1
+        lmap = None if split is None else self.lshape_map[:, 1:]
+        return DNDarray(self.__array[i], shape, self.__dtype, split, self.__device, self.__comm, lmap)
+
+    def __copy__(self) -> "DNDarray":
+        """A shallow copy: the same shard (``heat_tpu`` dndarray.py:1061)."""
+        return DNDarray(self.__array, self.__gshape, self.__dtype, self.__split, self.__device, self.__comm,
+                        self.__lmap)
+
+    def __deepcopy__(self, memo) -> "DNDarray":
+        new = self.copy()
+        memo[id(self)] = new
+        return new
+
+    def copy(self) -> "DNDarray":
+        """A copy of the array with its own shards (``heat_tpu``
+        memory.py:17)."""
+        return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, self.__split, self.__device,
+                        self.__comm, self.__lmap)
 
     # ------------------------------------------------------------------ #
     # distribution management                                            #

@@ -40,7 +40,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from .. import types
-from .._operations import __reduce_op as _reduce_op
+from .._operations import __reduce_op as _reduce_op, _whole
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_in
 from ..stride_tricks import sanitize_axis
@@ -68,14 +68,6 @@ __all__ = [
 # --------------------------------------------------------------------- #
 # shards                                                                #
 # --------------------------------------------------------------------- #
-def _whole(x: DNDarray) -> torch.Tensor:
-    """``x``'s global tensor on every rank (one all-gather where ``x`` is
-    distributed)."""
-    if not x.is_distributed():
-        return x.larray
-    return x.comm.allgather(x._balanced_larray(), x.split, x.comm.counts_displs_shape(x.gshape, x.split)[0])
-
-
 def _chunk(t: torch.Tensor, split: Optional[int], ref: DNDarray) -> torch.Tensor:
     """This rank's chunk along ``split`` of the global tensor ``t``."""
     if split is None or not ref.comm.is_distributed():
@@ -115,10 +107,30 @@ def _from_whole(t: torch.Tensor, split: Optional[int], ref: DNDarray) -> DNDarra
                 t.shape, split, ref)
 
 
+_NARROW = (torch.float16, torch.bfloat16)
+
+
 def _float_of(t: torch.Tensor, dtype) -> torch.Tensor:
     """``t`` in float32 when ``dtype`` is an integer type (``heat_tpu``'s
-    cast before a decomposition)."""
-    return t.to(torch.float32) if types.heat_type_is_exact(dtype) or dtype is types.bool else t
+    cast before a decomposition), or float16 or bfloat16 (LAPACK has no
+    half precision: the decomposition runs in float32 and its result is
+    cast back, :func:`_narrow_back`)."""
+    if types.heat_type_is_exact(dtype) or dtype is types.bool or t.dtype in _NARROW:
+        return t.to(torch.float32)
+    return t
+
+
+def _narrow_back(t: torch.Tensor, dtype) -> torch.Tensor:
+    """A result computed in float32 cast back to a float16 or bfloat16
+    operand's type."""
+    return t.to(dtype.torch_type()) if dtype.torch_type() in _NARROW else t
+
+
+def _refuse_narrow(dtype, what: str) -> None:
+    """``heat_tpu``'s refusal of a float16 or bfloat16 decomposition
+    (``jnp.linalg`` has none)."""
+    if dtype.torch_type() in _NARROW:
+        raise NotImplementedError(f"{what} of {dtype.__name__} is not implemented (heat_tpu refuses it too)")
 
 
 def _sum(t: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
@@ -128,6 +140,27 @@ def _sum(t: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     if dim is None:
         return torch.sum(t, dtype=dtype)
     return torch.sum(t, dim=dim, keepdim=keepdim, dtype=dtype)
+
+
+def _wide_sum(t: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
+    """``jnp.sum``'s sum, as ``jnp.trace`` and ``heat_tpu``'s ``vecdot``
+    take it: bools and signed integers in int64, float16 and bfloat16 in
+    float32 and back; uint8 would give uint64, which is no heat type."""
+    if t.dtype == torch.uint8:
+        raise TypeError("a sum of uint8 is uint64 (jnp's type), which is not a heat type")
+    acc = torch.float32 if t.dtype in _NARROW else (t.dtype if t.dtype.is_floating_point or t.dtype.is_complex
+                                                     else torch.int64)
+    out = torch.sum(t, dtype=acc) if dim is None else torch.sum(t, dim=dim, keepdim=keepdim, dtype=acc)
+    return out.to(t.dtype) if t.dtype in _NARROW else out
+
+
+def _bool_product(fn, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``fn`` (a product with sums) of two operands; bools multiply as
+    integers and come back as ``> 0`` (the bool product of ``jnp``: an OR
+    of ANDs)."""
+    if a.dtype != torch.bool:
+        return fn(a, b)
+    return fn(a.to(torch.int64), b.to(torch.int64)) > 0
 
 
 # --------------------------------------------------------------------- #
@@ -146,10 +179,17 @@ def _matmul_split(a: DNDarray, b: DNDarray, out_ndim: int) -> Optional[int]:
     return None
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul``; bools as integers (their counts of true terms)."""
+    if a.dtype == torch.bool:
+        return torch.matmul(a.to(torch.int64), b.to(torch.int64))
+    return torch.matmul(a, b)
+
+
 def _contraction_product(a_k: torch.Tensor, b_k: torch.Tensor, ref: DNDarray) -> torch.Tensor:
     """Σ over ranks of a's and b's matching contraction blocks: the local
     partial product and one ``allreduce``."""
-    return ref.comm.allreduce(torch.matmul(a_k, b_k))
+    return ref.comm.allreduce(_mm(a_k, b_k))
 
 
 def _matmul_2d(a: DNDarray, b: DNDarray, ta: torch.dtype, split: Optional[int]) -> torch.Tensor:
@@ -165,22 +205,22 @@ def _matmul_2d(a: DNDarray, b: DNDarray, ta: torch.dtype, split: Optional[int]) 
     if split == 0:  # a.split == 0: a's row block times the whole b
         moved = 2 * m * n if b.split == 0 else m * n // a.comm.size
         if b.split is None or k * n <= m * k + moved:
-            return torch.matmul(loc(a, 0), _whole(b).to(ta))
+            return _mm(loc(a, 0), _whole(b).to(ta))
         a_all = _whole(a).to(ta)  # gathering a moves less
         if b.split == 0:
             whole = _contraction_product(_chunk(a_all, 1, a), loc(b, 0), a)
             return _chunk(whole, 0, a)
-        return _out(torch.matmul(a_all, loc(b, 1)), (m, n), 1, a).resplit(0).larray
+        return _out(_mm(a_all, loc(b, 1)), (m, n), 1, a).resplit(0).larray
     if split == 1:  # b.split == 1: the whole a times b's column block
         if a.split is None or m * k <= k * n + 2 * m * n:
-            return torch.matmul(_whole(a).to(ta), loc(b, 1))
+            return _mm(_whole(a).to(ta), loc(b, 1))
         b_all = _whole(b).to(ta)  # gathering b moves less (a.split == 1 here)
         whole = _contraction_product(loc(a, 1), _chunk(b_all, 0, a), a)
         return _chunk(whole, 1, a)
     # replicated: contraction blocks (a split 1 and/or b split 0), or whole
     if a.split == 1 or b.split == 0:
         return _contraction_product(loc(a, 1), loc(b, 0), a)
-    return torch.matmul(_whole(a).to(ta), _whole(b).to(ta))
+    return _mm(_whole(a).to(ta), _whole(b).to(ta))
 
 
 def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False, precision=None) -> DNDarray:
@@ -202,11 +242,13 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False, precision=None
     split = _matmul_split(a, b, len(out_shape))
     distributed = a.is_distributed() or b.is_distributed()
     if not distributed:
-        local = torch.matmul(a.larray.to(ta), b.larray.to(ta))
+        local = _mm(a.larray.to(ta), b.larray.to(ta))
     elif a.ndim == 2 and b.ndim == 2:
         local = _matmul_2d(a, b, ta, split)
     else:
-        local = _chunk(torch.matmul(_whole(a).to(ta), _whole(b).to(ta)), split, a)
+        local = _chunk(_mm(_whole(a).to(ta), _whole(b).to(ta)), split, a)
+    if ta == torch.bool:  # the counts of true terms, as the bool product
+        local = local > 0
     return _out(local, out_shape, split, a)
 
 
@@ -236,7 +278,7 @@ def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
         result = _sum(xa * xb)
         if split is not None:
             result = a.comm.allreduce(result)
-        ret = _out(result, (), None, a)
+        ret = _out(result > 0 if ta == torch.bool else result, (), None, a)
     elif a.ndim == 2 and b.ndim == 2:
         ret = matmul(a, b)
     else:
@@ -262,6 +304,8 @@ def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
             result = x1.comm.allreduce(result)
     else:
         result = _sum(torch.conj(_whole(x1).to(ta)).reshape(-1) * _whole(x2).to(ta).reshape(-1))
+    if ta == torch.bool:  # the bool product: an OR of ANDs
+        result = result > 0
     return _out(result.resolve_conj(), (), None, x1)
 
 
@@ -288,11 +332,11 @@ def vecdot(x1: DNDarray, x2: DNDarray, axis: Optional[int] = None, keepdims: boo
         res_shape = tuple(s for i, s in enumerate(out_shape) if i != norm_axis)
     if x1.shape == x2.shape and (x1.is_distributed() or x2.is_distributed()):
         a, b, local_split = _aligned(x1, x2, ta)
-        result = _sum(torch.conj(a) * b, dim=axis, keepdim=keepdims)
+        result = _wide_sum(torch.conj(a) * b, dim=axis, keepdim=keepdims)
         if local_split == norm_axis:
             result = x1.comm.allreduce(result)
         return _out(result.resolve_conj(), res_shape, split, x1)
-    result = _sum(torch.conj(_whole(x1).to(ta)) * _whole(x2).to(ta), dim=axis, keepdim=keepdims)
+    result = _wide_sum(torch.conj(_whole(x1).to(ta)) * _whole(x2).to(ta), dim=axis, keepdim=keepdims)
     return _from_whole(result.resolve_conj(), split, x1)
 
 
@@ -385,6 +429,7 @@ def inv(a: DNDarray) -> DNDarray:
     A matrix split along its rows or columns is gathered, inverted and
     chunked again."""
     _square(a)
+    _refuse_narrow(a.dtype, "inv")
     if _batch_local(a):
         return _out(torch.linalg.inv(_float_of(a._balanced_larray(), a.dtype)), a.gshape, a.split, a)
     return _from_whole(torch.linalg.inv(_float_of(_whole(a), a.dtype)), a.split, a)
@@ -396,8 +441,9 @@ def det(a: DNDarray) -> DNDarray:
     _square(a)
     split = a.split if a.split is not None and a.split < a.ndim - 2 else None
     if _batch_local(a):
-        return _out(torch.linalg.det(_float_of(a._balanced_larray(), a.dtype)), a.gshape[:-2], split, a)
-    return _out(torch.linalg.det(_float_of(_whole(a), a.dtype)), a.gshape[:-2], None, a)
+        d = torch.linalg.det(_float_of(a._balanced_larray(), a.dtype))
+        return _out(_narrow_back(d, a.dtype), a.gshape[:-2], split, a)
+    return _out(_narrow_back(torch.linalg.det(_float_of(_whole(a), a.dtype)), a.dtype), a.gshape[:-2], None, a)
 
 
 def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=None, out=None) -> DNDarray:
@@ -413,7 +459,7 @@ def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=No
     if a.is_distributed() and a.split in ax:
         start = a.comm.chunk(a.gshape, a.split)[0]
         off = offset + start if a.split == ax[0] else offset - start
-    local = _sum(torch.diagonal(t, offset=off, dim1=ax[0], dim2=ax[1]), dim=-1)
+    local = _wide_sum(torch.diagonal(t, offset=off, dim1=ax[0], dim2=ax[1]), dim=-1)
     split = a.split if a.split is not None and a.split not in ax else None
     if a.is_distributed() and a.split in ax:
         local = a.comm.allreduce(local)
@@ -505,6 +551,28 @@ def _empty_reduce(t: torch.Tensor, axes, keep: bool, fill: float) -> torch.Tenso
     return torch.full(shape, fill, dtype=t.abs().dtype, device=t.device)
 
 
+def _bool_vector_norm(x: DNDarray, axis, keepdims: bool, ord) -> DNDarray:
+    """``jnp.linalg.vector_norm`` of bools: the 2-norm in float64, the
+    inf-norms as ``any``/``all``, order 0 refused, any other order the
+    int64 count of true elements."""
+    if ord == 0:
+        raise ValueError("data type <class 'numpy.bool'> not inexact")
+    inf = float("inf")
+    if ord in (inf, -inf):
+        def partial(t, axes, keep):
+            fn = torch.amax if ord == inf else torch.amin
+            return fn(t.to(torch.uint8), dim=axes, keepdim=keep)
+
+        return _reduce_op(partial, x, axis=axis, keepdims=keepdims, combine="max" if ord == inf else "min",
+                          finish=lambda s: s.to(torch.bool))
+    count = _reduce_op(lambda t, axes, keep: torch.sum(t, dim=axes, keepdim=keep, dtype=torch.int64), x,
+                       axis=axis, keepdims=keepdims)
+    if ord != 2:
+        return count
+    return DNDarray(torch.sqrt(count.larray.to(torch.float64)), count.gshape, types.float64, count.split,
+                    count.device, count.comm, count.lshape_map if count.split is not None else None)
+
+
 def vector_norm(
     x: DNDarray,
     axis: Optional[Union[int, Tuple[int, ...]]] = None,
@@ -516,10 +584,13 @@ def vector_norm(
     one ``allreduce`` combines the partials (a sum of powers, a max or a
     min)."""
     sanitize_in(x)
+    ord = 2 if ord is None else ord
     src = x
-    if types.heat_type_is_exact(x.dtype) or x.dtype is types.bool:
+    if types.heat_type_is_exact(x.dtype):
         src = x.astype(types.float32)
-    partial, combine, finish = _vector_norm_ops(2 if ord is None else ord)
+    elif x.dtype is types.bool:
+        return _bool_vector_norm(x, axis, keepdims, ord)
+    partial, combine, finish = _vector_norm_ops(ord)
     return _reduce_op(partial, src, axis=axis, keepdims=keepdims, combine=combine, finish=finish)
 
 
@@ -543,9 +614,12 @@ def matrix_norm(
     split = a.split if a.split is not None and a.split not in ax else None
     if split is not None and not keepdims:
         split = split - sum(1 for x in ax if x < split)
+    if ord in (2, -2, "nuc"):
+        _refuse_narrow(a.dtype, f"matrix_norm(ord={ord!r})")
     whole = a.is_distributed() and a.split in ax
     t = _float_of(_whole(a) if whole else a._balanced_larray(), a.dtype)
-    result = torch.linalg.matrix_norm(t, ord=ord if ord is not None else "fro", dim=ax, keepdim=keepdims)
+    result = _narrow_back(torch.linalg.matrix_norm(t, ord=ord if ord is not None else "fro", dim=ax,
+                                                   keepdim=keepdims), a.dtype)
     gshape = tuple(1 if i in ax else s for i, s in enumerate(a.gshape)) if keepdims else tuple(
         s for i, s in enumerate(a.gshape) if i not in ax)
     return _out(result, gshape, split, a)

@@ -141,22 +141,6 @@ def _float_type(dtype):
     return dtype
 
 
-def _moment(value, shape, split, name: str):
-    """A moment of ``normal`` as this rank's operand: a number, or a
-    DNDarray of the draw's shape and split (its local tensor) or of one
-    element (broadcast)."""
-    if not isinstance(value, DNDarray):
-        return value
-    if value.shape == tuple(shape) and value.split == split:
-        return value.larray
-    if value.size == 1 and value.split is None:
-        return value.larray.reshape(())
-    raise NotImplementedError(
-        f"normal's {name} of shape {value.shape} split {value.split} against a draw of shape {tuple(shape)} "
-        f"split {split}: broadcasting operands waits for the NumPy surface, ROADMAP.md Queue 1, item 6"
-    )
-
-
 def normal(
     mean=0.0,
     std=1.0,
@@ -168,19 +152,20 @@ def normal(
 ) -> DNDarray:
     """Normal samples with the given mean and standard deviation
     (reference: random.py normal): ``jax.random.normal(key) * std + mean``.
-    ``mean`` and ``std`` are numbers, or DNDarrays of the draw's shape and
-    split or of one element, as ``heat_tpu`` takes them (random.py:200-207);
+    ``mean`` and ``std`` are numbers, or DNDarrays that broadcast against
+    the draw (any split: the binary-op machinery aligns them with the
+    draw's shards), as ``heat_tpu`` takes them (random.py:200-207);
     without ``shape`` the draw takes the moments' shape."""
     if shape is None:
         shape = getattr(mean, "shape", None) or getattr(std, "shape", None) or ()
     shape = sanitize_shape(shape) if shape != () else ()
     dtype = _float_type(dtype)
     if isinstance(mean, DNDarray) or isinstance(std, DNDarray):
+        from . import arithmetics
+
         base = _draw("normal", shape, dtype, split, device, comm, (0.0, 1.0))
-        m = _moment(mean, shape, base.split, "mean")
-        s = _moment(std, shape, base.split, "std")
-        values = (base.larray * s + m).to(dtype.torch_type())
-        return DNDarray(values, base.shape, dtype, base.split, base.device, base.comm)
+        # the moments broadcast against the draw, which keeps its split
+        return arithmetics.add(arithmetics.mul(base, std), mean).astype(dtype, copy=False)
     return _draw("normal", shape, dtype, split, device, comm, (float(mean), float(std)))
 
 

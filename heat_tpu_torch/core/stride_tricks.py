@@ -9,7 +9,21 @@ import numpy as np
 
 from typing import Optional, Tuple, Union
 
-__all__ = ["sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape"]
+
+
+def broadcast_shape(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Broadcast shape of two operands per NumPy rules; raises ValueError on
+    incompatibility (reference: stride_tricks.py:12)."""
+    return broadcast_shapes(shape_a, shape_b)
+
+
+def broadcast_shapes(*shapes: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Broadcast shape of N operands (reference: stride_tricks.py:70)."""
+    try:
+        return tuple(int(s) for s in np.broadcast_shapes(*shapes))
+    except ValueError:
+        raise ValueError(f"operands could not be broadcast, input shapes {shapes}")
 
 
 def sanitize_axis(

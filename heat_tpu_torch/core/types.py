@@ -56,7 +56,11 @@ __all__ = [
     "heat_type_is_exact",
     "heat_type_is_inexact",
     "heat_type_is_complexfloating",
+    "heat_type_is_realfloating",
+    "issubdtype",
+    "can_cast",
     "promote_types",
+    "result_type",
     "finfo",
 ]
 
@@ -278,14 +282,162 @@ def heat_type_is_complexfloating(ht_dtype: Type[datatype]) -> builtins.bool:
     return ht_dtype in _complexfloating
 
 
+def heat_type_is_realfloating(ht_dtype: Type[datatype]) -> builtins.bool:
+    """True if ``ht_dtype`` is a real floating type."""
+    return ht_dtype in (float16, bfloat16, float32, float64)
+
+
+def issubdtype(arg1: Any, arg2: Any) -> builtins.bool:
+    """NumPy-style type-hierarchy test on heat types (``heat_tpu``
+    types.py:437)."""
+
+    def _resolve(arg):
+        try:
+            if issubclass(arg, datatype):
+                return arg
+        except TypeError:
+            pass
+        return canonical_heat_type(arg)
+
+    return issubclass(_resolve(arg1), _resolve(arg2))
+
+
+# "intuitive" additions over numpy-safe casting: integer → float or complex
+# of at least the same width (``heat_tpu`` types.py:450)
+_SAFE_EXTRA = {
+    (int32, float32),
+    (int64, float32),
+    (int64, float64),
+    (int32, float16),
+    (int32, bfloat16),
+    (int64, float16),
+    (int64, bfloat16),
+    (int32, complex64),
+    (int64, complex64),
+    (int64, complex128),
+}
+
+
+def _numpy_of(t: Type[datatype]) -> np.dtype:
+    """The numpy dtype of a heat type, bfloat16 read as float32 (numpy has
+    no bfloat16 of its own)."""
+    return np.dtype("float32" if t is bfloat16 else t.__name__)
+
+
+def can_cast(
+    from_: Union[str, Type[datatype], Any],
+    to: Union[str, Type[datatype], Any],
+    casting: str = "intuitive",
+) -> builtins.bool:
+    """Whether a cast between data types can occur per the casting rule
+    (``heat_tpu`` types.py:467): ``no``, ``safe``, ``same_kind``, ``unsafe``
+    or ``intuitive`` (safe plus integer → float of the same width). A
+    Python number as ``from_`` goes to ``np.can_cast`` as it is."""
+    if not isinstance(casting, str):
+        raise TypeError(f"expected string, found {type(casting)}")
+    if casting not in ("no", "safe", "same_kind", "unsafe", "intuitive"):
+        raise ValueError(f"casting must be one of 'no', 'safe', 'same_kind', 'unsafe', 'intuitive', not {casting}")
+    if isinstance(from_, (builtins.int, builtins.float, builtins.complex)) and not isinstance(from_, builtins.bool):
+        return np.can_cast(from_, _numpy_of(canonical_heat_type(to)))
+    from_t = canonical_heat_type(from_)
+    to_t = canonical_heat_type(to)
+    if casting == "unsafe":
+        return True
+    if casting == "no":
+        return from_t == to_t
+    f_np, t_np = _numpy_of(from_t), _numpy_of(to_t)
+    if casting == "same_kind":
+        return np.can_cast(f_np, t_np, casting="same_kind") or (from_t, to_t) in _SAFE_EXTRA
+    safe = np.can_cast(f_np, t_np, casting="safe")
+    if from_t is bfloat16:
+        safe = to_t in (bfloat16, float32, float64, complex64, complex128)
+    if casting == "safe":
+        return safe
+    return safe or (from_t, to_t) in _SAFE_EXTRA
+
+
+# The promotion lattice of ``heat_tpu`` (``jnp.result_type`` with x64 on):
+# each type's direct successors. "i*", "f*" and "c*" are the weak types of
+# Python int, float and complex operands, which yield to any typed operand
+# of their kind or above; a Python bool is a typed bool.
+_LATTICE = {
+    bool: ("i*",),
+    "i*": (uint8, int8),
+    uint8: (int16,),
+    int8: (int16,),
+    int16: (int32,),
+    int32: (int64,),
+    int64: ("f*",),
+    "f*": (bfloat16, float16, "c*"),
+    bfloat16: (float32,),
+    float16: (float32,),
+    float32: (float64, complex64),
+    float64: (complex128,),
+    "c*": (complex64,),
+    complex64: (complex128,),
+    complex128: (),
+}
+# a weak result (every operand a Python number) takes the widest type of its kind
+_WEAK_DEFAULT = {"i*": int64, "f*": float64, "c*": complex128}
+
+
+def _above(node) -> frozenset:
+    """``node`` and every type above it in the lattice."""
+    seen, todo = {node}, [node]
+    while todo:
+        for nxt in _LATTICE[todo.pop()]:
+            if nxt not in seen:
+                seen.add(nxt)
+                todo.append(nxt)
+    return frozenset(seen)
+
+
+_ABOVE = {node: _above(node) for node in _LATTICE}
+
+
+def _join(nodes) -> Any:
+    """The least upper bound of lattice nodes."""
+    common = frozenset.intersection(*(_ABOVE[n] for n in nodes))
+    return next(n for n in common if _ABOVE[n] == common)
+
+
+def _lattice_node(obj: Any):
+    """An operand's place in the lattice: arrays, numpy scalars and types
+    with their (strong) type, Python numbers as weak types."""
+    dtype = getattr(obj, "dtype", None)
+    if dtype is not None:
+        return canonical_heat_type(dtype)
+    if isinstance(obj, builtins.bool):
+        return bool
+    if isinstance(obj, builtins.int):
+        return "i*"
+    if isinstance(obj, builtins.float):
+        return "f*"
+    if isinstance(obj, builtins.complex):
+        return "c*"
+    return canonical_heat_type(obj)
+
+
+def result_type(*arrays_and_types: Any) -> Type[datatype]:
+    """The type that the promotion lattice gives all operands (arrays, heat
+    types, scalars) together (``heat_tpu`` types.py:521). Python numbers
+    take part as weak types, so ``int`` with a float32 array stays
+    float32 and ``float`` with an int32 array gives float64, as
+    ``jnp.result_type`` gives them with x64 on; bfloat16 with float16
+    gives float32."""
+    if not arrays_and_types:
+        raise ValueError("at least one array or dtype is required")
+    joined = _join([_lattice_node(o) for o in arrays_and_types])
+    return _WEAK_DEFAULT.get(joined, joined) if isinstance(joined, str) else joined
+
+
 def promote_types(
     type1: Union[str, Type[datatype], Any], type2: Union[str, Type[datatype], Any]
 ) -> Type[datatype]:
-    """Smallest type to which both may be safely cast, on the torch lattice
-    (int ∨ float → that float; reference: types.py:838)."""
-    t1 = canonical_heat_type(type1)
-    t2 = canonical_heat_type(type2)
-    return canonical_heat_type(torch.promote_types(t1.torch_type(), t2.torch_type()))
+    """Smallest type to which both may be safely cast, on the promotion
+    lattice of :func:`result_type` (int ∨ float → that float;
+    ``heat_tpu`` types.py:508, reference: types.py:838)."""
+    return result_type(canonical_heat_type(type1), canonical_heat_type(type2))
 
 
 def index_torch_type() -> torch.dtype:

@@ -210,8 +210,13 @@ def test_normal_with_array_moments():
     assert got.shape == (12, 5) and _normal_close(got, ref, mean, std)
     got, ref = _both(lambda m: m.random.normal(m.array(np.float32(1.5)), 2.0, (4, 4)))
     assert _normal_close(got, ref, 1.5, 2.0)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ht.random.normal(ht.array(np.zeros(5, np.float32)), 1.0, (3, 5))
+    # moments that broadcast against the draw, on any split
+    row = np.linspace(-1, 1, 5, dtype=np.float32)
+    got, ref = _both(lambda m: m.random.normal(m.array(row), 1.0, (3, 5)))
+    assert got.shape == (3, 5) and _normal_close(got, ref, row, 1.0)
+    got, ref = _both(lambda m: m.random.normal(m.array(row, split=0), m.array(std[:3, :1], split=0), (3, 5),
+                                               split=1))
+    assert got.shape == (3, 5) and _normal_close(got, ref, row, std[:3, :1])
 
 
 def test_a_sequence_of_draws_and_the_state_carried_from_heat_tpu():

@@ -89,19 +89,26 @@ def test_dndarrays_are_unhashable_as_in_heat_tpu():
 @pytest.mark.parametrize(
     "other",
     [
-        lambda: ht.array(np.ones((1, 7), np.float32)),  # broadcasting
-        lambda: ht.array(np.ones(7, np.float32)),  # same shape, other split
-        lambda: np.ones(7, np.float32),  # array-likes
-        lambda: torch.ones(7),
-        lambda: None,
+        lambda pkg: pkg.array(np.ones((1, 7), np.float32)),  # broadcasting
+        lambda pkg: pkg.array(np.ones(7, np.float32)),  # same shape, other split
+        lambda pkg: np.ones(7, np.float32),  # array-likes
+        lambda pkg: torch.ones(7) if pkg is ht else np.ones(7, np.float32),
+        lambda pkg: None,
     ],
     ids=["broadcast", "mixed-split", "numpy", "tensor", "none"],
 )
 def test_other_operands_raise_and_name_the_roadmap_item(other):
-    x = ht.array(np.ones(7, np.float32), split=0)
+    """Broadcasting, mixed splits and array-likes compare as in heat_tpu
+    since the binary-op machinery (ROADMAP Queue 1 item 6 (a)); an operand
+    heat_tpu refuses (None) the port refuses with the same exception."""
     for op in ("__eq__", "__ne__"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            getattr(x, op)(other())
+        try:
+            ref = getattr(jht.array(np.ones(7, np.float32), split=0), op)(other(jht))
+        except Exception as e:  # noqa: BLE001 (the port must fail the same way)
+            with pytest.raises(type(e)):
+                getattr(ht.array(np.ones(7, np.float32), split=0), op)(other(ht))
+            continue
+        _same(getattr(ht.array(np.ones(7, np.float32), split=0), op)(other(ht)), ref)
 
 
 BF16 = np.array([1.5, -2.25, 3.1, 0.0, -0.0, 65504.0, 1e-3], dtype=ml_dtypes.bfloat16)

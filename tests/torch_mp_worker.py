@@ -283,6 +283,7 @@ def _cases(ht):
     cases.update(_ring_cases(ht))
     cases.update(_sort_cases(ht))
     cases.update(_random_cases(ht))
+    cases.update(_surface_cases(ht))
     return cases
 
 
@@ -764,6 +765,145 @@ def _random_cases(ht):
                 return {"U": U.numpy(), "sigma": s.numpy(), "V": V.numpy(), "err": float(err)}
             cases[f"random_hsvd_{split}_{call}"] = hsvd_case
     return cases
+
+
+# the NumPy surface across ranks (tests/test_torch_elementwise.py and
+# tests/test_torch_statistics.py): name -> call(lib, kw) on either package,
+# kw holding heat_tpu's communicator (empty for the port)
+def _surface_array(lib, kw, shape, split, seed, dtype="float32", nan_at=(), lmap=None):
+    """An operand from a seed; ``nan_at`` flat positions set to NaN; ``lmap``
+    a map of shard extents along split 0 the port's operand is moved to
+    (heat_tpu keeps its chunks)."""
+    a = _array(shape, dtype, seed)
+    for i in nan_at:
+        a.reshape(-1)[i] = np.nan
+    x = lib.array(a, split=split, **kw)
+    if lmap is not None and lib.__name__ == "heat_tpu_torch":
+        target = x.lshape_map
+        target[:, split] = lmap
+        x.redistribute_(target_map=target)
+    return x
+
+
+def _ties(lib, kw, seed, nan: bool):
+    """(21,) float32 split 0 over 4 ranks (6, 6, 6, 3): the maximum at 3
+    and 17 and the minimum at 5 and 19 (ties across ranks), with NaNs at
+    13 and 8 (the first one on rank 1) where ``nan``."""
+    a = _array((21,), "float32", seed)
+    a[[3, 17]] = 9.0
+    a[[5, 19]] = -9.0
+    if nan:
+        a[[13, 8]] = np.nan
+    return lib.array(a, split=0, **kw)
+
+
+def _surface_defs():
+    A = _surface_array
+    cases = {
+        # mixed splits, broadcasting, replicated operands, uneven maps
+        "add_split0_split1": lambda lib, kw: lib.add(A(lib, kw, (13, 10), 0, 1), A(lib, kw, (13, 10), 1, 2)),
+        "mul_split1_split0": lambda lib, kw: A(lib, kw, (13, 10), 1, 3) * A(lib, kw, (13, 10), 0, 4),
+        "sub_row_split0": lambda lib, kw: A(lib, kw, (13, 10), 0, 5) - A(lib, kw, (10,), 0, 6),
+        "div_col_split1": lambda lib, kw: A(lib, kw, (13, 10), 1, 7) / A(lib, kw, (13, 1), 0, 8),
+        "add_outer_0_1": lambda lib, kw: A(lib, kw, (13, 1), 0, 9) + A(lib, kw, (1, 10), 1, 10),
+        "add_3d_split2": lambda lib, kw: A(lib, kw, (3, 5, 9), 2, 11) + A(lib, kw, (5, 1), 0, 12),
+        "mul_whole_split0": lambda lib, kw: A(lib, kw, (13, 10), None, 13) * A(lib, kw, (13, 10), 0, 14),
+        "sub_scalar_left": lambda lib, kw: 2.5 - A(lib, kw, (13, 10), 1, 15),
+        "add_empty_rank": lambda lib, kw: A(lib, kw, (3, 5), 0, 16) + A(lib, kw, (5,), None, 17),
+        "add_uneven_map": lambda lib, kw: A(lib, kw, (13, 6), 0, 18, lmap=[6, 1, 4, 2]) + A(lib, kw, (13, 6), 0, 19),
+        "add_uneven_maps": lambda lib, kw: (A(lib, kw, (13, 6), 0, 20, lmap=[1, 5, 0, 7])
+                                            + A(lib, kw, (13, 6), 0, 21, lmap=[6, 1, 4, 2])),
+        "gt_split0_split1": lambda lib, kw: A(lib, kw, (13, 10), 0, 22) > A(lib, kw, (13, 10), 1, 23),
+        "eq_int_bcast": lambda lib, kw: A(lib, kw, (13, 10), 0, 24, "int32") % 3 == A(lib, kw, (10,), None, 25,
+                                                                                        "int32") % 3,
+        "where_out_mixed": lambda lib, kw: lib.add(
+            A(lib, kw, (13, 10), 0, 26), A(lib, kw, (13, 10), 1, 27),
+            out=lib.array(np.full((13, 10), 7.0), split=1, **kw), where=A(lib, kw, (13, 10), 0, 28, "bool")),
+        "equal_mixed": lambda lib, kw: lib.equal(A(lib, kw, (13, 10), 0, 29), A(lib, kw, (13, 10), 1, 29)),
+        "allclose_mixed": lambda lib, kw: lib.allclose(A(lib, kw, (13, 10), 0, 30), A(lib, kw, (13, 10), 1, 31)),
+        "exp_split0": lambda lib, kw: lib.exp(A(lib, kw, (13, 10), 0, 32)),
+        "abs_max_split0": lambda lib, kw: abs(A(lib, kw, (13, 10), 0, 33)).max(),
+        "count_positive": lambda lib, kw: (A(lib, kw, (13, 10), 0, 34) > 0).sum(),
+        # cumulative ops and diff along the split axis
+        "cumsum_split0": lambda lib, kw: lib.cumsum(A(lib, kw, (13, 10), 0, 35), 0),
+        "cumsum_int_split0": lambda lib, kw: lib.cumsum(A(lib, kw, (13, 4), 0, 36, "int32"), 0),
+        "cumsum_bool_split0": lambda lib, kw: lib.cumsum(A(lib, kw, (13,), 0, 37, "bool"), 0),
+        "cumprod_split0": lambda lib, kw: lib.cumprod(A(lib, kw, (13, 3), 0, 38) * 0.5 + 1, 0),
+        "cumsum_empty_rank": lambda lib, kw: lib.cumsum(A(lib, kw, (3, 5), 0, 39), 0),
+        "cumsum_split1_axis0": lambda lib, kw: lib.cumsum(A(lib, kw, (13, 10), 1, 40), 0),
+        "cumsum_uneven_map": lambda lib, kw: lib.cumsum(A(lib, kw, (13, 2), 0, 41, lmap=[0, 7, 0, 6]), 0),
+        "diff_split0": lambda lib, kw: lib.diff(A(lib, kw, (13, 10), 0, 42), axis=0),
+        "diff_split0_n3": lambda lib, kw: lib.diff(A(lib, kw, (13, 10), 0, 43), n=3, axis=0),
+        "diff_empty_rank": lambda lib, kw: lib.diff(A(lib, kw, (3, 5), 0, 44), axis=0),
+        "diff_gaps": lambda lib, kw: lib.diff(A(lib, kw, (13, 2), 0, 45, lmap=[0, 7, 0, 6]), n=2, axis=0),
+        "diff_split0_axis1": lambda lib, kw: lib.diff(A(lib, kw, (13, 10), 0, 46), axis=1),
+        # extremes, argmax/argmin with ties and NaNs across ranks
+        "argmax_ties": lambda lib, kw: lib.argmax(_ties(lib, kw, 47, False)),
+        "argmin_ties": lambda lib, kw: lib.argmin(_ties(lib, kw, 47, False)),
+        "argmax_nan": lambda lib, kw: lib.argmax(_ties(lib, kw, 47, True)),
+        "argmin_nan": lambda lib, kw: lib.argmin(_ties(lib, kw, 47, True), axis=0),
+        "argmax_2d_axis0": lambda lib, kw: A(lib, kw, (13, 10), 0, 48, "int32").__mod__(7).argmax(axis=0),
+        "argmax_2d_flat": lambda lib, kw: lib.argmax(A(lib, kw, (13, 10), 0, 49)),
+        "argmin_2d_flat_split1": lambda lib, kw: lib.argmin(A(lib, kw, (13, 10), 1, 50)),
+        "argmax_2d_axis1": lambda lib, kw: lib.argmax(A(lib, kw, (13, 10), 0, 51), axis=1, keepdims=True),
+        "argmax_empty_rank": lambda lib, kw: lib.argmax(A(lib, kw, (3, 5), 0, 52), axis=0),
+        "max_split0": lambda lib, kw: lib.max(A(lib, kw, (13, 10), 0, 53), axis=0),
+        "min_split1_axis1": lambda lib, kw: lib.min(A(lib, kw, (13, 10), 1, 54), axis=1, keepdims=True),
+        # moments
+        "mean_split0": lambda lib, kw: A(lib, kw, (13, 10), 0, 55).mean(axis=0),
+        "mean_all": lambda lib, kw: A(lib, kw, (13, 10), 0, 56).mean(),
+        "mean_split0_axis1": lambda lib, kw: A(lib, kw, (13, 10), 0, 57).mean(axis=1),
+        "mean_int_split1": lambda lib, kw: lib.mean(A(lib, kw, (13, 10), 1, 58, "int32"), axis=1),
+        "var_split0": lambda lib, kw: A(lib, kw, (13, 10), 0, 59).var(axis=0),
+        "var_all_ddof1": lambda lib, kw: lib.var(A(lib, kw, (13, 10), 0, 60), ddof=1),
+        "std_split1": lambda lib, kw: lib.std(A(lib, kw, (13, 10), 1, 61), axis=1),
+        "var_empty_rank": lambda lib, kw: lib.var(A(lib, kw, (3, 5), 0, 62), axis=0),
+        "standardize": lambda lib, kw: ((lambda x: (x - x.mean(axis=0)) / x.std(axis=0))(A(lib, kw, (13, 10), 0, 63))),
+        "average_weights": lambda lib, kw: lib.average(A(lib, kw, (13, 10), 0, 64), axis=0,
+                                                       weights=lib.array(np.arange(1.0, 14.0), split=0, **kw)),
+        "skew_split0": lambda lib, kw: lib.skew(A(lib, kw, (13, 10), 0, 65), axis=0),
+        "kurtosis_all": lambda lib, kw: lib.kurtosis(A(lib, kw, (13, 10), 0, 66)),
+        "prod_split0": lambda lib, kw: lib.prod(A(lib, kw, (13, 3), 0, 67) * 0.1 + 1, axis=0),
+        "nansum_split0": lambda lib, kw: lib.nansum(A(lib, kw, (13, 3), 0, 68, nan_at=(4, 20)), axis=0),
+        "any_split0": lambda lib, kw: lib.any(A(lib, kw, (13, 3), 0, 69) > 1.5, axis=0),
+        "all_split0": lambda lib, kw: lib.all(A(lib, kw, (13, 3), 0, 70) > -2.5),
+        # percentiles along the split axis (the distributed sort) and not
+        "median_1d": lambda lib, kw: lib.median(A(lib, kw, (21,), 0, 71)),
+        "median_2d_axis0": lambda lib, kw: lib.median(A(lib, kw, (13, 6), 0, 72), axis=0),
+        "median_empty_rank": lambda lib, kw: lib.median(A(lib, kw, (3,), 0, 73)),
+        "median_int": lambda lib, kw: lib.median(A(lib, kw, (22,), 0, 74, "int32")),
+        "median_nan_lane": lambda lib, kw: lib.median(A(lib, kw, (13, 4), 0, 75, nan_at=(9,)), axis=0),
+        "median_axis1_split0": lambda lib, kw: lib.median(A(lib, kw, (13, 6), 0, 76), axis=1),
+        "median_keepdims": lambda lib, kw: lib.median(A(lib, kw, (13, 6), 0, 77), axis=0, keepdims=True),
+        "percentile_vector_axis1": lambda lib, kw: lib.percentile(A(lib, kw, (13, 6), 0, 78), [10.0, 90.0], axis=1),
+        "histc_split0": lambda lib, kw: lib.histc(A(lib, kw, (13, 10), 0, 79), bins=9),
+        "histogram_split1": lambda lib, kw: lib.histogram(A(lib, kw, (13, 10), 1, 80), bins=6)[0],
+        "bincount_split0": lambda lib, kw: lib.bincount(A(lib, kw, (23,), 0, 81, "int32") % 5 + 5),
+        "digitize_split0": lambda lib, kw: lib.digitize(A(lib, kw, (13, 10), 0, 82), [-1.0, 0.0, 0.5]),
+    }
+    for interp in ("linear", "lower", "higher", "midpoint", "nearest"):
+        cases[f"percentile_{interp}"] = lambda lib, kw, interp=interp: lib.percentile(
+            A(lib, kw, (22, 3), 0, 83), [0.0, 5.0, 37.5, 50.0, 95.0, 100.0], axis=0, interpolation=interp)
+    return cases
+
+
+SURFACE_CASES = _surface_defs()
+
+
+def _surface_cases(ht):
+    comm = ht.get_comm()
+    out = {}
+    for name, call in SURFACE_CASES.items():
+        def case(call=call):
+            comm.counts.clear()
+            res = call(ht, {})
+            counts = dict(comm.counts)
+            if isinstance(res, bool):
+                return {"value": res, "counts": counts}
+            return {"local": _np(res.larray), "split": res.split, "gshape": res.gshape, "global": res.numpy(),
+                    "dtype": res.dtype.__name__, "counts": counts, "lmap": res.lshape_map}
+        out[f"surface_{name}"] = case
+    return out
 
 
 def _plain(value):
