@@ -104,6 +104,17 @@ Phases, each of which fails the run by raising:
      2^27 float32, each launching K4 and equal to the sorted values'
      interpolation; the rows print as one JSON line, ``{"surface": ...}``,
      before the kernels line;
+   - indexing (``indexing_path``): on ``ht.random.randn(65536, 8192,
+     split=0)`` (R1), ``A[1000:60000:3, ::2]``, ``A[:, 4097]``, ``A[A >
+     2.5]``, ``A[A[:, 0] > 0]``, ``ht.nonzero(A > 3.5)``, ``ht.where(A > 0,
+     A, 0.0)``, the gather ``A[idx]`` of ``idx = ht.topk(A[:, 0], 1000)[1]``
+     (K4 must launch), the writes ``A[A < -4.0] = 0.0``, ``A[idx] = 0.0``
+     and ``A[100:200] = B[:100]``, ``ht.ones``, ``ht.full`` and
+     ``ht.linspace`` at the operand's size and ``repr(A)``, each equal to an
+     independent torch formula on the card (``linspace`` within float32's
+     last bit of ``torch.linspace`` in float64) and timed beside its byte
+     bound (what the call must read once plus write once); ``repr(A)``
+     with the bytes it copies to the host; a ``{"indexing": ...}`` line;
    - the distributed hSVD as a 4-rank world on this one card
      (``world_path``): 4 spawned workers join a gloo world
      (``init_method=file://``) with every rank's tensors on ``cuda:0``,
@@ -162,6 +173,12 @@ Phases, each of which fails the run by raising:
      and ``A.argmax(axis=0)`` across ranks, and ``ht.median`` of sort_1gb
      split 0 (the distributed sort, K4 a local step), each rank checking its
      part against the whole operand regenerated from the shared seed;
+     then indexing across ranks (``_world_indexing``): on a 65536 x 8192
+     operand split 0 (and split 1), ``A[A > 2.5]`` and ``ht.nonzero(A >
+     3.5)`` (even split-0 chunks), ``A[idx]`` of 1000 rows owned by every
+     rank, ``A[12345]``, ``Z[:, 5]`` of the split-1 twin, ``A[A < -4.0] =
+     0.0`` and ``repr(A)``, each rank against the whole operand, with its
+     collectives and bytes;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -2071,6 +2088,115 @@ def _world_surface(ht, comm, moved: dict, rank: int, dev) -> dict:
     return out
 
 
+WORLD_INDEXING_SEED = 9200
+WORLD_INDEXING_ROWS = 1000  # rows of A[idx], drawn over the whole operand so that every rank owns some
+
+
+def _world_indexing(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """Indexing across ranks on a 65536 x 8192 float32 operand split 0 (and
+    its twin split 1), each rank's shard made on the card from a seed
+    every rank shares: the mask selection ``A[A > 2.5]`` and
+    ``ht.nonzero(A > 3.5)`` (even split-0 chunks), the gather ``A[idx]``
+    of rows on every rank (whole on every rank), ``A[12345]`` (a row from
+    its owner), ``Z[:, 5]`` of the split-1 twin, the mask assignment
+    ``A[A < -4.0] = 0.0`` and ``repr(A)``; each rank checks its part
+    against the whole operand."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(WORLD_INDEXING_SEED)
+    full = torch.randn(M, N, device=dev, generator=gen)
+    (r0, r1), (c0, c1) = [(comm.chunk((M, N), ax)[0], comm.chunk((M, N), ax)[0] + comm.chunk((M, N), ax)[1][ax])
+                          for ax in (0, 1)]
+    A = ht.array(full[r0:r1].clone(), is_split=0)
+    out = {}
+
+    def counted(call):
+        comm.counts.clear()
+        moved.clear()
+        comm.staged_bytes = 0
+        res = call()
+        torch.cuda.synchronize()
+        return res, {"counts": dict(comm.counts), "bytes": dict(moved), "staged": comm.staged_bytes}
+
+    def chunk_of(whole):  # this rank's even split-0 chunk of a global result
+        start, (count,), _ = comm.chunk((whole.shape[0],), 0)
+        return whole[start: start + count]
+
+    for name, call, want in (
+        ("mask_elements", lambda: A[A > 2.5], lambda: torch.masked_select(full, full > 2.5)),
+        ("nonzero", lambda: ht.nonzero(A > 3.5), lambda: torch.nonzero(full > 3.5)),
+    ):
+        res, info = counted(call)
+        ref = want()
+        ok = res.split == 0 and res.gshape[0] == ref.shape[0] and torch.equal(res.larray, chunk_of(ref))
+        _every_rank_ok(comm, ok, f"{name} across ranks differs from the torch formula's chunk on rank {rank}")
+        out[name] = {**info, "ms": _world_ms(call, 3), "selected": int(ref.shape[0])}
+        del res, ref
+    gen.manual_seed(WORLD_INDEXING_SEED + 1)
+    rows = torch.randint(0, M, (WORLD_INDEXING_ROWS,), device=dev, generator=gen)
+    idx = ht.array(rows)
+    for name, call, want in (
+        ("rows_every_rank", lambda: A[idx], lambda: full[rows]),
+        ("row_from_owner", lambda: A[12345], lambda: full[12345]),
+    ):
+        res, info = counted(call)
+        ok = res.split is None and torch.equal(res.larray, want())
+        _every_rank_ok(comm, ok, f"{name} across ranks differs from the torch formula on rank {rank}")
+        out[name] = {**info, "ms": _world_ms(call, 3)}
+        del res
+    ends = torch.tensor([sum(comm.chunk((M, N), 0, rank=q)[1][0] for q in range(r + 1)) for r in range(WORLD)],
+                        device=dev)
+    owners = torch.bincount(torch.searchsorted(ends, rows, right=True), minlength=WORLD)
+    out["rows_every_rank"]["owned"] = owners.tolist()
+    Z = ht.array(full[:, c0:c1].clone(), is_split=1)
+    res, info = counted(lambda: Z[:, 5])
+    _every_rank_ok(comm, res.split is None and torch.equal(res.larray, full[:, 5]),
+                   f"Z[:, 5] of the split-1 operand differs on rank {rank}")
+    out["column_split1"] = {**info, "ms": _world_ms(lambda: Z[:, 5], 3)}
+    del Z, res
+
+    def write():
+        A[A < -4.0] = 0.0
+    _, info = counted(write)
+    expect = full[r0:r1].clone()
+    expect[expect < -4.0] = 0.0
+    _every_rank_ok(comm, torch.equal(A.larray, expect), f"A[A < -4.0] = 0.0 differs on rank {rank}")
+    out["mask_assign"] = {**info, "ms": _world_ms(write, 3)}
+    del expect
+    text, info = counted(lambda: repr(A))
+    whole = ht.array(torch.where(full < -4.0, torch.zeros((), device=dev), full))  # split None: no gather
+    _every_rank_ok(comm, text == repr(whole).replace("split=None)", "split=0)"),
+                   f"repr(A) across ranks differs from the whole operand's on rank {rank}")
+    out["repr"] = {**info, "ms": _world_ms(lambda: repr(A), 3)}
+    del A, whole, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def _report_world_indexing(per: list, shared: str) -> dict:
+    """Print the indexing phase of the world; returns its collective counts."""
+    what = {"mask_elements": "A[A > 2.5], A 65536x8192 float32 split 0 (even split-0 chunks)",
+            "nonzero": "ht.nonzero(A > 3.5) (even split-0 chunks)",
+            "rows_every_rank": f"A[idx], {WORLD_INDEXING_ROWS} random rows owned by every rank "
+                               f"({per[0]['rows_every_rank']['owned']} a rank; whole on every rank)",
+            "row_from_owner": "A[12345] (its owner broadcasts it)",
+            "column_split1": "Z[:, 5], Z split 1 (its owner broadcasts it)",
+            "mask_assign": "A[A < -4.0] = 0.0 (each rank in place)",
+            "repr": "repr(A) (the edge items gathered)"}
+    counts = {}
+    for name, text in what.items():
+        each = [p[name] for p in per]
+        counts[name] = each[0]["counts"]
+        print(
+            f"world indexing {name}: {text}: {each[0]['ms']:.4f} ms a call (rank 0, median of 3; ranks "
+            f"{[round(e['ms'], 4) for e in each]}); equal to the torch formula on every rank; collectives a rank "
+            f"{each[0]['counts']}, bytes a rank put in {[e['bytes'] for e in each]}, staged through the host "
+            f"{[e['staged'] for e in each]} B a rank; {shared}", flush=True,
+        )
+    return counts
+
+
 def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
     """One rank of the world phase: joins a gloo world of WORLD processes
     on ``cuda:0`` and runs every configuration; writes its results (or its
@@ -2097,7 +2223,8 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
             result[config[0]] = _world_config(ht, cs, svdtools, comm, moved, level0, rank, config, profile=i == 0)
             torch.cuda.empty_cache()
         for phase, run in (("random", _world_random), ("kmeans", _world_kmeans), ("attention", _world_attention),
-                           ("distance", _world_distance), ("sort", _world_sort), ("surface", _world_surface)):
+                           ("distance", _world_distance), ("sort", _world_sort), ("surface", _world_surface),
+                           ("indexing", _world_indexing)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -2303,6 +2430,7 @@ def world_path(dev) -> dict:
         )
     world["sort"] = _report_world_sort([res["sort"] for res in results], shared)
     world["surface"] = _report_world_surface([res["surface"] for res in results], shared)
+    world["indexing"] = _report_world_indexing([res["indexing"] for res in results], shared)
     return world
 
 
@@ -3837,6 +3965,155 @@ def surface_path(dev) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+INDEXING_SEED = 17  # the seed of the indexing phase's draws
+INDEXING_REPS = 5
+INDEXING_ROWS = 1000  # rows gathered by A[idx], idx = ht.topk(A[:, 0], 1000)[1]
+
+
+def indexing_path(dev) -> dict:
+    """Indexing, assignment, where/nonzero, the factories and repr on the
+    north-star operand (``ht.random.randn(65536, 8192, split=0)``, R1):
+    ``A[1000:60000:3, ::2]``, ``A[:, 4097]``, the element mask ``A[A > 2.5]``,
+    the row mask ``A[A[:, 0] > 0]``, ``ht.nonzero(A > 3.5)``, ``ht.where(A >
+    0, A, 0.0)``, the gather ``A[idx]`` of ``idx = ht.topk(A[:, 0], 1000)[1]``
+    (K4), the writes ``A[A < -4.0] = 0.0``, ``A[idx] = 0.0`` and
+    ``A[100:200] = B[:100]``, ``ht.ones``, ``ht.full`` and ``ht.linspace`` at
+    the operand's size, and ``repr(A)``. Each result is held against an
+    independent torch formula on the same card tensor, exactly (linspace
+    within float32's last bit), and timed under CUDA events beside its
+    byte bound (what the call must read once plus write once, over 3.35
+    TB/s). Returns the rows and K4's launches under ``topk``."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import printing
+    from heat_tpu_torch.kernels import sort as ks
+
+    ht.random.seed(INDEXING_SEED)
+    _r1_zero()
+    A = ht.random.randn(M, N, split=0)
+    B = ht.random.randn(256, N, split=0)
+    torch.cuda.synchronize()
+    _r1_read("indexing_draw", 2, [M * N, 256 * N])
+    a = A.larray
+    _require(a.device == dev and A.dtype is ht.float32 and A.split == 0, "the indexing operand is not float32 on the card")
+    rows = []
+
+    def record(label: str, call, nbytes: float, ok, tol_text: str = "exact", reps: int = INDEXING_REPS):
+        out = call()
+        torch.cuda.synchronize()
+        err = ok(out)
+        del out
+        ms = _median_ms(call, reps)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"name": label, "ms": round(ms, 4), "bound_ms": round(bound, 6), "bound_by": "bytes",
+                     "bytes": nbytes, "err": err, "tol": tol_text})
+        print(f"indexing {label}: {ms:.4f} ms (CUDA events, median of {reps}), bound {bound:.6f} ms "
+              f"({nbytes / 1e9:.6f} GB over 3.35 TB/s); against the torch formula: {tol_text}, "
+              f"{'equal' if err == 0 else format(err, '.3e') + ' of its limit'}", flush=True)
+        _require(err is not None and (err == 0 if tol_text == "exact" else err <= 1.0),
+                 f"indexing {label} disagrees with its torch formula ({err} against {tol_text})")
+
+    def exact(ref, split):
+        return lambda o: 0 if o.split == split and torch.equal(o.larray, ref) else 1
+
+    gb = 4.0 * M * N
+    ref = a[1000:60000:3, ::2]
+    record("A[1000:60000:3, ::2]", lambda: A[1000:60000:3, ::2], 2 * 4.0 * ref.numel(), exact(ref, 0))
+    ref = a[:, 4097]
+    record("A[:, 4097]", lambda: A[:, 4097], 2 * 4.0 * M, exact(ref, 0))
+    ref = torch.masked_select(a, a > 2.5)
+    record("A[A > 2.5]", lambda: A[A > 2.5], gb + 4.0 * ref.numel(), exact(ref, 0))
+    n_elements = ref.numel()
+    ref = a[a[:, 0] > 0]
+    record("A[A[:, 0] > 0]", lambda: A[A[:, 0] > 0], 2 * 4.0 * ref.numel(), exact(ref, 0))
+    n_rows = ref.shape[0]
+    ref = torch.nonzero(a > 3.5)
+    record("ht.nonzero(A > 3.5)", lambda: ht.nonzero(A > 3.5), gb + 8.0 * ref.numel(), exact(ref, 0))
+    ref = torch.where(a > 0, a, torch.zeros((), device=dev))
+    record("ht.where(A > 0, A, 0.0)", lambda: ht.where(A > 0, A, 0.0), 2 * gb, exact(ref, 0))
+    del ref
+    torch.cuda.empty_cache()
+
+    ks.SORT_LAUNCHES = 0
+    idx = ht.topk(A[:, 0], INDEXING_ROWS)[1]
+    torch.cuda.synchronize()
+    topk_launches = ks.SORT_LAUNCHES
+    want = torch.topk(a[:, 0], INDEXING_ROWS)
+    _require(topk_launches > 0 and torch.equal(idx.larray, want.indices),
+             f"ht.topk(A[:, 0], {INDEXING_ROWS}) ran without K4 ({topk_launches}) or differs from torch.topk")
+    print(f"ht.topk(A[:, 0], {INDEXING_ROWS}): K4 launches {topk_launches}, indices equal torch.topk's", flush=True)
+    row_bytes = 4.0 * N * INDEXING_ROWS
+    record(f"A[idx], idx = ht.topk(A[:, 0], {INDEXING_ROWS})[1]", lambda: A[idx], 2 * row_bytes + 8.0 * INDEXING_ROWS,
+           exact(a[want.indices], None))
+
+    expect = a.clone()
+    expect[expect < -4.0] = 0.0
+    n_low = int((a < -4.0).sum())
+
+    def write_low():
+        A[A < -4.0] = 0.0
+    record("A[A < -4.0] = 0.0", lambda: (write_low(), A)[1], gb + 4.0 * n_low, lambda o: 0 if torch.equal(a, expect)
+           else 1)
+    expect[want.indices] = 0.0
+
+    def write_rows():
+        A[idx] = 0.0
+    record("A[idx] = 0.0", lambda: (write_rows(), A)[1], row_bytes + 8.0 * INDEXING_ROWS,
+           lambda o: 0 if torch.equal(a, expect) else 1)
+    expect[100:200] = B.larray[:100]
+
+    def write_slab():
+        A[100:200] = B[:100]
+    record("A[100:200] = B[:100]", lambda: (write_slab(), A)[1], 2 * 4.0 * 100 * N,
+           lambda o: 0 if torch.equal(a, expect) else 1)
+    del expect
+    torch.cuda.empty_cache()
+
+    record("ht.ones((65536, 8192), split=0)", lambda: ht.ones((M, N), split=0), gb,
+           lambda o: 0 if o.split == 0 and bool((o.larray == 1).all()) else 1)
+    record("ht.full((65536, 8192), 2.5, split=0)", lambda: ht.full((M, N), 2.5, split=0), gb,
+           lambda o: 0 if o.split == 0 and o.dtype is ht.float32 and bool((o.larray == 2.5).all()) else 1)
+    n = M * N
+    lin = torch.linspace(0.0, 1.0, n, dtype=torch.float64, device=dev)
+
+    def last_bit(o):  # |Δ| in units of float32's last bit of the formula's value (at least 2^-24)
+        err = (o.larray.double() - lin).abs() / (lin.abs() * 2.0 ** -23).clamp_min(2.0 ** -24)
+        return float(err.max()) if o.split == 0 else 2.0
+    record(f"ht.linspace(0, 1, {n}, split=0)", lambda: ht.linspace(0.0, 1.0, n, split=0), gb, last_bit,
+           "within float32's last bit of torch.linspace in float64")
+    del lin
+    torch.cuda.empty_cache()
+
+    text = repr(A)
+    opts = printing.get_printoptions()
+    e = opts["edgeitems"]
+    _require(opts == {"precision": 4, "threshold": 1000, "edgeitems": 3, "linewidth": 120, "sci_mode": None},
+             f"the print options are not torch's profile: {opts}")
+    block = printing._edge_block(A, e)
+    host = a[[0, 1, 2, M - 3, M - 2, M - 1]][:, [0, 1, 2, N - 3, N - 2, N - 1]].cpu().numpy()
+    # NumPy's own summary of a 32 x 32 host array (1024 elements, over the
+    # threshold) whose edge items are the operand's: it formats only the
+    # items it shows, so its text is the operand's, with no edge block
+    pad = np.zeros((32, 32), dtype=np.float32)
+    pad[np.ix_(np.r_[0:3, 29:32], np.r_[0:3, 29:32])] = host
+    with np.printoptions(precision=4, threshold=1000, edgeitems=3, linewidth=120, suppress=True):
+        body = np.array2string(pad, separator=", ")
+    want = f"DNDarray({body}, dtype=ht.float32, device={A.device}, split=0)"
+    _require(text == want, f"repr(A) differs from NumPy's summary of the operand's edge items:\n{text}\n{want}")
+    repr_ms = _median_ms(lambda: repr(A), INDEXING_REPS)
+    rows.append({"name": "repr(A)", "ms": round(repr_ms, 4), "host_bytes": int(block.nbytes), "bound_ms": None,
+                 "bound_by": "host", "err": 0, "tol": "the edge items of the operand"})
+    print(f"indexing repr(A): {repr_ms:.4f} ms (CUDA events, median of {INDEXING_REPS}), {block.nbytes} bytes copied "
+          f"to the host (the 7 x 7 edge block of a 65536 x 8192 float32 array)", flush=True)
+    print(f"indexing selections: {n_elements} elements > 2.5, {n_rows} rows with A[:, 0] > 0, {n_low} elements "
+          f"< -4.0", flush=True)
+    del A, B, a, idx, want
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": {"topk": topk_launches}}
+
+
 def profile_breakdown(label: str, call) -> list:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
@@ -3890,6 +4167,7 @@ def main() -> int:
     att_launches, att_launches_sm90, att_path_errs = attention_path(dev)
     relayout_launches = relayout_path(dev)
     surface = surface_path(dev)
+    indexing = indexing_path(dev)
     launches["world"] = world_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
@@ -3898,6 +4176,7 @@ def main() -> int:
     k4_row = next(row for row in rows if row["name"] == "pair_sort_one_segment")
     k4_row["world_launches"] = {**launches["world"]["sort"], **launches["world"]["surface"]}
     k4_row["surface_launches"] = surface["launches"]
+    k4_row["indexing_launches"] = indexing["launches"]
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
     att_rows = attention_timings(dev, att_launches, att_launches_sm90, att_errs, att_path_errs)
     for row in att_rows:  # K9's launches a rank in the world's ring at the row's shape
@@ -3913,6 +4192,7 @@ def main() -> int:
     print(f"R1 on the main paths: {R1_PATH}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"surface": surface["rows"]}))
+    print(json.dumps({"indexing": indexing["rows"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -1,5 +1,6 @@
 """heat_tpu_torch core: array, type system, devices, communicator,
-factories, elementwise operations, reductions and statistics (port of ``heat_tpu.core``)."""
+factories, indexing, elementwise operations, reductions, statistics,
+memory and printing (port of ``heat_tpu.core``)."""
 
 from .base import *
 from .communication import *
@@ -8,6 +9,9 @@ from .devices import *
 from .types import *
 from .dndarray import *
 from .factories import *
+from .indexing import *
+from .memory import *
+from .printing import *
 from .manipulations import *
 from .arithmetics import *
 from .complex_math import *

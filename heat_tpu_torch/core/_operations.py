@@ -133,7 +133,7 @@ def _store(out: DNDarray, result: DNDarray) -> DNDarray:
     from .sanitation import sanitize_out
 
     sanitize_out(out, result.gshape)
-    if out.split != result.split:
+    if out.split != result.split and result.comm.is_distributed():
         result = result.resplit(out.split)
     local = result.larray
     if out.split is not None and out.is_distributed():
@@ -179,7 +179,7 @@ def __binary_op(
     s1, s2 = _split_in_output(t1), _split_in_output(t2)
     if s1 is not None and s2 is not None and s1 != s2:
         target = s1 - (out_ndim - t2.ndim)
-        if target >= 0:  # the reference redistributes the non-dominant operand
+        if target >= 0 and t2.comm.is_distributed():  # the reference redistributes the non-dominant operand
             t2 = t2.resplit(target)
         s2 = _split_in_output(t2)
     output_split = s1 if s1 is not None else s2

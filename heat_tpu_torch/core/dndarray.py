@@ -23,7 +23,49 @@ from .communication import Communication
 from .devices import Device
 from .stride_tricks import sanitize_axis
 
-__all__ = ["DNDarray"]
+__all__ = ["DNDarray", "LocalIndex"]
+
+
+class LocalIndex:
+    """A key that indexes this rank's own tensor (``heat_tpu``
+    dndarray.py:45): ``x[LocalIndex(k)]`` is ``x.lloc[k]``."""
+
+    def __init__(self, obj):
+        self.obj = obj
+
+
+class _LocalAccessor:
+    """``DNDarray.lloc`` (``heat_tpu`` dndarray.py:54-79): get and set on
+    this rank's own tensor under NumPy's rules, with DNDarray keys and
+    values read as their own shards. At world size 1 that is the whole
+    array, as in ``heat_tpu``; across ranks it is the Heat reference's
+    meaning, which ``heat_tpu``, one controller over a global array,
+    cannot show."""
+
+    __slots__ = ("_dnd",)
+
+    def __init__(self, dnd: "DNDarray"):
+        self._dnd = dnd
+
+    def __parsed(self, key):
+        from . import _keys
+
+        t = self._dnd.larray
+        return _keys.parse(key, tuple(t.shape), t.device, lambda k: k.larray)
+
+    def __getitem__(self, key) -> torch.Tensor:
+        from . import _keys
+
+        return _keys.local_get(self._dnd.larray, *self.__parsed(key))
+
+    def __setitem__(self, key, value) -> None:
+        from . import _keys
+
+        t = self._dnd.larray
+        if isinstance(value, DNDarray):
+            value = value.larray
+        _keys.local_set(t, *self.__parsed(key), _keys._value_of(value, self._dnd))
+
 
 class _ScalarCastError(TypeError, ValueError):
     """A cast of an array of size other than 1 to a Python scalar:
@@ -172,6 +214,93 @@ class DNDarray:
         """Total bytes of the global array (reference dndarray.py:176)."""
         return self.size * self.__array.element_size()
 
+    @property
+    def gnbytes(self) -> int:
+        """Bytes of the global array (``heat_tpu`` dndarray.py:289)."""
+        return self.nbytes
+
+    @property
+    def lnbytes(self) -> int:
+        """Bytes of this rank's shard (``heat_tpu`` :293, its device 0's)."""
+        return self.lnumel * self.__array.element_size()
+
+    @property
+    def gnumel(self) -> int:
+        """Elements of the global array (``heat_tpu`` :298)."""
+        return self.size
+
+    @property
+    def lnumel(self) -> int:
+        """Elements of this rank's shard (``heat_tpu`` :305)."""
+        return int(np.prod(self.lshape))
+
+    @property
+    def stride(self) -> Tuple[int, ...]:
+        """C-order element strides of the global array (``heat_tpu``
+        dndarray.py:344)."""
+        strides = [1] * self.ndim
+        for i in range(self.ndim - 2, -1, -1):
+            strides[i] = strides[i + 1] * self.__gshape[i + 1]
+        return tuple(strides)
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """C-order byte strides of the global array (``heat_tpu`` :352)."""
+        return tuple(s * self.__array.element_size() for s in self.stride)
+
+    @property
+    def balanced(self) -> bool:
+        """True if the shards follow the chunk geometry (``heat_tpu``
+        dndarray.py:156 is always True; a slice of the split axis, a mask
+        selection before its rebalancing or ``redistribute_`` leave other
+        maps here, as in the Heat reference)."""
+        return self.is_balanced()
+
+    @property
+    def lloc(self) -> _LocalAccessor:
+        """Get and set on this rank's own tensor (``heat_tpu`` :278)."""
+        return _LocalAccessor(self)
+
+    @property
+    def __partitioned__(self) -> dict:
+        """The partition interface (``heat_tpu`` dndarray.py:387)."""
+        return self.create_partition_interface()
+
+    def create_partition_interface(self) -> dict:
+        """The ``__partitioned__`` dict (``heat_tpu`` dndarray.py:697,
+        reference :679): one partition a rank, each with its start, shape
+        and location; ``data`` is this rank's tensor on its own partition
+        and None on the others (the Heat reference's ``locals``)."""
+        lmap = self.lshape_map
+        split = self.__split
+        size = self.__comm.size
+        tiling = [1] * self.ndim
+        if split is not None:
+            tiling[split] = size
+        starts = np.concatenate([[0], np.cumsum(lmap[:, split])]) if split is not None else None
+        partitions = {}
+        for r in range(size if split is not None else 1):
+            pos = [0] * self.ndim
+            start = [0] * self.ndim
+            if split is not None:
+                pos[split], start[split] = r, int(starts[r])
+            partitions[tuple(pos)] = {
+                "start": tuple(start),
+                "shape": tuple(int(v) for v in lmap[r]),
+                "data": self.__array if r == self.__comm.rank or split is None else None,
+                "location": [r],
+                "dtype": self.__array.dtype,
+                "device": str(self.__array.device),
+            }
+        mine = [p for p, part in partitions.items() if part["data"] is not None]
+        return {
+            "shape": self.__gshape,
+            "partition_tiling": tuple(tiling),
+            "partitions": partitions,
+            "locals": mine,
+            "get": lambda x: x,
+        }
+
     # ------------------------------------------------------------------ #
     # conversions / data access                                          #
     # ------------------------------------------------------------------ #
@@ -201,6 +330,37 @@ class DNDarray:
     def __array__(self, dtype=None, copy=None) -> np.ndarray:
         out = self.numpy()
         return out if dtype is None else out.astype(dtype)
+
+    def tolist(self, keepsplit: bool = False) -> list:
+        """The global array as a nested list (``heat_tpu`` dndarray.py:474)."""
+        return self.numpy().tolist()
+
+    def cpu(self) -> "DNDarray":
+        """This array with each shard on the CPU (``heat_tpu``
+        dndarray.py:1108); itself where it is there already."""
+        from .devices import cpu
+
+        if self.__device.device_type == "cpu":
+            return self
+        return DNDarray(self.__array.cpu(), self.__gshape, self.__dtype, self.__split, cpu, self.__comm, self.__lmap)
+
+    def fill_diagonal(self, value) -> "DNDarray":
+        """Set the main diagonal of a 2-D array to ``value``, in place
+        (``heat_tpu`` dndarray.py:618): each rank writes the diagonal
+        entries in its own rows or columns."""
+        if self.ndim != 2:
+            raise ValueError("Only 2D arrays supported")
+        lo = 0
+        if self.is_distributed():
+            lo = int(self.lshape_map[: self.__comm.rank, self.__split].sum())
+        n = min(self.__gshape)
+        along = self.lshape[self.__split] if self.is_distributed() else n
+        idx = torch.arange(lo, max(lo, min(lo + along, n)), device=self.__array.device)
+        at = [idx, idx]
+        if self.is_distributed():
+            at[self.__split] = idx - lo
+        self.__array[at[0], at[1]] = torch.as_tensor(value, dtype=self.__array.dtype, device=self.__array.device)
+        return self
 
     def item(self):
         """The single element as a Python scalar (reference dndarray.py:1143)."""
@@ -239,26 +399,32 @@ class DNDarray:
         return self.__gshape[0]
 
     def __iter__(self):
-        """The rows along axis 0 (``heat_tpu`` dndarray.py:506): a row of a
-        split-0 array comes whole to every rank from its owner (one
-        broadcast a row); a row of another array keeps the split, one axis
-        lower."""
+        """The rows along axis 0, each ``self[i]`` (``heat_tpu``
+        dndarray.py:506): a copy, never a view of the shard."""
         for i in range(len(self)):
-            yield self.__row(i)
+            yield self[i]
 
-    def __row(self, i: int) -> "DNDarray":
-        shape = self.__gshape[1:]
-        if self.__split == 0:
-            if not self.is_distributed():
-                return DNDarray(self.__array[i].clone(), shape, self.__dtype, None, self.__device, self.__comm)
-            counts, displs = self.counts_displs()
-            owner = int(np.searchsorted(np.cumsum(counts), i, side="right"))
-            local = self.__array.new_empty(shape) if self.__comm.rank != owner else self.__array[i - displs[owner]]
-            row = self.__comm.bcast(local.contiguous(), root=owner)
-            return DNDarray(row, shape, self.__dtype, None, self.__device, self.__comm)
-        split = None if self.__split is None else self.__split - 1
-        lmap = None if split is None else self.lshape_map[:, 1:]
-        return DNDarray(self.__array[i], shape, self.__dtype, split, self.__device, self.__comm, lmap)
+    def __getitem__(self, key) -> "DNDarray":
+        """Global indexing under NumPy's rules (``heat_tpu``
+        dndarray.py:809; ``core/_keys.py`` has the schedule across ranks).
+        The result has its own memory. ``LocalIndex`` keys index this
+        rank's tensor."""
+        from . import _keys
+
+        if isinstance(key, LocalIndex):
+            return self.lloc[key.obj]
+        return _keys.getitem(self, key)
+
+    def __setitem__(self, key, value) -> None:
+        """Global assignment (``heat_tpu`` dndarray.py:950): each rank
+        writes the part of the key in its own rows, in place; the value is
+        cast to the array's type."""
+        from . import _keys
+
+        if isinstance(key, LocalIndex):
+            self.lloc[key.obj] = value
+            return
+        _keys.setitem(self, key, value)
 
     def __copy__(self) -> "DNDarray":
         """A shallow copy: the same shard (``heat_tpu`` dndarray.py:1061)."""
@@ -366,11 +532,13 @@ class DNDarray:
 
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
         """Out-of-place resplit (reference manipulations.py:3479), planned
-        and executed like ``resplit_``. At world size 1 it shares the
-        data."""
+        and executed like ``resplit_``. The result has its own memory at
+        every world size, also where no data move (the same axis, or one
+        rank), so a later write into either array leaves the other as it
+        was."""
         axis = sanitize_axis(self.__gshape, axis)
         if axis == self.__split or not self.__comm.is_distributed():
-            return DNDarray(self.__array, self.__gshape, self.__dtype, axis, self.__device, self.__comm,
+            return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, axis, self.__device, self.__comm,
                             self.__lmap if axis == self.__split else None)
         return DNDarray(self.__moved(axis), self.__gshape, self.__dtype, axis, self.__device, self.__comm)
 
@@ -383,14 +551,11 @@ class DNDarray:
     # misc protocol                                                      #
     # ------------------------------------------------------------------ #
     def __repr__(self) -> str:
-        body = (
-            np.array2string(self.numpy(), separator=", ")
-            if self.size <= 100
-            else f"<{'x'.join(str(s) for s in self.__gshape)} values>"
-        )
-        return (
-            f"DNDarray({body}, dtype=ht.{self.__dtype.__name__}, "
-            f"device={self.__device}, split={self.__split})"
-        )
+        """``heat_tpu``'s rendering (printing.py:88): torch's print
+        profile, and above its threshold only the edge items reach the
+        host (``core/printing.py``)."""
+        from . import printing
+
+        return printing.__str__(self)
 
     __str__ = __repr__

@@ -1,15 +1,17 @@
 """Array creation functions.
 
 Port of ``heat_tpu.core.factories`` (Heat reference: heat/core/factories.py,
-``arange`` at :41, ``array`` at :149, ``eye`` at :618, ``zeros`` at
-:1405). Each factory builds its tensor directly on the target device. A
-split array holds on each rank only its chunk (``comm.chunk``), and its
-global values do not depend on the world size.
+``arange`` at :41, ``array`` at :149, ``eye`` at :618, ``full`` at :971,
+``linspace`` at :1078, ``meshgrid`` at :1225, ``ones`` at :1308,
+``zeros`` at :1405). Each factory builds its tensor directly on the target
+device. A split array holds on each rank only its chunk (``comm.chunk``),
+which the rank makes alone, and its global values do not depend on the
+world size.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Type, Union
+from typing import Any, Callable, List, Optional, Type, Union
 
 import numpy as np
 import torch
@@ -17,10 +19,29 @@ import torch
 from . import types
 from .communication import Communication, sanitize_comm
 from .devices import Device, sanitize_device
+from ._operations import _whole
 from .dndarray import DNDarray, _gather_lshapes
 from .stride_tricks import sanitize_axis, sanitize_shape
 
-__all__ = ["arange", "array", "eye", "zeros"]
+__all__ = [
+    "arange",
+    "array",
+    "asarray",
+    "empty",
+    "empty_like",
+    "eye",
+    "from_partition_dict",
+    "from_partitioned",
+    "full",
+    "full_like",
+    "linspace",
+    "logspace",
+    "meshgrid",
+    "ones",
+    "ones_like",
+    "zeros",
+    "zeros_like",
+]
 
 
 def _wrap(data: torch.Tensor, dtype, split, device: Device, comm) -> DNDarray:
@@ -181,13 +202,212 @@ def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order: s
     return DNDarray(data, (rows, cols), dtype, split, device, comm)
 
 
-def zeros(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
-    """Array of zeros (reference: factories.py:1405)."""
+def _create(make: Callable, shape, dtype, split, device, comm) -> DNDarray:
+    """A DNDarray of ``shape`` whose chunk ``make(lshape, torch dtype,
+    torch device)`` builds on this rank."""
     dtype = types.canonical_heat_type(dtype)
     device = sanitize_device(device)
     comm = sanitize_comm(comm)
     gshape = sanitize_shape(shape)
     split = sanitize_axis(gshape, split)
     _, lshape, _ = comm.chunk(gshape, split)
-    data = torch.zeros(lshape, dtype=dtype.torch_type(), device=device.torch_device)
-    return DNDarray(data, gshape, dtype, split, device, comm)
+    return DNDarray(make(lshape, dtype.torch_type(), device.torch_device), gshape, dtype, split, device, comm)
+
+
+def zeros(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Array of zeros (reference: factories.py:1405)."""
+    return _create(lambda s, t, d: torch.zeros(s, dtype=t, device=d), shape, dtype, split, device, comm)
+
+
+def ones(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Array of ones (reference: factories.py:1308; ``heat_tpu`` :465)."""
+    return _create(lambda s, t, d: torch.ones(s, dtype=t, device=d), shape, dtype, split, device, comm)
+
+
+def empty(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Array of unset values (reference: factories.py:520; ``heat_tpu``
+    :306)."""
+    return _create(lambda s, t, d: torch.empty(s, dtype=t, device=d), shape, dtype, split, device, comm)
+
+
+def full(shape, fill_value, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Array filled with ``fill_value`` (reference: factories.py:971;
+    ``heat_tpu`` :356), of the fill value's heat type by default (a Python
+    float gives float32, an int int32)."""
+    if dtype is None:
+        dtype = types.heat_type_of(fill_value)
+    value = fill_value if isinstance(fill_value, (bool, int, float, complex)) else np.asarray(fill_value).item()
+    return _create(lambda s, t, d: torch.full(s, value, dtype=t, device=d), shape, dtype, split, device, comm)
+
+
+def _like(a, factory: Callable, dtype, split, device, comm, *args) -> DNDarray:
+    """``factory`` with ``a``'s shape, and its type, split, device and
+    communicator where not given (reference: factories.py:751)."""
+    shape = tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
+    if dtype is None:
+        try:
+            dtype = types.heat_type_of(a)
+        except TypeError:
+            dtype = types.float32
+    split = getattr(a, "split", None) if split is None else split
+    device = getattr(a, "device", None) if device is None else device
+    comm = getattr(a, "comm", None) if comm is None else comm
+    return factory(shape, *args, dtype=dtype, split=split, device=device, comm=comm)
+
+
+def zeros_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Zeros of ``a``'s shape (``heat_tpu`` factories.py:480)."""
+    return _like(a, zeros, dtype, split, device, comm)
+
+
+def ones_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Ones of ``a``'s shape (``heat_tpu`` factories.py:469)."""
+    return _like(a, ones, dtype, split, device, comm)
+
+
+def empty_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Unset values of ``a``'s shape (``heat_tpu`` factories.py:317)."""
+    return _like(a, empty, dtype, split, device, comm)
+
+
+def full_like(a, fill_value, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """``fill_value`` in ``a``'s shape, of ``a``'s type by default
+    (``heat_tpu`` factories.py:369)."""
+    if dtype is None:
+        dtype = a.dtype if isinstance(a, DNDarray) else types.heat_type_of(a)
+    return _like(a, full, dtype, split, device, comm, fill_value)
+
+
+def asarray(obj, dtype=None, copy=None, order="C", is_split=None, device=None) -> DNDarray:
+    """``obj`` as a DNDarray, itself where it is one of the type asked
+    (reference: factories.py:461; ``heat_tpu`` :290)."""
+    if isinstance(obj, DNDarray) and copy is not True:
+        if dtype is None or obj.dtype == types.canonical_heat_type(dtype):
+            return obj
+    return array(obj, dtype=dtype, copy=copy, is_split=is_split, device=device)
+
+
+def linspace(start, stop, num: int = 50, endpoint: bool = True, retstep: bool = False, dtype=None, split=None,
+             device=None, comm=None):
+    """``num`` evenly spaced samples over [start, stop] (reference:
+    factories.py:1078; ``heat_tpu`` :384). ``heat_tpu``'s formula: sample i
+    is ``i · δ + start`` in float64 (one ``add`` with ``alpha=δ``, written
+    in the output's type in the same pass), δ = (stop − start) / (num − 1)
+    (or / num without the endpoint), the last one ``stop`` exactly, cast to
+    ``dtype`` (float32 by default). Each rank computes its chunk."""
+    num = int(num)
+    if num <= 0:
+        raise ValueError(f"number of samples expected to be positive, got {num}")
+    start, stop = float(start), float(stop)
+    div = (num - 1) if endpoint else num
+    delta = (stop - start) / div if div > 0 else 0.0
+
+    def make(lshape, tt, dev):
+        offset = comm_.chunk((num,), split_)[0]
+        i = torch.arange(offset, offset + lshape[0], dtype=torch.float64, device=dev)
+        first = torch.tensor(start, dtype=torch.float64, device=dev)
+        if tt.is_floating_point or tt.is_complex:
+            values = torch.add(first, i, alpha=delta, out=torch.empty(lshape, dtype=tt, device=dev))
+        else:
+            values = torch.add(first, i, alpha=delta).to(tt)
+        if endpoint and num > 1 and offset + lshape[0] == num:
+            values[-1] = stop
+        return values
+
+    comm_ = sanitize_comm(comm)
+    split_ = sanitize_axis((num,), split)
+    result = _create(make, (num,), types.float32 if dtype is None else dtype, split_, device, comm_)
+    if retstep:
+        return result, (float("nan") if num == 1 else (stop - start) / div)
+    return result
+
+
+def logspace(start, stop, num: int = 50, endpoint: bool = True, base: float = 10.0, dtype=None, split=None,
+             device=None, comm=None) -> DNDarray:
+    """``base ** linspace(start, stop, num)`` (reference: factories.py:1162;
+    ``heat_tpu`` :418): the power in float32, then cast to ``dtype``."""
+    y = linspace(start, stop, num=num, endpoint=endpoint, split=split, device=device, comm=comm)
+    result = DNDarray(torch.pow(base, y.larray), y.gshape, y.dtype, y.split, y.device, y.comm)
+    return result if dtype is None else result.astype(types.canonical_heat_type(dtype))
+
+
+def meshgrid(*arrays, indexing: str = "xy") -> List[DNDarray]:
+    """Coordinate matrices from coordinate vectors (reference:
+    factories.py:1225; ``heat_tpu`` :437). Where an input is split, every
+    output is split along that input's axis (with ``xy`` the first two
+    swap), and each rank builds its chunk from that input's own part and
+    the other inputs whole."""
+    if indexing not in ("xy", "ij"):
+        raise ValueError(f"indexing must be 'xy' or 'ij', got {indexing}")
+    if not arrays:
+        return []
+    arrs = [asarray(a) for a in arrays]
+    at = next((i for i, a in enumerate(arrs) if a.split is not None), None)
+    n = len(arrs)
+    dims = list(range(n))
+    if indexing == "xy" and n >= 2:
+        dims[0], dims[1] = 1, 0
+    shape = [0] * n
+    for i, a in enumerate(arrs):
+        shape[dims[i]] = a.size
+    split = None if at is None else dims[at]
+    comm = arrs[0].comm
+    parts = [a._balanced_larray() if i == at and comm.is_distributed() else _whole(a) for i, a in enumerate(arrs)]
+    lshape = list(shape)
+    if split is not None:
+        lshape[split] = parts[at].numel()
+    out = []
+    for i, (a, part) in enumerate(zip(arrs, parts)):
+        view = [1] * n
+        view[dims[i]] = -1
+        local = part.reshape(-1).reshape(view).expand(lshape).contiguous()
+        out.append(DNDarray(local, tuple(shape), a.dtype, split, arrs[0].device, comm))
+    return out
+
+
+def from_partitioned(x, comm: Optional[Communication] = None) -> DNDarray:
+    """A DNDarray from an object with the ``__partitioned__`` interface
+    (reference: factories.py:821; ``heat_tpu`` :493)."""
+    parted = getattr(x, "__partitioned__", None)
+    if parted is None:
+        raise AttributeError("object does not expose __partitioned__")
+    return from_partition_dict(parted() if callable(parted) else parted, comm)
+
+
+def from_partition_dict(parted: dict, comm: Optional[Communication] = None) -> DNDarray:
+    """A DNDarray from a partition dict (reference: factories.py:866;
+    ``heat_tpu`` :504). Where every partition carries its data (a
+    single-controller dict, as ``heat_tpu`` makes), the parts are put
+    together in one tensor of their type, on the device of the first part
+    where it is a tensor, and split along the tiled axis; else each rank
+    declares the parts it holds (its ``locals``) as its shard."""
+    comm = sanitize_comm(comm)
+    gshape = tuple(int(s) for s in parted["shape"])
+    tiling = tuple(int(t) for t in parted["partition_tiling"])
+    tiled = [i for i, t in enumerate(tiling) if t > 1]
+    if len(tiled) > 1:
+        raise RuntimeError(f"only one split axis supported, found tiling {tiling}")
+    split = tiled[0] if tiled else None
+    get = parted.get("get", lambda v: v)
+    parts = sorted(parted["partitions"].items())
+    if all(part["data"] is not None for _, part in parts):
+        whole = None
+        for _, part in parts:
+            data = _part_tensor(get(part["data"]))
+            if whole is None:
+                whole = torch.empty(gshape, dtype=data.dtype, device=data.device)
+            at = tuple(slice(st, st + sh) for st, sh in zip(part["start"], data.shape))
+            whole[at] = data
+        return array(whole, split=split, comm=comm, copy=False, device="gpu" if whole.is_cuda else None)
+    mine = [get(part["data"]) for _, part in parts if part["data"] is not None]
+    local = torch.cat([torch.as_tensor(m) for m in mine], dim=split or 0)
+    return array(local, is_split=split, comm=comm, device="gpu" if local.is_cuda else "cpu")
+
+
+def _part_tensor(data) -> torch.Tensor:
+    """A partition's data as a tensor of its own type (bfloat16 included),
+    where it lies."""
+    if isinstance(data, torch.Tensor):
+        return data.detach()
+    return _tensor_of(np.array(np.asarray(data), order="C"))
+

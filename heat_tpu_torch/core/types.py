@@ -62,6 +62,9 @@ __all__ = [
     "promote_types",
     "result_type",
     "finfo",
+    "iinfo",
+    "iscomplex",
+    "isreal",
 ]
 
 
@@ -471,3 +474,45 @@ class finfo:
         self.min = builtins.float(info.min)
         self.tiny = builtins.float(info.tiny)
         return self
+
+
+class iinfo:
+    """Machine limits for integer types (reference: types.py:1007;
+    ``heat_tpu`` :591); bool passes the type check and then raises
+    ``ValueError``, as ``jnp.iinfo`` does there."""
+
+    def __new__(cls, dtype: Type[datatype]):
+        try:
+            dtype = canonical_heat_type(dtype)
+        except TypeError:
+            raise TypeError(f"data type {dtype} not exact, not supported")
+        if dtype not in (*_exact, bool):
+            raise TypeError(f"data type {dtype} not exact, not supported")
+        return super().__new__(cls)._init(dtype)
+
+    def _init(self, dtype):
+        if dtype is bool:
+            raise ValueError("Invalid integer data type 'b'.")
+        info = torch.iinfo(dtype.torch_type())
+        self.bits = info.bits
+        self.max = builtins.int(info.max)
+        self.min = builtins.int(info.min)
+        return self
+
+
+def iscomplex(x):
+    """Elementwise: a nonzero imaginary part (``heat_tpu`` types.py:555)."""
+    from . import _operations
+
+    return _operations.__local_op(
+        lambda t: t.imag != 0 if t.is_complex() else torch.zeros_like(t, dtype=torch.bool), x, None, no_cast=True
+    )
+
+
+def isreal(x):
+    """Elementwise: a zero imaginary part (``heat_tpu`` types.py:562)."""
+    from . import _operations
+
+    return _operations.__local_op(
+        lambda t: t.imag == 0 if t.is_complex() else torch.ones_like(t, dtype=torch.bool), x, None, no_cast=True
+    )

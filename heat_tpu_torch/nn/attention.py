@@ -194,12 +194,13 @@ def ring_attention(
                 "the backward of ring_attention with q split across ranks (dK and dV rotated back): "
                 "see ROADMAP.md Queue 1, item 19"
             )
-        out = _ring(q, k.resplit(seq_axis), v.resplit(seq_axis), bool(causal), float(scale))
+        k, v = (t if t.split == seq_axis else t.resplit(seq_axis) for t in (k, v))
+        out = _ring(q, k, v, bool(causal), float(scale))
         lmap = q.lshape_map
         lmap[:, -1] = out.shape[-1]
         return DNDarray(out, out_gshape, types.canonical_heat_type(out.dtype), seq_axis, q.device, comm, lmap)
     if comm.is_distributed():
-        k, v = k.resplit(None), v.resplit(None)  # q is whole on every rank: so are k and v then
+        k, v = (t if t.split is None else t.resplit(None) for t in (k, v))  # q is whole on every rank: so are k and v
     out = _single_device_attention(q.larray, k.larray, v.larray, causal, scale)
     return DNDarray(out, out_gshape, types.canonical_heat_type(out.dtype), q.split, q.device, comm)
 

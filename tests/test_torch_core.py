@@ -119,7 +119,7 @@ def test_gpu_device_raises_without_cuda():
 def test_dndarray_surface():
     x = ht.array(np.arange(12, dtype=np.float32).reshape(3, 4), split=0)
     y = x.resplit(1)
-    assert y.split == 1 and x.split == 0 and y.larray is x.larray
+    assert y.split == 1 and x.split == 0 and y.larray.data_ptr() != x.larray.data_ptr()
     assert x.resplit_(None) is x and x.split is None
     z = x.astype(ht.float64)
     assert z.dtype is ht.float64 and z.larray.dtype == torch.float64 and x.dtype is ht.float32
@@ -128,7 +128,8 @@ def test_dndarray_surface():
         x.item()
     assert len(x) == 3 and x.ndim == 2 and x.size == 12 and x.nbytes == 48
     assert "dtype=ht.float32" in repr(x) and "split=None" in repr(x)
-    assert "values" in repr(ht.zeros((20, 20)))
+    # torch's print profile, as heat_tpu's: whole up to 1000 elements, summarized above
+    assert "..." not in repr(ht.zeros((20, 20))) and "0., 0., 0., ..., 0., 0., 0." in repr(ht.zeros((40, 40)))
 
 
 def test_random_draws_are_seeded_and_typed():

@@ -284,6 +284,7 @@ def _cases(ht):
     cases.update(_sort_cases(ht))
     cases.update(_random_cases(ht))
     cases.update(_surface_cases(ht))
+    cases.update(_indexing_cases(ht))
     return cases
 
 
@@ -903,6 +904,173 @@ def _surface_cases(ht):
             return {"local": _np(res.larray), "split": res.split, "gshape": res.gshape, "global": res.numpy(),
                     "dtype": res.dtype.__name__, "counts": counts, "lmap": res.lshape_map}
         out[f"surface_{name}"] = case
+    return out
+
+
+# indexing, where/nonzero, the factories and repr across ranks
+# (tests/test_torch_indexing.py, tests/test_torch_factories.py): name ->
+# call(lib, kw) on either package, kw holding heat_tpu's communicator
+def indexing_operand(shape, seed):
+    return _array(shape, "float32", seed)
+
+
+def _assigned(x, key, value):
+    x[key] = value
+    return x
+
+
+def _resplit_then_write(x, axis):
+    """``x.resplit(axis)`` after a write into ``x``: unchanged by it."""
+    y = x.resplit(axis)
+    x[4] = -5.0
+    return y
+
+
+def _indexing_defs():
+    A = _surface_array
+    mask_rows = indexing_operand((10, 7), 100)[:, 0] > 0
+
+    def a(lib, kw, split=0, lmap=None):  # 10 rows over 4 ranks: 3, 3, 3, 1 (or lmap)
+        return A(lib, kw, (10, 7), split, 100, lmap=lmap)
+
+    def b(lib, kw):  # 3 rows over 4 ranks: 1, 1, 1, 0
+        return A(lib, kw, (3, 5), 0, 101)
+
+    def z(lib, kw):  # split 1: columns 2, 2, 2, 1
+        return A(lib, kw, (10, 7), 1, 102)
+
+    def v(shape, seed=103):
+        return indexing_operand(shape, seed)
+
+    def n_sel(x, t):
+        return int((x.numpy() > t).sum())
+
+    cases = {
+        "get_int_owner": lambda lib, kw: a(lib, kw)[4],
+        "get_int_neg": lambda lib, kw: a(lib, kw)[-1],
+        "get_slice_step_split0": lambda lib, kw: a(lib, kw)[2:9:3],
+        "get_slice_reverse_split0": lambda lib, kw: a(lib, kw)[::-1],
+        "get_slice_neg_step": lambda lib, kw: a(lib, kw)[8:1:-3],
+        "get_slice_empty": lambda lib, kw: a(lib, kw)[5:2],
+        "get_col_split0": lambda lib, kw: a(lib, kw)[:, 1],
+        "get_none_slice_split0": lambda lib, kw: a(lib, kw)[None, 2:5],
+        "get_rows_across_ranks": lambda lib, kw: a(lib, kw)[np.array([9, 0, 4, 7, 4])],
+        "get_list_repeat": lambda lib, kw: a(lib, kw)[[7, 1, 7]],
+        "get_dnd_ints_split": lambda lib, kw: a(lib, kw)[lib.array(np.array([9, 2, 5]), split=0, **kw)],
+        "get_mixed_pairs": lambda lib, kw: a(lib, kw)[np.array([9, 0]), np.array([3, 4])],
+        "get_mixed_slice_cols": lambda lib, kw: a(lib, kw)[1:8, [6, 0]],
+        "get_mask_elements_split0": lambda lib, kw: (lambda x: x[x > 0.5])(a(lib, kw)),
+        "get_mask_rows_split0": lambda lib, kw: a(lib, kw)[lib.array(mask_rows, split=0, **kw)],
+        "get_mask_rows_whole": lambda lib, kw: a(lib, kw)[lib.array(mask_rows, **kw)],
+        "get_mask_empty": lambda lib, kw: (lambda x: x[x > 99.0])(a(lib, kw)),
+        "get_mask_split1": lambda lib, kw: (lambda x: x[x > 0.5])(z(lib, kw)),
+        "get_split1_col": lambda lib, kw: z(lib, kw)[:, 1],
+        "get_split1_rows": lambda lib, kw: z(lib, kw)[np.array([3, 1])],
+        "get_split1_adv_cols": lambda lib, kw: z(lib, kw)[:, np.array([3, 1])],
+        "get_split1_slice_cols": lambda lib, kw: z(lib, kw)[:, 6:1:-2],
+        "get_empty_rank_int": lambda lib, kw: b(lib, kw)[2],
+        "get_empty_rank_slice": lambda lib, kw: b(lib, kw)[1:],
+        "get_empty_rank_mask": lambda lib, kw: (lambda x: x[x > 0])(b(lib, kw)),
+        "get_empty_rank_rows": lambda lib, kw: b(lib, kw)[[2, 0]],
+        "get_uneven_slice": lambda lib, kw: a(lib, kw, lmap=[6, 1, 0, 3])[2:9],
+        "get_uneven_rows": lambda lib, kw: a(lib, kw, lmap=[6, 1, 0, 3])[[8, 0, 6]],
+        "get_uneven_mask": lambda lib, kw: (lambda x: x[x > 0])(a(lib, kw, lmap=[6, 1, 0, 3])),
+        "get_uneven_int": lambda lib, kw: a(lib, kw, lmap=[6, 1, 0, 3])[7],
+        "get_iterated_row": lambda lib, kw: list(a(lib, kw))[5],
+        "nonzero_split0": lambda lib, kw: lib.nonzero(a(lib, kw) > 0.5),
+        "nonzero_split1": lambda lib, kw: lib.nonzero(z(lib, kw) > 0.5),
+        "nonzero_empty_rank": lambda lib, kw: lib.nonzero(b(lib, kw) > 0),
+        "where_split0": lambda lib, kw: lib.where(a(lib, kw) > 0, a(lib, kw), 0.0),
+        "where_mixed_splits": lambda lib, kw: lib.where(a(lib, kw) > 0, a(lib, kw), z(lib, kw)),
+        "set_slice_split0": lambda lib, kw: _assigned(a(lib, kw), slice(2, 9, 3), v((3, 7))),
+        "set_slice_reverse": lambda lib, kw: _assigned(a(lib, kw), slice(None, None, -1), v((10, 7))),
+        "set_slice_dnd_split0": lambda lib, kw: _assigned(a(lib, kw), slice(1, 8), lib.array(v((7, 7)), split=0,
+                                                                                             **kw)),
+        "set_slice_dnd_split1": lambda lib, kw: _assigned(a(lib, kw), slice(1, 8), lib.array(v((7, 7)), split=1,
+                                                                                             **kw)),
+        "set_int_owner": lambda lib, kw: _assigned(a(lib, kw), 4, v((7,))),
+        "set_rows": lambda lib, kw: _assigned(a(lib, kw), np.array([9, 0, 4]), v((3, 7))),
+        "set_mixed": lambda lib, kw: _assigned(a(lib, kw), (np.array([9, 0]), np.array([3, 4])), [1.0, 2.0]),
+        "set_cols_split0": lambda lib, kw: _assigned(a(lib, kw), (slice(None), 1), v((10,))),
+        "set_mask_scalar": lambda lib, kw: (lambda x: _assigned(x, x > 0.5, 0.0))(a(lib, kw)),
+        "set_mask_values": lambda lib, kw: (lambda x: _assigned(x, x > 0.5, np.arange(n_sel(x, 0.5), dtype=np.float32))
+                                            )(a(lib, kw)),
+        "set_mask_dnd_values": lambda lib, kw: (lambda x: _assigned(
+            x, x > 0.5, lib.array(np.arange(n_sel(x, 0.5), dtype=np.float32), split=0, **kw)))(a(lib, kw)),
+        "set_mask_rows": lambda lib, kw: _assigned(a(lib, kw), lib.array(mask_rows, split=0, **kw),
+                                                   v((int(mask_rows.sum()), 7))),
+        "set_mask_split1_values": lambda lib, kw: (lambda x: _assigned(
+            x, x > 0.5, np.arange(n_sel(x, 0.5), dtype=np.float32)))(z(lib, kw)),
+        "set_mask_split1_scalar": lambda lib, kw: (lambda x: _assigned(x, x > 0.5, -1.0))(z(lib, kw)),
+        "set_mask_rows_split1": lambda lib, kw: _assigned(z(lib, kw), lib.array(mask_rows, split=0, **kw),
+                                                          v((int(mask_rows.sum()), 7))),
+        "set_empty_rank_mask": lambda lib, kw: (lambda x: _assigned(x, x > 0, np.arange(n_sel(x, 0), dtype=np.float32))
+                                                )(b(lib, kw)),
+        "set_empty_rank_int": lambda lib, kw: _assigned(b(lib, kw), 2, v((5,))),
+        "set_after_resplit_same": lambda lib, kw: _resplit_then_write(a(lib, kw), 0),
+        "set_after_resplit_other": lambda lib, kw: _resplit_then_write(a(lib, kw), 1),
+        "set_uneven_slice": lambda lib, kw: _assigned(a(lib, kw, lmap=[6, 1, 0, 3]), slice(1, 9), v((8, 7))),
+        "fill_diagonal_split0": lambda lib, kw: a(lib, kw).fill_diagonal(-2.0),
+        "fill_diagonal_split1": lambda lib, kw: z(lib, kw).fill_diagonal(-2.0),
+        "ones_split0": lambda lib, kw: lib.ones((10, 7), split=0, **kw),
+        "full_split1": lambda lib, kw: lib.full((10, 7), 2.5, split=1, **kw),
+        "full_int_split0": lambda lib, kw: lib.full((3, 5), 7, split=0, **kw),
+        "zeros_like_split1": lambda lib, kw: lib.zeros_like(z(lib, kw)),
+        "ones_like_int": lambda lib, kw: lib.ones_like(b(lib, kw), dtype=lib.int64),
+        "full_like_split0": lambda lib, kw: lib.full_like(a(lib, kw), -3.0),
+        "approx_linspace_split0": lambda lib, kw: lib.linspace(-1.0, 3.0, 37, split=0, **kw),
+        "approx_linspace_no_end": lambda lib, kw: lib.linspace(0, 1, 10, endpoint=False, split=0, **kw),
+        "approx_logspace_split0": lambda lib, kw: lib.logspace(0.0, 2.0, 13, split=0, **kw),
+        "meshgrid_xy_0": lambda lib, kw: lib.meshgrid(lib.arange(5, split=0, **kw), lib.arange(3, **kw))[0],
+        "meshgrid_xy_1": lambda lib, kw: lib.meshgrid(lib.arange(5, split=0, **kw), lib.arange(3, **kw))[1],
+        "meshgrid_ij_0": lambda lib, kw: lib.meshgrid(lib.arange(6, split=0, **kw), lib.arange(4, **kw),
+                                                      indexing="ij")[0],
+        "from_partitioned_split0": lambda lib, kw: lib.from_partitioned(a(lib, kw), **kw),
+        "from_partitioned_split1": lambda lib, kw: lib.from_partitioned(z(lib, kw), **kw),
+        "repr_split0": lambda lib, kw: repr(A(lib, kw, (50, 40), 0, 104)),
+        "repr_split1": lambda lib, kw: repr(A(lib, kw, (50, 40), 1, 105)),
+        "repr_3d_split2": lambda lib, kw: repr(A(lib, kw, (10, 11, 12), 2, 106)),
+        "repr_small_split0": lambda lib, kw: repr(a(lib, kw)),
+        "repr_empty_rank_big": lambda lib, kw: repr(A(lib, kw, (3, 400), 0, 107)),
+        "repr_int_split0": lambda lib, kw: repr(lib.arange(5000, split=0, **kw)),
+    }
+    return cases
+
+
+INDEXING_CASES = _indexing_defs()
+# cases where heat_tpu on 4 devices is at fault (its meshgrid of a split input
+# has the padded extent, its partition dict of a split array the padded
+# shards): held against NumPy instead, as (values, split, dtype)
+_I32 = np.arange(6, dtype=np.int32)
+NUMPY_REFERENCE = {
+    "meshgrid_xy_0": (lambda: np.meshgrid(_I32[:5], _I32[:3])[0], 1, "int32"),
+    "meshgrid_xy_1": (lambda: np.meshgrid(_I32[:5], _I32[:3])[1], 1, "int32"),
+    "meshgrid_ij_0": (lambda: np.meshgrid(_I32, _I32[:4], indexing="ij")[0], 0, "int32"),
+    "from_partitioned_split0": (lambda: indexing_operand((10, 7), 100), 0, "float32"),
+    "from_partitioned_split1": (lambda: indexing_operand((10, 7), 102), 1, "float32"),
+}
+
+
+def _indexing_cases(ht):
+    comm = ht.get_comm()
+    out = {}
+    for name, call in INDEXING_CASES.items():
+        def case(call=call):
+            comm.counts.clear()
+            res = call(ht, {})
+            counts = dict(comm.counts)
+            if isinstance(res, str):
+                return {"value": res, "counts": counts}
+            return {"local": _np(res.larray), "split": res.split, "gshape": res.gshape, "global": res.numpy(),
+                    "dtype": res.dtype.__name__, "counts": counts, "lmap": res.lshape_map}
+        out[f"indexing_{name}"] = case
+
+    def lloc_slabs():
+        x = ht.array(indexing_operand((10, 7), 0), split=0)
+        read = _np(x.lloc[::-1, 1:3])
+        x.lloc[:1] = -1.0
+        return {"read": read, "after_write": _np(x.larray)}
+    out["lloc_slabs"] = lloc_slabs
     return out
 
 
