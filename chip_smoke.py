@@ -115,6 +115,20 @@ Phases, each of which fails the run by raising:
      last bit of ``torch.linspace`` in float64) and timed beside its byte
      bound (what the call must read once plus write once); ``repr(A)``
      with the bytes it copies to the host; a ``{"indexing": ...}`` line;
+   - training (``train_path``, BASELINE #5): a float32 ``Conv2d`` at the
+     CNN's second layer, forward and backward, within FP32 rounding of the
+     CPU's (cuDNN's TF32 off inside the module); 60,000 MNIST-shaped
+     images with planted classes written as IDX files, read by
+     ``MNISTDataset``, shuffled by a ``DataLoader`` of global batches of
+     8192 (R1's permutation); 5 SGD steps of examples/mnist.py's CNN and
+     MLP through ``DataParallel`` and ``DataParallelOptimizer``, the loss
+     falling, R1 once a dropout layer a step; one step on 256 rows equal to
+     the same model and key on the CPU within 1e-4; ms a step beside the
+     operations' bound and the card's busy share (profiled);
+   - KMedians and KMedoids (``kmedians_path``, BASELINE #4): on
+     ``ht.random.randn(15_625_000, 64, split=0)`` with ++ seeding, 10
+     iterations, K4 once an iteration (the exact median's one sort), R1
+     k times, ms an iteration; eight planted blobs recovered by each;
    - the distributed hSVD as a 4-rank world on this one card
      (``world_path``): 4 spawned workers join a gloo world
      (``init_method=file://``) with every rank's tensors on ``cuda:0``,
@@ -178,7 +192,14 @@ Phases, each of which fails the run by raising:
      3.5)`` (even split-0 chunks), ``A[idx]`` of 1000 rows owned by every
      rank, ``A[12345]``, ``Z[:, 5]`` of the split-1 twin, ``A[A < -4.0] =
      0.0`` and ``repr(A)``, each rank against the whole operand, with its
-     collectives and bytes;
+     collectives and bytes; then training across ranks (``_world_train``):
+     the CNN on the global batch of 8192 split 0, 3 SGD steps, every rank's
+     parameters equal bit for bit and within 1e-4 of world size 1's, and
+     DASO with two nodes of two ranks (equal within a node after its first
+     step, all equal after the global sync of its second); last KMedians
+     and KMedoids (``_world_kmedians``) on world size 1's 15,625,000 x 64
+     draw split over the ranks from ``init="random"``: labels equal to
+     world size 1's, centers within 1e-6, K4 once an iteration a rank;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -1712,7 +1733,7 @@ def _world_kmeans(ht, comm, moved: dict, rank: int, dev) -> dict:
     fit_ms = _world_ms(fit, 2)
     x, rows = X.larray, _Rows.of(X)
     seed_ms = _world_ms(lambda: _kmeanspp(x, KM_K, _seed_key(KM_K), rows), 2)
-    loop = make_fit_loop(functools.partial(_lloyd_step, comm=comm), -1.0, KM_ITERS, True)
+    loop = make_fit_loop(functools.partial(_lloyd_step, rows=rows), -1.0, KM_ITERS, True)
     loop_ms = _world_ms(lambda: loop(x, centers), 3)
     inertia = km.inertia_
     del X, x, km, every
@@ -2222,9 +2243,10 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
         for i, config in enumerate(WORLD_CONFIGS):
             result[config[0]] = _world_config(ht, cs, svdtools, comm, moved, level0, rank, config, profile=i == 0)
             torch.cuda.empty_cache()
+        WORLD_REFERENCE.update(torch.load(os.path.join(out_dir, "reference.pt")))
         for phase, run in (("random", _world_random), ("kmeans", _world_kmeans), ("attention", _world_attention),
                            ("distance", _world_distance), ("sort", _world_sort), ("surface", _world_surface),
-                           ("indexing", _world_indexing)):
+                           ("indexing", _world_indexing), ("train", _world_train), ("kmedians", _world_kmedians)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -2320,6 +2342,7 @@ def world_path(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="heat_world_")
+    torch.save(WORLD_REFERENCE, os.path.join(work, "reference.pt"))
     t0 = time.perf_counter()
     ctx = mp.start_processes(_world_worker, args=(os.path.join(work, "init"), work), nprocs=WORLD, join=False,
                              start_method="spawn")
@@ -2431,6 +2454,33 @@ def world_path(dev) -> dict:
     world["sort"] = _report_world_sort([res["sort"] for res in results], shared)
     world["surface"] = _report_world_surface([res["surface"] for res in results], shared)
     world["indexing"] = _report_world_indexing([res["indexing"] for res in results], shared)
+    per = [res["train"] for res in results]
+    flops, _ = _train_cost("cnn", TRAIN_BATCH)
+    print(
+        f"world train: the CNN on a global batch of {TRAIN_BATCH} split 0 ({TRAIN_BATCH // WORLD} rows a rank), "
+        f"{WORLD_TRAIN_STEPS} SGD steps: parameters equal bit for bit on every rank, against world size 1 "
+        f"{max(p['err'] for p in per):.3e} (tol {TOL_WORLD_TRAIN}); {per[0]['ms']:.4f} ms a step (rank 0, median of "
+        f"3; ranks {[round(p['ms'], 4) for p in per]}), bound {flops / FP32_FLOP_PER_S * 1e3:.4f} ms (the step's "
+        f"{flops / 1e12:.4f} TFLOP at FP32's 67 TFLOP/s on one card); collectives a rank in {WORLD_TRAIN_STEPS} steps "
+        f"{per[0]['counts']}, bytes a rank put in {per[0]['bytes']}; DASO (2 nodes of 2, global_skip 2, bfloat16 "
+        f"wire): equal within a node after step 1, all equal after the global sync of step 2; {per[0]['daso_ms']:.4f} "
+        f"ms a step (median of 4, syncing every second), collectives a rank in those 4 steps {per[0]['daso_counts']}, "
+        f"bytes {per[0]['daso_bytes']}; {shared}", flush=True,
+    )
+    world["train"] = [p["counts"] for p in per]
+    world["kmedians"] = {}
+    for est in ("KMedians", "KMedoids"):
+        per = [res["kmedians"][est] for res in results]
+        world["kmedians"][est] = [p["k4"] for p in per]
+        print(
+            f"world {est}: {KM_N}x{KM_D} split 0 over {WORLD} ranks (the world-size-1 draw), init random, "
+            f"{per[0]['n_iter']} iterations: labels equal to world size 1's on every rank, centers rel "
+            f"{max(p['err'] for p in per):.3e} (tol {TOL_KMD_CENTERS}); fit {per[0]['ms']:.4f} ms (rank 0, median "
+            f"of 2; ranks {[round(p['ms'], 4) for p in per]}); K4 launches a rank {world['kmedians'][est]} (one an "
+            f"iteration, {per[0]['k4_init']} under the init's permutation, as at world size 1); collectives a rank "
+            f"in the fit {per[0]['counts']}, bytes a rank put in {per[0]['bytes']}; "
+            f"{shared}", flush=True,
+        )
     return world
 
 
@@ -4114,6 +4164,505 @@ def indexing_path(dev) -> dict:
     return {"rows": rows, "launches": {"topk": topk_launches}}
 
 
+# --------------------------------------------------------------------- #
+# data-parallel training and KMedians/KMedoids (no kernel of their own) #
+# --------------------------------------------------------------------- #
+TRAIN_N, TRAIN_SIDE, TRAIN_CLASSES = 60_000, 28, 10  # MNIST's training set (examples/mnist.py)
+TRAIN_BATCH = 8192  # the global batch examples/mnist.py feeds a step
+TRAIN_STEPS = 5
+TRAIN_LR = 0.05  # examples/mnist.py's SGD
+TRAIN_KEY = 18
+TRAIN_CHECK_ROWS = 256  # rows of the one step held against the CPU
+TOL_TRAIN_CPU = 1e-4
+TOL_CONV = 1e-5  # FP32 rounding of a 288-term sum; TF32 misses by about 1e-3
+WORLD_TRAIN_STEPS = 3
+TOL_WORLD_TRAIN = 1e-4
+KMD_ITERS = 10
+KMD_WORLD_ITERS = 4
+TOL_KMD_CENTERS = 1e-6
+WORLD_REFERENCE = {}  # world size 1's results the world is held against (saved beside the workers)
+PROFILES = {}  # label -> (wall ms, device busy ms) of profile_breakdown
+
+
+def _mnist_arrays(seed: int, n: int):
+    """MNIST-shaped uint8 images with planted classes: noise below 48, and
+    for class c an 8 x 8 patch of 200-255 at one of ten places; labels
+    uint8 in [0, 10)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, TRAIN_CLASSES, n).astype(np.uint8)
+    images = rng.integers(0, 48, (n, TRAIN_SIDE, TRAIN_SIDE), dtype=np.uint8)
+    for c in range(TRAIN_CLASSES):
+        r0, c0 = 2 + 13 * (c // 5), 5 * (c % 5)
+        rows = np.nonzero(labels == c)[0]
+        images[rows, r0 : r0 + 8, c0 : c0 + 8] = rng.integers(200, 256, (len(rows), 8, 8), dtype=np.uint8)
+    return images, labels
+
+
+def _write_mnist(root: str) -> None:
+    """The training split as IDX files under ``root/MNIST/raw``: images
+    plain, labels gzipped (both readers of ``_read_idx``)."""
+    import gzip
+    import os
+    import struct
+
+    images, labels = _mnist_arrays(TRAIN_KEY, TRAIN_N)
+    raw = os.path.join(root, "MNIST", "raw")
+    os.makedirs(raw, exist_ok=True)
+    with open(os.path.join(raw, "train-images-idx3-ubyte"), "wb") as f:
+        f.write(struct.pack(">IIII", 0x803, TRAIN_N, TRAIN_SIDE, TRAIN_SIDE) + images.tobytes())
+    with gzip.open(os.path.join(raw, "train-labels-idx1-ubyte.gz"), "wb") as f:
+        f.write(struct.pack(">II", 0x801, TRAIN_N) + labels.tobytes())
+
+
+def _cnn(ht, device=None):
+    """examples/mnist.py:57-73's ``cnn_net`` (the Heat reference's CNN)."""
+    nn = ht.nn
+    flat = 64 * ((TRAIN_SIDE - 4) // 2) ** 2
+    return nn.Sequential(
+        nn.Conv2d(1, 32, 3, device=device), nn.ReLU(), nn.Conv2d(32, 64, 3, device=device), nn.ReLU(),
+        nn.MaxPool2d(2), nn.Dropout2d(0.25), nn.Flatten(), nn.Linear(flat, 128, device=device), nn.ReLU(),
+        nn.Dropout(0.5), nn.Linear(128, TRAIN_CLASSES, device=device),
+    )
+
+
+def _mlp(ht, device=None):
+    """examples/mnist.py's MLP 784 -> 128 -> 10, on the flattened image."""
+    nn = ht.nn
+    d = TRAIN_SIDE * TRAIN_SIDE
+    return nn.Sequential(nn.Flatten(), nn.Linear(d, 128, device=device), nn.ReLU(),
+                         nn.Linear(128, TRAIN_CLASSES, device=device))
+
+
+def _train_cost(model: str, batch: int):
+    """(FLOPs, bytes) of one training step: the forward's multiply-adds
+    twice, the backward's twice that; the bytes the parameters (read, their
+    gradient written, read and written again by SGD) and the batch read
+    once."""
+    s = TRAIN_SIDE
+    if model == "cnn":
+        c1, c2 = (s - 2) ** 2 * 32 * 9, (s - 4) ** 2 * 64 * 32 * 9
+        fc = 64 * ((s - 4) // 2) ** 2 * 128 + 128 * TRAIN_CLASSES
+        macs, params = c1 + c2 + fc, 32 * 9 + 32 + 64 * 32 * 9 + 64 + fc + 128 + TRAIN_CLASSES
+    else:
+        macs = s * s * 128 + 128 * TRAIN_CLASSES
+        params = macs + 128 + TRAIN_CLASSES
+    return 6.0 * macs * batch, 4.0 * (5 * params + batch * s * s)
+
+
+def _params_of(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.module.parameters()])
+
+
+def check_conv(dev) -> dict:
+    """A float32 ``Conv2d`` at the CNN's second layer (32 -> 64, 3 x 3, on
+    (256, 32, 26, 26)), forward and backward on the card against the same
+    module on the CPU: within FP32 rounding (``TOL_CONV``, relative), which
+    needs cuDNN's TF32 off around the calls; the same forward with TF32 on
+    is printed beside it."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import _threefry as tf
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    x = torch.randn(TRAIN_CHECK_ROWS, 32, 26, 26, device=dev, generator=gen)
+    r = torch.randn(TRAIN_CHECK_ROWS, 64, 24, 24, device=dev, generator=gen)
+    out = []
+    for where, at in ((None, dev), ("cpu", torch.device("cpu"))):  # the card (the default device), then the CPU
+        conv = ht.nn.Conv2d(32, 64, 3, device=where, key=tf.seed_key(19))
+        xi = x.to(at, copy=True).requires_grad_()
+        y = conv(xi)
+        (y * r.to(at)).sum().backward()
+        out.append([t.detach().cpu() for t in (y, conv.weight.grad, conv.bias.grad, xi.grad)])
+    errs = [_rel(a, b) for a, b in zip(*out)]
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        conv = ht.nn.Conv2d(32, 64, 3, key=tf.seed_key(19))
+        tf32 = _rel(torch.nn.functional.conv2d(x, conv.weight.detach(), conv.bias.detach()).cpu(), out[1][0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    print(
+        f"Conv2d(32, 64, 3) float32 on (256, 32, 26, 26): card against CPU, relative: forward {errs[0]:.3e}, "
+        f"weight grad {errs[1]:.3e}, bias grad {errs[2]:.3e}, input grad {errs[3]:.3e} (tol {TOL_CONV}, cuDNN TF32 "
+        f"off inside the module; the process-wide switch is {torch.backends.cudnn.allow_tf32}); the same forward "
+        f"with TF32 on: {tf32:.3e}", flush=True,
+    )
+    _require(max(errs) <= TOL_CONV, "a float32 Conv2d on the card is not within FP32 rounding of the CPU's")
+    _require(torch.backends.cudnn.allow_tf32 == was, "Conv2d changed the process-wide TF32 switch")
+    return {"errs": errs, "tf32_err": tf32}
+
+
+def _train_steps(ht, opt, batches, label: str, dropouts: int):
+    """``opt.step`` over ``batches``; each step must launch R1 once a
+    dropout layer (its rows of the global mask). Returns the losses and
+    R1's launches in each step."""
+    import torch
+
+    from heat_tpu_torch.kernels import threefry as kt
+
+    losses, launches = [], []
+    for i, (xb, yb) in enumerate(batches):
+        _r1_zero()
+        loss = opt.step(xb, yb)
+        torch.cuda.synchronize()
+        launches.append(kt.THREEFRY_LAUNCHES)
+        _require(kt.THREEFRY_LAUNCHES == dropouts, f"{label} step {i}: R1 launched {kt.THREEFRY_LAUNCHES} times, "
+                 f"not once for each of its {dropouts} dropout layers")
+        losses.append(float(loss))
+    return losses, launches
+
+
+def train_path(dev) -> dict:
+    """BASELINE #5's training through the public entry points: MNIST-shaped
+    IDX files written and read back by ``MNISTDataset``, a shuffled
+    ``DataLoader`` of global batches of 8192, and ``TRAIN_STEPS`` SGD steps
+    of examples/mnist.py's CNN and MLP through ``DataParallel`` and
+    ``DataParallelOptimizer``; one step on 256 rows held against the same
+    model and key on the CPU; times per step beside the bound, and the
+    card's busy share."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.kernels import sort as ks
+    from heat_tpu_torch.kernels import threefry as kt
+
+    res = {"conv": check_conv(dev)}
+    root = tempfile.mkdtemp(prefix="heat_mnist_")
+    try:
+        t0 = time.perf_counter()
+        _write_mnist(root)
+        ds = ht.utils.data.MNISTDataset(root, train=True, transform=lambda a: a[:, None])
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _require(ds.htdata.shape == (TRAIN_N, 1, TRAIN_SIDE, TRAIN_SIDE) and ds.htdata.larray.is_cuda,
+             "MNISTDataset: images not (60000, 1, 28, 28) on the card")
+    ht.random.seed(TRAIN_KEY)
+    loader = ht.utils.data.DataLoader(ds, batch_size=TRAIN_BATCH, shuffle=True)
+    _r1_zero()
+    ks.SORT_LAUNCHES = 0
+    it = iter(loader)
+    batches = [next(it) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    res["shuffle"] = {"r1": kt.THREEFRY_LAUNCHES, "k4": ks.SORT_LAUNCHES}
+    _require(kt.THREEFRY_LAUNCHES >= 1, "the shuffle drew no permutation through R1")
+    labels = torch.cat([b[1].larray for b in batches])
+    _require(len(batches) == TRAIN_STEPS and batches[0][0].shape == (TRAIN_BATCH, 1, TRAIN_SIDE, TRAIN_SIDE)
+             and int(labels.min()) >= 0 and int(labels.max()) < TRAIN_CLASSES, "the loader's batches")
+    print(f"MNIST: {TRAIN_N} planted 28 x 28 images written as IDX and read by MNISTDataset in {load_s:.2f} s; the "
+          f"shuffle launched R1 {res['shuffle']['r1']} and K4 {res['shuffle']['k4']} times", flush=True)
+
+    for name, build, dropouts in (("cnn", _cnn, 2), ("mlp", _mlp, 0)):
+        model = ht.nn.DataParallel(build(ht), key=TRAIN_KEY)
+        opt = ht.optim.DataParallelOptimizer(ht.optim.SGD(lr=TRAIN_LR), model)
+        losses, r1_steps = _train_steps(ht, opt, batches, name, dropouts)
+        _require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+                 f"{name}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        xb, yb = batches[0]
+        step_ms = _median_ms(lambda: opt.step(xb, yb), 5)
+        profile_breakdown(f"{name} training step", lambda: opt.step(xb, yb))
+        wall, busy = PROFILES[f"{name} training step"]
+        flops, nbytes = _train_cost(name, TRAIN_BATCH)
+        bound_ms, bound_by = _bound(nbytes, flops)
+
+        # one step on the batch's first rows, the card against the CPU
+        twins = []
+        for where, at in ((None, dev), ("cpu", "cpu")):  # the card (the default device), then the CPU
+            twin = ht.nn.DataParallel(build(ht, where), key=TRAIN_KEY + 1)
+            topt = ht.optim.DataParallelOptimizer(ht.optim.SGD(lr=TRAIN_LR), twin)
+            x = ht.array(xb.larray[:TRAIN_CHECK_ROWS].to(at), device=where)
+            y = ht.array(yb.larray[:TRAIN_CHECK_ROWS].to(at), device=where)
+            topt.step(x, y)
+            twins.append([p.detach().cpu() for p in twin.module.parameters()])
+        cpu_err = max(_rel(a, b) for a, b in zip(*twins))
+        res[name] = {"losses": losses, "ms": step_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "busy": busy / wall, "wall_ms": wall, "busy_ms": busy, "cpu_err": cpu_err,
+                     "r1_per_step": r1_steps, "gflop": flops / 1e9}
+        print(
+            f"train {name}: {TRAIN_STEPS} SGD steps of {TRAIN_BATCH}, losses {[round(v, 4) for v in losses]}; "
+            f"{step_ms:.4f} ms a step (median of 5, CUDA events), bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{flops / 1e12:.4f} TFLOP at FP32's 67 TFLOP/s, {nbytes / 1e9:.3f} GB); card busy "
+            f"{busy / wall:.1%} of a profiled step; R1 launches in each step {r1_steps}; one step on "
+            f"{TRAIN_CHECK_ROWS} rows, card against CPU: largest relative parameter error {cpu_err:.3e} "
+            f"(tol {TOL_TRAIN_CPU})", flush=True,
+        )
+        _require(cpu_err <= TOL_TRAIN_CPU, f"{name}: a step on the card differs from the CPU's")
+        del model, opt
+
+    # world size 1's three steps on the world's batch, which the world is held against
+    images, labels_np = _mnist_arrays(TRAIN_KEY, TRAIN_BATCH)
+    x = ht.array(images[:, None].astype("float32") / 255.0, split=0)
+    y = ht.array(labels_np.astype("int32"), split=0)
+    model = ht.nn.DataParallel(_cnn(ht), key=TRAIN_KEY)
+    opt = ht.optim.DataParallelOptimizer(ht.optim.SGD(lr=TRAIN_LR), model)
+    for _ in range(WORLD_TRAIN_STEPS):
+        opt.step(x, y)
+    WORLD_REFERENCE["train"] = _params_of(model).cpu()
+    del ds, loader, batches, model, opt, x, y
+    torch.cuda.empty_cache()
+    return res
+
+
+def _kmd_fit(ht, est: str, X, **kw):
+    cls = getattr(ht.cluster, est)
+    return cls(n_clusters=KM_K, **kw).fit(X)
+
+
+def check_cluster_medians(x, centers) -> dict:
+    """The cross-rank median at the full shard, held against plain torch:
+    K4's pair sort of the 10^9 (segment, word) pairs, called as
+    ``_segment_counter`` calls it, must be nondecreasing in the (segment,
+    word) composite and a permutation of its input (each segment's count,
+    word sum and sum of the squared low 16 bits, in int64); and
+    ``_cluster_medians`` must equal, bit for bit, the plain formula: for
+    each column ``torch.sort`` of the values, a stable ``torch.sort`` of
+    their labels, the order statistics (C - 1) // 2 and C // 2 of each
+    cluster's run and the same interpolation; its row counts
+    ``torch.bincount``'s."""
+    import torch
+
+    from heat_tpu_torch.cluster import _kcluster
+    from heat_tpu_torch.kernels import sort as ks
+
+    n, f = x.shape
+    lab = _kcluster._l1_assign(x, centers)
+    words = ks.to_sortable(x).reshape(-1)
+    seg = (lab[:, None].to(torch.int32) + torch.arange(f, dtype=torch.int32, device=x.device) * KM_K).reshape(-1)
+    sk, sp = ks.pair_sort(seg, words, pay_bytes=4)
+    chunk = 1 << 27
+    ordered = True
+    sums = torch.zeros(2, 3, KM_K * f, dtype=torch.int64, device=x.device)
+    for s in range(0, seg.numel(), chunk):
+        e = min(s + chunk + 1, seg.numel())  # one pair of overlap joins the chunks
+        comp = (sk[s:e].to(torch.int64) << 32) | (sp[s:e].to(torch.int64) & 0xFFFFFFFF)
+        ordered = ordered and bool((comp[1:] >= comp[:-1]).all())
+        e = min(s + chunk, seg.numel())
+        for side, (g, w) in enumerate(((seg[s:e], words[s:e]), (sk[s:e], sp[s:e]))):
+            g, w = g.to(torch.int64), w.to(torch.int64)
+            low = w & 0xFFFF
+            sums[side].index_add_(1, g, torch.stack([torch.ones_like(w), w, low * low]))
+    del comp, g, w, low, words, seg, sk, sp
+    permuted = torch.equal(sums[0], sums[1])
+    print(f"K4 under the median, {n * f} (segment, word) pairs: nondecreasing in (segment, word) {ordered}; a "
+          f"permutation of its input (count, sum, squares of each segment) {permuted}", flush=True)
+    _require(ordered and permuted, "K4's pair sort under the cross-rank median is not a sorted permutation")
+
+    med, sizes = _kcluster._cluster_medians(x, lab, KM_K, _kcluster._Rows(None, [n]))
+    counts = torch.bincount(lab, minlength=KM_K)
+    start = torch.cumsum(counts, 0) - counts
+    at = torch.stack([start + (counts - 1).clamp_min(0) // 2, start + counts // 2], dim=-1).clamp_max(n - 1)
+    values = torch.empty(KM_K, f, 2, dtype=x.dtype, device=x.device)
+    for j in range(f):
+        v, order = torch.sort(x[:, j], stable=True)
+        v = v[torch.sort(lab[order], stable=True).indices]
+        values[:, j] = v[at]
+    c = counts[:, None].expand(KM_K, f)
+    q = 0.5 * (c.to(x.dtype) - 1)
+    w_hi = q - torch.floor(q)
+    ref = values[..., 0] * (1 - w_hi) + values[..., 1] * w_hi
+    ref = torch.where(c > 0, ref, torch.full_like(ref, float("nan")))
+    same = (med.view(torch.int32) == ref.view(torch.int32)) | (torch.isnan(med) & torch.isnan(ref))
+    bits = int((~same).sum())
+    print(f"_cluster_medians at {n} x {f}, k = {KM_K}: {bits} of {KM_K * f} medians differ in any bit from the "
+          f"plain sort's; row counts equal bincount's {torch.equal(sizes, counts)}", flush=True)
+    _require(bits == 0 and torch.equal(sizes, counts), "the cross-rank median differs from the plain sort's")
+    return {"pairs": n * f, "sorted": ordered, "permutation": permuted, "median_bits_differ": bits}
+
+
+def kmedians_path(dev) -> dict:
+    """KMedians and KMedoids on BASELINE #4's per-chip shard
+    (``ht.random.randn(15_625_000, 64, split=0)``, k = 8, ++ seeding,
+    ``KMD_ITERS`` iterations): K4 once an iteration (the cross-rank
+    median's one sort), R1 k times (the seeding); ms per iteration; planted
+    blobs of the same size recovered; then ``KMD_WORLD_ITERS`` iterations
+    from ``init="random"``, kept for the world."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.cluster import _kcluster, kmedians, kmedoids
+    from heat_tpu_torch.cluster._kcluster import make_fit_loop
+    from heat_tpu_torch.kernels import sort as ks
+
+    ht.random.seed(0)
+    _r1_zero()
+    X = ht.random.randn(KM_N, KM_D, split=0)
+    torch.cuda.synchronize()
+    _r1_read("kmedians_draw", 1, [KM_N * KM_D])
+    res = {}
+    steps = {"KMedians": kmedians._median_step, "KMedoids": kmedoids._medoid_step}
+    for est, step in steps.items():
+        kw = {"tol": -1.0} if est == "KMedians" else {}
+        ks.SORT_LAUNCHES = 0
+        _r1_zero()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        km = _kmd_fit(ht, est, X, init="probability_based", max_iter=KMD_ITERS, random_state=0, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        fit_ms = start.elapsed_time(stop)
+        _r1_read(f"{est.lower()}_fit", KM_K, [1] + [2 + int(math.log(KM_K))] * (KM_K - 1))
+        k4 = ks.SORT_LAUNCHES
+        _require(k4 == km.n_iter_ and km.n_iter_ >= 1, f"{est}: K4 launched {k4} times in {km.n_iter_} iterations")
+        centers, labels = km.cluster_centers_.larray, km.labels_.larray
+        _require(bool(torch.isfinite(centers).all()) and int(labels.min()) >= 0 and int(labels.max()) < KM_K,
+                 f"{est}: centers or labels out of range")
+        loop = make_fit_loop(step, -1.0, KMD_ITERS, False)
+        loop(X.larray, centers)  # warm
+        t = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ks.SORT_LAUNCHES = 0
+        t[0].record()
+        loop(X.larray, centers)
+        t[1].record()
+        torch.cuda.synchronize()
+        per_iter = t[0].elapsed_time(t[1]) / KMD_ITERS
+        _require(ks.SORT_LAUNCHES == KMD_ITERS, f"{est}: K4 not once an iteration in the timed loop")
+        # bound: X read once and the (segment, value) pairs sorted once: 8 bytes a pair in, 8 out
+        nbytes = 4.0 * KM_N * KM_D + 16.0 * KM_N * KM_D
+        bound_ms, bound_by = _bound(nbytes, 3.0 * KM_N * KM_K * KM_D)
+        profile_breakdown(f"{est} step", lambda: step(X.larray, centers))
+        res[est] = {"n_iter": km.n_iter_, "k4": k4, "fit_ms": fit_ms, "iter_ms": per_iter, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+        if est == "KMedians":  # where a step's time goes, each part alone (CUDA events, median of 3)
+            x = X.larray
+            lab = _kcluster._l1_assign(x, centers)
+            res["step_parts_ms"] = {
+                "l1_assign (torch.cdist p=1)": _median_ms(lambda: _kcluster._l1_assign(x, centers), 3),
+                "to_sortable": _median_ms(lambda: ks.to_sortable(x), 3),
+                "sort and composite (K4 once)": _median_ms(lambda: _kcluster._segment_counter(x, lab, KM_K), 3),
+                "cluster_medians (the sort and 17 counting rounds)": _median_ms(
+                    lambda: _kcluster._cluster_medians(x, lab, KM_K, _kcluster._Rows(None, [KM_N])), 3),
+            }
+            print(f"KMedians step parts alone: {res['step_parts_ms']}", flush=True)
+            del lab
+            res["check"] = check_cluster_medians(x, centers)
+        print(
+            f"{est}({KM_N}x{KM_D}, k={KM_K}, ++ seeding).fit: n_iter {km.n_iter_}, {fit_ms:.4f} ms (one fit, CUDA "
+            f"events); {per_iter:.4f} ms an iteration ({KMD_ITERS} timed), bound {bound_ms:.4f} ms ({bound_by}: X "
+            f"read once, its {KM_N * KM_D} (segment, value) pairs sorted once); K4 launches {k4} (= n_iter), R1 {KM_K} "
+            f"(seeding)", flush=True,
+        )
+        del km, centers, labels
+
+    # the world's reference: the same draw from init="random" (K4 also sorts under its permutation)
+    WORLD_REFERENCE["kmedians"] = {}
+    for est in steps:
+        kw = {"tol": -1.0} if est == "KMedians" else {}
+        ks.SORT_LAUNCHES = 0
+        km = _kmd_fit(ht, est, X, init="random", max_iter=KMD_WORLD_ITERS, random_state=3, **kw)
+        WORLD_REFERENCE["kmedians"][est] = (km.labels_.larray.to(torch.int8).cpu(), km.cluster_centers_.larray.cpu(),
+                                            km.n_iter_, ks.SORT_LAUNCHES)
+    del X
+    torch.cuda.empty_cache()
+
+    # eight planted blobs of the same size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    x = _blobs(gen, KM_N, torch.randn(KM_K, KM_D, device=dev, generator=gen) * 8.0)
+    B = ht.array(x, split=0)
+    for est in steps:
+        km = _kmd_fit(ht, est, B, init="probability_based", random_state=1)
+        ok = _recovered(km.labels_.larray, KM_K)
+        print(f"blobs, {est} ++: n_iter {km.n_iter_}, every blob one distinct cluster: {ok}", flush=True)
+        _require(ok, f"{est} did not recover the eight blobs")
+        res[est]["blob_iter"] = km.n_iter_
+    del x, B, km
+    torch.cuda.empty_cache()
+    return res
+
+
+def _world_train(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """examples/mnist.py's CNN on the global batch of 8192 split over the
+    ranks: ``WORLD_TRAIN_STEPS`` SGD steps, after which every rank's
+    parameters must be equal bit for bit and within ``TOL_WORLD_TRAIN`` of
+    world size 1's; then DASO with two nodes of two ranks (global_skip 2,
+    bfloat16 wire): after its first step the ranks of a node equal and the
+    nodes apart, after its second (a global sync) all equal."""
+    import torch
+
+    images, labels = _mnist_arrays(TRAIN_KEY, TRAIN_BATCH)
+    x = ht.array(images[:, None].astype("float32") / 255.0, split=0)
+    y = ht.array(labels.astype("int32"), split=0)
+    model = ht.nn.DataParallel(_cnn(ht), key=TRAIN_KEY)
+    opt = ht.optim.DataParallelOptimizer(ht.optim.SGD(lr=TRAIN_LR), model)
+    comm.counts.clear()
+    moved.clear()
+    for _ in range(WORLD_TRAIN_STEPS):
+        opt.step(x, y)
+    torch.cuda.synchronize()
+    counts, nbytes = dict(comm.counts), dict(moved)
+    mine = _params_of(model)
+    every = comm.allgather(mine[None])
+    same = all(torch.equal(every[q], every[0]) for q in range(WORLD))
+    ref = WORLD_REFERENCE["train"].to(dev)
+    err = _rel(mine, ref)
+    _every_rank_ok(comm, same and err <= TOL_WORLD_TRAIN, f"DP training across ranks: parameters equal on every "
+                   f"rank {same}, against world size 1 {err:.3e} (tol {TOL_WORLD_TRAIN})")
+    step_ms = _world_ms(lambda: opt.step(x, y), 3)
+
+    model = ht.nn.DataParallel(_cnn(ht), key=TRAIN_KEY)
+    daso = ht.optim.DASO(ht.optim.SGD(lr=TRAIN_LR), model, n_nodes=2, global_skip=2)
+    agree = []
+    for _ in range(2):
+        daso.step(x, y)
+        every = comm.allgather(_params_of(model)[None])
+        agree.append([[bool(torch.equal(every[a], every[b])) for b in range(WORLD)] for a in range(WORLD)])
+    node = [[a // 2 == b // 2 for b in range(WORLD)] for a in range(WORLD)]
+    _every_rank_ok(comm, agree[0] == node and all(all(row) for row in agree[1]),
+                   f"DASO: after step 1 equal within a node only, after step 2 all equal; got {agree}")
+    comm.counts.clear()
+    moved.clear()
+    daso_ms = _world_ms(lambda: daso.step(x, y), 4)
+    return {"counts": counts, "bytes": nbytes, "err": err, "ms": step_ms, "daso_ms": daso_ms,
+            "daso_counts": dict(comm.counts), "daso_bytes": dict(moved)}
+
+
+def _world_kmedians(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """KMedians and KMedoids on the same global draw as world size 1
+    (``ht.random.randn(15_625_000, 64, split=0)`` after ``seed(0)``, each
+    rank its chunk) from ``init="random"``: each rank's labels equal to
+    world size 1's rows, the centers within ``TOL_KMD_CENTERS``, the same
+    ``n_iter_``, and K4 launched as often as at world size 1 (once an
+    iteration, and under the permutation of the init, which every rank
+    computes whole)."""
+    import torch
+
+    from heat_tpu_torch.kernels import sort as ks
+
+    ht.random.seed(0)
+    X = ht.random.randn(KM_N, KM_D, split=0)
+    counts_r, displs = X.counts_displs()
+    out = {}
+    for est, (labels, centers, n_iter, k4_ref) in WORLD_REFERENCE["kmedians"].items():
+        kw = {"tol": -1.0} if est == "KMedians" else {}
+        ks.SORT_LAUNCHES = 0
+        comm.counts.clear()
+        moved.clear()
+        km = _kmd_fit(ht, est, X, init="random", max_iter=KMD_WORLD_ITERS, random_state=3, **kw)
+        torch.cuda.synchronize()
+        k4, counts, nbytes = ks.SORT_LAUNCHES, dict(comm.counts), dict(moved)
+        mine = labels[displs[rank] : displs[rank] + counts_r[rank]].to(dev, torch.int64)
+        same = torch.equal(km.labels_.larray, mine)
+        err = _rel(km.cluster_centers_.larray, centers.to(dev))
+        _every_rank_ok(comm, same and err <= TOL_KMD_CENTERS and km.n_iter_ == n_iter and k4 == k4_ref,
+                       f"{est} across ranks: labels equal {same}, centers rel {err:.3e}, n_iter {km.n_iter_} "
+                       f"against {n_iter}, K4 launches {k4} against {k4_ref}")
+        fit_ms = _world_ms(lambda: _kmd_fit(ht, est, X, init="random", max_iter=KMD_WORLD_ITERS, random_state=3,
+                                            **kw), 2)
+        out[est] = {"k4": k4, "k4_init": k4 - n_iter, "counts": counts, "bytes": nbytes, "err": err, "ms": fit_ms,
+                    "n_iter": n_iter}
+    del X
+    return out
+
+
 def profile_breakdown(label: str, call) -> list:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
@@ -4139,6 +4688,7 @@ def profile_breakdown(label: str, call) -> list:
         f"profile {label}: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); by kernel: {top}", flush=True,
     )
+    PROFILES[label] = (wall_ms, busy_ms)
     return [key for _, _, key in rows]
 
 
@@ -4168,6 +4718,8 @@ def main() -> int:
     relayout_launches = relayout_path(dev)
     surface = surface_path(dev)
     indexing = indexing_path(dev)
+    train = train_path(dev)
+    kmd = kmedians_path(dev)
     launches["world"] = world_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
@@ -4177,6 +4729,9 @@ def main() -> int:
     k4_row["world_launches"] = {**launches["world"]["sort"], **launches["world"]["surface"]}
     k4_row["surface_launches"] = surface["launches"]
     k4_row["indexing_launches"] = indexing["launches"]
+    k4_row["kmedians_launches"] = {est: kmd[est]["k4"] for est in ("KMedians", "KMedoids")}
+    k4_row["kmedians_launches"]["world"] = launches["world"]["kmedians"]
+    k4_row["train_shuffle_launches"] = train["shuffle"]["k4"]
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
     att_rows = attention_timings(dev, att_launches, att_launches_sm90, att_errs, att_path_errs)
     for row in att_rows:  # K9's launches a rank in the world's ring at the row's shape
@@ -4188,11 +4743,15 @@ def main() -> int:
     rows.extend(relayout_timings(dev, relayout_launches, relayout_errs))
     r1_rows = random_timings(dev, random_errs)
     r1_rows[0]["world_launches"] = launches["world"]["random"]
+    r1_rows[0]["train_launches"] = {"cnn_per_step": train["cnn"]["r1_per_step"],
+                                    "mlp_per_step": train["mlp"]["r1_per_step"], "shuffle": train["shuffle"]["r1"],
+                                    "kmedians_seeding": R1_PATH["kmedians_fit"]["launches"]}
     rows.extend(r1_rows)
     print(f"R1 on the main paths: {R1_PATH}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"surface": surface["rows"]}))
     print(json.dumps({"indexing": indexing["rows"]}))
+    print(json.dumps({"training": {k: v for k, v in train.items()}, "kmedians": kmd}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

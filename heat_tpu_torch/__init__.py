@@ -44,6 +44,7 @@ from . import cluster
 from . import graph
 from . import kernels
 from . import nn
+from . import optim
 from . import redistribution
 from . import sparse
 from . import spatial

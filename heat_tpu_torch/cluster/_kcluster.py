@@ -17,9 +17,11 @@ port runs one process per rank: on an operand split along axis 0 each
 rank holds its rows, and every step that needs all of them takes a
 collective (``_Rows``), so that every rank keeps the same centers: the
 k-means++ draws and potentials, the k random rows, the Lloyd step's sums,
-counts and inertia, and the functional value. Only ``KMeans`` has such a
-step; ``KMedians`` and ``KMedoids`` need an exact median across ranks and
-refuse a split operand (ROADMAP.md Queue 1, item 18).
+counts and inertia, the exact per-cluster medians of KMedians and
+KMedoids (``_cluster_medians``: one sort a step on each rank, then a
+bisection on the values' order-preserving keys with the counts below
+each pivot all-reduced), the medoid's nearest member, and the functional
+value.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..core import _threefry, random as ht_random, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
-from ..kernels import threefry as _r1
+from ..kernels import sort as _sort, threefry as _r1
 
 __all__ = ["_KCluster"]
 
@@ -105,9 +107,10 @@ class _Rows:
     def of(cls, x: DNDarray) -> "_Rows":
         return cls(x.comm, x.counts_displs()[0]) if x.is_distributed() else cls(None, [x.shape[0]])
 
-    def allreduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the ranks (``t`` itself for a whole operand)."""
-        return t if self.comm is None else self.comm.allreduce(t)
+    def allreduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over the ranks by ``op`` (``t`` itself for a whole
+        operand)."""
+        return t if self.comm is None else self.comm.allreduce(t, op)
 
     def row(self, arr: torch.Tensor, i: int) -> torch.Tensor:
         """Global row ``i`` on every rank: one broadcast from its owner."""
@@ -206,22 +209,142 @@ def _l1_assign(arr: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return torch.argmin(_pairwise(arr, centers, "manhattan"), dim=1)
 
 
-def _masked_median(arr: torch.Tensor, mask: torch.Tensor):
-    """Coordinate-wise median of the rows where ``mask`` holds, and their
-    count, as ``jnp.nanmedian`` of the NaN-masked operand computes it: the
-    masked values sort last, and the median interpolates linearly between
-    the entries at ⌊q⌋ and ⌈q⌉, q = 0.5 · (count − 1). With no rows the
-    median is NaN; callers keep the old center then."""
-    cnt = torch.sum(mask)
-    nan = torch.tensor(float("nan"), dtype=arr.dtype, device=arr.device)
-    ordered = torch.sort(torch.where(mask[:, None], arr, nan), dim=0).values
-    q = 0.5 * (cnt.to(arr.dtype) - 1)
-    lo, hi = torch.floor(q), torch.ceil(q)
-    w_hi = q - lo
-    last = torch.clamp_min(cnt - 1, 0)
-    lo_v = ordered[torch.minimum(torch.clamp_min(lo, 0).long(), last)]
-    hi_v = ordered[torch.minimum(torch.clamp_min(hi, 0).long(), last)]
-    return lo_v * (1 - w_hi) + hi_v * w_hi, cnt
+_SIGN64 = -(1 << 63)  # the sign bit of an int64
+_DIGIT = 2  # key bits a counting round of the cross-rank median settles
+
+
+def _int64_word(u: int) -> int:
+    """The int64 holding the unsigned 64-bit value ``u``."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+def _unsigned_words(u: torch.Tensor, bits: int) -> torch.Tensor:
+    """Unsigned ``bits``-bit values held in int64 as the words of
+    ``kernels.sort.to_sortable`` (the signed dtype of that width)."""
+    if bits == 64:
+        return u
+    return torch.where(u >= 2 ** (bits - 1), u - 2**bits, u).to(_sort._INT_OF_BITS[bits])
+
+
+def _segment_counter(arr: torch.Tensor, labels: torch.Tensor, k: int):
+    """Sort this rank's values once by (segment, value), segment j·k + i
+    for cluster i and column j, and return ``(count_le, bits)``:
+    ``count_le(s, c)`` counts segment s's values whose unsigned
+    order-preserving key (``kernels.sort.to_sortable``, ``bits`` wide) is
+    at most c, for (k, f, T) tensors s and c. Keys of at most 32 bits take
+    one pair sort (K4 on a card: the segment as key, the value's word as
+    the payload, ordered by both) into a (segment << 32 | key) composite
+    that one ``searchsorted`` reads; 64-bit keys take two stable sorts and
+    a binary search within each segment."""
+    n, f = arr.shape
+    words = _sort.to_sortable(arr).reshape(-1)
+    bits = words.element_size() * 8
+    seg = (labels[:, None].to(torch.int32) + torch.arange(f, dtype=torch.int32, device=arr.device) * k).reshape(-1)
+    if bits <= 32:
+        if bits < 32:
+            words = (words.to(torch.int64) & ((1 << bits) - 1)).to(torch.int32)
+        sk, sp = _sort.pair_sort(seg, words, pay_bytes=bits // 8)
+        del words, seg
+        comp = sk.to(torch.int64)
+        del sk
+        comp <<= 32
+        low = sp.to(torch.int64)
+        del sp
+        low &= 0xFFFFFFFF
+        comp |= low
+        del low
+
+        def count_le(s, c):
+            return torch.searchsorted(comp, (s << 32) | c, right=True) - torch.searchsorted(comp, s << 32)
+
+        return count_le, bits
+    key = words ^ _SIGN64  # signed order = the words' unsigned order
+    del words
+    order = torch.sort(key, stable=True).indices
+    order = order[torch.sort(seg[order], stable=True).indices]
+    sorted_key, sorted_seg = key[order], seg[order].to(torch.int64)
+    del key, seg, order
+    ids = torch.arange(k * f, device=arr.device)
+    starts = torch.searchsorted(sorted_seg, ids)
+    ends = torch.searchsorted(sorted_seg, ids, right=True)
+    steps = int((ends - starts).max()).bit_length() if ids.numel() and sorted_key.numel() else 0
+
+    def count_le(s, c):
+        lo, hi = starts[s], ends[s]
+        q = c ^ _SIGN64
+        for _ in range(steps):
+            mid = (lo + hi) >> 1
+            le = sorted_key[mid.clamp(max=sorted_key.numel() - 1)] <= q
+            lo, hi = torch.where((lo < hi) & le, mid + 1, lo), torch.where((lo < hi) & ~le, mid, hi)
+        return lo - starts[s]
+
+    return count_le, bits
+
+
+def _cluster_medians(arr: torch.Tensor, labels: torch.Tensor, k: int, rows: "_Rows"):
+    """The coordinate-wise median of each cluster over every rank's rows,
+    exact, and the clusters' global row counts: ``jnp.nanmedian`` of the
+    NaN-masked operand (``heat_tpu`` kmedians.py:36, kmedoids.py:38). For
+    cluster i and column j with C non-NaN values, q = 0.5 · (C − 1): the
+    order statistics ⌊q⌋ and ⌈q⌉, interpolated linearly; NaN where C = 0.
+
+    Each rank sorts its (cluster, column) segments once (``_segment_counter``).
+    The order statistics are then found ``_DIGIT`` bits at a time on the
+    values' unsigned order-preserving keys, from the top: a round counts
+    the keys at most each of the digit's 2^_DIGIT − 1 candidates in every
+    segment and all-reduces one (k, f, 2, 2^_DIGIT − 1) int64 tensor, so
+    ``bits / _DIGIT`` rounds (16 for float32) give both statistics bit for
+    bit; one more all-reduce first gives the counts."""
+    f, dev = arr.shape[1], arr.device
+    count_le, bits = _segment_counter(arr, labels, k)
+    s = (torch.arange(k, device=dev)[:, None] + torch.arange(f, device=dev)[None, :] * k)[:, :, None]
+    # the NaN key is all ones: everything below it is a value
+    not_nan = count_le(s, torch.full_like(s, (1 << bits) - 2 if bits < 64 else -2))[:, :, 0]
+    sizes = torch.bincount(labels, minlength=k)
+    counts = rows.allreduce(torch.cat([not_nan.reshape(-1), sizes]))
+    not_nan, sizes = counts[: k * f].reshape(k, f), counts[k * f :]
+    rank = torch.stack([(not_nan - 1) // 2, not_nan // 2], dim=-1).clamp_min(0)[..., None]  # (k, f, 2, 1)
+    width = (1 << _DIGIT) - 1
+    s = s[..., None].expand(k, f, 2, width)
+    prefix = torch.zeros((k, f, 2, 1), dtype=torch.int64, device=dev)
+    lows = list(reversed(range(0, bits, _DIGIT)))
+    # digit d at bits b.. of round i's candidates (as int64 words)
+    steps = torch.tensor([[_int64_word(d << b) for d in range(width + 1)] for b in lows], dtype=torch.int64,
+                         device=dev)
+    for b, step in zip(lows, steps):
+        # digit d's candidate: the prefix, d at bits b.., every lower bit set
+        below = rows.allreduce(count_le(s, prefix | step[:width] | ((1 << b) - 1)))
+        # the digit is the first d whose candidate has more keys at or below it than the rank
+        prefix = prefix | step[torch.sum(below <= rank, dim=-1, keepdim=True)]
+    prefix = prefix[..., 0]
+    values = _sort.from_sortable(_unsigned_words(prefix, bits), arr.dtype)
+    q = 0.5 * (not_nan.to(arr.dtype) - 1)
+    w_hi = q - torch.floor(q)
+    med = values[..., 0] * (1 - w_hi) + values[..., 1] * w_hi
+    med = torch.where(not_nan > 0, med, torch.full_like(med, float("nan")))
+    return med, sizes
+
+
+def _nearest_members(arr: torch.Tensor, labels: torch.Tensor, med: torch.Tensor, rows: "_Rows") -> torch.Tensor:
+    """For each cluster the member row nearest to ``med[i]`` in L1 over
+    every rank's rows, the lowest global index on ties (``jnp.argmin``'s
+    first index, ``heat_tpu`` kmedoids.py:40-42): the least distance and
+    then the least index of a row at it are all-reduced minima, and the
+    rows reach every rank in one all-reduce (``_random_rows``). A cluster
+    without members gets some row; callers keep its center."""
+    k = med.shape[0]
+    dist = torch.empty(arr.shape[0], dtype=arr.dtype, device=arr.device)
+    for s in range(0, arr.shape[0], _ROW_CHUNK):
+        dist[s : s + _ROW_CHUNK] = torch.sum(
+            torch.abs(arr[s : s + _ROW_CHUNK] - med[labels[s : s + _ROW_CHUNK]]), dim=1
+        )
+    inf = torch.full((k,), float("inf"), dtype=arr.dtype, device=arr.device)
+    best = rows.allreduce(inf.scatter_reduce(0, labels, dist, "amin"), "min")
+    none = torch.full((k,), rows.n, dtype=torch.int64, device=arr.device)
+    index = torch.arange(arr.shape[0], device=arr.device) + rows.offset
+    at_best = torch.where(dist == best[labels], index, rows.n)
+    first = rows.allreduce(none.scatter_reduce(0, labels, at_best, "amin"), "min")
+    return _random_rows(arr, first.clamp_max(rows.n - 1), rows)
 
 
 def _predict(arr: torch.Tensor, centers: torch.Tensor, metric: str, eval_fv: bool, rows: Optional[_Rows] = None):
@@ -240,9 +363,6 @@ def _predict(arr: torch.Tensor, centers: torch.Tensor, metric: str, eval_fv: boo
 
 class _KCluster(BaseEstimator, ClusteringMixin):
     """Base class for k-statistics clustering (reference: _kcluster.py)."""
-
-    #: whether the estimator's fit serves an operand split across ranks
-    _serves_split = False
 
     def __init__(
         self,
@@ -328,17 +448,9 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         """``(x_rows, arr, rows)``: ``x`` with its samples along axis 0 (an
         operand split along its features is resplit to 0 first), this
         rank's rows as a contiguous float tensor (integer data become
-        float32), and where the rows lie. An estimator whose step has no
-        form across ranks refuses a split operand rather than fit one
-        shard as if it were the whole array."""
-        if x.is_distributed():
-            if not self._serves_split:
-                raise NotImplementedError(
-                    f"{type(self).__name__} of an array split across ranks needs an exact median of each "
-                    "cluster's column across ranks: see ROADMAP.md Queue 1, item 18"
-                )
-            if x.split != 0:
-                x = x.resplit(0)
+        float32), and where the rows lie."""
+        if x.is_distributed() and x.split != 0:
+            x = x.resplit(0)
         arr = x.larray
         arr = arr.to(torch.float32) if types.heat_type_is_exact(x.dtype) else arr
         return x, arr.contiguous(), _Rows.of(x)
@@ -417,8 +529,8 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         """The whole fit (``heat_tpu``'s ``_fused_fit_program``,
         _kcluster.py:80): seeding or the given init, the convergence loop
         over ``step(arr, centers)`` (Lloyd / median / medoid), then the
-        final assignment. On a split operand the step also takes the
-        communicator (``comm=``) and gives the same centers on every rank.
+        final assignment. On a split operand the step also takes where the
+        rows lie (``rows=``) and gives the same centers on every rank.
         ``inertia_`` is the last step's when ``returns_inertia``, else the
         final assignment's functional value."""
         sanitize_in(x)
@@ -427,7 +539,7 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         x, arr, rows = self._operand(x)
         self._init_centers(x, arr, rows)
         if rows.comm is not None:
-            step = functools.partial(step, comm=rows.comm)
+            step = functools.partial(step, rows=rows)
         loop = make_fit_loop(step, float(self.tol), int(self.max_iter), returns_inertia)
         res = loop(arr, self._cluster_centers.larray)
         centers, n_iter = res[0], res[1]

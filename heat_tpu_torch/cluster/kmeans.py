@@ -63,11 +63,11 @@ def _assign_across(arr: torch.Tensor, centers: torch.Tensor, comm=None):
     return _summed(comm, arr.dtype, sums, counts, inertia)
 
 
-def _lloyd_step(arr: torch.Tensor, centers: torch.Tensor, comm=None):
+def _lloyd_step(arr: torch.Tensor, centers: torch.Tensor, rows=None):
     """One Lloyd iteration: ``(arr, centers) -> (new_centers, shift²,
     inertia)`` (``heat_tpu`` kmeans.py:40), over every rank's rows with
-    ``comm``. Empty clusters keep their center."""
-    sums, counts, inertia = _assign_across(arr, centers, comm)
+    ``rows`` (a ``_kcluster._Rows``). Empty clusters keep their center."""
+    sums, counts, inertia = _assign_across(arr, centers, None if rows is None else rows.comm)
     new_centers = torch.where(
         counts[:, None] > 0, sums / torch.clamp_min(counts[:, None], 1), centers
     )
@@ -112,8 +112,6 @@ class KMeans(_KCluster):
     random_state. An operand split along axis 0 is fitted across the ranks,
     K3 on each rank's rows; every rank ends with the same centers.
     """
-
-    _serves_split = True
 
     def __init__(
         self,

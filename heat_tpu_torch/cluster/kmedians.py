@@ -12,21 +12,19 @@ from typing import Optional, Union
 import torch
 
 from ..core.dndarray import DNDarray
-from ._kcluster import _KCluster, _l1_assign, _masked_median
+from ._kcluster import _KCluster, _Rows, _cluster_medians, _l1_assign
 
 __all__ = ["KMedians"]
 
 
-def _median_step(arr: torch.Tensor, centers: torch.Tensor):
+def _median_step(arr: torch.Tensor, centers: torch.Tensor, rows=None):
     """One K-Medians iteration: ``(arr, centers) -> (new_centers, shift²)``
-    (``heat_tpu`` kmedians.py:26). L1 distances are taken one center at a
-    time; an empty cluster keeps its center."""
-    labels = _l1_assign(arr, centers)
-    rows = []
-    for i in range(centers.shape[0]):
-        med, cnt = _masked_median(arr, labels == i)
-        rows.append(torch.where(cnt > 0, med, centers[i]))
-    new_centers = torch.stack(rows)
+    (``heat_tpu`` kmedians.py:26), over every rank's rows with ``rows``:
+    L1 labels of this rank's rows, then each cluster's exact median
+    (``_cluster_medians``). An empty cluster keeps its center."""
+    rows = _Rows(None, [arr.shape[0]]) if rows is None else rows
+    med, sizes = _cluster_medians(arr, _l1_assign(arr, centers), centers.shape[0], rows)
+    new_centers = torch.where(sizes[:, None] > 0, med, centers)
     shift = torch.sum((new_centers - centers) ** 2)
     return new_centers, shift
 

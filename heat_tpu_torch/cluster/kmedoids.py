@@ -13,25 +13,22 @@ from typing import Optional, Union
 import torch
 
 from ..core.dndarray import DNDarray
-from ._kcluster import _KCluster, _l1_assign, _masked_median
+from ._kcluster import _KCluster, _Rows, _cluster_medians, _l1_assign, _nearest_members
 
 __all__ = ["KMedoids"]
 
 
-def _medoid_step(arr: torch.Tensor, centers: torch.Tensor):
+def _medoid_step(arr: torch.Tensor, centers: torch.Tensor, rows=None):
     """One K-Medoids iteration: ``(arr, centers) -> (new_centers, shift²)``
-    (``heat_tpu`` kmedoids.py:26). L1 distances are taken one center at a
-    time; an empty cluster keeps its center."""
+    (``heat_tpu`` kmedoids.py:26), over every rank's rows with ``rows``:
+    L1 labels, each cluster's exact median (``_cluster_medians``; an empty
+    cluster's is its center), then the member nearest to it in L1
+    (``_nearest_members``). An empty cluster keeps its center."""
+    rows = _Rows(None, [arr.shape[0]]) if rows is None else rows
     labels = _l1_assign(arr, centers)
-    inf = torch.tensor(float("inf"), dtype=arr.dtype, device=arr.device)
-    rows = []
-    for i in range(centers.shape[0]):
-        mask = labels == i
-        med, cnt = _masked_median(arr, mask)
-        med = torch.where(cnt > 0, med, centers[i])
-        dist_to_med = torch.where(mask, torch.sum(torch.abs(arr - med), dim=1), inf)
-        rows.append(torch.where(cnt > 0, arr[torch.argmin(dist_to_med)], centers[i]))
-    new_centers = torch.stack(rows)
+    med, sizes = _cluster_medians(arr, labels, centers.shape[0], rows)
+    med = torch.where(sizes[:, None] > 0, med, centers)
+    new_centers = torch.where(sizes[:, None] > 0, _nearest_members(arr, labels, med, rows), centers)
     shift = torch.sum((new_centers - centers) ** 2)
     return new_centers, shift
 

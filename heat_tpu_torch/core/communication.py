@@ -153,12 +153,13 @@ class TorchCommunication(Communication):
     def _count(self, name: str) -> None:
         self.counts[name] = self.counts.get(name, 0) + 1
 
-    def allreduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    def allreduce(self, t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
         """Elementwise reduction of ``t`` over the ranks (``op`` one of
-        ``sum``, ``max``, ``min``, ``prod``); returns a new tensor."""
+        ``sum``, ``max``, ``min``, ``prod``), or over the members of
+        ``group`` (one of ``subgroups``); returns a new tensor."""
         out = t.clone().contiguous()
         if self.is_distributed():
-            dist.all_reduce(out, op=getattr(dist.ReduceOp, {"prod": "PRODUCT"}.get(op, op.upper())))
+            dist.all_reduce(out, op=getattr(dist.ReduceOp, {"prod": "PRODUCT"}.get(op, op.upper())), group=group)
         self._count("all-reduce")
         return out
 

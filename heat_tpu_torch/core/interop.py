@@ -146,12 +146,22 @@ def dbcsr_from_numpy(components: Mapping[str, object], device=None):
     )
 
 
-def nn_params_from_numpy(module: torch.nn.Module, params: Mapping[str, object]) -> torch.nn.Module:
-    """Load a ``heat_tpu`` parameter dict (``init``'s result, each value
+def nn_params_from_numpy(module: torch.nn.Module, params) -> torch.nn.Module:
+    """Load a ``heat_tpu`` parameter tree (``init``'s result, each value
     taken as numpy; bfloat16 may come as float32) into ``module``, an
-    ``ht.nn`` module with the same parameter names and shapes. Each value
-    takes the parameter's dtype and device. The dict must name exactly the
-    module's parameters. Returns the module."""
+    ``ht.nn`` module with the same parameter names and shapes: a dict for
+    one module (``Conv2d``'s ``weight`` OIHW and ``bias`` included), a
+    tuple of per-module dicts for a ``Sequential`` (``{}`` for a module
+    without parameters). Each value takes the parameter's dtype and
+    device. The tree must name exactly the module's parameters. Returns
+    the module."""
+    if isinstance(params, (tuple, list)):
+        children = list(module.children())
+        if len(children) != len(params):
+            raise KeyError(f"{len(params)} parameter dicts for a module of {len(children)} modules")
+        for child, sub in zip(children, params):
+            nn_params_from_numpy(child, sub)
+        return module
     own = dict(module.named_parameters())
     if set(own) != set(params):
         raise KeyError(f"parameters {sorted(params)} do not match the module's {sorted(own)}")

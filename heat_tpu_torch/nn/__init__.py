@@ -1,9 +1,10 @@
 """Deep-learning layer of heat_tpu_torch (port of ``heat_tpu.nn``).
 
-Long-context attention (``ring_attention``, ``ring_self_attention``,
-``functional.scaled_dot_product_attention``) on kernel K9, and the modules
-that build a transformer block around it (``Linear``,
-``MultiheadAttention``, ``LayerNorm``, ``Embedding``). As in the Heat
+Every name of ``heat_tpu.nn``: the layers and losses of ``modules.py``
+(``torch.nn.Module``s drawn from ``heat_tpu``'s Threefry keys),
+``DataParallel`` and ``DataParallelMultiGPU``, ``functional``, and the
+long-context attention (``ring_attention``, ``ring_self_attention``,
+``functional.scaled_dot_product_attention``) on kernel K9. As in the Heat
 reference (``heat/nn/__init__.py``), every other name comes from
 ``torch.nn``.
 """
@@ -12,23 +13,65 @@ from . import attention
 from . import functional
 from . import functional as F
 from .attention import ring_attention, ring_self_attention
-from .modules import Embedding, LayerNorm, Linear, MultiheadAttention
+from .data_parallel import DataParallel, DataParallelMultiGPU
+from .modules import (
+    AvgPool2d,
+    Conv2d,
+    CrossEntropyLoss,
+    Dropout,
+    Dropout2d,
+    Embedding,
+    Flatten,
+    GELU,
+    LayerNorm,
+    Linear,
+    LogSoftmax,
+    MaxPool2d,
+    Module,
+    MSELoss,
+    MultiheadAttention,
+    NLLLoss,
+    ReLU,
+    Sequential,
+    Sigmoid,
+    Softmax,
+    Tanh,
+)
 
 __all__ = [
-    "Embedding",
-    "F",
-    "LayerNorm",
+    "Module",
     "Linear",
     "MultiheadAttention",
+    "ReLU",
+    "GELU",
+    "Tanh",
+    "Sigmoid",
+    "LogSoftmax",
+    "Softmax",
+    "Flatten",
+    "Dropout",
+    "Dropout2d",
+    "Conv2d",
+    "MaxPool2d",
+    "AvgPool2d",
+    "LayerNorm",
+    "Embedding",
+    "Sequential",
+    "MSELoss",
+    "NLLLoss",
+    "CrossEntropyLoss",
+    "DataParallel",
+    "DataParallelMultiGPU",
     "functional",
+    "F",
     "ring_attention",
     "ring_self_attention",
 ]
 
 
 def __getattr__(name):
-    """Delegate unknown layer names to ``torch.nn`` (the Heat reference's
-    fallback, ``nn/__init__.py:19-47``)."""
+    """Delegate the names ``heat_tpu.nn`` does not define to ``torch.nn``
+    (the Heat reference's fallback, ``nn/__init__.py:19-47``)."""
     import torch.nn as _nn
 
     try:

@@ -2,8 +2,10 @@
 
 The Heat reference's ``heat.nn.functional`` passes through to
 ``torch.nn.functional``; ``heat_tpu`` re-exports ``jax.nn`` under the torch
-names. Here the activations are ``torch.nn.functional``'s own, and so is
-every name this module does not define. ``linear`` keeps ``heat_tpu``'s
+names. Here the activations are ``torch.nn.functional``'s, with
+``jax.nn``'s defaults where they differ (``gelu`` is the tanh form,
+``one_hot`` gives floats), and every name this module does not define
+is ``torch.nn.functional``'s. ``linear`` keeps ``heat_tpu``'s
 weight layout (in, out), and ``scaled_dot_product_attention`` runs the
 port's attention (kernel K9 on a card).
 """
@@ -14,11 +16,14 @@ import torch
 import torch.nn.functional as _F
 
 __all__ = [
+    "avg_pool2d",
+    "dropout",
     "elu",
     "gelu",
     "leaky_relu",
     "linear",
     "log_softmax",
+    "max_pool2d",
     "one_hot",
     "relu",
     "scaled_dot_product_attention",
@@ -29,7 +34,6 @@ __all__ = [
 ]
 
 relu = _F.relu
-gelu = _F.gelu
 sigmoid = torch.sigmoid
 tanh = torch.tanh
 softmax = _F.softmax
@@ -37,7 +41,21 @@ log_softmax = _F.log_softmax
 softplus = _F.softplus
 leaky_relu = _F.leaky_relu
 elu = _F.elu
-one_hot = _F.one_hot
+
+
+def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
+    """``jax.nn.gelu``: the tanh form by default (``heat_tpu``'s
+    ``gelu``), the exact erf form with ``approximate=False``."""
+    return _F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def one_hot(x, num_classes: int, dtype=torch.float64, axis: int = -1) -> torch.Tensor:
+    """``jax.nn.one_hot``: float64 (``jnp.float_`` under ``heat_tpu``'s
+    x64 policy) ones where ``x`` equals the class index; an index outside
+    [0, num_classes) gives a row of zeros."""
+    x = torch.as_tensor(x)
+    hot = (x[..., None] == torch.arange(int(num_classes), device=x.device)).to(dtype)
+    return hot.movedim(-1, axis)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None, is_causal=False, scale=None):
@@ -61,6 +79,28 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, is_causal=Fa
         )
         return ring_attention(query, key, value, causal=is_causal, scale=scale)
     return _single_device_attention(query, key, value, bool(is_causal), scale)
+
+
+def max_pool2d(x, kernel_size, stride=None):
+    """``heat_tpu``'s ``max_pool2d`` over NCHW (``nn.MaxPool2d``)."""
+    from .modules import MaxPool2d
+
+    return MaxPool2d(kernel_size, stride)(x)
+
+
+def avg_pool2d(x, kernel_size, stride=None):
+    """``heat_tpu``'s ``avg_pool2d`` over NCHW (``nn.AvgPool2d``)."""
+    from .modules import AvgPool2d
+
+    return AvgPool2d(kernel_size, stride)(x)
+
+
+def dropout(x, p: float = 0.5, training: bool = True, key=None):
+    """``heat_tpu``'s ``dropout`` with an explicit Threefry key
+    (``nn.Dropout``; kernel R1 draws the mask on a card)."""
+    from .modules import Dropout
+
+    return Dropout(p).train(training)(x, key=key)
 
 
 def linear(x, weight, bias=None):

@@ -301,7 +301,6 @@ def test_interop_gives_each_rank_heat_tpus_shard(ranks, jcomm):
 # the entry points of slices 1-5 on a split operand                     #
 # --------------------------------------------------------------------- #
 REFUSED = {
-    "kmedians_fit": 18, "kmedoids_fit": 18,
     "sparse_csr_split": 15, "sparse_dbcsr_split": 15, "sparse_matmul_split_x": 15, "sddmm_split_u": 15,
     "pagerank": 15,
 }

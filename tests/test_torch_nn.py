@@ -249,17 +249,25 @@ def test_functional_aliases_and_delegation():
             getattr(F, name)(x).numpy(), np.asarray(getattr(jht.nn.functional, name)(jnp.asarray(x.numpy()))),
             rtol=1e-5, atol=1e-6,
         )
-    # torch's gelu is exact by default; jax.nn.gelu, heat_tpu's, is the tanh form
-    assert F.gelu is torch.nn.functional.gelu
+    # gelu's default is jax.nn.gelu's (heat_tpu's) tanh form; approximate=False the exact one
+    grid = torch.linspace(-6.0, 6.0, 100_001, dtype=torch.float32)
+    ref = np.asarray(jht.nn.functional.gelu(jnp.asarray(grid.numpy())))
+    assert np.abs(F.gelu(grid).numpy() - ref).max() <= 1e-6
     np.testing.assert_allclose(
-        F.gelu(x, approximate="tanh").numpy(), np.asarray(jht.nn.functional.gelu(jnp.asarray(x.numpy()))),
-        rtol=1e-5, atol=1e-6,
+        F.gelu(grid, approximate=False).numpy(),
+        np.asarray(jht.nn.functional.gelu(jnp.asarray(grid.numpy()), approximate=False)), rtol=1e-5, atol=2e-6,
     )
+    labels = np.array([0, 2, 5, -1, 1])
+    hot, jhot = F.one_hot(torch.from_numpy(labels), 3), np.asarray(jht.nn.functional.one_hot(jnp.asarray(labels), 3))
+    assert str(hot.dtype).removeprefix("torch.") == jhot.dtype.name
+    np.testing.assert_array_equal(hot.numpy(), jhot)
     np.testing.assert_allclose(
         F.softmax(x, -1).numpy(), np.asarray(jht.nn.functional.softmax(jnp.asarray(x.numpy()))), rtol=1e-5, atol=1e-6
     )
     assert F.conv2d is torch.nn.functional.conv2d and F.mse_loss is torch.nn.functional.mse_loss
-    assert ht.nn.Conv2d is torch.nn.Conv2d and ht.nn.Dropout is torch.nn.Dropout
+    # the names heat_tpu.nn defines are the port's own; the others fall through to torch.nn
+    assert ht.nn.Conv2d is ht.nn.modules.Conv2d and ht.nn.Dropout is ht.nn.modules.Dropout
+    assert ht.nn.BatchNorm2d is torch.nn.BatchNorm2d
     with pytest.raises(AttributeError):
         F.no_such_function
     with pytest.raises(AttributeError):

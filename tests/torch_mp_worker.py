@@ -246,8 +246,6 @@ def _cases(ht):
         return ht.array(_array(shape, "float32", 8), split=split)
 
     entry = {
-        "kmedians_fit": lambda: ht.cluster.KMedians(3).fit(split_x()),
-        "kmedoids_fit": lambda: ht.cluster.KMedoids(3).fit(split_x()),
         "sparse_csr_split": lambda: ht.sparse.sparse_csr_matrix(np.eye(8, dtype=np.float32), split=0),
         "sparse_dbcsr_split": lambda: ht.sparse.sparse_dbcsr_matrix(np.eye(8, dtype=np.float32), split=0),
         "sparse_matmul_split_x": lambda: ht.sparse.matmul(
@@ -285,6 +283,8 @@ def _cases(ht):
     cases.update(_random_cases(ht))
     cases.update(_surface_cases(ht))
     cases.update(_indexing_cases(ht))
+    cases.update(_train_cases(ht))
+    cases.update(_kmedians_cases(ht))
     return cases
 
 
@@ -1072,6 +1072,130 @@ def _indexing_cases(ht):
         return {"read": read, "after_write": _np(x.larray)}
     out["lloc_slabs"] = lloc_slabs
     return out
+
+
+# data-parallel training (tests/test_torch_train.py): the MLP 16-8-4 and
+# the CNN 1->4->8 on 10 x 10 inputs, on either package's nn (``lib.nn``)
+def train_mlp(nn, dropout: bool = True):
+    layers = [nn.Linear(16, 8), nn.ReLU()] + ([nn.Dropout(0.25)] if dropout else []) + [nn.Linear(8, 4)]
+    return nn.Sequential(*layers)
+
+
+def train_cnn(nn):
+    return nn.Sequential(nn.Conv2d(1, 4, 3), nn.ReLU(), nn.Conv2d(4, 8, 3, padding="same"), nn.ReLU(),
+                         nn.MaxPool2d(2), nn.Dropout2d(0.25), nn.Flatten(), nn.Linear(8 * 4 * 4, 16), nn.ReLU(),
+                         nn.Dropout(0.5), nn.Linear(16, 4))
+
+
+def train_data(model: str, n: int, seed: int = 91):
+    """(x, y): n samples for ``model`` ("mlp": 16 features, "cnn": 1 x 10 x
+    10), labels in [0, 4) that a linear map of x separates."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 16) if model == "mlp" else (n, 1, 10, 10)).astype(np.float32)
+    w = np.random.default_rng(seed + 1).standard_normal((x[0].size, 4)).astype(np.float32)
+    return x, np.argmax(x.reshape(n, -1) @ w, axis=1).astype(np.int32)
+
+
+def train_optimizer(optim, name: str):
+    return {"sgd": lambda: optim.SGD(0.05, momentum=0.9, nesterov=True, weight_decay=1e-3),
+            "adam": lambda: optim.Adam(0.01, weight_decay=1e-3), "adamw": lambda: optim.AdamW(0.01)}[name]()
+
+
+# (model, optimizer, global batch): 30 rows over 4 ranks are 8, 8, 8, 6; 3 rows 1, 1, 1, 0
+TRAIN_DP = {"cnn_sgd_30": ("cnn", "sgd", 30), "mlp_adam_32": ("mlp", "adam", 32), "mlp_adamw_3": ("mlp", "adamw", 3)}
+TRAIN_DASO = {"daso_compressed": True, "daso_full": False}  # n_nodes=2, global_skip=2, the MLP with dropout
+TRAIN_STEPS = 3
+DASO_STEPS = 4
+SHUFFLES = {"even": (40, 0), "uneven": (37, 0), "replicated_targets": (37, None)}  # (n, split of the targets)
+
+
+def _train_cases(ht):
+    import torch
+
+    comm = ht.get_comm()
+    cases = {}
+
+    def params(model):  # copies: on the CPU numpy() shares the parameters' memory
+        return [_np(p).copy() for p in model.module.parameters()]
+
+    for label, (kind, opt, n) in TRAIN_DP.items():
+        def dp_case(kind=kind, opt=opt, n=n):
+            x, y = train_data(kind, n)
+            model = ht.nn.DataParallel((train_cnn if kind == "cnn" else train_mlp)(ht.nn), key=11)
+            dpo = ht.optim.DataParallelOptimizer(train_optimizer(ht.optim, opt), model)
+            X, Y = ht.array(x, split=0), ht.array(y, split=0)
+            steps = []
+            for _ in range(TRAIN_STEPS):
+                comm.counts.clear()
+                loss = dpo.step(X, Y)
+                steps.append({"loss": float(loss), "params": params(model), "counts": dict(comm.counts)})
+            out = model(X)
+            flat = torch.cat([p.detach().reshape(-1) for p in model.module.parameters()])
+            return {"steps": steps, "lshape": X.lshape, "every": _np(comm.allgather(flat[None])),
+                    "out": out.numpy(), "out_split": out.split}
+        cases[f"train_{label}"] = dp_case
+
+    for label, compression in TRAIN_DASO.items():
+        def daso_case(compression=compression):
+            x, y = train_data("mlp", 32, seed=93)
+            model = ht.nn.DataParallel(train_mlp(ht.nn), key=12)
+            daso = ht.optim.DASO(train_optimizer(ht.optim, "sgd"), model, n_nodes=2, global_skip=2,
+                                 compression=compression)
+            X, Y = ht.array(x, split=0), ht.array(y, split=0)
+            steps = []
+            for _ in range(DASO_STEPS):
+                loss = daso.step(X, Y)
+                steps.append({"loss": float(loss), "params": params(model)})
+            evaluated = model(X).numpy()
+            daso.sync_params()
+            return {"steps": steps, "eval": evaluated, "synced": params(model)}
+        cases[f"train_{label}"] = daso_case
+
+    for label, (n, t_split) in SHUFFLES.items():
+        def shuffle_case(n=n, t_split=t_split):
+            data = np.arange(n * 3, dtype=np.float32).reshape(n, 3)
+            ds = ht.utils.data.Dataset(ht.array(data, split=0), targets=ht.array(np.arange(n), split=t_split))
+            ht.random.seed(21)
+            comm.counts.clear()
+            ds.Shuffle()
+            counts = dict(comm.counts)
+            loader = ht.utils.data.DataLoader(ds, batch_size=8)
+            first = next(iter(loader))
+            return {"data": _np(ds.htdata.larray), "targets": ds.httargets.numpy(), "counts": counts,
+                    "state": ht.random.get_state(), "batch_lshape": first[0].lshape, "batch": first[0].numpy()}
+        cases[f"shuffle_{label}"] = shuffle_case
+    return cases
+
+
+# KMedians and KMedoids across ranks (tests/test_torch_kmedians.py): rows
+# sorted by blob, 3, 3, 3 and 0 over 4 ranks, so that the last rank holds no
+# row and each other rank one cluster only
+KMD_ROWS = {"by_blob_last_empty": 9}
+KMD_INITS = ("random", "probability_based")
+
+
+def kmd_data(label: str) -> np.ndarray:
+    data = km_blobs(KMD_ROWS[label], seed=64)
+    return data[np.argsort(np.arange(len(data)) % KM_K, kind="stable")]
+
+
+def _kmedians_cases(ht):
+    comm = ht.get_comm()
+    cases = {}
+    for est in ("KMedians", "KMedoids"):
+        for label in KMD_ROWS:
+            for split in (0, 1):
+                for init in KMD_INITS:
+                    def kmd_case(est=est, label=label, split=split, init=init):
+                        comm.counts.clear()
+                        km = getattr(ht.cluster, est)(KM_K, init=init, random_state=7)
+                        km.fit(ht.array(kmd_data(label), split=split))
+                        c = km.cluster_centers_.larray
+                        return {"centers": _np(c), "every": _np(comm.allgather(c[None])), "n_iter": km.n_iter_,
+                                "labels": km.labels_.numpy(), "labels_split": km.labels_.split,
+                                "inertia": km.inertia_, "counts": dict(comm.counts)}
+                    cases[f"kmd_{est}_{label}_{split}_{init}"] = kmd_case
+    return cases
 
 
 def _plain(value):
