@@ -2246,7 +2246,8 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
         WORLD_REFERENCE.update(torch.load(os.path.join(out_dir, "reference.pt")))
         for phase, run in (("random", _world_random), ("kmeans", _world_kmeans), ("attention", _world_attention),
                            ("distance", _world_distance), ("sort", _world_sort), ("surface", _world_surface),
-                           ("indexing", _world_indexing), ("train", _world_train), ("kmedians", _world_kmedians)):
+                           ("indexing", _world_indexing), ("train", _world_train), ("kmedians", _world_kmedians),
+                           ("manip", _world_manip)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -2481,6 +2482,7 @@ def world_path(dev) -> dict:
             f"in the fit {per[0]['counts']}, bytes a rank put in {per[0]['bytes']}; "
             f"{shared}", flush=True,
         )
+    world["manip"] = _report_world_manip([res["manip"] for res in results], shared)
     return world
 
 
@@ -4663,6 +4665,356 @@ def _world_kmedians(ht, comm, moved: dict, rank: int, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# manipulations, halos, convolve and the gallery (no kernel of their own) #
+# --------------------------------------------------------------------- #
+MANIP_SEED = 19  # the seed of the manipulation phase's draws
+MANIP_REPS = 5
+CONCAT_HARNESS = ((1000, 10_000, 1), (1000, 20_000, None), (1000, 40_000, 1))  # bench.py:990-995
+CONV_N, CONV_K = 1 << 29, 129  # float32 samples, taps (mode same)
+CONV_CPU_N = 1 << 20  # the slice held against the CPU's convolve
+TOL_CONV = 1e-5  # of max(|a| * |v|), the convolution of the magnitudes
+GALLERY = (1000, 500, 10)  # BASELINE's hsvd_rank harness at P = 1: 1000 x 500·P, rank 10, split 1
+TOL_GALLERY = 1e-4  # of the largest singular value
+WORLD_MANIP_ROWS = 16384  # rows of the world's operand a rank (x 8192 float32 columns)
+WORLD_MANIP_SEED = 9300
+WORLD_CONV_N = 1 << 27  # samples a rank
+
+
+def _conv_scale(x, v):
+    """max of the convolution of |x| and |v|, the scale of convolve's error."""
+    import torch
+
+    return float(torch.nn.functional.conv1d(x.abs().view(1, 1, -1), v.abs().flip(0).view(1, 1, -1),
+                                            padding=v.shape[0] - 1).max())
+
+
+def _conv_ref(x, v, left: int, right: int, dtype):
+    """The plain convolution on the card: zeros around x, one conv1d in
+    ``dtype`` with TF32 off."""
+    import torch
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ext = torch.nn.functional.pad(x.to(dtype), (left, right))
+        return torch.nn.functional.conv1d(ext.view(1, 1, -1), v.to(dtype).flip(0).view(1, 1, -1)).view(-1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def manip_path(dev) -> dict:
+    """The manipulations on the card at world size 1: BASELINE's
+    ``concatenate`` harness (three float32 arrays of 1000 x 10,000, 20,000
+    and 40,000, split 1, None, 1, along axis 1), then on the north-star
+    operand A (``ht.random.randn(65536, 8192, split=0)``) ``concatenate([A,
+    A], 0)``, ``stack``, ``pad``, ``roll``, ``repeat``, ``tile``,
+    ``swapaxes`` (a copy), ``split`` and ``flatten`` (views), ``diagonal``,
+    ``get_halo``/``array_with_halos``, each equal bit for bit to its torch
+    formula and timed under CUDA events beside its byte bound (what it must
+    read once and write once over 3.35 TB/s); ``convolve`` of 2^29 float32
+    samples with 129 taps, mode same, against the plain conv1d in float64
+    on the card and against the CPU's ``convolve`` on a 2^20 slice (1e-5 of
+    the magnitudes' convolution; TF32 would miss it), timed beside its
+    operation bound (2·n·k FLOP at 67 TFLOP/s); the gallery's
+    ``random_known_rank(1000, 500, 10, split=1)`` (R1) and ``hsvd_rank`` of
+    it, its 10 σ within 1e-4. Returns the rows and the launches of K1, K2,
+    K5, K6 and R1 on the path."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.linalg import _cuda_sketch as cs
+    from heat_tpu_torch.kernels import relayout as kr
+    from heat_tpu_torch.utils.data import matrixgallery
+
+    kr.PACK_LAUNCHES = kr.UNPACK_LAUNCHES = 0
+    ht.random.seed(MANIP_SEED)
+    _r1_zero()
+    parts = [ht.random.randn(m, n, split=s) for m, n, s in CONCAT_HARNESS]
+    A = ht.random.randn(M, N, split=0)
+    torch.cuda.synchronize()
+    r1 = {"manip_draw": _r1_read("manip_draw", 4, [m * n for m, n, _ in CONCAT_HARNESS] + [M * N])["launches"]}
+    a = A.larray
+    _require(a.device == dev and A.dtype is ht.float32 and A.split == 0, "the manipulation operand is not on the card")
+    rows = []
+
+    def record(label: str, call, nbytes: float, ok, flops: float = 0.0, tol_text: str = "bit for bit",
+               reps: int = MANIP_REPS, extra: dict = None):
+        out = call()
+        torch.cuda.synchronize()
+        err = ok(out)
+        del out
+        ms = _median_ms(call, reps)
+        bound, by = _bound(nbytes, flops)
+        rows.append({"name": label, "ms": round(ms, 4), "bound_ms": round(bound, 6), "bound_by": by,
+                     "bytes": nbytes, "flops": flops, "err": err, "tol": tol_text, **(extra or {})})
+        print(f"manip {label}: {ms:.4f} ms (CUDA events, median of {reps}), bound {bound:.6f} ms ({by}: "
+              f"{nbytes / 1e9:.6f} GB over 3.35 TB/s, {flops / 1e9:.3f} GFLOP over 67 TFLOP/s); against its torch "
+              f"formula: {tol_text}, {'equal' if err == 0 else format(err, '.3e') + ' of its limit'}"
+              + (f"; {extra}" if extra else ""), flush=True)
+        _require(err is not None and (err == 0 if tol_text == "bit for bit" else err <= 1.0),
+                 f"manip {label} disagrees with its torch formula ({err} against {tol_text})")
+
+    def exact(ref, split):  # values, split, and a map that holds the one shard (world size 1)
+        return lambda o: 0 if o.split == split and tuple(o.larray.shape) == tuple(ref.shape) and \
+            o.lshape_map.tolist() == [list(ref.shape)] and o.is_balanced() and torch.equal(o.larray, ref) else 1
+
+    def views(ref, split):  # the same values, and a view of A's memory
+        return lambda o: exact(ref, split)(o) or int(o.larray.data_ptr() != ref.data_ptr())
+
+    gb = 4.0 * M * N
+    ref = torch.cat([p.larray for p in parts], 1)
+    record("concatenate(harness, 1): 1000x10000 split 1, 1000x20000 whole, 1000x40000 split 1",
+           lambda: ht.concatenate(parts, 1), 2 * 4.0 * ref.numel(), exact(ref, 1))
+    del ref, parts
+    ref = torch.cat([a, a])
+    record("concatenate([A, A], 0)", lambda: ht.concatenate([A, A], 0), 2 * 2 * gb, exact(ref, 0))
+    del ref
+    ref = torch.stack([a, a])
+    record("stack([A, A])", lambda: ht.stack([A, A]), 2 * 2 * gb, exact(ref, 1))
+    del ref
+    torch.cuda.empty_cache()
+    ref = torch.nn.functional.pad(a, (2, 2, 1, 1))
+    record("pad(A, ((1, 1), (2, 2)))", lambda: ht.pad(A, ((1, 1), (2, 2))), gb + 4.0 * ref.numel(), exact(ref, 0))
+    del ref
+    ref = torch.roll(a, 1000, 0)
+    record("roll(A, 1000, 0)", lambda: ht.roll(A, 1000, 0), 2 * gb, exact(ref, 0))
+    del ref
+    ref = torch.repeat_interleave(a, 2, 0)
+    record("repeat(A, 2, 0)", lambda: ht.repeat(A, 2, 0), 3 * gb, exact(ref, 0))
+    del ref
+    ref = a.repeat(2, 1)
+    record("tile(A, (2, 1))", lambda: ht.tile(A, (2, 1)), 3 * gb, exact(ref, 0))
+    del ref
+    torch.cuda.empty_cache()
+    ref = a.T.contiguous()
+    record("swapaxes(A, 0, 1) (a copy)", lambda: ht.swapaxes(A, 0, 1), 2 * gb, exact(ref, 1))
+    del ref
+    q = M // 4
+    record("split(A, 4, 0) (views)", lambda: ht.split(A, 4, 0), 0.0,
+           lambda o: sum(views(a[i * q: (i + 1) * q], 0)(p) for i, p in enumerate(o)))
+    record("diagonal(A)", lambda: ht.diagonal(A), 2 * 4.0 * N, exact(torch.diagonal(a).clone(), 0))
+    record("flatten(A) (a view)", lambda: ht.flatten(A), 0.0, views(a.reshape(-1), 0))
+
+    def halos():
+        A.get_halo(2)
+        return A
+    record("get_halo(2), array_with_halos (one rank: no neighbour)", halos, 0.0,
+           lambda o: int(o.halo_prev is not None or o.halo_next is not None or o.array_with_halos is not a))
+
+    # convolve: 2^29 samples, 129 taps, mode same
+    del A, a
+    torch.cuda.empty_cache()
+    _r1_zero()
+    X = ht.random.randn(CONV_N, split=0)
+    v = ht.random.randn(CONV_K)
+    torch.cuda.synchronize()
+    r1["convolve_draw"] = _r1_read("convolve_draw", 2, [CONV_N, CONV_K])["launches"]
+    x, w = X.larray, v.larray
+    left, right = CONV_K // 2, CONV_K - 1 - CONV_K // 2
+    scale = _conv_scale(x, w)
+    ref = _conv_ref(x, w, left, right, torch.float64)
+    _require(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 switch is off before convolve (it is on by default)")
+    ops = 2.0 * CONV_N * CONV_K
+    plain_ms = _median_ms(lambda: _conv_ref(x, w, left, right, torch.float32), MANIP_REPS)
+    record(f"convolve(randn({CONV_N}), randn({CONV_K}), 'same')", lambda: ht.convolve(X, v, "same"), 2 * 4.0 * CONV_N,
+           lambda o: float((o.larray.double() - ref).abs().max()) / (TOL_CONV * scale)
+           if o.split == 0 and o.shape == (CONV_N,) and o.lshape_map.tolist() == [[CONV_N]] else 2.0, flops=ops,
+           tol_text=f"within {TOL_CONV} of max(|a| * |v|) = {scale:.3f} of the float64 conv1d on the card",
+           extra={"plain_ms": round(plain_ms, 4), "plain": "conv1d of the padded signal in float32, TF32 off"})
+    _require(torch.backends.cudnn.allow_tf32, "convolve left cuDNN's TF32 switch off")
+    del ref
+    torch.cuda.empty_cache()
+    xs, ws = x[:CONV_CPU_N].clone(), w.clone()
+    card = ht.convolve(ht.array(xs), ht.array(ws), "same").larray.double().cpu()
+    host = ht.convolve(ht.array(xs.cpu(), device="cpu"), ht.array(ws.cpu(), device="cpu"), "same").larray.double()
+    cpu_err = float((card - host).abs().max()) / (TOL_CONV * _conv_scale(xs, ws))
+    print(f"manip convolve on {CONV_CPU_N} samples: card against the CPU {cpu_err:.3e} of its limit "
+          f"({TOL_CONV} of max(|a| * |v|))", flush=True)
+    _require(cpu_err <= 1.0, f"convolve on the card differs from the CPU's ({cpu_err:.3e} of its limit)")
+    rows[-1]["cpu_err"] = cpu_err
+    del X, v, x, w, xs, ws, card, host
+    torch.cuda.empty_cache()
+
+    # the gallery at BASELINE's hsvd_rank harness shape, then hsvd_rank
+    m, n, r = GALLERY
+    ht.random.seed(MANIP_SEED + 1)
+    _r1_zero()
+    G, (_, s, _) = matrixgallery.random_known_rank(m, n, r, split=1)
+    torch.cuda.synchronize()
+    r1["gallery_draw"] = _r1_read("gallery_draw", 3, [r, m * r, n * r])["launches"]
+    cs.SKETCH_LAUNCHES = cs.DUAL_LAUNCHES = cs.SKETCH_SM90_LAUNCHES = cs.DUAL_SM90_LAUNCHES = 0
+    _r1_zero()
+    U, sigma, V, err = ht.linalg.hsvd_rank(G, r, compute_sv=True)
+    torch.cuda.synchronize()
+    r1["gallery_hsvd"] = _r1_read("gallery_hsvd", 1)["launches"]
+    want = torch.sort(s.larray, descending=True).values
+    sig_err = float((sigma.larray - want).abs().max() / want[0])
+    k1 = {"sketch_with_norm": cs.SKETCH_LAUNCHES, "sketch_sm90": cs.SKETCH_SM90_LAUNCHES,
+          "dual_sketch_with_norm": cs.DUAL_LAUNCHES}
+    print(f"manip gallery: random_known_rank({m}, {n}, {r}, split=1) {tuple(G.shape)} split {G.split}, then "
+          f"hsvd_rank(G, {r}): sigma {[round(float(t), 6) for t in sigma.larray]} against "
+          f"{[round(float(t), 6) for t in want]}, max |Δσ| / σ_max {sig_err:.3e} (tol {TOL_GALLERY}); K1/K2 launches "
+          f"{k1}; R1 {r1['gallery_draw']} (draw), {r1['gallery_hsvd']} (hsvd)", flush=True)
+    _require(G.split == 1 and sig_err <= TOL_GALLERY, f"the gallery's singular values came back off ({sig_err:.3e})")
+    del G, U, V, sigma
+    launches = {"k1": k1, "k5": kr.PACK_LAUNCHES, "k6": kr.UNPACK_LAUNCHES, "r1": r1}
+    print(f"manip launches: {launches} (K5/K6: no resplit on one rank)", flush=True)
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "gallery_sigma_err": sig_err}
+
+
+def _world_manip(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """Manipulations across ranks on a 65536 x 8192 float32 operand split 0
+    (16384 rows a rank), each rank's shard made on the card from a seed
+    every rank shares: the ``concatenate`` harness with its mixed splits,
+    ``concatenate([A, A], 0)``, ``pad``, ``roll``, ``repeat``, ``tile``
+    along the split axis, ``balance`` of an uneven slice, ``collect``,
+    ``get_halo`` and ``convolve`` (2^29 samples over the ranks, 129 taps,
+    mode same), and the gallery at P = 4 with its ``hsvd_rank``. Each rank
+    checks its rows against the torch formula on the whole operand (what
+    world size 1 computes): bit for bit for the moves, convolve within
+    1e-5 of the magnitudes' convolution."""
+    import torch
+
+    from heat_tpu_torch.utils.data import matrixgallery
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(WORLD_MANIP_SEED)
+    rows_total = WORLD * WORLD_MANIP_ROWS
+    full = torch.randn(rows_total, N, device=dev, generator=gen)
+    r0, c0 = comm.chunk((rows_total, N), 0)[0], rank * WORLD_MANIP_ROWS
+    A = ht.array(full[r0: r0 + WORLD_MANIP_ROWS].clone(), is_split=0)
+    out = {}
+
+    def counted(call):
+        comm.counts.clear()
+        moved.clear()
+        comm.staged_bytes = 0
+        res = call()
+        torch.cuda.synchronize()
+        return res, {"counts": dict(comm.counts), "bytes": dict(moved), "staged": comm.staged_bytes}
+
+    def mine(res, ref):  # this rank's rows of the global ``ref`` in ``res``'s layout
+        split = res.split
+        st = int(res.lshape_map[:rank, split].sum())
+        return ref.narrow(split, st, int(res.lshape_map[rank, split]))
+
+    def check(name, call, want, reps=2):
+        res, info = counted(call)
+        ref = want()
+        ok = res.gshape == tuple(ref.shape) and torch.equal(res.larray, mine(res, ref))
+        _every_rank_ok(comm, ok, f"world {name} differs from the torch formula's rows on rank {rank}")
+        out[name] = {**info, "ms": _world_ms(call, reps), "reps": reps,
+                     "lshape_map": res.lshape_map[:, res.split].tolist()}
+        del res, ref
+
+    harness = []
+    for m, n, s in CONCAT_HARNESS:
+        whole = torch.randn(m, n, device=dev, generator=gen)
+        if s is None:
+            harness.append((whole, ht.array(whole)))
+        else:
+            st, ls, _ = comm.chunk((m, n), s)
+            harness.append((whole, ht.array(whole.narrow(s, st, ls[s]).clone(), is_split=s)))
+    check("concat_harness", lambda: ht.concatenate([h for _, h in harness], 1),
+          lambda: torch.cat([w for w, _ in harness], 1))
+    del harness
+    check("concat_split0", lambda: ht.concatenate([A, A], 0), lambda: torch.cat([full, full]), reps=1)
+    check("pad_split0", lambda: ht.pad(A, ((1, 1), (2, 2))), lambda: torch.nn.functional.pad(full, (2, 2, 1, 1)))
+    check("roll_split0", lambda: ht.roll(A, 1000, 0), lambda: torch.roll(full, 1000, 0))
+    check("repeat_split0", lambda: ht.repeat(A, 2, 0), lambda: torch.repeat_interleave(full, 2, 0))
+    check("tile_split0", lambda: ht.tile(A, (2, 1)), lambda: full.repeat(2, 1), reps=1)
+    torch.cuda.empty_cache()
+    lo, hi = rows_total // 64, rows_total * 15 // 16  # 1024 and 61440: 15360, 16384, 16384, 12288 rows a rank
+    B = A[lo:hi]
+    check("balance_uneven", lambda: ht.balance(B, copy=True), lambda: full[lo:hi])
+    out["balance_uneven"]["before"] = B.lshape_map[:, 0].tolist()
+    del B
+    check("collect", lambda: ht.collect(A, 0), lambda: full, reps=1)
+
+    def halos():
+        A.get_halo(2)
+        return A
+    _, info = counted(halos)
+    first, last = r0 == 0, rank == WORLD - 1
+    ok = (first or torch.equal(A.halo_prev, full[r0 - 2: r0])) and (first == (A.halo_prev is None)) and \
+        (last or torch.equal(A.halo_next, full[r0 + WORLD_MANIP_ROWS: r0 + WORLD_MANIP_ROWS + 2])) and \
+        (last == (A.halo_next is None))
+    _every_rank_ok(comm, ok, f"world get_halo(2) differs from the neighbours' rows on rank {rank}")
+    out["get_halo"] = {**info, "ms": _world_ms(halos, 2)}
+    del A, full
+    torch.cuda.empty_cache()
+
+    gen.manual_seed(WORLD_MANIP_SEED + 1)
+    xw = torch.randn(WORLD * WORLD_CONV_N, device=dev, generator=gen)
+    vw = torch.randn(CONV_K, device=dev, generator=gen)
+    X = ht.array(xw[rank * WORLD_CONV_N: (rank + 1) * WORLD_CONV_N].clone(), is_split=0)
+    v = ht.array(vw)
+    left, right = CONV_K // 2, CONV_K - 1 - CONV_K // 2
+    res, info = counted(lambda: ht.convolve(X, v, "same"))
+    ref = _conv_ref(xw, vw, left, right, torch.float32)
+    err = float((res.larray - mine(res, ref)).abs().max()) / (TOL_CONV * _conv_scale(xw, vw))
+    _every_rank_ok(comm, err <= 1.0, f"world convolve differs from world size 1's on rank {rank} ({err:.3e})")
+    out["convolve"] = {**info, "ms": _world_ms(lambda: ht.convolve(X, v, "same"), 2), "err": err}
+    del X, v, xw, vw, res, ref
+    torch.cuda.empty_cache()
+
+    m, n, r = GALLERY
+    ht.random.seed(MANIP_SEED + 1)
+    G, (_, s, _) = matrixgallery.random_known_rank(m, n * WORLD, r, split=1)
+    _, sigma, _, _ = ht.linalg.hsvd_rank(G, r, compute_sv=True)
+    want = torch.sort(s.larray, descending=True).values
+    sig_err = float((sigma.larray - want).abs().max() / want[0])
+    _every_rank_ok(comm, sig_err <= TOL_GALLERY, f"world gallery: hsvd_rank's sigma off by {sig_err:.3e} on rank {rank}")
+    out["gallery"] = {"sigma_err": sig_err, "lshape": list(G.lshape)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _report_world_manip(per: list, shared: str) -> dict:
+    """Print the manipulation phase of the world; returns its collective
+    counts a call."""
+    rows = WORLD * WORLD_MANIP_ROWS
+    gb = 4.0 * rows * N
+    harness = sum(4.0 * m * n for m, n, _ in CONCAT_HARNESS)
+    what = {
+        "concat_harness": ("concatenate(harness, 1), splits 1/None/1 (the chunk geometry of the result)",
+                           2 * harness),
+        "concat_split0": (f"concatenate([A, A], 0), A {WORLD * WORLD_MANIP_ROWS}x{N} float32 split 0", 4 * gb),
+        "pad_split0": ("pad(A, ((1, 1), (2, 2))) (rows where they fall)", 2 * gb),
+        "roll_split0": ("roll(A, 1000, 0) (A's layout)", 2 * gb),
+        "repeat_split0": ("repeat(A, 2, 0) (rows where they fall)", 3 * gb),
+        "tile_split0": ("tile(A, (2, 1)) (the chunk geometry of the result)", 3 * gb),
+        "balance_uneven": (f"balance(A[{rows // 64}:{rows * 15 // 16}], copy=True)",
+                           2 * 4.0 * (rows * 15 // 16 - rows // 64) * N),
+        "collect": ("collect(A, 0) (every row to rank 0)", 2 * gb),
+        "get_halo": ("A.get_halo(2)", 0.0),
+        "convolve": (f"convolve(randn({WORLD * WORLD_CONV_N}) split 0, randn({CONV_K}), 'same'), within {TOL_CONV} "
+                     f"of the magnitudes' convolution", 2 * 4.0 * WORLD * WORLD_CONV_N),
+    }
+    counts = {}
+    for name, (text, nbytes) in what.items():
+        each = [p[name] for p in per]
+        counts[name] = each[0]["counts"]
+        flops = 2.0 * WORLD * WORLD_CONV_N * CONV_K if name == "convolve" else 0.0
+        bound, by = _bound(nbytes, flops)
+        print(
+            f"world manip {name}: {text}: {each[0]['ms']:.4f} ms a call (rank 0, median of {each[0].get('reps', 2)}; ranks "
+            f"{[round(e['ms'], 4) for e in each]}), bound {bound:.4f} ms ({by}, one card); equal to the torch formula "
+            f"on every rank{' (err ' + format(max(e['err'] for e in each), '.3e') + ' of the limit)' if name == 'convolve' else ' bit for bit'}; "
+            f"collectives a rank {[e['counts'] for e in each]}, bytes a rank put in {[e['bytes'] for e in each]}, "
+            f"staged through the host {[e['staged'] for e in each]} B a rank"
+            + (f"; result rows a rank {each[0]['lshape_map']}" if "lshape_map" in each[0] else "")
+            + (f"; before {each[0]['before']}" if "before" in each[0] else "") + f"; {shared}", flush=True,
+        )
+    m, n, r = GALLERY
+    print(f"world manip gallery: random_known_rank({m}, {n * WORLD}, {r}, split=1) and hsvd_rank: max |Δσ| / σ_max "
+          f"{max(p['gallery']['sigma_err'] for p in per):.3e} (tol {TOL_GALLERY}), shards {[p['gallery']['lshape'] for p in per]}",
+          flush=True)
+    return counts
+
+
 def profile_breakdown(label: str, call) -> list:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
@@ -4720,6 +5072,7 @@ def main() -> int:
     indexing = indexing_path(dev)
     train = train_path(dev)
     kmd = kmedians_path(dev)
+    manip = manip_path(dev)
     launches["world"] = world_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
@@ -4740,18 +5093,25 @@ def main() -> int:
         if world:
             row["world_launches"] = world
     rows.extend(att_rows)
-    rows.extend(relayout_timings(dev, relayout_launches, relayout_errs))
+    relayout_rows = relayout_timings(dev, relayout_launches, relayout_errs)
+    for row, key in zip(relayout_rows, ("k5", "k6")):  # none on one rank: no resplit under the manipulations
+        row["manip_launches"] = manip["launches"][key]
+    rows.extend(relayout_rows)
+    rows[0]["manip_launches"] = {"gallery_hsvd": manip["launches"]["k1"]["sketch_with_norm"]}
     r1_rows = random_timings(dev, random_errs)
     r1_rows[0]["world_launches"] = launches["world"]["random"]
     r1_rows[0]["train_launches"] = {"cnn_per_step": train["cnn"]["r1_per_step"],
                                     "mlp_per_step": train["mlp"]["r1_per_step"], "shuffle": train["shuffle"]["r1"],
                                     "kmedians_seeding": R1_PATH["kmedians_fit"]["launches"]}
+    r1_rows[0]["manip_launches"] = manip["launches"]["r1"]
     rows.extend(r1_rows)
     print(f"R1 on the main paths: {R1_PATH}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"surface": surface["rows"]}))
     print(json.dumps({"indexing": indexing["rows"]}))
     print(json.dumps({"training": {k: v for k, v in train.items()}, "kmedians": kmd}))
+    print(json.dumps({"manipulations": manip["rows"], "launches": manip["launches"],
+                      "world": launches["world"]["manip"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

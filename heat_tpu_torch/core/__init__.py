@@ -1,6 +1,7 @@
 """heat_tpu_torch core: array, type system, devices, communicator,
-factories, indexing, elementwise operations, reductions, statistics,
-memory and printing (port of ``heat_tpu.core``)."""
+factories, indexing, manipulations, elementwise operations, reductions,
+statistics, memory, printing, the 1-D convolution and the tile maps (port
+of ``heat_tpu.core``)."""
 
 from .base import *
 from .communication import *
@@ -22,9 +23,14 @@ from .rounding import *
 from .statistics import *
 from .trigonometrics import *
 from .sanitation import *
+from .signal import *
 from .stride_tricks import *
+from .tiling import *
 
 from . import interop
+from . import parallel
+from . import signal
+from . import tiling
 from . import random
 
 from . import linalg

@@ -119,6 +119,8 @@ class DNDarray:
         self.__comm = comm
         self.__lmap = None
         self.__set_lshape_map(lshape_map)
+        self.__halo_prev = None
+        self.__halo_next = None
 
     def __set_lshape_map(self, lmap: Optional[np.ndarray]) -> None:
         """Keep ``lmap`` only where it differs from the chunk geometry."""
@@ -161,8 +163,10 @@ class DNDarray:
     def larray(self, array: torch.Tensor) -> None:
         """Rebind this rank's shard; type and shape follow it (reference
         dndarray.py:150). A split array's global shape and map of shard
-        shapes are gathered from all ranks (every rank must call)."""
+        shapes are gathered from all ranks (every rank must call). Halos of an
+        earlier ``get_halo`` are dropped."""
         self.__array = array
+        self.__halo_prev = self.__halo_next = None
         self.__dtype = types.canonical_heat_type(array.dtype)
         if self.__split is not None and self.__split >= array.ndim:
             self.__split = None
@@ -204,6 +208,46 @@ class DNDarray:
     @property
     def ndim(self) -> int:
         return len(self.__gshape)
+
+    @property
+    def numdims(self) -> int:
+        """The number of axes (``heat_tpu`` dndarray.py:328)."""
+        return self.ndim
+
+    @property
+    def real(self) -> "DNDarray":
+        """The real part (``heat_tpu`` dndarray.py:370)."""
+        from . import complex_math
+
+        return complex_math.real(self)
+
+    @property
+    def imag(self) -> "DNDarray":
+        """The imaginary part (``heat_tpu`` dndarray.py:364)."""
+        from . import complex_math
+
+        return complex_math.imag(self)
+
+    @property
+    def halo_prev(self) -> Optional[torch.Tensor]:
+        """The rows that the last ``get_halo`` fetched from the previous rank
+        that holds rows: this rank's tensor of them (reference
+        dndarray.py:189), None where there is none."""
+        return self.__halo_prev
+
+    @property
+    def halo_next(self) -> Optional[torch.Tensor]:
+        """The rows that the last ``get_halo`` fetched from the next rank that
+        holds rows (reference dndarray.py:195), None where there is none."""
+        return self.__halo_next
+
+    @property
+    def array_with_halos(self) -> torch.Tensor:
+        """This rank's shard with the halos of the last ``get_halo`` before
+        and after it along the split axis, those that exist (reference
+        dndarray.py:359)."""
+        parts = [h for h in (self.__halo_prev, self.__array, self.__halo_next) if h is not None]
+        return torch.cat(parts, self.__split) if len(parts) > 1 else self.__array
 
     @property
     def size(self) -> int:
@@ -459,6 +503,46 @@ class DNDarray:
         displs = tuple(int(d) for d in np.concatenate([[0], np.cumsum(counts)[:-1]]))
         return counts, displs
 
+    def create_lshape_map(self, force_check: bool = False) -> np.ndarray:
+        """The (size, ndim) map of every rank's shard shape (``heat_tpu``
+        dndarray.py:529); ``force_check`` gathers it from the shards (one
+        all-gather) instead of the map the array keeps."""
+        if force_check and self.is_distributed():
+            return _gather_lshapes(self.__comm, self.__array)
+        return self.lshape_map
+
+    def get_halo(self, halo_size: int, prev: bool = True, next: bool = True) -> None:
+        """Fetch ``halo_size`` rows along the split axis from the previous and
+        the next rank that hold rows (reference dndarray.py:386; ``heat_tpu``
+        :632) into ``halo_prev``, ``halo_next`` and ``array_with_halos``:
+        ``parallel.halo_exchange``, two permutes among the ranks that hold
+        rows. Every rank calls it. Raises ``ValueError`` where ``halo_size``
+        exceeds the fewest rows a rank that holds rows has."""
+        if not isinstance(halo_size, int):
+            raise TypeError(f"halo_size needs to be of Python type integer, {type(halo_size)} given")
+        if halo_size < 0:
+            raise ValueError(f"halo_size needs to be a positive integer, {halo_size} given")
+        self.__halo_prev = self.__halo_next = None
+        if not self.is_distributed() or halo_size == 0:
+            return
+        counts = self.lshape_map[:, self.__split]
+        held = [q for q in range(self.__comm.size) if counts[q] > 0]
+        if len(held) < 2:
+            return
+        if halo_size > int(counts[held].min()):
+            raise ValueError("halo_size exceeds the smallest local shard extent")
+        from . import parallel
+
+        hp, hn = (halo_size if prev else 0), (halo_size if next else 0)
+        ext = parallel.halo_exchange(self.__array, self.__comm, self.__split, hp, hn, counts)
+        if self.__comm.rank not in held:
+            return
+        i = held.index(self.__comm.rank)
+        if hp and i > 0:
+            self.__halo_prev = ext.narrow(self.__split, 0, hp)
+        if hn and i < len(held) - 1:
+            self.__halo_next = ext.narrow(self.__split, ext.shape[self.__split] - hn, hn)
+
     def is_balanced(self, force_check: bool = False) -> bool:
         """True if the shards follow the chunk geometry (``heat_tpu``
         dndarray.py:518)."""
@@ -507,6 +591,22 @@ class DNDarray:
             self.__array = moved.movedim(0, split).contiguous()
         self.__set_lshape_map(target_map)
         return None
+
+    def collect_(self, target_rank: int = 0) -> None:
+        """Move every row to ``target_rank`` (reference dndarray.py:572;
+        ``heat_tpu`` :597): one ``redistribute_``. The split stays, the
+        other ranks holding no rows (``heat_tpu`` makes the array split
+        None on that device)."""
+        if not isinstance(target_rank, int):
+            raise TypeError(f"target rank must be int, got {type(target_rank)}")
+        if target_rank >= self.__comm.size:
+            raise ValueError("target rank is out of bounds")
+        if self.__split is None:
+            return
+        target = self.lshape_map
+        target[:, self.__split] = 0
+        target[target_rank, self.__split] = self.__gshape[self.__split]
+        self.redistribute_(target_map=target)
 
     def _balanced_larray(self) -> torch.Tensor:
         """This rank's shard in the chunk geometry (moved there, on a copy,

@@ -1,6 +1,9 @@
-"""The distributed sort family: sort networks, top-k and unique across ranks.
+"""SPMD primitives across ranks: the halo exchange, the ring of pairwise
+distances, and the distributed sort family (sort networks, top-k and
+unique).
 
-Port of the sort programs of ``heat_tpu.core.parallel`` (``distributed_sort``
+Port of ``heat_tpu.core.parallel`` (``halo_exchange`` :131, ``ring_pairwise``
+:492, ``distributed_sort``
 :446, ``_columnsort_program`` :343, ``_oddeven_sort_program`` :280,
 ``_oddeven_sort_values_program`` :237, ``distributed_topk`` :80,
 ``distributed_unique`` :947, ``distributed_unique_rows`` :922). ``heat_tpu``
@@ -27,7 +30,83 @@ import torch
 
 from ..kernels import sort as _ksort
 
-__all__ = ["columnsort_applicable", "distributed_sort", "distributed_topk", "distributed_unique", "sorted_dedup"]
+__all__ = [
+    "columnsort_applicable",
+    "distributed_sort",
+    "distributed_topk",
+    "distributed_unique",
+    "halo_exchange",
+    "ring_pairwise",
+    "sorted_dedup",
+]
+
+
+# --------------------------------------------------------------------- #
+# halo exchange                                                         #
+# --------------------------------------------------------------------- #
+def halo_exchange(x: torch.Tensor, comm, split: int, halo_prev: int, halo_next: int,
+                  counts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """This rank's tensor ``x`` with ``halo_prev`` rows of the previous rank
+    before it and ``halo_next`` rows of the next rank after it along
+    ``split``: ``[prev halo | x | next halo]``, zeros at the outer ends
+    (``heat_tpu`` parallel.py:131, whose blocks are those of the mesh). Two
+    ``comm.permute``s, one a direction that is asked for. Neighbours are
+    the ranks that hold rows, as in the Heat reference; a rank that holds
+    none sends nothing and gets zeros. ``counts`` is every rank's extent
+    along ``split`` (default: learnt by one all-gather; ``DNDarray.get_halo``
+    passes its map), so every rank raises ``ValueError`` together where a
+    halo exceeds the fewest rows a rank that holds rows has."""
+    if counts is None:
+        n = torch.tensor([x.shape[split]], dtype=torch.int64, device=x.device)
+        counts = comm.allgather(n).tolist()
+    ranks = [q for q in range(comm.size) if int(counts[q]) > 0]
+    fewest = min((int(counts[q]) for q in ranks), default=0)
+    if max(halo_prev, halo_next) > fewest:
+        raise ValueError(f"halo size ({halo_prev}/{halo_next}) exceeds the fewest rows a rank holds ({fewest})")
+    inside = comm.rank in ranks
+    n = x.shape[split]
+    hops = list(zip(ranks[:-1], ranks[1:]))
+
+    def edge(start: int, size: int) -> torch.Tensor:
+        if inside:
+            return x.narrow(split, start, size).contiguous()
+        shape = list(x.shape)
+        shape[split] = size
+        return x.new_zeros(shape)
+
+    parts = [x]
+    if halo_prev > 0:  # each rank's last rows go to the next one
+        parts.insert(0, comm.permute(edge(n - halo_prev if inside else 0, halo_prev), hops))
+    if halo_next > 0:  # each rank's first rows go to the previous one
+        parts.append(comm.permute(edge(0, halo_next), [(b, a) for a, b in hops]))
+    return torch.cat(parts, split) if len(parts) > 1 else x
+
+
+# --------------------------------------------------------------------- #
+# the ring of pairwise distances                                        #
+# --------------------------------------------------------------------- #
+def ring_pairwise(x: torch.Tensor, y: torch.Tensor, comm, metric: str = "euclidean",
+                  symmetric: bool = False) -> torch.Tensor:
+    """This rank's rows of the all-pairs ``metric`` between the row blocks
+    ``x`` and ``y`` of two arrays split along axis 0 (``heat_tpu``
+    parallel.py:492): ``spatial.distance``'s ring, y's blocks passing
+    around it, p − 1 hops (one all-gather of the blocks' row counts first).
+    ``symmetric=True`` (x the same array as y, under a symmetric metric)
+    computes p//2 + 1 blocks and fills the others with the transposes their
+    owners computed. Metrics: ``euclidean`` and ``sqeuclidean`` (the
+    quadratic expansion), their ``_direct`` forms and ``manhattan``. The
+    result has y's global row count as columns, in the promoted type of x
+    and y."""
+    from ..spatial import distance
+
+    if metric not in distance._FORMS:
+        raise ValueError(f"unknown metric {metric!r}; options: {sorted(distance._FORMS)}")
+    tt = torch.promote_types(x.dtype, y.dtype)
+    x, y = x.to(tt), y.to(tt)
+    counts = [int(y.shape[0])]
+    if comm.is_distributed():
+        counts = [int(c) for c in comm.allgather(torch.tensor([y.shape[0]], device=y.device)).cpu()]
+    return distance._ring(comm, x, y, counts, distance._FORMS[metric], symmetric)
 
 
 # --------------------------------------------------------------------- #

@@ -285,6 +285,8 @@ def _cases(ht):
     cases.update(_indexing_cases(ht))
     cases.update(_train_cases(ht))
     cases.update(_kmedians_cases(ht))
+    cases.update(_manip_cases(ht))
+    cases.update(_halo_cases(ht))
     return cases
 
 
@@ -1195,6 +1197,376 @@ def _kmedians_cases(ht):
                                 "labels": km.labels_.numpy(), "labels_split": km.labels_.split,
                                 "inertia": km.inertia_, "counts": dict(comm.counts)}
                     cases[f"kmd_{est}_{label}_{split}_{init}"] = kmd_case
+    return cases
+
+
+# manipulations across ranks (tests/test_torch_manipulations.py): name ->
+# call(lib, kw) on either package, kw holding heat_tpu's communicator; a
+# DNDarray or a list of them
+COLLECT_TARGET = 2
+
+
+def _manip_defs():
+    A = _surface_array
+
+    def a(lib, kw, dtype="float32"):  # 13 rows over 4 ranks: 4, 4, 4, 1
+        return A(lib, kw, (13, 6), 0, 300, dtype)
+
+    def e(lib, kw):  # 9 rows: 3, 3, 3, 0 (the last rank holds none)
+        return A(lib, kw, (9, 5), 0, 301)
+
+    def u(lib, kw):  # a slice: the port keeps rows 2-10 where they fall (2, 4, 3, 0), heat_tpu rechunks
+        return A(lib, kw, (13, 6), 0, 302)[2:11]
+
+    def c(lib, kw):  # split 1: 13 columns over 4 ranks
+        return A(lib, kw, (5, 13), 1, 303)
+
+    def w(lib, kw, shape, seed, split=None):
+        return A(lib, kw, shape, split, seed)
+
+    cases = {
+        # joins
+        "concat_split0": lambda lib, kw: lib.concatenate([a(lib, kw), w(lib, kw, (7, 6), 304, 0)], 0),
+        "concat_split0_three": lambda lib, kw: lib.concatenate([e(lib, kw)[:, :3], w(lib, kw, (2, 3), 305, 0),
+                                                                u(lib, kw)[:, :3]], 0),
+        "concat_harness": lambda lib, kw: lib.concatenate([w(lib, kw, (3, 10), 306, 1), w(lib, kw, (3, 5), 307),
+                                                           w(lib, kw, (3, 7), 308, 1)], 1),
+        "concat_whole_first": lambda lib, kw: lib.concatenate([w(lib, kw, (3, 6), 309), a(lib, kw)], 0),
+        "concat_off_split": lambda lib, kw: lib.concatenate([a(lib, kw), w(lib, kw, (13, 3), 310, 0)], 1),
+        "concat_off_split_uneven": lambda lib, kw: lib.concatenate([u(lib, kw), w(lib, kw, (9, 2), 311, 0)], 1),
+        "concat_mixed": lambda lib, kw: lib.concatenate([w(lib, kw, (13, 6), 312), a(lib, kw),
+                                                         w(lib, kw, (13, 6), 313, 1)], 0),
+        "concat_promote_int": lambda lib, kw: lib.concatenate([a(lib, kw, "int32"), w(lib, kw, (6, 13), 323, 1).T], 0),
+        "stack_split0": lambda lib, kw: lib.stack([a(lib, kw), a(lib, kw)], 1),
+        "column_stack": lambda lib, kw: lib.column_stack([w(lib, kw, (13,), 317, 0), a(lib, kw)]),
+        # splits
+        "split_split0": lambda lib, kw: lib.split(a(lib, kw), [3, 9], 0),
+        "split_uneven": lambda lib, kw: lib.split(u(lib, kw), 3, 0),
+        "vsplit_empty_rank": lambda lib, kw: lib.vsplit(e(lib, kw), [4]),
+        # shape-only functions
+        "squeeze_extent1": lambda lib, kw: lib.squeeze(w(lib, kw, (1, 6), 318, 0)),
+        "squeeze_keep_split": lambda lib, kw: lib.squeeze(lib.expand_dims(u(lib, kw), 1), 1),
+        "broadcast_extent1": lambda lib, kw: lib.broadcast_to(w(lib, kw, (1, 6), 319, 0), (13, 6)),
+        "broadcast_lead": lambda lib, kw: lib.broadcast_to(u(lib, kw), (2, 9, 6)),
+        "flatten_split0": lambda lib, kw: lib.flatten(u(lib, kw)),
+        "flatten_split1": lambda lib, kw: lib.flatten(c(lib, kw)),
+        # moves along the split axis
+        "pad_split0": lambda lib, kw: lib.pad(a(lib, kw), ((2, 3), (1, 0)), constant_values=-1),
+        "pad_uneven": lambda lib, kw: lib.pad(u(lib, kw), 2),
+        "pad_empty_rank": lambda lib, kw: lib.pad(e(lib, kw), ((1, 4), (0, 0))),
+        "pad_split1": lambda lib, kw: lib.pad(c(lib, kw), ((0, 1), (3, 2))),
+        "roll_split0": lambda lib, kw: lib.roll(a(lib, kw), 5, 0),
+        "roll_uneven": lambda lib, kw: lib.roll(u(lib, kw), -4, 0),
+        "roll_empty_rank": lambda lib, kw: lib.roll(e(lib, kw), 7, 0),
+        "roll_split1": lambda lib, kw: lib.roll(c(lib, kw), 6, 1),
+        "roll_flat": lambda lib, kw: lib.roll(a(lib, kw), 11),
+        "roll_off_split": lambda lib, kw: lib.roll(a(lib, kw), 2, 1),
+        "repeat_split0": lambda lib, kw: lib.repeat(a(lib, kw), 2, 0),
+        "repeat_counts": lambda lib, kw: lib.repeat(u(lib, kw), [1, 0, 2, 1, 3, 0, 1, 2, 1], 0),
+        "repeat_dnd_counts": lambda lib, kw: lib.repeat(a(lib, kw), lib.array(np.arange(13) % 3, split=0, **kw), 0),
+        "repeat_flat": lambda lib, kw: lib.repeat(e(lib, kw), 2),
+        "repeat_off_split": lambda lib, kw: lib.repeat(a(lib, kw), 2, 1),
+        "tile_split0": lambda lib, kw: lib.tile(a(lib, kw), (3, 1)),
+        "tile_uneven": lambda lib, kw: lib.tile(u(lib, kw), (2, 2)),
+        "tile_off_split": lambda lib, kw: lib.tile(a(lib, kw), (1, 2)),
+        "rot90_split0": lambda lib, kw: lib.rot90(a(lib, kw)),
+        "rot90_k3_split0": lambda lib, kw: lib.rot90(a(lib, kw), 3),
+        "rot90_uneven_k2": lambda lib, kw: lib.rot90(u(lib, kw), 2),
+        "diagonal_split0": lambda lib, kw: lib.diagonal(a(lib, kw), 1),
+        "diagonal_split1": lambda lib, kw: lib.diagonal(c(lib, kw), -1),
+        "diagonal_uneven": lambda lib, kw: lib.diagonal(u(lib, kw), -2),
+        "diag_1d_up": lambda lib, kw: lib.diag(w(lib, kw, (13,), 320, 0), 2),
+        # layout
+        "balance_uneven": lambda lib, kw: lib.balance(u(lib, kw), copy=True),
+        "collect_split0": lambda lib, kw: lib.collect(a(lib, kw), COLLECT_TARGET),
+        "collect_uneven": lambda lib, kw: lib.collect(u(lib, kw), COLLECT_TARGET),
+        "sanitize_distribution": lambda lib, kw: lib.sanitize_distribution(w(lib, kw, (9, 6), 322, 1), a(lib, kw)[:9],
+                                                                           target=u(lib, kw)),
+    }
+    return cases
+
+
+MANIP_CASES = _manip_defs()
+# each call's collectives a rank (the operands' making issues none): no
+# case all-gathers a split operand; ``repeat_dnd_counts`` all-gathers the
+# shard shapes of a result whose counts only their owners know
+MANIP_COUNTS = {
+    "concat_split0": {"all-to-all": 1},
+    "concat_split0_three": {"all-to-all": 1},
+    "concat_harness": {"all-to-all": 1},
+    "concat_whole_first": {"all-to-all": 1},
+    "concat_off_split": {},
+    "concat_off_split_uneven": {"all-to-all": 1},
+    "concat_mixed": {"all-to-all": 2},
+    "concat_promote_int": {"all-to-all": 1},
+    "stack_split0": {},
+    "column_stack": {},
+    "split_split0": {},
+    "split_uneven": {},
+    "vsplit_empty_rank": {},
+    "squeeze_extent1": {"broadcast": 1},
+    "squeeze_keep_split": {},
+    "broadcast_extent1": {"broadcast": 1},
+    "broadcast_lead": {},
+    "flatten_split0": {},
+    "flatten_split1": {"all-to-all": 1},
+    "pad_split0": {},
+    "pad_uneven": {},
+    "pad_empty_rank": {},
+    "pad_split1": {},
+    "roll_split0": {"all-to-all": 1},
+    "roll_uneven": {"all-to-all": 1},
+    "roll_empty_rank": {"all-to-all": 1},
+    "roll_split1": {"all-to-all": 1},
+    "roll_flat": {"all-to-all": 1},
+    "roll_off_split": {},
+    "repeat_split0": {},
+    "repeat_counts": {},
+    "repeat_dnd_counts": {"all-gather": 1},
+    "repeat_flat": {},
+    "repeat_off_split": {},
+    "tile_split0": {"all-to-all": 1},
+    "tile_uneven": {"all-to-all": 1},
+    "tile_off_split": {},
+    "rot90_split0": {},
+    "rot90_k3_split0": {"all-to-all": 1},
+    "rot90_uneven_k2": {"all-to-all": 1},
+    "diagonal_split0": {},
+    "diagonal_split1": {},
+    "diagonal_uneven": {},
+    "diag_1d_up": {},
+    "balance_uneven": {"all-to-all": 1},
+    "collect_split0": {"all-to-all": 1},
+    "collect_uneven": {"all-to-all": 1},
+    "sanitize_distribution": {"all-to-all": 3},
+}
+# each result's extents along its split a rank, one list a part (None: not
+# split), as the docstrings promise: rows that stay with their owner where
+# they fall (a: 4, 4, 4, 1; e: 3, 3, 3, 0; u: 2, 4, 3, 0; c's columns: 4,
+# 4, 4, 1), pad rows on the first and last rank that hold rows, a roll in
+# the input's map, joins, tiles, flips and ``balance`` in the chunk
+# geometry of the result, ``collect`` every row on its target
+_A, _U, _E = [4, 4, 4, 1], [2, 4, 3, 0], [3, 3, 3, 0]
+MANIP_LAYOUT = {
+    "concat_split0": [[5, 5, 5, 5]],
+    "concat_split0_three": [[5, 5, 5, 5]],
+    "concat_harness": [[6, 6, 6, 4]],
+    "concat_whole_first": [[4, 4, 4, 4]],
+    "concat_off_split": [_A],
+    "concat_off_split_uneven": [_U],
+    "concat_mixed": [[10, 10, 10, 9]],
+    "concat_promote_int": [[7, 7, 7, 5]],
+    "stack_split0": [_A],
+    "column_stack": [_A],
+    "split_split0": [[3, 0, 0, 0], [1, 4, 1, 0], [0, 0, 3, 1]],
+    "split_uneven": [[2, 1, 0, 0], [0, 3, 0, 0], [0, 0, 3, 0]],
+    "vsplit_empty_rank": [[3, 1, 0, 0], [0, 2, 3, 0]],
+    "squeeze_extent1": [None],
+    "squeeze_keep_split": [_U],
+    "broadcast_extent1": [_A],
+    "broadcast_lead": [_U],
+    "flatten_split0": [[12, 24, 18, 0]],
+    "flatten_split1": [[26, 26, 13, 0]],
+    "pad_split0": [[6, 4, 4, 4]],
+    "pad_uneven": [[4, 4, 5, 0]],
+    "pad_empty_rank": [[4, 3, 7, 0]],
+    "pad_split1": [[7, 4, 4, 3]],
+    "roll_split0": [_A],
+    "roll_uneven": [_U],
+    "roll_empty_rank": [_E],
+    "roll_split1": [_A],
+    "roll_flat": [_A],
+    "roll_off_split": [_A],
+    "repeat_split0": [[8, 8, 8, 2]],
+    "repeat_counts": [[1, 6, 4, 0]],
+    "repeat_dnd_counts": [[3, 4, 5, 0]],
+    "repeat_flat": [[30, 30, 30, 0]],
+    "repeat_off_split": [_A],
+    "tile_split0": [[10, 10, 10, 9]],
+    "tile_uneven": [[5, 5, 5, 3]],
+    "tile_off_split": [_A],
+    "rot90_split0": [_A],
+    "rot90_k3_split0": [_A],
+    "rot90_uneven_k2": [_E],
+    "diagonal_split0": [[4, 1, 0, 0]],
+    "diagonal_split1": [[4, 0, 0, 0]],
+    "diagonal_uneven": [[0, 4, 2, 0]],
+    "diag_1d_up": [[4, 4, 4, 3]],
+    "balance_uneven": [_E],
+    "collect_split0": [[0, 0, 13, 0]],
+    "collect_uneven": [[0, 0, 9, 0]],
+    "sanitize_distribution": [_U, _U],
+}
+
+
+def _parts(res):
+    parts = res if isinstance(res, (list, tuple)) else [res]
+    return [{"local": _np(p.larray), "split": p.split, "gshape": p.gshape, "global": p.numpy(),
+             "dtype": p.dtype.__name__, "lmap": p.lshape_map} for p in parts]
+
+
+def _manip_cases(ht):
+    comm = ht.get_comm()
+    out = {}
+    for name, call in MANIP_CASES.items():
+        def case(call=call):
+            comm.counts.clear()
+            res = call(ht, {})
+            counts = dict(comm.counts)
+            return {"parts": _parts(res), "counts": counts}
+        out[f"manip_{name}"] = case
+    return out
+
+
+# halos, convolve, the distance ring, tile maps and the gallery across ranks
+# (tests/test_torch_halo.py)
+# name -> (rows, the slice of them the array is, halo size, prev, next): 16
+# rows are 4 a rank; 13 rows 4, 4, 4, 1; 9 rows 3, 3, 3, 0; rows 3-13 of 16
+# 1, 4, 4, 2; rows 5-14 0, 3, 4, 3 (the first rank holds none)
+HALO_WORLD = {
+    "halo_even_1": (16, None, 1, True, True), "halo_even_2": (16, None, 2, True, True),
+    "halo_ragged_1": (13, None, 1, True, True), "halo_last_empty_2": (9, None, 2, True, True),
+    "halo_prev_only": (16, None, 2, True, False), "halo_next_only": (16, None, 1, False, True),
+    "halo_uneven": (16, (3, 14), 1, True, True), "halo_gap": (16, (5, 15), 2, True, True),
+}
+CONV_CASES = (("even", 64, 3), ("ragged", 61, 5), ("short", 17, 7), ("wide", 9, 8), ("widest", 13, 12))
+CONV_MODES = ("full", "same", "valid")
+RING_METRICS = ("euclidean", "sqeuclidean", "euclidean_direct", "sqeuclidean_direct", "manhattan")
+
+
+def halo_operand(rows: int, width: int = 3):
+    return np.arange(rows * width, dtype=np.float32).reshape(rows, width)
+
+
+def conv_operands(n: int, k: int, dtype: str = "float32"):
+    rng = np.random.default_rng(n * 100 + k)
+    a, v = rng.standard_normal(n), rng.standard_normal(k)
+    if "int" in dtype:
+        return (a * 10).astype(dtype), (v * 3).astype(dtype)
+    return a.astype(dtype), v.astype(dtype)
+
+
+def _halo_cases(ht):
+    import torch
+
+    from heat_tpu_torch.core import parallel
+
+    comm = ht.get_comm()
+    cases = {}
+
+    def halos(x, size, **kw):
+        comm.counts.clear()
+        x.get_halo(size, **kw)
+        return {"prev": None if x.halo_prev is None else _np(x.halo_prev),
+                "next": None if x.halo_next is None else _np(x.halo_next),
+                "with": _np(x.array_with_halos), "counts": dict(comm.counts), "lmap": x.lshape_map}
+
+    for name, (rows, cut, size, prev, nxt) in HALO_WORLD.items():
+        def halo_case(rows=rows, cut=cut, size=size, prev=prev, nxt=nxt):
+            x = ht.array(halo_operand(rows), split=0)
+            return halos(x if cut is None else x[slice(*cut)], size, prev=prev, next=nxt)
+        cases[name] = halo_case
+
+    def rebind():
+        x = ht.array(halo_operand(16, 1).reshape(-1), split=0)
+        x.get_halo(1)
+        x.larray = torch.arange(100.0, 104.0) + 4 * comm.rank
+        return {"with": _np(x.array_with_halos), "prev": x.halo_prev, "next": x.halo_next}
+    cases["halo_rebind"] = rebind
+
+    def too_large():
+        try:
+            ht.array(halo_operand(13), split=0).get_halo(2)
+        except ValueError as e:
+            return {"raised": str(e)}
+        return {"raised": None}
+    cases["halo_too_large"] = too_large
+
+    def exchange():
+        x = torch.as_tensor(halo_operand(16))[comm.rank * 4: comm.rank * 4 + 4]
+        comm.counts.clear()
+        out = parallel.halo_exchange(x, comm, 0, 2, 1)
+        counts = dict(comm.counts)
+        comm.counts.clear()
+        given = parallel.halo_exchange(x, comm, 0, 2, 1, counts=[4] * comm.size)
+        return {"out": _np(out), "counts": counts, "given": _np(given), "given_counts": dict(comm.counts)}
+    cases["halo_exchange_raw"] = exchange
+
+    def exchange_short():  # 13 rows: 4, 4, 4, 1; a halo of 2 raises on every rank, none waits in a permute
+        x = torch.as_tensor(halo_operand(13))[comm.rank * 4: comm.rank * 4 + 4]
+        try:
+            parallel.halo_exchange(x, comm, 0, 2, 0)
+        except ValueError as e:
+            return {"raised": str(e)}
+        return {"raised": None}
+    cases["halo_exchange_short"] = exchange_short
+
+    for label, n, k in CONV_CASES:
+        for mode in CONV_MODES:
+            if mode == "same" and k % 2 == 0:
+                continue
+            def conv(n=n, k=k, mode=mode):
+                a, v = conv_operands(n, k)
+                comm.counts.clear()
+                out = ht.convolve(ht.array(a, split=0), ht.array(v), mode=mode)
+                counts = dict(comm.counts)
+                return {"parts": _parts(out), "counts": counts}
+            cases[f"conv_{label}_{mode}"] = conv
+
+    def conv_int():
+        a, v = conv_operands(21, 4, "int32")
+        return {"parts": _parts(ht.convolve(ht.array(a, split=0), ht.array(v)))}
+    cases["conv_int"] = conv_int
+
+    def conv_swapped():
+        a, v = conv_operands(11, 3)
+        return {"parts": _parts(ht.convolve(ht.array(v), ht.array(a, split=0), mode="same"))}
+    cases["conv_swapped"] = conv_swapped
+
+    for metric in RING_METRICS:
+        for symmetric in (False, True):
+            def ring(metric=metric, symmetric=symmetric):
+                rng = np.random.default_rng(71)
+                xs = rng.standard_normal((14, 5)).astype(np.float32)
+                ys = xs if symmetric else rng.standard_normal((10, 5)).astype(np.float32)
+                x, y = ht.array(xs, split=0), ht.array(ys, split=0)
+                out = parallel.ring_pairwise(x.larray, y.larray, comm, metric=metric, symmetric=symmetric)
+                return {"rows": _np(out), "lmap": x.lshape_map}
+            cases[f"ring_{metric}_{symmetric}"] = ring
+
+    def tiles(uneven: bool):
+        a = np.arange(16 * 12, dtype=np.float32).reshape(16, 12)
+        x = ht.array(a, split=0)
+        if uneven:
+            x = x[1:15]
+        st = ht.tiling.SplitTiles(x)
+        sq = ht.tiling.SquareDiagTiles(x, tiles_per_proc=2)
+        geo = {"tile_dimensions": [t.tolist() for t in st.tile_dimensions], "tile_ends_g": st.tile_ends_g,
+               "tile_locations": st.tile_locations, "tile_map": sq.tile_map, "tile_rows": sq.tile_rows,
+               "tile_columns": sq.tile_columns, "rows_per_process": sq.tile_rows_per_process,
+               "row_indices": sq.row_indices, "col_indices": sq.col_indices,
+               "last_diagonal_process": sq.last_diagonal_process, "start_stop_1_2": sq.get_start_stop((1, 2))}
+        reads = {"split_tile_1": _np(st[1]).copy(), "split_tiles_0_2": _np(st[0:2]).copy(),
+                 "square_1_2": _np(sq[1, 2]).copy(), "local_0_0": _np(sq.local_get((0, 0))).copy(),
+                 "global_of_local": sq.local_to_global((0, 0))}
+        st[2] = -1.0
+        sq[0, 1] = -2.0
+        sq.local_set((0, 0), 7.0)
+        return {"geometry": geo, "reads": reads, "after": x.numpy()}
+    cases["tiles_even"] = lambda: tiles(False)
+    cases["tiles_uneven"] = lambda: tiles(True)
+
+    def gallery():
+        from heat_tpu_torch.utils.data import matrixgallery as gal
+
+        out = {}
+        for split in (0, 1):
+            ht.random.seed(13)
+            A, (U, s, V) = gal.random_known_rank(40, 5 * comm.size, 4, split=split)
+            out[split] = {"A": A.numpy(), "split": A.split, "s": s.numpy(), "U": U.numpy(), "V": V.numpy(),
+                          "parter": gal.parter(9, split=split).numpy()}
+        return out
+    cases["gallery"] = gallery
     return cases
 
 
