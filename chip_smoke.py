@@ -129,6 +129,16 @@ Phases, each of which fails the run by raising:
      ``ht.random.randn(15_625_000, 64, split=0)`` with ++ seeding, 10
      iterations, K4 once an iteration (the exact median's one sort), R1
      k times, ms an iteration; eight planted blobs recovered by each;
+   - the factorizations (``linalg_path``) at ``heat_tpu``'s golden plan
+     shapes: ``polar`` of 65536 x 1024 float32 (its Newton–Schulz steps and
+     host reads printed), ``svd`` of it by the qr and polar routes and
+     values only (σ against float64 ``gesvd``), ``cholesky``, ``lu``,
+     ``solve`` (8192 x 256, both kinds, and the triangular solves alone),
+     ``inv`` and ``det`` of 8192² operands (``_linalg_operands``),
+     ``eigh`` of a 4096² symmetric matrix, ``cg`` on a 4096² SPD float64
+     system to its stop test and ``lanczos`` with m = 64 (R1 once for its
+     start vector); each held to a limit (``TOL_*``) and timed beside its
+     operation bound;
    - the distributed hSVD as a 4-rank world on this one card
      (``world_path``): 4 spawned workers join a gloo world
      (``init_method=file://``) with every rank's tensors on ``cuda:0``,
@@ -200,6 +210,13 @@ Phases, each of which fails the run by raising:
      and KMedoids (``_world_kmedians``) on world size 1's 15,625,000 x 64
      draw split over the ranks from ``init="random"``: labels equal to
      world size 1's, centers within 1e-6, K4 once an iteration a rank;
+     and the factorizations across ranks (``_world_linalg``): ``polar``
+     and ``svd`` of the 65536 x 1024 operand split 0, ``cholesky``,
+     ``lu``, ``solve``, ``inv`` of 8192² split 0 and ``det`` split 1,
+     ``eigh`` of 2048² (it recurses; R1 twice a spectral split for the
+     range probes), each rank's rows held to the same limits, the
+     collectives a rank equal to the docstrings' counts, LU's perm equal
+     to world size 1's and σ, det and λ equal on every rank;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -2247,7 +2264,7 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
         for phase, run in (("random", _world_random), ("kmeans", _world_kmeans), ("attention", _world_attention),
                            ("distance", _world_distance), ("sort", _world_sort), ("surface", _world_surface),
                            ("indexing", _world_indexing), ("train", _world_train), ("kmedians", _world_kmedians),
-                           ("manip", _world_manip)):
+                           ("manip", _world_manip), ("linalg", _world_linalg)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -2483,6 +2500,7 @@ def world_path(dev) -> dict:
             f"{shared}", flush=True,
         )
     world["manip"] = _report_world_manip([res["manip"] for res in results], shared)
+    world["linalg"] = _report_world_linalg([res["linalg"] for res in results], shared)
     return world
 
 
@@ -5015,6 +5033,429 @@ def _report_world_manip(per: list, shared: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------- #
+# the dense factorizations and the iterative solvers                    #
+# --------------------------------------------------------------------- #
+LINALG_SEED = 20  # the seed of the factorization phase's draws
+POLAR_SHAPE = (65536, 1024)  # heat_tpu's golden polar plan (factorizations.py:223)
+FACT_N = 8192  # its golden cholesky/lu plans (:225-228)
+SOLVE_NRHS = 256  # its golden solve plans (:229-232)
+EIGH_N = 4096
+WORLD_EIGH_N = 2048  # splits at order >= 512 (_EIGH_RESPLIT_MIN_N): recurses
+LANCZOS_M = 64
+TOL_FACTOR = 1e-5  # ‖A − LLᴴ‖_F/‖A‖_F, ‖A[perm] − LU‖_F/‖A‖_F
+TOL_ORTHO = 1e-4  # max |UᴴU − I|
+TOL_SOLVE = 1e-4  # ‖Ax − b‖_F/‖b‖_F, ‖AX − I‖_F/‖I‖_F
+TOL_SIGMA = 1e-4  # max |Δσ|/σ_max against torch.linalg.svdvals (heat_tpu's documented tolerance)
+TOL_EIG = 1e-4  # max |Δλ|/‖A‖₂ against float64 eigvalsh
+TOL_DET = 1e-3  # |Δdet|/|det| against float64
+
+
+def _linalg_operands(ht, n: int, rows: slice):
+    """Rows ``rows`` of the phase's two 8192² float32 operands, made from
+    ``ht.random.randn(n, n)`` after ``seed(LINALG_SEED)`` (R1): GEN = I +
+    0.1·G/√n with its rows shuffled within each block of n/4 (a permutation
+    seeded by the block), whose LU pivots back within the block and whose
+    determinant is finite in float32 (its eigenvalues lie within 0.1 of 1),
+    and SPD = I + 0.1·(G + Gᵀ)/√(2n) (eigenvalues in [0.8, 1.2])."""
+    import torch
+
+    ht.random.seed(LINALG_SEED)
+    g = ht.random.randn(n, n).larray
+    dev = g.device
+    eye = torch.zeros((rows.stop - rows.start, n), device=dev)
+    eye[torch.arange(rows.stop - rows.start, device=dev), torch.arange(rows.start, rows.stop, device=dev)] = 1
+    spd = eye + 0.1 * (g[rows] + g[:, rows].T) / math.sqrt(2 * n)
+    gen = eye + 0.1 * g[rows] / math.sqrt(n)
+    nb = n // WORLD
+    order = []
+    for b in range(rows.start // nb, -(-rows.stop // nb)):
+        gen_b = torch.Generator().manual_seed(LINALG_SEED + b)
+        order.append(b * nb + torch.randperm(nb, generator=gen_b))
+    order = torch.cat(order).to(dev) - rows.start
+    return gen[order], spd
+
+
+def _symmetric(ht, n: int, seed: int):
+    """(G + Gᵀ)/√(2n) of ``ht.random.randn(n, n)`` after ``seed(seed)``, float32:
+    eigenvalues on the semicircle of radius 2, both signs."""
+    ht.random.seed(seed)
+    g = ht.random.randn(n, n).larray
+    return (g + g.T) / math.sqrt(2 * n)
+
+
+def _fro_rel(x, ref) -> float:
+    return float(x.double().norm() / ref.double().norm().clamp_min(1e-300))
+
+
+def _ortho_err(x, comm=None) -> float:
+    """max |XᴴX − I| (the Gram all-reduced across ranks with ``comm``)."""
+    import torch
+
+    g = x.double().T @ x.double()
+    if comm is not None:
+        g = comm.allreduce(g)
+    return float((g - torch.eye(g.shape[0], dtype=g.dtype, device=g.device)).abs().max())
+
+
+def linalg_path(dev) -> dict:
+    """The factorizations at world size 1, at heat_tpu's golden plans'
+    shapes (factorizations.py:223-232): ``polar`` of 65536 x 1024 float32
+    (``ht.random.randn``), ``cholesky``/``lu`` of 8192², ``solve`` with 8192
+    x 256 right-hand sides (``assume_a="pos"`` and ``"gen"``), ``inv`` and
+    ``det`` of 8192², ``svd`` of the polar operand (``method="qr"`` and
+    ``"polar"``, and values only, against float64 σ), ``eigh`` of a 4096² symmetric matrix, ``cg``
+    on 4096² SPD float64 to its stop test, ``lanczos`` of the eigh operand
+    with m = 64 (its start vector drawn, R1). Operands: ``_linalg_operands``.
+    Each result is held to its limit (``TOL_*``), finite, and each call
+    timed under CUDA events beside its operation bound (the FLOP counts
+    below over 67 TFLOP/s FP32; cg and lanczos: A read once a step over
+    3.35 TB/s). At world size 1 the calls are ``torch.linalg``'s (cuSOLVER,
+    cuBLAS) but ``polar`` (Newton–Schulz in cuBLAS products) and ``svd``
+    (its qr and polar routes on the whole tensor). Returns the rows and
+    R1's launches."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.linalg import factorizations as facts
+
+    rows, refs, r1 = [], {}, {}
+    t_phase = time.perf_counter()
+
+    def row(name, what, ms, flops, nbytes, err, limit, **extra):
+        bound, by = _bound(nbytes, flops)
+        rows.append({"name": name, "ms": ms, "bound_ms": bound, "bound_by": by, "flop": flops, "bytes": nbytes,
+                     "err": err, "limit": limit, **extra})
+        print(f"linalg {name}: {what}: {ms:.4f} ms (median of CUDA events), bound {bound:.4f} ms ({by}: "
+              f"{flops / 1e9:.1f} GFLOP at 67 TFLOP/s, {nbytes / 1e9:.3f} GB at 3.35 TB/s); err {err:.3e} "
+              f"(limit {limit})" + "".join(f", {k} {v}" for k, v in extra.items()), flush=True)
+        _require(err <= limit, f"linalg {name}: err {err:.3e} above {limit}")
+
+    m, n = POLAR_SHAPE
+    ht.random.seed(LINALG_SEED)
+    A = ht.random.randn(m, n, split=0)
+    facts.HOST_READS = 0
+    U, H = ht.linalg.polar(A)
+    it, reads = facts.POLAR_ITERATIONS, facts.HOST_READS
+    u, h, a = U.larray, H.larray, A.larray
+    _require(bool(torch.isfinite(u).all() and torch.isfinite(h).all()), "polar: non-finite factors")
+    _require(bool(torch.equal(h, h.T)), "polar: H is not symmetric")
+    recon = _fro_rel(a - u @ h, a)
+    ms = _median_ms(lambda: ht.linalg.polar(A), 3)
+    row("polar", f"ht.linalg.polar({m}x{n} float32 split 0)", ms, it * 4.0 * m * n * n + 2.0 * m * n * n, 0.0,
+        _ortho_err(u), TOL_ORTHO, iterations=it, host_reads=reads, reconstruction=f"{recon:.3e}")
+    del U, H, u, h
+
+    # the reference: float64 σ by the QR iteration (torch's default SVD on the
+    # card, cuSOLVER's Jacobi, is 2.1e-4 of σ_max off in float32)
+    refs["sigma"] = torch.linalg.svdvals(a.double(), driver="gesvd" if a.is_cuda else None)
+    svd_flops = {"qr": 6.0 * m * n * n - 4.0 * n ** 3 / 3,
+                 "polar": it * 4.0 * m * n * n + 4.0 * m * n * n + 10.0 * n ** 3 / 3}
+    svd_what = {"qr": "torch.linalg.qr, R's SVD by the QR iteration, U = Q·U_R",
+                "polar": "ht.linalg.polar, eigh of H, U = U_p·V"}
+    for method in ("qr", "polar"):
+        Us, S, Vh = ht.linalg.svd(A, method=method)
+        s = S.larray
+        err = float((s.double() - refs["sigma"]).abs().max() / refs["sigma"][0])
+        recon = _fro_rel(a - (Us.larray * s) @ Vh.larray, a)
+        ortho = _ortho_err(Us.larray)
+        _require(ortho <= TOL_ORTHO and recon <= TOL_ORTHO, f"svd({method}): U orthonormality {ortho:.3e}, "
+                 f"reconstruction {recon:.3e}")
+        ms = _median_ms(lambda: ht.linalg.svd(A, method=method), 3)
+        row(f"svd_{method}", f"ht.linalg.svd({m}x{n}, method={method!r}) ({svd_what[method]}); σ against float64 "
+            f"gesvd", ms, svd_flops[method], 0.0, err, TOL_SIGMA, orthonormality=f"{ortho:.3e}",
+            reconstruction=f"{recon:.3e}")
+        del Us, S, Vh
+    s = ht.linalg.svd(A, compute_uv=False).larray
+    ms = _median_ms(lambda: ht.linalg.svd(A, compute_uv=False), 3)
+    row("svdvals", f"ht.linalg.svd({m}x{n}, compute_uv=False) (R's singular values)", ms,
+        2.0 * m * n * n - 2.0 * n ** 3 / 3, 0.0, float((s.double() - refs["sigma"]).abs().max() / refs["sigma"][0]),
+        TOL_SIGMA)
+    WORLD_REFERENCE["linalg_sigma"] = refs["sigma"].cpu()
+    del A, a, s
+
+    nf = FACT_N
+    gen_t, spd_t = _linalg_operands(ht, nf, slice(0, nf))
+    G, P = ht.array(gen_t), ht.array(spd_t)
+    L = ht.linalg.cholesky(P).larray
+    ms = _median_ms(lambda: ht.linalg.cholesky(P), 5)
+    row("cholesky", f"ht.linalg.cholesky({nf}² SPD float32); ‖A − LLᴴ‖_F/‖A‖_F", ms, nf ** 3 / 3.0, 0.0,
+        _fro_rel(spd_t - L @ L.T, spd_t), TOL_FACTOR)
+    perm, Lg, Ug = ht.linalg.lu(G)
+    p_t = perm.larray.long()
+    WORLD_REFERENCE["linalg_perm"] = p_t.cpu()
+    _require(bool(torch.equal(torch.sort(p_t).values, torch.arange(nf, device=dev))), "lu: perm is no permutation")
+    ms = _median_ms(lambda: ht.linalg.lu(G), 5)
+    row("lu", f"ht.linalg.lu({nf}² float32, rows shuffled within blocks of {nf // WORLD}); ‖A[perm] − LU‖_F/‖A‖_F",
+        ms, 2.0 * nf ** 3 / 3, 0.0, _fro_rel(gen_t[p_t] - Lg.larray @ Ug.larray, gen_t), TOL_FACTOR,
+        moved_rows=int((p_t != torch.arange(nf, device=dev)).sum()))
+    gen_b = torch.Generator(device=dev).manual_seed(LINALG_SEED)
+    b_t = torch.randn(nf, SOLVE_NRHS, device=dev, generator=gen_b)
+    B = ht.array(b_t)
+    for assume, op, factor in (("pos", P, nf ** 3 / 3.0), ("gen", G, 2.0 * nf ** 3 / 3)):
+        x = ht.linalg.solve(op, B, assume_a=assume).larray
+        ms = _median_ms(lambda: ht.linalg.solve(op, B, assume_a=assume), 5)
+        row(f"solve_{assume}", f"ht.linalg.solve({nf}², {nf}x{SOLVE_NRHS}, assume_a={assume!r}); ‖Ax − b‖/‖b‖",
+            ms, factor + 2.0 * nf * nf * SOLVE_NRHS, 0.0, _fro_rel(op.larray @ x - b_t, b_t), TOL_SOLVE)
+    lf, uf, pf = Lg.larray, Ug.larray, p_t
+    ms = _median_ms(lambda: facts._apply_factor_local("lu", b_t, lf, uf, pf), 5)
+    x = facts._apply_factor_local("lu", b_t, lf, uf, pf)
+    row("solve_factored", f"the two triangular solves against lu's factors ({nf}² , {SOLVE_NRHS} columns)", ms,
+        2.0 * nf * nf * SOLVE_NRHS, 0.0, _fro_rel(gen_t @ x - b_t, b_t), TOL_SOLVE)
+    del L, Lg, Ug, lf, uf, x, B, b_t
+    X = ht.linalg.inv(G).larray
+    eye = torch.eye(nf, device=dev)
+    ms = _median_ms(lambda: ht.linalg.inv(G), 3)
+    row("inv", f"ht.linalg.inv({nf}² float32); ‖AX − I‖_F/‖I‖_F", ms, 8.0 * nf ** 3 / 3, 0.0,
+        _fro_rel(gen_t @ X - eye, eye), TOL_SOLVE)
+    del X, eye
+    d = float(ht.linalg.det(G).larray)
+    d64 = float(torch.linalg.det(gen_t.double()))
+    _require(math.isfinite(d) and d != 0.0 and (d > 0) == (d64 > 0), f"det {d} against {d64}")
+    ms = _median_ms(lambda: ht.linalg.det(G), 5)
+    row("det", f"ht.linalg.det({nf}² float32) = {d:.6e} (float64: {d64:.6e})", ms, 2.0 * nf ** 3 / 3, 0.0,
+        abs(d - d64) / abs(d64), TOL_DET)
+    WORLD_REFERENCE["linalg_det"] = d64
+    del G, P, gen_t, spd_t
+
+    ne = EIGH_N
+    S_t = _symmetric(ht, ne, LINALG_SEED + 1)
+    Se = ht.array(S_t)
+    w, v = ht.linalg.eigh(Se)
+    w64 = torch.linalg.eigvalsh(S_t.double())
+    norm2 = float(w64.abs().max())
+    eig_err = float((w.larray.double() - w64).abs().max()) / norm2
+    resid = _fro_rel(S_t @ v.larray - v.larray * w.larray, S_t)
+    ms = _median_ms(lambda: ht.linalg.eigh(Se), 3)
+    row("eigh", f"ht.linalg.eigh({ne}² symmetric float32) (torch.linalg.eigh at world size 1); λ against float64 "
+        f"eigvalsh, over ‖A‖₂", ms, (4.0 / 3 + 2) * ne ** 3, 0.0, eig_err, TOL_EIG,
+        orthonormality=f"{_ortho_err(v.larray):.3e}", residual=f"{resid:.3e}")
+    del w, v
+
+    spd64 = torch.eye(ne, device=dev, dtype=torch.float64) + 0.1 * S_t.double()
+    A64, b64 = ht.array(spd64), ht.array(torch.ones(ne, device=dev, dtype=torch.float64))
+    x0 = ht.zeros(ne, dtype=ht.float64)
+    facts.HOST_READS = 0
+    x = ht.linalg.cg(A64, b64, x0).larray
+    steps = facts.HOST_READS - 1
+    _require(steps < ne, "cg did not reach its stop test")
+    ms = _median_ms(lambda: ht.linalg.cg(A64, b64, x0), 3)
+    row("cg", f"ht.linalg.cg(I + 0.1·S, {ne}² float64, b = 1) to rᵀr < 1e-20 in {steps} steps; ‖Ax − b‖/‖b‖", ms,
+        steps * 2.0 * ne * ne, steps * 8.0 * ne * ne, _fro_rel(spd64 @ x - b64.larray, b64.larray), TOL_SOLVE,
+        steps=steps)
+    del A64, b64, x, spd64
+
+    _r1_zero()
+    V, T = ht.linalg.lanczos(Se, LANCZOS_M)
+    torch.cuda.synchronize()
+    r1["lanczos"] = _r1_read("linalg_lanczos", 1, [ne])
+    vt = V.larray
+    proj_err = float((vt.T @ S_t @ vt - T.larray).abs().max()) / norm2
+    ortho = _ortho_err(vt)
+    _require(ortho <= TOL_ORTHO, f"lanczos: V's orthonormality {ortho:.3e}")
+    ms = _median_ms(lambda: ht.linalg.lanczos(Se, LANCZOS_M, v0=V[:, 0]), 3)
+    flops = LANCZOS_M * 2.0 * ne * ne + sum(4.0 * ne * i for i in range(LANCZOS_M))
+    row("lanczos", f"ht.linalg.lanczos({ne}² float32, m={LANCZOS_M}) (start vector drawn: R1 once); max |VᵀAV − T| "
+        f"over ‖A‖₂", ms, flops, LANCZOS_M * 4.0 * ne * ne, proj_err, TOL_EIG, orthonormality=f"{ortho:.3e}")
+    print(f"linalg phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"rows": rows, "r1": r1}
+
+
+def _world_linalg(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """The factorizations across ranks: ``polar`` and ``svd`` (``"qr"``,
+    ``"polar"``, values only) of the 65536 x 1024 operand split 0 (the
+    world-size-1 draw, 16384 rows a rank); ``cholesky``, ``lu``, ``solve``
+    (both kinds, 8192 x 256 split 0), ``inv`` of the 8192² operands split 0
+    and ``det`` of GEN split 1; ``eigh`` of a 2048² symmetric matrix split 0,
+    which recurses (sub-problems of order ≥ 512). Each rank checks its rows
+    against the limits of ``linalg_path`` (gathering the factor it needs
+    after the counted call), the collectives it issued against the
+    docstrings' counts, LU's perm against world size 1's (block-local
+    pivoting finds the same rows on this operand) and the sign, det, σ and
+    eigenvalues equal on every rank."""
+    import torch
+
+    from heat_tpu_torch.core.linalg import factorizations as facts
+    from heat_tpu_torch.kernels import threefry as kt
+
+    out = {}
+    p = comm.size
+
+    def counted(call):
+        comm.counts.clear()
+        moved.clear()
+        comm.staged_bytes = 0
+        facts.HOST_READS = 0
+        _r1_zero()
+        res = call()
+        torch.cuda.synchronize()
+        return res, {"counts": dict(comm.counts), "bytes": dict(moved), "staged": comm.staged_bytes,
+                     "reads": facts.HOST_READS, "iterations": facts.POLAR_ITERATIONS, "r1": kt.THREEFRY_LAUNCHES}
+
+    def same_everywhere(t) -> bool:
+        every = comm.allgather(t.reshape(1, -1).double())
+        return bool((every == every[0]).all())
+
+    def finish(name, rec, want, err, limit, fn, reps, **extra):
+        ok = (want is None or rec["counts"] == want) and err <= limit
+        _every_rank_ok(comm, ok, f"world linalg {name}: counts {rec['counts']} (want {want}), err {err:.3e} "
+                                 f"(limit {limit})")
+        rec.update(err=err, limit=limit, ms=_world_ms(fn, reps), reps=reps, **extra)
+        out[name] = rec
+        torch.cuda.empty_cache()
+
+    m, n = POLAR_SHAPE
+    ht.random.seed(LINALG_SEED)
+    A = ht.random.randn(m, n, split=0)
+    (U, H), rec = counted(lambda: ht.linalg.polar(A))
+    it = rec["iterations"]
+    herm = bool(torch.equal(H.larray, H.larray.T)) and same_everywhere(H.larray)
+    _every_rank_ok(comm, herm, "world polar: H is not symmetric or differs across ranks")
+    finish("polar", rec, {"all-gather": 1, "all-reduce": it + 1}, _ortho_err(U.larray, comm), TOL_ORTHO,
+           lambda: ht.linalg.polar(A), 2)
+    del U, H
+    sigma_ref = WORLD_REFERENCE["linalg_sigma"].to(dev).float()
+    for method, want in (("qr", {"all-gather": 1}), ("polar", None)):
+        (Us, S, Vh), rec = counted(lambda: ht.linalg.svd(A, method=method))
+        if method == "polar":
+            want = {"all-gather": 1, "all-reduce": rec["iterations"] + 1}
+        s = S.larray
+        ortho = _ortho_err(Us.larray, comm)
+        ok = ortho <= TOL_ORTHO and same_everywhere(s)
+        _every_rank_ok(comm, ok, f"world svd({method}): U's orthonormality {ortho:.3e}, or σ differs across ranks")
+        finish(f"svd_{method}", rec, want, float((s - sigma_ref).abs().max() / sigma_ref[0]), TOL_SIGMA,
+               lambda: ht.linalg.svd(A, method=method), 2, orthonormality=ortho)
+        del Us, S, Vh
+    S, rec = counted(lambda: ht.linalg.svd(A, compute_uv=False))
+    finish("svdvals", rec, {"all-gather": 1}, float((S.larray - sigma_ref).abs().max() / sigma_ref[0]), TOL_SIGMA,
+           lambda: ht.linalg.svd(A, compute_uv=False), 2)
+    del A, S
+
+    nf = FACT_N
+    start, (nrows, _), _ = comm.chunk((nf, nf), 0)
+    rows = slice(start, start + nrows)
+    gen_r, spd_r = _linalg_operands(ht, nf, rows)
+    G, P = ht.array(gen_r, is_split=0), ht.array(spd_r, is_split=0)
+    lu_counts = {"all-gather": p, "broadcast": p - 1}
+
+    def rel_rows(resid, ref) -> float:
+        num = comm.allreduce(resid.double().pow(2).sum())
+        den = comm.allreduce(ref.double().pow(2).sum())
+        return float((num / den.clamp_min(1e-300)).sqrt())
+
+    L, rec = counted(lambda: ht.linalg.cholesky(P))
+    l_all = comm.allgather(L.larray)
+    finish("cholesky", rec, {"all-gather": p}, rel_rows(spd_r - L.larray @ l_all.T, spd_r), TOL_FACTOR,
+           lambda: ht.linalg.cholesky(P), 2)
+    del L, l_all
+    (perm, Lg, Ug, sign), rec = counted(lambda: facts._lu_factor(G))
+    p_loc = perm.larray.long()
+    p_all = comm.allgather(p_loc)
+    ok = bool(((p_loc >= start) & (p_loc < start + nrows)).all()) and same_everywhere(sign)
+    ok = ok and bool(torch.equal(p_all.cpu(), WORLD_REFERENCE["linalg_perm"]))
+    _every_rank_ok(comm, ok, "world lu: perm leaves its block, differs from world size 1's, or the sign differs")
+    u_all = comm.allgather(Ug.larray)
+    finish("lu", rec, lu_counts, rel_rows(gen_r[p_loc - start] - Lg.larray @ u_all, gen_r), TOL_FACTOR,
+           lambda: ht.linalg.lu(G), 2, sign=int(sign), moved_rows=int((p_all != torch.arange(nf, device=dev)).sum()))
+    del Lg, Ug, u_all
+    gen_b = torch.Generator(device=dev).manual_seed(LINALG_SEED)
+    b_r = torch.randn(nf, SOLVE_NRHS, device=dev, generator=gen_b)[rows]
+    B = ht.array(b_r, is_split=0)
+    for assume, op, a_r, want in (("pos", P, spd_r, {"all-gather": 2 * p - 1, "broadcast": p - 1}),
+                                  ("gen", G, gen_r, {"all-gather": p, "broadcast": 3 * (p - 1)})):
+        x, rec = counted(lambda: ht.linalg.solve(op, B, assume_a=assume))
+        x_all = comm.allgather(x.larray)
+        finish(f"solve_{assume}", rec, want, rel_rows(a_r @ x_all - b_r, b_r), TOL_SOLVE,
+               lambda: ht.linalg.solve(op, B, assume_a=assume), 2)
+    del x, x_all, B
+    X, rec = counted(lambda: ht.linalg.inv(G))
+    eye_r = torch.zeros((nrows, nf), device=dev)
+    eye_r[torch.arange(nrows, device=dev), torch.arange(start, start + nrows, device=dev)] = 1
+    x_all = comm.allgather(X.larray)
+    finish("inv", rec, {"all-gather": p, "broadcast": 3 * (p - 1)}, rel_rows(gen_r @ x_all - eye_r, eye_r), TOL_SOLVE,
+           lambda: ht.linalg.inv(G), 1)
+    del X, x_all, eye_r
+    G1 = G.resplit(1)
+    d, rec = counted(lambda: ht.linalg.det(G1))
+    d_t = d.larray
+    _every_rank_ok(comm, same_everywhere(d_t), "world det: differs across ranks")
+    d64 = WORLD_REFERENCE["linalg_det"]
+    moves = ht.redistribution.explain(G1, 0).collective_counts()  # the planner's resplit to split 0
+    finish("det_split1", rec, {**moves, **lu_counts, "all-reduce": 1}, abs(float(d_t) - d64) / abs(d64),
+           TOL_DET, lambda: ht.linalg.det(G1), 2, det=float(d_t))
+    del G, G1, P, gen_r, spd_r
+
+    ne = WORLD_EIGH_N
+    s_all = _symmetric(ht, ne, LINALG_SEED + 2)
+    start_e, (rows_e, _), _ = comm.chunk((ne, ne), 0)
+    Se = ht.array(s_all[start_e:start_e + rows_e].clone(), is_split=0)
+    nodes = []
+    polar_plain = facts.polar
+
+    def polar_counted(*args, **kw):
+        nodes.append(1)
+        return polar_plain(*args, **kw)
+
+    facts.polar = polar_counted
+    try:
+        (w, v), rec = counted(lambda: ht.linalg.eigh(Se))
+    finally:
+        facts.polar = polar_plain
+    w64 = torch.linalg.eigvalsh(s_all.double())
+    norm2 = float(w64.abs().max())
+    ortho = _ortho_err(v.larray, comm)
+    ok = same_everywhere(w.larray) and ortho <= TOL_ORTHO and rec["r1"] == 2 * len(nodes)
+    _every_rank_ok(comm, ok, f"world eigh: eigenvalues differ across ranks, eigenvectors' orthonormality {ortho:.3e}, "
+                             f"or R1 launched {rec['r1']} times for {len(nodes)} spectral splits")
+    finish("eigh", rec, None, float((w.larray.double() - w64).abs().max()) / norm2, TOL_EIG,
+           lambda: ht.linalg.eigh(Se), 1, nodes=len(nodes), orthonormality=ortho)
+    return out
+
+
+WORLD_LINALG_WHAT = {
+    "polar": (f"ht.linalg.polar({POLAR_SHAPE[0]}x{POLAR_SHAPE[1]} float32 split 0); max |UᴴU − I|", None),
+    "svd_qr": (f"ht.linalg.svd({POLAR_SHAPE[0]}x{POLAR_SHAPE[1]} split 0, method='qr'); max |Δσ|/σ_max", None),
+    "svd_polar": (f"ht.linalg.svd({POLAR_SHAPE[0]}x{POLAR_SHAPE[1]} split 0, method='polar'); max |Δσ|/σ_max", None),
+    "svdvals": (f"ht.linalg.svd({POLAR_SHAPE[0]}x{POLAR_SHAPE[1]} split 0, compute_uv=False); max |Δσ|/σ_max", None),
+    "cholesky": (f"ht.linalg.cholesky({FACT_N}² SPD split 0); ‖A − LLᴴ‖_F/‖A‖_F", FACT_N ** 3 / 3.0),
+    "lu": (f"ht.linalg.lu({FACT_N}² split 0), block-local pivots; ‖A[perm] − LU‖_F/‖A‖_F", 2.0 * FACT_N ** 3 / 3),
+    "solve_pos": (f"ht.linalg.solve({FACT_N}² SPD, {FACT_N}x{SOLVE_NRHS}, 'pos'); ‖Ax − b‖/‖b‖",
+                  FACT_N ** 3 / 3.0 + 2.0 * FACT_N ** 2 * SOLVE_NRHS),
+    "solve_gen": (f"ht.linalg.solve({FACT_N}², {FACT_N}x{SOLVE_NRHS}, 'gen'); ‖Ax − b‖/‖b‖",
+                  2.0 * FACT_N ** 3 / 3 + 2.0 * FACT_N ** 2 * SOLVE_NRHS),
+    "inv": (f"ht.linalg.inv({FACT_N}² split 0); ‖AX − I‖_F/‖I‖_F", 8.0 * FACT_N ** 3 / 3),
+    "det_split1": (f"ht.linalg.det({FACT_N}² split 1); |Δdet|/|det| against float64", 2.0 * FACT_N ** 3 / 3),
+    "eigh": (f"ht.linalg.eigh({WORLD_EIGH_N}² symmetric split 0), divide and conquer; max |Δλ|/‖A‖₂",
+             (4.0 / 3 + 2) * WORLD_EIGH_N ** 3),
+}
+
+
+def _report_world_linalg(per: list, shared: str) -> dict:
+    """Print the factorization phase of the world; returns R1's launches a
+    rank under eigh."""
+    m, n = POLAR_SHAPE
+    for name, (what, flops) in WORLD_LINALG_WHAT.items():
+        each = [p[name] for p in per]
+        e = each[0]
+        if flops is None:
+            steps = e["iterations"] if name in ("polar", "svd_polar") else 0
+            flops = {"polar": steps * 4.0 * m * n * n + 2.0 * m * n * n,
+                     "svd_polar": steps * 4.0 * m * n * n + 4.0 * m * n * n,
+                     "svd_qr": 6.0 * m * n * n - 2.0 * n ** 3 / 3}.get(name, 2.0 * m * n * n - 2.0 * n ** 3 / 3)
+        bound, by = _bound(0.0, flops)
+        extra = "".join(f", {k} {e[k]}" for k in ("iterations", "sign", "det", "moved_rows", "nodes") if k in e
+                        and (k != "iterations" or "polar" in name or name == "eigh"))
+        print(
+            f"world linalg {name}: {what}: {e['ms']:.4f} ms a call (rank 0, median of {e['reps']}; ranks "
+            f"{[round(x['ms'], 4) for x in each]}), bound {bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP at 67 TFLOP/s "
+            f"on one card); err {max(x['err'] for x in each):.3e} (limit {e['limit']}){extra}; stop-test reads a rank "
+            f"{[x['reads'] for x in each]}; R1 launches a rank {[x['r1'] for x in each]}; collectives a rank "
+            f"{e['counts']}, bytes a rank put in {e['bytes']}, staged through the host "
+            f"{[x['staged'] for x in each]} B a rank; {shared}", flush=True,
+        )
+    return {"eigh_r1": [p["eigh"]["r1"] for p in per], "eigh_nodes": [p["eigh"]["nodes"] for p in per]}
+
+
 def profile_breakdown(label: str, call) -> list:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
@@ -5073,6 +5514,7 @@ def main() -> int:
     train = train_path(dev)
     kmd = kmedians_path(dev)
     manip = manip_path(dev)
+    linalg = linalg_path(dev)
     launches["world"] = world_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
@@ -5104,6 +5546,8 @@ def main() -> int:
                                     "mlp_per_step": train["mlp"]["r1_per_step"], "shuffle": train["shuffle"]["r1"],
                                     "kmedians_seeding": R1_PATH["kmedians_fit"]["launches"]}
     r1_rows[0]["manip_launches"] = manip["launches"]["r1"]
+    r1_rows[0]["linalg_launches"] = {"lanczos_start_vector": linalg["r1"]["lanczos"]["launches"],
+                                     "world_eigh_probes": launches["world"]["linalg"]["eigh_r1"]}
     rows.extend(r1_rows)
     print(f"R1 on the main paths: {R1_PATH}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5112,6 +5556,7 @@ def main() -> int:
     print(json.dumps({"training": {k: v for k, v in train.items()}, "kmedians": kmd}))
     print(json.dumps({"manipulations": manip["rows"], "launches": manip["launches"],
                       "world": launches["world"]["manip"]}))
+    print(json.dumps({"linalg": linalg["rows"], "world": launches["world"]["linalg"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -60,8 +60,13 @@ def _joined() -> bool:
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
-    """The contiguous flat ``uint8`` view of ``t``."""
-    return t.contiguous().reshape(-1).view(torch.uint8)
+    """The contiguous flat ``uint8`` view of ``t`` (a copy where its
+    elements are not adjacent; ``contiguous`` keeps the stride of a
+    one-element view, such as the real part of a complex diagonal)."""
+    flat = t.reshape(-1)
+    if flat.numel() and flat.stride(0) != 1:
+        flat = flat.new_empty(flat.shape).copy_(flat)
+    return flat.view(torch.uint8)
 
 
 def _from_bytes(buf: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:

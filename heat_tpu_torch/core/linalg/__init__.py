@@ -2,4 +2,7 @@
 
 from .basics import *
 from .qr import *
+from .solver import *
+from .svd import *
 from .svdtools import *
+from .factorizations import *

@@ -26,11 +26,13 @@ fewer elements to a rank:
 CPU and GPU under its ``auto`` gate, so the port has the barrier schedule
 only. ``precision=`` is accepted: float32 products run in full FP32
 (torch's default ``allow_tf32=False``), as ``precision="highest"`` does.
-``inv`` and ``det`` of a split matrix, and ``matrix_norm`` over a split
-axis, gather the matrix first (``heat_tpu`` routes orders ≥ 512 through a
-blocked LU, ROADMAP.md Queue 1 item 11). Operands of more than two
-dimensions with a split, and 1-D operands of ``matmul``, are gathered
-too: the result is then chunked along its split.
+``inv`` and ``det`` of a matrix split along its rows or columns of order
+≥ ``_BLOCKED_MIN_N`` (512) factor it by the blocked LU of
+``factorizations.py`` with no gather, as ``heat_tpu`` does; below that
+order they gather the matrix first, as does ``matrix_norm`` over a split
+axis. Operands of more than two dimensions with a split, and 1-D operands
+of ``matmul``, are gathered too: the result is then chunked along its
+split.
 """
 
 from __future__ import annotations
@@ -424,22 +426,61 @@ def _batch_local(a: DNDarray) -> bool:
     return not a.is_distributed() or a.split < a.ndim - 2
 
 
+# from this order up, a 2-D matrix split along its rows or columns runs
+# inv/det through the blocked LU of factorizations.py (heat_tpu
+# basics.py:130); below it the matrix is gathered
+_BLOCKED_MIN_N = 512
+
+
+def _blocked_linalg_eligible(a: DNDarray) -> bool:
+    return a.ndim == 2 and a.split in (0, 1) and a.comm.is_distributed() and int(a.shape[0]) >= _BLOCKED_MIN_N
+
+
 def inv(a: DNDarray) -> DNDarray:
     """Inverse of (batched) square matrices (reference: basics.py:310).
-    A matrix split along its rows or columns is gathered, inverted and
-    chunked again."""
+    A matrix split along its rows or columns of order ≥ ``_BLOCKED_MIN_N``
+    is factored by the blocked LU and the identity (split 0) solved
+    against the factors (``factorizations._solve_factored``), then resplit
+    to the operand's split (``heat_tpu`` basics.py:208); a smaller one is
+    gathered, inverted and chunked again."""
     _square(a)
     _refuse_narrow(a.dtype, "inv")
+    if _blocked_linalg_eligible(a):
+        from .. import factories
+        from .factorizations import _lu_factor, _solve_factored
+
+        pvec, l_arr, u_arr, _sign = _lu_factor(a)
+        rhs = factories.eye((int(a.shape[0]),) * 2, dtype=l_arr.dtype, split=0, device=a.device, comm=a.comm)
+        x = _solve_factored("lu", rhs, l_arr, u_arr, pvec)
+        return x if x.split == a.split else x.resplit(a.split)
     if _batch_local(a):
         return _out(torch.linalg.inv(_float_of(a._balanced_larray(), a.dtype)), a.gshape, a.split, a)
     return _from_whole(torch.linalg.inv(_float_of(_whole(a), a.dtype)), a.split, a)
 
 
+def _blocked_det(a: DNDarray) -> torch.Tensor:
+    """``sign · prod(diag(U))`` of the blocked LU: each rank's product of
+    the diagonal entries in its rows, then one all-reduced product."""
+    from .factorizations import _lu_factor
+
+    if a.dtype.torch_type() in _NARROW:
+        a = a.astype(types.float32)
+    _pvec, _l, u, sign = _lu_factor(a)
+    start = a.comm.chunk(u.gshape, 0)[0]
+    part = torch.prod(torch.diagonal(u._balanced_larray(), offset=start))
+    return sign.to(part.dtype) * a.comm.allreduce(part, "prod")
+
+
 def det(a: DNDarray) -> DNDarray:
     """Determinant of (batched) square matrices (reference: basics.py:158).
-    A matrix split along its rows or columns is gathered first."""
+    A matrix split along its rows or columns of order ≥ ``_BLOCKED_MIN_N``
+    is factored by the blocked LU (``heat_tpu`` basics.py:158): one
+    all-reduced product of the ranks' diagonal products times the sign; a
+    smaller one is gathered first."""
     _square(a)
     split = a.split if a.split is not None and a.split < a.ndim - 2 else None
+    if _blocked_linalg_eligible(a):
+        return _out(_narrow_back(_blocked_det(a), a.dtype), (), None, a)
     if _batch_local(a):
         d = torch.linalg.det(_float_of(a._balanced_larray(), a.dtype))
         return _out(_narrow_back(d, a.dtype), a.gshape[:-2], split, a)

@@ -8,6 +8,8 @@ arrays, or ``{"error": (type name, message)}``. This module imports
 neither heat_tpu nor jax (pytest does not collect it).
 """
 
+import contextlib
+import importlib
 import os
 import pickle
 import traceback
@@ -287,6 +289,7 @@ def _cases(ht):
     cases.update(_kmedians_cases(ht))
     cases.update(_manip_cases(ht))
     cases.update(_halo_cases(ht))
+    cases.update(_fact_cases(ht))
     return cases
 
 
@@ -1568,6 +1571,200 @@ def _halo_cases(ht):
         return out
     cases["gallery"] = gallery
     return cases
+
+
+# the dense factorizations and the iterative solvers across ranks
+# (tests/test_torch_factorizations.py): every case runs the same call on
+# either package, heat_tpu with kw = {"comm": its 4-device communicator}
+FACT_SEED = 2000
+FACT_MIN_N = 4  # inv/det's _BLOCKED_MIN_N, shrunk alike in both packages
+FACT_RESPLIT_N = 3  # eigh's _EIGH_RESPLIT_MIN_N, shrunk alike: the recursion
+
+
+def fact_matrix(kind: str, shape, dtype: str = "float32", seed: int = 0) -> np.ndarray:
+    """A seeded operand: ``gen`` a well-conditioned square matrix (noise of
+    norm about 2 around 3·I), ``spd`` a Hermitian positive-definite one
+    (``G Gᴴ/n + 2I``), ``tall`` plain noise, ``neg`` ``gen`` with its first
+    row negated (a determinant of either sign), ``spectrum`` diag(1, ..., n)."""
+    rng = np.random.default_rng(FACT_SEED + seed)
+    g = rng.standard_normal(shape)
+    if "complex" in dtype:
+        g = g + 1j * rng.standard_normal(shape)
+    n = shape[0]
+    if kind == "tall":
+        a = g
+    elif kind == "spd":
+        a = g @ g.conj().T / n + 2 * np.eye(n)
+    elif kind == "spectrum":
+        a = np.diag(np.arange(1.0, n + 1))
+    else:
+        a = g / np.sqrt(n) + 3 * np.eye(n)
+        if kind == "neg":
+            a[0] *= -1
+    return a.astype(dtype)
+
+
+@contextlib.contextmanager
+def fact_constants(lib, blocked=None, resplit=None):
+    """Shrink ``basics._BLOCKED_MIN_N`` and ``factorizations._EIGH_RESPLIT_MIN_N``
+    of ``lib`` (either package) for the call."""
+    import importlib
+
+    basics = importlib.import_module(lib.__name__ + ".core.linalg.basics")
+    facts = importlib.import_module(lib.__name__ + ".core.linalg.factorizations")
+    old = basics._BLOCKED_MIN_N, facts._EIGH_RESPLIT_MIN_N
+    basics._BLOCKED_MIN_N = old[0] if blocked is None else blocked
+    facts._EIGH_RESPLIT_MIN_N = old[1] if resplit is None else resplit
+    try:
+        yield
+    finally:
+        basics._BLOCKED_MIN_N, facts._EIGH_RESPLIT_MIN_N = old
+
+
+def _fact_defs():
+    """name -> (call(lib, kw), kinds): ``kinds`` says how each output is
+    held against heat_tpu's: "f" and "w" values, "exact" integers, "vec"
+    columns ("vech" rows) up to a phase each. The lu cases call the private
+    ``_lu_factor`` of either package for the sign of the permutation."""
+    M = fact_matrix
+
+    def arr(lib, kw, kind, shape, split, dtype="float32", seed=0):
+        return lib.array(M(kind, shape, dtype, seed), split=split, **kw)
+
+    def lu(lib, x):
+        return lib.linalg.factorizations._lu_factor(x)
+
+    def blocked(fn):
+        def call(lib, kw):
+            with fact_constants(lib, blocked=FACT_MIN_N):
+                return fn(lib, kw)
+        return call
+
+    cases = {}
+    for s in (None, 0, 1):
+        cases[f"polar_37x6_{s}"] = (lambda L, kw, s=s: L.linalg.polar(arr(L, kw, "tall", (37, 6), s)), "ff")
+        cases[f"chol_37_{s}"] = (lambda L, kw, s=s: L.linalg.cholesky(arr(L, kw, "spd", (37, 37), s)), "f")
+        cases[f"lu_37_{s}"] = (lambda L, kw, s=s: lu(L, arr(L, kw, "gen", (37, 37), s, seed=1)),
+                               ("exact", "f", "f", "exact"))
+        cases[f"eigh_37_{s}"] = (lambda L, kw, s=s: L.linalg.eigh(arr(L, kw, "spd", (37, 37), s, seed=2)),
+                                 ("w", "vec"))
+        cases[f"svd_37x6_{s}"] = (lambda L, kw, s=s: L.linalg.svd(arr(L, kw, "tall", (37, 6), s, seed=3)),
+                                  ("vec", "w", "vech"))
+    cases["polar_5x3_0"] = (lambda L, kw: L.linalg.polar(arr(L, kw, "tall", (5, 3), 0, seed=4)), "ff")
+    cases["polar_37x6_0_complex64"] = (lambda L, kw: L.linalg.polar(arr(L, kw, "tall", (37, 6), 0, "complex64")),
+                                       "ff")
+    cases["polar_37x6_0_float64"] = (lambda L, kw: L.linalg.polar(arr(L, kw, "tall", (37, 6), 0, "float64")), "ff")
+    cases["polar_left_6x37_1"] = (
+        lambda L, kw: L.linalg.polar(arr(L, kw, "tall", (37, 6), 0, seed=5).T.resplit(1), side="left"), "ff")
+    cases["chol_5_0_complex64"] = (lambda L, kw: L.linalg.cholesky(arr(L, kw, "spd", (5, 5), 0, "complex64", 6)), "f")
+    cases["lu_5_0_float64"] = (lambda L, kw: lu(L, arr(L, kw, "neg", (5, 5), 0, "float64", 7)),
+                               ("exact", "f", "f", "exact"))
+    cases["lu_37_0_complex64"] = (lambda L, kw: lu(L, arr(L, kw, "gen", (37, 37), 0, "complex64", 9)),
+                                  ("exact", "f", "f", "exact"))
+    for assume, small in (("gen", "float64"), ("pos", "complex64")):
+        kind = "gen" if assume == "gen" else "spd"
+        for sa, sb, rhs, dtype in ((0, 0, 3, "float32"), (1, 1, 3, "float32"), (0, None, None, "float32"),
+                                   (None, None, 3, "float32"), ("5", 0, 3, small)):
+            n = 5 if sa == "5" else 37
+            sa = 0 if sa == "5" else sa
+            shape = (n, rhs) if rhs else (n,)
+            cases[f"solve_{assume}_{n}_{sa}_{sb}_{rhs}_{dtype}"] = (
+                lambda L, kw, sa=sa, sb=sb, n=n, shape=shape, kind=kind, assume=assume, dtype=dtype: L.linalg.solve(
+                    arr(L, kw, kind, (n, n), sa, dtype, 10), arr(L, kw, "tall", shape, sb, dtype, 11), assume_a=assume),
+                "f")
+    for s in (0, 1):
+        cases[f"inv_37_{s}"] = (blocked(lambda L, kw, s=s: L.linalg.inv(arr(L, kw, "gen", (37, 37), s, seed=18))), "f")
+        cases[f"det_37_{s}"] = (blocked(lambda L, kw, s=s: L.linalg.det(arr(L, kw, "neg", (37, 37), s, seed=19))), "f")
+    cases["det_5_0_float64"] = (blocked(lambda L, kw: L.linalg.det(arr(L, kw, "neg", (5, 5), 0, "float64", 20))),
+                                "f")
+
+    def junk_upper(L, kw):  # only the lower triangle is read: noise above the diagonal
+        a = np.tril(M("spd", (37, 37), "float32", 2)) + np.triu(M("tall", (37, 37), "float32", 35), 1)
+        return L.linalg.eigh(L.array(a, split=0, **kw))
+    cases["eigh_37_0_junk_upper"] = (junk_upper, ("w", "vec"))
+
+    def recursive(L, kw):  # 7 rows: 2, 2, 2, 1; a branch of order 4 recurses over 1, 1, 1, 0 rows
+        with fact_constants(L, resplit=FACT_RESPLIT_N):
+            return L.linalg.eigh(arr(L, kw, "spd", (7, 7), 0, "complex64", 25), UPLO="U")
+    cases["eigh_7_0_complex64_U_recursive"] = (recursive, ("w", "vec"))
+    cases["svd_polar_37x6_0"] = (lambda L, kw: L.linalg.svd(arr(L, kw, "tall", (37, 6), 0, seed=26), method="polar"),
+                                 ("vec", "w", "vech"))
+    for method in ("qr", "polar"):
+        cases[f"svdvals_{method}_37x6_0"] = (
+            lambda L, kw, method=method: L.linalg.svd(arr(L, kw, "tall", (37, 6), 0, seed=26), compute_uv=False,
+                                                      method=method), "w")
+    cases["svd_wide_6x37_1"] = (lambda L, kw: L.linalg.svd(arr(L, kw, "tall", (37, 6), 0, seed=27).T.resplit(1)),
+                                ("vec", "w", "vech"))
+    cases["svd_37x6_0_complex64"] = (lambda L, kw: L.linalg.svd(arr(L, kw, "tall", (37, 6), 0, "complex64", 28)),
+                                     ("vec", "w", "vech"))
+    for dtype, sb in (("float64", 0), ("float64", None), ("float32", 0)):
+        cases[f"cg_37_{sb}_{dtype}"] = (
+            lambda L, kw, dtype=dtype, sb=sb: L.linalg.cg(
+                arr(L, kw, "spd", (37, 37), 0, dtype, 29), arr(L, kw, "tall", (37,), sb, dtype, 30),
+                L.zeros((37,), dtype=getattr(L, dtype), split=sb, **kw)), "f")
+
+    def lanczos(L, kw, kind, m, dtype="float64", v0=None, seed=31):
+        A = arr(L, kw, kind, (37, 37), 0, dtype, seed)
+        return L.linalg.lanczos(A, m, v0=None if v0 is None else L.array(v0.astype(dtype), split=0, **kw))
+
+    v_break = np.zeros(37)
+    v_break[:2] = 2 ** -0.5  # in a 2-dimensional invariant subspace of diag(1, ..., 37): a breakdown at step 2
+    cases["lanczos_37_0"] = (lambda L, kw: lanczos(L, kw, "spd", 10, v0=M("tall", (37,), "float64", 32)),
+                             ("f", "f"))
+    cases["lanczos_breakdown"] = (lambda L, kw: lanczos(L, kw, "spectrum", 5, v0=v_break), ("f", "f"))
+
+    def seeded(L, kw):
+        L.random.seed(33)
+        return lanczos(L, kw, "spd", 6, "float32")
+    cases["lanczos_seeded"] = (seeded, ("f", "f"))
+    return cases
+
+
+FACT_CASES = _fact_defs()
+
+
+def _fact_cases(ht):
+    """Each of FACT_CASES with the collectives it issued, the largest
+    all-gather's element count, the Newton–Schulz steps of its last
+    ``polar`` and the stop-test reads."""
+    facts = importlib.import_module("heat_tpu_torch.core.linalg.factorizations")
+    comm = ht.get_comm()
+    out = {}
+
+    def case(call):
+        gathered = []
+        plain = comm.allgather
+
+        def recording(t, *args, **kw):
+            res = plain(t, *args, **kw)
+            gathered.append(int(res.numel()))
+            return res
+
+        comm.counts.clear()
+        facts.HOST_READS = 0
+        comm.allgather = recording
+        try:
+            res = call(ht, {})
+        finally:
+            del comm.allgather
+        counts = dict(comm.counts)
+        parts = []
+        for p in (res if isinstance(res, (list, tuple)) else [res]):
+            if hasattr(p, "larray"):
+                parts.append({"local": _np(p.larray), "split": p.split, "gshape": p.gshape,
+                              "dtype": p.dtype.__name__, "lmap": p.lshape_map})
+            else:
+                parts.append({"local": _np(p), "split": None, "gshape": tuple(p.shape), "dtype": None, "lmap": None})
+        return {"parts": parts, "counts": counts, "gathered": max(gathered, default=0),
+                "iterations": facts.POLAR_ITERATIONS, "reads": facts.HOST_READS}
+
+    for name, (call, _) in FACT_CASES.items():
+        out[f"fact_{name}"] = lambda call=call: case(call)
+    for assume in ("gen", "pos"):  # a whole A and a split b: heat_tpu refuses 37 rows over 4 devices
+        out[f"fact_solve_whole_{assume}"] = lambda assume=assume: case(
+            lambda L, kw: L.linalg.solve(L.array(fact_matrix("gen" if assume == "gen" else "spd", (37, 37), seed=36)),
+                                         L.array(fact_matrix("tall", (37, 3), seed=37), split=0), assume_a=assume))
+    return out
 
 
 def _plain(value):
