@@ -25,9 +25,11 @@ Phases, each of which fails the run by raising:
    R1 (``threefry.cu``, heat_tpu's Threefry stream) draws the main paths'
    operands at full size, each in one launch, held against its plain
    version bit for bit (normals too) at the first and last 2^20 elements:
-   the north star's float32 normal A, the KMeans shard as chip 4's chunk
-   of BASELINE's 1B x 64 draw (also the 2^20 elements across flat index
-   2^32, the counter's high word), and sort_1gb's randint keys;
+   the north star's float32 normal A, rank 1's chunk of it drawn split 1
+   over 4 ranks (65536 rows of 2048: the outer > 1 path), the KMeans shard
+   as chip 4's chunk of BASELINE's 1B x 64 draw (also the 2^20 elements
+   across flat index 2^32, the counter's high word), and sort_1gb's
+   randint keys;
 4. the main paths at full size, each kernel count set to 0 just before
    each call and read just after; every ``ht.random`` draw of a path must
    launch R1 once for its elements (the operands below, the hSVD's
@@ -154,7 +156,9 @@ Phases, each of which fails the run by raising:
      within ``WORLD_TIMEOUT_S``, fails the run. The world first draws one
      global ``ht.random.randn(4 x 65536, 8192, split=0)``: each rank must
      launch R1 once for exactly its chunk's elements, issue no collective,
-     and hold the chunk of the plain version's draw at its ends. It prints the world's call
+     and hold the chunk of the plain version's draw at its ends; then the
+     north star ``randn(65536, 8192, split=1)`` the same way (each rank's
+     columns: R1's outer > 1 path). It prints the world's call
      time (CUDA events on rank 0 between barriers) beside the bound of the
      four shards' reads on one card, each rank's level-0 time in the call
      and alone, the one-view copy of Sᵀ alone, and the bytes each rank put
@@ -288,11 +292,18 @@ Phases, each of which fails the run by raising:
    slice's). K8's library yardstick is ``torch.sparse.sampled_addmm`` on a
    CSR mask of S's nonzeros (u·vᵀ there; times S's values it is checked
    against K8's bricks at up to 2^22 of them). R1's rows time its draws at the main shapes
-   beside the plain version (in pieces of 2^25 elements) and torch's own
+   (a lone call's CUDA events, and ``device_ms`` of queued calls) beside
+   the plain version (in pieces of 2^25 elements) and torch's own
    generator on the same shape (context only: another stream, so no
    library yardstick); its bound is the larger of the output written once
-   and the Threefry blocks' ALU instructions (counted in the built SASS
-   with cuobjdump) over 132 SMs x 128 lanes at the maximum SM clock.
+   and the operations the draw's function needs (``R1_OPERATIONS``: each
+   Threefry block's shifts, xors and adds, the transform's float, integer
+   and conversion operations) on the busiest pipe or the issue slots, at
+   compute capability 9.0's rates over 132 SMs at the maximum SM clock, the
+   adds placed where they cost least; ``bound_pipe`` names the pipe that
+   sets it. R1's normal transform is also held bit for bit against its
+   plain version on every input a float32, float16 or bfloat16 draw can
+   give it (``normal_of_words``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -510,7 +521,8 @@ def build_kernels() -> None:
         # bf16 D = 64, 128 and 256 and float32 D = 64, attention.cu's
         # kernels timed beside it (float32 at D_v = 64, mma.sync bf16 at
         # D_v = 256), K5/K6 on 4-byte words with 32-bit offsets, R1's float32
-        # normal and int32 randint on contiguous chunks); and any
+        # normal on contiguous and split-1 chunks, bfloat16 normal and int32
+        # randint); and any
         # wgmma that ptxas serialised
         for i, line in enumerate(lines):
             main = ("ILi25ELb0E", "ILi59ELb1E", "sketch_sm90_kernelILi24ELb1E", "sketch_sm90_kernelILi0ELb0E",
@@ -520,6 +532,7 @@ def build_kernels() -> None:
                     "attn_f32_kernelILi4ELi64E", "attn_bf16_kernelILi256E", "attn_sm90_kernelILi64ELi3E",
                     "attn_sm90_kernelILi128ELi2E", "attn_sm90_kernelILi256ELi2E", "attn_sm90_f32_kernelILi2E",
                     "11pack_kernelIjjE", "13unpack_kernelIjjE", "threefry_kernelILi2EfLb1E",
+                    "threefry_kernelILi2EfLb0E", "threefry_kernelILi2E13__nv_bfloat16Lb1E",
                     "threefry_kernelILi3EiLb1E")
             if "serializ" in line.lower():
                 print(f"ptxas {name}: {line.strip()}", flush=True)
@@ -944,34 +957,44 @@ def _r1_read(label: str, launches: int, elements: list = None) -> dict:
     return got
 
 
+def _r1_chunk_index(chunk, lo: int, hi: int, device):
+    """The global flat indices of a chunk's local elements [lo, hi) (row
+    major): start * inner + e + (e // row) * (extent - length) * inner."""
+    import torch
+
+    _, ext, start, length, inner = chunk.geometry()
+    e = torch.arange(lo, hi, device=device, dtype=torch.int64)
+    return start * inner + e + torch.div(e, length * inner, rounding_mode="floor") * ((ext - length) * inner)
+
+
 def _r1_sample_err(kt, out, mode: str, key, chunk, dtype, args, label: str) -> float:
-    """R1's draw ``out`` of a contiguous ``chunk`` against its plain version
-    at the first and last R1_SAMPLE elements and, where the chunk's flat
-    indices cross 2^32, the R1_SAMPLE around the crossing; bits, uniforms
-    and integers must be equal, normals too (0 ulp). Returns the largest
-    |difference| (0)."""
+    """R1's draw ``out`` of ``chunk`` against its plain version at the
+    first and last R1_SAMPLE local elements and, where a contiguous chunk's
+    flat indices cross 2^32, the R1_SAMPLE around the crossing; bits,
+    uniforms and integers must be equal, normals too (0 ulp). Returns the
+    largest |difference| (0)."""
     import torch
 
     outer, _, start, _, inner = chunk.geometry()
-    _require(outer == 1, f"{label}: the sampled chunk is not contiguous")
     base, n = start * inner, chunk.numel
     flat = out.reshape(-1)
     spans = [(0, min(n, R1_SAMPLE)), (max(0, n - R1_SAMPLE), n)]
-    if base < 2**32 < base + n:
+    if outer == 1 and base < 2**32 < base + n:
         mid = 2**32 - base
         spans.append((max(0, mid - R1_SAMPLE // 2), min(n, mid + R1_SAMPLE // 2)))
     err = 0.0
     for lo, hi in spans:
-        idx = torch.arange(base + lo, base + hi, device=out.device, dtype=torch.int64)
+        idx = _r1_chunk_index(chunk, lo, hi, out.device)
         want = kt.plain_at(mode, key, idx, dtype, args)
         got = flat[lo:hi]
         word = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
         same = torch.equal(got.view(word), want.view(word))
         err = max(err, float((got.double() - want.double()).abs().max()))
-        _require(same, f"{label}: R1 differs from its plain version at flat indices [{base + lo}, {base + hi})")
+        _require(same, f"{label}: R1 differs from its plain version at local elements [{lo}, {hi})")
     crosses = len(spans) == 3
     print(f"{label}: R1 equal to its plain version bit for bit at {len(spans)} spans of {R1_SAMPLE} elements"
-          f"{' (one across flat index 2^32)' if crosses else ''}", flush=True)
+          f"{' (one across flat index 2^32)' if crosses else ''}{'' if outer == 1 else f' ({outer} rows)'}",
+          flush=True)
     return err
 
 
@@ -991,7 +1014,9 @@ def _mha_bounds():
 def _r1_draws():
     """The main paths' draws at full size: (label, mode, key, chunk, dtype,
     args): the north star's A and sort_1gb's keys as the paths draw them
-    after ``seed(0)``; the KMeans shard as chip 4's chunk of BASELINE's
+    after ``seed(0)``; rank 1's chunk of the north star drawn split 1 over
+    WORLD ranks (outer > 1: 65536 rows of 2048, as the world draws it);
+    the KMeans shard as chip 4's chunk of BASELINE's
     1B x 64 draw, whose flat indices cross 2^32; the attention path's
     bfloat16 RAB q after ``seed(5)`` and the RA draws; and
     MultiheadAttention(1024)'s bfloat16 in_proj from ``seed_key(23)``."""
@@ -1003,6 +1028,8 @@ def _r1_draws():
     bound = _mha_bounds()[0]
     return [
         ("r1_normal_north_star", "normal", _stream_key(0, 0), tf.Chunk.whole((M, N)), torch.float32, (0.0, 1.0)),
+        ("r1_normal_north_star_split1", "normal", _stream_key(0, 0), tf.Chunk((M, N), 1, N // WORLD, N // WORLD),
+         torch.float32, (0.0, 1.0)),
         ("r1_normal_kmeans_chip4", "normal", _stream_key(0, 0), km, torch.float32, (0.0, 1.0)),
         ("r1_randint_sort_1gb", "randint", _stream_key(1, 0), tf.Chunk.whole((SORT_N,)), torch.int32, (0, 1000)),
         ("r1_normal_bf16_rab", "normal", _stream_key(5, 6 * math.prod(RA)), tf.Chunk.whole(RAB), torch.bfloat16,
@@ -1029,27 +1056,134 @@ def check_random(dev) -> dict:
         errs[label] = _r1_sample_err(kt, out, mode, key, chunk, dtype, args, label)
         del out
     torch.cuda.empty_cache()
+    check_normal_transform(dev)
     return errs
 
 
-def _r1_block_instructions() -> float:
-    """ALU instructions (SHF, LOP3, IADD3, IMAD, VIADD) of one Threefry-2x32
-    block, from the SASS of R1's 32-bit bits kernel (cuobjdump -sass of the
-    built library): the kernel's count over its ITEMS = 4 elements a loop
-    iteration. Every mode runs at least this per element (randint twice)."""
-    import shutil
+def normal_transform_domain(dtype, device):
+    """One int32 word for each uniform a normal draw of ``dtype`` can make:
+    every value of the random bits its ``_uniform`` reads (float32's top 23
+    bits of b1 ^ b2, float16's bits 6..15, bfloat16's bits 1..7)."""
+    import torch
 
-    from heat_tpu_torch.kernels import _build
+    shift, width = {torch.float32: (9, 23), torch.float16: (6, 10), torch.bfloat16: (1, 7)}[dtype]
+    words = torch.arange(1 << width, dtype=torch.int64, device=device) << shift
+    return (words - ((words >> 31) << 32)).to(torch.int32)
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(_build._library_path("threefry"))], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
-    body = next(f for f in re.split(r"\n\s*Function : ", sass) if "threefry_kernelILi0EjLb1E" in f.split("\n", 1)[0])
-    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
-    count = sum(op in ("SHF", "LOP3", "IADD3", "IMAD", "VIADD") for op in ops) / 4
-    print(f"R1 SASS: {count:.1f} ALU instructions (SHF, LOP3, IADD3, IMAD, VIADD) a Threefry block, "
-          f"{len(ops)} instructions in the 32-bit bits kernel", flush=True)
-    return count
+
+def check_normal_transform(dev) -> None:
+    """R1's normal transform (its float32 log1p and square root written out,
+    the 16-bit roundings) against its plain version on the card, bit for
+    bit, on every input a float32, float16 or bfloat16 draw can give it,
+    plain and scaled by std and mean."""
+    import torch
+
+    from heat_tpu_torch.core import _threefry as tf
+    from heat_tpu_torch.kernels import threefry as kt
+
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        words = normal_transform_domain(dtype, dev)
+        bits = words.long() & ((1 << tf.uniform_bits(dtype)) - 1)
+        for args in ((0.0, 1.0), (3.0, 0.5)):
+            got = kt.normal_of_words(words, dtype, args)
+            want = tf.normal_of_bits(bits, dtype, *args)
+            word = torch.int32 if dtype == torch.float32 else torch.int16
+            differ = int((got.view(word) != want.view(word)).sum())
+            print(f"R1 normal transform, {str(dtype)[6:]}, mean and std {args}: {words.numel()} inputs, "
+                  f"{differ} differ from the plain version", flush=True)
+            _require(differ == 0, f"R1's normal transform differs from its plain version on {differ} inputs "
+                     f"({dtype}, {args})")
+
+
+# Per-SM throughput of compute capability 9.0, results a clock (the CUDA C++
+# Programming Guide's table "Throughput of Native Arithmetic Instructions"):
+# 32-bit integer add, shift, compare, minimum, maximum and bitwise operations
+# 64 (the integer pipe, "alu"); float32 add, multiply and multiply-add 128
+# (the FMA pipe, "fma"); 32-bit integer multiply and multiply-add 64, on the
+# FMA pipe's heavy half (so the pipe takes max(imad / 64, (imad + fp32) /
+# 128) clocks); reciprocal square root and every conversion but the integer
+# widenings 16 ("xu"). Every operation also takes an issue slot: one warp
+# instruction a clock on each of an SM's 4 schedulers ("issue", 128 lanes).
+R1_RATES = {"alu": 64, "fma": 128, "imad": 64, "xu": 16, "issue": 128}
+SM_COUNT = 132
+
+# The operations one element of a draw needs, by class, counted from the
+# function and not from any kernel's code. A Threefry-2x32 block (20 rounds):
+# 20 rotations (funnel shifts) and 20 xors on the integer pipe; 31 adds (the
+# 20 rounds', the 10 injected key words and the counter's, x1 = lo + k1; x0 =
+# hi + k0 is shared by every element of one high word), each an IADD3 on the
+# integer pipe or an IMAD on the FMA pipe, and 4 x0 injections that may
+# merge with the next round's add into one three-input IADD3. The
+# transforms, per element:
+# - bits of 32: the xor of the block's two words (int 1);
+# - uniform: the float from the xor (one three-input op and one shift-and-or,
+#   int 2), minus 1 (fp32 1), times the span plus the minimum (float32: one
+#   FMA; float16 and bfloat16: a float32 multiply and add, fp32 2), the clamp
+#   to the minimum (int 1); bfloat16 rounds the product to the dtype and
+#   unpacks it (xu 1/2, a packed conversion of two elements, int 1), and a
+#   16-bit draw's last rounding is its output's conversion (xu 1/2);
+# - normal: that uniform on (nextafter(-1, 0), 1), then float32's erf_inv:
+#   x * -x (fp32 1); log1p as the CUDA math library computes it, which torch's
+#   log1p calls (fp32 15, int 4, xu 1: the exponent's conversion); the range
+#   test and the select of w or sqrt(w) (int 2); the square root (xu 1, fp32
+#   4); the offset (fp32 1); the 9-term Horner chain, unfused as XLA's (fp32
+#   16); the |x| = 1 test and select (int 2); p * x (fp32 1); then times
+#   sqrt(2) (fp32 1). A 16-bit draw unpacks its uniform (int 1), rounds
+#   erf_inv's result to the dtype and unpacks it (xu 1/2, int 1) and rounds
+#   its output (xu 1/2). The choice of a range's coefficients is left out (a
+#   table read or a select each: more than none), and so are std and mean,
+#   so that the count stays a lower bound;
+# - randint (sampled in 32 bits): two blocks (two subkeys), the two xors (int
+#   2), three remainders by the span, each at least a reciprocal's high
+#   multiply, a shift and a multiply-subtract (imad 2, int 1), the multiply-add
+#   of the two remainders (imad 1) and the minimum's add (add 1).
+R1_BLOCK = {"int": 40, "add": 31, "fold": 4}
+
+
+def _r1_sum(*parts) -> dict:
+    return {k: sum(p.get(k, 0) for p in parts) for k in {k for p in parts for k in p}}
+
+
+_R1_UNIFORM = {"float32": {"int": 3, "fp32": 2}, "bfloat16": {"int": 4, "fp32": 3, "xu": 1},
+               "float16": {"int": 3, "fp32": 3, "xu": 0.5}}
+_R1_NORMAL = {"int": 8, "fp32": 38 + 1, "xu": 2}  # erf_inv, times sqrt(2)
+_R1_HALF_NORMAL = {"int": 2, "xu": 1}
+R1_OPERATIONS = {
+    ("bits", "int32"): {"blocks": 1, "int": 1},
+    **{("uniform", dt): _r1_sum({"blocks": 1}, u) for dt, u in _R1_UNIFORM.items()},
+    **{("normal", dt): _r1_sum({"blocks": 1}, u, _R1_NORMAL, _R1_HALF_NORMAL if dt != "float32" else {})
+       for dt, u in _R1_UNIFORM.items()},
+    ("randint", "int32"): {"blocks": 2, "int": 5, "imad": 7, "add": 1},
+}
+
+
+def r1_clocks(mode: str, dtype) -> dict:
+    """The SM clocks an element of a draw takes at the least, from
+    ``R1_OPERATIONS``: each pipe's and the issue slots' clocks with the adds
+    placed between the integer and FMA pipes, and the merges made, where
+    the busiest of them is least; ``pipe`` names that busiest one. Types of
+    64 bits are not in the table."""
+    ops = R1_OPERATIONS[(mode, str(dtype).replace("torch.", ""))]
+    b = ops["blocks"]
+    fp32, imad, xu = ops.get("fp32", 0), ops.get("imad", 0), ops.get("xu", 0)
+    best = None
+    for merged in range(b * R1_BLOCK["fold"] + 1):
+        alu = b * R1_BLOCK["int"] + ops.get("int", 0) + merged
+        adds = b * R1_BLOCK["add"] + ops.get("add", 0) - 2 * merged
+        # the integer pipe's clocks grow with the adds it takes, the FMA
+        # pipe's fall: the best split is where they meet, within [0, adds]
+        on_alu = min(max((imad + adds - alu) / 2, (imad + adds + fp32 - 2 * alu) / 3, 0.0), adds)
+        clocks = {
+            "alu": (alu + on_alu) / R1_RATES["alu"],
+            "fma": max((imad + adds - on_alu) / R1_RATES["imad"], (imad + adds - on_alu + fp32) / R1_RATES["fma"]),
+            "xu": xu / R1_RATES["xu"],
+            "issue": (alu + adds + imad + fp32 + xu) / R1_RATES["issue"],
+        }
+        pipe = max(clocks, key=clocks.get)
+        if best is None or clocks[pipe] < best["clocks"][best["pipe"]]:
+            best = {"clocks": clocks, "pipe": pipe, "merged": merged, "adds_on_alu": on_alu,
+                    "operations": alu + adds + imad + fp32 + xu}
+    return best
 
 
 def _sm_clock_hz() -> float:
@@ -1058,23 +1192,39 @@ def _sm_clock_hz() -> float:
     return float(out.strip().splitlines()[0]) * 1e6
 
 
+def r1_bound(mode: str, chunk, dtype, clock: float):
+    """(bound ms, "bytes" or "operations", the pipe or "hbm" that sets it,
+    bytes ms, operations ms, ``r1_clocks``) of one R1 draw: the output
+    written once over 3.35 TB/s against the function's operations
+    (``r1_clocks``) on 132 SMs at ``clock``."""
+    import torch
+
+    n = chunk.numel
+    count = r1_clocks(mode, dtype)
+    t_bytes = float(n) * torch.empty((), dtype=dtype).element_size() / HBM_BYTES_PER_S * 1e3
+    t_ops = n * count["clocks"][count["pipe"]] / (SM_COUNT * clock) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", "hbm", t_bytes, t_ops, count
+    return t_ops, "operations", count["pipe"], t_bytes, t_ops, count
+
+
 def random_timings(dev, errs: dict) -> list:
-    """R1's rows: its time at each main-path draw (CUDA-event median), the
-    plain version's (the draw in pieces of 2^25 elements, one after the
-    other, so that its int64 temporaries fit), torch's own generator on the
-    same shape as context only (another stream: no library call computes
+    """R1's rows: its time at each main-path draw (CUDA-event median of a
+    lone call, and device time of queued calls, ``_device_ms``), the plain
+    version's (the draw in pieces of 2^25 elements, one after the other, so
+    that its int64 temporaries fit), torch's own generator on the same
+    shape as context only (another stream: no library call computes
     heat_tpu's), and the bound: the larger of the output written once over
-    3.35 TB/s and the Threefry blocks' ALU instructions over the card's
-    issue rate (132 SMs x 4 schedulers x 32 lanes x the maximum SM clock)."""
+    3.35 TB/s and the function's operations on the busiest pipe or issue
+    slots (``r1_bound``, at the maximum SM clock)."""
     import torch
 
     from heat_tpu_torch.kernels import threefry as kt
 
-    per_block = _r1_block_instructions()
     clock = _sm_clock_hz()
-    issue_rate = 132 * 4 * 32 * clock
     # the main-path calls whose R1 launches each row reports
     main = {"r1_normal_north_star": ("hsvd_draw", "hsvd_2pass", "hsvd_one_view", "ring_attention_ra_f32_draw"),
+            "r1_normal_north_star_split1": (),
             "r1_normal_kmeans_chip4": ("kmeans_draw", "kmeans_fit"),
             "r1_randint_sort_1gb": ("sort_draw", "sort_ints_draw", "sort_rows_draw"),
             "r1_normal_bf16_rab": ("ring_attention_ra_bf16_draw", "ring_attention_rab_bf16_draw"),
@@ -1082,14 +1232,14 @@ def random_timings(dev, errs: dict) -> list:
     rows = []
     for label, mode, key, chunk, dtype, args in _r1_draws():
         n = chunk.numel
-        ms = _median_ms(lambda: kt.draw(mode, key, chunk, dtype, dev, args), 10)
-        outer, _, start, _, inner = chunk.geometry()
+        call = lambda: kt.draw(mode, key, chunk, dtype, dev, args)  # noqa: E731
+        ms = _median_ms(call, 10)
+        device_ms = _device_ms(call, 10)
         piece = 1 << 25
 
         def plain():
             for lo in range(0, n, piece):
-                idx = torch.arange(start * inner + lo, start * inner + min(n, lo + piece), device=dev)
-                kt.plain_at(mode, key, idx, dtype, args)
+                kt.plain_at(mode, key, _r1_chunk_index(chunk, lo, min(n, lo + piece), dev), dtype, args)
 
         plain_ms = _median_ms(plain, 3)
         if mode == "randint":
@@ -1099,21 +1249,23 @@ def random_timings(dev, errs: dict) -> list:
         else:
             context = lambda: torch.rand(chunk.lshape, device=dev, dtype=dtype)  # noqa: E731
         torch_ms = _median_ms(context, 10)
-        nbytes = float(n) * torch.empty((), dtype=dtype).element_size()
-        blocks = 2 if mode == "randint" else 1
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, blocks * per_block * n / issue_rate * 1e3
-        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        bound_ms, bound_by, pipe, t_bytes, t_ops, count = r1_bound(mode, chunk, dtype, clock)
         path = {call: R1_PATH[call]["launches"] for call in main[label]}
         print(
-            f"{label}: {mode} {tuple(chunk.lshape)} {str(dtype)[6:]}: R1 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch's own generator {torch_ms:.4f} ms (context: another stream), bound {bound_ms:.4f} ms "
-            f"({bound_by}; bytes {t_bytes:.4f} ms, {blocks} x {per_block:.1f} ALU instructions an element at "
-            f"{issue_rate / 1e12:.2f} T/s {t_ops:.4f} ms); main-path launches {path}", flush=True,
+            f"{label}: {mode} {tuple(chunk.lshape)} {str(dtype)[6:]}: R1 {ms:.4f} ms (device {device_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, torch's own generator {torch_ms:.4f} ms (context: another stream), bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {pipe}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms at "
+            f"{clock / 1e6:.0f} MHz: {count['operations']:g} an element, {count['merged']} injections merged, "
+            f"{count['adds_on_alu']:g} on the integer pipe; SM clocks an element "
+            + ", ".join(f"{k} {v:.4f}" for k, v in count["clocks"].items())
+            + f"); {device_ms and bound_ms / device_ms:.1%} of the bound on the device; main-path launches {path}",
+            flush=True,
         )
         rows.append({
             "name": label, "route": "cuda", "source": R1_SOURCE, "replaces": R1_REPLACES,
             "launches": sum(path.values()), "max_abs_err": errs[label], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": device_ms, "bound_pipe": pipe, "operations_an_element": count["operations"],
             "context_torch_generator_ms": torch_ms,
         })
     return rows
@@ -1684,7 +1836,8 @@ def _world_random(ht, comm, moved: dict, rank: int, dev) -> dict:
     must launch R1 once, for exactly its chunk's elements, issue no
     collective, and hold the chunk of heat_tpu's draw (the first and last
     R1_SAMPLE elements of every rank's chunk against the plain version at
-    their global flat indices)."""
+    their global flat indices); then the same of ``randn(65536, 8192,
+    split=1)``."""
     import torch
 
     from heat_tpu_torch.core import _threefry as tf
@@ -1708,8 +1861,29 @@ def _world_random(ht, comm, moved: dict, rank: int, dev) -> dict:
                    "or differs from the plain version")
     del x
     ms = _world_ms(lambda: ht.random.randn(*WORLD_RANDOM, split=0), 3)
+    # the north star split 1: each rank its 65536 rows of 2048 columns (R1's
+    # outer > 1 path; rank 1's chunk is random_timings' split-1 row)
+    ht.random.seed(0)
+    chunk1 = tf.Chunk.of((M, N), 1, comm)
+    _r1_zero()
+    comm.counts.clear()
+    moved.clear()
+    y = ht.random.randn(M, N, split=1)
+    torch.cuda.synchronize()
+    split1 = {"launches": kt.THREEFRY_LAUNCHES, "elements": list(kt.THREEFRY_ELEMENTS)}
+    ok = (split1["launches"] == 1 and split1["elements"] == [chunk1.numel] and tuple(y.lshape) == chunk1.lshape
+          and not comm.counts)
+    try:
+        split1["err"] = _r1_sample_err(kt, y.larray, "normal", key, chunk1, torch.float32, (0.0, 1.0),
+                                       f"world randn split 1, rank {rank}")
+    except RuntimeError:
+        ok, split1["err"] = False, float("nan")
+    _every_rank_ok(comm, ok, "world randn split 1: a rank launched R1 other than once for its chunk, issued a "
+                   "collective, or differs from the plain version")
+    del y
+    split1["ms"] = _world_ms(lambda: ht.random.randn(M, N, split=1), 3)
     torch.cuda.empty_cache()
-    return {"launches": launches, "elements": elements, "ms": ms, "err": err, "start": chunk.start}
+    return {"launches": launches, "elements": elements, "ms": ms, "err": err, "start": chunk.start, "split1": split1}
 
 
 def _world_kmeans(ht, comm, moved: dict, rank: int, dev) -> dict:
@@ -2422,6 +2596,12 @@ def world_path(dev) -> dict:
         f"chunk alone, rows from {[p['start'] for p in per]}), no collective; every rank's chunk equal to the plain "
         f"version at its ends; {shared}", flush=True,
     )
+    print(
+        f"world random: ht.random.randn({M}, {N}, split=1): {per[0]['split1']['ms']:.4f} ms a call (rank 0, median "
+        f"of 3; ranks {[round(p['split1']['ms'], 4) for p in per]}); R1 launches a rank "
+        f"{[p['split1']['launches'] for p in per]} of {[p['split1']['elements'] for p in per]} elements ({M} rows "
+        f"of each rank's columns); every rank's chunk equal to the plain version at its ends; {shared}", flush=True,
+    )
     per = [res["kmeans"] for res in results]
     km_bound = WORLD * 4.0 * KM_N * KM_D / HBM_BYTES_PER_S * 1e3
     print(
@@ -2436,7 +2616,8 @@ def world_path(dev) -> dict:
         f"{per[0]['blob_err'][0]:.3e}, inertia rel {per[0]['blob_err'][1]:.3e}, tol {TOL_SUMS}); {shared}", flush=True,
     )
     world = {"hsvd": launches, "kmeans": [p["launches"] for p in per], "attention": {},
-             "random": [res["random"]["launches"] for res in results]}
+             "random": [res["random"]["launches"] for res in results],
+             "random_split1": [res["random"]["split1"]["launches"] for res in results]}
     for name, shape, dt, causal in WORLD_ATTENTION:
         per = [res["attention"][name] for res in results]
         b, h, s, d = shape
@@ -5542,6 +5723,9 @@ def main() -> int:
     rows[0]["manip_launches"] = {"gallery_hsvd": manip["launches"]["k1"]["sketch_with_norm"]}
     r1_rows = random_timings(dev, random_errs)
     r1_rows[0]["world_launches"] = launches["world"]["random"]
+    split1_row = next(row for row in r1_rows if row["name"] == "r1_normal_north_star_split1")
+    split1_row["world_launches"] = launches["world"]["random_split1"]
+    split1_row["launches"] = launches["world"]["random_split1"][1]  # rank 1 draws the row's chunk
     r1_rows[0]["train_launches"] = {"cnn_per_step": train["cnn"]["r1_per_step"],
                                     "mlp_per_step": train["mlp"]["r1_per_step"], "shuffle": train["shuffle"]["r1"],
                                     "kmedians_seeding": R1_PATH["kmedians_fit"]["launches"]}

@@ -49,3 +49,5 @@ from . import redistribution
 from . import sparse
 from . import spatial
 from . import utils
+from . import version
+from .version import __version__

@@ -194,18 +194,29 @@ def scalar(value, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float64).to(dtype)
 
 
+def uniform_bits(dtype: torch.dtype) -> int:
+    """The random bits ``_uniform`` takes for ``dtype``: 8 for bfloat16, else
+    the dtype's width."""
+    info = torch.finfo(dtype)
+    return 8 if int(round(-math.log2(info.eps))) < 8 else info.bits
+
+
 def _uniform_raw(key: Key, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``_uniform``'s floats in [0, 1): the mantissa bits of 1.x, minus 1."""
+    return _raw_of_bits(bits_plain(key, idx, uniform_bits(dtype)), dtype)
+
+
+def _raw_of_bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``_uniform``'s floats in [0, 1) of its random ``bits`` (int64)."""
     info = torch.finfo(dtype)
     nbits, nmant = info.bits, int(round(-math.log2(info.eps)))
-    rng_bits = 8 if nmant < 8 else nbits
-    bits = bits_plain(key, idx, rng_bits)
+    rng_bits = uniform_bits(dtype)
     one = int(scalar(1.0, dtype).view({16: torch.int16, 32: torch.int32, 64: torch.int64}[nbits]))
     if nbits == 64:
         fbits = ((bits >> (rng_bits - nmant)) & ((1 << 52) - 1)) | one
     else:
         fbits = (bits >> (rng_bits - nmant)) | (one & ((1 << nbits) - 1))
-    return _words_as(fbits, dtype) - scalar(1.0, dtype).to(idx.device)
+    return _words_as(fbits, dtype) - scalar(1.0, dtype).to(bits.device)
 
 
 def uniform_params(dtype: torch.dtype, minval: float, maxval: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -341,12 +352,19 @@ def normal_lo(dtype: torch.dtype) -> float:
 def normal_plain(key: Key, idx: torch.Tensor, dtype: torch.dtype, mean: float = 0.0,
                  std: float = 1.0) -> torch.Tensor:
     """``jax.random.normal(key, ..., dtype) * std + mean`` at ``idx``."""
-    u = uniform_plain(key, idx, dtype, normal_lo(dtype), 1.0)
+    return normal_of_bits(bits_plain(key, idx, uniform_bits(dtype)), dtype, mean, std)
+
+
+def normal_of_bits(bits: torch.Tensor, dtype: torch.dtype, mean: float = 0.0, std: float = 1.0) -> torch.Tensor:
+    """``normal_plain``'s transform of its random ``bits`` (int64, the low
+    ``uniform_bits(dtype)`` bits of b1 ^ b2)."""
+    lo, span = (t.to(bits.device) for t in uniform_params(dtype, normal_lo(dtype), 1.0))
+    u = torch.maximum(lo, _scale_shift(_raw_of_bits(bits, dtype), span, lo))
     if dtype in (torch.float16, torch.bfloat16):
         e = erf_inv_plain(u.float()).to(dtype)
     else:
         e = erf_inv_plain(u)
-    sqrt2, std_, mean_ = (scalar(v, dtype).to(idx.device) for v in (math.sqrt(2.0), std, mean))
+    sqrt2, std_, mean_ = (scalar(v, dtype).to(bits.device) for v in (math.sqrt(2.0), std, mean))
     affine = mean != 0.0 or std != 1.0
     if dtype == torch.float16:  # XLA keeps float32 from here to one rounding
         out = e.float() * sqrt2.float()

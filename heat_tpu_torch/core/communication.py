@@ -32,6 +32,8 @@ import torch.distributed as dist
 
 __all__ = [
     "Communication",
+    "MPICommunication",
+    "MPI_SELF",
     "MPI_WORLD",
     "TorchCommunication",
     "get_comm",
@@ -316,6 +318,29 @@ class TorchCommunication(Communication):
 
 MPI_WORLD = TorchCommunication()
 """The world communicator."""
+
+MPICommunication = TorchCommunication
+"""``heat_tpu``'s name of the communicator class (an alias there too)."""
+
+
+class _SelfCommunication(TorchCommunication):
+    """A communicator of this process alone, whatever the world (the analog
+    of MPI_COMM_SELF): size 1, rank 0, every collective a local copy."""
+
+    @property
+    def size(self) -> int:
+        return 1
+
+    @property
+    def rank(self) -> int:
+        return 0
+
+    def __repr__(self) -> str:
+        return "TorchCommunication(self)"
+
+
+MPI_SELF = _SelfCommunication()
+"""The one-rank communicator (reference: communication.py:2013)."""
 
 __default_comm: Communication = MPI_WORLD
 

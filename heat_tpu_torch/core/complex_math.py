@@ -14,9 +14,11 @@ __all__ = ["angle", "conj", "conjugate", "imag", "real"]
 
 
 def _angle(t: torch.Tensor) -> torch.Tensor:
-    if not (t.dtype.is_floating_point or t.dtype.is_complex):
+    if t.dtype.is_complex:
+        return torch.angle(t)
+    if not t.dtype.is_floating_point:
         t = t.to(torch.float64)  # jnp.angle of bools and integers is float64
-    return torch.angle(t)
+    return torch.atan2(torch.zeros_like(t), t)  # π for −0.0, as jnp.angle (torch.angle gives 0)
 
 
 def angle(x: DNDarray, deg: bool = False, out=None) -> DNDarray:

@@ -23,7 +23,7 @@ from typing import Any, Optional, Union
 
 import torch
 
-__all__ = ["Device", "cpu", "get_device", "gpu", "sanitize_device", "use_device"]
+__all__ = ["Device", "cpu", "get_device", "gpu", "sanitize_device", "use_device", "use_x64"]
 
 
 class Device:
@@ -131,3 +131,14 @@ def _bind_gpu(index: int) -> None:
     """Point ``gpu`` at ``cuda:index``, in place, so that every reference
     to it (``ht.gpu``, the default device) follows: one card per rank."""
     Device.__init__(gpu, "gpu", index)
+
+
+def use_x64(flag: Optional[bool] = None) -> bool:
+    """``heat_tpu``'s 64-bit switch (devices.py:113), whose policy here is
+    fixed on: float64, int64 and complex128 are native on a card and on the
+    CPU. A query and ``use_x64(True)`` return True; ``use_x64(False)``,
+    which in ``heat_tpu`` degrades 64-bit types to 32 bits on a TPU, raises
+    ``ValueError``."""
+    if flag is not None and not flag:
+        raise ValueError("use_x64(False): heat_tpu_torch keeps native 64-bit types on every device")
+    return True

@@ -447,9 +447,10 @@ def inv(a: DNDarray) -> DNDarray:
     _refuse_narrow(a.dtype, "inv")
     if _blocked_linalg_eligible(a):
         from .. import factories
-        from .factorizations import _lu_factor, _solve_factored
+        from .factorizations import _lu_factor_ex, _refuse_singular, _solve_factored
 
-        pvec, l_arr, u_arr, _sign = _lu_factor(a)
+        pvec, l_arr, u_arr, _sign, singular = _lu_factor_ex(a)
+        _refuse_singular(singular, "ht.linalg.inv")
         rhs = factories.eye((int(a.shape[0]),) * 2, dtype=l_arr.dtype, split=0, device=a.device, comm=a.comm)
         x = _solve_factored("lu", rhs, l_arr, u_arr, pvec)
         return x if x.split == a.split else x.resplit(a.split)
@@ -460,12 +461,18 @@ def inv(a: DNDarray) -> DNDarray:
 
 def _blocked_det(a: DNDarray) -> torch.Tensor:
     """``sign · prod(diag(U))`` of the blocked LU: each rank's product of
-    the diagonal entries in its rows, then one all-reduced product."""
-    from .factorizations import _lu_factor
+    the diagonal entries in its rows, then one all-reduced product. Where
+    the LU met a zero pivot (a singular matrix, or one whose panel block is
+    singular under pivoting within each rank's rows) every rank gathers
+    the matrix and takes ``torch.linalg.det`` of it (0 for a singular one;
+    one host read)."""
+    from .factorizations import _lu_factor_ex
 
     if a.dtype.torch_type() in _NARROW:
         a = a.astype(types.float32)
-    _pvec, _l, u, sign = _lu_factor(a)
+    _pvec, _l, u, sign, singular = _lu_factor_ex(a)
+    if int(singular):
+        return torch.linalg.det(_float_of(_whole(a), a.dtype))
     start = a.comm.chunk(u.gshape, 0)[0]
     part = torch.prod(torch.diagonal(u._balanced_larray(), offset=start))
     return sign.to(part.dtype) * a.comm.allreduce(part, "prod")

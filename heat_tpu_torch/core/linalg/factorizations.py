@@ -353,10 +353,12 @@ def _blocked_cholesky(comm, a_loc: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _blocked_lu(comm, a_loc: torch.Tensor, n: int):
-    """This rank's rows of (L, U, perm) and the replicated sign
-    (``heat_tpu``'s ``lu_kernel``, factorizations.py:484): pivots within the
-    panel's block of rows; one all-gather a lap, one broadcast of the
-    pivoted U panel row from rank k on every lap but the last."""
+    """This rank's rows of (L, U, perm), the replicated sign and the
+    replicated count of zero pivots (``heat_tpu``'s ``lu_kernel``,
+    factorizations.py:484): pivots within the panel's block of rows; one
+    all-gather a lap, one broadcast of the pivoted U panel row from rank k
+    on every lap but the last. A zero pivot does not raise: every rank
+    factors the same gathered panel, so every rank counts it alike."""
     p, i = comm.size, comm.rank
     nb = -(-n // p)
     w = _padded_block(a_loc, i, nb, n, nb * p)
@@ -365,10 +367,12 @@ def _blocked_lu(comm, a_loc: torch.Tensor, n: int):
     eye = torch.eye(nb, dtype=w.dtype, device=w.device)
     perm_loc = torch.arange(nb, device=w.device)
     sign = torch.ones((), dtype=torch.int32, device=w.device)
+    singular = torch.zeros((), dtype=torch.int32, device=w.device)
     for k in range(p):
         blk = slice(k * nb, (k + 1) * nb)
         col = comm.allgather(w[:, blk] if i >= k else zero)
-        lu_pk, piv = torch.linalg.lu_factor(col[blk])
+        lu_pk, piv, info = torch.linalg.lu_factor_ex(col[blk])
+        singular = singular + (info != 0).to(torch.int32)
         pk, parity = _lapack_permutation(lu_pk, piv)
         lkk = torch.tril(lu_pk, -1) + eye
         ukk = torch.triu(lu_pk)
@@ -392,7 +396,7 @@ def _blocked_lu(comm, a_loc: torch.Tensor, n: int):
                 uout[:, trail] = cand_u
             w[:, trail] -= my_l @ urow
     rows = a_loc.shape[0]
-    return lout[:rows, :n], uout[:rows, :n], (i * nb + perm_loc)[:rows], sign
+    return lout[:rows, :n], uout[:rows, :n], (i * nb + perm_loc)[:rows], sign, singular
 
 
 def _check_square(a: DNDarray, what: str) -> None:
@@ -422,9 +426,18 @@ def cholesky(a: DNDarray) -> DNDarray:
 
 def _lu_factor(a: DNDarray):
     """``(perm, L, U, sign)`` with ``A[perm] = L U`` and ``sign`` the
-    replicated int32 parity of the row swaps: the form :func:`lu`,
-    :func:`solve` and ``inv``/``det`` share. Across ranks the pivoting is
-    within each rank's ⌈n/p⌉ rows."""
+    replicated int32 parity of the row swaps (``heat_tpu``'s form): the
+    first four of :func:`_lu_factor_ex`."""
+    return _lu_factor_ex(a)[:4]
+
+
+def _lu_factor_ex(a: DNDarray):
+    """``(perm, L, U, sign, singular)`` with ``A[perm] = L U``, ``sign``
+    the replicated int32 parity of the row swaps and ``singular`` a
+    replicated int32 tensor, nonzero where a pivot was zero (the factors
+    are returned all the same, as ``lax.linalg.lu`` returns them): the form
+    :func:`lu`, :func:`solve` and ``inv``/``det`` share. Across ranks the
+    pivoting is within each rank's ⌈n/p⌉ rows."""
     sanitize_in(a)
     _check_square(a, "ht.linalg.lu")
     dtype = _solver_dtype(a)
@@ -434,14 +447,22 @@ def _lu_factor(a: DNDarray):
     comm = a.comm
     n = int(a.shape[0])
     if a.split == 0 and comm.is_distributed():
-        l_loc, u_loc, perm_loc, sign = _blocked_lu(comm, _shard(a, tt), n)
+        l_loc, u_loc, perm_loc, sign, singular = _blocked_lu(comm, _shard(a, tt), n)
         return (_out(perm_loc.to(torch.int32), (n,), 0, a), _out(l_loc, (n, n), 0, a),
-                _out(u_loc, (n, n), 0, a), sign)
-    lu_p, piv = torch.linalg.lu_factor(a.larray.to(tt))
+                _out(u_loc, (n, n), 0, a), sign, singular)
+    lu_p, piv, info = torch.linalg.lu_factor_ex(a.larray.to(tt))
     perm, sign = _lapack_permutation(lu_p, piv)
     l_arr = torch.tril(lu_p, -1) + torch.eye(n, dtype=tt, device=lu_p.device)
     return (_from_whole(perm.to(torch.int32), a.split, a), _from_whole(l_arr, a.split, a),
-            _from_whole(torch.triu(lu_p), a.split, a), sign)
+            _from_whole(torch.triu(lu_p), a.split, a), sign, info)
+
+
+def _refuse_singular(singular: torch.Tensor, what: str) -> None:
+    """Raise torch's ``LinAlgError`` where the LU met a zero pivot (one host
+    read; ``singular`` is the same on every rank, so every rank raises)."""
+    if int(singular):
+        raise torch.linalg.LinAlgError(f"{what}: the LU factorization met a zero pivot; the matrix is singular "
+                                       "(under pivoting within each rank's rows)")
 
 
 def lu(a: DNDarray) -> LU:
@@ -572,7 +593,8 @@ def solve(a: DNDarray, b, assume_a: str = "gen") -> DNDarray:
             a = _from_whole(a.larray, 0, a)
         if assume_a == "pos":
             return _solve_factored("chol", b, cholesky(a))
-        pvec, l_arr, u_arr, _sign = _lu_factor(a)
+        pvec, l_arr, u_arr, _sign, singular = _lu_factor_ex(a)
+        _refuse_singular(singular, "ht.linalg.solve")
         return _solve_factored("lu", b, l_arr, u_arr, pvec)
     tt = _solver_dtype(a).torch_type()
     arr_a, arr_b = a.larray.to(tt), b.larray.to(tt)

@@ -154,7 +154,9 @@ def sgn(x: DNDarray, out=None) -> DNDarray:
 
 def _sign(t: torch.Tensor) -> torch.Tensor:
     if t.dtype.is_complex:  # the sign of the real part, as numpy
-        return torch.sign(t.real).to(t.dtype)
+        return _sign(t.real).to(t.dtype)
+    if t.dtype.is_floating_point:  # NaN and ±0 are their own sign, as jnp.sign (torch.sign maps NaN to 0)
+        return torch.where(torch.isnan(t) | (t == 0), t, torch.sign(t))
     return torch.sign(t)
 
 

@@ -46,6 +46,7 @@ __all__ = [
     "float64",
     "double",
     "complex",
+    "flexible",
     "complex64",
     "cfloat",
     "csingle",
@@ -139,6 +140,11 @@ class float32(floating):
 
 class float64(floating):
     _torch_type = torch.float64
+
+
+class flexible(datatype):
+    """Abstract base for types with flexible/variable size (none is
+    concrete, as in ``heat_tpu``)."""
 
 
 class complex(number):

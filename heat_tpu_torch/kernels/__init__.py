@@ -24,7 +24,13 @@ from .attention import (
     flash_attention,
     flash_attention_plain,
 )
+from .relayout import (
+    lane_fill,
+    pack_rows,
+    unpack_rows,
+)
 from .sort import (
+    block_sort,
     from_sortable,
     fused_sort,
     local_sort,
@@ -45,6 +51,7 @@ __all__ = [
     "sort",
     "spmm",
     "threefry",
+    "block_sort",
     "from_sortable",
     "fused_sort",
     "local_sort",
@@ -58,4 +65,7 @@ __all__ = [
     "attention_serviceable",
     "flash_attention",
     "flash_attention_plain",
+    "lane_fill",
+    "pack_rows",
+    "unpack_rows",
 ]

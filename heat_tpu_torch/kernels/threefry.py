@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 import threading
 
@@ -37,7 +38,8 @@ import torch
 from ..core import _threefry as tf
 from .sort import pair_sort
 
-__all__ = ["BITS_DTYPES", "THREEFRY_ELEMENTS", "THREEFRY_LAUNCHES", "draw", "draw_plain", "plain_at", "shuffle"]
+__all__ = ["BITS_DTYPES", "THREEFRY_ELEMENTS", "THREEFRY_LAUNCHES", "draw", "draw_plain",
+           "normal_of_words", "plain_at", "shuffle"]
 
 #: launches of R1 since the count was last set to 0
 THREEFRY_LAUNCHES = 0
@@ -110,6 +112,8 @@ def _lib():
         lib.heat_threefry_draw.argtypes = [_P, _I, _I, _U, _U, _U, _U, _LL, _LL, _LL, _LL, _LL,
                                            _ULL, _ULL, _ULL, _ULL, _ULL, _I, _I, _P]
         lib.heat_threefry_draw.restype = _I
+        lib.heat_threefry_normal_of_words.argtypes = [_P, _P, _I, _LL, _ULL, _ULL, _ULL, _ULL, _ULL, _I, _I, _P]
+        lib.heat_threefry_normal_of_words.restype = _I
         lib.heat_threefry_error_string.argtypes = [_I]
         lib.heat_threefry_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -122,9 +126,11 @@ def _pattern(t: torch.Tensor) -> int:
     return int(t.view(word)) % (1 << (8 * t.element_size()))
 
 
-def _constants(mode: str, key, dtype: torch.dtype, args):
-    """(code, second key, a0..a4, flag) of a launch."""
-    j = (0, 0)
+@functools.lru_cache(maxsize=256)
+def _constants(mode: str, dtype: torch.dtype, args: tuple):
+    """(code, a0..a4, flag) of a launch, made once per (mode, dtype, args):
+    the transform's constants are 0-d tensors whose bit patterns are read
+    on the host."""
     a = [0, 0, 0, 0, 0]
     flag = 0
     if mode == "bits":
@@ -142,9 +148,8 @@ def _constants(mode: str, key, dtype: torch.dtype, args):
     else:
         code = _INT_CODES[dtype]
         nbits, span, mult, lo = tf.randint_params(*args, dtype)
-        key, j = tf.split(key)
         a[:3] = [span, mult, lo % (1 << 64)]
-    return code, key, j, a, flag
+    return code, tuple(a), flag
 
 
 def draw(mode: str, key, chunk: "tf.Chunk", dtype: torch.dtype, device, args=()) -> torch.Tensor:
@@ -161,7 +166,10 @@ def draw(mode: str, key, chunk: "tf.Chunk", dtype: torch.dtype, device, args=())
     out = torch.empty(chunk.lshape, dtype=dtype, device=device)
     if out.numel() == 0:
         return out
-    code, key, j, a, flag = _constants(mode, key, dtype, args)
+    code, a, flag = _constants(mode, dtype, tuple(args))
+    j = (0, 0)
+    if mode == "randint":
+        key, j = tf.split(key)
     lib = _lib()
     outer, ext, start, length, inner = chunk.geometry()
     stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -173,6 +181,33 @@ def draw(mode: str, key, chunk: "tf.Chunk", dtype: torch.dtype, device, args=())
     with _count_lock:
         THREEFRY_LAUNCHES += 1
         THREEFRY_ELEMENTS.append(out.numel())
+    return out
+
+
+def normal_of_words(words: torch.Tensor, dtype: torch.dtype, args=(0.0, 1.0)) -> torch.Tensor:
+    """R1's normal transform alone: the normal (``args = (mean, std)``) of
+    each 32-bit word of ``words`` (int32) taken as a block's b1 ^ b2, in
+    float16, bfloat16 or float32. On a CUDA tensor it launches the kernel's
+    transform (no draw runs it, and it is not counted); on the CPU the plain
+    version. It lets a check cover the transform's whole input domain."""
+    if dtype not in (torch.float16, torch.bfloat16, torch.float32) or words.dtype != torch.int32:
+        raise ValueError(f"normal_of_words takes int32 words to float16, bfloat16 or float32, not "
+                         f"{words.dtype} to {dtype}")
+    if words.device.type == "cpu":
+        bits = words.long() & ((1 << tf.uniform_bits(dtype)) - 1)
+        return tf.normal_of_bits(bits, dtype, *args)
+    if words.device.type != "cuda":
+        raise ValueError(f"kernel R1 needs a CUDA device, got {words.device}")
+    words = words.contiguous()
+    out = torch.empty(words.shape, dtype=dtype, device=words.device)
+    code, a, flag = _constants("normal", dtype, tuple(args))
+    lib = _lib()
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    rc = lib.heat_threefry_normal_of_words(words.data_ptr(), out.data_ptr(), code, words.numel(), *a, flag,
+                                           words.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"threefry normal transform launch failed: CUDA error {rc} "
+                           f"({lib.heat_threefry_error_string(rc).decode()})")
     return out
 
 

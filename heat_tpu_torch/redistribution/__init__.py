@@ -17,8 +17,10 @@ plan that the public call runs; ``.describe()`` renders it.
 """
 
 from . import executor, planner, schedule, spec
+from . import schedule as schedule_ir  # heat_tpu's names of the two modules
+from . import spec as spec_mod
 from .executor import LocalWorld, execute, reshape_local, resplit_local
-from .planner import budget_bytes, explain, golden_specs, plan
+from .planner import budget_bytes, clear_plan_cache, explain, golden_specs, plan, planner_enabled
 from .schedule import Schedule, Step
 from .spec import RedistSpec
 
@@ -28,10 +30,12 @@ __all__ = [
     "Schedule",
     "Step",
     "budget_bytes",
+    "clear_plan_cache",
     "execute",
     "explain",
     "golden_specs",
     "plan",
+    "planner_enabled",
     "reshape_local",
     "resplit_local",
 ]

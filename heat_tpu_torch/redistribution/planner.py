@@ -57,9 +57,11 @@ __all__ = [
     "ALPHA_BYTES",
     "DEFAULT_BUDGET_MB",
     "budget_bytes",
+    "clear_plan_cache",
     "explain",
     "golden_specs",
     "plan",
+    "planner_enabled",
 ]
 
 #: per-collective launch latency in byte-equivalents (heat_tpu's constant)
@@ -621,6 +623,22 @@ def plan(spec: RedistSpec, budget: Optional[int] = None, quant: Optional[str] = 
             _plan_cache.pop(next(iter(_plan_cache)))
         _plan_cache[key] = sched
     return sched
+
+
+def clear_plan_cache() -> int:
+    """Drop every cached plan; returns how many there were (``heat_tpu``
+    planner.py:357)."""
+    with _plan_lock:
+        n = len(_plan_cache)
+        _plan_cache.clear()
+    return n
+
+
+def planner_enabled() -> bool:
+    """``heat_tpu``'s routing switch (planner.py:195), whose
+    ``HEAT_TPU_REDIST_PLANNER=0`` restores its unplanned relayout; the port
+    has no unplanned route, so every split change is planned: True."""
+    return True
 
 
 def explain(arr, axis=None, *, reshape=None, new_split=None, topology=None) -> Schedule:

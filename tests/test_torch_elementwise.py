@@ -234,6 +234,11 @@ def test_unary_functions_match_heat_tpu(name, domain, kind, dtype, split):
     a = values(SHAPE, dtype, domain, seed=1)
     if name == "arccosh" and dtype not in ("bool",):
         a = (a + 1).astype(a.dtype) if "int" not in dtype else np.abs(a) + 1
+    if name in ("sign", "angle") and a.dtype.kind in "fc":  # NaN (a complex one's real part) and −0.0
+        a = a.copy()
+        a.flat[:2] = np.nan, -0.0
+        if a.dtype.kind == "c":
+            a.flat[2:4] = complex(np.nan, 1.0), complex(-0.0, -0.0)
     check(lambda lib: getattr(lib, name)(make(lib, a, dtype, split)), kind)
 
 

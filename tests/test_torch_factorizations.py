@@ -389,6 +389,58 @@ def test_whole_a_against_a_split_b_across_ranks(ranks, assume):  # noqa: F811
                                   else {"all-gather": 7, "broadcast": 3})
 
 
+SINGULAR = {
+    "ones_4": np.ones((4, 4), np.float32),
+    "rank2_3": np.array([[1, 2, 3], [2, 4, 6], [1, 0, 1]], np.float32),
+    "zero_column_5": np.where(np.arange(5) == 2, 0.0, worker.fact_matrix("gen", (5, 5), "float64", 42)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SINGULAR))
+def test_singular_lu_at_world_size_one_matches_heat_tpu(name):
+    """``lu`` of a singular matrix returns its factors, as ``heat_tpu``'s
+    ``lax.linalg.lu`` does: perm exactly, L and U within the float
+    tolerance (a zero pivot raised before ``lu_factor_ex``)."""
+    a = SINGULAR[name]
+    want = jht.linalg.lu(jht.array(a, comm=_j1()))
+    got = ht.linalg.lu(ht.array(a))
+    for i, (g, w, kind) in enumerate(zip(got, want, ("exact", "f", "f"))):
+        _held(kind, _numpy(g), _numpy(w), str(a.dtype), f"{name}[{i}]")
+
+
+@pytest.mark.parametrize("name", ["fact_singular_det_0", "fact_singular_det_1", "fact_reversal_det_0"])
+def test_singular_det_across_ranks_is_numpys(ranks, name):  # noqa: F811
+    """``det`` across 4 ranks where the blocked LU meets a zero pivot (a
+    singular 8 × 8, split 0 or 1; the row reversal, whose panel blocks are
+    singular under pivoting within each rank's rows): every rank gathers
+    and takes the determinant of the whole, NumPy's 0.0 and 1.0 (heat_tpu
+    gives NaN: ROADMAP "Not faults")."""
+    a = np.eye(8)[::-1] if name.startswith("fact_reversal") else np.ones((8, 8))
+    for res in _result(ranks, name):
+        assert float(res["parts"][0]["local"]) == np.linalg.det(a)
+        assert res["counts"].get("all-gather", 0) > 0
+
+
+def test_singular_lu_across_ranks_returns_heat_tpus_factors(ranks, jcomm):  # noqa: F811
+    """``lu`` of a singular split-0 matrix across 4 ranks: no rank raises,
+    and the factors are heat_tpu's on 4 devices (its blocked program meets
+    the zero pivots too: NaN where it has NaN, its values elsewhere)."""
+    want = [_numpy(w) for w in jht.linalg.lu(jht.array(np.ones((8, 8), np.float32), split=0, comm=jcomm))]
+    every = _result(ranks, "fact_singular_lu_0")
+    for i, w in enumerate(want):
+        got = np.concatenate([res["parts"][i]["local"] for res in every])
+        np.testing.assert_allclose(got, w, rtol=0, atol=1e-6, equal_nan=True, err_msg=f"lu[{i}]")
+
+
+@pytest.mark.parametrize("name", ["fact_singular_inv_0", "fact_singular_solve_0"])
+def test_singular_inv_and_solve_raise_on_every_rank(ranks, name):  # noqa: F811
+    """``inv`` and ``solve`` of a singular split matrix raise torch's
+    ``LinAlgError`` on every rank together (ROADMAP "Not faults")."""
+    for r in range(WORLD):
+        res = ranks[r][name]
+        assert isinstance(res, dict) and res.get("error", ("",))[0] == "_LinAlgError", res
+
+
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_collectives_take_a_one_element_strided_view(dtype):
     """The real part of a complex diagonal with one element (eigh's shift

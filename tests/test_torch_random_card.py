@@ -9,9 +9,16 @@ too: the kernel takes the plain version's operations one by one (the
 same log1p and sqrt, no contraction but the fused multiply-adds both take),
 so the stated limit is 0 ulp. The cases run at 2^24 elements, at chunks
 whose global flat indices cross 2^32 (the counter's high word), contiguous
-(split 0) and not (split 1 of a 3-D draw), and at an empty chunk (no
-launch). ``shuffle`` on the card (R1's bits, K4's pair sort) must equal
-its CPU result.
+(split 0) and not (split 1 of a 3-D draw), at split-1 chunks of a 2-D
+draw (rank 1 of 4, rows of 1024, and rows of 1025 elements, so that a
+thread's run of consecutive elements crosses a row), at a split-0 chunk
+whose crossing of 2^32 falls inside a run of every length (2, 4 or 8
+elements), at lengths that are no multiple of a run (3003 and 5 elements:
+the last run's elements stored one by one), and at an empty chunk (no
+launch). The normal transform alone (``normal_of_words``) must equal its
+plain version on every input a float32, float16 or bfloat16 draw can give
+it (2^23, 2^10 and 2^7 uniforms). ``shuffle`` on the card (R1's bits, K4's
+pair sort) must equal its CPU result.
 
 This module imports neither JAX nor heat_tpu, so that it runs where only
 PyTorch and a card are (the repo's ``conftest.py`` imports JAX, so there it
@@ -33,7 +40,11 @@ BIG = (4096, 4096)  # 2^24 elements
 CROSS_ROWS = tf.Chunk((2**23, 1024), 0, 2**22 - 64, 128)
 # split 1 of (4, 2^31, 2), the last 8192 columns: row 0 ends just below 2^32, rows 1-3 lie past it
 CROSS_COLS = tf.Chunk((4, 2**31, 2), 1, 2**31 - 8192, 8192)
-CHUNKS = {"big": tf.Chunk.whole(BIG), "cross_rows": CROSS_ROWS, "cross_cols": CROSS_COLS}
+# rows of 1005: flat index 2^32 is local element 301 (odd), inside a run of 2, 4 or 8
+CROSS_MID = tf.Chunk((2**23, 1005), 0, 2**32 // 1005, 8)
+CHUNKS = {"big": tf.Chunk.whole(BIG), "cross_rows": CROSS_ROWS, "cross_cols": CROSS_COLS,
+          "split1": tf.Chunk((1024, 4096), 1, 1024, 1024), "split1_odd_rows": tf.Chunk((999, 4100), 1, 1025, 1025),
+          "cross_mid_run": CROSS_MID, "ragged": tf.Chunk.whole((3, 1001)), "tiny": tf.Chunk.whole((5,))}
 
 CASES = (
     [("bits", dt, ()) for dt in kt.BITS_DTYPES.values()]
@@ -92,3 +103,20 @@ def test_r1_reruns_bit_for_bit_and_a_chunk_is_a_slice_of_the_whole():
 def test_shuffle_on_the_card_equals_the_cpu(n):
     dev = _card()
     assert torch.equal(kt.shuffle(KEY, n, dev).cpu(), kt.shuffle(KEY, n, "cpu"))
+
+
+@pytest.mark.parametrize("args", [(0.0, 1.0), (3.0, 0.5)], ids=str)
+@pytest.mark.parametrize("dtype,shift,width", [(torch.float32, 9, 23), (torch.float16, 6, 10), (torch.bfloat16, 1, 7)],
+                         ids=str)
+def test_the_normal_transform_equals_its_plain_version_on_every_input(dtype, shift, width, args):
+    # one word for each value of the random bits the dtype's uniform reads:
+    # every uniform a normal draw can make, so the transform's log1p, square
+    # root and roundings are held on their whole domain
+    dev = _card()
+    words = torch.arange(1 << width, dtype=torch.int64, device=dev) << shift
+    words = (words - ((words >> 31) << 32)).to(torch.int32)
+    got = kt.normal_of_words(words, dtype, args)
+    want = tf.normal_of_bits(words.long() & ((1 << tf.uniform_bits(dtype)) - 1), dtype, *args)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape == words.shape
+    differ = _bits(got) != _bits(want)
+    assert not bool(differ.any()), f"{int(differ.sum())} inputs differ, the first at word {int(words[differ][0])}"

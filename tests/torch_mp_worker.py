@@ -1621,6 +1621,12 @@ def fact_constants(lib, blocked=None, resplit=None):
         basics._BLOCKED_MIN_N, facts._EIGH_RESPLIT_MIN_N = old
 
 
+def _blocked_call(lib, fn):
+    """``fn()`` with inv/det's blocked order shrunk to FACT_MIN_N."""
+    with fact_constants(lib, blocked=FACT_MIN_N):
+        return fn()
+
+
 def _fact_defs():
     """name -> (call(lib, kw), kinds): ``kinds`` says how each output is
     held against heat_tpu's: "f" and "w" values, "exact" integers, "vec"
@@ -1760,6 +1766,21 @@ def _fact_cases(ht):
 
     for name, (call, _) in FACT_CASES.items():
         out[f"fact_{name}"] = lambda call=call: case(call)
+    # a zero pivot across ranks (tests/test_torch_factorizations.py, against
+    # NumPy: heat_tpu gives NaN): det of a singular matrix, and of the row
+    # reversal, whose panel blocks are singular under pivoting within each
+    # rank's rows; lu returns its factors; inv and solve raise on every rank
+    rev = np.eye(8, dtype=np.float32)[::-1].copy()
+    for split in (0, 1):
+        out[f"fact_singular_det_{split}"] = lambda split=split: case(lambda L, kw: _blocked_call(
+            L, lambda: L.linalg.det(L.array(np.ones((8, 8), np.float32), split=split))))
+    out["fact_reversal_det_0"] = lambda: case(lambda L, kw: _blocked_call(
+        L, lambda: L.linalg.det(L.array(rev, split=0))))
+    out["fact_singular_lu_0"] = lambda: case(lambda L, kw: L.linalg.lu(L.array(np.ones((8, 8), np.float32), split=0)))
+    out["fact_singular_inv_0"] = lambda: case(lambda L, kw: _blocked_call(
+        L, lambda: L.linalg.inv(L.array(np.ones((8, 8), np.float32), split=0))))
+    out["fact_singular_solve_0"] = lambda: case(lambda L, kw: L.linalg.solve(
+        L.array(np.ones((8, 8), np.float32), split=0), L.array(np.ones((8,), np.float32), split=0)))
     for assume in ("gen", "pos"):  # a whole A and a split b: heat_tpu refuses 37 rows over 4 devices
         out[f"fact_solve_whole_{assume}"] = lambda assume=assume: case(
             lambda L, kw: L.linalg.solve(L.array(fact_matrix("gen" if assume == "gen" else "spd", (37, 37), seed=36)),
