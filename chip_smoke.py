@@ -141,6 +141,26 @@ Phases, each of which fails the run by raising:
      system to its stop test and ``lanczos`` with m = 64 (R1 once for its
      start vector); each held to a limit (``TOL_*``) and timed beside its
      operation bound;
+   - the estimators (``estimators_path``): the five scalers (fit,
+     transform, inverse) on ``ht.random.randn(65536, 8192, split=0)``,
+     their statistics, the transform of 8192 rows and the round trip within
+     ``TOL_EST`` of a float64 pass on the card (the quantiles from ATen's
+     sort), K4 under ``RobustScaler``; ``GaussianNB`` fit,
+     ``predict_proba`` and ``predict`` on eight blobs of KMeans' shard
+     (15,625,000 x 64, label = blob), θ and var within ``TOL_NB`` of
+     float64, ``predict``'s peak allocation at most ``NB_PEAK`` x X;
+     ``Lasso`` on the same rows with y = Xθ* + noise (8 of 64 coefficients
+     non-zero), θ within ``TOL_LASSO`` of NumPy's float64 sweeps on a
+     float64 Gram, one host read a sweep; ``KNeighborsClassifier(5)``,
+     16384 queries against 65536 training rows, labels equal to a float64
+     vote with (distance, index) ties, the distances' share of the call;
+     the ``Laplacian`` and ``Spectral(8)`` (``n_lanczos`` 300) of eight
+     blobs of 4096 x 64 rows, every blob recovered, K3 once a Lloyd step,
+     R1 1 + k times, 299 Lanczos host reads; ``spectral_embedding(k=8,
+     m=64)`` of ``pagerank_2m`` symmetrised (A + Aᵀ), K7 1 + m times, Ritz
+     values and embedding (up to column signs) within ``TOL_EMB`` of the
+     same Lanczos in float64 on K7's plain version; an ``{"estimators":
+     ...}`` line;
    - the distributed hSVD as a 4-rank world on this one card
      (``world_path``): 4 spawned workers join a gloo world
      (``init_method=file://``) with every rank's tensors on ``cuda:0``,
@@ -220,7 +240,15 @@ Phases, each of which fails the run by raising:
      ``eigh`` of 2048² (it recurses; R1 twice a spectral split for the
      range probes), each rank's rows held to the same limits, the
      collectives a rank equal to the docstrings' counts, LU's perm equal
-     to world size 1's and σ, det and λ equal on every rank;
+     to world size 1's and σ, det and λ equal on every rank; last the
+     estimators across ranks (``_world_estimators``) on 1/8 of world size
+     1's rows, every rank drawing the operands whole and keeping its
+     chunk: the scalers but the Normalizer on 8192 x 8192 split 0 and
+     split 1 (statistics within ``TOL_WORLD_EST`` of world size 1's, the
+     round trip), GaussianNB (θ, var and labels), Lasso (θ, the same
+     sweeps, one all-reduce), KNN (labels equal) and Spectral (labels a
+     permutation of world size 1's), each with its time, collectives and
+     bytes a rank;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -2025,6 +2053,10 @@ def _world_attention(ht, comm, moved: dict, rank: int, dev) -> dict:
 
 DIST_N, DIST_D = 65536, 64  # X (and Y): 16384 rows a rank
 DIST_SAMPLE = 64  # rows at each end of a rank's block held against float64
+# timed calls of each world distance row after the counted one, whose own
+# time stands where there are none: the direct forms (torch.cdist) take about
+# 6 s a call
+DIST_REPS = {"d": 0, "rbf": 0, "d2": 3}
 # (name, the call given ring, the route measured, what is compared: distances, their squares, or rbf values)
 WORLD_DISTANCE = (
     ("cdist_half_ring", lambda ht, X, Y, ring: ht.spatial.cdist(X, ring=ring), True, "d"),
@@ -2060,8 +2092,9 @@ def _world_distance(ht, comm, moved: dict, rank: int, dev) -> dict:
         comm.counts.clear()
         moved.clear()
         comm.staged_bytes = 0
-        D = call(ht, X, Y, ring)
-        torch.cuda.synchronize()
+        kept = []
+        ms = _world_ms(lambda: kept.append(call(ht, X, Y, ring)), 1)
+        D = kept.pop()
         counts, nbytes, staged = dict(comm.counts), dict(moved), comm.staged_bytes
         shape_ok = D.split == 0 and D.gshape == (DIST_N, DIST_N) and D.lshape == (rows, DIST_N)
         other = Y if kind == "d2" else X
@@ -2083,7 +2116,8 @@ def _world_distance(ht, comm, moved: dict, rank: int, dev) -> dict:
                        f"({err_route:.3e}), tol 1e-5 of the scale")
         del D
         torch.cuda.empty_cache()
-        ms = _world_ms(lambda: call(ht, X, Y, ring), 3)
+        if DIST_REPS[kind]:
+            ms = _world_ms(lambda: call(ht, X, Y, ring), DIST_REPS[kind])
         out[name] = {"counts": counts, "bytes": nbytes, "staged": staged, "err": err, "err_route": err_route,
                      "ms": ms}
         torch.cuda.empty_cache()
@@ -2094,6 +2128,7 @@ def _world_distance(ht, comm, moved: dict, rank: int, dev) -> dict:
 # row (bench.py:111, :1280) split 0 over the ranks; 2^27 gives B = 2^25 rows
 # a rank (columnsort), 2^27 + 2 gives B = 2^25 + 1 (the odd-even network)
 WORLD_SORTS = (("sort_1gb_split0", SORT_N), ("sort_1gb_ragged", SORT_N + 2))
+WORLD_SORT_REPS = 2  # timed calls of each world sort row (1-3 s a call)
 WORLD_UNIQUE_ROWS = (1 << 22, 4)  # unique(axis=0) of int32 in [0, 8), split 0
 
 
@@ -2157,7 +2192,7 @@ def _world_sort(ht, comm, moved: dict, rank: int, dev) -> dict:
                        f"{name}: {network} sort against torch.sort(stable=True), or K4 launches "
                        f"{info['launches']} != {want} on rank {rank}")
         del v, i
-        res = {**info, "network": network, "ms": _world_ms(lambda: ht.sort(x), 3)}
+        res = {**info, "network": network, "ms": _world_ms(lambda: ht.sort(x), WORLD_SORT_REPS)}
         steps = []
         ks.block_sort = _timed(ks.block_sort, steps)
         try:
@@ -2182,9 +2217,9 @@ def _world_sort(ht, comm, moved: dict, rank: int, dev) -> dict:
             del u, distinct
             _every_rank_ok(comm, ok, f"{name}: descending, topk or unique against torch on the card, or K4 "
                                      f"launches (descending {want}, topk 2, unique 2) on rank {rank}")
-            res["descending_ms"] = _world_ms(lambda: ht.sort(x, descending=True), 3)
-            res["topk_ms"] = _world_ms(lambda: ht.topk(x, TOPK_K), 3)
-            res["unique_ms"] = _world_ms(lambda: ht.unique(x), 3)
+            res["descending_ms"] = _world_ms(lambda: ht.sort(x, descending=True), WORLD_SORT_REPS)
+            res["topk_ms"] = _world_ms(lambda: ht.topk(x, TOPK_K), WORLD_SORT_REPS)
+            res["unique_ms"] = _world_ms(lambda: ht.unique(x), WORLD_SORT_REPS)
         out[name] = res
         del x, whole, ref
         torch.cuda.empty_cache()
@@ -2438,7 +2473,7 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
         for phase, run in (("random", _world_random), ("kmeans", _world_kmeans), ("attention", _world_attention),
                            ("distance", _world_distance), ("sort", _world_sort), ("surface", _world_surface),
                            ("indexing", _world_indexing), ("train", _world_train), ("kmedians", _world_kmedians),
-                           ("manip", _world_manip), ("linalg", _world_linalg)):
+                           ("manip", _world_manip), ("linalg", _world_linalg), ("estimators", _world_estimators)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -2461,7 +2496,7 @@ def _report_world_sort(per: list, shared: str) -> dict:
         nbytes = 2.0 * n * 8  # float32 values read and written, int64 indices written: 16 B an element
         print(
             f"world {name}: ht.sort(randn({n}) split 0), {each[0]['network']} at {-(-n // WORLD)} rows a rank: "
-            f"{each[0]['ms']:.4f} ms a call (rank 0, median of 3; ranks {[round(e['ms'], 4) for e in each]}), bound "
+            f"{each[0]['ms']:.4f} ms a call (rank 0, median of {WORLD_SORT_REPS}; ranks {[round(e['ms'], 4) for e in each]}), bound "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (the {WORLD} shards' float32 values read and written and their "
             f"int64 indices written, 16 B an element, {nbytes / 1e9:.4f} GB); K4 launches a rank {launches[name]} "
             f"(one a local step of the schedule); the local steps (block_sort, CUDA events on the rank's stream "
@@ -2474,7 +2509,7 @@ def _report_world_sort(per: list, shared: str) -> dict:
             for key, what in (("descending", "ht.sort(x, descending=True) (the flip of the ascending sort)"),
                               ("topk", f"ht.topk(x, {TOPK_K}) (whole on every rank)"), ("unique", "ht.unique(x)")):
                 print(
-                    f"world {name}: {what}: {each[0][key + '_ms']:.4f} ms a call (rank 0, median of 3); K4 launches a "
+                    f"world {name}: {what}: {each[0][key + '_ms']:.4f} ms a call (rank 0, median of {WORLD_SORT_REPS}); K4 launches a "
                     f"rank {[e[key]['launches'] for e in each]}; equal to torch on the card; collectives a rank "
                     f"{each[0][key]['counts']}, bytes a rank put in {each[0][key]['bytes']}; {shared}", flush=True,
                 )
@@ -2643,7 +2678,7 @@ def world_path(dev) -> dict:
         bound_ms, bound_by = _bound(nbytes, flops)
         print(
             f"world {name}: {DIST_N}x{DIST_N} from {DIST_N}x{DIST_D} float32 split 0, ring={ring}: {per[0]['ms']:.4f} ms "
-            f"a call (rank 0, median of 3; ranks {[round(p['ms'], 4) for p in per]}), bound {bound_ms:.4f} ms "
+            f"a call (rank 0, {f'median of {DIST_REPS[kind]}' if DIST_REPS[kind] else 'the counted call'}; ranks {[round(p['ms'], 4) for p in per]}), bound {bound_ms:.4f} ms "
             f"({bound_by}: {flops / 1e9:.1f} GFLOP at FP32's 67 TFLOP/s, the output's {nbytes / 1e9:.1f} GB); against "
             f"float64 on sampled rows {max(p['err'] for p in per):.3e}, against the other route "
             f"{max(p['err_route'] for p in per):.3e} of the scale (tol 1e-5); collectives a rank {per[0]['counts']}, "
@@ -2682,6 +2717,7 @@ def world_path(dev) -> dict:
         )
     world["manip"] = _report_world_manip([res["manip"] for res in results], shared)
     world["linalg"] = _report_world_linalg([res["linalg"] for res in results], shared)
+    world["estimators"] = _report_world_estimators([res["estimators"] for res in results], shared)
     return world
 
 
@@ -5637,6 +5673,550 @@ def _report_world_linalg(per: list, shared: str) -> dict:
     return {"eigh_r1": [p["eigh"]["r1"] for p in per], "eigh_nodes": [p["eigh"]["nodes"] for p in per]}
 
 
+# --------------------------------------------------------------------- #
+# the estimators (no kernel of their own: K3, K4, K7 and R1 under them)  #
+# --------------------------------------------------------------------- #
+EST_SEED = 22  # the seed of the estimator phase's draws
+EST_REPS = 3
+TOL_EST = 1e-5  # scalers against float64 statistics, their transform and round trip, of the largest magnitude
+TOL_NB = 1e-4  # GaussianNB's θ and var against float64, relative
+NB_PEAK = 3.0  # GaussianNB.predict's peak allocation, at most this many times X
+LASSO_LAM, LASSO_NONZERO, LASSO_NOISE = 0.01, 8, 0.1
+TOL_LASSO = 1e-4  # θ against a float64 fit of the same data, of max|θ|
+KNN_N, KNN_Q, KNN_K = 65536, 16384, 5
+SPEC_N, SPEC_K, SPEC_GAMMA, SPEC_LANCZOS = 32768, 8, 0.05, 300
+EMB_K, EMB_M = 8, 64
+TOL_EMB = 1e-4  # Ritz values and embedding columns (up to sign) against the float64 run with K7's plain version
+WORLD_EST_DIV = 8  # the world's operands: 1/8 of world size 1's rows
+TOL_WORLD_EST = 1e-5  # the world's fitted statistics against world size 1's, relative
+
+
+def _est_rel(got, ref) -> float:
+    """max |got − ref| / max |ref|, in float64."""
+    import torch
+
+    got, ref = torch.as_tensor(got).double(), torch.as_tensor(ref).double().to(torch.as_tensor(got).device)
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+def _scaler_reference(a) -> dict:
+    """The scalers' statistics of ``a`` (rows along axis 0) from a float64
+    pass on the card, and the quantiles from ATen's sort of each column."""
+    import torch
+
+    a64 = a.double()
+    ref = {"mean": a64.mean(0), "var": a64.var(0, correction=0), "min": a.amin(0).double(), "max": a.amax(0).double(),
+           "max_abs": a.abs().amax(0).double()}
+    del a64
+    s = torch.sort(a, dim=0).values
+    n = a.shape[0]
+    for name, q in (("median", 50.0), ("q_lo", 25.0), ("q_hi", 75.0)):
+        pos = q / 100.0 * (n - 1)
+        lo, hi = math.floor(pos), math.ceil(pos)
+        ref[name] = s[lo].double() + (pos - lo) * (s[hi].double() - s[lo].double())
+    del s
+    return ref
+
+
+def _scaler_formula(name: str, rows, ref: dict):
+    """The transform of ``rows`` from the float64 statistics."""
+    r = rows.double()
+    if name == "StandardScaler":
+        return (r - ref["mean"]) / ref["var"].sqrt()
+    if name == "MinMaxScaler":
+        return (r - ref["min"]) / (ref["max"] - ref["min"])
+    if name == "Normalizer":
+        return r / r.norm(dim=1, keepdim=True)
+    if name == "MaxAbsScaler":
+        return r / ref["max_abs"]
+    return (r - ref["median"]) / (ref["q_hi"] - ref["q_lo"])
+
+
+def _scaler_stats(name: str, model) -> dict:
+    """The fitted statistics of ``model`` under ``_scaler_reference``'s names."""
+    whole = lambda v: v.resplit(None).larray if hasattr(v, "split") else v  # noqa: E731
+    if name == "StandardScaler":
+        return {"mean": whole(model.mean_), "var": whole(model.var_)}
+    if name == "MinMaxScaler":
+        return {"min": whole(model.data_min_), "max": whole(model.data_max_)}
+    if name == "MaxAbsScaler":
+        return {"max_abs": model.max_abs_}
+    if name == "RobustScaler":
+        return {"median": whole(model.center_)}
+    return {}
+
+
+def _scalers(ht, A, ref: dict, rows, label: str, reps: int, launches: dict) -> list:
+    """Each scaler on ``A``: fit, transform and inverse, their statistics
+    against ``ref`` (float64), the transform of ``rows`` (this rank's row
+    indices) against the float64 formula, the round trip, K4's launches
+    under ``RobustScaler``, and the call's CUDA-event median."""
+    import torch
+
+    from heat_tpu_torch.kernels import sort as ks
+    from heat_tpu_torch.preprocessing import preprocessing as pp
+
+    out = []
+    a = A.larray
+    for name in ("StandardScaler", "MinMaxScaler", "Normalizer", "MaxAbsScaler", "RobustScaler"):
+        cls = getattr(ht.preprocessing, name)
+        ks.SORT_LAUNCHES = 0
+        model = cls().fit(A)
+        torch.cuda.synchronize()
+        k4 = ks.SORT_LAUNCHES
+        T = model.transform(A)
+        stats = _scaler_stats(name, model)
+        errs = {key: _est_rel(v, ref[key]) for key, v in stats.items()}
+        if name == "RobustScaler":
+            errs["iqr"] = _est_rel(model.iqr_, ref["q_hi"] - ref["q_lo"])
+        t_rows = T.larray[rows]
+        errs["transform"] = _est_rel(t_rows, _scaler_formula(name, a[rows], ref))
+        del t_rows
+        call = lambda: model.fit(A).transform(A)  # noqa: E731
+        if hasattr(model, "inverse_transform"):
+            B = model.inverse_transform(T)
+            errs["round_trip"] = float((B.larray - a).abs().max() / a.abs().max())
+            del B
+            call = lambda: model.inverse_transform(model.fit(A).transform(A))  # noqa: E731
+        del T
+        torch.cuda.empty_cache()
+        ok = max(errs.values()) <= TOL_EST and (name != "RobustScaler" or k4 >= 1 or not a.is_cuda)
+        _require(ok, f"{label} {name}: errors {errs} (tol {TOL_EST}), K4 launches {k4}")
+        ms = _median_ms(call, reps) if reps else None
+        passes = 5 if hasattr(model, "inverse_transform") else 3  # fit reads A; transform reads A, writes T; inverse
+        launches[name] = k4
+        out.append({"name": name, "ms": ms, "bytes": passes * 4.0 * a.numel(), "errs": errs, "k4": k4})
+        del model
+    return out
+
+
+def _lasso_reference(G, c, lam: float, tol: float, max_iter: int):
+    """``heat_tpu``'s cyclic coordinate descent on the Gram form, in float64
+    NumPy on the host: (θ, sweeps)."""
+    import numpy as np
+
+    m = G.shape[0]
+    th = np.zeros(m)
+    it, diff = 0, np.inf
+    while it < max_iter and diff >= tol:
+        old = th.copy()
+        for j in range(m):
+            rho = c[j] - G[j] @ th + G[j, j] * th[j]
+            den = max(G[j, j], 1e-30)
+            th[j] = rho / den if j == 0 else (np.sign(rho) * max(abs(rho) - lam, 0.0)) / den
+        it += 1
+        diff = np.abs(th - old).max()
+    return th, it
+
+
+def _knn_reference(xq, xt, yt, k: int, classes: int):
+    """The k-NN vote in float64 with (distance, index) ties: each query's
+    distances sorted stably (float64's product form, whose cancellation
+    stays far below float32's rounding)."""
+    import torch
+
+    out = []
+    xt64 = xt.double()
+    for s in range(0, xq.shape[0], 1024):
+        d = torch.cdist(xq[s : s + 1024].double(), xt64, compute_mode="use_mm_for_euclid_dist")
+        idx = torch.sort(d, dim=1, stable=True).indices[:, :k]
+        votes = torch.nn.functional.one_hot(yt[idx], classes).sum(1)
+        out.append(torch.argmax(votes, dim=1))
+    return torch.cat(out)
+
+
+def _est_operands(dev, div: int = 1):
+    """The phase's draws on the card, from ``EST_SEED``: eight blobs of
+    KMeans' shard (1/div of its rows) with their labels, the Lasso target,
+    the KNN training set and queries, the Spectral blobs."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(EST_SEED)
+    n = KM_N // div
+    n -= n % KM_K
+    x = _blobs(gen, n, _axis_means(dev, KM_D, KM_K))
+    labels = torch.arange(KM_K, device=dev).repeat_interleave(n // KM_K)
+    theta = torch.zeros(KM_D, device=dev)
+    on = torch.arange(0, KM_D, KM_D // LASSO_NONZERO, device=dev)
+    theta[on] = torch.linspace(1.0, 2.0, LASSO_NONZERO, device=dev) * (1.0 - 2.0 * (torch.arange(LASSO_NONZERO, device=dev) % 2))
+    y = x @ theta + 0.5 + LASSO_NOISE * torch.randn(n, device=dev, generator=gen)
+    kn, kq = KNN_N // div, KNN_Q // div
+    xt = _blobs(gen, kn, _axis_means(dev, KM_D, KM_K))
+    yt = torch.arange(KM_K, device=dev).repeat_interleave(kn // KM_K)
+    xq = _blobs(gen, kq, _axis_means(dev, KM_D, KM_K))
+    xs = _blobs(gen, SPEC_N // div, _axis_means(dev, KM_D, SPEC_K))
+    return {"x": x, "labels": labels, "theta": torch.cat([torch.tensor([0.5], device=dev), theta]), "y": y,
+            "xt": xt, "yt": yt, "xq": xq, "xs": xs}
+
+
+def _nb_reference(x, labels, k: int):
+    """Each class's mean and variance in float64 (the rows of class c are a
+    contiguous block)."""
+    import torch
+
+    n = x.shape[0] // k
+    theta, var = [], []
+    for c in range(k):
+        b = x[c * n : (c + 1) * n].double()
+        theta.append(b.mean(0))
+        var.append(b.var(0, correction=0))
+    return torch.stack(theta), torch.stack(var)
+
+
+def _lane_sort_routes(a, row) -> None:
+    """The sort under ``RobustScaler``'s percentiles along axis 0 of ``a``,
+    by its routes in one call: ``kernels.sort.sorted_lanes`` (K4, one pair
+    sort of (lane, value) words), ``local_sort`` (ATen's stable sort of
+    int64 keys, the route before ``sorted_lanes``) and ``torch.sort`` of
+    the float32 columns (library); each equal to ``local_sort``'s values."""
+    import torch
+
+    from heat_tpu_torch.kernels import sort as ks
+
+    want = ks.local_sort(a, 0)[0]
+    ks.SORT_LAUNCHES = 0
+    got = ks.sorted_lanes(a, 0)
+    torch.cuda.synchronize()
+    k4 = ks.SORT_LAUNCHES
+    same = {"sorted_lanes": torch.equal(got, want),
+            "torch_sort": torch.equal(torch.sort(a, dim=0, stable=True).values, want)}
+    del got, want
+    torch.cuda.empty_cache()
+    _require(all(same.values()) and k4 == 1, f"lane sort routes: equal to local_sort {same}, K4 launches {k4}")
+    ms = {"local_sort_ms": _median_ms(lambda: ks.local_sort(a, 0), EST_REPS),
+          "library_ms": _median_ms(lambda: torch.sort(a, dim=0, stable=True), EST_REPS)}
+    lane_ms = _median_ms(lambda: ks.sorted_lanes(a, 0), EST_REPS)
+    row("robust_scaler_lane_sort", lane_ms, 2 * 4.0 * a.numel(), 0.0, 0.0, 0.0, {"K4": k4},
+        what="percentile's sort along axis 0 of 65536x8192 float32: sorted_lanes beside its other routes", **ms)
+    torch.cuda.empty_cache()
+
+
+def estimators_path(dev, inputs: dict) -> dict:
+    """The estimators through the public entry points (``_est_operands``):
+    the five scalers on the north-star operand, GaussianNB and Lasso on
+    KMeans' shard, KNN, Laplacian and Spectral, and spectral_embedding on
+    pagerank_2m's graph symmetrised; each row's time beside its bound and
+    its error against the stated reference; the launches of K3, K4, K7 and
+    R1 on these paths. Also the world's reference at 1/WORLD_EST_DIV size."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.classification import kneighborsclassifier as tknn
+    from heat_tpu_torch.cluster import _cuda_assign as ca
+    from heat_tpu_torch.core.linalg import factorizations as facts
+    from heat_tpu_torch.core.linalg import solver
+    from heat_tpu_torch.kernels import spmm as ks
+    from heat_tpu_torch.kernels import threefry as kt
+    from heat_tpu_torch.regression import lasso as tlasso
+    from heat_tpu_torch.spatial import distance as tdist
+
+    rows, launches = [], {}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    def row(name, ms, nbytes, flops, err, tol, kernels=None, **extra):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        r = {"name": name, "card": card, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "err": err, "tol": tol,
+             "launches": kernels or {}, **extra}
+        print(f"estimators {name}: {json.dumps(r)}", flush=True)
+        rows.append(r)
+        return r
+
+    # scalers on the north-star operand
+    ht.random.seed(EST_SEED)
+    _r1_zero()
+    A = ht.random.randn(M, N, split=0)
+    torch.cuda.synchronize()
+    _r1_read("estimators_draw", 1, [M * N])
+    ref = _scaler_reference(A.larray)
+    ends = min(4096, M // 2)  # rows at each end held against the float64 formula
+    sample = torch.cat([torch.arange(ends, device=dev), torch.arange(M - ends, M, device=dev)])
+    for s in _scalers(ht, A, ref, sample, "scalers", EST_REPS, launches):
+        row(f"scaler_{s['name']}", s["ms"], s["bytes"], 0.0, max(s["errs"].values()), TOL_EST, {"K4": s["k4"]},
+            errs=s["errs"], what="fit + transform + inverse (Normalizer: fit + transform), 65536x8192 float32 split 0")
+    launches["RobustScaler_k4"] = launches.pop("RobustScaler")
+    _require(launches["RobustScaler_k4"] >= 1, "RobustScaler's fit launched no K4")
+    _lane_sort_routes(A.larray, row)
+    del A, ref
+    torch.cuda.empty_cache()
+
+    ops = _est_operands(dev)
+    x, labels, y = ops["x"], ops["labels"], ops["y"]
+    X, Y = ht.array(x, split=0), ht.array(labels, split=0)
+    xb = 4.0 * x.numel()
+
+    # GaussianNB
+    model = ht.naive_bayes.GaussianNB().fit(X, Y)
+    theta64, var64 = _nb_reference(x, labels, KM_K)
+    errs = {"theta": _est_rel(model.theta_.larray, theta64), "var": _est_rel(model.var_.larray - model.epsilon_, var64)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    P = model.predict_proba(X)
+    pred = model.predict(X)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    errs["proba_sum"] = float((P.larray.sum(1) - 1).abs().max())
+    wrong = int((pred.larray != labels).sum())
+    _require(errs["theta"] <= TOL_NB and errs["var"] <= TOL_NB and errs["proba_sum"] <= 1e-5 and wrong <= 1e-5 * KM_N,
+             f"GaussianNB: {errs} (tol {TOL_NB}), {wrong} rows mislabelled")
+    _require(peak <= NB_PEAK * xb, f"GaussianNB.predict allocated {peak} B at its peak, over {NB_PEAK} x X")
+    del P, pred
+    fit_ms = _median_ms(lambda: ht.naive_bayes.GaussianNB().fit(X, Y), EST_REPS)
+    proba_ms = _median_ms(lambda: model.predict_proba(X), EST_REPS)
+    pred_ms = _median_ms(lambda: model.predict(X), EST_REPS)
+    nb_flops = 4.0 * x.numel() * KM_K  # a subtraction, a square, a division and an add a feature and class
+    row("gaussian_nb_fit", fit_ms, xb + 8.0 * KM_N, 4.0 * x.numel() * KM_K, max(errs["theta"], errs["var"]), TOL_NB,
+        errs=errs)
+    row("gaussian_nb_predict_proba", proba_ms, xb + 4.0 * KM_N * KM_K, nb_flops, errs["proba_sum"], 1e-5,
+        peak_bytes=peak, x_bytes=xb)
+    row("gaussian_nb_predict", pred_ms, xb + 8.0 * KM_N, nb_flops, wrong / KM_N, 1e-5)
+    del model
+    torch.cuda.empty_cache()
+
+    # Lasso: θ against a float64 fit of the same data (NumPy's sweeps on a float64 Gram)
+    Yl = ht.array(y, split=0)
+    tlasso.HOST_READS = 0
+    lasso = ht.regression.Lasso(lam=LASSO_LAM).fit(X, Yl)
+    sweeps, reads = lasso.n_iter, tlasso.HOST_READS
+    g = torch.zeros((KM_D + 1, KM_D + 2), dtype=torch.float64, device=dev)
+    for s in range(0, KM_N, 1 << 22):
+        blk = torch.cat([torch.ones((min(1 << 22, KM_N - s), 1), dtype=torch.float64, device=dev),
+                         x[s : s + (1 << 22)].double(), y[s : s + (1 << 22), None].double()], dim=1)
+        g += blk[:, : KM_D + 1].T @ blk
+    g = (g / KM_N).cpu().numpy()
+    th_ref, it_ref = _lasso_reference(g[:, :-1], g[:, -1], LASSO_LAM, 1e-6, 100)
+    th = lasso.theta.larray.reshape(-1).double().cpu().numpy()
+    err = float(np.abs(th - th_ref).max() / np.abs(th_ref).max())
+    truth = float((lasso.theta.larray.reshape(-1) - ops["theta"]).abs().max())
+    _require(err <= TOL_LASSO and reads == sweeps and truth <= 0.02,
+             f"Lasso: θ rel {err:.3e} (tol {TOL_LASSO}), host reads {reads} for {sweeps} sweeps, |θ − θ*| {truth:.3e}")
+    lasso_ms = _median_ms(lambda: ht.regression.Lasso(lam=LASSO_LAM).fit(X, Yl), EST_REPS)
+    gram = tlasso._gram(x, y) / KM_N
+    sweep_ms = _median_ms(lambda: tlasso._sweeps(gram[:, :-1], gram[:, -1], LASSO_LAM, 1e-6, 100), EST_REPS) / sweeps
+    pred_ms = _median_ms(lambda: lasso.predict(X), EST_REPS)
+    m = KM_D + 1
+    row("lasso_fit", lasso_ms, xb + 4.0 * KM_N, 2.0 * KM_N * m * (m + 1), err, TOL_LASSO, sweeps=sweeps,
+        reference_sweeps=it_ref, ms_a_sweep=sweep_ms, host_reads=reads, theta_star_err=truth)
+    row("lasso_predict", pred_ms, xb + 4.0 * KM_N, 2.0 * x.numel(), 0.0, 0.0)
+    del lasso, gram, Yl, X, Y
+    torch.cuda.empty_cache()
+
+    # KNN: 65536 training rows, 16384 queries, k = 5, against a float64 vote
+    xt, yt, xq = ops["xt"], ops["yt"], ops["xq"]
+    knn = ht.classification.KNeighborsClassifier(KNN_K).fit(ht.array(xt, split=0), ht.array(yt, split=0))
+    Q = ht.array(xq, split=0)
+    got = knn.predict(Q).larray
+    want = _knn_reference(xq, xt, yt, KNN_K, KM_K)
+    differ = int((got != want).sum())
+    _require(differ == 0, f"KNN: {differ} labels differ from the float64 vote with (distance, index) ties")
+    knn_ms = _median_ms(lambda: knn.predict(Q), 1)  # seconds a call (torch.cdist's direct form)
+    dist_ms = _median_ms(lambda: [tdist._direct(xq[s : s + tknn._QUERY_BLOCK], xt)
+                                  for s in range(0, KNN_Q, tknn._QUERY_BLOCK)], 1)
+    row("knn_predict", knn_ms, 4.0 * (xt.numel() + xq.numel()) + 8.0 * KNN_Q, 3.0 * KNN_Q * KNN_N * KM_D, differ, 0,
+        distance_ms=dist_ms, distance_share=dist_ms / knn_ms)
+    del knn, Q, got, want
+
+    # Laplacian and Spectral: 8 blobs of 4096 rows, n_lanczos = 300
+    xs = ops["xs"]
+    S_in = ht.array(xs, split=0)
+    model = ht.cluster.Spectral(n_clusters=SPEC_K, gamma=SPEC_GAMMA, n_lanczos=SPEC_LANCZOS)
+    lap_ms = _median_ms(lambda: model._laplacian.construct(S_in), EST_REPS)
+    torch.cuda.empty_cache()
+    ht.random.seed(EST_SEED)
+    ca.ASSIGN_LAUNCHES = 0
+    _r1_zero()
+    facts.HOST_READS = 0
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    model.fit(S_in)
+    stop.record()
+    torch.cuda.synchronize()
+    spec_ms = start.elapsed_time(stop)
+    k3, reads = ca.ASSIGN_LAUNCHES, facts.HOST_READS
+    r1 = _r1_read("spectral_fit", 1 + SPEC_K)
+    ok = _recovered(model.labels_.larray, SPEC_K)
+    _require(ok and k3 == model._cluster.n_iter_ and reads == SPEC_LANCZOS - 1,
+             f"Spectral: blobs recovered {ok}, K3 launches {k3} for {model._cluster.n_iter_} Lloyd steps, "
+             f"Lanczos host reads {reads}")
+    launches.update({"Spectral_k3": k3, "Spectral_r1": r1["launches"]})
+    nn = float(SPEC_N) ** 2
+    row("laplacian", lap_ms, 2 * 4.0 * nn, 2.0 * nn * KM_D, 0.0, 0.0, what="rbf (product form), then norm_sym")
+    row("spectral_fit", spec_ms, (2 + SPEC_LANCZOS) * 4.0 * nn, 2.0 * nn * KM_D + 2.0 * SPEC_LANCZOS * nn,
+        0.0, 0.0, {"K3": k3, "R1": r1["launches"]}, n_iter=model._cluster.n_iter_, lanczos_host_reads=reads,
+        recovered=ok)
+    del model, S_in
+    torch.cuda.empty_cache()
+
+    # spectral_embedding on pagerank_2m's graph, symmetrised
+    graph = inputs["graph"]
+    sym = (graph + graph.T).tocsr().astype(np.float32)
+    S = ht.sparse.sparse_dbcsr_matrix(sym, split=0)
+    n = sym.shape[0]
+    ks.SPMM_LAUNCHES = 0
+    ev, emb = ht.graph.spectral_embedding(S, EMB_K, m=EMB_M)
+    torch.cuda.synchronize()
+    k7 = ks.SPMM_LAUNCHES
+    bd, bc, br, bm = S._phys_components
+    bd64 = bd.double()
+    deg = ks.brick_spmm_plain(bd64, bc, br, bm, torch.ones((n, 1), dtype=torch.float64, device=dev), n)[:, 0]
+    dvec = torch.where(deg > 0, 1.0 / torch.sqrt(deg.clamp_min(1e-30)), torch.zeros((), dtype=torch.float64, device=dev))
+    mv = lambda v: v - ks.brick_spmm_plain(bd64, bc, br, bm, (v * dvec)[:, None], n)[:, 0] * dvec  # noqa: E731
+    v0 = np.random.default_rng(0x5BED).standard_normal(n).astype(np.float32)
+    v0 = torch.from_numpy(v0 / np.linalg.norm(v0)).to(dev)
+    V, al, be = solver._lanczos_operator(mv, n, EMB_M, v0, torch.float64)
+    a_, b_ = al.cpu().numpy(), be.cpu().numpy()
+    evals, evecs = np.linalg.eigh(np.diag(a_) + np.diag(b_[1:], 1) + np.diag(b_[1:], -1))
+    emb_ref = V @ torch.from_numpy(evecs[:, :EMB_K]).to(dev)
+    got = emb.larray.double()
+    sign = torch.sign((got * emb_ref).sum(0))
+    errs = {"ritz": float(np.abs(ev - evals[:EMB_K]).max()), "embedding": float((got * sign - emb_ref).abs().max())}
+    _require(k7 == 1 + EMB_M and max(errs.values()) <= TOL_EMB,
+             f"spectral_embedding: K7 launches {k7} (want {1 + EMB_M}), errors {errs} (tol {TOL_EMB})")
+    launches["embedding_k7"] = k7
+    emb_ms = _median_ms(lambda: ht.graph.spectral_embedding(S, EMB_K, m=EMB_M), EST_REPS)
+    nbytes = 4096 * S.slab_bricks + 12 * S.slab_bricks + 4 * (S.mb + 1) + 8 * n
+    row("spectral_embedding", emb_ms, (1 + EMB_M) * nbytes, (1 + EMB_M) * 2.0 * 1024 * S._slab_meta[0][2],
+        max(errs.values()), TOL_EMB, {"K7": k7}, errs=errs, ritz=[float(v) for v in ev], nodes=n,
+        edges=int(sym.nnz), bricks=int(S._slab_meta[0][2]))
+    del S, emb, V, emb_ref, bd64
+    torch.cuda.empty_cache()
+
+    WORLD_REFERENCE["estimators"] = _world_estimators_reference(ht, dev)
+    print(f"estimator launches: {launches}", flush=True)
+    return {"rows": rows, "launches": launches}
+
+
+def _world_estimators_reference(ht, dev) -> dict:
+    """World size 1's results on the world's operands (1/WORLD_EST_DIV of
+    the rows), for ``_world_estimators``."""
+    import torch
+
+    ops = _est_operands(dev, WORLD_EST_DIV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(EST_SEED + 1)
+    a = torch.randn(M // WORLD_EST_DIV, N, device=dev, generator=gen)
+    out = {"scalers": {}}
+    for split in (0, 1):
+        A = ht.array(a, split=split)
+        for name in ("StandardScaler", "MinMaxScaler", "MaxAbsScaler", "RobustScaler"):
+            stats = _scaler_stats(name, getattr(ht.preprocessing, name)().fit(A))
+            out["scalers"][(name, split)] = {k: v.cpu() for k, v in stats.items()}
+    X, Y = ht.array(ops["x"], split=0), ht.array(ops["labels"], split=0)
+    nb = ht.naive_bayes.GaussianNB().fit(X, Y)
+    out["nb"] = (nb.theta_.larray.cpu(), nb.var_.larray.cpu(), nb.predict(X).larray.to(torch.int8).cpu())
+    la = ht.regression.Lasso(lam=LASSO_LAM).fit(X, ht.array(ops["y"], split=0))
+    out["lasso"] = (la.theta.larray.cpu(), la.n_iter)
+    knn = ht.classification.KNeighborsClassifier(KNN_K).fit(ht.array(ops["xt"], split=0), ht.array(ops["yt"], split=0))
+    out["knn"] = knn.predict(ht.array(ops["xq"], split=0)).larray.cpu()
+    ht.random.seed(EST_SEED)
+    sp_model = ht.cluster.Spectral(n_clusters=SPEC_K, gamma=SPEC_GAMMA, n_lanczos=SPEC_LANCZOS).fit(
+        ht.array(ops["xs"], split=0))
+    out["spectral"] = sp_model.labels_.larray.cpu()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _world_estimators(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """The estimators across the ranks on the world's operands (every rank
+    draws them whole from the same seed, keeps its chunk): the scalers on
+    8192 x 8192 split 0 and split 1, GaussianNB, Lasso, KNN and Spectral
+    on 1/WORLD_EST_DIV of world size 1's rows, split 0; each held to world
+    size 1's results (``WORLD_REFERENCE``), with its time and the
+    collectives and bytes a rank."""
+    import torch
+
+    from heat_tpu_torch.kernels import sort as ks
+
+    ref = WORLD_REFERENCE["estimators"]
+    ops = _est_operands(dev, WORLD_EST_DIV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(EST_SEED + 1)
+    a = torch.randn(M // WORLD_EST_DIV, N, device=dev, generator=gen)
+    out = {}
+
+    def measured(name, fn, reps=2):
+        """``fn()``'s result, its collectives, bytes a rank and K4 launches
+        (of that one call), and the median time of the counted call and
+        ``reps`` − 1 more."""
+        comm.counts.clear()
+        moved.clear()
+        ks.SORT_LAUNCHES = 0
+        kept = []
+        times = [_world_ms(lambda: kept.append(fn()), 1)]
+        out[name] = {"counts": dict(comm.counts), "bytes": dict(moved), "k4": ks.SORT_LAUNCHES}
+        times += [_world_ms(fn, 1) for _ in range(reps - 1)]
+        out[name]["ms"] = statistics.median(times)
+        return kept[0]
+
+    for split in (0, 1):
+        A = ht.array(a, split=split)
+        for name in ("StandardScaler", "MinMaxScaler", "MaxAbsScaler", "RobustScaler"):
+            model = measured(f"{name}_{split}", lambda: getattr(ht.preprocessing, name)().fit(A))
+            stats = _scaler_stats(name, model)
+            err = max(_est_rel(v, ref["scalers"][(name, split)][k]) for k, v in stats.items())
+            back = model.inverse_transform(model.transform(A))
+            trip = float(comm.allreduce((back.larray - A.larray).abs().max().reshape(1), "max")[0])
+            k4 = out[f"{name}_{split}"]["k4"]
+            _every_rank_ok(comm, err <= TOL_WORLD_EST and trip <= TOL_EST * 8 and (name != "RobustScaler" or k4 >= 1),
+                           f"{name} split {split} across ranks: statistics rel {err:.3e} against world size 1, "
+                           f"round trip {trip:.3e}, K4 launches {k4}")
+            out[f"{name}_{split}"]["err"] = err
+    X, Y = ht.array(ops["x"], split=0), ht.array(ops["labels"], split=0)
+    counts_r, displs = X.counts_displs()
+    mine = slice(displs[rank], displs[rank] + counts_r[rank])
+    nb = measured("gaussian_nb_fit", lambda: ht.naive_bayes.GaussianNB().fit(X, Y))
+    theta, var, pred = ref["nb"]
+    err = max(_est_rel(nb.theta_.larray, theta), _est_rel(nb.var_.larray, var))
+    same = torch.equal(nb.predict(X).larray.cpu().to(torch.int8), pred[mine])
+    _every_rank_ok(comm, err <= TOL_WORLD_EST and same, f"GaussianNB across ranks: θ/var rel {err:.3e}, labels {same}")
+    out["gaussian_nb_fit"]["err"] = err
+    Yl = ht.array(ops["y"], split=0)
+    la = measured("lasso_fit", lambda: ht.regression.Lasso(lam=LASSO_LAM).fit(X, Yl))
+    theta, it = ref["lasso"]
+    err = _est_rel(la.theta.larray, theta)
+    _every_rank_ok(comm, err <= TOL_WORLD_EST and la.n_iter == it and out["lasso_fit"]["counts"] == {"all-reduce": 1},
+                   f"Lasso across ranks: θ rel {err:.3e}, sweeps {la.n_iter} against {it}, collectives "
+                   f"{out['lasso_fit']['counts']}")
+    out["lasso_fit"].update({"err": err, "sweeps": la.n_iter})
+    del X, Y, Yl
+    xt, yt = ht.array(ops["xt"], split=0), ht.array(ops["yt"], split=0)
+    Q = ht.array(ops["xq"], split=0)
+    knn = ht.classification.KNeighborsClassifier(KNN_K).fit(xt, yt)
+    got = measured("knn_predict", lambda: knn.predict(Q))
+    qc, qd = Q.counts_displs()
+    same = torch.equal(got.larray.cpu(), ref["knn"][qd[rank] : qd[rank] + qc[rank]])
+    _every_rank_ok(comm, same, "KNN across ranks: labels differ from world size 1's")
+    S_in = ht.array(ops["xs"], split=0)
+
+    def spectral():
+        ht.random.seed(EST_SEED)
+        return ht.cluster.Spectral(n_clusters=SPEC_K, gamma=SPEC_GAMMA, n_lanczos=SPEC_LANCZOS).fit(S_in)
+
+    sp_model = measured("spectral_fit", spectral, reps=1)
+    labels = sp_model.labels_.resplit(None).larray.cpu()
+    want = ref["spectral"]
+    pairs = len(set(zip(labels.tolist(), want.tolist())))
+    _every_rank_ok(comm, pairs == SPEC_K == len(set(want.tolist())),
+                   f"Spectral across ranks: labels are no permutation of world size 1's ({pairs} label pairs)")
+    return out
+
+
+def _report_world_estimators(per: list, shared: str) -> dict:
+    for name in per[0]:
+        e = per[0][name]
+        extra = {k: v for k, v in e.items() if k not in ("counts", "bytes", "ms")}
+        print(
+            f"world estimators {name}: {e['ms']:.4f} ms a call (rank 0, median; ranks "
+            f"{[round(p[name]['ms'], 4) for p in per]}), against world size 1 {extra}; collectives a rank "
+            f"{e['counts']}, bytes a rank put in {e['bytes']}; {shared}", flush=True,
+        )
+    return {name: {"k4": [p[name].get("k4") for p in per], "counts": per[0][name]["counts"]} for name in per[0]}
+
+
 def profile_breakdown(label: str, call) -> list:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
@@ -5696,10 +6276,12 @@ def main() -> int:
     kmd = kmedians_path(dev)
     manip = manip_path(dev)
     linalg = linalg_path(dev)
+    est = estimators_path(dev, inputs)
     launches["world"] = world_path(dev)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
     rows[-1]["world_launches"] = {"kmeans_fit": launches["world"]["kmeans"]}
+    rows[-1]["estimator_launches"] = {"spectral_fit": est["launches"]["Spectral_k3"]}
     rows.extend(sort_timings(dev, sort_launches, sort_errs))
     k4_row = next(row for row in rows if row["name"] == "pair_sort_one_segment")
     k4_row["world_launches"] = {**launches["world"]["sort"], **launches["world"]["surface"]}
@@ -5708,7 +6290,12 @@ def main() -> int:
     k4_row["kmedians_launches"] = {est: kmd[est]["k4"] for est in ("KMedians", "KMedoids")}
     k4_row["kmedians_launches"]["world"] = launches["world"]["kmedians"]
     k4_row["train_shuffle_launches"] = train["shuffle"]["k4"]
+    k4_row["estimator_launches"] = {"robust_scaler_fit": est["launches"]["RobustScaler_k4"],
+                                    "world_robust_scaler_fit_split0": launches["world"]["estimators"]["RobustScaler_0"]["k4"],
+                                    "world_robust_scaler_fit_split1": launches["world"]["estimators"]["RobustScaler_1"]["k4"]}
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
+    next(row for row in rows if row["name"] == "brick_spmm_pagerank")["estimator_launches"] = {
+        "spectral_embedding": est["launches"]["embedding_k7"]}
     att_rows = attention_timings(dev, att_launches, att_launches_sm90, att_errs, att_path_errs)
     for row in att_rows:  # K9's launches a rank in the world's ring at the row's shape
         key = row["name"].removeprefix("flash_attention_")
@@ -5732,6 +6319,8 @@ def main() -> int:
     r1_rows[0]["manip_launches"] = manip["launches"]["r1"]
     r1_rows[0]["linalg_launches"] = {"lanczos_start_vector": linalg["r1"]["lanczos"]["launches"],
                                      "world_eigh_probes": launches["world"]["linalg"]["eigh_r1"]}
+    r1_rows[0]["estimator_launches"] = {"scalers_draw": R1_PATH["estimators_draw"]["launches"],
+                                        "spectral_fit": est["launches"]["Spectral_r1"]}
     rows.extend(r1_rows)
     print(f"R1 on the main paths: {R1_PATH}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5741,6 +6330,7 @@ def main() -> int:
     print(json.dumps({"manipulations": manip["rows"], "launches": manip["launches"],
                       "world": launches["world"]["manip"]}))
     print(json.dumps({"linalg": linalg["rows"], "world": launches["world"]["linalg"]}))
+    print(json.dumps({"estimators": est["rows"], "launches": est["launches"], "world": launches["world"]["estimators"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -17,6 +17,9 @@ It keeps heat_tpu's layout and public names, so that
     mha = ht.nn.MultiheadAttention(1024, 8, causal=True)  # weights from ht.random's stream
     total = ht.arange(2**27, split=0).sum()
     B = ht.reshape(ht.random.randn(1000, 250000, split=1), (10_000_000, 25), new_split=1)
+    Z = ht.preprocessing.StandardScaler().fit_transform(X)
+    labels = ht.cluster.Spectral(n_clusters=8, gamma=0.05).fit(X[:32768]).labels_
+    proba = ht.naive_bayes.GaussianNB().fit(X, km.labels_).predict_proba(X)
 
 Arrays live on the GPU unless the caller asks for the CPU
 (``ht.use_device("cpu")`` or ``device="cpu"``); without CUDA, creation on
@@ -28,7 +31,10 @@ flash-attention forward K9 under ``ht.nn.ring_attention``,
 ``ht.nn.functional.scaled_dot_product_attention`` and
 ``ht.nn.MultiheadAttention``, and the pack and unpack copies K5 and K6 of
 the redistribution executor under ``resplit`` and
-``ht.reshape(..., new_split=)``; they are compiled at first use.
+``ht.reshape(..., new_split=)``; they are compiled at first use. The
+estimators (``ht.preprocessing``, ``ht.naive_bayes``, ``ht.regression``,
+``ht.classification``, ``ht.cluster.Spectral``, ``ht.graph``'s
+``Laplacian`` and ``spectral_embedding``) reach them through these paths.
 
 A process joins a multi-rank world with ``ht.init_distributed()`` (NCCL on
 cards, one card per rank; gloo on the CPU), for example under
@@ -40,12 +46,16 @@ from .core import *
 from .core.linalg import *
 
 from . import core
+from . import classification
 from . import cluster
 from . import graph
 from . import kernels
+from . import naive_bayes
 from . import nn
 from . import optim
+from . import preprocessing
 from . import redistribution
+from . import regression
 from . import sparse
 from . import spatial
 from . import utils

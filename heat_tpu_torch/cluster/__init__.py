@@ -1,7 +1,8 @@
-"""Clustering (port of ``heat_tpu.cluster``): KMeans, KMedians and
-KMedoids at world size 1. ``heat_tpu``'s ``Spectral`` is not ported yet
-(ROADMAP.md Queue 1)."""
+"""Clustering (port of ``heat_tpu.cluster``): KMeans, KMedians, KMedoids
+and Spectral, at world size 1 and on an operand split along axis 0 across
+ranks."""
 
 from .kmeans import *
 from .kmedians import *
 from .kmedoids import *
+from .spectral import *

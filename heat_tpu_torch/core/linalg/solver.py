@@ -34,6 +34,11 @@ _LANCZOS_TOL = 1e-10  # breakdown: the new direction's norm below it
 _RESTART_SEED = 0x1A2C05  # heat_tpu's jax.random.key(0x1A2C05) of the restart directions
 
 
+def _whole_inner(x, y, conj=False):
+    """x·y (xᴴy with ``conj``) of two whole vectors."""
+    return (x.conj() if conj else x) @ y
+
+
 def _operator(A: DNDarray, tt: torch.dtype, n: int):
     """(matvec, inner, local) of A's rows: across ranks a split A's rows
     (split 0), a vector's chunk in the chunk geometry, ``matvec`` one
@@ -52,11 +57,7 @@ def _operator(A: DNDarray, tt: torch.dtype, n: int):
 
         return matvec, inner, lambda v: _local(v, 0).to(tt)
     a_all = _whole(A).to(tt)
-
-    def inner_whole(x, y, conj=False):
-        return (x.conj() if conj else x) @ y
-
-    return (lambda v: a_all @ v), inner_whole, lambda v: _whole(v).to(tt)
+    return (lambda v: a_all @ v), _whole_inner, lambda v: _whole(v).to(tt)
 
 
 def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
@@ -116,6 +117,55 @@ def _restart(key, i: int, n: int, tt: torch.dtype, chunk, device) -> torch.Tenso
     return torch.complex(re, im) / 2.0 ** 0.5
 
 
+def _lanczos_steps(matvec, inner, v: torch.Tensor, m: int, n: int, chunk, comm=None):
+    """The Lanczos loop from the unit vector ``v``: ``(V, alpha, beta)``,
+    V's columns the basis (this rank's rows of it across ranks), alpha and
+    beta T's diagonal and off-diagonal (beta[0] unused). Each step applies
+    ``matvec``, orthogonalizes the new vector against every column so far
+    (masked full reorthogonalization; the projections all-reduced over
+    ``comm`` when the vectors are chunks), and on a breakdown (the new
+    direction's norm below 1e-10, one host read a step) restarts from
+    ``normal(fold_in(key(0x1A2C05), i))``'s part ``chunk``."""
+    tt = v.dtype
+    V = v.new_zeros((v.shape[0], m))
+    V[:, 0] = v
+    w = matvec(v)
+    a0 = inner(v, w, conj=True)
+    w = w - a0 * v
+    alpha = torch.zeros(m, dtype=tt, device=v.device)
+    beta = torch.zeros(m, dtype=tt, device=v.device)
+    alpha[0] = a0
+    key = _threefry.seed_key(_RESTART_SEED)
+    for i in range(1, m):
+        b_i = torch.sqrt(torch.real(inner(w, w, conj=True)))
+        if _host_read(b_i < _LANCZOS_TOL):
+            vi = _restart(key, i, n, tt, chunk, v.device)
+        else:
+            vi = w / b_i.to(tt)
+        proj = V.conj().T @ vi
+        if comm is not None:
+            proj = comm.allreduce(proj)
+        proj[i:] = 0
+        vi = vi - V @ proj
+        vi = vi / torch.sqrt(torch.real(inner(vi, vi, conj=True))).to(tt)
+        V[:, i] = vi
+        w = matvec(vi)
+        a_i = inner(vi, w, conj=True)
+        w = w - a_i * vi - b_i.to(tt) * V[:, i - 1]
+        alpha[i] = a_i
+        beta[i] = b_i
+    return V, alpha, beta
+
+
+def _lanczos_operator(matvec, n: int, m: int, v0: torch.Tensor, dtype: torch.dtype):
+    """Lanczos on an operator given by its product with a whole vector,
+    ``matvec(v) -> A v`` (``heat_tpu``'s ``_lanczos_program(...,
+    matvec)``, solver.py:102): ``(V, alpha, beta)`` of ``_lanczos_steps``
+    from the unit vector ``v0`` in ``dtype``. ``graph.spectral_embedding``
+    passes its brick-sparse Laplacian this way."""
+    return _lanczos_steps(matvec, _whole_inner, v0.to(dtype), int(m), int(n), _threefry.Chunk.whole((int(n),)))
+
+
 def lanczos(
     A: DNDarray,
     m: int,
@@ -153,35 +203,8 @@ def lanczos(
         v0 = v0.astype(dtype)
     across = comm.is_distributed() and A.split is not None
     matvec, inner, vector = _operator(A, tt, n)
-    v = vector(v0)
-    V = v.new_zeros((v.shape[0], m))
-    V[:, 0] = v
-    w = matvec(v)
-    a0 = inner(v, w, conj=True)
-    w = w - a0 * v
-    alpha = torch.zeros(m, dtype=tt, device=v.device)
-    beta = torch.zeros(m, dtype=tt, device=v.device)
-    alpha[0] = a0
-    key = _threefry.seed_key(_RESTART_SEED)
     chunk = _threefry.Chunk.of((n,), 0, comm) if across else _threefry.Chunk.whole((n,))
-    for i in range(1, m):
-        b_i = torch.sqrt(torch.real(inner(w, w, conj=True)))
-        if _host_read(b_i < _LANCZOS_TOL):
-            vi = _restart(key, i, n, tt, chunk, v.device)
-        else:
-            vi = w / b_i.to(tt)
-        proj = V.conj().T @ vi
-        if across:
-            proj = comm.allreduce(proj)
-        proj[i:] = 0
-        vi = vi - V @ proj
-        vi = vi / torch.sqrt(torch.real(inner(vi, vi, conj=True))).to(tt)
-        V[:, i] = vi
-        w = matvec(vi)
-        a_i = inner(vi, w, conj=True)
-        w = w - a_i * vi - b_i.to(tt) * V[:, i - 1]
-        alpha[i] = a_i
-        beta[i] = b_i
+    V, alpha, beta = _lanczos_steps(matvec, inner, vector(v0), m, n, chunk, comm if across else None)
     T_arr = torch.diag(alpha) + torch.diag(beta[1:], 1) + torch.diag(beta[1:], -1)
     if across:
         V_dnd = DNDarray(V, (n, m), dtype, 0, A.device, comm)

@@ -17,9 +17,10 @@ XLA place the collectives. The port states its schedule over the shards:
   ranks without gathering them (``core/parallel.py::distributed_sort``,
   values only; K4 sorts each rank's block on a card) and fetch only the
   bracketing elements from their owners, in one small all-gather; along
-  another axis each shard sorts its lanes alone (``kernels.sort.local_sort``,
-  K4 on a card), never through ``torch.quantile``, which refuses inputs
-  over 2^24 elements;
+  another axis each shard sorts its lanes alone (``kernels.sort.sorted_lanes``,
+  K4 on a card, lanes longer than 4096 as one segment of (lane, value)
+  pairs), never through ``torch.quantile``, which refuses inputs over 2^24
+  elements;
 - ``bincount``, ``histc`` and ``histogram`` count each shard and add the
   counts with one ``allreduce`` (the range from one more where it is not
   given); ``bucketize`` and ``digitize`` are elementwise and keep the
@@ -580,7 +581,8 @@ def percentile(
     ``distributed_sort`` without gathering them and only the bracketing
     elements are fetched (``heat_tpu``'s interpolation there: linear in
     the values' type, ``nearest`` rounding half to even); along another
-    axis each rank sorts its lanes (K4 on a card for float32/int32)."""
+    axis each rank sorts its lanes (``kernels.sort.sorted_lanes``: K4 on a
+    card for float32/int32)."""
     from ..kernels import sort as _ksort
 
     sanitize_in(x)
@@ -612,7 +614,7 @@ def percentile(
             dim = eff_axis
         if not (t.is_floating_point()):
             t = t.to(torch.float32)
-        s, _ = _ksort.local_sort(t, axis=dim)
+        s = _ksort.sorted_lanes(t, axis=dim)
         res = _lane_quantiles(s, qv, dim, interpolation)
         if keepdims:
             res = res.unsqueeze(1 + dim) if eff_axis is not None else res.reshape((len(qv),) + (1,) * x.ndim)

@@ -26,7 +26,9 @@ float32 and int32 sort through ``fused_sort`` when the sort axis is the
 only one, or its rows hold at most ``SEG_MAX`` elements; every other case
 takes ``torch.sort(stable=True)`` on a signed int64 key, the counterpart
 of the ``lax.sort`` that ``heat_tpu`` runs outside any Pallas kernel.
-Every route gives ``lax.sort``'s stable order: −0.0 ties +0.0 and every
+Where only the values are wanted (``sorted_lanes``, under
+``percentile``), float32 and int32 rows longer than ``SEG_MAX`` sort as
+one segment of (row, value) pairs through ``pair_sort`` instead. Every route gives ``lax.sort``'s stable order: −0.0 ties +0.0 and every
 NaN sorts last, tied. Values that come back through the transform are
 canonical in those two tie classes (+0.0, the quiet NaN), as on
 ``heat_tpu``'s kernel paths.
@@ -61,6 +63,7 @@ __all__ = [
     "sort_plan",
     "sort_serviceable",
     "sort_with_key",
+    "sorted_lanes",
     "to_sortable",
     "transformable",
 ]
@@ -564,6 +567,29 @@ def local_sort(arr: torch.Tensor, axis: int = -1, descending: bool = False):
         else:
             values = x.gather(-1, idx)
     return values.movedim(-1, axis).contiguous(), idx.movedim(-1, axis).contiguous()
+
+
+def sorted_lanes(arr: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``local_sort``'s values alone: ``arr`` sorted ascending along
+    ``axis``. float32 and int32 lanes longer than ``SEG_MAX`` (which K4
+    serves only alone) in an array of several lanes and fewer than 2^31
+    elements sort as one segment of (lane, key word) pairs ordered by both
+    (``pair_sort``, K4 on a card); the values come back through the
+    inverse transform, as K4's fused entry gives them. The engine under
+    ``percentile`` along an axis that is not split. (Packing the lane's
+    bits beside the key word's high bits saves K4 two of its eight passes
+    but costs more in the elementwise passes that pack and unpack.)"""
+    if arr.ndim == 0:
+        return arr.clone()
+    axis %= arr.ndim
+    x = arr.movedim(axis, -1).contiguous()
+    n = x.shape[-1]
+    if x.dtype in _WORD_DTYPES and n > SEG_MAX and x.numel() > n and x.numel() < 2**31:
+        lane = torch.arange(x.numel() // n, dtype=torch.int32, device=x.device).repeat_interleave(n)
+        _, words = pair_sort(lane, sort_key(x).reshape(-1), pay_bytes=4)
+        del lane
+        return from_sortable(words, x.dtype).reshape(x.shape).movedim(-1, axis)
+    return local_sort(arr, axis)[0]
 
 
 def argsort(x: torch.Tensor, total: bool = False, descending: bool = False) -> torch.Tensor:

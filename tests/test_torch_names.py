@@ -27,7 +27,7 @@ _RUNTIME = "item 12: core/gates.py, core/jit.py, core/tiers.py"
 _CODEC = "item 12: kernels/quant.py, the wire codec"
 _RINGS = "item 12: kernels/cmatmul.py, its rings as P2P"
 _IO = "item 10 (b): core/io.py"
-_ESTIMATORS = "item 10 (a): the remaining estimators"
+_ENCODERS = "item 10 (b): preprocessing/sparse_encoders.py"
 _UTILS = "item 10 (b): utilities"
 _SERVICE = "item 13: service layers"
 _OOC = "item 7: out-of-core"
@@ -43,10 +43,8 @@ ABSENT = {
         "use_complex": _COMPLEX, "jit": _RUNTIME, "load": _IO, "load_csv": _IO, "load_hdf5": _IO, "save": _IO, "save_csv": _IO,
         "save_hdf5": _IO, "supports_hdf5": _IO, "supports_netcdf": _IO, "datasets": "item 10 (b): datasets/",
         "solve_endpoint": _SERVICE, "serving": _SERVICE, "observability": _SERVICE, "resilience": _SERVICE,
-        "analysis": "item 14: analysis", "classification": _ESTIMATORS, "naive_bayes": _ESTIMATORS,
-        "regression": _ESTIMATORS, "preprocessing": _ESTIMATORS,
+        "analysis": "item 14: analysis",
     },
-    "heat_tpu.cluster": {"Spectral": _ESTIMATORS},
     "heat_tpu.core": {
         "DCN_BPS": _TOPOLOGY, "DCN_PENALTY": _TOPOLOGY, "ICI_BPS": _TOPOLOGY, "TOPOLOGY_ENV": _TOPOLOGY,
         "Topology": _TOPOLOGY, "topology_for": _TOPOLOGY, "MeshCommunication": _COMM,
@@ -55,7 +53,8 @@ ABSENT = {
         "save_hdf5": _IO, "supports_hdf5": _IO, "supports_netcdf": _IO, "solve_endpoint": _SERVICE,
     },
     "heat_tpu.core.linalg": {"solve_endpoint": _SERVICE},
-    "heat_tpu.graph": {"Laplacian": _ESTIMATORS, "spectral_embedding": _ESTIMATORS, "pagerank_stream": _OOC},
+    "heat_tpu.graph": {"pagerank_stream": _OOC},
+    "heat_tpu.preprocessing": {"OneHotEncoder": _ENCODERS, "TfidfTransformer": _ENCODERS},
     "heat_tpu.kernels": {
         "ring_all_gather": _RINGS, "ring_matmul_reduce": _RINGS,
         "encode_blocks": _CODEC, "decode_blocks": _CODEC, "wire_ratio": _CODEC,

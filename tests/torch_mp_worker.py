@@ -290,6 +290,7 @@ def _cases(ht):
     cases.update(_manip_cases(ht))
     cases.update(_halo_cases(ht))
     cases.update(_fact_cases(ht))
+    cases.update(_estimator_cases(ht))
     return cases
 
 
@@ -1786,6 +1787,171 @@ def _fact_cases(ht):
             lambda L, kw: L.linalg.solve(L.array(fact_matrix("gen" if assume == "gen" else "spd", (37, 37), seed=36)),
                                          L.array(fact_matrix("tall", (37, 3), seed=37), split=0), assume_a=assume))
     return out
+
+
+# the estimators across ranks (tests/test_torch_estimators.py,
+# tests/test_torch_spectral.py): the same operands for both packages
+DATASETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "heat_tpu", "datasets")
+EST_SCALERS = ("StandardScaler", "MinMaxScaler", "Normalizer", "MaxAbsScaler", "RobustScaler")
+SCALER_ATTRS = ("mean_", "var_", "data_min_", "data_max_", "data_range_", "min_", "scale_", "max_abs_", "center_",
+                "iqr_")
+KNN_KS = (1, 5)
+SPECTRAL_SEED, SPECTRAL_LANCZOS = 7, 40
+EMBED_N, EMBED_K, EMBED_M = 150, 3, 24
+
+
+def iris():
+    """Iris's 150 x 4 float32 features and int64 labels, read with numpy."""
+    x = np.loadtxt(os.path.join(DATASETS, "iris.csv"), delimiter=";").astype(np.float32)
+    y = np.loadtxt(os.path.join(DATASETS, "iris_labels.csv")).astype(np.int64)
+    return x, y
+
+
+def lasso_data(n=203, f=12, seed=31):
+    """y = Xθ* + 0.3 + noise with 4 of 12 coefficients non-zero, float32;
+    203 rows are ragged over 4 ranks."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    theta = np.zeros(f, np.float32)
+    theta[:4] = [2.0, -1.5, 1.0, 0.5]
+    return x, (x @ theta + 0.3 + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+def knn_ties():
+    """Training rows where a query at the origin meets its k = 3 nearest
+    through a tie: row 0 (label 2) at distance 1, rows 1-7 at distance 3,
+    row 1 labelled 2 and the rest 1. Taking the tie's lowest index (row 1,
+    as ``top_k`` does) votes 2; any other pick votes 1. Over 4 ranks the
+    tied rows lie on every rank. Queries: the origin and three others."""
+    xt = np.array([[1, 0], [0, 3], [3, 0], [-3, 0], [0, -3], [0, 3], [3, 0], [-3, 0]], np.float32)
+    yt = np.array([2, 2, 1, 1, 1, 1, 1, 1], np.int64)
+    xq = np.array([[0, 0], [0, 0.5], [2.5, 0], [0, -2.5]], np.float32)
+    return xt, yt, xq
+
+
+def similarity(seed=41):
+    """A fixed symmetric 150 x 150 float32 similarity in (0, 1] with unit
+    diagonal, so that the Laplacians of both packages start from the same
+    bits."""
+    x, _ = iris()
+    d2 = ((x[:, None, :].astype(np.float64) - x[None, :, :]) ** 2).sum(-1)
+    return np.exp(-d2 / 2.0).astype(np.float32)
+
+
+def graph_adjacency(n=EMBED_N, seed=43):
+    """A symmetric 0/1 float32 adjacency of n nodes, about 6% dense, no
+    self-loops, every node connected."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < 0.03).astype(np.float32)
+    a = np.maximum(a, a.T)
+    np.fill_diagonal(a, 0.0)
+    ring = np.arange(n)
+    a[ring, (ring + 1) % n] = a[(ring + 1) % n, ring] = 1.0
+    return a
+
+
+def scaler_attrs(model) -> dict:
+    """The fitted statistics of a scaler as numpy (DNDarrays and raw arrays
+    alike)."""
+    out = {}
+    for name in SCALER_ATTRS:
+        v = getattr(model, name, None)
+        if v is not None:
+            out[name] = v.numpy() if hasattr(v, "numpy") and hasattr(v, "split") else _np(v) if hasattr(v, "detach") \
+                else np.asarray(v)
+    return out
+
+
+def _estimator_cases(ht):
+    comm = ht.get_comm()
+    cases = {}
+    x_np, y_np = iris()
+
+    def counted(fn):
+        comm.counts.clear()
+        res = fn()
+        return res, dict(comm.counts)
+
+    for name in EST_SCALERS:
+        for split in (0, 1):
+            def scaler_case(name=name, split=split):
+                x = ht.array(x_np, split=split)
+                model, counts = counted(lambda: getattr(ht.preprocessing, name)().fit(x))
+                t = model.transform(x)
+                back = model.inverse_transform(t).numpy() if hasattr(model, "inverse_transform") else None
+                return {"attrs": scaler_attrs(model), "local": _np(t.larray), "split": t.split, "global": t.numpy(),
+                        "inverse": back, "counts": counts}
+            cases[f"est_{name}_{split}"] = scaler_case
+
+    def gnb(model, x, *fit_args, **fit_kw):
+        _, counts = counted(lambda: model.fit(x, *fit_args, **fit_kw))
+        return {"theta": model.theta_.numpy(), "var": model.var_.numpy(), "count": model.class_count_.numpy(),
+                "prior": model.class_prior_.numpy(), "classes": model.classes_.numpy(), "epsilon": model.epsilon_,
+                "proba": model.predict_proba(x).numpy(), "predict": model.predict(x), "counts": counts}
+
+    cases["est_gnb_0"] = lambda: gnb(ht.naive_bayes.GaussianNB(), ht.array(x_np, split=0), ht.array(y_np, split=0))
+    cases["est_gnb_whole_labels"] = lambda: gnb(ht.naive_bayes.GaussianNB(), ht.array(x_np, split=0), ht.array(y_np))
+    cases["est_gnb_weights"] = lambda: gnb(ht.naive_bayes.GaussianNB(), ht.array(x_np, split=0),
+                                           ht.array(y_np, split=0),
+                                           sample_weight=ht.array(np.linspace(0.5, 2.0, 150, dtype=np.float32), split=0))
+
+    def gnb_partial():
+        model = ht.naive_bayes.GaussianNB()
+        model.partial_fit(ht.array(x_np[::2], split=0), ht.array(y_np[::2], split=0),
+                          classes=ht.array(np.arange(3, dtype=np.int64)))
+        model.partial_fit(ht.array(x_np[1::2], split=0), ht.array(y_np[1::2], split=0))
+        return {"theta": model.theta_.numpy(), "var": model.var_.numpy(), "count": model.class_count_.numpy(),
+                "proba": model.predict_proba(ht.array(x_np, split=0)).numpy()}
+    cases["est_gnb_partial"] = gnb_partial
+
+    def lasso(y_split):
+        xl, yl = lasso_data()
+        model = ht.regression.Lasso(lam=0.05)
+        x, y = ht.array(xl, split=0), ht.array(yl, split=y_split)
+        _, counts = counted(lambda: model.fit(x, y))
+        pred = model.predict(x)
+        return {"theta": model.theta.numpy(), "n_iter": model.n_iter, "counts": counts, "predict": pred.numpy(),
+                "predict_split": pred.split, "rmse": model.rmse(y, pred)}
+    cases["est_lasso_0"] = lambda: lasso(0)
+    cases["est_lasso_whole_y"] = lambda: lasso(None)
+
+    for k in KNN_KS:
+        def knn_iris(k=k):
+            model = ht.classification.KNeighborsClassifier(k).fit(ht.array(x_np, split=0), ht.array(y_np, split=0))
+            labels, counts = counted(lambda: model.predict(ht.array(x_np[::3], split=0)))
+            return {"labels": labels.numpy(), "split": labels.split, "counts": counts}
+        cases[f"est_knn_iris_{k}"] = knn_iris
+
+    def knn_tied():
+        xt, yt, xq = knn_ties()
+        model = ht.classification.KNeighborsClassifier(3).fit(ht.array(xt, split=0), ht.array(yt, split=0))
+        return {"labels": model.predict(ht.array(xq, split=0)).numpy(),
+                "one_hot": ht.classification.KNeighborsClassifier.one_hot_encoding(ht.array(yt, split=0)).numpy()}
+    cases["est_knn_ties"] = knn_tied
+
+    s_np = similarity()
+    for definition in ("simple", "norm_sym"):
+        for mode in ("fully_connected", "eNeighbour"):
+            def laplacian(definition=definition, mode=mode):
+                lap = ht.graph.Laplacian(lambda x: ht.array(s_np, split=x.split), definition=definition, mode=mode,
+                                         threshold_key="lower", threshold_value=0.3)
+                L, counts = counted(lambda: lap.construct(ht.array(x_np, split=0)))
+                return {"global": L.numpy(), "local": _np(L.larray), "split": L.split, "counts": counts}
+            cases[f"est_laplacian_{definition}_{mode}"] = laplacian
+
+    def spectral():
+        ht.random.seed(SPECTRAL_SEED)
+        model = ht.cluster.Spectral(n_clusters=3, gamma=1.0, n_lanczos=SPECTRAL_LANCZOS)
+        model.fit(ht.array(x_np, split=0))
+        return {"labels": model.labels_.numpy(), "split": model.labels_.split}
+    cases["est_spectral"] = spectral
+
+    def embedding():
+        evals, emb = ht.graph.spectral_embedding(graph_adjacency(), EMBED_K, m=EMBED_M)
+        return {"evals": evals, "embedding": emb.numpy(), "split": emb.split}
+    cases["est_embedding_replicated"] = embedding
+    cases["est_embedding_split"] = lambda: ht.graph.spectral_embedding(ht.array(graph_adjacency(), split=0), EMBED_K)
+    return cases
 
 
 def _plain(value):
