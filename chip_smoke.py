@@ -248,7 +248,32 @@ Phases, each of which fails the run by raising:
      round trip), GaussianNB (θ, var and labels), Lasso (θ, the same
      sweeps, one all-reduce), KNN (labels equal) and Spectral (labels a
      permutation of world size 1's), each with its time, collectives and
-     bytes a rank;
+     bytes a rank; then the sparse engine across ranks (``_world_sparse``):
+     spmm_1gb's BSR split 0, ``S @ x`` with x whole (no collective) and
+     split 0 (one all-gather), ``sddmm(S, u, v)`` at d = 64, the card
+     matrix with each rank drawing only its slab on the card
+     (``card_slab``), ``S @ x`` at k = 4, ``pagerank_2m`` split 0 (world
+     size 1's iteration count, one all-gather to build the slabs and one
+     a step) and
+     ``spectral_embedding`` of the symmetrised graph as a split DBCSR, each
+     held to the same call at world size 1 (K7/K8 within 1e-5 of |A|·|x|,
+     PageRank 1e-6, the embedding ``TOL_EMB``), every rank launching K7 (or
+     K8, on its Hopper kernel) once a product on its own slab; K7 and K8
+     are then timed alone on each rank's slab beside their plain versions
+     and the library call, the ``world_*`` kernel rows; last I/O across
+     ranks (``_world_io``): ``load_csv(split=0)`` of ``io_path``'s file,
+     each rank reading its byte range (two all-gathers), a rank-ordered
+     ``save_csv`` whose file equals world size 1's, a checkpoint saved at
+     4 ranks and loaded at 4 and at 1 bit for bit, and
+     ``OneHotEncoder`` on 2^20 x 8 codes split 0, its DCSR equal to world
+     size 1's;
+   - I/O (``io_path``): ``ht.save``/``ht.load`` of a split-0 float32
+     2^18 x 16 array as CSV (values back bit for bit, the file equal to
+     ``np.savetxt``'s), a checkpoint of the CNN's training state (model
+     and SGD momentum) and of a 1 GiB split-0 float32 array (bit for
+     bit), and ``OneHotEncoder`` on 2^20 x 8 codes, each timed on the host
+     clock beside the card's name and power limit; ``supports_hdf5()``
+     is printed on a line of its own (the card's machine has no h5py);
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -2470,10 +2495,12 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
             result[config[0]] = _world_config(ht, cs, svdtools, comm, moved, level0, rank, config, profile=i == 0)
             torch.cuda.empty_cache()
         WORLD_REFERENCE.update(torch.load(os.path.join(out_dir, "reference.pt")))
+        WORLD_DIR["dir"] = out_dir
         for phase, run in (("random", _world_random), ("kmeans", _world_kmeans), ("attention", _world_attention),
                            ("distance", _world_distance), ("sort", _world_sort), ("surface", _world_surface),
                            ("indexing", _world_indexing), ("train", _world_train), ("kmedians", _world_kmedians),
-                           ("manip", _world_manip), ("linalg", _world_linalg), ("estimators", _world_estimators)):
+                           ("manip", _world_manip), ("linalg", _world_linalg), ("estimators", _world_estimators),
+                           ("sparse", _world_sparse), ("io", _world_io)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -2718,6 +2745,8 @@ def world_path(dev) -> dict:
     world["manip"] = _report_world_manip([res["manip"] for res in results], shared)
     world["linalg"] = _report_world_linalg([res["linalg"] for res in results], shared)
     world["estimators"] = _report_world_estimators([res["estimators"] for res in results], shared)
+    world["sparse_rows"] = _report_world_sparse([res["sparse"] for res in results], shared)
+    world["io"] = _report_world_io([res["io"] for res in results], shared)
     return world
 
 
@@ -3184,16 +3213,19 @@ def sparse_path(dev, inputs: dict) -> dict:
 
 
 def _csr_of(S, device, with_slots: bool = False):
-    """The CSR tensor (int32 indices) of the brick matrix ``S``'s nonzeros,
-    built on the card, and (``with_slots``) the flat brick slot of each of
-    its entries (int32), else None."""
+    """The CSR tensor (int32 indices) of the nonzeros of this rank's slab of
+    the brick matrix ``S`` (every brick row of the slab, (g1 - g0)·8 rows:
+    the whole matrix at world size 1), built on the card, and
+    (``with_slots``) the flat brick slot of each of its entries (int32),
+    else None."""
     import torch
 
     bdata, bcol, brow, _ = S._phys_components
-    nreal = S._slab_meta[0][2]
+    nreal = S._nreal
+    g0, g1 = S._slab_rows
     rowptr = S._brick_rowptr
-    m, n = S.mb * 8, S.nb * 128
-    _require(S.shape == (m, n), "the library yardstick takes whole bricks")
+    m, n = (g1 - g0) * 8, S.nb * 128
+    _require(S.shape[1] == n and (S.is_distributed() or S.shape[0] == m), "the library yardstick takes whole bricks")
     per_row = (rowptr[1:] - rowptr[:-1]).long()
     start = rowptr[:-1].long()
     crow = torch.empty(m + 1, dtype=torch.int64, device=device)
@@ -3205,7 +3237,7 @@ def _csr_of(S, device, with_slots: bool = False):
     lane = torch.arange(128, device=device)
     for t0 in range(0, nreal, 1 << 16):
         t = torch.arange(t0, min(nreal, t0 + (1 << 16)), device=device)
-        g = brow[t].long()
+        g = brow[t].long() - g0
         base = crow[:-1].reshape(-1, 8)[g] + 128 * (t - start[g])[:, None]  # (T, 8): each row's slot of brick t
         pos = (base[:, :, None] + lane).reshape(-1)
         values[pos] = bdata[t].reshape(-1)
@@ -3220,15 +3252,18 @@ def _csr_of(S, device, with_slots: bool = False):
     return csr, slots[nz] if with_slots else None
 
 
-def _library_spmm(S, x):
-    """One PyTorch call computing S @ x: the BSR tensor with (8, 128)
-    blocks, or, where PyTorch refuses those on CUDA, the CSR tensor of the
-    same matrix's nonzeros (built on the card). Returns (name, call)."""
+def _library_spmm(S, x, quiet: bool = False):
+    """One PyTorch call computing this rank's slab of S times x (every
+    brick row of the slab): the BSR tensor with (8, 128) blocks, or, where
+    PyTorch refuses those on CUDA, the CSR tensor of the same nonzeros
+    (built on the card); ``quiet`` leaves out the line that says so.
+    Returns (name, call)."""
     import torch
 
     bdata, bcol, _, _ = S._phys_components
-    nreal = S._slab_meta[0][2]
-    m, n = S.mb * 8, S.nb * 128
+    nreal = S._nreal
+    g0, g1 = S._slab_rows
+    m, n = (g1 - g0) * 8, S.nb * 128
     warnings.filterwarnings("ignore", message="Sparse (BSR|CSR) tensor support is in beta")
     warnings.filterwarnings("ignore", message="Sparse invariant checks are implicitly disabled")
     try:
@@ -3236,8 +3271,9 @@ def _library_spmm(S, x):
         bsr @ x
         return "torch.sparse_bsr_tensor (8, 128) blocks @ x", lambda: bsr @ x
     except RuntimeError as e:
-        print(f"library yardstick: torch.sparse_bsr_tensor @ x refused on CUDA ({str(e).splitlines()[0][:120]}); "
-              f"using torch.sparse_csr_tensor of the same matrix", flush=True)
+        if not quiet:
+            print(f"library yardstick: torch.sparse_bsr_tensor @ x refused on CUDA ({str(e).splitlines()[0][:120]}); "
+                  f"using torch.sparse_csr_tensor of the same matrix", flush=True)
     csr, _ = _csr_of(S, x.device)
     return f"torch.sparse_csr_tensor ({csr.values().numel()} nonzeros) @ x", lambda: csr @ x
 
@@ -6217,6 +6253,619 @@ def _report_world_estimators(per: list, shared: str) -> dict:
     return {name: {"k4": [p[name].get("k4") for p in per], "counts": per[0][name]["counts"]} for name in per[0]}
 
 
+# --------------------------------------------------------------------- #
+# the sparse engine and I/O across ranks                                #
+# --------------------------------------------------------------------- #
+WORLD_SPARSE_SEED = 9400  # the seed of the world sparse phase's dense operands
+CARD_BLOCK = 1024  # brick rows whose values card_slab draws from one seed
+IO_SEED = 9500
+IO_ROWS, IO_COLS = 1 << 18, 16  # the CSV row: a split-0 float32 array of 2^18 x 16
+IO_BIG = (1 << 24, 16)  # 1 GiB of float32, split 0, checkpointed
+ONEHOT = (1 << 20, 8, 100)  # rows, integer features, categories a feature
+WORLD_DIR = {}  # "dir": the world's shared directory (set in each worker)
+CARD_LINE = {}  # "card": nvidia-smi's name and power limit, printed beside each time
+
+
+def card_slab(dev, ht, comm):
+    """The card-scale brick matrix of the world phase: 131072^2 with
+    1,048,576 bricks at card_matrix's positions (one randperm from
+    SPARSE_SEED), each block of CARD_BLOCK brick rows drawing its bricks'
+    values from its own seed, so that a rank draws only the blocks its
+    slab meets; this rank's slab (all of it at world size 1) through the
+    raw constructor."""
+    import torch
+
+    from heat_tpu_torch.sparse.dbcsr_matrix import _block_extent, _slab_layout
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SPARSE_SEED)
+    mb, nb = CARD_N // 8, CARD_N // 128
+    lin = torch.sort(torch.randperm(mb * nb, device=dev, generator=gen)[:CARD_BRICKS]).values
+    brow_all, bcol_all = (lin // nb).to(torch.int32), (lin % nb).to(torch.int32)
+    del lin
+    ptr = torch.searchsorted(brow_all, torch.arange(mb + 1, dtype=torch.int32, device=dev), out_int32=True).tolist()
+    p = comm.size
+    me = comm.rank
+    meta = tuple((g0, g1, ptr[g1] - ptr[g0]) for g0, g1 in _slab_layout(CARD_N, mb, p))
+    g0, g1, _ = meta[me]
+    t0, t1 = ptr[g0], ptr[g1]
+    parts = []
+    for b in range(g0 // CARD_BLOCK, -(-g1 // CARD_BLOCK)):
+        lo, hi = ptr[b * CARD_BLOCK], ptr[min((b + 1) * CARD_BLOCK, mb)]
+        gb = torch.Generator(device=dev)
+        gb.manual_seed(SPARSE_SEED + 1 + b)
+        block = torch.randn(hi - lo, 8, 128, device=dev, generator=gb)
+        parts.append(block[max(t0, lo) - lo : min(t1, hi) - lo])
+        del block
+    bdata = torch.cat(parts)
+    del parts
+    brow, bcol = brow_all[t0:t1].contiguous(), bcol_all[t0:t1].contiguous()
+    c = _block_extent(CARD_N, p)
+    rows = brow.long()[:, None] * 8 + torch.arange(8, device=dev)
+    bmask = (rows >= me * c) & (rows < (me + 1) * c)
+    first = max([0] + [m1 for _, m1, _ in meta[:me]])
+    nnz = torch.count_nonzero(bdata[brow >= first]).reshape(1)
+    gnnz = int(comm.allreduce(nnz).item()) if p > 1 else int(nnz.item())
+    return ht.sparse.DBCSR_matrix(bdata, bcol, brow, bmask, meta, gnnz, CARD_BRICKS, (CARD_N, CARD_N), ht.float32,
+                                  0, ht.gpu, comm)
+
+
+def _sparse_operands(dev):
+    """The world sparse phase's dense operands from WORLD_SPARSE_SEED, whole:
+    x for spmm_1gb (SPMM_N, SPMM_K), u and v for its sddmm (SDDMM_D), x for
+    the card matrix (CARD_N, SPMM_K)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(WORLD_SPARSE_SEED)
+    return {"x": torch.randn(SPMM_N, SPMM_K, device=dev, generator=gen),
+            "u": torch.randn(SPMM_N, SDDMM_D, device=dev, generator=gen),
+            "v": torch.randn(SPMM_N, SDDMM_D, device=dev, generator=gen),
+            "xc": torch.randn(CARD_N, SPMM_K, device=dev, generator=gen)}
+
+
+def _symmetrised(graph):
+    return (graph + graph.T).tocsr().astype("float32")
+
+
+def world_sparse_reference(dev, inputs: dict) -> None:
+    """World size 1's results of the calls the world sparse phase makes,
+    for ``_world_sparse`` (``WORLD_REFERENCE["sparse"]``): S @ x and sddmm
+    at spmm_1gb, the card matrix's S @ x, PageRank and spectral_embedding,
+    with the |A|·|x| scales of the products."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.kernels import spmm as ks
+
+    ops = _sparse_operands(dev)
+    S = ht.sparse.sparse_dbcsr_matrix(inputs["bsr"], split=0)
+    bd, bc, br, bm = S._phys_components
+    ref = {"y": (S @ ops["x"]).larray.cpu(),
+           "y_scale": ks.brick_spmm_plain(bd.abs(), bc, br, bm, ops["x"].abs(), SPMM_N).cpu(),
+           "sddmm": ht.sparse.sddmm(S, ops["u"], ops["v"])._phys_components[0].cpu(),
+           "rowptr": S._brick_rowptr.cpu()}
+    del S, bd, bc, br, bm
+    C = card_slab(dev, ht, ht.get_comm())
+    bd, bc, br, bm = C._phys_components
+    ref["yc"] = (C @ ops["xc"]).larray.cpu()
+    ref["yc_scale"] = ks.brick_spmm_plain(bd.abs(), bc, br, bm, ops["xc"].abs(), CARD_N).cpu()
+    del C, bd, bc, br, bm, ops
+    torch.cuda.empty_cache()
+    res = ht.graph.pagerank(inputs["graph"], tol=PR_TOL)
+    ref["pagerank"] = (res.ranks.larray.cpu(), res.iterations)
+    ev, emb = ht.graph.spectral_embedding(ht.sparse.sparse_dbcsr_matrix(_symmetrised(inputs["graph"]), split=0),
+                                          EMB_K, m=EMB_M)
+    ref["embedding"] = (torch.from_numpy(ev), emb.larray.cpu())
+    WORLD_REFERENCE["sparse"] = ref
+    torch.cuda.empty_cache()
+
+
+def _touched_columns(S) -> int:
+    """The columns of the matrix that this rank's slab's real bricks meet:
+    the rows of x (K7) or v (K8) that its kernel must read."""
+    import torch
+
+    cols = torch.unique(S._phys_components[1][: S._nreal]).long()
+    return int(torch.clamp(S.shape[1] - 128 * cols, max=128).sum())
+
+
+def _slab_bound(S, k: int):
+    """(bytes, operations) of K7 on this rank's slab: the bricks, their
+    indices and masks, the slab's row pointer, the rows of x at the slab's
+    brick columns and the rank's rows of y once; 2·1024·k operations a
+    real brick."""
+    B, nreal = S.slab_bricks, S._nreal
+    g0, g1 = S._slab_rows
+    rows = S.lshape[0]
+    return 4096 * B + 12 * B + 4 * (g1 - g0 + 1) + 4 * k * (_touched_columns(S) + rows), 2.0 * 1024 * nreal * k
+
+
+def _world_sparse(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """The sparse engine across the ranks: spmm_1gb's BSR split 0 (each rank
+    its slab from the whole host matrix), S @ x with x whole and split 0 and
+    sddmm(S, u, v); the card matrix, each rank drawing only its slab on the
+    card, S @ x at k = 4; pagerank_2m split 0; spectral_embedding of a split
+    DBCSR. Each held to world size 1's result (``WORLD_REFERENCE["sparse"]``)
+    within the path's limits, with K7/K8 launches, collectives and bytes a
+    rank and the call time; then K7 and K8 alone on each rank's slab beside
+    their plain versions and the library call, for the kernel rows."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.graph.pagerank import _operator
+    from heat_tpu_torch.kernels import spmm as ks
+
+    ref = WORLD_REFERENCE["sparse"]
+    with open(ref["inputs"], "rb") as f:
+        inputs = pickle.load(f)
+    ops = _sparse_operands(dev)
+    out, rows = {}, {}
+
+    def measured(name, fn, reps=3):
+        comm.counts.clear()
+        moved.clear()
+        ks.SPMM_LAUNCHES = ks.SDDMM_LAUNCHES = ks.SDDMM_SM90_LAUNCHES = 0
+        kept = []
+        times = [_world_ms(lambda: kept.append(fn()), 1)]
+        out[name] = {"counts": dict(comm.counts), "bytes": dict(moved), "k7": ks.SPMM_LAUNCHES,
+                     "k8": ks.SDDMM_LAUNCHES, "k8_sm90": ks.SDDMM_SM90_LAUNCHES}
+        times += [_world_ms(fn, 1) for _ in range(reps - 1)]
+        out[name]["ms"] = statistics.median(times)
+        return kept[0]
+
+    def held(name, y, want, scale, tol=TOL_SPARSE):
+        err = float((y.double() - want.double()).abs().max()) if y.numel() else 0.0
+        ok = bool(((y.double() - want.double()).abs() <= tol * scale.double()).all())
+        out[name]["err"] = err
+        return ok
+
+    t0 = time.perf_counter()
+    S = ht.sparse.sparse_dbcsr_matrix(inputs["bsr"], split=0)
+    out["host_build_s"] = time.perf_counter() - t0
+    r0, r1 = S._row_block
+    x = ops["x"]
+    y = measured("spmm_1gb_x_whole", lambda: S @ x)
+    ok = held("spmm_1gb_x_whole", y.larray, ref["y"][r0:r1].to(dev), ref["y_scale"][r0:r1].to(dev))
+    _every_rank_ok(comm, ok and out["spmm_1gb_x_whole"]["k7"] == 1 and out["spmm_1gb_x_whole"]["counts"] == {},
+                   f"world spmm_1gb S @ x (x whole): {out['spmm_1gb_x_whole']}")
+    X = ht.array(x, split=0)
+    y = measured("spmm_1gb_x_split", lambda: S @ X)
+    ok = held("spmm_1gb_x_split", y.larray, ref["y"][r0:r1].to(dev), ref["y_scale"][r0:r1].to(dev))
+    _every_rank_ok(comm, ok and out["spmm_1gb_x_split"]["k7"] == 1
+                   and out["spmm_1gb_x_split"]["counts"] == {"all-gather": 1},
+                   f"world spmm_1gb S @ x (x split 0): {out['spmm_1gb_x_split']}")
+    u, v = ops["u"], ops["v"]
+    C = measured("sddmm_1gb", lambda: ht.sparse.sddmm(S, u, v))
+    sd, bc, br, _ = S._phys_components
+    g0, g1 = S._slab_rows
+    rowptr = ref["rowptr"].tolist()
+    nreal = S._nreal
+    want = ref["sddmm"][rowptr[g0] : rowptr[g1]].to(dev)
+    scale = ks.brick_sddmm_plain(sd[:nreal].abs(), br[:nreal], bc[:nreal], u.abs(), v.abs())
+    ok = held("sddmm_1gb", C._phys_components[0][:nreal], want, scale)
+    e = out["sddmm_1gb"]
+    _every_rank_ok(comm, ok and e["k8"] == 1 and e["k8_sm90"] == 1 and e["counts"] == {},
+                   f"world sddmm at spmm_1gb: {e}")
+    del C, want, scale
+    rows["spmm_1gb"] = _world_k7_times(ht, comm, rank, S, x)
+    rows["sddmm_1gb"] = _world_k8_times(comm, rank, S, u, v)
+    del S, X, y
+    torch.cuda.empty_cache()
+
+    Cm = card_slab(dev, ht, comm)
+    r0, r1 = Cm._row_block
+    xc = ops["xc"]
+    y = measured("card_k4", lambda: Cm @ xc)
+    ok = held("card_k4", y.larray, ref["yc"][r0:r1].to(dev), ref["yc_scale"][r0:r1].to(dev))
+    _every_rank_ok(comm, ok and out["card_k4"]["k7"] == 1 and out["card_k4"]["counts"] == {},
+                   f"world card matrix S @ x: {out['card_k4']}")
+    rows["card_k4"] = _world_k7_times(ht, comm, rank, Cm, xc)
+    del Cm, y
+    torch.cuda.empty_cache()
+
+    graph = inputs["graph"]
+    res = measured("pagerank", lambda: ht.graph.pagerank(graph, tol=PR_TOL), reps=1)
+    ranks_ref, iters = ref["pagerank"]
+    p0 = comm.chunk((PR_N,), 0)[0]
+    err = float((res.ranks.larray.cpu() - ranks_ref[p0 : p0 + res.ranks.lshape[0]]).abs().max())
+    e = out["pagerank"]
+    e.update({"err": err, "iterations": res.iterations})
+    _every_rank_ok(comm, res.iterations == iters and err <= TOL_RANKS and e["k7"] == iters
+                   and e["counts"] == {"all-gather": 1 + iters},  # the slabs' brick counts, then one a step
+                   f"world PageRank: {res.iterations} iterations against world size 1's {iters}, ranks off by {err:.3e}, "
+                   f"{e}")
+    M, _ = _operator(graph, 0, None, comm)
+    rows["pagerank"] = _world_k7_times(ht, comm, rank, M, res.ranks.comm.allgather(res.ranks.larray)[:, None]
+                                       .contiguous())
+    del M, res
+    sym = _symmetrised(graph)
+    A = ht.sparse.sparse_dbcsr_matrix(sym, split=0)
+    ev, emb = measured("spectral_embedding", lambda: ht.graph.spectral_embedding(A, EMB_K, m=EMB_M), reps=1)
+    ev_ref, emb_ref = ref["embedding"]
+    r0, r1 = A._row_block
+    want = emb_ref[r0:r1].to(dev).double()
+    got = emb.larray.double()
+    sign = torch.sign(comm.allreduce((got * want).sum(0)))
+    errs = {"ritz": float(np.abs(ev - ev_ref.numpy()).max()),
+            "embedding": float((got * sign - want).abs().max()) if got.numel() else 0.0}
+    e = out["spectral_embedding"]
+    e.update({"err": max(errs.values()), "errs": errs})
+    _every_rank_ok(comm, max(errs.values()) <= TOL_EMB and e["k7"] == 1 + EMB_M,
+                   f"world spectral_embedding: {errs} (tol {TOL_EMB}), {e}")
+    v1 = torch.randn(PR_N, 1, device=dev, generator=torch.Generator(device=dev).manual_seed(WORLD_SPARSE_SEED + 1))
+    rows["spectral_embedding"] = _world_k7_times(ht, comm, rank, A, v1)
+    del A, emb
+    torch.cuda.empty_cache()
+    out["rows"] = rows
+    return out
+
+
+def _world_k7_times(ht, comm, rank: int, S, x) -> dict:
+    """K7 on this rank's slab of S, alone (the other ranks at a barrier):
+    its CUDA-event median, the plain version's and the library call's on
+    the same slab (checked to agree on the rank's rows first), and the
+    slab's bound."""
+    from heat_tpu_torch.kernels import spmm as ks
+
+    bdata, bcol, brow, bmask = S._phys_components
+    (g0, _), (r0, r1) = S._slab_rows, S._row_block
+    rowptr = S._brick_rowptr
+    call = lambda: ks.brick_spmm(bdata, bcol, brow, bmask, rowptr, x, r1 - r0, g0=g0, r0=r0)  # noqa: E731
+    plain = lambda: ks.brick_spmm_plain(bdata, bcol, brow, bmask, x, r1 - r0, r0)  # noqa: E731
+    name, lib = _library_spmm(S, x, quiet=True)
+    y, y_plain, y_lib = call(), plain(), lib()
+    y_lib = y_lib[r0 - 8 * g0 : r1 - 8 * g0]  # the slab's brick rows hold the rank's rows from r0 - 8·g0
+    scale = ks.brick_spmm_plain(bdata.abs(), bcol, brow, bmask, x.abs(), r1 - r0, r0)
+    _every_rank_ok(comm, bool(((y - y_plain).abs() <= TOL_SPARSE * scale).all()),
+                   "K7 with a row offset disagrees with its plain version on the slab")
+    _every_rank_ok(comm, bool(((y - y_lib).abs() <= TOL_SPARSE * scale).all()), f"{name} does not compute the slab's rows")
+    err = float((y - y_plain).abs().max()) if y.numel() else 0.0
+    del y, y_plain, y_lib, scale
+    nbytes, flops = _slab_bound(S, x.shape[1])
+    return {"ms": _alone(rank, call, 10), "plain_ms": _alone(rank, plain, 2), "library_ms": _alone(rank, lib, 5),
+            "library": name, "bytes": nbytes, "flops": flops, "bricks": S._nreal, "plain_err": err}
+
+
+def _world_k8_times(comm, rank: int, S, u, v) -> dict:
+    """K8 on this rank's slab, alone: its CUDA-event median, the plain
+    version's and torch.sparse.sampled_addmm's on a CSR mask of the slab's
+    nonzeros, and the slab's bound."""
+    import torch
+
+    from heat_tpu_torch.kernels import spmm as ks
+
+    sdata, bcol, brow, _ = S._phys_components
+    colorder = S._brick_colorder
+    g0, g1 = S._slab_rows
+    csr, _ = _csr_of(S, sdata.device)
+    ub = u[8 * g0 : 8 * g1]  # the slab's brick rows of u: the CSR mask's rows
+    vt = v.T
+    B = S.slab_bricks
+    d = u.shape[1]
+    call = lambda: ks.brick_sddmm(sdata, brow, bcol, *colorder, u, v)  # noqa: E731
+    plain = lambda: ks.brick_sddmm_plain(sdata, brow, bcol, u, v)  # noqa: E731
+    c, c_plain = call(), plain()
+    scale = ks.brick_sddmm_plain(sdata.abs(), brow, bcol, u.abs(), v.abs())
+    _every_rank_ok(comm, bool(((c - c_plain).abs() <= TOL_SPARSE * scale).all()),
+                   "K8 disagrees with its plain version on the slab")
+    err = float((c - c_plain).abs().max())
+    del c, c_plain, scale
+    # u's rows of the slab's brick rows and v's at its brick columns, once
+    uv_rows = ub.shape[0] + _touched_columns(S)
+    return {"ms": _alone(rank, call, 10), "plain_ms": _alone(rank, plain, 2), "plain_err": err,
+            "library_ms": _alone(rank, lambda: torch.sparse.sampled_addmm(csr, ub, vt, beta=0.0), 5),
+            "bytes": 2 * 4096 * B + 8 * B + 4 * d * uv_rows, "flops": 1024.0 * B * (2 * d + 1),
+            "bricks": S._nreal}
+
+
+def _report_world_sparse(per: list, shared: str) -> list:
+    """Print the sparse phase of the world; returns its kernel rows."""
+    card = CARD_LINE.get("card", "")
+    what = {"spmm_1gb_x_whole": f"spmm_1gb S ({SPMM_N}^2, split 0) @ x ({SPMM_N}, {SPMM_K}) whole",
+            "spmm_1gb_x_split": f"spmm_1gb S @ x split 0 (one all-gather of x)",
+            "sddmm_1gb": f"sddmm(S, u, v) at spmm_1gb, d = {SDDMM_D}, u and v whole",
+            "card_k4": f"card matrix ({CARD_N}^2, {CARD_BRICKS} bricks, each rank drawing its slab) S @ x, k = {SPMM_K}",
+            "pagerank": f"ht.graph.pagerank(pagerank_2m, tol={PR_TOL}) split 0",
+            "spectral_embedding": f"spectral_embedding(pagerank_2m symmetrised, DBCSR split 0, k={EMB_K}, m={EMB_M})"}
+    for name, label in what.items():
+        each = [p[name] for p in per]
+        print(
+            f"world sparse {name}: {label}: {each[0]['ms']:.4f} ms a call (rank 0; ranks "
+            f"{[round(e['ms'], 4) for e in each]}); K7 launches a rank {[e['k7'] for e in each]}, K8 "
+            f"{[e['k8'] for e in each]} (Hopper {[e['k8_sm90'] for e in each]}); against world size 1 max |Δ| "
+            f"{max(e['err'] for e in each):.3e}"
+            + (f", {each[0]['iterations']} iterations (world size 1's)" if name == "pagerank" else "")
+            + f"; collectives a rank {each[0]['counts']}, bytes a rank put in {[e['bytes'] for e in each]}; "
+            f"{shared}; {card}", flush=True,
+        )
+    print(f"world sparse: spmm_1gb's host build (sparse_dbcsr_matrix from the whole BSR, each rank blocking its "
+          f"slab's rows) "
+          f"{[round(p['host_build_s'], 2) for p in per]} s a rank", flush=True)
+    rows = []
+    spec = (("world_spmm_1gb", "spmm_1gb", "spmm_1gb_x_whole", "k7"), ("world_spmm_card", "card_k4", "card_k4", "k7"),
+            ("world_pagerank", "pagerank", "pagerank", "k7"),
+            ("world_spectral_embedding", "spectral_embedding", "spectral_embedding", "k7"),
+            ("world_sddmm_1gb", "sddmm_1gb", "sddmm_1gb", "k8"))
+    for row_name, key, call, kernel in spec:
+        each = [p["rows"][key] for p in per]
+        nbytes, flops = sum(e["bytes"] for e in each), sum(e["flops"] for e in each)
+        if kernel == "k8":
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 3 * flops / TF32_FLOP_PER_S * 1e3
+            bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        else:
+            bound_ms, bound_by = _bound(nbytes, flops)
+        launches = [p[call][kernel] for p in per]
+        print(
+            f"{row_name} ({'K8 sddmm_sm90.cu' if kernel == 'k8' else 'K7 spmm.cu'} on each rank's slab, bricks a rank "
+            f"{[e['bricks'] for e in each]}): alone on the card {[round(e['ms'], 4) for e in each]} ms a rank "
+            f"(CUDA events, host launch included), plain {[round(e['plain_ms'], 4) for e in each]} (max |Δ| against "
+            f"the kernel {max(e['plain_err'] for e in each):.3e}), "
+            f"{each[0].get('library', 'torch.sparse.sampled_addmm (CSR mask of the slab)')} "
+            f"{[round(e['library_ms'], 4) for e in each]}; bound of the four slabs {bound_ms:.4f} ms ({bound_by}, "
+            f"{nbytes / 1e9:.4f} GB); launches a rank on the path {launches}; {card}", flush=True,
+        )
+        rows.append({
+            "name": row_name, "route": "cuda",
+            "source": "heat_tpu_torch/csrc/sddmm_sm90.cu" if kernel == "k8" else "heat_tpu_torch/csrc/spmm.cu",
+            "replaces": "heat_tpu/kernels/spmm.py:265" if kernel == "k8" else "heat_tpu/kernels/spmm.py:238",
+            "launches": launches[0], "world_launches": launches,
+            "max_abs_err": max(p[call]["err"] for p in per), "ms": each[0]["ms"], "plain_ms": each[0]["plain_ms"],
+            "bound_ms": bound_ms / WORLD, "bound_by": bound_by, "library_ms": each[0]["library_ms"],
+            "ms_ranks": [e["ms"] for e in each], "world_call_ms": per[0][call]["ms"],
+        })
+    return rows
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _file_digest(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _state_equal(a, b) -> bool:
+    """Two trees of tensors, DNDarrays and plain values equal bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(_state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(_state_equal(x, y) for x, y in zip(a, b))
+    if hasattr(a, "larray"):
+        a, b = a.larray, b.larray
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.contiguous().view(torch.uint8), b.to(a.device).contiguous().view(torch.uint8)))
+    return a == b
+
+
+def _train_state(ht, dev):
+    """The CNN of examples/mnist.py after one SGD step with momentum on
+    random images: its parameters and the optimizer's state."""
+    import torch
+
+    torch.manual_seed(IO_SEED)
+    model = _cnn(ht, dev).eval()  # dropout off: the step needs no key
+    opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR, momentum=0.9)
+    x = torch.randn(64, 1, TRAIN_SIDE, TRAIN_SIDE, device=dev)
+    loss = torch.nn.functional.cross_entropy(model(x), torch.randint(0, TRAIN_CLASSES, (64,), device=dev))
+    loss.backward()
+    opt.step()
+    return {"model": model.state_dict(), "optimizer": opt.state_dict(), "epoch": 1}
+
+
+def _io_array(dev):
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(IO_SEED)
+    return torch.randn(IO_ROWS, IO_COLS, device=dev, generator=gen)
+
+
+def _onehot_codes(dev):
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(IO_SEED + 1)
+    rows, features, cats = ONEHOT
+    return torch.randint(0, cats, (rows, features), device=dev, generator=gen) * 7 - 300
+
+
+def io_path(dev) -> dict:
+    """I/O at world size 1 on the card: save_csv and load_csv of a split-0
+    float32 array of 2^18 x 16 (values back bit for bit, the file equal to
+    np.savetxt's), a checkpoint of the CNN's training state and of a 1 GiB
+    split-0 float32 array (bit for bit), and OneHotEncoder on 2^20 x 8
+    integer codes (world size 1's result for ``_world_io``). HDF5 is not on
+    the card's machine where h5py is not installed. Returns the times."""
+    import io as _io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+
+    card = CARD_LINE.get("card", "")
+    work = tempfile.mkdtemp(prefix="heat_io_")
+    print(f"supports_hdf5() {ht.supports_hdf5()}", flush=True)
+    out = {"dir": work}
+    a = _io_array(dev)
+    A = ht.array(a, split=0)
+    csv = os.path.join(work, "a.csv")
+    out["save_csv_ms"] = _host_ms(lambda: ht.save(A, csv))
+    buf = _io.BytesIO()
+    np.savetxt(buf, a.cpu().numpy(), delimiter=",", fmt="%s")
+    with open(csv, "rb") as f:
+        same_file = f.read() == buf.getvalue()
+    B = None
+
+    def load():
+        nonlocal B
+        B = ht.load(csv, split=0)
+        torch.cuda.synchronize()
+
+    out["load_csv_ms"] = _host_ms(load)
+    back = B.larray.device == dev and torch.equal(B.larray.view(torch.int32), a.view(torch.int32))
+    size = os.path.getsize(csv)
+    print(f"io csv: ht.save of {IO_ROWS}x{IO_COLS} float32 split 0 {out['save_csv_ms']:.1f} ms, ht.load(split=0) "
+          f"{out['load_csv_ms']:.1f} ms (host clock; a {size} B file, {size / out['load_csv_ms'] / 1e3:.1f} MB/s "
+          f"parsed); values back bit for bit {back}; the file equal to np.savetxt's {same_file}; {card}", flush=True)
+    _require(back and same_file, "CSV round trip: values or file bytes differ")
+    del B
+    state = _train_state(ht, dev)
+    ck = os.path.join(work, "train")
+    out["checkpoint_train_ms"] = _host_ms(lambda: ht.utils.save_checkpoint(ck, state))
+    loaded = {}
+    out["restore_train_ms"] = _host_ms(lambda: loaded.update(ht.utils.load_checkpoint(ck)))
+    same_state = _state_equal(state, loaded)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(IO_SEED + 2)
+    X = ht.array(torch.randn(IO_BIG, device=dev, generator=gen), split=0)
+    ckb = os.path.join(work, "big")
+    out["checkpoint_1gib_ms"] = _host_ms(lambda: ht.utils.save_checkpoint(ckb, {"x": X, "step": 7}))
+    big = {}
+
+    def restore():
+        big.update(ht.utils.load_checkpoint(ckb))
+        torch.cuda.synchronize()
+
+    out["restore_1gib_ms"] = _host_ms(restore)
+    same_big = _state_equal({"x": X, "step": 7}, big) and big["x"].split == 0
+    gib = 4.0 * IO_BIG[0] * IO_BIG[1] / 2**30
+    print(f"io checkpoint: the CNN's training state (model and SGD momentum, {sum(t.numel() for t in state['model'].values())} "
+          f"parameters) saved {out['checkpoint_train_ms']:.1f} ms, restored {out['restore_train_ms']:.1f} ms, bit for bit "
+          f"{same_state}; {gib:.0f} GiB float32 split 0 saved {out['checkpoint_1gib_ms']:.1f} ms "
+          f"({gib * 1024 / out['checkpoint_1gib_ms'] * 1e3:.0f} MiB/s), restored {out['restore_1gib_ms']:.1f} ms "
+          f"(host clock, the page cache warm), bit for bit {same_big}; {card}", flush=True)
+    _require(same_state and same_big, "checkpoint round trip differs")
+    del X, big, loaded
+    torch.cuda.empty_cache()
+    codes = ht.array(_onehot_codes(dev), split=0)
+    enc = ht.preprocessing.OneHotEncoder()
+    out["onehot_fit_ms"] = _host_ms(lambda: enc.fit(codes))
+    D = None
+
+    def transform():
+        nonlocal D
+        D = enc.transform(codes)
+        torch.cuda.synchronize()
+
+    out["onehot_transform_ms"] = _host_ms(transform)
+    rows, features, cats = ONEHOT
+    ok = D.shape == (rows, features * cats) and D.gnnz == rows * features
+    print(f"io onehot: OneHotEncoder on {rows}x{features} codes ({cats} categories each) split 0: fit "
+          f"{out['onehot_fit_ms']:.1f} ms, transform {out['onehot_transform_ms']:.1f} ms (host clock); {D.gnnz} "
+          f"stored ones in a {D.shape} DCSR; {card}", flush=True)
+    _require(ok, "OneHotEncoder's DCSR has the wrong shape or nnz")
+    WORLD_REFERENCE["io"] = {"csv": csv, "onehot": (D.indptr.cpu(), D.indices.cpu()),
+                             "categories": [torch.from_numpy(c) for c in enc.categories_]}
+    return out
+
+
+def _world_io(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """I/O across the ranks: load_csv(split=0) of io_path's file, each rank
+    reading its byte range, and a rank-ordered save_csv of the same array
+    (the file equal to world size 1's); a checkpoint saved at 4 ranks,
+    loaded at 4 and on rank 0 at 1, bit for bit; OneHotEncoder on the
+    codes split 0, its DCSR equal to world size 1's."""
+    import os
+
+    import torch
+
+    ref = WORLD_REFERENCE["io"]
+    work = WORLD_DIR["dir"]
+    out = {}
+
+    def measured(name, fn):
+        comm.counts.clear()
+        moved.clear()
+        kept = []
+        ms = _world_ms(lambda: kept.append(fn()), 1)
+        out[name] = {"counts": dict(comm.counts), "bytes": dict(moved), "ms": ms}
+        return kept[0]
+
+    a = _io_array(dev)
+    A = measured("load_csv", lambda: ht.load_csv(ref["csv"], split=0))
+    start, lshape, _ = comm.chunk(a.shape, 0)
+    ok = A.lshape == lshape and torch.equal(A.larray.view(torch.int32), a[start : start + lshape[0]].view(torch.int32))
+    _every_rank_ok(comm, ok and out["load_csv"]["counts"] == {"all-gather": 2},
+                   f"world load_csv split 0: rows or counts differ ({out['load_csv']['counts']})")
+    mine = os.path.join(work, "a.csv")
+    measured("save_csv", lambda: ht.save_csv(A, mine))
+    same = _file_digest(mine) == _file_digest(ref["csv"]) if rank == 0 else True
+    _every_rank_ok(comm, same and out["save_csv"]["counts"] == {}, "world save_csv: the file differs from world size 1's")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(IO_SEED + 2)
+    big = torch.randn(IO_BIG, device=dev, generator=gen)
+    b0, bl, _ = comm.chunk(IO_BIG, 0)
+    X = ht.array(big[b0 : b0 + bl[0]].clone(), is_split=0)
+    del big
+    tree = {"a": A, "x": X, "step": 7}
+    ck = os.path.join(work, "ckpt")
+    measured("save_checkpoint", lambda: ht.utils.save_checkpoint(ck, tree))
+    back = measured("load_checkpoint", lambda: ht.utils.load_checkpoint(ck))
+    _every_rank_ok(comm, _state_equal(tree, back), "world checkpoint: 4 -> 4 differs")
+    del back
+    if rank == 0:  # 4 -> 1
+        whole = ht.utils.load_checkpoint(ck, comm=ht.MPI_SELF)
+        gen.manual_seed(IO_SEED + 2)
+        ok1 = (torch.equal(whole["x"].larray, torch.randn(IO_BIG, device=dev, generator=gen))
+               and torch.equal(whole["a"].larray, a) and whole["step"] == 7)
+        del whole
+    else:
+        ok1 = True
+    _every_rank_ok(comm, ok1, "world checkpoint: 4 -> 1 differs")
+    del X, tree
+    torch.cuda.empty_cache()
+    codes = ht.array(_onehot_codes(dev), split=0)
+    enc = ht.preprocessing.OneHotEncoder()
+    measured("onehot_fit", lambda: enc.fit(codes))
+    D = measured("onehot_transform", lambda: enc.transform(codes))
+    indptr, indices = ref["onehot"]
+    r0, rows = comm.chunk(codes.shape, 0)[0], codes.lshape[0]
+    lo, hi = int(indptr[r0]), int(indptr[r0 + rows])
+    ok = (torch.equal(D.lindptr.cpu(), (indptr[r0 : r0 + rows + 1] - lo).to(torch.int32))
+          and torch.equal(D.lindices.cpu(), indices[lo:hi]) and bool((D.ldata == 1).all())
+          and all(torch.equal(torch.from_numpy(c), r) for c, r in zip(enc.categories_, ref["categories"])))
+    ok = ok and D.gnnz == int(indptr[-1])
+    _every_rank_ok(comm, ok and out["onehot_transform"]["counts"] == {"all-reduce": 1}  # gnnz, at construction
+                   and out["onehot_fit"]["counts"] == {"all-gather": 2},
+                   f"world OneHotEncoder: the DCSR differs from world size 1's ({out['onehot_fit']['counts']}, "
+                   f"{out['onehot_transform']['counts']})")
+    out["onehot_lnnz"] = D.lnnz
+    return out
+
+
+def _report_world_io(per: list, shared: str) -> dict:
+    card = CARD_LINE.get("card", "")
+    what = {"load_csv": f"ht.load_csv({IO_ROWS}x{IO_COLS} float32, split=0), each rank its byte range",
+            "save_csv": "ht.save_csv of the split-0 array, ranks in turn (the file equal to world size 1's)",
+            "save_checkpoint": f"save_checkpoint of the CSV array and {IO_BIG[0]}x{IO_BIG[1]} float32 split 0",
+            "load_checkpoint": "load_checkpoint at 4 ranks (and on rank 0 at 1), bit for bit",
+            "onehot_fit": f"OneHotEncoder.fit of {ONEHOT[0]}x{ONEHOT[1]} codes split 0",
+            "onehot_transform": "OneHotEncoder.transform: each rank its rows' DCSR slab, equal to world size 1's"}
+    for name, label in what.items():
+        each = [p[name] for p in per]
+        print(f"world io {name}: {label}: {each[0]['ms']:.1f} ms (rank 0, CUDA events around the call; ranks "
+              f"{[round(e['ms'], 1) for e in each]}); collectives a rank {each[0]['counts']}, bytes a rank put in "
+              f"{[e['bytes'] for e in each]}; {shared}; {card}", flush=True)
+    return {name: [p[name]["ms"] for p in per] for name in what}
+
+
 def profile_breakdown(label: str, call) -> list:
     """Device time by kernel for one ``call()``, from torch.profiler
     (device-side events only; the wall time includes the profiler's own
@@ -6247,6 +6896,11 @@ def profile_breakdown(label: str, call) -> list:
 
 
 def main() -> int:
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -6255,6 +6909,7 @@ def main() -> int:
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_report()
+    CARD_LINE["card"] = card
     build_kernels()
     errs = check_kernels(dev)
     assign_err = check_assign(dev)
@@ -6277,7 +6932,15 @@ def main() -> int:
     manip = manip_path(dev)
     linalg = linalg_path(dev)
     est = estimators_path(dev, inputs)
+    io = io_path(dev)
+    world_sparse_reference(dev, inputs)
+    shared = tempfile.mkdtemp(prefix="heat_sparse_")
+    WORLD_REFERENCE["sparse"]["inputs"] = os.path.join(shared, "inputs.pkl")
+    with open(WORLD_REFERENCE["sparse"]["inputs"], "wb") as f:
+        pickle.dump({"bsr": inputs["bsr"], "graph": inputs["graph"]}, f)
     launches["world"] = world_path(dev)
+    shutil.rmtree(shared, ignore_errors=True)
+    shutil.rmtree(io["dir"], ignore_errors=True)
     rows = timings(dev, launches, errs)
     rows.append(kmeans_timings(dev, assign_launches, assign_err))
     rows[-1]["world_launches"] = {"kmeans_fit": launches["world"]["kmeans"]}
@@ -6294,6 +6957,7 @@ def main() -> int:
                                     "world_robust_scaler_fit_split0": launches["world"]["estimators"]["RobustScaler_0"]["k4"],
                                     "world_robust_scaler_fit_split1": launches["world"]["estimators"]["RobustScaler_1"]["k4"]}
     rows.extend(sparse_timings(dev, inputs, sparse_launches, spmm_errs))
+    rows.extend(launches["world"]["sparse_rows"])
     next(row for row in rows if row["name"] == "brick_spmm_pagerank")["estimator_launches"] = {
         "spectral_embedding": est["launches"]["embedding_k7"]}
     att_rows = attention_timings(dev, att_launches, att_launches_sm90, att_errs, att_path_errs)
@@ -6331,6 +6995,7 @@ def main() -> int:
                       "world": launches["world"]["manip"]}))
     print(json.dumps({"linalg": linalg["rows"], "world": launches["world"]["linalg"]}))
     print(json.dumps({"estimators": est["rows"], "launches": est["launches"], "world": launches["world"]["estimators"]}))
+    print(json.dumps({"io": {k: v for k, v in io.items() if k != "dir"}, "world": launches["world"]["io"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -20,6 +20,8 @@ It keeps heat_tpu's layout and public names, so that
     Z = ht.preprocessing.StandardScaler().fit_transform(X)
     labels = ht.cluster.Spectral(n_clusters=8, gamma=0.05).fit(X[:32768]).labels_
     proba = ht.naive_bayes.GaussianNB().fit(X, km.labels_).predict_proba(X)
+    x = ht.load_csv(ht.datasets.path("iris.csv"), sep=";", split=0)
+    ht.utils.save_checkpoint("ckpt", {"x": x}); state = ht.utils.load_checkpoint("ckpt")
 
 Arrays live on the GPU unless the caller asks for the CPU
 (``ht.use_device("cpu")`` or ``device="cpu"``); without CUDA, creation on
@@ -48,6 +50,7 @@ from .core.linalg import *
 from . import core
 from . import classification
 from . import cluster
+from . import datasets
 from . import graph
 from . import kernels
 from . import naive_bayes

@@ -1,7 +1,7 @@
 """heat_tpu_torch core: array, type system, devices, communicator,
 factories, indexing, manipulations, elementwise operations, reductions,
-statistics, memory, printing, the 1-D convolution and the tile maps (port
-of ``heat_tpu.core``)."""
+statistics, memory, printing, the 1-D convolution, the tile maps and the
+CSV/HDF5 I/O (port of ``heat_tpu.core``)."""
 
 from .base import *
 from .communication import *
@@ -26,8 +26,10 @@ from .sanitation import *
 from .signal import *
 from .stride_tricks import *
 from .tiling import *
+from .io import *
 
 from . import interop
+from . import io
 from . import parallel
 from . import signal
 from . import tiling

@@ -66,7 +66,9 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     elements are not adjacent; ``contiguous`` keeps the stride of a
     one-element view, such as the real part of a complex diagonal)."""
     flat = t.reshape(-1)
-    if flat.numel() and flat.stride(0) != 1:
+    if not flat.numel():  # an empty view may carry any stride
+        return torch.empty(0, dtype=torch.uint8, device=t.device)
+    if flat.stride(0) != 1:
         flat = flat.new_empty(flat.shape).copy_(flat)
     return flat.view(torch.uint8)
 
@@ -311,6 +313,12 @@ class TorchCommunication(Communication):
             dist.broadcast(buf, src=root)
         self._count("broadcast")
         return _from_bytes(buf, t.dtype, t.shape)
+
+    def barrier(self) -> None:
+        """Wait until every rank has reached this call (no data move, not
+        counted in ``counts``); a no-op in a world of one rank."""
+        if self.is_distributed():
+            dist.barrier()
 
     def __repr__(self) -> str:
         return f"TorchCommunication(rank={self.rank}, size={self.size})"

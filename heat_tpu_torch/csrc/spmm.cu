@@ -2,10 +2,13 @@
 // (8, 128) bricks of a DBCSR matrix (heat_tpu_torch/sparse/dbcsr_matrix.py).
 //
 // brick_spmm_f32 (K7)  y = A @ x for A's bricks bdata (B, 8, 128) and the
-//     dense operand x (n, k), both row-major float32: for each brick row g,
-//     y[8g + r, :] = sum over the row's bricks t (bmask[t, r] set) of
-//     bdata[t, r, :] @ x[128 bcol[t] : +128, :], with x read as zero past
-//     row n. Replaces heat_tpu/kernels/spmm.py::_brick_spmm_call (:238),
+//     dense operand x (n, k), both row-major float32: for each brick row g
+//     of the slab, y[8g + r - off, :] = sum over the row's bricks t
+//     (bmask[t, r] set) of bdata[t, r, :] @ x[128 bcol[t] : +128, :], with x
+//     read as zero past row n and only the rows 0 <= 8g + r - off < m
+//     written. At world size 1 the slab is the whole matrix and off = 0;
+//     across ranks a rank's slab starts at its first brick row and off is
+//     its first dense row's place in that brick row (0 to 7). Replaces heat_tpu/kernels/spmm.py::_brick_spmm_call (:238),
 //     the Pallas TPU kernel that computes the per-brick products, and the
 //     masked segment-sum that follows it in _local_spmm (:297-327).
 // brick_sddmm_f32 (K8)  out[t] = sdata[t] * (u[8 brow[t] : +8] @
@@ -72,8 +75,8 @@ template <int KC>
 __global__ void __launch_bounds__(SPMM_WARPS * 32)
 brick_spmm_kernel(const float* __restrict__ bdata, const int* __restrict__ bcol,
                   const unsigned long long* __restrict__ bmask, const int* __restrict__ rowptr,
-                  const float* __restrict__ x, float* __restrict__ y, long long m, long long n,
-                  int k, bool xvec) {
+                  const float* __restrict__ x, float* __restrict__ y, long long off, long long m,
+                  long long n, int k, bool xvec) {
   __shared__ float red[SPMM_WARPS][BR][KC];
   const long long g = blockIdx.x;
   const int warp = threadIdx.x >> 5;
@@ -140,7 +143,7 @@ brick_spmm_kernel(const float* __restrict__ bdata, const int* __restrict__ bcol,
       for (int jj = 0; jj < KC; ++jj) {
         float v = acc[r][jj];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        for (int sh = 16; sh > 0; sh >>= 1) v += __shfl_xor_sync(0xffffffffu, v, sh);
         acc[r][jj] = v;
       }
     if (lane == 0) {
@@ -156,8 +159,8 @@ brick_spmm_kernel(const float* __restrict__ bdata, const int* __restrict__ bcol,
       float s = red[0][r][jj];
 #pragma unroll
       for (int w = 1; w < SPMM_WARPS; ++w) s += red[w][r][jj];
-      const long long row = g * BR + r;
-      if (row < m && j0 + jj < k) y[row * k + j0 + jj] = s;
+      const long long row = g * BR + r - off;
+      if (row >= 0 && row < m && j0 + jj < k) y[row * k + j0 + jj] = s;
     }
     __syncthreads();
   }
@@ -254,11 +257,11 @@ brick_sddmm_kernel(const float* __restrict__ sdata, const int* __restrict__ brow
 
 template <int KC>
 int launch_spmm(const float* bdata, const int* bcol, const unsigned long long* bmask,
-                const int* rowptr, const float* x, float* y, long long mb, long long m,
-                long long n, int k, cudaStream_t s) {
+                const int* rowptr, const float* x, float* y, long long mb, long long off,
+                long long m, long long n, int k, cudaStream_t s) {
   const bool xvec = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   brick_spmm_kernel<KC><<<(unsigned)mb, SPMM_WARPS * 32, 0, s>>>(bdata, bcol, bmask, rowptr, x,
-                                                                  y, m, n, k, xvec);
+                                                                  y, off, m, n, k, xvec);
   return (int)cudaGetLastError();
 }
 
@@ -268,21 +271,23 @@ extern "C" {
 
 // y (m, k) = A @ x. bdata (B, 8, 128), bcol (B,) int32, bmask (B, 8) bool
 // (8-byte aligned rows), rowptr (mb + 1,) int32 of the runs of real bricks
-// per brick row, x (n, k) float32 row-major. Returns 0 or the CUDA error
-// code of the launch.
+// per brick row of the slab, x (n, k) float32 row-major; brick row g's row
+// r lands in y's row 8g + r - off. Returns 0 or the CUDA error code of the
+// launch.
 int heat_brick_spmm_f32(const float* bdata, const int* bcol, const void* bmask, const int* rowptr,
-                        const float* x, float* y, long long mb, long long m, long long n, int k,
-                        int device, void* stream) {
-  if (mb < 1 || mb > 0x7fffffffLL || m < 0 || m > mb * BR || n < 0 || k < 1)
+                        const float* x, float* y, long long mb, long long off, long long m, long long n,
+                        int k, int device, void* stream) {
+  if (mb < 1 || mb > 0x7fffffffLL || off < 0 || off >= BR || m < 0 || m + off > mb * BR || n < 0 ||
+      k < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned long long* mask = static_cast<const unsigned long long*>(bmask);
-  if (k == 1) return launch_spmm<1>(bdata, bcol, mask, rowptr, x, y, mb, m, n, k, s);
-  if (k == 2) return launch_spmm<2>(bdata, bcol, mask, rowptr, x, y, mb, m, n, k, s);
-  if (k <= 4) return launch_spmm<4>(bdata, bcol, mask, rowptr, x, y, mb, m, n, k, s);
-  return launch_spmm<8>(bdata, bcol, mask, rowptr, x, y, mb, m, n, k, s);
+  if (k == 1) return launch_spmm<1>(bdata, bcol, mask, rowptr, x, y, mb, off, m, n, k, s);
+  if (k == 2) return launch_spmm<2>(bdata, bcol, mask, rowptr, x, y, mb, off, m, n, k, s);
+  if (k <= 4) return launch_spmm<4>(bdata, bcol, mask, rowptr, x, y, mb, off, m, n, k, s);
+  return launch_spmm<8>(bdata, bcol, mask, rowptr, x, y, mb, off, m, n, k, s);
 }
 
 // out (B, 8, 128) = sdata * (u-brick @ v-brick^T) per brick. brow (B,)

@@ -13,6 +13,16 @@ the device, and the host reads one scalar per iteration, the delta that
 decides convergence. The float32 arithmetic is ``heat_tpu``'s: the
 teleport scalar ``(alpha * mass + (1 - alpha)) / n`` is formed in float64
 from the float32 mass and cast to float32.
+
+Across ranks (``split=0``, the default) every rank builds on the host only
+the rows of the transition matrix that its slab covers, from the columns
+of the adjacency with those indices and the out-degrees of every node, and
+lands them on its device as its slab. A step is K7 once on the
+rank's slab against the whole ``r`` and one all-gather of the new rows;
+the dangling mass and the l1 delta are then computed on the whole vectors
+on every rank (n floats, far less than the product), so that no
+all-reduce is needed and every rank repeats world size 1's bits and
+iteration count; the host still reads one scalar a step.
 """
 
 from __future__ import annotations
@@ -23,10 +33,10 @@ import numpy as np
 import torch
 
 from ..core import factories, types
-from ..core.communication import Communication
-from ..core.devices import Device
+from ..core.communication import Communication, sanitize_comm
+from ..core.devices import Device, sanitize_device
 from ..core.dndarray import DNDarray
-from ..sparse.dbcsr_matrix import DBCSR_matrix, sparse_dbcsr_matrix
+from ..sparse.dbcsr_matrix import DBCSR_matrix
 from ..sparse.dcsr_matrix import DCSR_matrix
 from ..sparse.factories import _to_scipy_csr
 
@@ -49,37 +59,54 @@ def _adjacency_to_scipy(A):
     return _to_scipy_csr(A)
 
 
-def _transition(csr, dtype_np):
-    """Column-stochastic M = Aᵀ D_out⁻¹ plus the dangling mask.
+def _transition(csr, dtype_np, cols=None):
+    """Column-stochastic M = Aᵀ D_out⁻¹ plus the dangling mask; with
+    ``cols = (lo, hi)`` only M's rows [lo, hi), from A's columns [lo, hi).
 
     Rows of A with no out-edges (dangling nodes) have no column in M;
     their rank mass teleports uniformly, handled in the iteration, so M
-    keeps the graph's sparsity exactly."""
+    keeps the graph's sparsity exactly. Each entry is A[j, i] / outdeg[j]
+    in float64, cast to ``dtype_np``, whichever rows are built."""
     import scipy.sparse as sp
 
     n = csr.shape[0]
     outdeg = np.asarray(csr.sum(axis=1)).ravel()
     dangling = outdeg == 0
     inv = np.where(dangling, 0.0, 1.0 / np.where(dangling, 1.0, outdeg))
-    M = (sp.diags(inv) @ csr).T.tocsr().astype(dtype_np)
+    block = csr if cols in (None, (0, n)) else csr[:, cols[0] : cols[1]]
+    M = (sp.diags(inv) @ block).T.tocsr().astype(dtype_np)
     return M, dangling.astype(dtype_np), n
 
 
 def _operator(A, split, device, comm):
-    """The host build: the adjacency to scipy, the transition matrix and
-    its DBCSR landing on the device. Returns (M, dangling mask tensor)."""
+    """The host build: the adjacency to scipy, then the rows of the
+    transition matrix that this rank's slab covers (every row where it is
+    not split across ranks) and their DBCSR landing on the device; the
+    whole matrix is never transposed or blocked across ranks. Returns (M,
+    the dangling mask of all rows)."""
+    from ..sparse.dbcsr_matrix import _band_rows, _from_band
+
     csr = _adjacency_to_scipy(A)
     if csr.shape[0] != csr.shape[1]:
         raise ValueError(f"adjacency must be square, got {csr.shape}")
-    M_host, dangling, _ = _transition(csr, np.float32)
-    M = sparse_dbcsr_matrix(M_host, dtype=types.float32, split=split, device=device, comm=comm)
+    device, comm = sanitize_device(device), sanitize_comm(comm)
+    band, dangling, n = _transition(csr, np.float32, _band_rows(csr.shape[0], split, comm))
+    M = _from_band(band, (n, n), types.float32, split, device, comm)
     return M, torch.from_numpy(dangling).to(M.device.torch_device)
 
 
 def _fixpoint(M: DBCSR_matrix, dangling: torch.Tensor, alpha: float, tol: float, max_iter: int):
     """The power iteration on the device; returns (r, iterations, delta)
-    with r not yet normalized."""
+    with r, whole on every rank, not yet normalized.
+
+    Across ranks a step multiplies the rank's slab by the whole ``r`` and
+    all-gathers the new rows (one all-gather); the mass, the delta and the
+    test then run on the whole vectors on every rank, in the operations and
+    order of world size 1, so that every rank takes the same steps with the
+    same bits as one rank does."""
     n = M.shape[0]
+    comm = M.comm
+    counts = comm.lshape_map((n,), 0)[:, 0] if M.is_distributed() else None
     r = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dangling.device)
     alpha32 = torch.tensor(alpha, dtype=torch.float32, device=r.device)
     delta = float("inf")
@@ -88,6 +115,8 @@ def _fixpoint(M: DBCSR_matrix, dangling: torch.Tensor, alpha: float, tol: float,
         mass = torch.dot(dangling, r)  # dangling rank teleports uniformly
         teleport = ((alpha * mass.double() + (1.0 - alpha)) / n).float()
         r_new = (M @ r).larray * alpha32 + teleport
+        if counts is not None:
+            r_new = comm.allgather(r_new, 0, counts)
         step = torch.sum(torch.abs(r_new - r))
         r = r_new
         delta = float(step)  # the one host read of the iteration
@@ -113,6 +142,9 @@ def pagerank(
     built once on the host, lands on ``device`` as a ``DBCSR_matrix``, and
     the fixpoint runs one brick SpMM per iteration. ``alpha`` is the
     damping factor, ``tol`` the l1 convergence threshold on the rank delta.
+    Across ranks ``split=0`` gives each rank its rows of the transition
+    matrix and of the ranks; ``split=None`` runs the whole iteration on
+    every rank.
     """
     if not 0.0 < alpha < 1.0:
         raise ValueError(f"alpha must be in (0, 1), got {alpha}")

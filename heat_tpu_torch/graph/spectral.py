@@ -15,9 +15,11 @@ vector (``numpy.random.default_rng(0x5BED)``'s normal, normalized on the
 host); the (m, m) tridiagonal's eigenproblem runs in float64 NumPy on the
 host, and the embedding ``V @ W_k`` stays on the device.
 
-A DBCSR matrix split across ranks is not ported (ROADMAP.md Queue 1,
-item 15): across ranks only a replicated operand is served, and every
-rank computes the whole embedding.
+Across ranks a split operand keeps its slab on each rank: a Lanczos step
+gathers the vector's chunks (one all-gather), runs K7 once on the rank's
+slab and all-reduces its inner products (``_lanczos_steps`` over chunks),
+and the embedding is split 0. A replicated operand gives every rank the
+whole embedding.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..core import types
+from ..core import _threefry, types
 from ..core.dndarray import DNDarray
 from ..sparse.dbcsr_matrix import DBCSR_matrix, to_dbcsr
 
@@ -50,7 +52,7 @@ def spectral_embedding(
     ``(eigenvalues, embedding)``: the ``k`` Ritz values closest to the
     bottom of the Laplacian spectrum (float32) and the (n, k) coordinate
     matrix, split like ``A``. A float32 operand on a card launches K7
-    1 + m times.
+    1 + m times (on each rank, on its slab, across ranks).
     """
     from ..core.linalg import solver as _solver
 
@@ -69,6 +71,14 @@ def spectral_embedding(
 
     Af = A if A.dtype == types.float32 else A.astype(types.float32)
     dev = Af.device.torch_device
+    comm = Af.comm
+    across = Af.is_distributed()
+    r0, r1 = Af._row_block
+    counts = comm.lshape_map((n,), 0)[:, 0] if across else None
+
+    def whole(v):
+        return comm.allgather(v, 0, counts) if across else v
+
     # degrees from one product; the Laplacian then never materializes
     deg = (Af @ torch.ones(n, dtype=torch.float32, device=dev)).larray
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -76,17 +86,24 @@ def spectral_embedding(
         dvec = torch.where(deg > 0, 1.0 / torch.sqrt(torch.clamp_min(deg, 1e-30)), zero)
 
         def matvec(v):
-            return v - (Af @ (v * dvec)).larray * dvec  # L_sym v = v - D^-1/2 A D^-1/2 v
+            return v - (Af @ whole(v * dvec)).larray * dvec  # L_sym v = v - D^-1/2 A D^-1/2 v
     else:
         dvec = deg
 
         def matvec(v):
-            return dvec * v - (Af @ v).larray  # L v = D v - A v
+            return dvec * v - (Af @ whole(v)).larray  # L v = D v - A v
 
     rng = np.random.default_rng(_V0_SEED)
     v0 = rng.standard_normal(n).astype(np.float32)
     v0 = torch.from_numpy(v0 / np.linalg.norm(v0)).to(dev)
-    V, alpha, beta = _solver._lanczos_operator(matvec, n, m, v0, torch.float32)
+    if across:
+        def inner(x, y, conj=False):
+            return comm.allreduce(x @ y)
+
+        chunk = _threefry.Chunk.of((n,), 0, comm)
+        V, alpha, beta = _solver._lanczos_steps(matvec, inner, v0[r0:r1].contiguous(), m, n, chunk, comm)
+    else:
+        V, alpha, beta = _solver._lanczos_operator(matvec, n, m, v0, torch.float32)
 
     a = alpha.cpu().numpy().astype(np.float64)
     b = beta.cpu().numpy().astype(np.float64)

@@ -7,7 +7,10 @@ The compute unit is the (8, 128) brick of ``sparse/dbcsr_matrix.py``:
 * SpMM ``y = A @ x``: per stored brick t, ``contrib[t] = bdata[t] @
   xb[bcol[t]]``, with ``xb`` the dense operand zero-padded to (nb*128, k)
   and viewed as (nb, 128, k) slabs; each contribution lands on the brick's
-  8 output rows ``8*brow[t] + r`` for the rows that ``bmask[t]`` sets.
+  8 output rows ``8*brow[t] + r - r0`` for the rows that ``bmask[t]`` sets,
+  ``r0`` the dense row of the output's first row (0 at world size 1, the
+  rank's first row across ranks, as ``heat_tpu``'s ``_local_spmm`` places
+  a device's rows).
 * SDDMM ``C = S ∘ (u @ vᵀ)``: per stored brick, ``out[t] = sdata[t] *
   (ub[brow[t]] @ vb[bcol[t]]ᵀ)``, only the stored tiles computed.
 
@@ -134,12 +137,13 @@ def brick_contrib_plain(bdata: torch.Tensor, bcol: torch.Tensor, xb: torch.Tenso
     return _bmm(bdata, xb[bcol.long()])
 
 
-def brick_spmm_plain(bdata, bcol, brow, bmask, x, m: int) -> torch.Tensor:
+def brick_spmm_plain(bdata, bcol, brow, bmask, x, m: int, r0: int = 0) -> torch.Tensor:
     """``y = A @ x`` (m, k) with torch ops: the brick products, then each
-    brick row r of brick t added into output row ``8*brow[t] + r`` where
-    ``bmask[t, r]`` is set (the function of ``heat_tpu``'s ``_local_spmm``
-    at world size 1). Computes in the dtype of the operands; x (n, k) is
-    read as zero past row n."""
+    brick row r of brick t added into output row ``8*brow[t] + r - r0``
+    where ``bmask[t, r]`` is set and the row lies in [0, m) (the function
+    of ``heat_tpu``'s ``_local_spmm``: ``r0`` is the dense row of y's first
+    row, 0 at world size 1 and a rank's first row across ranks). Computes
+    in the dtype of the operands; x (n, k) is read as zero past row n."""
     k = x.shape[1]
     xb = _brick_slabs(x, BC)
     c = max(m, 1)
@@ -148,8 +152,8 @@ def brick_spmm_plain(bdata, bcol, brow, bmask, x, m: int) -> torch.Tensor:
     for t0 in range(0, bdata.shape[0], _PLAIN_CHUNK):
         sl = slice(t0, t0 + _PLAIN_CHUNK)
         contrib = brick_contrib_plain(bdata[sl], bcol[sl], xb)
-        rows = brow[sl].long()[:, None] * BR + offs
-        rows = torch.where(bmask[sl] & (rows < c), rows, c)  # excluded rows -> the dropped row c
+        rows = brow[sl].long()[:, None] * BR + offs - r0
+        rows = torch.where(bmask[sl] & (rows >= 0) & (rows < c), rows, c)  # excluded rows -> the dropped row c
         y.index_add_(0, rows.reshape(-1), contrib.reshape(-1, k))
     return y[:m]
 
@@ -181,7 +185,7 @@ def _lib():
         from . import _build
 
         lib = _build.load("spmm")
-        lib.heat_brick_spmm_f32.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P]
+        lib.heat_brick_spmm_f32.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _I, _I, _P]
         lib.heat_brick_spmm_f32.restype = _I
         lib.heat_brick_sddmm_f32.argtypes = [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _I, _I, _P]
         lib.heat_brick_sddmm_f32.restype = _I
@@ -229,43 +233,51 @@ def _cuda_device(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def brick_spmm(bdata, bcol, brow, bmask, rowptr, x, m: int) -> torch.Tensor:
+def brick_spmm(bdata, bcol, brow, bmask, rowptr, x, m: int, g0: int = 0, r0: int = 0) -> torch.Tensor:
     """``y = A @ x`` (m, k) for the slab (bdata, bcol, brow, bmask) of a
     DBCSR matrix (kernel K7 on CUDA).
 
     The slab's real bricks lie in ascending ``brow`` order, and brick row
-    g's run is ``[rowptr[g], rowptr[g+1])`` (``DBCSR_matrix._brick_rowptr``);
-    the kernel visits those runs, the plain version every brick by its
-    ``brow``, and pad bricks, whose mask is clear, add nothing to either.
+    ``g0 + g``'s run is ``[rowptr[g], rowptr[g+1])``
+    (``DBCSR_matrix._brick_rowptr``); the kernel visits those runs, the
+    plain version every brick by its ``brow``, and pad bricks, whose mask is
+    clear, add nothing to either. Output row i is the matrix's dense row
+    ``r0 + i``: at world size 1 ``g0 = r0 = 0``, across ranks the slab's
+    first brick row and the rank's first row, ``0 <= r0 - 8·g0 < 8``.
     On CUDA: bdata (B, 8, 128) and x (n, k) float32, bcol/brow (B,) and
     rowptr (mb + 1,) int32, bmask (B, 8) bool, all contiguous on one
-    device, k ≥ 1, m ≤ 8·mb. x is read as zero past row n. A rerun gives
-    the same bits. CPU tensors take the plain version."""
+    device, k ≥ 1, m + r0 ≤ 8·(g0 + mb). x is read as zero past row n. A
+    rerun gives the same bits. A slab with no rows to write (m = 0)
+    returns without a launch. CPU tensors take the plain version."""
     global SPMM_LAUNCHES
     if bdata.device.type == "cpu" and x.device.type == "cpu":
-        return brick_spmm_plain(bdata, bcol, brow, bmask, x, m)
+        return brick_spmm_plain(bdata, bcol, brow, bmask, x, m, r0)
     dev = _cuda_device(bdata, x)
     B = bdata.shape[0]
     if x.ndim != 2:
         raise ValueError(f"x must be 2-D (n, k), got shape {tuple(x.shape)}")
     n, k = x.shape
     mb = rowptr.shape[0] - 1
+    off = r0 - BR * g0
     _check("bdata", bdata, dev, torch.float32, (B, BR, BC))
     _check("bcol", bcol, dev, torch.int32, (B,))
     _check("brow", brow, dev, torch.int32, (B,))
     _check("bmask", bmask, dev, torch.bool, (B, BR))
     _check("rowptr", rowptr, dev, torch.int32, (mb + 1,))
     _check("x", x, dev, torch.float32, (n, k))
-    if k < 1 or mb < 1 or not 0 <= m <= mb * BR:
-        raise ValueError(f"K7 takes k ≥ 1 and 0 ≤ m ≤ 8·mb, got k={k}, m={m}, mb={mb}")
+    if k < 1 or m < 0 or m and not (0 <= off < BR and m <= mb * BR - off):
+        raise ValueError(f"K7 takes k ≥ 1, 0 ≤ r0 - 8·g0 < 8 and m + r0 ≤ 8·(g0 + mb), got k={k}, m={m}, "
+                         f"mb={mb}, g0={g0}, r0={r0}")
+    y = torch.empty((m, k), dtype=torch.float32, device=dev)
+    if m == 0:  # a rank whose block holds no rows: its g0 and r0 lie past the matrix
+        return y
     lib = _lib()
     if bmask.data_ptr() % 8 or bdata.data_ptr() % 16:
         raise ValueError("bmask rows must be 8-byte aligned and bdata 16-byte aligned")
-    y = torch.empty((m, k), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.heat_brick_spmm_f32(
         bdata.data_ptr(), bcol.data_ptr(), bmask.data_ptr(), rowptr.data_ptr(), x.data_ptr(), y.data_ptr(),
-        mb, m, n, k, dev.index, stream,
+        mb, off, m, n, k, dev.index, stream,
     )
     _raise_on(lib, rc, "brick_spmm kernel launch")
     SPMM_LAUNCHES += 1

@@ -1,5 +1,6 @@
 """Data preprocessing (port of ``heat_tpu.preprocessing``): the five
-scalers. ``heat_tpu``'s ``sparse_encoders`` (``OneHotEncoder``,
-``TfidfTransformer``) are not ported yet (ROADMAP.md Queue 1, item 10 (b))."""
+scalers, and ``OneHotEncoder`` and ``TfidfTransformer``, whose outputs are
+sparse."""
 
 from .preprocessing import *
+from .sparse_encoders import *

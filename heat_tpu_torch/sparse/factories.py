@@ -3,8 +3,12 @@
 Port of ``heat_tpu.sparse.factories`` (Heat reference:
 heat/sparse/factories.py, ``sparse_csr_matrix`` at :23): build from scipy
 sparse, a torch sparse-CSR tensor, a dense array-like or a DNDarray, with
-``split``/``is_split`` semantics. With ``is_split=0`` a list holds this
-process's row blocks, stitched in order. The pattern is found on the host
+``split``/``is_split`` semantics. With ``split=0`` every rank takes the
+rows of its chunk from the whole operand; with ``is_split=0`` the operand
+(or a list of row blocks, stitched in order) is this rank's own block, of
+any row count, and the ranks' blocks stack in rank order (``heat_tpu``,
+one controller, reads the list as every device's block,
+``heat_tpu/sparse/factories.py:86-128``). The pattern is found on the host
 with scipy, as ``heat_tpu`` finds it; the components then land on the
 device.
 """
@@ -46,17 +50,34 @@ def _values(values, dtype, device: Device) -> torch.Tensor:
     return torch.tensor(np.asarray(values)).to(device=device.torch_device, dtype=dtype.torch_type())
 
 
-def _from_components(indptr, indices, data, gshape, split, device: Device, comm) -> DCSR_matrix:
-    """A DCSR_matrix from global CSR components (host arrays or tensors;
-    ``data`` a tensor, whose dtype the matrix takes)."""
+def _from_local(indptr, indices, data, gshape, split, device: Device, comm, gnnz=None,
+                row_counts=None) -> DCSR_matrix:
+    """A DCSR_matrix from this rank's CSR components (host arrays or
+    tensors; ``data`` a tensor, whose dtype the matrix takes): its row
+    slab where the matrix is split across ranks, else the whole matrix.
+    ``gnnz`` None counts the nonzeros (one all-reduce across ranks)."""
     dev = device.torch_device
     indptr = torch.as_tensor(indptr).to(device=dev, dtype=torch.int32)
     indices = torch.as_tensor(indices).to(device=dev, dtype=torch.int32)
     data = data.to(dev)
     return DCSR_matrix(
-        indptr, indices, data, int(indices.shape[0]), tuple(int(s) for s in gshape),
-        types.canonical_heat_type(data.dtype), split, device, comm, True,
+        indptr, indices, data, gnnz, tuple(int(s) for s in gshape),
+        types.canonical_heat_type(data.dtype), split, device, comm, True, row_counts,
     )
+
+
+def _from_components(indptr, indices, data, gshape, split, device: Device, comm) -> DCSR_matrix:
+    """A DCSR_matrix from global CSR components (host arrays or tensors;
+    ``data`` a tensor, whose dtype the matrix takes): split across ranks,
+    each rank keeps the rows of its chunk."""
+    gnnz = int(indices.shape[0])
+    if split == 0 and comm.is_distributed():
+        r0, (rows, _), _ = comm.chunk(tuple(gshape), 0)
+        indptr = torch.as_tensor(indptr)
+        lo, hi = int(indptr[r0]), int(indptr[r0 + rows])
+        indptr = indptr[r0 : r0 + rows + 1] - lo
+        indices, data = torch.as_tensor(indices)[lo:hi], data[lo:hi]
+    return _from_local(indptr, indices, data, gshape, split, device, comm, gnnz)
 
 
 def _to_scipy_csr(obj, dtype_np=None):
@@ -69,10 +90,9 @@ def _to_scipy_csr(obj, dtype_np=None):
 
     if sp.issparse(obj):
         return obj.tocsr()
-    if isinstance(obj, DCSR_matrix):
-        return sp.csr_matrix(
-            (_host_numpy(obj.data), _host_numpy(obj.indices), _host_numpy(obj.indptr)), shape=obj.shape
-        )
+    if isinstance(obj, DCSR_matrix):  # across ranks a collective: every rank normalizes its operand
+        indptr, indices, data = obj.global_components()
+        return sp.csr_matrix((_host_numpy(data), _host_numpy(indices), _host_numpy(indptr)), shape=obj.shape)
     if isinstance(obj, DNDarray):
         obj = obj.numpy()
     if isinstance(obj, torch.Tensor):
@@ -100,7 +120,10 @@ def sparse_csr_matrix(
 
     ``obj`` may be a scipy sparse matrix, a torch sparse-CSR tensor, a
     dense array-like, a DNDarray, or, with ``is_split=0``, a list of row
-    blocks in any of those forms.
+    blocks in any of those forms. Across ranks ``split=0`` keeps each
+    rank's chunk of the rows of the whole ``obj``, and ``is_split=0`` takes
+    ``obj`` as this rank's block (one all-gather of the blocks' shapes and
+    nonzeros).
     """
     if split is not None and split != 0:
         raise ValueError(f"split must be 0 or None, got {split}")
@@ -116,16 +139,23 @@ def sparse_csr_matrix(
         import scipy.sparse as sp
 
         csr = sp.vstack([_to_scipy_csr(o, dtype_np) for o in obj]).tocsr()
-        split = 0
     else:
         csr = _to_scipy_csr(obj, dtype_np)
-        if is_split is not None:
-            split = 0  # this process's block of a distributed matrix
+    if is_split is not None:
+        split = 0  # this process's block of a distributed matrix
 
     if dtype is None:
         dtype = types.canonical_heat_type(csr.data.dtype if csr.nnz else np.float32)
     dtype = types.canonical_heat_type(dtype)
+    values = _values(csr.data, dtype, device)
+    if is_split is not None and comm.is_distributed():
+        shapes = comm.allgather(torch.tensor([[*csr.shape, csr.nnz]], dtype=torch.int64,
+                                             device=device.torch_device)).cpu()
+        if len(set(int(c) for c in shapes[:, 1].tolist())) != 1:
+            raise ValueError(f"the ranks' blocks differ in their column counts: {shapes[:, 1].tolist()}")
+        counts = [int(c) for c in shapes[:, 0].tolist()]
+        return _from_local(csr.indptr.astype(np.int32), csr.indices.astype(np.int32), values,
+                           (sum(counts), csr.shape[1]), 0, device, comm, int(shapes[:, 2].sum()), counts)
     return _from_components(
-        csr.indptr.astype(np.int32), csr.indices.astype(np.int32), _values(csr.data, dtype, device),
-        csr.shape, split, device, comm,
+        csr.indptr.astype(np.int32), csr.indices.astype(np.int32), values, csr.shape, split, device, comm,
     )

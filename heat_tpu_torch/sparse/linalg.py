@@ -15,6 +15,17 @@ type:
 The dense operand may be a DNDarray, a torch.Tensor or a numpy array; it
 moves to the matrix's device. Sub-float32 data accumulates in float32 and
 is cast back at the end. The result is a DNDarray split like the matrix.
+
+Across ranks, as in ``heat_tpu`` (``heat_tpu/sparse/linalg.py:78-88``), a
+dense operand split across ranks is first gathered whole by one
+all-gather; each rank then multiplies its own row slab (one K7 launch for
+a DBCSR slab, one K8 launch for ``sddmm``), and the product lands split 0
+in the chunk geometry with no further collective (a DCSR matrix declared
+with other row counts moves its product there by one all-to-all). A
+matrix that is not split gives every rank the whole product. Rank r
+writes the brick rows of its slab at the row offset of its block (K7's
+``g0``/``r0``); the column halo of x that would spare the all-gather is
+not ported, and neither is it in ``heat_tpu``.
 """
 
 from __future__ import annotations
@@ -34,14 +45,14 @@ __all__ = ["matmul", "sddmm"]
 
 
 def _dense_operand(A, x) -> torch.Tensor:
-    """The dense operand as a tensor on ``A``'s device; a DNDarray split
-    across ranks is refused."""
+    """The dense operand, whole, as a tensor on ``A``'s device; a DNDarray
+    split across ranks is gathered by one all-gather."""
     if isinstance(x, DNDarray):
         if x.is_distributed():
-            raise NotImplementedError(
-                "a dense operand split across ranks: see ROADMAP.md Queue 1, item 15"
-            )
-        x = x.larray
+            counts = x.lshape_map[:, x.split]
+            x = x.comm.allgather(x.larray.contiguous(), x.split, counts)
+        else:
+            x = x.larray
     elif not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
     return x.to(A.device.torch_device)
@@ -59,7 +70,8 @@ def matmul(A: Union[DCSR_matrix, DBCSR_matrix], x: Union[DNDarray, torch.Tensor,
     """``A @ x`` for a sparse matrix and a dense vector or matrix.
 
     Returns a DNDarray of shape (m,) or (m, k), split along axis 0 when
-    ``A`` is (split like ``A``).
+    ``A`` is (split like ``A``). Across ranks a split ``x`` costs one
+    all-gather, and each rank computes its own rows.
     """
     if not isinstance(A, (DCSR_matrix, DBCSR_matrix)):
         raise TypeError(f"A must be a DCSR_matrix or DBCSR_matrix, got {type(A)}")
@@ -73,20 +85,26 @@ def matmul(A: Union[DCSR_matrix, DBCSR_matrix], x: Union[DNDarray, torch.Tensor,
     k = int(x2d.shape[1])
     if isinstance(A, DBCSR_matrix):
         bdata, bcol, brow, bmask = A._phys_components
+        (g0, _), (r0, r1) = A._slab_rows, A._row_block
         bd, xa = bdata.to(acc), x2d.to(acc).contiguous()
         if _spmm.spmm_serviceable(bdata.dtype, x2d.dtype, k):
-            y = _spmm.brick_spmm(bd, bcol, brow, bmask, A._brick_rowptr, xa, m)
+            y = _spmm.brick_spmm(bd, bcol, brow, bmask, A._brick_rowptr, xa, r1 - r0, g0=g0, r0=r0)
         else:
-            y = _spmm.brick_spmm_plain(bd, bcol, brow, bmask, xa, m)
+            y = _spmm.brick_spmm_plain(bd, bcol, brow, bmask, xa, r1 - r0, r0)
+        lmap = None
     else:
         _, indices, data = A._phys_components
-        y = torch.zeros((m, k), dtype=acc, device=xarr.device)
-        if A.gnnz:
+        y = torch.zeros((A.lshape[0], k), dtype=acc, device=xarr.device)
+        if A.lnnz:
             contrib = data.to(acc)[:, None] * x2d.to(acc)[indices.long()]
             y.index_add_(0, A._rows.long(), contrib)
+        lmap = np.array([[c, k] for c in A.row_counts], dtype=np.int64) if A.is_distributed() else None
     y = y.to(tt)
     gshape = (m,) if xarr.ndim == 1 else (m, k)
-    return DNDarray(y.reshape(gshape), gshape, out_dtype, 0 if A.split == 0 else None, A.device, A.comm)
+    out = DNDarray(y if xarr.ndim == 2 else y[:, 0], gshape, out_dtype, 0 if A.split == 0 else None, A.device,
+                   A.comm, None if lmap is None else lmap[:, : len(gshape)])
+    out.balance_()
+    return out
 
 
 def sddmm(
@@ -98,7 +116,9 @@ def sddmm(
     stored bricks of ``S`` only (pattern kept, pad bricks stay zero).
     ``u`` is (m, d), ``v`` is (n, d); the result shares S's slab
     structure. A CUDA operand whose types ``sddmm_serviceable`` admits
-    runs kernel K8."""
+    runs kernel K8. Across ranks a split ``u`` or ``v`` is gathered whole
+    (one all-gather each) and every rank runs K8 once on its own slab,
+    whose bricks index u and v by their global brick rows and columns."""
     if not isinstance(S, DBCSR_matrix):
         raise TypeError(f"S must be a DBCSR_matrix, got {type(S)}")
     uarr = _dense_operand(S, u)

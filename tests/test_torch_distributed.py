@@ -9,8 +9,7 @@ jax.devices()[:4])``: rank r's shard is the shard heat_tpu places on
 device r, bit for bit for every redistribution; ``arange(N,
 split=0).sum()`` is exact for integers and within 1e-6 Σ|x| for float32;
 the collectives each rank issued equal the plan's ``collective_counts()``;
-every entry point of slices 1–5 on a split operand either matches
-heat_tpu or raises ``NotImplementedError`` naming its ROADMAP item; and
+every entry point of slices 1–5 on a split operand matches heat_tpu; and
 ``ring_attention`` with a whole q and a split k/v equals heat_tpu's result
 within test_torch_attention.py's float32 tolerance (rtol 2e-5, atol 2e-6:
 both sides are float32 online softmaxes that sum in other orders)."""
@@ -300,19 +299,36 @@ def test_interop_gives_each_rank_heat_tpus_shard(ranks, jcomm):
 # --------------------------------------------------------------------- #
 # the entry points of slices 1-5 on a split operand                     #
 # --------------------------------------------------------------------- #
-REFUSED = {
-    "sparse_csr_split": 15, "sparse_dbcsr_split": 15, "sparse_matmul_split_x": 15, "sddmm_split_u": 15,
-    "pagerank": 15,
-}
+def _entry_reference(name, jcomm):
+    """heat_tpu's result of the ``entry_<name>`` case on 4 devices."""
+    split_x = lambda shape=(40, 6), split=0: jht.array(worker._array(shape, "float32", 8), split=split, comm=jcomm)
+    if name == "sparse_csr_split":
+        return jht.sparse.sparse_csr_matrix(np.eye(8, dtype=np.float32), split=0, comm=jcomm).todense()
+    if name == "sparse_dbcsr_split":
+        return jht.sparse.sparse_dbcsr_matrix(np.eye(8, dtype=np.float32), split=0, comm=jcomm).todense()
+    if name == "sparse_matmul_split_x":
+        return jht.sparse.matmul(jht.sparse.sparse_csr_matrix(np.eye(40, dtype=np.float32), comm=jcomm), split_x())
+    if name == "sddmm_split_u":
+        return jht.sparse.sddmm(jht.sparse.sparse_dbcsr_matrix(np.eye(40, 6, dtype=np.float32), comm=jcomm),
+                                split_x((40, 4)), split_x((6, 4), None)).todense()
+    return jht.graph.pagerank(np.ones((8, 8), dtype=np.float32), comm=jcomm).ranks
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_entry_points_refuse_a_split_operand_naming_their_item(ranks, name):
-    for res in (ranks[r][f"entry_{name}"] for r in range(WORLD)):
-        assert "error" in res, f"{name} returned a result computed on one shard"
-        kind, msg = res["error"]
-        assert kind == "NotImplementedError", res.get("trace")
-        assert f"ROADMAP.md Queue 1, item {REFUSED[name]}" in msg, msg
+SPLIT_ENTRIES = ["sparse_csr_split", "sparse_dbcsr_split", "sparse_matmul_split_x", "sddmm_split_u", "pagerank"]
+
+
+@pytest.mark.parametrize("name", SPLIT_ENTRIES)
+def test_entry_points_on_a_split_operand_match_heat_tpu(ranks, jcomm, name):
+    """The sparse entry points that refused a split operand before the
+    sparse engine ran across ranks (ROADMAP.md Queue 1, item 15): each
+    rank's part and the gathered result equal heat_tpu's (1e-6 for the
+    products and the ranks, which sum in another order)."""
+    ref = _entry_reference(name, jcomm)
+    want = ref.numpy()
+    for r, res in enumerate(_result(ranks, f"entry_{name}")):
+        assert (res["split"], res["gshape"]) == (ref.split, ref.gshape)
+        np.testing.assert_allclose(res["global"], want, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(res["local"], _shard(want, ref.split, r), rtol=0, atol=1e-6)
 
 
 def test_entry_points_along_other_axes_match_heat_tpu(ranks, jcomm):

@@ -91,9 +91,9 @@ def test_pagerank_runs_one_spmm_per_iteration_through_the_brick_wrapper(monkeypa
     calls = []
     wrapper = ks.brick_spmm
 
-    def counting(*args):
+    def counting(*args, **kw):
         calls.append(args[-2].shape)
-        return wrapper(*args)
+        return wrapper(*args, **kw)
 
     monkeypatch.setattr(ks, "brick_spmm", counting)
     res = pagerank(_random_digraph(seed=5))

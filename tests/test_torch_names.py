@@ -26,9 +26,6 @@ _TOPOLOGY = "item 12: two-tier topologies and lattice calibration"
 _RUNTIME = "item 12: core/gates.py, core/jit.py, core/tiers.py"
 _CODEC = "item 12: kernels/quant.py, the wire codec"
 _RINGS = "item 12: kernels/cmatmul.py, its rings as P2P"
-_IO = "item 10 (b): core/io.py"
-_ENCODERS = "item 10 (b): preprocessing/sparse_encoders.py"
-_UTILS = "item 10 (b): utilities"
 _SERVICE = "item 13: service layers"
 _OOC = "item 7: out-of-core"
 _COMPLEX = "Not faults: native complex, no complex platform policy"
@@ -40,21 +37,17 @@ ABSENT = {
         "DCN_BPS": _TOPOLOGY, "DCN_PENALTY": _TOPOLOGY, "ICI_BPS": _TOPOLOGY, "TOPOLOGY_ENV": _TOPOLOGY,
         "Topology": _TOPOLOGY, "topology_for": _TOPOLOGY, "MeshCommunication": _COMM,
         "check_complex_platform": _COMPLEX, "complex_mode": _COMPLEX, "supports_complex": _COMPLEX,
-        "use_complex": _COMPLEX, "jit": _RUNTIME, "load": _IO, "load_csv": _IO, "load_hdf5": _IO, "save": _IO, "save_csv": _IO,
-        "save_hdf5": _IO, "supports_hdf5": _IO, "supports_netcdf": _IO, "datasets": "item 10 (b): datasets/",
-        "solve_endpoint": _SERVICE, "serving": _SERVICE, "observability": _SERVICE, "resilience": _SERVICE,
+        "use_complex": _COMPLEX, "jit": _RUNTIME, "solve_endpoint": _SERVICE, "serving": _SERVICE, "observability": _SERVICE, "resilience": _SERVICE,
         "analysis": "item 14: analysis",
     },
     "heat_tpu.core": {
         "DCN_BPS": _TOPOLOGY, "DCN_PENALTY": _TOPOLOGY, "ICI_BPS": _TOPOLOGY, "TOPOLOGY_ENV": _TOPOLOGY,
         "Topology": _TOPOLOGY, "topology_for": _TOPOLOGY, "MeshCommunication": _COMM,
         "check_complex_platform": _COMPLEX, "complex_mode": _COMPLEX, "supports_complex": _COMPLEX,
-        "use_complex": _COMPLEX, "jit": _RUNTIME, "load": _IO, "load_csv": _IO, "load_hdf5": _IO, "save": _IO, "save_csv": _IO,
-        "save_hdf5": _IO, "supports_hdf5": _IO, "supports_netcdf": _IO, "solve_endpoint": _SERVICE,
+        "use_complex": _COMPLEX, "jit": _RUNTIME, "solve_endpoint": _SERVICE,
     },
     "heat_tpu.core.linalg": {"solve_endpoint": _SERVICE},
     "heat_tpu.graph": {"pagerank_stream": _OOC},
-    "heat_tpu.preprocessing": {"OneHotEncoder": _ENCODERS, "TfidfTransformer": _ENCODERS},
     "heat_tpu.kernels": {
         "ring_all_gather": _RINGS, "ring_matmul_reduce": _RINGS,
         "encode_blocks": _CODEC, "decode_blocks": _CODEC, "wire_ratio": _CODEC,
@@ -65,8 +58,6 @@ ABSENT = {
         "tier_time_model": _TOPOLOGY, "wire_quant_gate": _CODEC, "wire_quant_mode": _CODEC,
         "resplit_phys": _PHYS, "reshape_phys": _PHYS,
     },
-    "heat_tpu.utils": {"load_checkpoint": _UTILS, "save_checkpoint": _UTILS},
-    "heat_tpu.utils.data": {"PartialH5Dataset": _UTILS},
 }
 
 

@@ -181,9 +181,9 @@ def test_spectral_embedding_runs_one_brick_spmm_a_lanczos_step(monkeypatch):
     calls = []
     plain = ks.brick_spmm
 
-    def counting(*args):
+    def counting(*args, **kw):
         calls.append(tuple(args[-2].shape))
-        return plain(*args)
+        return plain(*args, **kw)
 
     monkeypatch.setattr(ks, "brick_spmm", counting)
     n = worker.EMBED_N
@@ -282,7 +282,7 @@ def test_spectral_across_ranks_matches_heat_tpu(ranks, jcomm):
         assert _same_partition(res["labels"], want)
 
 
-def test_spectral_embedding_across_ranks(ranks):
+def test_spectral_embedding_across_ranks(ranks, jcomm):
     ev_ref, emb_ref = jht.graph.spectral_embedding(worker.graph_adjacency(), worker.EMBED_K, m=worker.EMBED_M)
     every = _result(ranks, "est_embedding_replicated")
     for res in every:
@@ -290,9 +290,12 @@ def test_spectral_embedding_across_ranks(ranks):
         np.testing.assert_array_equal(res["embedding"], every[0]["embedding"])
         _close(res["evals"], ev_ref, 1e-5, scale=1.0)
         _columns_close(res["embedding"], emb_ref.numpy(), 1e-4)
-    for r in range(WORLD):  # a DBCSR matrix split across ranks is item 15's
-        err = ranks[r]["est_embedding_split"]["error"]
-        assert err[0] == "NotImplementedError" and "item 15" in err[1]
+    ev_split, emb_split = jht.graph.spectral_embedding(jht.array(worker.graph_adjacency(), split=0, comm=jcomm),
+                                                       worker.EMBED_K)
+    for res in _result(ranks, "est_embedding_split"):  # the split operand's slab on each rank
+        assert res["split"] == emb_split.split == 0
+        _close(res["evals"], ev_split, 1e-5, scale=1.0)
+        _columns_close(res["embedding"], emb_split.numpy(), 1e-4)
 
 
 # --------------------------------------------------------------------- #

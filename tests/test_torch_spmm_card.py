@@ -1,6 +1,8 @@
 """K8's kernels on a card: the Hopper kernel (``csrc/sddmm_sm90.cu``, 3xTF32
 ``wgmma``, TMA-fed) and ``csrc/spmm.cu``'s FP32 kernel, each against the
-plain version and against each other on the same inputs.
+plain version and against each other on the same inputs; and K7 on each
+rank's slab of a multi-rank layout, writing the rank's rows at their
+offset.
 
 This module imports neither JAX nor heat_tpu, so that it runs where only
 PyTorch and a card are (the repo's ``conftest.py`` imports JAX, so there it
@@ -117,3 +119,49 @@ def test_operands_off_16_bytes_take_spmm_cu(which):
     ops[which] = moved
     slab[0] = ops["sdata"]
     _check(tuple(slab), ops["u"], ops["v"], hopper=False)
+
+
+def _rank_slab(bdata, bcol, brow, m, p, r):
+    """Rank r's slab of a p-rank layout of the bricks (ascending brow):
+    the bricks of the brick rows meeting its rows [r*c, (r+1)*c), c =
+    ceil(m/p), masked to those rows; returns (slab, rowptr, g0, r0, r1)."""
+    c = -(-m // p)
+    r0, r1 = min(r * c, m), min((r + 1) * c, m)
+    g0, g1 = r0 // 8, -(-r1 // 8)
+    keep = (brow >= g0) & (brow < g1)
+    sd, sc, sr = bdata[keep], bcol[keep], brow[keep]
+    rows = sr.long()[:, None] * 8 + torch.arange(8, device=sd.device)
+    mask = (rows >= r0) & (rows < r1)
+    rowptr = torch.searchsorted(sr.contiguous(), torch.arange(g0, g1 + 1, dtype=torch.int32, device=sd.device),
+                                out_int32=True)
+    return (sd, sc, sr, mask), rowptr, g0, r0, r1
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 7])
+@pytest.mark.parametrize("k", [1, 4, 64])
+def test_spmm_kernel_writes_a_ranks_rows_at_their_offset(p, k):
+    """K7 on each rank's slab of a p-rank layout (blocks of ceil(m/p) rows,
+    so most start inside a brick row) against the plain version on the
+    slab and against the rows of the whole product, within the limit;
+    a rerun repeats the bits."""
+    dev = _card()
+    m, n = 1003, 777
+    sdata, brow, bcol, _, _, _ = _slab(m, n, 300, seed=20 + k)
+    x = torch.randn(n, k, device=dev, generator=torch.Generator(device=dev).manual_seed(k))
+    whole = ks.brick_spmm_plain(sdata.double(), bcol, brow, torch.ones(300, 8, dtype=torch.bool, device=dev),
+                                x.double(), m)
+    scale = ks.brick_spmm_plain(sdata.double().abs(), bcol, brow, torch.ones(300, 8, dtype=torch.bool, device=dev),
+                                x.double().abs(), m)
+    for r in range(p):
+        (sd, sc, sr, mask), rowptr, g0, r0, r1 = _rank_slab(sdata, bcol, brow, m, p, r)
+        if r1 == r0:
+            continue
+        launches = ks.SPMM_LAUNCHES
+        y = ks.brick_spmm(sd.contiguous(), sc.contiguous(), sr.contiguous(), mask.contiguous(), rowptr, x,
+                          r1 - r0, g0=g0, r0=r0)
+        assert ks.SPMM_LAUNCHES == launches + 1 and y.shape == (r1 - r0, k)
+        plain = ks.brick_spmm_plain(sd.double(), sc, sr, mask, x.double(), r1 - r0, r0)
+        assert bool(((y.double() - plain).abs() <= TOL * scale[r0:r1]).all())
+        assert bool(((y.double() - whole[r0:r1]).abs() <= TOL * scale[r0:r1]).all())
+        assert torch.equal(y, ks.brick_spmm(sd.contiguous(), sc.contiguous(), sr.contiguous(), mask.contiguous(),
+                                            rowptr, x, r1 - r0, g0=g0, r0=r0))

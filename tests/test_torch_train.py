@@ -358,8 +358,7 @@ def test_every_heat_tpu_name_resolves_to_a_port_object():
             obj = getattr(tmod, name)
             assert obj is not getattr(fallback, name, None), name
             assert getattr(obj, "__module__", getattr(obj, "__name__", "")).startswith("heat_tpu_torch"), name
-    later = {"PartialH5Dataset", "partial_dataset"}  # ROADMAP.md Queue 1, item 10
-    for name in sorted(n for n in vars(jdata) if not n.startswith("_") and n not in later):
+    for name in sorted(n for n in vars(jdata) if not n.startswith("_")):
         obj = getattr(ht.utils.data, name)
         assert getattr(obj, "__module__", getattr(obj, "__name__", "")).startswith("heat_tpu_torch"), name
     assert ht.optim.RMSprop is torch.optim.RMSprop

@@ -16,6 +16,8 @@ import traceback
 
 import numpy as np
 
+_OUT = {}  # "dir": the world's shared directory, where the I/O cases write their files
+
 
 # linear algebra and the distributed hSVD (tests/test_torch_hsvd_dist.py)
 MATMUL_SHAPES = {"ragged": ((13, 7), (7, 5)), "even": ((16, 12), (12, 8)), "wide": ((6, 40), (40, 3)),
@@ -248,16 +250,20 @@ def _cases(ht):
         return ht.array(_array(shape, "float32", 8), split=split)
 
     entry = {
-        "sparse_csr_split": lambda: ht.sparse.sparse_csr_matrix(np.eye(8, dtype=np.float32), split=0),
-        "sparse_dbcsr_split": lambda: ht.sparse.sparse_dbcsr_matrix(np.eye(8, dtype=np.float32), split=0),
+        "sparse_csr_split": lambda: ht.sparse.sparse_csr_matrix(np.eye(8, dtype=np.float32), split=0).todense(),
+        "sparse_dbcsr_split": lambda: ht.sparse.sparse_dbcsr_matrix(np.eye(8, dtype=np.float32), split=0).todense(),
         "sparse_matmul_split_x": lambda: ht.sparse.matmul(
             ht.sparse.sparse_csr_matrix(np.eye(40, dtype=np.float32)), split_x()),
         "sddmm_split_u": lambda: ht.sparse.sddmm(
-            ht.sparse.sparse_dbcsr_matrix(np.eye(40, 6, dtype=np.float32)), split_x((40, 4)), split_x((6, 4), None)),
-        "pagerank": lambda: ht.graph.pagerank(np.ones((8, 8), dtype=np.float32)),
+            ht.sparse.sparse_dbcsr_matrix(np.eye(40, 6, dtype=np.float32)), split_x((40, 4)),
+            split_x((6, 4), None)).todense(),
+        "pagerank": lambda: ht.graph.pagerank(np.ones((8, 8), dtype=np.float32)).ranks,
     }
     for name, call in entry.items():
-        cases[f"entry_{name}"] = lambda call=call: {"value": call()}
+        def entry_case(call=call):
+            out = call()
+            return {"local": _np(out.larray), "global": out.numpy(), "split": out.split, "gshape": out.gshape}
+        cases[f"entry_{name}"] = entry_case
 
     # ring_attention with a whole q and a split k/v: heat_tpu's single-device
     # route at any world size (its nn/attention.py:817)
@@ -291,6 +297,8 @@ def _cases(ht):
     cases.update(_halo_cases(ht))
     cases.update(_fact_cases(ht))
     cases.update(_estimator_cases(ht))
+    cases.update(_sparse_cases(ht))
+    cases.update(_io_cases(ht))
     return cases
 
 
@@ -1950,7 +1958,338 @@ def _estimator_cases(ht):
         evals, emb = ht.graph.spectral_embedding(graph_adjacency(), EMBED_K, m=EMBED_M)
         return {"evals": evals, "embedding": emb.numpy(), "split": emb.split}
     cases["est_embedding_replicated"] = embedding
-    cases["est_embedding_split"] = lambda: ht.graph.spectral_embedding(ht.array(graph_adjacency(), split=0), EMBED_K)
+    def embedding_split():
+        evals, emb = ht.graph.spectral_embedding(ht.array(graph_adjacency(), split=0), EMBED_K)
+        return {"evals": evals, "embedding": emb.numpy(), "split": emb.split}
+    cases["est_embedding_split"] = embedding_split
+    return cases
+
+
+# the sparse engine across ranks (tests/test_torch_sparse_dist.py): the
+# same operands for both packages
+SPARSE_ROWS = {"ragged": 37, "last_empty": 9, "straddle": 45}  # 10,10,10,7; 3,3,3,0; 12,12,12,9 rows a rank
+SPARSE_COLS = 300
+SPARSE_IS_SPLIT_ROWS = (2, 5, 0, 30)  # the blocks of is_split=0: another row map than the chunks'
+SPARSE_K = 3
+SPARSE_D = 5
+
+
+def sparse_operand(m, n=SPARSE_COLS, density=0.05, seed=0):
+    """A float32 scipy CSR (m, n), ``density`` dense, from ``seed``; every
+    row of the last brick row but one is empty past ``m``."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    return sp.random(m, n, density=density, format="csr", dtype=np.float32, random_state=rng)
+
+
+def sparse_dense_x(n, k, seed):
+    return np.random.default_rng(seed).standard_normal((n, k) if k else (n,)).astype(np.float32)
+
+
+def pagerank_graph(n=60, seed=5):
+    """A random directed 0/1 adjacency of n nodes with dangling nodes."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < 0.08).astype(np.float32)
+    np.fill_diagonal(a, 0.0)
+    a[rng.choice(n, 5, replace=False)] = 0.0  # dangling: no out-edges
+    return a
+
+
+def _dcsr_state(D):
+    """A DCSR matrix's local and global components and dense form."""
+    dense = D.todense()
+    indptr, indices, data = D.global_components()
+    return {"lindptr": _np(D.lindptr), "lindices": _np(D.lindices), "ldata": _np(D.ldata), "lnnz": D.lnnz,
+            "gnnz": D.gnnz, "shape": D.shape, "split": D.split, "balanced": D.balanced,
+            "row_counts": tuple(D.row_counts), "indptr": _np(indptr), "indices": _np(indices),
+            "data": _np(data), "dense": dense.numpy(), "dense_local": _np(dense.larray),
+            "dense_split": dense.split}
+
+
+def _dbcsr_state(B):
+    bdata, bcol, brow, bmask = B._phys_components
+    return {"bdata": _np(bdata), "bcol": _np(bcol), "brow": _np(brow), "bmask": _np(bmask),
+            "slab_meta": B._slab_meta, "gnnz": B.gnnz, "nbricks": B.nbricks, "occupancy": B.occupancy,
+            "dense": B.todense().numpy(), "dense_local": _np(B.todense().larray), "dcsr": _dcsr_state(B.to_dcsr())}
+
+
+def _sparse_cases(ht):
+    comm = ht.get_comm()
+    cases = {}
+
+    def counted(call):
+        comm.counts.clear()
+        out = call()
+        return out, dict(comm.counts)
+
+    def product(out, counts):
+        return {"local": _np(out.larray), "global": out.numpy(), "split": out.split, "gshape": out.gshape,
+                "lshape": out.lshape, "counts": counts}
+
+    for label, m in SPARSE_ROWS.items():
+        csr = sparse_operand(m, seed=m)
+        cases[f"sp_csr_{label}"] = lambda csr=csr: _dcsr_state(ht.sparse.sparse_csr_matrix(csr, split=0))
+        cases[f"sp_dbcsr_{label}"] = lambda csr=csr: _dbcsr_state(ht.sparse.sparse_dbcsr_matrix(csr, split=0))
+        for fmt in ("dcsr", "dbcsr"):
+            for x_kind in ("whole", "split0", "split1", "vector"):
+                def matmul(csr=csr, fmt=fmt, x_kind=x_kind, m=m):
+                    make = ht.sparse.sparse_csr_matrix if fmt == "dcsr" else ht.sparse.sparse_dbcsr_matrix
+                    A = make(csr, split=0)
+                    x = sparse_dense_x(SPARSE_COLS, 0 if x_kind == "vector" else SPARSE_K, seed=m + 1)
+                    if x_kind in ("split0", "split1"):
+                        x = ht.array(x, split=int(x_kind[-1]))
+                    return product(*counted(lambda: A @ x))
+                cases[f"sp_matmul_{fmt}_{x_kind}_{label}"] = matmul
+        for u_split, v_split in ((None, None), (0, None), (0, 0), (1, 1)):
+            def sddmm(csr=csr, u_split=u_split, v_split=v_split, m=m):
+                S = ht.sparse.sparse_dbcsr_matrix(csr, split=0)
+                u = ht.array(sparse_dense_x(m, SPARSE_D, seed=m + 2), split=u_split)
+                v = ht.array(sparse_dense_x(SPARSE_COLS, SPARSE_D, seed=m + 3), split=v_split)
+                C, counts = counted(lambda: ht.sparse.sddmm(S, u, v))
+                return {**_dbcsr_state(C), "counts": counts}
+            cases[f"sp_sddmm_{u_split}_{v_split}_{label}"] = sddmm
+        whole = ht.sparse.sparse_dbcsr_matrix(csr)
+        cases[f"sp_matmul_dbcsr_replicated_{label}"] = lambda whole=whole, m=m: product(
+            *counted(lambda: whole @ sparse_dense_x(SPARSE_COLS, SPARSE_K, seed=m + 1)))
+
+    big = sparse_operand(sum(SPARSE_IS_SPLIT_ROWS), seed=40)
+    starts = np.cumsum((0,) + SPARSE_IS_SPLIT_ROWS)
+    mine = big[starts[comm.rank] : starts[comm.rank + 1]]
+
+    def is_split():
+        blocks = [mine[:1], mine[1:]] if mine.shape[0] > 1 else mine  # rank 1 stitches two blocks
+        D, counts = counted(lambda: ht.sparse.sparse_csr_matrix(blocks, is_split=0))
+        return {**_dcsr_state(D), "counts": counts}
+    cases["sp_csr_is_split"] = is_split
+
+    def arithmetic(op, kind):
+        a = sparse_operand(37, seed=50)
+        b = sparse_operand(37, seed=51)
+        A = ht.sparse.sparse_csr_matrix(a, split=0)
+        if kind == "same_map":
+            B = ht.sparse.sparse_csr_matrix(b, split=0)
+        elif kind == "whole":
+            B = ht.sparse.sparse_csr_matrix(b)
+        else:  # another row map: moved to A's
+            starts = np.cumsum((0, 20, 0, 10, 7))
+            B = ht.sparse.sparse_csr_matrix(b[starts[comm.rank] : starts[comm.rank + 1]], is_split=0)
+        f = ht.sparse.sparse_add if op == "add" else ht.sparse.sparse_mul
+        C, counts = counted(lambda: f(A, B))
+        return {**_dcsr_state(C), "counts": counts}
+    for op in ("add", "mul"):
+        for kind in ("same_map", "whole", "other_map"):
+            cases[f"sp_{op}_{kind}"] = lambda op=op, kind=kind: arithmetic(op, kind)
+
+    def property_reads():
+        D = ht.sparse.sparse_csr_matrix(sparse_operand(37, seed=50), split=0)
+        sizes, size_counts = counted(lambda: (D.gnnz, D.nnz, D.lnnz, D.shape, D.lshape))
+        try:
+            D.indptr
+            early = None
+        except RuntimeError as e:
+            early = str(e)
+        gathered, gather_counts = counted(D.global_components)
+        after, after_counts = counted(lambda: (D.indptr, D.indices, D.data, D.global_components()))
+        return {"sizes": sizes, "size_counts": size_counts, "early": early, "gather_counts": gather_counts,
+                "after_counts": after_counts, "same": all(a is b for a, b in zip(after[:3], gathered)),
+                "indptr": _np(gathered[0]), "indices": _np(gathered[1]), "data": _np(gathered[2])}
+    cases["sp_csr_property_reads"] = property_reads
+
+    def scalar_mul():
+        A = ht.sparse.sparse_csr_matrix(sparse_operand(37, seed=50), split=0)
+        C, counts = counted(lambda: A * 2.5)
+        return {**_dcsr_state(C), "counts": counts}
+    cases["sp_mul_scalar"] = scalar_mul
+
+    def to_dense_unbalanced():
+        D = ht.sparse.sparse_csr_matrix(mine, is_split=0)
+        dense, counts = counted(lambda: ht.sparse.to_dense(D))
+        return {"local": _np(dense.larray), "global": dense.numpy(), "split": dense.split, "counts": counts,
+                "lshape": dense.lshape}
+    cases["sp_to_dense_is_split"] = to_dense_unbalanced
+
+    for split in (0, 1):
+        def to_sparse(split=split):
+            x = ht.array(sparse_operand(37, seed=52).toarray(), split=split)
+            D, counts = counted(lambda: ht.sparse.to_sparse(x))
+            return {**_dcsr_state(D), "counts": counts}
+        cases[f"sp_to_sparse_{split}"] = to_sparse
+
+    for split in (0, None):
+        def pagerank(split=split):
+            res, counts = counted(lambda: ht.graph.pagerank(pagerank_graph(), split=split))
+            return {"local": _np(res.ranks.larray), "global": res.ranks.numpy(), "split": res.ranks.split,
+                    "iterations": res.iterations, "converged": res.converged, "delta": res.delta, "counts": counts}
+        cases[f"sp_pagerank_{split}"] = pagerank
+
+    def embedding(form):
+        a = graph_adjacency()
+        A = ht.sparse.sparse_dbcsr_matrix(a, split=0) if form == "dbcsr" else ht.array(a, split=0)
+        (evals, emb), counts = counted(lambda: ht.graph.spectral_embedding(A, EMBED_K, m=EMBED_M))
+        return {"evals": evals, "embedding": emb.numpy(), "local": _np(emb.larray), "split": emb.split,
+                "counts": counts}
+    cases["sp_embedding_dbcsr"] = lambda: embedding("dbcsr")
+    return cases
+
+
+# I/O, checkpoints and the sparse encoders across ranks
+# (tests/test_torch_io.py): every file lives in the world's directory
+IO_SHAPE = (37, 5)  # 10, 10, 10, 7 rows; 2, 2, 1, 0 columns over 4 ranks
+IO_CODES = (37, 3)  # integer codes, a few categories each
+IO_CHECKPOINT_TREE = ("x0", "x1", "xn", "bf16", "counts", "t", "np", "meta")
+
+
+def io_array(shape=IO_SHAPE, seed=60):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def io_codes(shape=IO_CODES, seed=61):
+    return np.random.default_rng(seed).integers(0, 6, shape).astype(np.int64) * 3 - 4
+
+
+def io_counts(shape=(37, 12), seed=62):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 4, shape) * (rng.random(shape) < 0.3)).astype(np.float32)
+
+
+def checkpoint_tree(ht, comm=None):
+    """The tree of the checkpoint cases: DNDarrays split 0, 1 and None, a
+    bfloat16 one, an int64 one, a tensor, a numpy array and scalars."""
+    import torch
+
+    a = io_array()
+    kw = {} if comm is None else {"comm": comm}
+    return {"x0": ht.array(a, split=0, **kw), "x1": ht.array(a, split=1, **kw), "xn": ht.array(a, **kw),
+            "bf16": ht.array(a, split=0, dtype=ht.bfloat16, **kw),
+            "counts": ht.array(io_codes(), split=0, **kw), "t": torch.arange(6, dtype=torch.float64) / 7,
+            "np": np.arange(5, dtype=np.int16), "meta": {"step": 3, 7: (1.5, "adam", None)}}
+
+
+def _leaves(tree):
+    """The checkpoint tree's leaves as plain values: a DNDarray as (local,
+    global, split), bfloat16 as its int16 words."""
+    import torch
+
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "larray"):
+            words = (lambda t: t.view(torch.int16).numpy()) if v.dtype.__name__ == "bfloat16" else _np
+            full = v.larray if not v.is_distributed() else v.comm.allgather(v.larray.contiguous(), v.split,
+                                                                            v.lshape_map[:, v.split])
+            out[k] = {"local": words(v.larray.cpu()), "global": words(full.cpu()), "split": v.split,
+                      "dtype": v.dtype.__name__}
+        elif hasattr(v, "detach"):
+            out[k] = {"tensor": _np(v), "dtype": str(v.dtype)}
+        else:
+            out[k] = v
+    return out
+
+
+def _io_cases(ht):
+    comm = ht.get_comm()
+    cases = {}
+
+    def path(name):
+        return os.path.join(_OUT["dir"], name)
+
+    cases["io_dir"] = lambda: {"dir": _OUT["dir"]}
+
+    def counted(call):
+        comm.counts.clear()
+        out = call()
+        return out, dict(comm.counts)
+
+    def loaded(x, counts):
+        return {"local": _np(x.larray), "global": x.numpy(), "split": x.split, "gshape": x.gshape,
+                "counts": counts, "dtype": x.dtype.__name__}
+
+    def csv_load(split, header):
+        name = f"io_in_{header}.csv"
+        if comm.rank == 0:
+            with open(path(name), "w") as fh:
+                fh.write("".join(f"# header {i}\n" for i in range(header)))
+                np.savetxt(fh, io_array(), delimiter=",", fmt="%s")
+        comm.barrier()
+        return loaded(*counted(lambda: ht.load_csv(path(name), header_lines=header, split=split)))
+    for split in (None, 0, 1):
+        for header in (0, 2):
+            cases[f"io_csv_load_{split}_{header}"] = lambda split=split, header=header: csv_load(split, header)
+
+    def csv_save(split, kind):
+        a = io_array() if kind != "int" else io_codes()
+        kw = {"header_lines": ["a", "b"]} if kind == "header" else {"decimals": 3} if kind == "decimals" else {}
+        x = ht.array(a if kind != "vector" else a[:, 0], split=split if kind != "vector" or split != 1 else 0)
+        _, counts = counted(lambda: ht.save_csv(x, path(f"io_out_{split}_{kind}.csv"), **kw))
+        return {"counts": counts}
+    for split in (None, 0, 1):
+        for kind in ("float", "int", "header", "decimals", "vector"):
+            cases[f"io_csv_save_{split}_{kind}"] = lambda split=split, kind=kind: csv_save(split, kind)
+
+    def hdf5(split):
+        if not ht.supports_hdf5():
+            return {"skipped": "no h5py"}
+        x = ht.array(io_array(), split=split)
+        ht.save(x, path(f"io_{split}.h5"), "data")
+        back, counts = counted(lambda: ht.load(path(f"io_{split}.h5"), "data", split=split))
+        half = ht.load_hdf5(path(f"io_{split}.h5"), "data", split=0, load_fraction=0.5)
+        return {**loaded(back, counts), "half": half.numpy(), "half_local": _np(half.larray)}
+    for split in (None, 0, 1):
+        cases[f"io_hdf5_{split}"] = lambda split=split: hdf5(split)
+
+    def checkpoint_4():
+        tree = checkpoint_tree(ht)
+        ht.utils.save_checkpoint(path("ckpt4"), tree)
+        back, counts = counted(lambda: ht.utils.load_checkpoint(path("ckpt4")))
+        return {"saved": _leaves(tree), "loaded": _leaves(back), "counts": counts}
+    cases["io_checkpoint_4_to_4"] = checkpoint_4
+
+    def checkpoint_1():  # written as a world of one rank writes it: arrays whole, on rank 0
+        tree = checkpoint_tree(ht, comm=ht.MPI_SELF)
+        ht.utils.save_checkpoint(path("ckpt1"), tree)
+        return {"loaded": _leaves(ht.utils.load_checkpoint(path("ckpt1")))}
+    cases["io_checkpoint_1_to_4"] = checkpoint_1
+
+    def onehot(split, sparse_output):
+        x = ht.array(io_codes(), split=split)
+        enc = ht.preprocessing.OneHotEncoder(sparse_output=sparse_output)
+        (enc, fit_counts) = counted(lambda: enc.fit(x))
+        out, counts = counted(lambda: enc.transform(x))
+        res = {"categories": enc.categories_, "fit_counts": fit_counts, "counts": counts}
+        if sparse_output:
+            return {**res, **_dcsr_state(out)}
+        return {**res, "global": out.numpy(), "local": _np(out.larray), "split": out.split}
+    for split in (0, 1):
+        for sparse_output in (True, False):
+            cases[f"io_onehot_{split}_{sparse_output}"] = lambda split=split, s=sparse_output: onehot(split, s)
+
+    def tfidf(form):
+        c = io_counts()
+        x = ht.array(c, split=0) if form == "dense" else ht.sparse.sparse_csr_matrix(c, split=0)
+        t = ht.preprocessing.TfidfTransformer()
+        (t, fit_counts) = counted(lambda: t.fit(x))
+        out, counts = counted(lambda: t.transform(x))
+        return {"idf": t.idf_, "fit_counts": fit_counts, "counts": counts, **_dcsr_state(out)}
+    for form in ("dense", "dcsr"):
+        cases[f"io_tfidf_{form}"] = lambda form=form: tfidf(form)
+
+    def partial():
+        if not ht.supports_hdf5():
+            return {"skipped": "no h5py"}
+        import h5py
+
+        if comm.rank == 0:
+            with h5py.File(path("io_partial.h5"), "w") as f:
+                f["data"] = io_array((50, 4), seed=63)
+                f["labels"] = np.arange(50, dtype=np.int64)
+        comm.barrier()
+        ds = ht.utils.data.PartialH5Dataset(path("io_partial.h5"), ["data", "labels"], batch_size=8,
+                                            initial_load=20)
+        batches = [(_np(d.larray), d.numpy(), _np(l.larray), l.split) for d, l in ds]
+        ds.Shuffle()
+        shuffled = [(d.numpy(), l.numpy(), _np(d.larray)) for d, l in ds]
+        return {"batches": batches, "shuffled": shuffled, "len": len(ds)}
+    cases["io_partial_h5"] = partial
     return cases
 
 
@@ -1974,6 +2313,7 @@ def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
 
     ht.use_device("cpu")
     ht.init_distributed(backend="gloo", init_method=f"file://{init_file}", world_size=world, rank=rank)
+    _OUT["dir"] = out_dir
     results = {}
     try:
         for name, case in _cases(ht).items():
