@@ -196,7 +196,11 @@ Phases, each of which fails the run by raising:
      a ragged 4097-token RA (float32 causal), where rank r must launch K9
      r + 1 times causal and 4 times not, all on the Hopper path, and the
      gathered output must agree with the plain version on the whole q, k
-     and v; then ``cdist(X, ring=True)`` (the half ring),
+     and v; at RA float32 and bf16 causal and the ragged 4097 the ring's
+     backward too (``_world_attention_backward``: dQ, dK and dV for a seeded
+     output gradient, 4 collective-permutes a rank, the gathered gradients
+     within ``TOL_RING_GRAD`` of the plain version's autograd on the whole
+     q, k and v, timed beside the forward); then ``cdist(X, ring=True)`` (the half ring),
      ``cdist(X, Y, quadratic_expansion=True, ring=True)`` and ``rbf(X,
      ring=False)`` on 65536 x 64 float32 split 0, each rank's rows within
      1e-5 of the scale of a float64 result on sampled rows and of the
@@ -274,6 +278,19 @@ Phases, each of which fails the run by raising:
      bit), and ``OneHotEncoder`` on 2^20 x 8 codes, each timed on the host
      clock beside the card's name and power limit; ``supports_hdf5()``
      is printed on a line of its own (the card's machine has no h5py);
+   - out of core (``ooc_path``): the north star's 65536 x 8192 float32 as a
+     ``HostArray`` in host memory, ``hsvd_rank(A, 10, compute_sv=True)`` in
+     both forms through the 256 MiB slab, K1 (2-pass) or K2 (one-view) once
+     a column window on its Hopper kernel, held against the in-memory route
+     on the same operand (``TOL_OOC``), timed on the host clock with its
+     host-to-card rate beside the plain pinned copy rate of the run (its
+     bound); with ``HEAT_TPU_HBM_BYTES`` below the operand ``materialize``
+     must refuse and the staged route run; ``KMeans.partial_fit`` on a
+     ``HostArray`` of a quarter of KMeans' shard (K3 once a window, bit for
+     bit the same windows fed from the card), ``pagerank_stream`` on
+     pagerank_2m's edges (ranks within ``TOL_RANKS`` of ``pagerank``) and
+     ``OneHotEncoder.stream_transform`` of io_path's codes (its ones where
+     ``transform`` puts them); an ``{"ooc": ...}`` line;
 5. times as medians of CUDA-event readings, each beside its bound: the
    larger of the bytes that must move over 3.35 TB/s and the operations
    over 67 TFLOP/s (FP32 outside the tensor cores), the H100 SXM data-sheet
@@ -2071,9 +2088,66 @@ def _world_attention(ht, comm, moved: dict, rank: int, dev) -> dict:
         ms = _world_ms(lambda: ht.nn.ring_attention(q, k, v, causal=causal), 3)
         out[name] = {"launches": launches, "sm90": sm90, "err": float(err[0]), "abs_err": float(err[1]),
                      "counts": counts, "bytes": nbytes, "staged": staged, "ms": ms}
+        if name in WORLD_BACKWARD:
+            out[name]["backward"] = _world_attention_backward(ht, comm, q, k, v, name, shape, causal, rank, dev)
+            print(f"world ring_attention {name} backward on rank {rank}: {out[name]['backward']}, forward "
+                  f"{ms:.4f} ms; {CARD_LINE.get('card', '')}", flush=True)
         del q, k, v, o
         torch.cuda.empty_cache()
     return out
+
+
+WORLD_BACKWARD = ("ra_f32_causal", "ra_bf16_causal", "ra_f32_causal_4097")
+# the ring's gradients against the plain version's autograd on the whole q, k
+# and v, max |Δ| over the largest |gradient|: float32 is both sides' float32
+# rounding; bfloat16 also rounds o (which D = rowsum(dO ⊙ O) reads) and the
+# gradients themselves to bfloat16 (2^-8 relative)
+TOL_RING_GRAD = {"float32": 1e-4, "bfloat16": 2.0**-5}
+
+
+def _world_attention_backward(ht, comm, q, k, v, name: str, shape, causal: bool, rank: int, dev) -> dict:
+    """The backward of ``ring_attention`` with q, k and v split: dQ, dK and
+    dV for a seeded output gradient, p collective-permutes a rank, K9 r + 1
+    times (causal) in its forward; the gathered gradients held on rank 0
+    against the plain version's autograd on the whole q, k and v; the
+    backward's time (CUDA events, the graph kept across the repeats)."""
+    import torch
+
+    from heat_tpu_torch.kernels import attention as ka
+
+    leaves = [t.larray.requires_grad_() for t in (q, k, v)]
+    ka.ATTENTION_LAUNCHES = 0
+    o = ht.nn.ring_attention(q, k, v, causal=causal)
+    fwd_launches = ka.ATTENTION_LAUNCHES
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6000 + rank)
+    do = torch.randn(o.larray.shape, device=dev, generator=gen).to(o.larray.dtype)
+    comm.counts.clear()
+    grads = torch.autograd.grad(o.larray, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    counts = dict(comm.counts)
+    _every_rank_ok(comm, counts == {"collective-permute": WORLD} and fwd_launches == (rank + 1 if causal else WORLD)
+                   and all(g.dtype == t.dtype and g.shape == t.shape and bool(torch.isfinite(g).all())
+                           for g, t in zip(grads, leaves)),
+                   f"ring_attention {name} backward: collectives, K9 launches, dtypes or values")
+    sizes = comm.lshape_map(shape, 2)[:, 2]
+    whole = [comm.allgather(t.detach(), 2, sizes) for t in leaves + [do]]
+    gw = [comm.allgather(g, 2, sizes) for g in grads]
+    err = torch.zeros(1, device=dev, dtype=torch.float64)
+    if rank == 0:
+        qw, kw, vw = (t.clone().requires_grad_() for t in whole[:3])
+        ref = torch.autograd.grad(ka.flash_attention_plain(qw, kw, vw, causal)[0], (qw, kw, vw), whole[3])
+        err[0] = max(float((g.double() - r.double()).abs().max() / r.double().abs().max()) for g, r in zip(gw, ref))
+        del qw, kw, vw, ref
+    err = comm.bcast(err, root=0)
+    del whole, gw
+    dt = str(q.larray.dtype).removeprefix("torch.")
+    _require(float(err[0]) <= TOL_RING_GRAD[dt],
+             f"ring_attention {name} backward disagrees with the plain version's autograd ({float(err[0]):.3e})")
+    ms = _world_ms(lambda: torch.autograd.grad(o.larray, leaves, do, retain_graph=True), 3)
+    for t in leaves:
+        t.requires_grad_(False)
+    return {"ms": ms, "err": float(err[0]), "tol": TOL_RING_GRAD[dt], "counts": counts, "forward_launches": fwd_launches}
 
 
 DIST_N, DIST_D = 65536, 64  # X (and Y): 16384 rows a rank
@@ -2697,6 +2771,19 @@ def world_path(dev) -> dict:
             f"in {per[0]['bytes']}, staged through the host {[p['staged'] for p in per]} B a rank; {shared}",
             flush=True,
         )
+        if "backward" in per[0]:
+            bwd = [p["backward"] for p in per]
+            world.setdefault("attention_backward", {})[name] = {
+                "ms": [b["ms"] for b in bwd], "forward_ms": [p["ms"] for p in per], "err": bwd[0]["err"],
+                "forward_launches": [b["forward_launches"] for b in bwd]}
+            print(
+                f"world ring_attention {name} backward (flash_attention_backward a _decompose call, plain torch; "
+                f"the ring transposed): {bwd[0]['ms']:.4f} ms (rank 0, median of 3; ranks "
+                f"{[round(b['ms'], 4) for b in bwd]}) beside the forward's {per[0]['ms']:.4f} ms; dQ, dK, dV against "
+                f"the plain version's autograd on the whole q, k, v: max |Δ| / max |g| {bwd[0]['err']:.3e} (tol "
+                f"{bwd[0]['tol']}); collectives a rank {bwd[0]['counts']}; K9 in its forward a rank "
+                f"{[b['forward_launches'] for b in bwd]}; {shared}", flush=True,
+            )
     for name, _, ring, kind in WORLD_DISTANCE:
         per = [res["distance"][name] for res in results]
         share = (WORLD // 2 + 1) / WORLD if name == "cdist_half_ring" else 1.0
@@ -6776,6 +6863,191 @@ def io_path(dev) -> dict:
     return out
 
 
+OOC_HBM_BYTES = 1 << 30  # HEAT_TPU_HBM_BYTES of the run that shows staging on a card smaller than A
+TOL_OOC = {"sigma": 1e-4, "factors": 1e-3, "err": 1e-4}  # staged against in-memory, test_torch_hsvd.py's limits
+
+
+def _pinned_rate(dev, nbytes: int, reps: int = 10) -> float:
+    """The plain host-to-card copy rate in bytes/s: one pinned buffer of
+    ``nbytes`` copied to the card with ``non_blocking=True``, median of
+    ``reps`` under CUDA events."""
+    import torch
+
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ms = _median_ms(lambda: dst.copy_(src, non_blocking=True), reps)
+    return nbytes / (ms * 1e-3)
+
+
+def _up_to_sign(x, ref) -> float:
+    """max |x − ref| with each column of x signed to agree with ref's."""
+    s = (x * ref).sum(0).sign()
+    s[s == 0] = 1
+    return float((x * s - ref).abs().max())
+
+
+def ooc_path(dev, inputs: dict) -> dict:
+    """Out-of-core staging on the card (``redistribution.staging``): the
+    north-star operand as a ``HostArray`` in host memory, ``hsvd_rank`` both
+    forms, K1 (2-pass) or K2 (one-view) once a column window, held against
+    the in-memory route on the same operand on the card; its time and
+    host-to-card rate beside the plain pinned copy rate of this run, its
+    bound. Then ``HEAT_TPU_HBM_BYTES`` below the operand: ``materialize``
+    (``HEAT_TPU_OOC=0``) refuses it and the staged route runs.
+    ``KMeans.partial_fit`` on a ``HostArray`` of a quarter of KMeans' shard
+    (K3 once a window, equal to the same windows fed from the card);
+    ``pagerank_stream`` on pagerank_2m's edges against ``ht.graph.pagerank``;
+    ``OneHotEncoder.stream_transform`` of io_path's codes against its
+    ``transform``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.cluster import _cuda_assign as ca
+    from heat_tpu_torch.core.linalg import _cuda_sketch as cs
+    from heat_tpu_torch.redistribution import staging
+
+    card = CARD_LINE["card"]
+    out = {"card": card}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    a = torch.randn(M, N, device=dev, generator=gen)
+    host = staging.HostArray(a.cpu().numpy())
+    slab = staging.slab_bytes()
+    win_bytes = slab // 2
+    copy_rate = _pinned_rate(dev, win_bytes)
+    out["pinned_copy_gbps"] = copy_rate / 1e9
+    wins = {axis: len(staging.window_extents((M, N), 4, axis, slab)) for axis in (0, 1)}
+    A = ht.array(a, split=0)
+    for single_pass, kernel in ((False, "sketch_with_norm"), (True, "dual_sketch_with_norm")):
+        name = "one_view" if single_pass else "2pass"
+        want = ht.linalg.hsvd_rank(A, MAXRANK, compute_sv=True, single_pass=single_pass)
+        cs.SKETCH_LAUNCHES = cs.DUAL_LAUNCHES = cs.SKETCH_SM90_LAUNCHES = cs.DUAL_SM90_LAUNCHES = 0
+        got = ht.linalg.hsvd_rank(host, MAXRANK, compute_sv=True, single_pass=single_pass)
+        torch.cuda.synchronize()
+        counts = {"sketch_with_norm": cs.SKETCH_LAUNCHES, "dual_sketch_with_norm": cs.DUAL_LAUNCHES,
+                  "sketch_sm90": cs.SKETCH_SM90_LAUNCHES, "dual_sketch_sm90": cs.DUAL_SM90_LAUNCHES}
+        U, sigma, V, err = got
+        sig_err = float(((sigma.larray - want[1].larray).abs() / want[1].larray).max())
+        fac_err = max(_up_to_sign(U.larray, want[0].larray), _up_to_sign(V.larray, want[2].larray))
+        err_diff = abs(float(err.larray) - float(want[3].larray))
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ht.linalg.hsvd_rank(host, MAXRANK, compute_sv=True, single_pass=single_pass)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        streamed = (1 if single_pass else 2) * host.nbytes
+        bound_ms = streamed / copy_rate * 1e3
+        n_win = wins[1]
+        print(f"ooc hsvd_rank(HostArray {M}x{N} float32, {MAXRANK}, single_pass={single_pass}): launches {counts} "
+              f"against {n_win} column windows ({wins[0]} row windows, slab {slab} B); against the in-memory route on "
+              f"the card: sigma rel {sig_err:.3e} (tol {TOL_OOC['sigma']}), U/V up to sign {fac_err:.3e} "
+              f"(tol {TOL_OOC['factors']}), err estimate {err_diff:.3e} (tol {TOL_OOC['err']}); {ms:.1f} ms (host clock, "
+              f"median of 3), {streamed / (ms * 1e-3) / 1e9:.2f} GB/s host to card against the plain pinned copy's "
+              f"{copy_rate / 1e9:.2f} GB/s (bound {bound_ms:.1f} ms); {card}", flush=True)
+        _require(counts[kernel] == n_win and counts["sketch_sm90" if not single_pass else "dual_sketch_sm90"] == n_win
+                 and counts["dual_sketch_with_norm" if not single_pass else "sketch_with_norm"] == 0,
+                 f"staged hsvd_rank(single_pass={single_pass}) did not launch {kernel} on its Hopper kernel once a window")
+        _require(all(t.split is None and t.larray.device == dev for t in got), "staged factors not whole on the card")
+        _require(sig_err <= TOL_OOC["sigma"] and fac_err <= TOL_OOC["factors"] and err_diff <= TOL_OOC["err"],
+                 f"staged hsvd_rank(single_pass={single_pass}) disagrees with the in-memory route")
+        out[name] = {"launches": counts[kernel], "windows": n_win, "sigma_rel": sig_err, "factors": fac_err,
+                     "err_diff": err_diff, "ms": ms, "gbps": streamed / (ms * 1e-3) / 1e9, "bound_ms": bound_ms}
+    del A, want, got, U, V
+    torch.cuda.empty_cache()
+
+    # a card "smaller" than A: materialize refuses, the staged route runs
+    saved = {k: os.environ.get(k) for k in ("HEAT_TPU_HBM_BYTES", "HEAT_TPU_OOC")}
+    try:
+        os.environ["HEAT_TPU_HBM_BYTES"] = str(OOC_HBM_BYTES)
+        os.environ["HEAT_TPU_OOC"] = "0"
+        try:
+            staging.materialize(host, "the north-star operand")
+            refused = ""
+        except MemoryError as e:
+            refused = str(e)
+        os.environ["HEAT_TPU_OOC"] = "auto"
+        cs.SKETCH_LAUNCHES = 0
+        U, sigma, V, err = ht.linalg.hsvd_rank(host, MAXRANK, compute_sv=True)
+        torch.cuda.synchronize()
+        small_launches = cs.SKETCH_LAUNCHES
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"ooc with HEAT_TPU_HBM_BYTES={OOC_HBM_BYTES} < A's {host.nbytes} B: materialize refused "
+          f"({refused[:120]}...), the staged 2-pass route ran, K1 {small_launches} launches, "
+          f"sigma[0] {float(sigma.larray[0]):.4f}; {card}", flush=True)
+    _require(bool(refused) and small_launches == wins[1] and bool(torch.isfinite(sigma.larray).all()),
+             "staging in a card smaller than the operand")
+    out["small_card"] = {"refused": True, "launches": small_launches}
+    del host, a, U, V
+    torch.cuda.empty_cache()
+
+    # KMeans.partial_fit on a HostArray: K3 once a window
+    n = (KM_N // 4) // KM_K * KM_K
+    gen.manual_seed(25)
+    x = _blobs(gen, n, torch.randn(KM_K, KM_D, device=dev, generator=gen) * 8.0)
+    hx = staging.HostArray(x.cpu().numpy())
+    kwins = staging.window_extents(hx.shape, 4, 0, slab)
+    init = ht.array(x[torch.arange(KM_K, device=dev) * (n // KM_K)])
+    km = ht.cluster.KMeans(KM_K, init=init)
+    ca.ASSIGN_LAUNCHES = 0
+    t0 = time.perf_counter()
+    km.partial_fit(hx)
+    torch.cuda.synchronize()
+    km_ms = (time.perf_counter() - t0) * 1e3
+    k3 = ca.ASSIGN_LAUNCHES
+    ref = ht.cluster.KMeans(KM_K, init=init)
+    for lo, hi in kwins:
+        ref.partial_fit(ht.array(x[lo:hi]))
+    same = torch.equal(km.cluster_centers_.larray, ref.cluster_centers_.larray)
+    print(f"ooc KMeans({KM_K}).partial_fit(HostArray {n}x{KM_D} float32): K3 {k3} launches against {len(kwins)} "
+          f"windows, centers bit for bit those of the same windows fed from the card: {same}; {km_ms:.1f} ms "
+          f"(host clock), {hx.nbytes / (km_ms * 1e-3) / 1e9:.2f} GB/s; {card}", flush=True)
+    _require(k3 == len(kwins) and same, "staged KMeans.partial_fit: K3 once a window, the same centers")
+    out["kmeans"] = {"launches": k3, "windows": len(kwins), "ms": km_ms}
+    del x, hx, km, ref
+    torch.cuda.empty_cache()
+
+    # pagerank_stream on pagerank_2m's edges
+    graph = inputs["graph"].tocoo()
+    edges = np.repeat(np.stack([graph.row, graph.col], 1).astype(np.int32), graph.data.astype(np.int64), axis=0)
+    t0 = time.perf_counter()
+    res = ht.graph.pagerank_stream(staging.HostArray(edges), PR_N, tol=PR_TOL)
+    pr_ms = (time.perf_counter() - t0) * 1e3
+    whole = ht.graph.pagerank(inputs["graph"], tol=PR_TOL, split=None)
+    pr_err = float((res.ranks.larray - whole.ranks.larray).abs().max())
+    print(f"ooc pagerank_stream({len(edges)} edges of pagerank_2m, {PR_N} nodes): {res.iterations} iterations "
+          f"(pagerank: {whole.iterations}), converged {res.converged}, ranks against pagerank's max |Δ| {pr_err:.3e} "
+          f"(tol {TOL_RANKS}); {pr_ms:.1f} ms (host clock); {card}", flush=True)
+    _require(res.converged and pr_err <= TOL_RANKS, "pagerank_stream disagrees with pagerank")
+    out["pagerank_stream"] = {"iterations": res.iterations, "err": pr_err, "ms": pr_ms}
+
+    # OneHotEncoder.stream_transform of io_path's codes
+    codes = _onehot_codes(dev)
+    enc = ht.preprocessing.OneHotEncoder().fit(ht.array(codes))
+    D = enc.transform(ht.array(codes))
+    t0 = time.perf_counter()
+    dense = enc.stream_transform(staging.HostArray(codes.cpu().numpy().astype(np.int32)))
+    oh_ms = (time.perf_counter() - t0) * 1e3
+    rows, features, cats = ONEHOT
+    idx = D.indices.cpu().numpy().reshape(rows, features)
+    ok = dense.shape == (rows, features * cats) and float(dense.sum()) == rows * features and bool(
+        (dense[np.arange(rows)[:, None], idx] == 1).all())
+    print(f"ooc OneHotEncoder.stream_transform({rows}x{features} codes): dense {dense.shape} float32 on the host, "
+          f"its ones where transform's DCSR holds them: {ok}; {oh_ms:.1f} ms (host clock); {card}", flush=True)
+    _require(ok, "stream_transform disagrees with transform")
+    out["onehot_stream_ms"] = oh_ms
+    return out
+
+
 def _world_io(ht, comm, moved: dict, rank: int, dev) -> dict:
     """I/O across the ranks: load_csv(split=0) of io_path's file, each rank
     reading its byte range, and a rank-ordered save_csv of the same array
@@ -6933,6 +7205,7 @@ def main() -> int:
     linalg = linalg_path(dev)
     est = estimators_path(dev, inputs)
     io = io_path(dev)
+    ooc = ooc_path(dev, inputs)
     world_sparse_reference(dev, inputs)
     shared = tempfile.mkdtemp(prefix="heat_sparse_")
     WORLD_REFERENCE["sparse"]["inputs"] = os.path.join(shared, "inputs.pkl")
@@ -6966,12 +7239,19 @@ def main() -> int:
         world = {n: v for n, v in launches["world"]["attention"].items() if n.removesuffix("_4097") == key}
         if world:
             row["world_launches"] = world
+        backward = {n: v for n, v in launches["world"].get("attention_backward", {}).items()
+                    if n.removesuffix("_4097") == key}
+        if backward:
+            row["world_backward"] = backward
     rows.extend(att_rows)
     relayout_rows = relayout_timings(dev, relayout_launches, relayout_errs)
     for row, key in zip(relayout_rows, ("k5", "k6")):  # none on one rank: no resplit under the manipulations
         row["manip_launches"] = manip["launches"][key]
     rows.extend(relayout_rows)
     rows[0]["manip_launches"] = {"gallery_hsvd": manip["launches"]["k1"]["sketch_with_norm"]}
+    rows[0]["ooc_launches"] = {"hsvd_2pass": ooc["2pass"]["launches"], "small_card": ooc["small_card"]["launches"]}
+    rows[1]["ooc_launches"] = {"hsvd_one_view": ooc["one_view"]["launches"]}
+    next(row for row in rows if row["name"] == "fused_assign")["ooc_launches"] = {"partial_fit": ooc["kmeans"]["launches"]}
     r1_rows = random_timings(dev, random_errs)
     r1_rows[0]["world_launches"] = launches["world"]["random"]
     split1_row = next(row for row in r1_rows if row["name"] == "r1_normal_north_star_split1")
@@ -6996,6 +7276,7 @@ def main() -> int:
     print(json.dumps({"linalg": linalg["rows"], "world": launches["world"]["linalg"]}))
     print(json.dumps({"estimators": est["rows"], "launches": est["launches"], "world": launches["world"]["estimators"]}))
     print(json.dumps({"io": {k: v for k, v in io.items() if k != "dir"}, "world": launches["world"]["io"]}))
+    print(json.dumps({"ooc": ooc}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -12,9 +12,12 @@ K3 (``_cuda_assign.fused_assign``), which computes exactly those three
 from one read of X. Otherwise the same function runs as torch ops
 (``fused_assign_plain``), decided up front by ``assign_serviceable``.
 
-``partial_fit`` is the streaming form (running-mean updates per batch) on
-DNDarray batches. ``heat_tpu``'s host-resident ``HostArray`` operands and
-checkpointed fits (``ckpt=``) are not ported (ROADMAP.md Queue 1).
+``partial_fit`` is the streaming form (running-mean updates per batch).
+A host-resident ``HostArray`` streams through the card in row windows,
+one ``partial_fit`` update a window (K3 once a window on a card), for
+``partial_fit`` and for ``fit`` alike (``_partial_fit_stream``).
+Checkpointed fits (``ckpt=``) are not ported (ROADMAP.md Queue 1, item
+13).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional, Union
 
 import torch
 
+from ..core import types
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
 from . import _cuda_assign
@@ -92,18 +96,6 @@ def _partial_fit_step(arr: torch.Tensor, centers: torch.Tensor, counts: torch.Te
     return new_centers, new_counts, inertia
 
 
-def _refuse_unported(x, ckpt) -> None:
-    if ckpt is not None:
-        raise NotImplementedError(
-            "KMeans.fit(ckpt=): checkpointed fits are not ported (ROADMAP.md Queue 1)"
-        )
-    if type(x).__name__ == "HostArray":
-        raise NotImplementedError(
-            "KMeans over a host-resident HostArray: out-of-core staging is not ported "
-            "(ROADMAP.md Queue 1); pass a DNDarray"
-        )
-
-
 class KMeans(_KCluster):
     """K-Means with Lloyd's algorithm (reference: kmeans.py:17).
 
@@ -154,16 +146,62 @@ class KMeans(_KCluster):
     def fit(self, x: DNDarray, ckpt=None) -> "KMeans":
         """Run Lloyd iterations to convergence (reference: kmeans.py:102):
         seeding, the loop and the final assignment (see
-        ``_KCluster._fit_fused``)."""
-        _refuse_unported(x, ckpt)
+        ``_KCluster._fit_fused``). A ``HostArray`` is fitted afresh by one
+        epoch of ``partial_fit`` windows (``heat_tpu`` kmeans.py:218), or
+        materialized and fitted whole under ``HEAT_TPU_OOC=0``."""
+        from ..redistribution import staging
+
+        if ckpt is not None:
+            raise NotImplementedError(
+                "KMeans.fit(ckpt=): checkpointed fits are not ported (ROADMAP.md Queue 1, item 13)"
+            )
+        if isinstance(x, staging.HostArray):
+            if not staging.ooc_engaged(x.nbytes, host_resident=True):
+                return self._fit_fused(staging.materialize(x, what="KMeans.fit"), _lloyd_step, returns_inertia=True)
+            self._cluster_centers = self._partial_counts = None
+            return self._partial_fit_stream(x)
         return self._fit_fused(x, _lloyd_step, returns_inertia=True)
 
     def partial_fit(self, x: DNDarray) -> "KMeans":
         """Incremental fit on one batch (sklearn MiniBatchKMeans-style): the
         first call initializes the centers from the batch with the
         configured ``init``, every call folds the batch into the per-center
-        running means. ``inertia_`` reports the last batch's value."""
-        _refuse_unported(x, None)
+        running means. ``inertia_`` reports the last batch's value. A
+        ``HostArray`` streams its row windows, one update a window
+        (materialized, one update, under ``HEAT_TPU_OOC=0``)."""
+        from ..redistribution import staging
+
+        if isinstance(x, staging.HostArray):
+            if not staging.ooc_engaged(x.nbytes, host_resident=True):
+                return self._partial_fit_batch(staging.materialize(x, what="KMeans.partial_fit"))
+            return self._partial_fit_stream(x)
+        return self._partial_fit_batch(x)
+
+    def _partial_fit_stream(self, host) -> "KMeans":
+        """One epoch of ``partial_fit`` updates over the row windows of a
+        host-resident operand (``heat_tpu`` kmeans.py:296), planned as a
+        ``host-staging`` plan proven to fit the card, each window one
+        ``_partial_fit_batch`` of a whole (split None) window on every
+        rank."""
+        from ..core.communication import get_comm
+        from ..core.devices import get_device
+        from ..redistribution import staging
+
+        sched = staging.prove_fits(staging.plan_staged_passes(
+            host.shape, host.dtype, [{"tag": "partial-fit", "axis": 0}],
+            out_bytes=self.n_clusters * host.shape[1] * 8 + (1 << 20),
+        ))
+        wins = staging.window_extents(host.shape, host.dtype.itemsize, 0, int(sched.staging["slab_bytes"]))
+        device, comm = get_device(), get_comm()
+
+        def consume(k, win, ext):
+            batch = DNDarray(win, tuple(win.shape), types.canonical_heat_type(win.dtype), None, device, comm)
+            self._partial_fit_batch(batch)
+
+        staging.stream_windows(host, 0, wins, consume, device.torch_device)
+        return self
+
+    def _partial_fit_batch(self, x: DNDarray) -> "KMeans":
         sanitize_in(x)
         if x.ndim != 2:
             raise ValueError(f"input needs to be 2-dimensional, got {x.ndim}")

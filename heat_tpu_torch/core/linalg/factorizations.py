@@ -35,8 +35,9 @@ and one with an uneven map is read in the chunk geometry
 operand that is not split, the calls are ``torch.linalg``'s (LAPACK on the
 CPU, cuSOLVER on a card). ``_factorization_plan`` keeps ``heat_tpu``'s
 pre-declared ring schedules, whose ``plan_id``\\ s equal ``heat_tpu``'s.
-``solve_endpoint`` (a serving endpoint) and a host-resident ``HostArray``
-right-hand side are not ported (ROADMAP.md Queue 1, items 13 and 7).
+A host-resident ``HostArray`` of right-hand sides streams through the card
+in column windows (``_solve_host_rhs``). ``solve_endpoint`` (a serving
+endpoint) is not ported (ROADMAP.md Queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -572,13 +573,14 @@ def solve(a: DNDarray, b, assume_a: str = "gen") -> DNDarray:
     split anywhere. Across ranks, with A or b split, the blocked factors
     and the block solves run with no gather of A (a whole A is taken split
     0, each rank its rows), and x comes out split 0; otherwise
-    ``torch.linalg``'s solves. A host-resident ``HostArray`` right-hand
-    side is not ported (ROADMAP.md Queue 1, item 7)."""
-    if type(b).__name__ == "HostArray":
-        raise NotImplementedError(
-            "ht.linalg.solve of a host-resident HostArray right-hand side: out-of-core staging is not "
-            "ported (ROADMAP.md Queue 1, item 7); pass a DNDarray"
-        )
+    ``torch.linalg``'s solves. A host-resident ``HostArray`` of right-hand
+    sides streams through the card in column windows against factors
+    taken once (``_solve_host_rhs``) and gives a ``HostArray`` of
+    solutions."""
+    from ...redistribution import staging
+
+    if isinstance(b, staging.HostArray):
+        return _solve_host_rhs(a, b, assume_a)
     sanitize_in(a)
     sanitize_in(b)
     _check_square(a, "ht.linalg.solve")
@@ -605,6 +607,65 @@ def solve(a: DNDarray, b, assume_a: str = "gen") -> DNDarray:
     else:
         res = torch.linalg.solve(arr_a, arr_b)
     return _from_whole(res, b.split if b.split is not None else a.split, a)
+
+
+def _solve_host_rhs(a: DNDarray, b, assume_a: str = "gen"):
+    """``solve`` against a ``HostArray`` of right-hand sides (``heat_tpu``
+    factorizations.py:1027): A is factored once (the blocked LU or
+    Cholesky across ranks, else torch's), then column windows of b stream
+    through the card, each solved against the factors and written back to
+    a host array; returns a ``HostArray`` of the solutions, the same on
+    every rank. Under ``HEAT_TPU_OOC=0`` b is materialized and solved
+    whole."""
+    from ...redistribution import staging
+    from ..devices import get_device
+
+    sanitize_in(a)
+    _check_square(a, "ht.linalg.solve")
+    if assume_a not in ("gen", "pos"):
+        raise ValueError(f"assume_a must be 'gen' or 'pos', got {assume_a!r}")
+    n = int(a.shape[0])
+    if len(b.shape) != 2 or int(b.shape[0]) != n:
+        raise ValueError(f"HostArray b must be (n, nrhs) with n={n}, got {b.shape}")
+    comm = a.comm
+    if not staging.ooc_engaged(b.nbytes, host_resident=True):
+        return solve(a, staging.materialize(b, what="solve rhs"), assume_a=assume_a)
+    tt = _solver_dtype(a).torch_type()
+    distributed = comm.is_distributed() and a.split is not None
+    if assume_a == "pos":
+        kind = "chol"
+        if distributed:
+            l_arr, u_arr, pvec = cholesky(a), None, None
+        else:
+            l_loc, u_loc, perm_loc = torch.linalg.cholesky(a.larray.to(tt)), None, None
+    else:
+        kind = "lu"
+        if distributed:
+            pvec, l_arr, u_arr, _sign, singular = _lu_factor_ex(a)
+        else:
+            lu_p, piv, singular = torch.linalg.lu_factor_ex(a.larray.to(tt))
+            perm_loc = _lapack_permutation(lu_p, piv)[0]
+            l_loc = torch.tril(lu_p, -1) + torch.eye(n, dtype=tt, device=lu_p.device)
+            u_loc = torch.triu(lu_p)
+        _refuse_singular(singular, "ht.linalg.solve")
+    nrhs = int(b.shape[1])
+    np_dtype = torch.empty((), dtype=tt).numpy().dtype
+    sched = staging.plan_staged_passes((n, nrhs), np_dtype, [{"tag": "solve", "axis": 1, "writeback": True}],
+                                       out_bytes=0, mesh_size=comm.size)
+    wins = staging.window_extents((n, nrhs), np_dtype.itemsize, 1, int(sched.staging["slab_bytes"]))
+    out = np.empty((n, nrhs), np_dtype)
+
+    def consume(k, win, ext):
+        w = win.to(tt)
+        if distributed:
+            x = _solve_factored(kind, DNDarray(w, tuple(w.shape), types.canonical_heat_type(tt), None, a.device, comm),
+                                l_arr, u_arr, pvec)
+            out[:, ext[0] : ext[1]] = x.numpy()
+        else:
+            out[:, ext[0] : ext[1]] = _apply_factor_local(kind, w, l_loc, u_loc, perm_loc).cpu().numpy()
+
+    staging.stream_windows(b, 1, wins, consume, get_device().torch_device)
+    return staging.HostArray(out)
 
 
 # ---------------------------------------------------------------------- #

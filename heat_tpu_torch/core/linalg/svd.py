@@ -24,9 +24,10 @@ the QR iteration (``_lapack.accurate_svd``), H's eigh ``_lapack.accurate_eigh``.
 Tolerance (``heat_tpu``'s documented one): for well-conditioned float32
 operands the singular values match a float64 SVD to rtol 1e-4 and
 ``‖A − U Σ Vᴴ‖_F/‖A‖_F ≤ 1e-4``; singular vectors agree up to a phase a
-column. ``full_matrices=True`` raises :class:`FullMatricesNotSupported`;
-a host-resident ``HostArray`` operand is not ported (ROADMAP.md Queue 1,
-item 7).
+column. ``full_matrices=True`` raises :class:`FullMatricesNotSupported`.
+A host-resident ``HostArray`` operand gives its values from one staged
+pass of row windows that sums the Gram matrix on the card
+(``_svd_host``); its factors are ``hsvd_rank``'s.
 """
 
 from __future__ import annotations
@@ -70,6 +71,60 @@ def _gram_svdvals_arr(g: torch.Tensor, tt: torch.dtype) -> torch.Tensor:
     """Descending singular values from a replicated Gram matrix."""
     w = accurate_eigvalsh(g)  # ascending
     return torch.sqrt(torch.clamp(w.flip(0), min=0)).to(tt)
+
+
+def _host_svdvals(host, tt: torch.dtype) -> torch.Tensor:
+    """Descending singular values of a host-resident operand from one
+    staged pass of row windows that sums the Gram matrix ``AᴴA`` on the
+    card (``heat_tpu`` svd.py:94); the operand never lands whole."""
+    from ...redistribution import staging
+    from ..devices import get_device
+
+    m, n = (int(s) for s in host.shape)
+    device = get_device().torch_device
+    acc = torch.zeros((n, n), dtype=tt, device=device)
+    item = acc.element_size()
+    sched = staging.plan_staged_passes((m, n), torch.empty((), dtype=tt).numpy().dtype, [{"tag": "gram", "axis": 0}],
+                                       out_bytes=n * n * item)
+    staging.prove_fits(sched)
+
+    def consume(k, win, ext):
+        w = win.to(tt)
+        acc.add_(w.conj().T @ w)
+
+    staging.stream_windows(host, 0, staging.window_extents((m, n), item, 0, int(sched.staging["slab_bytes"])),
+                           consume, device)
+    return _gram_svdvals_arr(acc, tt)
+
+
+def _svd_host(host, full_matrices: bool, compute_uv: bool, method: str):
+    """``svd`` of a ``HostArray`` (``heat_tpu`` svd.py:272): the values from
+    the staged Gram pass (``_host_svdvals``), whole on every rank; under
+    ``HEAT_TPU_OOC=0`` the operand is materialized where it fits. Factors
+    of a staged operand take ``hsvd_rank``/``hsvd_rtol``; asking ``svd``
+    for them raises."""
+    from ...redistribution import staging
+    from ..communication import get_comm
+    from ..devices import get_device
+
+    dtype = types.canonical_heat_type(host.dtype)
+    if types.heat_type_is_exact(dtype):
+        dtype = types.float32
+    if compute_uv and full_matrices:
+        raise FullMatricesNotSupported(
+            "svd(full_matrices=True) on a host-resident operand: use full_matrices=False, or "
+            "ht.linalg.hsvd_rank/hsvd_rtol for rank-truncated factors"
+        )
+    if not staging.ooc_engaged(host.nbytes, host_resident=True):
+        return svd(staging.materialize(host, what="svd operand"), compute_uv=compute_uv, method=method)
+    if compute_uv:
+        raise NotImplementedError(
+            "svd(compute_uv=True) of a host-resident operand needs a multi-pass factor stream — use "
+            "ht.linalg.hsvd_rank/hsvd_rtol (staged 2-pass hierarchical SVD) for out-of-core factors, or "
+            "compute_uv=False for the staged values-only Gram pass"
+        )
+    s = _host_svdvals(host, dtype.torch_type())
+    return DNDarray(s, (int(s.shape[0]),), dtype, None, get_device(), get_comm())
 
 
 def _from_polar(u_p: torch.Tensor, h: torch.Tensor):
@@ -117,11 +172,10 @@ def svd(A, full_matrices: bool = False, compute_uv: bool = True, method: str = "
 
     if method not in _METHODS:
         raise ValueError(f"method must be one of {_METHODS}, got {method!r}")
-    if type(A).__name__ == "HostArray":
-        raise NotImplementedError(
-            "ht.linalg.svd of a host-resident HostArray: out-of-core staging is not ported "
-            "(ROADMAP.md Queue 1, item 7); pass a DNDarray"
-        )
+    from ...redistribution import staging
+
+    if isinstance(A, staging.HostArray):
+        return _svd_host(A, full_matrices, compute_uv, method)
     sanitize_in(A)
     if A.ndim != 2:
         raise ValueError(f"svd requires a 2-dimensional array, got {A.ndim}")

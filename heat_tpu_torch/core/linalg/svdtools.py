@@ -29,6 +29,13 @@ The streaming reads of A go through the hand-written CUDA kernels of
 ``_cuda_sketch`` where their predicates hold (float32 on CUDA, widths in
 range); everywhere else, and on the CPU, through the fixed-grain tiled
 torch streams ``_pass1_tiles`` / ``_pass2_tiles`` / ``_oneview_tiles``.
+A host-resident operand (``redistribution.staging.HostArray``) takes the
+rank-budget sketch window by window (``_staged_sketch_rank``): column
+windows through pass 1 (K1 a window on a card) and row windows through
+pass 2 with the norm carried, or column windows through the one-view
+stream (K2 a window) with its carries, the draws those of the in-memory
+route. ``HEAT_TPU_OOC=1`` routes an in-memory operand the same way.
+
 On a split-0 operand the 2-pass sketch runs with the passes' roles
 swapped on S (``_sketched_uds_swapped``), so that K1 takes pass 2 in its
 own form and no copy of Sᵀ is made; the one-view sketch copies Sᵀ once a
@@ -403,7 +410,19 @@ def hsvd_rank(
     ``single_pass=True`` selects the one-view sketch: both sketches from a
     single read of A (kernel K2 on CUDA). Its approximation constant is
     larger than the 2-pass bound and its error estimate is approximate; it
-    is exact for matrices of rank ≤ maxrank + safetyshift."""
+    is exact for matrices of rank ≤ maxrank + safetyshift.
+
+    ``A`` may be a ``redistribution.staging.HostArray``, an operand in host
+    memory that need not fit the card: the sketch then streams its windows
+    through the card (``_hsvd_rank_host``), and the factors come back whole
+    on every rank (split None)."""
+    from ...redistribution import staging
+
+    if isinstance(A, staging.HostArray):
+        if not isinstance(maxrank, (int, np.integer)) or maxrank < 1:
+            raise ValueError(f"maxrank must be a positive integer, got {maxrank}")
+        _warn_merge_knobs(maxmergedim, None)
+        return _hsvd_rank_host(A, int(maxrank), compute_sv, int(safetyshift), bool(single_pass))
     sanitize_in(A)
     if A.ndim != 2:
         raise ValueError(f"hsvd requires a 2-dimensional array, got {A.ndim}")
@@ -506,7 +525,13 @@ def _hsvd_impl(
         keep = min(budget, full_rank_cap)
         r_final = max(1, min(maxrank, keep))
         ov = _one_view_params(keep, full_rank_cap, arr) if single_pass else None
-        if ov is not None:
+        from ...redistribution import staging
+
+        if staging.ooc_mode() == "1":
+            # HEAT_TPU_OOC=1: the in-memory operand through the staged windows
+            host = staging.HostArray(arr.cpu().numpy())
+            res = _staged_sketch_rank(host, keep, sketch_l, want, ov, arr.dtype, arr.device)
+        elif ov is not None:
             res = _one_view_uds_both(arr, keep, ov[0], ov[1], want)
         else:
             res = _sketched_uds_both(arr, keep, sketch_l, want)
@@ -541,6 +566,124 @@ def _hsvd_impl(
         return U, err
     sigma = DNDarray(s_t, (int(s_t.shape[0]),), types.canonical_heat_type(s_t.dtype), None, A.device, A.comm)
     return U, sigma, wrap(v_t, (n, r_final)), err
+
+
+# --------------------------------------------------------------------- #
+# out of core                                                           #
+# --------------------------------------------------------------------- #
+def _staged_sketch_rank(host, keep: int, sketch_l: int, want: str, one_view, tt: torch.dtype, device):
+    """The rank-budget sketch of a host-resident operand, window by window
+    (``heat_tpu`` svdtools.py:586), as ``(u|None, v|None, s, err_sq,
+    norm_sq)`` on ``device``. The plan (``host-staging``) is proven to fit
+    the card before a byte moves.
+
+    2-pass: column windows through pass 1 (K1 on each window where it
+    serves, else ``_pass1_tiles``), then ``Q = orth(wᴴ)`` and row windows
+    through ``_pass2_tiles`` with ‖A‖² carried. One-view (``one_view`` =
+    (k̂, ℓ)): column windows through the one-view stream (K2 on each window
+    where it serves, else ``_oneview_tiles``) with y and ‖A‖² carried. The
+    draws are the in-memory route's (``_SKETCH_SEED``, ``_ONEVIEW_SEED``).
+    Windows are whole 512-wide tiles but the last, so on the CPU the
+    result is the in-memory route's bit for bit."""
+    from ...redistribution import staging
+
+    m, n = host.shape
+    like = torch.empty((m, 1), dtype=tt, device=device)
+    item = like.element_size()
+    passes = ([{"tag": "dual-sketch", "axis": 1}] if one_view is not None
+              else [{"tag": "sketch", "axis": 1}, {"tag": "project", "axis": 0}])
+    # held on the card across the loops: the sketch operators and products
+    l_rows = (one_view[1] + _ONEVIEW_ERRQ) if one_view is not None else sketch_l
+    width = one_view[0] if one_view is not None else sketch_l
+    out_bytes = item * (l_rows * n + l_rows * m + 2 * n * width + 2 * m * width)
+    np_dtype = torch.empty((), dtype=tt).numpy().dtype
+    sched = staging.prove_fits(staging.plan_staged_passes((m, n), np_dtype, passes, out_bytes=out_bytes))
+    slab = int(sched.staging["slab_bytes"])
+
+    if one_view is not None:
+        k_hat, l_row = one_view
+        kg, ko = _threefry.split(_threefry.seed_key(_ONEVIEW_SEED))
+        g = _normal(kg, (l_row + _ONEVIEW_ERRQ, m), like)
+        omega = _normal(ko, (n, k_hat), like)
+        chunks = []
+        carry = [torch.zeros((m, k_hat), dtype=tt, device=device), _real_zero(like)]
+
+        def consume(k, win, ext):
+            a, om = win.to(tt), omega[ext[0] : ext[1]]
+            if _cuda_sketch.dual_sketch_serviceable(g.shape[0], k_hat, a):
+                w_k, y_k, norm_k = _cuda_sketch.dual_sketch_with_norm(g, om, a)
+                carry[0], carry[1] = carry[0] + y_k, carry[1] + norm_k
+            else:
+                w_k, carry[0], carry[1] = _oneview_tiles(g, om, a, carry[0], carry[1])
+            chunks.append(w_k)
+
+        staging.stream_windows(host, 1, staging.window_extents((m, n), item, 1, slab), consume, device)
+        return _one_view_tail(torch.cat(chunks, dim=1), carry[0], carry[1], g, keep, l_row, want)
+
+    g = _sketch_operator(sketch_l, m, like)
+    chunks = []
+
+    def consume1(k, win, ext):
+        a = win.to(tt)
+        if _cuda_sketch.sketch_serviceable(sketch_l, a):
+            chunks.append(_cuda_sketch.sketch_with_norm(g, a)[0])
+        else:
+            chunks.append(_pass1_tiles(g, a))
+
+    staging.stream_windows(host, 1, staging.window_extents((m, n), item, 1, slab), consume1, device)
+    qw = _gram_orthonormalize(torch.conj(torch.cat(chunks, dim=1)).T)
+    zs = []
+    norm = [_real_zero(like)]
+
+    def consume2(k, win, ext):
+        z_k, norm[0] = _pass2_tiles(win.to(tt), qw, norm[0])
+        zs.append(z_k)
+
+    staging.stream_windows(host, 0, staging.window_extents((m, n), item, 0, slab), consume2, device)
+    return _projection_tail(torch.cat(zs, dim=0), qw, norm[0], keep, want)
+
+
+def _hsvd_rank_host(host, maxrank: int, compute_sv: bool, safetyshift: int, single_pass: bool):
+    """``hsvd_rank`` of a ``HostArray`` (``heat_tpu`` svdtools.py:682):
+    staged when the gate allows it and the budget admits the sketch; under
+    ``HEAT_TPU_OOC=0``, or for a budget that needs the full SVD, the
+    operand is materialized whole where it fits the card (else
+    ``MemoryError``) and takes the in-memory route. Every rank streams its
+    own ``HostArray`` (the same data) and holds the same factors, split
+    None."""
+    from ...redistribution import staging
+    from ..communication import get_comm
+    from ..devices import get_device
+
+    m, n = host.shape
+    heat_dt = types.canonical_heat_type(host.dtype)
+    if types.heat_type_is_exact(heat_dt):
+        heat_dt = types.float32
+    cap = min(m, n)
+    budget = maxrank + safetyshift
+    sketch_l = min(budget + _SKETCH_OVERSAMPLE, cap)
+    admissible = 4 * sketch_l <= cap
+    if not staging.ooc_engaged(host.nbytes, host_resident=True) or not admissible:
+        what = "hsvd_rank" if admissible else "hsvd_rank (sketch-inadmissible rank budget needs the full SVD)"
+        arr = staging.materialize(host, what=what).astype(heat_dt)
+        return hsvd_rank(arr, maxrank, compute_sv=compute_sv, safetyshift=safetyshift, single_pass=single_pass)
+    device = get_device()
+    comm = get_comm()
+    tt = heat_dt.torch_type()
+    keep = min(budget, cap)
+    r_final = max(1, min(maxrank, keep))
+    like = torch.empty((m, 1), dtype=tt, device=device.torch_device)
+    ov = _one_view_params(keep, cap, like) if single_pass else None
+    res = _staged_sketch_rank(host, keep, sketch_l, "both" if compute_sv else "left", ov, tt, device.torch_device)
+    u_t, v_t, s_t, err_t = _truncate_with_err(res, r_final)
+
+    def wrap(t, shape):
+        return DNDarray(t, shape, types.canonical_heat_type(t.dtype), None, device, comm)
+
+    U, err = wrap(u_t, (m, r_final)), wrap(err_t, ())
+    if not compute_sv:
+        return U, err
+    return U, wrap(s_t, (int(s_t.shape[0]),)), wrap(v_t, (n, r_final)), err
 
 
 # --------------------------------------------------------------------- #

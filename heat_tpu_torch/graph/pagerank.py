@@ -23,6 +23,9 @@ the dangling mass and the l1 delta are then computed on the whole vectors
 on every rank (n floats, far less than the product), so that no
 all-reduce is needed and every rank repeats world size 1's bits and
 iteration count; the host still reads one scalar a step.
+
+``pagerank_stream`` runs the same fixpoint from an edge list in host
+memory, streamed through the card in windows each step.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from ..sparse.dbcsr_matrix import DBCSR_matrix
 from ..sparse.dcsr_matrix import DCSR_matrix
 from ..sparse.factories import _to_scipy_csr
 
-__all__ = ["PageRankResult", "pagerank"]
+__all__ = ["PageRankResult", "pagerank", "pagerank_stream"]
 
 
 class PageRankResult(NamedTuple):
@@ -151,4 +154,70 @@ def pagerank(
     M, dangling = _operator(A, split, device, comm)
     r, it, delta = _fixpoint(M, dangling, alpha, tol, max_iter)
     ranks = factories.array(r / r.sum(), dtype=types.float32, split=split, device=M.device, comm=M.comm)
+    return PageRankResult(ranks, it, delta < tol, delta)
+
+
+def pagerank_stream(edges, n: int, alpha: float = 0.85, tol: float = 1e-8, max_iter: int = 200,
+                    slab: Optional[int] = None) -> PageRankResult:
+    """PageRank from an edge list in host memory that never lands on the
+    card whole (``heat_tpu`` pagerank.py:135).
+
+    ``edges`` is an (E, 2) int32 ``redistribution.staging.HostArray`` (or
+    an array, wrapped) of ``(src, dst)`` pairs; a repeated pair counts as
+    multiplicity, as in :func:`pagerank`. One streamed pass of row windows
+    counts the out-degrees (``bincount`` of each window's sources on the
+    card); each power step streams the edges again and sums
+    ``r[src] / outdeg[src]`` into ``dst`` (``index_add_``, in float64, then
+    rounded to float32 as ``heat_tpu``'s float32 sum is). The staged plan
+    is proven to fit the card first. ``r``, the dangling mass and the delta
+    stay on the card; the host reads the delta once a step. Every rank
+    streams the whole list and holds the same ranks (split None)."""
+    from ..core.communication import get_comm
+    from ..core.devices import get_device
+    from ..redistribution import staging
+
+    if not 0.0 < alpha < 1.0:
+        raise ValueError(f"alpha must be in (0, 1), got {alpha}")
+    if not isinstance(edges, staging.HostArray):
+        edges = staging.HostArray(np.ascontiguousarray(edges, np.int32))
+    if edges.shape[1] != 2:
+        raise ValueError(f"edges must be (E, 2) (src, dst), got {edges.shape}")
+    n = int(n)
+    sched = staging.prove_fits(staging.plan_staged_passes(
+        edges.shape, edges.dtype, [{"tag": "outdeg", "axis": 0}, {"tag": "power", "axis": 0}],
+        out_bytes=3 * n * 4 + (1 << 20), slab=slab,
+    ))
+    wins = staging.window_extents(edges.shape, edges.dtype.itemsize, 0, int(sched.staging["slab_bytes"]))
+    device = get_device()
+    dev = device.torch_device
+    outdeg = torch.zeros(n, dtype=torch.float32, device=dev)
+
+    def count(k, win, ext):
+        outdeg.add_(torch.bincount(win[:, 0].to(torch.int64), minlength=n).to(torch.float32))
+
+    staging.stream_windows(edges, 0, wins, count, dev)
+    dangling = (outdeg == 0).to(torch.float32)
+    inv = torch.where(outdeg == 0, 0.0, 1.0 / torch.clamp_min(outdeg, 1e-30))
+    r = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
+    delta = float("inf")
+    it = 0
+    for it in range(1, max_iter + 1):
+        w = (r * inv).double()
+        # float64 sums: a card's index_add_ adds in no fixed order, and float32
+        # sums would differ a rounding a step, more than tol, so never settle
+        acc = torch.zeros(n, dtype=torch.float64, device=dev)
+
+        def power(k, win, ext):
+            idx = win.to(torch.int64)
+            acc.index_add_(0, idx[:, 1], w[idx[:, 0]])
+
+        staging.stream_windows(edges, 0, wins, power, dev)
+        mass = torch.dot(dangling, r)
+        r_new = acc.float() * alpha + ((alpha * mass.double() + (1.0 - alpha)) / n).float()
+        step = torch.sum(torch.abs(r_new - r))
+        r = r_new
+        delta = float(step)  # the one host read of the step
+        if delta < tol:
+            break
+    ranks = DNDarray(r / r.sum(), (n,), types.float32, None, device, get_comm())
     return PageRankResult(ranks, it, delta < tol, delta)

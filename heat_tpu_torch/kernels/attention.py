@@ -39,6 +39,13 @@ kernel to another or to the plain version. Each launch adds one to
 256 take K9; float64, float16, complex and wider heads take
 ``flash_attention_plain`` on any device, as ``heat_tpu`` takes its blocked
 program outside its kernels' gate.
+
+``flash_attention_backward`` is the gradient from a forward's saved
+``(o, lse)``: FlashAttention-2's backward in plain torch, one (S_q ×
+``CHUNK``) tile of probabilities live at a time. It is plain torch on every
+device, because ``heat_tpu`` has no backward kernel on this path: its
+traced calls differentiate the blocked XLA programs, never the Pallas
+kernels. A Hopper backward kernel is ROADMAP.md open work 11.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ __all__ = [
     "attention_serviceable",
     "combine_partials",
     "flash_attention",
+    "flash_attention_backward",
     "flash_attention_plain",
     "sm90_serviceable",
 ]
@@ -179,6 +187,61 @@ def combine_partials(o1, lse1, o2, lse2) -> Tuple[torch.Tensor, torch.Tensor]:
     ct = _compute_dtype(o1.dtype)
     o = o1.to(ct) * a + o2.to(ct) * b
     return o.to(o1.dtype), lse
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of attention over q, k and v for the output
+    gradient ``do``, from the output ``o`` and log-sum-exp ``lse`` of the
+    forward (FlashAttention-2's backward): with D = rowsum(dO ⊙ O), each
+    key chunk of ``CHUNK`` gives P = exp(scale · q kᵀ − lse) under the
+    top-left causal mask of ``flash_attention``, dV = Pᵀ dO,
+    dS = P ⊙ (dO Vᵀ − D), dQ += scale · dS K and dK = scale · dSᵀ Q.
+
+    ``o`` and ``lse`` may be those of attention over a larger key set that
+    holds these keys (the ring's combined result): then the gradients are
+    this key set's share of that attention's, which is how the ring's
+    backward sums them. Complex operands take the conjugates of torch's
+    convention. A row with lse = −inf sees no key and adds nothing.
+    Computes in ``_compute_dtype`` (float32 for bfloat16); the gradients
+    come back in the dtypes of q, k and v."""
+    _check_shapes(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    ct = _compute_dtype(q.dtype)
+    qc, kc, vc, oc, doc = (t.to(ct) for t in (q, k, v, o, do))
+    lse = lse.to(ct if lse.is_complex() else torch.empty((), dtype=ct).real.dtype)
+    live = ~torch.isneginf(lse.real)[..., None]
+    lse_use = torch.where(live, lse[..., None], torch.zeros_like(lse[..., None]))
+    d_row = (doc * oc.conj()).sum(-1, keepdim=True)
+    s_q, s_kv = q.shape[-2], k.shape[-2]
+    dq = torch.zeros_like(qc)
+    dk = torch.zeros_like(kc)
+    dv = torch.zeros_like(vc)
+    q_pos = torch.arange(s_q, device=q.device)[:, None]
+    for c0 in range(0, s_kv, CHUNK):
+        if causal and c0 > s_q - 1:
+            break  # every later key lies above the diagonal of every row
+        k_c, v_c = kc[..., c0 : c0 + CHUNK, :], vc[..., c0 : c0 + CHUNK, :]
+        s = (qc @ k_c.transpose(-1, -2)) * scale
+        keep = live
+        if causal:
+            k_pos = c0 + torch.arange(k_c.shape[-2], device=q.device)[None, :]
+            keep = keep & (k_pos <= q_pos)
+        p = torch.where(keep, torch.exp(s - lse_use), torch.zeros_like(s))
+        ds = p.conj() * (doc @ v_c.transpose(-1, -2).conj() - d_row)
+        dv[..., c0 : c0 + CHUNK, :] = p.transpose(-1, -2).conj() @ doc
+        dq += (ds @ k_c.conj()) * scale
+        dk[..., c0 : c0 + CHUNK, :] = (ds.transpose(-1, -2) @ qc.conj()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # --------------------------------------------------------------------- #

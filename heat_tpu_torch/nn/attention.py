@@ -21,8 +21,20 @@ same:
   query i iff j ≤ i, in global positions), and ``_decompose`` serves a
   block at any offset with K9's top-left mask: a block wholly behind the
   queries is one unmasked call, one wholly ahead is skipped, and one that
-  straddles them is an unmasked call and a causal one. The ring has no
-  backward (ROADMAP.md Queue 1, item 19).
+  straddles them is an unmasked call and a causal one.
+
+Both routes differentiate. At world size 1 the backward is
+``kernels.attention.flash_attention_backward`` from the forward's saved
+``(o, lse)``. The ring's backward (``_RingAttention``) is the forward ring
+transposed: dQ stays with its rank, and the packed k/v buffer rotates as in
+the forward with a dK/dV accumulator of the block's rows beside it, into
+which each ``_decompose`` call of a step adds its share, computed from the
+combined ``(o, lse)``; after the p − 1 hops one more hop carries each
+accumulator home to the rank that owns the block (p collective-permutes). An
+operand whose split differs from the route's is gathered (``_GatherRows``) or
+cut to this rank's rows (``_ScatterRows``), each differentiable: a gradient
+of a replicated tensor is whole on every rank, as under ``heat_tpu``'s single
+controller.
 """
 
 from __future__ import annotations
@@ -40,24 +52,20 @@ __all__ = ["ring_attention", "ring_self_attention"]
 
 
 class _KernelAttention(torch.autograd.Function):
-    """K9's forward under autograd. K9 has no backward kernel (``heat_tpu``
-    differentiated its blocked program, never its kernels); the backward
-    recomputes the attention with the plain version and differentiates
-    that."""
+    """K9's forward under autograd, with ``flash_attention_backward`` from
+    the saved ``(o, lse)`` as its backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        ctx.save_for_backward(q, k, v)
+        o, lse = katt.flash_attention(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
-        return katt.flash_attention(q, k, v, causal, scale)[0]
+        return o
 
     @staticmethod
-    def backward(ctx, grad):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = katt.flash_attention_plain(q, k, v, ctx.causal, ctx.scale)[0]
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
-        return dq, dk, dv, None, None
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return katt.flash_attention_backward(q, k, v, o, lse, do, ctx.causal, ctx.scale) + (None, None)
 
 
 def _single_device_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale=None):
@@ -118,23 +126,20 @@ def _fold(acc, r0: int, o: torch.Tensor, lse: torch.Tensor):
     return acc_o, acc_lse
 
 
-def _ring(q: DNDarray, k: DNDarray, v: DNDarray, causal: bool, scale: float) -> torch.Tensor:
-    """This rank's rows of the attention of q, k and v, each split along the
-    sequence axis, through the ring (module docstring). ``attention_serviceable``
-    decides up front: K9 on every step, or the plain version on every step
+def _ring_forward(comm, ql, kl, vl, q_off: int, k_counts, k_offs, causal: bool, scale: float):
+    """This rank's ``(o, lse)`` of the attention of its q rows ``ql`` (at
+    global row ``q_off``) over k and v split along the sequence axis as
+    ``k_counts``/``k_offs``, through the ring (module docstring); o in
+    ``ql``'s dtype, lse in the combine's. ``attention_serviceable`` decides
+    up front: K9 on every step, or the plain version on every step
     (float64, complex, heads wider than 256)."""
-    comm = q.comm
     p, r = comm.size, comm.rank
-    dtype = q.larray.dtype if (q.larray.is_floating_point() or q.larray.is_complex()) else torch.float32
-    ql, kl, vl = (t.larray.to(dtype) for t in (q, k, v))
     d, d_v = kl.shape[-1], vl.shape[-1]
-    q_off = q.counts_displs()[1][r]
-    k_counts, k_offs = k.counts_displs()
     # k and v rotate together: one buffer of the largest shard's rows
     buf = kl.new_zeros(kl.shape[:-2] + (max(k_counts), d + d_v))
     buf[..., : kl.shape[-2], :d] = kl
     buf[..., : kl.shape[-2], d:] = vl
-    attend = katt.flash_attention if katt.attention_serviceable(dtype, d, d_v) else katt.flash_attention_plain
+    attend = katt.flash_attention if katt.attention_serviceable(ql.dtype, d, d_v) else katt.flash_attention_plain
     acc = None
     for t in range(p):
         src = (r + t) % p
@@ -144,8 +149,89 @@ def _ring(q: DNDarray, k: DNDarray, v: DNDarray, causal: bool, scale: float) -> 
         if t < p - 1:
             buf = comm.ring_exchange(buf, dst=(r - 1) % p, src=(r + 1) % p)
     if acc is None:
-        return ql.new_zeros(ql.shape[:-1] + (d_v,))
-    return acc[0].to(dtype)
+        ct = katt._compute_dtype(ql.dtype)
+        lse = torch.full(ql.shape[:-1], -math.inf, dtype=torch.empty((), dtype=ct).real.dtype, device=ql.device)
+        return ql.new_zeros(ql.shape[:-1] + (d_v,)), lse
+    return acc[0].to(ql.dtype), acc[1]
+
+
+def _ring_backward(comm, ql, kl, vl, o, lse, do, q_off: int, k_counts, k_offs, causal: bool, scale: float):
+    """``(dq, dk, dv)`` of this rank's shards for the gradient ``do`` of its
+    rows of ``_ring_forward``'s o: the forward ring transposed (module
+    docstring), every share from ``flash_attention_backward`` in the compute
+    dtype, in which the buffer of k, v and the dK/dV accumulator travels."""
+    p, r = comm.size, comm.rank
+    d, d_v = kl.shape[-1], vl.shape[-1]
+    ct = katt._compute_dtype(ql.dtype)
+    buf = kl.new_zeros(kl.shape[:-2] + (max(k_counts), 2 * (d + d_v)), dtype=ct)
+    buf[..., : kl.shape[-2], :d] = kl
+    buf[..., : kl.shape[-2], d : d + d_v] = vl
+    dq = torch.zeros(ql.shape, dtype=ct, device=ql.device)
+    for t in range(p):
+        src = (r + t) % p
+        for r0, k0, k1, masked in _decompose(ql.shape[-2], k_counts[src], q_off - k_offs[src], causal):
+            dq_c, dk_c, dv_c = katt.flash_attention_backward(
+                ql[..., r0:, :], buf[..., k0:k1, :d], buf[..., k0:k1, d : d + d_v],
+                o[..., r0:, :], lse[..., r0:], do[..., r0:, :], masked, scale,
+            )
+            dq[..., r0:, :] += dq_c
+            buf[..., k0:k1, d + d_v : 2 * d + d_v] += dk_c
+            buf[..., k0:k1, 2 * d + d_v :] += dv_c
+        # p − 1 hops of the whole buffer, then one of the accumulator, home
+        send = buf if t < p - 1 else buf[..., d + d_v :].contiguous()
+        buf = comm.ring_exchange(send, dst=(r - 1) % p, src=(r + 1) % p)
+    rows = kl.shape[-2]
+    return dq.to(ql.dtype), buf[..., :rows, :d].to(kl.dtype), buf[..., :rows, d:].to(vl.dtype)
+
+
+class _RingAttention(torch.autograd.Function):
+    """``_ring_forward``'s o, with ``_ring_backward`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, ql, kl, vl, comm, q_off, k_counts, k_offs, causal, scale):
+        o, lse = _ring_forward(comm, ql, kl, vl, q_off, k_counts, k_offs, causal, scale)
+        ctx.save_for_backward(ql, kl, vl, o, lse)
+        ctx.args = (comm, q_off, k_counts, k_offs, causal, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        comm, q_off, k_counts, k_offs, causal, scale = ctx.args
+        ql, kl, vl, o, lse = ctx.saved_tensors
+        grads = _ring_backward(comm, ql, kl, vl, o, lse, do, q_off, k_counts, k_offs, causal, scale)
+        return grads + (None,) * 6
+
+
+class _GatherRows(torch.autograd.Function):
+    """The whole of a tensor split along ``axis`` as ``counts``, on every
+    rank (one all-gather); the backward keeps this rank's rows of the
+    gradient, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, t, comm, axis, counts):
+        ctx.args = (comm.rank, axis, counts)
+        return comm.allgather(t, axis, counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        rank, axis, counts = ctx.args
+        return g.narrow(axis, sum(counts[:rank]), counts[rank]), None, None, None
+
+
+class _ScatterRows(torch.autograd.Function):
+    """This rank's rows along ``axis`` (as ``counts``) of a tensor whole on
+    every rank; the backward gathers the rows' gradients into the whole
+    one on every rank (one all-gather)."""
+
+    @staticmethod
+    def forward(ctx, t, comm, axis, counts):
+        ctx.args = (comm, axis, counts)
+        return t.narrow(axis, sum(counts[: comm.rank]), counts[comm.rank]).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, axis, counts = ctx.args
+        return comm.allgather(g.contiguous(), axis, counts), None, None, None
 
 
 def ring_attention(
@@ -164,7 +250,8 @@ def ring_attention(
     unsplit q at any world size (``heat_tpu``'s rule, ``nn/attention.py:817``),
     this is one single-device attention on every rank, a split k or v
     gathered first. A split q across ranks runs the ring (module
-    docstring); under autograd it raises ``NotImplementedError``.
+    docstring), whole k or v cut to this rank's rows first. Every route
+    differentiates (module docstring).
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, DNDarray):
@@ -189,19 +276,20 @@ def ring_attention(
 
     comm = q.comm
     if q.is_distributed():
-        if torch.is_grad_enabled() and any(t.larray.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "the backward of ring_attention with q split across ranks (dK and dV rotated back): "
-                "see ROADMAP.md Queue 1, item 19"
-            )
-        k, v = (t if t.split == seq_axis else t.resplit(seq_axis) for t in (k, v))
-        out = _ring(q, k, v, bool(causal), float(scale))
+        dtype = q.larray.dtype if (q.larray.is_floating_point() or q.larray.is_complex()) else torch.float32
+        split_kv = [t for t in (k, v) if t.split == seq_axis]
+        counts = split_kv[0].counts_displs()[0] if split_kv else comm.counts_displs_shape(k.gshape, seq_axis)[0]
+        kl, vl = (t.larray.to(dtype) if t.split == seq_axis
+                  else _ScatterRows.apply(t.larray.to(dtype), comm, seq_axis, counts) for t in (k, v))
+        offs = tuple(sum(counts[:i]) for i in range(comm.size))
+        out = _RingAttention.apply(q.larray.to(dtype), kl, vl, comm, q.counts_displs()[1][comm.rank], counts, offs,
+                                   bool(causal), float(scale))
         lmap = q.lshape_map
         lmap[:, -1] = out.shape[-1]
         return DNDarray(out, out_gshape, types.canonical_heat_type(out.dtype), seq_axis, q.device, comm, lmap)
-    if comm.is_distributed():
-        k, v = (t if t.split is None else t.resplit(None) for t in (k, v))  # q is whole on every rank: so are k and v
-    out = _single_device_attention(q.larray, k.larray, v.larray, causal, scale)
+    kl, vl = (t.larray if t.split is None or not comm.is_distributed()
+              else _GatherRows.apply(t.larray, comm, seq_axis, t.counts_displs()[0]) for t in (k, v))
+    out = _single_device_attention(q.larray, kl, vl, causal, scale)
     return DNDarray(out, out_gshape, types.canonical_heat_type(out.dtype), q.split, q.device, comm)
 
 

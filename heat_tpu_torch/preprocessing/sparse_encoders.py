@@ -9,10 +9,11 @@ them. Across ranks a split input stays where it is: ``fit`` reduces what
 each rank saw of its own rows (the categories by two all-gathers, the
 document frequencies by one all-reduce), and ``transform`` gives a
 split-0 ``DCSR_matrix`` with the input's row map, each rank encoding its
-own rows with no gather (the matrix's gnnz costs one scalar all-reduce). ``heat_tpu``'s serving endpoints
-(``serving_program``) and streamed transforms (``stream_transform``)
-wait for the service layers and the out-of-core tier (ROADMAP.md Queue 1,
-items 13 and 7).
+own rows with no gather (the matrix's gnnz costs one scalar all-reduce).
+``stream_transform`` takes a host-resident ``HostArray`` through the card
+in row windows, each encoded on the card and written back to a dense host
+array. ``heat_tpu``'s serving endpoints (``serving_program``) wait for the
+service layers (ROADMAP.md Queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -77,6 +78,26 @@ def _device_of(x):
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what}: see ROADMAP.md Queue 1, {item}")
+
+
+def _stream(host, tag: str, width: int, out_bytes: int, slab: Optional[int], encode) -> np.ndarray:
+    """The dense (N, ``width``) float32 host array of ``encode(window)``
+    over the row windows of ``host``: a ``host-staging`` plan with
+    write-back, proven to fit the card, each window encoded on the card and
+    copied back to its rows (the ``stage_out`` steps)."""
+    from ..core.devices import get_device
+    from ..redistribution import staging
+
+    sched = staging.prove_fits(staging.plan_staged_passes(
+        host.shape, host.dtype, [{"tag": tag, "axis": 0, "writeback": True}], out_bytes=out_bytes, slab=slab))
+    wins = staging.window_extents(host.shape, host.dtype.itemsize, 0, int(sched.staging["slab_bytes"]))
+    out = np.zeros((host.shape[0], width), np.float32)
+
+    def consume(k, win, ext):
+        out[ext[0] : ext[1]] = encode(win).cpu().numpy()
+
+    staging.stream_windows(host, 0, wins, consume, get_device().torch_device)
+    return out
 
 
 class OneHotEncoder(BaseEstimator, TransformMixin):
@@ -154,8 +175,38 @@ class OneHotEncoder(BaseEstimator, TransformMixin):
     def serving_program(self) -> dict:
         _not_ported("OneHotEncoder.serving_program (a serving transform endpoint)", "item 13")
 
-    def stream_transform(self, host, slab: Optional[int] = None):
-        _not_ported("OneHotEncoder.stream_transform of a HostArray (the out-of-core tier)", "item 7")
+    def stream_transform(self, host, slab: Optional[int] = None) -> np.ndarray:
+        """The dense (N, C) one-hot rows of a host-resident code matrix
+        (``heat_tpu`` sparse_encoders.py:171): row windows stream through
+        the card, each encoded there (a sorted search of each feature's
+        categories, then one scatter of ones) and written back to a host
+        array, which never lies on the card whole. An array is wrapped as
+        an int32 ``HostArray``."""
+        from ..redistribution import staging
+
+        if self.categories_ is None:
+            raise RuntimeError("fit needs to be called before stream_transform")
+        if not isinstance(host, staging.HostArray):
+            host = staging.HostArray(np.ascontiguousarray(host, np.int32))
+        if host.shape[1] != len(self.categories_):
+            raise ValueError(f"fit saw {len(self.categories_)} features, stream got {host.shape[1]}")
+        C = self.n_features_out_
+        tables = []
+
+        def encode(win):
+            if not tables:
+                tables.extend(torch.from_numpy(np.ascontiguousarray(c)).to(win.device) for c in self.categories_)
+            block = torch.zeros((win.shape[0], C + 1), dtype=torch.float32, device=win.device)
+            rows = torch.arange(win.shape[0], device=win.device)
+            for f, cats in enumerate(tables):
+                ct = torch.promote_types(cats.dtype, win.dtype)
+                vals, cats = win[:, f].to(ct).contiguous(), cats.to(ct)
+                idx = torch.clamp(torch.searchsorted(cats, vals), max=cats.shape[0] - 1)
+                col = torch.where(cats[idx] == vals, int(self._offsets[f]) + idx, C)  # C: unknown, dropped
+                block.index_put_((rows, col), torch.ones_like(vals, dtype=torch.float32), accumulate=True)
+            return block[:, :C]
+
+        return _stream(host, "onehot", C, C * 4 * 4096 + (1 << 20), slab, encode)
 
 
 class TfidfTransformer(BaseEstimator, TransformMixin):
@@ -219,5 +270,30 @@ class TfidfTransformer(BaseEstimator, TransformMixin):
     def serving_program(self) -> dict:
         _not_ported("TfidfTransformer.serving_program (a serving transform endpoint)", "item 13")
 
-    def stream_transform(self, host, slab: Optional[int] = None):
-        _not_ported("TfidfTransformer.stream_transform of a HostArray (the out-of-core tier)", "item 7")
+    def stream_transform(self, host, slab: Optional[int] = None) -> np.ndarray:
+        """The dense TF-IDF rows of a host-resident count matrix
+        (``heat_tpu`` sparse_encoders.py:302), streamed as
+        :meth:`OneHotEncoder.stream_transform` is: each row window scaled by
+        idf (and l2-normalized) on the card. An array is wrapped as a
+        float32 ``HostArray``."""
+        from ..redistribution import staging
+
+        if self.idf_ is None:
+            raise RuntimeError("fit needs to be called before stream_transform")
+        if not isinstance(host, staging.HostArray):
+            host = staging.HostArray(np.ascontiguousarray(host, np.float32))
+        V = host.shape[1]
+        if V != self.idf_.shape[0]:
+            raise ValueError(f"fit saw {self.idf_.shape[0]} terms, stream got {V}")
+        idf = []
+
+        def encode(win):
+            if not idf:
+                idf.append(torch.from_numpy(self.idf_).to(win.device))
+            y = win.to(torch.float32) * idf[0][None, :]
+            if self.norm == "l2":
+                nrm = torch.sqrt(torch.sum(y * y, dim=1, keepdim=True))
+                y = y / torch.where(nrm > 0, nrm, 1.0)
+            return y
+
+        return _stream(host, "tfidf", V, V * 4 + (1 << 20), slab, encode)

@@ -38,8 +38,8 @@ the cheapest wins; when none fits, the smallest peak.
 
 Left out, each raising ``NotImplementedError``: the wire codec (``quant``
 other than ``"0"``, ``heat_tpu.kernels.quant``, ROADMAP.md Queue 1 item
-12), two-tier topologies and lattice calibration (item 12) and host
-staging (item 7).
+12), two-tier topologies and lattice calibration (item 12). Host staging
+plans come from ``staging.plan_staged_passes``.
 """
 
 from __future__ import annotations

@@ -19,8 +19,12 @@ the same collectives (the pipelined order is ROADMAP.md Queue 1, item 16).
 Plans serialize canonically (``canonical_json``) and byte for byte as
 ``heat_tpu`` serializes an unquantized plan on a flat topology, so the
 ``plan_id`` (the hash of that serialization) is ``heat_tpu``'s. The port
-has no wire codec, tier annotations, staging or calibration: the
-``quant`` key is always null and the conditional keys never appear.
+has no wire codec, two-tier annotations or calibration: the ``quant`` key
+is always null and those conditional keys never appear. Out-of-core
+staging plans (``redistribution.staging``) carry ``stage_in``/``stage_out``
+steps on the ``pcie`` tier and the conditional ``staging`` annotation,
+serialized as ``heat_tpu`` serializes them; every other plan keeps its
+bytes and its ``plan_id``.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Any, Dict, List, Optional
 
 from .spec import RedistSpec
 
-__all__ = ["COLLECTIVE_STEP_KINDS", "Schedule", "Step"]
+__all__ = ["COLLECTIVE_STEP_KINDS", "STAGING_STEP_KINDS", "Schedule", "Step"]
 
 # step kind -> the collective it issues (and the communicator counts under
 # that name). Every other kind is a local copy or view.
@@ -45,6 +49,11 @@ COLLECTIVE_STEP_KINDS: Dict[str, str] = {
 # ``pack``/``unpack`` are the relayout copies of kernels.relayout (K5, K6)
 _LOCAL_STEP_KINDS = ("slice", "pad", "reshape", "concat", "pack", "unpack")
 
+# the out-of-core staging transfers: one window of a host-resident operand
+# copied to the card or its result copied back, over the ``pcie`` tier; no
+# collective
+STAGING_STEP_KINDS = ("stage_in", "stage_out")
+
 
 class Step:
     """One schedule step.
@@ -52,8 +61,10 @@ class Step:
     Attributes
     ----------
     kind : ``all_to_all`` | ``all_gather`` | ``ppermute`` | ``slice`` |
-        ``pad`` | ``reshape`` | ``concat`` | ``pack`` | ``unpack``.
-    bytes_moved : per-rank payload sent to other ranks (0 for local steps).
+        ``pad`` | ``reshape`` | ``concat`` | ``pack`` | ``unpack`` |
+        ``stage_in`` | ``stage_out``.
+    bytes_moved : per-rank payload sent to other ranks, or over the host
+        to card edge for the staging steps (0 for local steps).
     bytes_copied : per-rank bytes a local relayout copy writes.
     peak_bytes : per-rank transient buffer bytes of this step.
     lane_fill : fraction of the 128 lanes of a TPU vector register that
@@ -62,9 +73,12 @@ class Step:
     detail : what the step does.
     chunk : chunk index when the step is one lap of a chunked exchange.
     overlap : pipeline-group tag of a lap of a chunk group, else None.
+    tier : ``"pcie"`` on the staging steps (and only there), else None
+        (then the key is left out of the serialization).
     """
 
-    __slots__ = ("kind", "bytes_moved", "bytes_copied", "peak_bytes", "lane_fill", "detail", "chunk", "overlap")
+    __slots__ = ("kind", "bytes_moved", "bytes_copied", "peak_bytes", "lane_fill", "detail", "chunk", "overlap",
+                 "tier")
 
     def __init__(
         self,
@@ -76,9 +90,12 @@ class Step:
         bytes_copied: int = 0,
         lane_fill: float = 1.0,
         overlap: Optional[str] = None,
+        tier: Optional[str] = None,
     ):
-        if kind not in COLLECTIVE_STEP_KINDS and kind not in _LOCAL_STEP_KINDS:
+        if kind not in COLLECTIVE_STEP_KINDS and kind not in _LOCAL_STEP_KINDS and kind not in STAGING_STEP_KINDS:
             raise ValueError(f"unknown step kind {kind!r}")
+        if (tier == "pcie") != (kind in STAGING_STEP_KINDS) or tier not in (None, "pcie"):
+            raise ValueError(f"tier 'pcie' is the staging steps' and theirs alone (got {kind!r} on {tier!r})")
         self.kind = kind
         self.bytes_moved = int(bytes_moved)
         self.bytes_copied = int(bytes_copied)
@@ -87,6 +104,7 @@ class Step:
         self.detail = detail
         self.chunk = chunk
         self.overlap = overlap
+        self.tier = tier
 
     @property
     def is_collective(self) -> bool:
@@ -99,7 +117,7 @@ class Step:
         return int((self.bytes_moved + self.bytes_copied) / max(self.lane_fill, 1e-9))
 
     def as_dict(self) -> Dict[str, Any]:
-        return {
+        d = {
             "kind": self.kind,
             "bytes_moved": self.bytes_moved,
             "bytes_copied": self.bytes_copied,
@@ -109,6 +127,9 @@ class Step:
             "chunk": self.chunk,
             "overlap": self.overlap,
         }
+        if self.tier is not None:
+            d["tier"] = self.tier
+        return d
 
     def __repr__(self) -> str:
         c = f"[{self.chunk}]" if self.chunk is not None else ""
@@ -128,6 +149,11 @@ class Schedule:
 
     It is cost model, not movement: the collectives are the same either
     way.
+
+    ``staging`` (optional) is the out-of-core annotation of a
+    ``host-staging`` plan (``redistribution.staging.plan_staged_passes``):
+    its passes and windows, the slab, the bytes held on the card across
+    the loop (``resident_bytes``) and on the host, and the modeled times.
     """
 
     def __init__(
@@ -138,6 +164,7 @@ class Schedule:
         budget_bytes: int,
         notes: str = "",
         overlap: Optional[Dict[str, Any]] = None,
+        staging: Optional[Dict[str, Any]] = None,
     ):
         self.spec = spec
         self.strategy = strategy
@@ -145,6 +172,7 @@ class Schedule:
         self.budget_bytes = int(budget_bytes)
         self.notes = notes
         self.overlap = overlap
+        self.staging = staging
         self.plan_id = hashlib.sha1(self.canonical_json(with_plan_id=False).encode()).hexdigest()[:12]
 
     # ------------------------------------------------------------------ #
@@ -170,6 +198,22 @@ class Schedule:
         """Lane-amplified traffic of the whole plan, the volume term of the
         planner's cost model."""
         return sum(s.effective_bytes for s in self.steps)
+
+    @property
+    def resident_bytes(self) -> int:
+        """Per-rank bytes resident for the whole plan: the source and
+        destination shards, or for a staged plan the outputs held on the
+        card across the window loop (the operand itself lives on the
+        host)."""
+        if self.staging is not None:
+            return int(self.staging["resident_bytes"])
+        return int(self.spec.src_shard_bytes) + int(self.spec.dst_shard_bytes)
+
+    @property
+    def liveness_peak_bytes(self) -> int:
+        """``resident_bytes`` plus the largest transient, the card memory
+        that ``staging.prove_fits`` holds under ``tiers.capacity("hbm")``."""
+        return self.resident_bytes + self.peak_bytes
 
     @property
     def n_steps(self) -> int:
@@ -216,6 +260,8 @@ class Schedule:
             "overlap": self.overlap,
             "quant": None,
         }
+        if self.staging is not None:
+            d["staging"] = self.staging
         if with_plan_id:
             d["plan_id"] = self.plan_id
         return d
@@ -245,9 +291,10 @@ class Schedule:
                 model = f"  model=max(wire {w}, copy {c})={max(w, c)} B"
             else:
                 model = f"  model={s.effective_bytes} B"
+            tier = f"  tier={s.tier}" if s.tier else ""
             lines.append(
                 f"  [{k:2d}] {s.kind}{chunk}  moved={s.bytes_moved}  "
-                f"copied={s.bytes_copied}  peak={s.peak_bytes}{pipe}{model}"
+                f"copied={s.bytes_copied}  peak={s.peak_bytes}{tier}{pipe}{model}"
                 + (f"  -- {s.detail}" if s.detail else "")
             )
         if self.overlap:
@@ -261,6 +308,16 @@ class Schedule:
         else:
             lines.append("  overlap: none (sequential schedule)")
         lines.append("  quant: none (full-width wire)")
+        if self.staging:
+            sg, model = self.staging, self.staging["model"]
+            passes = ", ".join(f"{p['tag']}(axis {p['axis']}: {p['n_windows']}w" + ("+wb" if p.get("writeback") else "")
+                               + ")" for p in sg["passes"])
+            lines.append(
+                f"  staging: depth={sg['depth']} [{passes}]  {sg['n_windows']} window(s) x <= {sg['window_bytes']} B "
+                f"over pcie  slab={sg['slab_bytes']} B  hbm-resident={sg['resident_bytes']} B  "
+                f"host-resident={sg['host_bytes']} B  model: pcie {model['pcie_s']}s / critical path "
+                f"{model['critical_path_s']}s ({model['bound_gbps']} GB/s)"
+            )
         if self.notes:
             lines.append(f"  notes: {self.notes}")
         return "\n".join(lines)

@@ -552,26 +552,35 @@ def test_ring_attention_argument_checks_match_heat_tpu():
         assert errors[0] is errors[1]
 
 
-class _TwoRanks(ht.Communication):
-    def __init__(self):
-        pass
-
-    size = 2
-
-    def is_distributed(self):
-        return True
-
-    def chunk(self, shape, split):
-        return 0, tuple(shape), tuple(slice(0, s) for s in shape)
+BACKWARD_SHAPES = ((7, 5), (5, 9), (3, 1100), (1100, 30))  # (S_q, S_kv): chunks of 1024 crossed both ways
+BACKWARD_TOL = {torch.float64: 1e-12, torch.complex128: 1e-12, torch.float32: 1e-5}  # of the largest gradient
 
 
-def test_ring_attention_across_ranks_is_not_ported_yet():
-    # the ring's backward across ranks (dK and dV rotated back) is what is
-    # not ported: a split q under autograd raises before any exchange
-    x = ht.array(np.zeros((6, 4), np.float32), split=0, comm=_TwoRanks())
-    x.larray.requires_grad_()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 19"):
-        ht.nn.ring_attention(x, x, x)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s_q, s_kv", BACKWARD_SHAPES)
+@pytest.mark.parametrize("dtype", list(BACKWARD_TOL), ids=str)
+def test_flash_attention_backward_matches_autograd_of_the_plain_version(dtype, s_q, s_kv, causal):
+    gen = torch.Generator().manual_seed(s_q + s_kv)
+    q, k, v = (torch.randn((2, s, d), generator=gen, dtype=dtype) for s, d in ((s_q, 8), (s_kv, 8), (s_kv, 5)))
+    o, lse = ka.flash_attention_plain(q, k, v, causal)
+    do = torch.randn(o.shape, generator=gen, dtype=dtype)
+    got = ka.flash_attention_backward(q, k, v, o, lse, do, causal)
+    qa, ka_, va = (t.clone().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(ka.flash_attention_plain(qa, ka_, va, causal)[0], (qa, ka_, va), do)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert float((g - w).abs().max()) <= BACKWARD_TOL[dtype] * float(w.abs().max())
+
+
+def test_flash_attention_backward_takes_nothing_from_a_row_that_sees_no_key():
+    q, k, v = _t(*_qkv((2, 6, 8), 4, 8, seed=3))
+    o, lse = ka.flash_attention_plain(q, k, v)
+    o[..., 0, :], lse[..., 0] = 0.0, -math.inf
+    dq, dk, dv = ka.flash_attention_backward(q, k, v, o, lse, torch.ones_like(o))
+    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+    assert not bool(dq[..., 0, :].any())
+    dq1, dk1, dv1 = ka.flash_attention_backward(q[..., 1:, :], k, v, o[..., 1:, :], lse[..., 1:], torch.ones_like(o[..., 1:, :]))
+    assert torch.equal(dq[..., 1:, :], dq1) and torch.allclose(dk, dk1, atol=1e-6) and torch.allclose(dv, dv1, atol=1e-6)
 
 
 def test_sdpa_both_routes_match_heat_tpu():

@@ -428,14 +428,12 @@ def test_estimator_api_and_unported_operands():
     assert _recovers_blobs(labels.numpy())
     with pytest.raises(ValueError):
         ht.cluster.KMeans(n_clusters=4, init="bogus").fit(data)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 13"):
         ht.cluster.KMeans(n_clusters=4).fit(data, ckpt=object())
-
-    class HostArray:
-        pass
-
-    with pytest.raises(NotImplementedError):
-        ht.cluster.KMeans(n_clusters=4).fit(HostArray())
+    # a host-resident operand is fitted by one epoch of streamed windows
+    streamed = ht.cluster.KMeans(n_clusters=4, init=data[:4]).fit(ht.redistribution.HostArray(_blobs(0)))
+    assert streamed.cluster_centers_.shape == (4, data.shape[1])
+    assert bool(torch.isfinite(streamed.cluster_centers_.larray).all())
     with pytest.raises(RuntimeError):
         ht.cluster.KMeans(n_clusters=4).predict(data)
 

@@ -208,12 +208,6 @@ def test_every_heat_tpu_linalg_name_resolves_to_a_port_object():
     assert not hasattr(ht.linalg, "solve_endpoint")
 
 
-class HostArray:
-    """Stands for heat_tpu's host-resident operand (not ported)."""
-
-    shape = (4, 4)
-
-
 REFUSALS = {
     "polar_1d": lambda L: L.linalg.polar(L.ones(4)),
     "polar_side": lambda L: L.linalg.polar(L.ones((4, 3)), side="up"),
@@ -244,17 +238,6 @@ def test_refusals_raise_heat_tpus_exception_type(name):
     with pytest.raises(builtin) as got:
         REFUSALS[name](ht)
     assert got.type.__name__ == want.type.__name__, (got.type, want.type)
-
-
-@pytest.mark.parametrize("call", ["svd", "solve"])
-def test_host_arrays_are_refused_naming_item_7(call):
-    """A host-resident operand (heat_tpu's staged ``HostArray`` routes) is
-    not ported: NotImplementedError naming ROADMAP.md Queue 1 item 7."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        if call == "svd":
-            ht.linalg.svd(HostArray())
-        else:
-            ht.linalg.solve(ht.eye(4), HostArray())
 
 
 # --------------------------------------------------------------------- #

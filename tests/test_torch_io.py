@@ -307,8 +307,7 @@ def test_onehot_matches_heat_tpu(split):
         mine.transform(codes[:, :2])
     with pytest.raises(NotImplementedError, match="item 13"):
         mine.serving_program()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mine.stream_transform(codes)
+    np.testing.assert_array_equal(mine.stream_transform(unknown), theirs.stream_transform(unknown))
 
 
 @pytest.mark.parametrize("form, norm", [("dense", "l2"), ("dcsr", "l2"), ("dense", None), ("dcsr_split", "l2")])

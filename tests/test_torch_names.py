@@ -23,11 +23,10 @@ import heat_tpu_torch as ht
 
 # ROADMAP.md Queue 1 items and "Not faults", by reason
 _TOPOLOGY = "item 12: two-tier topologies and lattice calibration"
-_RUNTIME = "item 12: core/gates.py, core/jit.py, core/tiers.py"
+_RUNTIME = "item 12: core/gates.py, core/jit.py, the lattice of core/tiers.py"
 _CODEC = "item 12: kernels/quant.py, the wire codec"
 _RINGS = "item 12: kernels/cmatmul.py, its rings as P2P"
 _SERVICE = "item 13: service layers"
-_OOC = "item 7: out-of-core"
 _COMPLEX = "Not faults: native complex, no complex platform policy"
 _COMM = "Not faults: the communicator is TorchCommunication (MPICommunication names it)"
 _PHYS = "Not faults: the port's resplit_local/reshape_local"
@@ -47,13 +46,11 @@ ABSENT = {
         "use_complex": _COMPLEX, "jit": _RUNTIME, "solve_endpoint": _SERVICE,
     },
     "heat_tpu.core.linalg": {"solve_endpoint": _SERVICE},
-    "heat_tpu.graph": {"pagerank_stream": _OOC},
     "heat_tpu.kernels": {
         "ring_all_gather": _RINGS, "ring_matmul_reduce": _RINGS,
         "encode_blocks": _CODEC, "decode_blocks": _CODEC, "wire_ratio": _CODEC,
     },
     "heat_tpu.redistribution": {
-        "HostArray": _OOC, "ooc_mode": _OOC, "plan_staged_passes": _OOC, "prove_fits": _OOC,
         "overlap_mode": "item 16: the executor's pipelined lap order", "resolve_topology": _TOPOLOGY,
         "tier_time_model": _TOPOLOGY, "wire_quant_gate": _CODEC, "wire_quant_mode": _CODEC,
         "resplit_phys": _PHYS, "reshape_phys": _PHYS,

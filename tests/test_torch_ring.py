@@ -30,16 +30,26 @@ Two levels:
   - ``ring_attention`` with q split: float32 within 1e-5 of heat_tpu, the
     output split along the sequence axis; bfloat16 each package against a
     float64 result, the port's error no worse than heat_tpu's plus K9's
-    bf16 limit 3 · 2^-8 (|o| + the attention of |v|); under autograd a
-    refusal naming ROADMAP item 19;
+    bf16 limit 3 · 2^-8 (|o| + the attention of |v|);
+  - the gradients dQ, dK and dV of sum((o − tgt)²) with q, k and v split,
+    with k and v whole and with q whole (``ATT_GRAD_SHAPES``, causal and
+    not): float32 within 1e-5 of the largest gradient magnitude of
+    ``jax.grad`` through heat_tpu's ring program on the 4-device mesh (its
+    single-device program for a whole q), float64 within 1e-10 of torch's
+    dense attention; a whole operand's gradient whole on every rank, a
+    split one's the rank's rows; the backward's collectives pinned (p
+    collective-permutes, and one all-gather for each whole k and v);
 - one process: the calls that serve a key block at any offset from the
   queries (``_decompose``) combine to attention under the global causal
-  mask within 1e-6, and launch K9 r + 1 times on rank r (p times not
-  causal) with even shards.
+  mask within 1e-6, and their shares of ``flash_attention_backward`` from
+  the combined (o, lse) sum to the gradient of that attention within
+  1e-10; they launch K9 r + 1 times on rank r (p times not causal) with
+  even shards.
 """
 
 import math
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -252,10 +262,71 @@ def test_bf16_ring_attention_is_no_worse_than_heat_tpus(ranks, jcomm, label, cau
         assert np.all(np.abs(res["global"].astype(np.float64) - exact) <= limit)
 
 
-def test_ring_attention_under_autograd_names_item_19(ranks):
-    for res in (ranks[r]["att_grad"] for r in range(WORLD)):
-        kind, msg = res["error"]
-        assert kind == "NotImplementedError" and "ROADMAP.md Queue 1, item 19" in msg, msg
+GRAD_TOL = 1e-5  # float32, of the largest gradient magnitude (heat_tpu's own ring test: 2e-4)
+GRAD_COUNTS = {"split": {"collective-permute": WORLD}, "whole_kv": {"collective-permute": WORLD, "all-gather": 2},
+               "whole_q": {}}  # the backward's collectives: p hops, and the whole k and v gathered back
+GRADS = [(label, kind, causal) for label in worker.ATT_GRAD_SHAPES for kind in worker.ATT_GRAD_KINDS
+         for causal in (False, True)]
+
+
+def _heat_tpu_grads(jcomm, label, kind, causal):
+    """jax.grad of sum((o − tgt)²) on heat_tpu's route: the ring program on
+    the 4-device mesh (``_ring_attention_program``, its padded shards) for a
+    split q, the single-device program for a whole q."""
+    import jax.numpy as jnp
+    from heat_tpu.nn import attention as jatt
+
+    (q, k, v), tgt = worker.att_grad_operands(jht, label, kind, comm=jcomm)
+    s_q, s_kv = worker.ATT_GRAD_SHAPES[label]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if kind == "whole_q":
+        def attend(*a):
+            return jatt._single_device_attention(*a, causal, scale)
+        args = tuple(jnp.asarray(t.numpy()) for t in (q, k, v))
+    else:
+        prog = jatt._ring_attention_program(jcomm.mesh, jcomm.axis_name, 4, 2, s_q, s_kv, causal, scale, "float32")
+
+        def attend(*a):
+            return prog(*a)[..., :s_q, :]
+        args = tuple(jht.array(t.numpy(), split=2, comm=jcomm)._phys for t in (q, k, v))
+    grads = jax.grad(lambda *a: jnp.sum((attend(*a) - tgt) ** 2), argnums=(0, 1, 2))(*args)
+    return [np.asarray(g)[..., :n, :] for g, n in zip(grads, (s_q, s_kv, s_kv))]
+
+
+def _dense_grads(label, kind, causal):
+    """The float64 gradients of sum((o − tgt)²) with torch's dense attention."""
+    (q, k, v), tgt = worker.att_grad_operands(ht, label, kind, "float64")
+    q, k, v = (torch.from_numpy(t.numpy()).requires_grad_() for t in (q, k, v))
+    o = torch.softmax(_scores(q, k, causal), dim=-1) @ v
+    return [g.numpy() for g in torch.autograd.grad(((o - torch.from_numpy(tgt)) ** 2).sum(), (q, k, v))]
+
+
+def _scores(q, k, causal):
+    s = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+    if causal:
+        i, j = torch.arange(q.shape[-2])[:, None], torch.arange(k.shape[-2])[None, :]
+        s = s.masked_fill(j > i, -math.inf)
+    return s
+
+
+def _check_grads(ranks, name, kind, want, tol):
+    splits = (None, 2, 2) if kind == "whole_q" else (2, None, None) if kind == "whole_kv" else (2, 2, 2)
+    for r, res in enumerate(_result(ranks, name)):
+        for got, w, split, which in zip(res["grads"], want, splits, "qkv"):
+            atol = tol * max(float(np.abs(w).max()), 1.0)
+            np.testing.assert_allclose(got, _shard(w, split, r), rtol=0, atol=atol, err_msg=f"d{which}, rank {r}")
+        assert res["counts"] == GRAD_COUNTS[kind]
+
+
+@pytest.mark.parametrize("label, kind, causal", GRADS, ids=[f"{lb}-{kd}-{c}" for lb, kd, c in GRADS])
+def test_ring_attention_gradients_match_heat_tpus_jax_grad(ranks, jcomm, label, kind, causal):
+    want = _heat_tpu_grads(jcomm, label, kind, causal)
+    _check_grads(ranks, f"att_grad_{label}_{kind}_float32_{causal}", kind, want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("label, kind, causal", GRADS, ids=[f"{lb}-{kd}-{c}" for lb, kd, c in GRADS])
+def test_float64_ring_attention_gradients_match_dense_attention(ranks, label, kind, causal):
+    _check_grads(ranks, f"att_grad_{label}_{kind}_float64_{causal}", kind, _dense_grads(label, kind, causal), 1e-10)
 
 
 BQ, BK = 7, 5
@@ -301,3 +372,25 @@ def test_even_shards_launch_k9_r_plus_1_times_causal_and_p_times_not(p):
         causal = [call for src in range(p) for call in natt._decompose(block, block, (r - src) * block, True)]
         assert len(causal) == r + 1 and [c[3] for c in causal].count(True) == 1  # the diagonal block
         assert sum(len(natt._decompose(block, block, (r - src) * block, False)) for src in range(p)) == p
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("delta", DELTAS)
+def test_decomposed_backward_shares_sum_to_the_gradient_under_the_global_mask(delta, causal):
+    gen = torch.Generator().manual_seed(10)
+    q, k, v = (torch.randn((2, s, 8), generator=gen, dtype=torch.float64) for s in (BQ, BK, BK))
+    o, lse = _global_reference(q, k, v, delta, causal)
+    do = torch.randn(o.shape, generator=gen, dtype=torch.float64)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for r0, k0, k1, masked in natt._decompose(BQ, BK, delta, causal):
+        gq, gk, gv = ka.flash_attention_backward(q[..., r0:, :], k[..., k0:k1, :], v[..., k0:k1, :],
+                                                 o[..., r0:, :], lse[..., r0:], do[..., r0:, :], masked)
+        dq[..., r0:, :] += gq
+        dk[..., k0:k1, :] += gk
+        dv[..., k0:k1, :] += gv
+    qa, ka_, va = (t.clone().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(_global_reference(qa, ka_, va, delta, causal)[0], (qa, ka_, va), do, allow_unused=True)
+    for got, w in zip((dq, dk, dv), want):
+        w = torch.zeros_like(got) if w is None else w
+        assert bool(torch.isfinite(got).all())
+        assert float((got - w).abs().max()) <= 1e-10

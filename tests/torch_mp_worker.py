@@ -298,6 +298,7 @@ def _cases(ht):
     cases.update(_fact_cases(ht))
     cases.update(_estimator_cases(ht))
     cases.update(_sparse_cases(ht))
+    cases.update(_staging_cases(ht))
     cases.update(_io_cases(ht))
     return cases
 
@@ -402,6 +403,44 @@ def _linalg_cases(ht):
     return cases
 
 
+# out-of-core staging across ranks (tests/test_torch_staging.py)
+def decaying_128(m: int, n: int, seed: int = 0) -> np.ndarray:
+    """float32 (m, n) with σ_i = 2^{-i/2} for its first 128 values (the rest
+    would lie below float32's resolution of σ_0), in memory that torch
+    allocated: on 64 bytes, as a DNDarray's copy of it is (MKL's float32
+    products may round otherwise on operands aligned otherwise)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(rng.standard_normal((m, 128)))
+    v, _ = np.linalg.qr(rng.standard_normal((n, 128)))
+    out = torch.empty((m, n), dtype=torch.float32).numpy()
+    out[...] = (u * 2.0 ** (-np.arange(128) / 2)) @ v.T
+    return out
+
+
+def staged_operand():
+    """``decaying_128(1300, 1100)``: three windows a pass at a 1 MiB slab."""
+    return decaying_128(1300, 1100)
+
+
+def _staging_cases(ht):
+    from heat_tpu_torch.redistribution import staging
+
+    cases = {}
+    for single_pass in (False, True):
+        def staged_hsvd(single_pass=single_pass):
+            os.environ["HEAT_TPU_OOC_SLAB_MB"] = "1"
+            try:
+                out = ht.linalg.hsvd_rank(staging.HostArray(staged_operand()), 10, compute_sv=True,
+                                          single_pass=single_pass)
+            finally:
+                del os.environ["HEAT_TPU_OOC_SLAB_MB"]
+            return {"factors": [_np(t.larray) for t in out], "splits": [t.split for t in out]}
+        cases[f"staged_hsvd_{single_pass}"] = staged_hsvd
+    return cases
+
+
 # KMeans, the distance ring and ring attention across ranks (tests/test_torch_ring.py)
 KM_ROWS = {"ragged": 37, "last_empty": 9}  # over 4 ranks: 10, 10, 10, 7 and 3, 3, 3, 0 rows
 KM_K, KM_D = 3, 4
@@ -418,6 +457,18 @@ DIST_X_SPLITS = (0, None, 1)
 DIST_Y_KINDS = ("self", "whole", "split0", "split1")  # "self": Y=None, X against itself
 ATT_SHAPES = {"even": (16, 16), "ragged": (10, 10), "cross": (12, 20)}  # (S_q, S_kv) at (2, 3, S, 8)
 ATT_BF16 = ("even", "ragged")
+# the ring's backward: ATT_SHAPES and 9 rows over 4 ranks, the last rank empty
+ATT_GRAD_SHAPES = {**ATT_SHAPES, "last_empty": (9, 9)}
+ATT_GRAD_KINDS = ("split", "whole_kv", "whole_q")  # q, k and v split; k and v whole; q whole, k and v split
+
+
+def att_grad_operands(lib, label, kind, dtype="float32", **kw):
+    """q, k, v (2, 3, S, 8) of ATT_GRAD_SHAPES[label] split as ``kind`` says,
+    and the target tgt (2, 3, S_q, 8) of the loss sum((o − tgt)²), numpy."""
+    s_q, s_kv = ATT_GRAD_SHAPES[label]
+    q, k, v, tgt = (_array((2, 3, s, 8), dtype, seed) for s, seed in ((s_q, 84), (s_kv, 85), (s_kv, 86), (s_q, 87)))
+    q_split, kv_split = (None, 2) if kind == "whole_q" else (2, None if kind == "whole_kv" else 2)
+    return tuple(lib.array(a, split=split, **kw) for a, split in ((q, q_split), (k, kv_split), (v, kv_split))), tgt
 
 
 def km_blobs(n: int, seed: int = 61) -> np.ndarray:
@@ -547,11 +598,24 @@ def _ring_cases(ht):
                 return {**arr(out), "dtype": out.dtype.__name__}
             cases[f"att_bf16_{label}_{causal}"] = att_bf16
 
-    def att_grad():
-        q, k, v = att_operands(ht, "even")
-        k.larray.requires_grad_()
-        return ht.nn.ring_attention(q, k, v)
-    cases["att_grad"] = att_grad
+    for label in ATT_GRAD_SHAPES:
+        for kind in ATT_GRAD_KINDS:
+            for dtype in ("float32", "float64"):
+                for causal in (False, True):
+                    def att_grad(label=label, kind=kind, dtype=dtype, causal=causal):
+                        (q, k, v), tgt = att_grad_operands(ht, label, kind, dtype)
+                        for t in (q, k, v):
+                            t.larray.requires_grad_()
+                        out = ht.nn.ring_attention(q, k, v, causal=causal)
+                        tgt = torch.from_numpy(tgt)
+                        if out.split is not None:
+                            off = out.counts_displs()[1][comm.rank]
+                            tgt = tgt[..., off : off + out.lshape[2], :]
+                        comm.counts.clear()
+                        ((out.larray - tgt) ** 2).sum().backward()
+                        counts = dict(comm.counts)
+                        return {"grads": [_np(t.larray.grad) for t in (q, k, v)], "counts": counts}
+                    cases[f"att_grad_{label}_{kind}_{dtype}_{causal}"] = att_grad
     return cases
 
 
