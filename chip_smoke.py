@@ -375,6 +375,20 @@ Phases, each of which fails the run by raising:
    plain version on every input a float32, float16 or bfloat16 draw can
    give it (``normal_of_words``).
 
+Q1 (``quant.cu``, the int8 wire codec) is held against its plain version
+bit for bit (codes and scale bytes; decode exactly) on the CPU test's cases
+and on 2^28 normals. The wire phase (``wire_path``) runs the CNN's SGD
+steps with ``wire_quant`` at world size 1 (the exact step: no Q1 launch),
+the 1 GB ``reshape_split1_1gb`` move over 8 emulated ranks under
+``HEAT_TPU_WIRE_QUANT=1`` flat and at ``HEAT_TPU_TOPOLOGY=2x4`` (Q1 once a
+codec step a rank), and times a durable disk commit (the lattice's ``disk``
+edge); in the world, ``_world_wire`` trains on the quantized wire flat and
+at 2x2 (Q1 two encodes and four decodes a rank a step flat) and runs
+``hsvd_rank``, a split ``matmul``, ``polar`` and ``lu`` under
+``HEAT_TPU_REDIST_OVERLAP=1`` against their barrier forms. Q1's rows time
+encode and decode at 2^28 and at the CNN's gradient blocks beside their
+byte bound, the plain version and the bf16 mode's cast.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits with an error and prints no result.
@@ -730,6 +744,7 @@ def check_kernels(dev) -> dict:
     _k1_case(cs, a, gen, 25)
     _k2_case(cs, a, gen)
     del a
+    errs.update(check_quant(dev))
     return errs
 
 
@@ -2574,7 +2589,7 @@ def _world_worker(rank: int, init_file: str, out_dir: str) -> None:
                            ("distance", _world_distance), ("sort", _world_sort), ("surface", _world_surface),
                            ("indexing", _world_indexing), ("train", _world_train), ("kmedians", _world_kmedians),
                            ("manip", _world_manip), ("linalg", _world_linalg), ("estimators", _world_estimators),
-                           ("sparse", _world_sparse), ("io", _world_io)):
+                           ("sparse", _world_sparse), ("io", _world_io), ("wire", _world_wire)):
             result[phase] = run(ht, comm, moved, rank, torch.device("cuda", 0))
             torch.cuda.empty_cache()
         dist.barrier()
@@ -2834,6 +2849,7 @@ def world_path(dev) -> dict:
     world["estimators"] = _report_world_estimators([res["estimators"] for res in results], shared)
     world["sparse_rows"] = _report_world_sparse([res["sparse"] for res in results], shared)
     world["io"] = _report_world_io([res["io"] for res in results], shared)
+    world["wire"] = _report_world_wire([res["wire"] for res in results], shared)
     return world
 
 
@@ -4229,6 +4245,448 @@ def relayout_timings(dev, launches: dict, errs: dict) -> list:
             "composed_ms": composed_ms, "clone_ms": clone_ms,
         })
     return rows_out
+
+
+# --------------------------------------------------------------------- #
+# the wire: Q1, the quantized training step, the 1 GB quantized move    #
+# --------------------------------------------------------------------- #
+Q1_SOURCE = "heat_tpu_torch/csrc/quant.cu"
+# Q1 computes heat_tpu's codec, which XLA fuses into the programs around
+# it: no pallas_call to replace
+Q1_REPLACES = "none: heat_tpu/kernels/quant.py:174 (_encode_int8) and :194 (_decode_int8) are XLA, not Pallas"
+Q1_N = 1 << 28  # float32 elements of Q1's timed row (1 GiB)
+WIRE_STEPS = 3  # SGD steps of the quantized training runs
+WIRE_TOPOLOGY_1GB = "2x4"  # the 1 GB move's two-tier run: 2 nodes of 4 emulated ranks
+TOL_WIRE_DELTA = 0.05  # the quantized steps' parameter change against the exact steps', relative (see _wire_delta)
+DISK_COMMIT_BYTES = 256 << 20
+
+
+def _q1_zero():
+    from heat_tpu_torch.kernels import quant
+
+    quant.ENCODE_LAUNCHES = quant.DECODE_LAUNCHES = 0
+
+
+def _q1_read() -> tuple:
+    from heat_tpu_torch.kernels import quant
+
+    return quant.ENCODE_LAUNCHES, quant.DECODE_LAUNCHES
+
+
+def _q1_case(quant, label: str, x) -> None:
+    """Q1's encode of ``x`` (B, n) bit for bit against its plain version on
+    the card (codes and scale bytes), its decode exactly; one launch each."""
+    import torch
+
+    e0, d0 = _q1_read()
+    w = quant.encode_blocks(x, "int8")
+    _require(_q1_read()[0] == e0 + (1 if x.numel() else 0), f"Q1 {label}: encode did not launch once")
+    _require(torch.equal(w, quant.encode_int8_plain(x)), f"Q1 {label}: encode differs from its plain version")
+    back = quant.decode_blocks(w, x.shape[1], "int8")
+    _require(_q1_read()[1] == d0 + (1 if x.numel() else 0), f"Q1 {label}: decode did not launch once")
+    want = quant.decode_int8_plain(w, x.shape[1])
+    _require(torch.equal(back.view(torch.int32), want.view(torch.int32)), f"Q1 {label}: decode differs")
+
+
+def check_quant(dev) -> dict:
+    """Q1 against its plain version on the card, bit for bit: the CPU
+    test's cases (normal data, zero tiles, NaN and ±inf tiles, a ragged last
+    tile, rows not on 16 bytes, rounding ties, a wide range, −0.0,
+    subnormals), then 2^28 normals as one row and as the flat DP
+    all-reduce's 4 blocks of the CNN's gradient. Returns the errors (0.0:
+    bit for bit)."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.kernels import quant
+
+    rng = np.random.default_rng(5)
+    cases = {"normal": rng.standard_normal((3, 2500)) * 7, "ragged": rng.standard_normal((4, 1030)),
+             "odd_rows": rng.standard_normal((7, 1027)), "tiny": rng.standard_normal((5, 3)),
+             "ties": (np.arange(2048).reshape(2, 1024) - 1000) * 0.5,
+             "wide": rng.standard_normal((2, 4096)) * 10.0 ** rng.integers(-30, 30, (2, 4096)),
+             "neg_zero": np.full((1, 1024), -0.0), "subnormal": rng.standard_normal((2, 1500)) * 1e-39}
+    s = rng.standard_normal((3, 2048))
+    s[0, 5], s[0, 7], s[1, 9], s[1, 1500:1600], s[2, :1024] = np.nan, np.inf, -np.inf, np.nan, np.inf
+    z = rng.standard_normal((2, 3072))
+    z[0, 1024:2048] = 0.0
+    cases.update(specials=s, zero_tiles=z)
+    for label, a in cases.items():
+        _q1_case(quant, label, torch.from_numpy(np.asarray(a, np.float32)).to(dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    x = torch.randn(1, Q1_N, device=dev, generator=gen)
+    _q1_case(quant, "2^28", x)
+    n = _cnn_params()
+    _q1_case(quant, "cnn_blocks", torch.randn(WORLD, -(-n // WORLD), device=dev, generator=gen))
+    print(f"Q1: encode bit for bit (codes and scale bytes) and decode exactly against the plain version on "
+          f"{len(cases) + 2} cases, 2^28 normals included", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return {"quant_encode": 0.0, "quant_decode": 0.0}
+
+
+def _cnn_params() -> int:
+    s = TRAIN_SIDE
+    fc = 64 * ((s - 4) // 2) ** 2 * 128 + 128 * TRAIN_CLASSES
+    return 32 * 9 + 32 + 64 * 32 * 9 + 64 + fc + 128 + TRAIN_CLASSES
+
+
+def _wire_delta(params, init, exact) -> float:
+    """The quantized steps' parameter change against the same steps on an
+    exact wire (the same dropout keys), ‖Δq − Δe‖/‖Δe‖: each step's
+    gradient crosses two int8 legs (2^-7 of a tile's absmax each, error
+    feedback carrying it on), so a few times 2^-7 (TOL_WIRE_DELTA)."""
+    return float(((params - exact).double().norm() / (exact - init).double().norm().clamp_min(1e-30)))
+
+
+def _disk_commit_rate() -> float:
+    """Bytes/s of a durable commit of DISK_COMMIT_BYTES (write, fsync,
+    rename) in a fresh temporary directory: the lattice's ``disk`` edge."""
+    import os
+    import shutil
+    import tempfile
+
+    blob = os.urandom(1 << 20) * (DISK_COMMIT_BYTES >> 20)
+    root = tempfile.mkdtemp(prefix="heat_disk_")
+    try:
+        rates = []
+        for k in range(3):
+            path = os.path.join(root, f"commit{k}")
+            t0 = time.perf_counter()
+            with open(path + ".tmp", "wb") as f:
+                f.write(blob)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(path + ".tmp", path)
+            rates.append(DISK_COMMIT_BYTES / (time.perf_counter() - t0))
+            os.remove(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return statistics.median(rates)
+
+
+def wire_path(dev) -> dict:
+    """The wire at world size 1 and in 8 emulated ranks:
+
+    (a) examples/mnist.py's CNN on the global batch of 8192,
+        ``WIRE_STEPS`` SGD steps with ``wire_quant="int8"`` and ``"bf16"``:
+        in a world of one rank the mode is the exact step (heat_tpu's
+        contract), so the parameters must equal the exact optimizer's
+        within ``TOL_TRAIN_CPU`` (cuDNN's backward sums in no fixed order)
+        and Q1 must not launch;
+    (b) ``reshape_split1_1gb`` over 8 ranks in one process (``LocalWorld``:
+        the exchange is a device copy, not NCCL) planned under
+        ``HEAT_TPU_WIRE_QUANT=1``, flat and at ``HEAT_TPU_TOPOLOGY=2x4``:
+        Q1 encodes each lap's destination blocks and decodes what arrives,
+        once a codec step a rank; the result within the codec's bound of
+        ``torch.reshape`` (2 legs of 2^-7 of the largest |x|).
+    Also the disk commit rate the lattice's ``disk`` edge carries."""
+    import os
+
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.kernels import quant
+    from heat_tpu_torch.redistribution import executor, planner
+
+    t_phase = time.perf_counter()
+    res = {"disk_commit_gbps": _disk_commit_rate() / 1e9}
+    print(f"disk: durable commit (write, fsync, rename) of {DISK_COMMIT_BYTES >> 20} MiB, median of 3: "
+          f"{res['disk_commit_gbps']:.4f} GB/s", flush=True)
+    images, labels = _mnist_arrays(TRAIN_KEY, TRAIN_BATCH)
+    x = ht.array(images[:, None].astype("float32") / 255.0, split=0)
+    y = ht.array(labels.astype("int32"), split=0)
+    runs = {}
+    for mode in (None, "int8", "bf16"):
+        model = ht.nn.DataParallel(_cnn(ht), key=TRAIN_KEY)
+        opt = ht.optim.DataParallelOptimizer(ht.optim.SGD(lr=TRAIN_LR), model, wire_quant=mode)
+        _q1_zero()
+        for _ in range(WIRE_STEPS):
+            opt.step(x, y)
+        torch.cuda.synchronize()
+        launches = _q1_read()
+        runs[mode] = (_params_of(model), launches, _median_ms(lambda: opt.step(x, y), 3))
+        _require(mode is None or launches == (0, 0), f"world size 1, wire_quant={mode}: Q1 launched {launches}")
+    # one rank runs the exact step; cuDNN's backward adds in no fixed order,
+    # so two exact runs differ in their last bits: TOL_TRAIN_CPU
+    errs = {mode: _rel(runs[mode][0], runs[None][0]) for mode in ("int8", "bf16")}
+    _require(all(e <= TOL_TRAIN_CPU for e in errs.values()),
+             f"world size 1, wire_quant: the parameters differ from the exact step's by {errs}")
+    res["size1"] = {str(m): {"ms": v[2], "q1": v[1]} for m, v in runs.items()}
+    res["size1_err"] = errs
+    print(f"wire (a) world size 1: CNN, {WIRE_STEPS} SGD steps of {TRAIN_BATCH} with wire_quant None/int8/bf16 (one "
+          f"rank: the exact step, as in heat_tpu): parameters against the exact run's {errs} (tol {TOL_TRAIN_CPU}: "
+          f"cuDNN's backward), Q1 launches {[v[1] for v in runs.values()]}; ms a step "
+          f"{[round(v[2], 4) for v in runs.values()]}", flush=True)
+    del runs, x, y
+
+    print("wire (b): 8 ranks emulated in one process; exchange is a device copy, not NCCL", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    a = torch.randn(*RESHAPE_1GB[0], device=dev, generator=gen)
+    want = a.reshape(RESHAPE_1GB[1])
+    bound = 2 * 2.0**-7 * 1.01 * float(a.abs().max())
+    spec = dict(planner.golden_specs())["reshape_split1_1gb_p8"]
+    p = 8
+    res["move"] = {}
+    for label, wire, topology in (("exact", "0", "flat"), ("flat", "1", "flat"),
+                                  (WIRE_TOPOLOGY_1GB, "1", WIRE_TOPOLOGY_1GB)):
+        old = {k: os.environ.get(k) for k in ("HEAT_TPU_WIRE_QUANT", "HEAT_TPU_TOPOLOGY")}
+        os.environ.update(HEAT_TPU_WIRE_QUANT=wire, HEAT_TPU_TOPOLOGY=topology)
+        try:
+            sched = planner.plan(spec)
+        finally:
+            for k, v in old.items():
+                os.environ.pop(k) if v is None else os.environ.update({k: v})
+        n_q = sum(st.kind == "quantize" for st in sched.steps)
+        _require(label == "exact" or (sched.quant is not None and sched.quant["mode"] == "int8" and n_q > 0),
+                 f"the 1 GB move at {topology} under HEAT_TPU_WIRE_QUANT=1 planned no codec")
+        world = executor.LocalWorld(p)
+        body = executor.program(spec, sched)
+        shards = [s.contiguous() for s in a.chunk(p, dim=1)]
+        torch.cuda.synchronize()
+        _q1_zero()
+        t0 = time.perf_counter()
+        out = world.run(body, shards)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = _q1_read()
+        got = torch.cat(out, dim=1)
+        err = float((got - want).abs().max())
+        counts_ok = all(c == sched.collective_counts() for c in world.counts)
+        _require(launches == (p * n_q, p * n_q), f"the 1 GB move at {topology}: Q1 launched {launches}, "
+                 f"not {n_q} encodes and decodes a rank")
+        limit = 0.0 if label == "exact" else bound
+        _require(counts_ok and err <= limit, f"the 1 GB move at {topology}: counts {world.counts[0]} against "
+                 f"{sched.collective_counts()}, max |Δ| {err:.3e} (bound {limit:.3e})")
+        sent = sched.quant["bytes_sent"] if sched.quant else sched.bytes_moved
+        res["move"][label] = {"strategy": sched.strategy, "q1_a_rank": (launches[0] // p, launches[1] // p),
+                              "wall_ms": wall, "err": err, "bound": limit, "counts": world.counts[0],
+                              "bytes_raw": sched.wire_bytes_raw, "bytes_sent": sent}
+        print(f"wire (b) {spec!r} at {topology}, HEAT_TPU_WIRE_QUANT={wire}: {sched.strategy}, collectives a rank "
+              f"{world.counts[0]}, Q1 launches a rank {res['move'][label]['q1_a_rank']} (encode, decode), wire "
+              f"bytes a rank {sent} of {sched.wire_bytes_raw}; max |Δ| against torch.reshape {err:.4e} (bound "
+              f"{limit:.4e}: two int8 legs, 0 exact); {wall:.1f} ms wall for all 8 emulated ranks (not a "
+              f"distributed timing)", flush=True)
+        del out, got, shards
+    del a, want
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"wire phase: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def quant_timings(dev, wire: dict, world: dict, errs: dict) -> list:
+    """Q1's rows: encode and decode of 2^28 float32 (one row) and of the
+    CNN's gradient as the flat all-reduce's 4 blocks, CUDA events (median
+    of 20) and device time (queued calls), beside the bound (bytes: 4 n
+    read and n + 4 n/1024 written, or the reverse, over 3.35 TB/s), the
+    plain version and the bf16 mode's ATen cast (context: no library call
+    computes the int8 codec, ``library_ms`` null)."""
+    import torch
+
+    from heat_tpu_torch.kernels import quant
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(34)
+    rows_out = []
+    move = wire["move"]
+    main_launches = {"move_1gb_flat_a_rank": move["flat"]["q1_a_rank"],
+                     f"move_1gb_{WIRE_TOPOLOGY_1GB}_a_rank": move[WIRE_TOPOLOGY_1GB]["q1_a_rank"],
+                     "world_dp_a_rank": world["q1"]}
+    n_cnn = _cnn_params()
+    for label, shape in (("2^28", (1, Q1_N)), ("cnn_gradient_blocks", (WORLD, -(-n_cnn // WORLD)))):
+        x = torch.randn(*shape, device=dev, generator=gen)
+        w = quant.encode_blocks(x, "int8")
+        n = x.numel()
+        nbytes = 4.0 * n + w.numel()
+        bound_ms, bound_by = _bound(nbytes, 0.0)
+        cast_ms = _median_ms(lambda: quant.encode_blocks(x, "bf16"), 20)
+        for name, call, plain in (
+            ("quant_encode", lambda: quant.encode_blocks(x, "int8"), lambda: quant.encode_int8_plain(x)),
+            ("quant_decode", lambda: quant.decode_blocks(w, shape[1], "int8"),
+             lambda: quant.decode_int8_plain(w, shape[1])),
+        ):
+            ms = _median_ms(call, 20)
+            dev_ms = _device_ms(call, 20)
+            plain_ms = _median_ms(plain, 5)
+            enc, dec = main_launches["move_1gb_flat_a_rank"]
+            launches = 8 * (enc if name == "quant_encode" else dec)
+            print(f"{name} (Q1, {shape[0]} x {shape[1]} float32, {label}): {ms:.4f} ms (events), device "
+                  f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 cast {cast_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {nbytes / 1e6:.1f} MB; {nbytes / (dev_ms * 1e-3) / 1e12:.3f} TB/s on the device); "
+                  f"launches on the main path {main_launches}", flush=True)
+            rows_out.append({
+                "name": f"{name}_{label}", "route": "cuda", "source": Q1_SOURCE, "replaces": Q1_REPLACES,
+                "launches": launches, "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "bf16_cast_ms": cast_ms, "main_launches": main_launches,
+            })
+        del x, w
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+WORLD_RING_HSVD = (8192, 1024)  # a rank's split-0 shard of a rank-8 operand
+WORLD_RING_MATMUL = (4096, 16384, 4096)  # (m, k, n): a split 1, b split 0
+WORLD_RING_POLAR = (16384, 512)
+WORLD_RING_LU = 4096
+TOL_RING = 1e-5  # the collective matmul and polar against the barrier form, of the largest magnitude
+
+
+def _world_wire(ht, comm, moved: dict, rank: int, dev) -> dict:
+    """The wire across the 4 ranks on one card: (a) the CNN's
+    ``WIRE_STEPS`` SGD steps on the global batch of 8192 with
+    ``wire_quant="int8"`` and ``"bf16"``, flat and at
+    ``HEAT_TPU_TOPOLOGY=2x2`` (every rank's parameters equal bit for bit,
+    their change within ``TOL_WIRE_DELTA`` of the exact steps'; Q1 two
+    encodes and four decodes a rank a step flat, one and two at 2x2, none
+    under bf16); (c) the rings under ``HEAT_TPU_REDIST_OVERLAP=1`` against
+    their barrier forms: ``hsvd_rank`` (its TSQR merge) and ``lu`` bit for
+    bit, the collective ``matmul`` and ``polar`` within ``TOL_RING`` and one
+    result on every rank, each form's collectives and ms."""
+    import os
+
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"dp": {}, "rings": {}}
+    images, labels = _mnist_arrays(TRAIN_KEY, TRAIN_BATCH)
+    x = ht.array(images[:, None].astype("float32") / 255.0, split=0)
+    y = ht.array(labels.astype("int32"), split=0)
+    from heat_tpu_torch.kernels import quant
+
+    def run(mode):
+        model = ht.nn.DataParallel(_cnn(ht), key=TRAIN_KEY)
+        opt = ht.optim.DataParallelOptimizer(ht.optim.SGD(lr=TRAIN_LR), model, wire_quant=mode)
+        return model, opt
+
+    # the reference: the same steps (each rank's dropout key folded with its
+    # rank) with the codec's all-reduce replaced by an exact one
+    model, opt = run("int8")
+    init = _params_of(model).clone()
+    codec = quant.quantized_allreduce_sum
+    quant.quantized_allreduce_sum = lambda h, c, mode: (c.allreduce(h), torch.zeros_like(h))
+    try:
+        for _ in range(WIRE_STEPS):
+            opt.step(x, y)
+    finally:
+        quant.quantized_allreduce_sum = codec
+    exact = _params_of(model)
+    q1_per_step = {}
+    for mode in ("int8", "bf16"):
+        for topology in ("flat", "2x2"):
+            os.environ["HEAT_TPU_TOPOLOGY"] = topology
+            try:
+                model, opt = run(mode)
+                comm.counts.clear()
+                moved.clear()
+                _q1_zero()
+                losses = [float(opt.step(x, y)) for _ in range(WIRE_STEPS)]
+                torch.cuda.synchronize()
+                launches, counts, nbytes = _q1_read(), dict(comm.counts), dict(moved)
+                mine = _params_of(model)
+                every = comm.allgather(mine[None])
+                same = all(torch.equal(every[q], every[0]) for q in range(WORLD))
+                delta = _wire_delta(mine, init, exact)
+                per = (2, 4) if topology == "flat" else (1, 2)
+                want = tuple(WIRE_STEPS * v for v in per) if mode == "int8" else (0, 0)
+                _every_rank_ok(comm, same and delta <= TOL_WIRE_DELTA and launches == want
+                               and all(math.isfinite(v) for v in losses),
+                               f"quantized DP {mode} at {topology}: parameters equal on every rank {same}, change "
+                               f"against the exact steps' {delta:.3e} (tol {TOL_WIRE_DELTA}), Q1 {launches} (want "
+                               f"{want}), losses {losses}")
+                ms = _world_ms(lambda: opt.step(x, y), 3)
+            finally:
+                os.environ.pop("HEAT_TPU_TOPOLOGY", None)
+            if mode == "int8":
+                q1_per_step[topology] = per
+            out["dp"][f"{mode}_{topology}"] = {"losses": losses, "delta": delta, "q1": launches, "counts": counts,
+                                               "bytes": nbytes, "ms": ms}
+    out["q1"] = q1_per_step
+    del x, y
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9600)
+    m, n = WORLD_RING_HSVD
+    u, _ = torch.linalg.qr(torch.randn(WORLD * m, 8, device=dev, generator=gen))
+    v, _ = torch.linalg.qr(torch.randn(n, 8, device=dev, generator=gen))
+    whole = (u * torch.arange(8, 0, -1, device=dev, dtype=torch.float32)) @ v.T
+    rank8 = ht.array(whole[rank * m : (rank + 1) * m].contiguous(), is_split=0)
+    mm, kk, nn_ = WORLD_RING_MATMUL
+    a = ht.array(torch.randn(mm, kk, device=dev, generator=gen)[:, rank * kk // WORLD : (rank + 1) * kk // WORLD]
+                 .contiguous(), is_split=1)
+    b = ht.array(torch.randn(kk, nn_, device=dev, generator=gen)[rank * kk // WORLD : (rank + 1) * kk // WORLD]
+                 .contiguous(), is_split=0)
+    pm, pn = WORLD_RING_POLAR
+    pa = ht.array(torch.randn(pm, pn, device=dev, generator=gen)[rank * pm // WORLD : (rank + 1) * pm // WORLD]
+                  .contiguous(), is_split=0)
+    ln = WORLD_RING_LU
+    la = ht.array((torch.randn(ln, ln, device=dev, generator=gen) / ln**0.5
+                   + 3 * torch.eye(ln, device=dev))[rank * ln // WORLD : (rank + 1) * ln // WORLD].contiguous(),
+                  is_split=0)
+    calls = {
+        "hsvd_rank": (lambda: ht.linalg.hsvd_rank(rank8, 8, compute_sv=True)[:3], True),
+        "matmul": (lambda: (ht.matmul(a, b),), False),
+        "polar": (lambda: ht.linalg.polar(pa), False),
+        "lu": (lambda: ht.linalg.lu(la), True),
+    }
+    for name, (call, exact_ring) in calls.items():
+        forms = {}
+        for overlap in ("1", "0"):
+            os.environ["HEAT_TPU_REDIST_OVERLAP"] = overlap
+            try:
+                comm.counts.clear()
+                res = call()
+                torch.cuda.synchronize()
+                counts = dict(comm.counts)
+                ms = _world_ms(call, 2)
+            finally:
+                os.environ.pop("HEAT_TPU_REDIST_OVERLAP", None)
+            forms[overlap] = ([(t.larray if hasattr(t, "larray") else torch.as_tensor(t)).clone() for t in res],
+                              counts, ms)
+        ring, barrier = forms["1"], forms["0"]
+        if exact_ring:
+            ok = all(torch.equal(r.view(torch.uint8) if r.dtype.is_floating_point else r,
+                                 s.view(torch.uint8) if s.dtype.is_floating_point else s)
+                     for r, s in zip(ring[0], barrier[0]))
+            err = 0.0
+        else:
+            err = max(float((r - s).abs().max() / s.abs().max().clamp_min(1e-30)) for r, s in zip(ring[0], barrier[0]))
+            rep = ring[0][-1] if name == "polar" else ring[0][0]  # H, the product: replicated
+            every = comm.allgather(rep[None])
+            ok = err <= TOL_RING and all(torch.equal(every[q], every[0]) for q in range(WORLD))
+        _every_rank_ok(comm, ok and "collective-permute" in ring[1] and "collective-permute" not in barrier[1],
+                       f"ring {name}: against the barrier form {'bit for bit' if exact_ring else f'{err:.3e}'}, "
+                       f"collectives {ring[1]} against {barrier[1]}")
+        out["rings"][name] = {"ring_counts": ring[1], "barrier_counts": barrier[1], "ring_ms": ring[2],
+                              "barrier_ms": barrier[2], "err": err}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _report_world_wire(per: list, shared: str) -> dict:
+    """Print the world's wire phase; returns Q1's launches a rank a step."""
+    for key in per[0]["dp"]:
+        d = [p["dp"][key] for p in per]
+        print(f"world wire (a) CNN, {WIRE_STEPS} SGD steps of {TRAIN_BATCH}, wire {key}: losses "
+              f"{[round(v, 4) for v in d[0]['losses']]}, parameters equal on every rank, change against the exact "
+              f"steps' {max(x['delta'] for x in d):.3e} (tol {TOL_WIRE_DELTA}); Q1 launches a rank {d[0]['q1']} "
+              f"(encode, decode); {d[0]['ms']:.4f} ms a step (rank 0, median of 3; ranks "
+              f"{[round(x['ms'], 4) for x in d]}); collectives a rank {d[0]['counts']}, bytes a rank put in "
+              f"{d[0]['bytes']}; {shared}", flush=True)
+    for name in per[0]["rings"]:
+        r = [p["rings"][name] for p in per]
+        print(f"world ring {name} (HEAT_TPU_REDIST_OVERLAP=1 against 0): ring {r[0]['ring_ms']:.4f} ms, barrier "
+              f"{r[0]['barrier_ms']:.4f} ms (rank 0, median of 2); collectives a rank {r[0]['ring_counts']} against "
+              f"{r[0]['barrier_counts']}; against the barrier form "
+              f"{'bit for bit' if r[0]['err'] == 0.0 else f'{max(x['err'] for x in r):.3e} (tol {TOL_RING})'}; "
+              f"{shared}", flush=True)
+    print(f"world wire phase: {max(p['seconds'] for p in per):.1f} s", flush=True)
+    return {"q1": per[0]["q1"], "dp": {k: [p["dp"][k]["q1"] for p in per] for k in per[0]["dp"]},
+            "rings": {k: per[0]["rings"][k] for k in per[0]["rings"]}}
 
 
 # --------------------------------------------------------------------- #
@@ -7206,6 +7664,7 @@ def main() -> int:
     est = estimators_path(dev, inputs)
     io = io_path(dev)
     ooc = ooc_path(dev, inputs)
+    wire = wire_path(dev)
     world_sparse_reference(dev, inputs)
     shared = tempfile.mkdtemp(prefix="heat_sparse_")
     WORLD_REFERENCE["sparse"]["inputs"] = os.path.join(shared, "inputs.pkl")
@@ -7266,6 +7725,7 @@ def main() -> int:
     r1_rows[0]["estimator_launches"] = {"scalers_draw": R1_PATH["estimators_draw"]["launches"],
                                         "spectral_fit": est["launches"]["Spectral_r1"]}
     rows.extend(r1_rows)
+    rows.extend(quant_timings(dev, wire, launches["world"]["wire"], errs))
     print(f"R1 on the main paths: {R1_PATH}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"surface": surface["rows"]}))
@@ -7277,6 +7737,7 @@ def main() -> int:
     print(json.dumps({"estimators": est["rows"], "launches": est["launches"], "world": launches["world"]["estimators"]}))
     print(json.dumps({"io": {k: v for k, v in io.items() if k != "dir"}, "world": launches["world"]["io"]}))
     print(json.dumps({"ooc": ooc}))
+    print(json.dumps({"wire": wire, "world": launches["world"]["wire"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -23,24 +23,155 @@ whatever the backend supports.
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict, Optional, Sequence, Tuple
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = [
+    "DCN_BPS",
+    "DCN_PENALTY",
+    "ICI_BPS",
+    "TOPOLOGY_ENV",
     "Communication",
     "MPICommunication",
     "MPI_SELF",
     "MPI_WORLD",
+    "Topology",
     "TorchCommunication",
     "get_comm",
     "init_distributed",
     "sanitize_comm",
+    "topology_for",
     "use_comm",
 ]
+
+
+# --------------------------------------------------------------------- #
+# two-tier topology                                                     #
+# --------------------------------------------------------------------- #
+from . import gates as _gates
+from . import tiers as _tiers
+
+#: a card's bytes/s to another card of its node (``core.tiers``: NVLink 4)
+ICI_BPS = _tiers.ICI_BPS
+#: a card's bytes/s to a card of another node (``core.tiers``: 400 Gb/s NDR)
+DCN_BPS = _tiers.DCN_BPS
+#: a ``dcn`` byte in ``ici`` bytes (``tiers.penalty("dcn")``), the price the
+#: planner puts on a collective whose group spans nodes
+DCN_PENALTY = _tiers.penalty("dcn")
+
+#: ``HEAT_TPU_TOPOLOGY``: ``auto`` (the nodes of a ``torchrun`` world, flat
+#: for one node), ``SxC`` (a simulated factorization of an S·C-rank world,
+#: nodes on consecutive ranks) or ``flat``
+TOPOLOGY_ENV = "HEAT_TPU_TOPOLOGY"
+
+_TOPOLOGY_RE = re.compile(r"^(\d+)\s*[xX]\s*(\d+)$")
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Two-tier factorization of the ranks: ``n_slices`` nodes of
+    ``chips_per_slice`` cards each, ``ici`` within a node and ``dcn``
+    between nodes (``heat_tpu``'s names: a node is its slice). Node s holds
+    the ranks ``[s·C, (s + 1)·C)``. ``n_slices == 1`` is the flat world."""
+
+    n_slices: int
+    chips_per_slice: int
+
+    @property
+    def size(self) -> int:
+        return self.n_slices * self.chips_per_slice
+
+    @property
+    def tiered(self) -> bool:
+        """More than one node: the ``dcn`` tier exists."""
+        return self.n_slices > 1
+
+    def slice_of(self, index: int) -> int:
+        """The node of rank ``index``."""
+        return int(index) // self.chips_per_slice
+
+    def crosses(self, a: int, b: int) -> bool:
+        """Does the edge ``a -> b`` leave its node?"""
+        return self.slice_of(a) != self.slice_of(b)
+
+    def spans(self, indices) -> bool:
+        """Does a group of ranks span more than one node?"""
+        return len({self.slice_of(i) for i in indices}) > 1
+
+    def chip_axis_groups(self) -> List[List[int]]:
+        """The groups within a node: C consecutive ranks a node."""
+        C = self.chips_per_slice
+        return [[s * C + c for c in range(C)] for s in range(self.n_slices)]
+
+    def slice_axis_groups(self) -> List[List[int]]:
+        """The groups across nodes: the ranks of one place in every node
+        (strided by C)."""
+        C = self.chips_per_slice
+        return [[s * C + c for s in range(self.n_slices)] for c in range(C)]
+
+    def bandwidth(self, tier: str) -> float:
+        """A card's bytes/s over ``tier`` (``"ici"`` or ``"dcn"``)."""
+        if tier not in ("ici", "dcn"):
+            raise KeyError(tier)
+        return _tiers.bandwidth(tier)
+
+    @classmethod
+    def parse(cls, text: str) -> Optional["Topology"]:
+        """``"2x8"`` -> Topology(2, 8); None for text that is not ``SxC``."""
+        m = _TOPOLOGY_RE.match(text.strip())
+        if not m:
+            return None
+        s, c = int(m.group(1)), int(m.group(2))
+        if s < 1 or c < 1:
+            return None
+        return cls(s, c)
+
+    def __str__(self) -> str:
+        return f"{self.n_slices}x{self.chips_per_slice}"
+
+
+def _detect_nodes(mesh_size: int) -> Topology:
+    """``auto``: the nodes of a ``torchrun`` world (``LOCAL_WORLD_SIZE``
+    cards a node) when it is this world; flat otherwise."""
+    local = os.environ.get("LOCAL_WORLD_SIZE", "")
+    if local.isdigit() and _joined() and dist.get_world_size() == mesh_size:
+        c = int(local)
+        if 0 < c < mesh_size and mesh_size % c == 0:
+            return Topology(mesh_size // c, c)
+    return Topology(1, mesh_size)
+
+
+def topology_for(mesh_size: int, override=None) -> Topology:
+    """The :class:`Topology` of a world of ``mesh_size`` ranks:
+    ``override`` (a Topology, ``"SxC"`` or ``"flat"``) when given, else
+    ``HEAT_TPU_TOPOLOGY``. A forced factorization whose product is not
+    ``mesh_size`` (or that has one node) resolves flat."""
+    mesh_size = int(mesh_size)
+    if override is not None:
+        if isinstance(override, Topology):
+            t = override
+        elif str(override).strip().lower() in ("flat", "1", "none"):
+            return Topology(1, mesh_size)
+        else:
+            t = Topology.parse(str(override))
+            if t is None:
+                raise ValueError(f"unparseable topology {override!r} (expected 'SxC', 'flat', or a Topology)")
+        return t if t.size == mesh_size and t.tiered else Topology(1, mesh_size)
+    raw = (_gates.get(TOPOLOGY_ENV, "auto") or "").strip().lower()
+    if raw in ("", "auto"):
+        return _detect_nodes(mesh_size)
+    if raw in ("flat", "1", "none", "off", "0"):
+        return Topology(1, mesh_size)
+    t = Topology.parse(raw)
+    if t is None or t.size != mesh_size or not t.tiered:
+        return Topology(1, mesh_size)
+    return t
 
 
 class Communication:
@@ -103,6 +234,20 @@ class TorchCommunication(Communication):
 
     def is_distributed(self) -> bool:
         return self.size > 1
+
+    @property
+    def topology(self) -> Topology:
+        """The two-tier :class:`Topology` of this world
+        (``HEAT_TPU_TOPOLOGY``)."""
+        return topology_for(self.size)
+
+    def tier_groups(self, topo: Tuple[int, int]):
+        """(within, across) of this rank at topology ``(S, C)``: its node's
+        C ranks and the S ranks of its place in every node
+        (``subgroups(S, C)``); (None, None) in a world of one rank."""
+        if not self.is_distributed():
+            return None, None
+        return self.subgroups(int(topo[0]), int(topo[1]))
 
     # ------------------------------------------------------------------ #
     # chunk geometry                                                     #
@@ -220,12 +365,15 @@ class TorchCommunication(Communication):
         send: torch.Tensor,
         send_counts: Optional[Sequence[int]] = None,
         recv_counts: Optional[Sequence[int]] = None,
+        group=None,
     ) -> torch.Tensor:
         """All-to-all along dim 0: the ``send_counts[q]`` rows that follow
         the ones before them go to rank q, and the result holds the rows
         from rank 0, then rank 1, ... (``recv_counts[q]`` from rank q).
-        Without counts, dim 0 splits into ``size`` equal blocks."""
-        p = self.size
+        Without counts, dim 0 splits into ``size`` equal blocks. ``group``
+        (one of ``subgroups``) exchanges among its members only, q their
+        index there."""
+        p = self.size if group is None else dist.get_world_size(group)
         rows = tuple(send.shape[1:])
         row_bytes = int(np.prod(rows, dtype=np.int64)) * send.element_size()
         if send_counts is None:
@@ -240,6 +388,7 @@ class TorchCommunication(Communication):
                 buf, src,
                 output_split_sizes=[int(c) * row_bytes for c in recv_counts],
                 input_split_sizes=[int(c) * row_bytes for c in send_counts],
+                group=group,
             )
         else:
             buf.copy_(src)

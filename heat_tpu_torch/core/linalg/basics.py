@@ -22,9 +22,12 @@ fewer elements to a rank:
   a whole other side): a local partial product and one ``allreduce``,
   replicated.
 
-``heat_tpu``'s collective-matmul ring (``kernels/cmatmul.py``) is off on
-CPU and GPU under its ``auto`` gate, so the port has the barrier schedule
-only. ``precision=`` is accepted: float32 products run in full FP32
+Under ``HEAT_TPU_REDIST_OVERLAP=1`` the contraction of a split-1 ``a``
+against a split-0 ``b`` runs as ``heat_tpu``'s collective matmul
+(``kernels.cmatmul.ring_matmul_reduce``: 2(p − 1) permutes, each output
+chunk summed once in ring order, the same bits on every rank); under
+``auto`` it keeps the all-reduce, as ``heat_tpu`` does off the TPU.
+``precision=`` is accepted: float32 products run in full FP32
 (torch's default ``allow_tf32=False``), as ``precision="highest"`` does.
 ``inv`` and ``det`` of a matrix split along its rows or columns of order
 ≥ ``_BLOCKED_MIN_N`` (512) factor it by the blocked LU of
@@ -220,6 +223,12 @@ def _matmul_2d(a: DNDarray, b: DNDarray, ta: torch.dtype, split: Optional[int]) 
         whole = _contraction_product(loc(a, 1), _chunk(b_all, 0, a), a)
         return _chunk(whole, 1, a)
     # replicated: contraction blocks (a split 1 and/or b split 0), or whole
+    if a.split == 1 and b.split == 0:
+        from ...kernels import cmatmul
+
+        if cmatmul.ring_enabled():
+            with cmatmul.stamp_scope("matmul"):
+                return cmatmul.ring_matmul_reduce(loc(a, 1), loc(b, 0), a.comm, a.comm.size, mm=_mm)[:m]
     if a.split == 1 or b.split == 0:
         return _contraction_product(loc(a, 1), loc(b, 0), a)
     return _mm(_whole(a).to(ta), _whole(b).to(ta))

@@ -29,6 +29,13 @@ reference's explicit collectives instead, one a ring:
   side's basis, ``QᴴAQ`` is one ``allreduce``; sub-problems of order ≥
   ``_EIGH_RESPLIT_MIN_N`` recurse split 0.
 
+Under ``HEAT_TPU_REDIST_OVERLAP=1`` these collectives run as
+``heat_tpu``'s rings (``kernels.cmatmul``): the all-gathers as
+``ring_all_gather`` (p − 1 permutes, the same stack), the broadcasts as
+``ring_bcast`` (p − 1 permutes) and polar's all-reduced Gram and ``UᴴA``
+as ``ring_matmul_reduce`` (2(p − 1) permutes, the same bits on every
+rank); under ``auto`` the barrier collectives above.
+
 No operand is gathered: an operand split 1 is resplit to 0 by the planner,
 and one with an uneven map is read in the chunk geometry
 (``_balanced_larray``, one ``redistribute_``). At world size 1, and for an
@@ -54,6 +61,7 @@ from .. import _threefry, types
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_in
 from ...kernels import threefry
+from ...kernels import cmatmul
 from . import basics
 from ._lapack import accurate_eigh
 from .basics import _from_whole, _local, _out, _whole
@@ -241,6 +249,30 @@ def _newton_schulz(x: torch.Tensor, gram, n: int, maxiter: int, tol: float) -> t
     return x
 
 
+def _gather_rows(comm, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` stacked along dim 0 in rank order: one all-gather,
+    or its ring."""
+    if not cmatmul.ring_enabled():
+        return comm.allgather(t, 0)
+    ring = cmatmul.ring_all_gather(t, comm, comm.size, comm.rank, cmatmul.grouped_ring_perm(1, comm.size))
+    return ring.reshape((-1,) + tuple(t.shape[1:]))
+
+
+def _bcast(comm, t: torch.Tensor, root: int) -> torch.Tensor:
+    """Rank ``root``'s ``t`` on every rank: one broadcast, or its ring."""
+    if not cmatmul.ring_enabled():
+        return comm.bcast(t, root=root)
+    return cmatmul.ring_bcast(t, comm, comm.size, root, cmatmul.grouped_ring_perm(1, comm.size))
+
+
+def _reduced_product(comm, x: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
+    """``Σ_ranks xᴴy`` of the ranks' row blocks (n columns of x): one
+    all-reduce, or the collective matmul's ring."""
+    if not cmatmul.ring_enabled():
+        return comm.allreduce(_ct(x) @ y)
+    return cmatmul.ring_matmul_reduce(_ct(x), y, comm, comm.size)[:n]
+
+
 def _polar_local(a: torch.Tensor, maxiter: int, tol: float):
     """(U, H) of a whole operand (``heat_tpu``'s ``_polar_local_program``)."""
     rt = _real_dtype(a.dtype)
@@ -256,11 +288,12 @@ def _polar_split0(comm, a_loc: torch.Tensor, n: int, maxiter: int, tol: float):
     (``heat_tpu``'s ``_polar_program``): 2 + the iteration count
     collectives, H replicated."""
     rt = _real_dtype(a_loc.dtype)
-    part = torch.sum(torch.real(a_loc.conj() * a_loc)).to(rt)
-    nrm = torch.sqrt(torch.sum(comm.allgather(part.reshape(1))))
-    x0 = a_loc / torch.clamp_min(nrm, torch.finfo(rt).tiny).to(a_loc.dtype)
-    u_loc = _newton_schulz(x0, lambda x: comm.allreduce(_ct(x) @ x), n, maxiter, tol)
-    h = comm.allreduce(_ct(u_loc) @ a_loc)
+    with cmatmul.stamp_scope("polar"):
+        part = torch.sum(torch.real(a_loc.conj() * a_loc)).to(rt)
+        nrm = torch.sqrt(torch.sum(_gather_rows(comm, part.reshape(1))))
+        x0 = a_loc / torch.clamp_min(nrm, torch.finfo(rt).tiny).to(a_loc.dtype)
+        u_loc = _newton_schulz(x0, lambda x: _reduced_product(comm, x, x, n), n, maxiter, tol)
+        h = _reduced_product(comm, u_loc, a_loc, n)
     return u_loc, 0.5 * (h + _ct(h))
 
 
@@ -341,7 +374,7 @@ def _blocked_cholesky(comm, a_loc: torch.Tensor, n: int) -> torch.Tensor:
     zero = w.new_zeros((nb, nb))
     for k in range(p):
         blk = slice(k * nb, (k + 1) * nb)
-        col = comm.allgather(w[:, blk] if i >= k else zero)
+        col = _gather_rows(comm, w[:, blk] if i >= k else zero)
         lkk = torch.linalg.cholesky(col[blk])
         # the whole block column in one solve: X·L_kkᴴ = S (rows above the
         # panel are zero by the gather gate)
@@ -371,7 +404,7 @@ def _blocked_lu(comm, a_loc: torch.Tensor, n: int):
     singular = torch.zeros((), dtype=torch.int32, device=w.device)
     for k in range(p):
         blk = slice(k * nb, (k + 1) * nb)
-        col = comm.allgather(w[:, blk] if i >= k else zero)
+        col = _gather_rows(comm, w[:, blk] if i >= k else zero)
         lu_pk, piv, info = torch.linalg.lu_factor_ex(col[blk])
         singular = singular + (info != 0).to(torch.int32)
         pk, parity = _lapack_permutation(lu_pk, piv)
@@ -392,7 +425,7 @@ def _blocked_lu(comm, a_loc: torch.Tensor, n: int):
             trail = slice((k + 1) * nb, None)
             cand_u = (torch.linalg.solve_triangular(lkk, w[:, trail], upper=False, unitriangular=True) if i == k
                       else w.new_zeros(w[:, trail].shape))
-            urow = comm.bcast(cand_u, root=k)
+            urow = _bcast(comm, cand_u, k)
             if i == k:
                 uout[:, trail] = cand_u
             w[:, trail] -= my_l @ urow
@@ -494,7 +527,7 @@ def _bcast_sweep(comm, acc: torch.Tensor, big: torch.Tensor, diag: torch.Tensor,
         if i == k:
             out = cand
         if j + 1 < len(laps):
-            acc = acc - big[:, k * nb : (k + 1) * nb] @ comm.bcast(cand, root=k)
+            acc = acc - big[:, k * nb : (k + 1) * nb] @ _bcast(comm, cand, k)
     return out
 
 
@@ -521,7 +554,7 @@ def _blocked_solve(comm, kind: str, n: int, b_loc: torch.Tensor, l_loc: torch.Te
             ssum = torch.zeros_like(yout)
             if k + 1 < p:
                 contrib = _ct(big_l[:, k * nb : (k + 1) * nb]) @ xout if i > k else torch.zeros_like(yout)
-                ssum = torch.sum(comm.allgather(contrib[None]), dim=0)
+                ssum = torch.sum(_gather_rows(comm, contrib[None]), dim=0)
             if i == k:
                 xout = torch.linalg.solve_triangular(_ct(diag), yout - ssum, upper=True)
         return xout[:rows]
@@ -709,9 +742,10 @@ def _eigh_local(a: DNDarray):
 
 def _ring_xhy(x: DNDarray, y: DNDarray) -> torch.Tensor:
     """Replicated ``XᴴY`` of two split-0 operands: the local product of the
-    rows and one ``allreduce``."""
+    rows and one ``allreduce``, or the collective matmul's ring."""
     tt = x.dtype.torch_type()
-    return x.comm.allreduce(_ct(x._balanced_larray().to(tt)) @ y._balanced_larray().to(tt))
+    xl = x._balanced_larray().to(tt)
+    return _reduced_product(x.comm, xl, y._balanced_larray().to(tt), xl.shape[1])
 
 
 def _eigh_branch(a: DNDarray, proj: DNDarray, k: int, depth: int, branch: int):

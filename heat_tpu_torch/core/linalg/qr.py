@@ -10,8 +10,12 @@ Q comes out split 0 and R replicated. From 16 ranks up, the merge is a
 two-level tree (``_tsqr_group_size``): the R factors are gathered within
 groups of s ranks, each group merges, the group factors are gathered
 across groups and merged once more, so that each rank receives
-(s + p/s)·k·n values instead of p·k·n. ``heat_tpu``'s ring form of the
-gathers and its grouping by topology tiers are ROADMAP.md Queue 1 item 12.
+(s + p/s)·k·n values instead of p·k·n. At a two-tier topology
+(``HEAT_TPU_TOPOLOGY``) the groups are the nodes (s = C), from any world
+width, so only the node factors cross nodes. Under
+``HEAT_TPU_REDIST_OVERLAP=1`` each gather runs as a ring of ``permute``
+hops (``kernels.cmatmul.ring_all_gather``), whose stack equals the
+all-gather's element for element: Q and R are the same bits.
 
 Each rank's k is min(⌈m/p⌉, n), as on ``heat_tpu``'s padded blocks: a
 short or empty last shard contributes its R padded with zero rows, which
@@ -51,15 +55,28 @@ def _tsqr_group_size(p: int) -> int:
     return best
 
 
-def _tsqr_grouping(p: int) -> int:
-    """Level-1 group width ``s`` of the TSQR merge (1: flat)."""
+def _tsqr_grouping(p: int, topo=None) -> int:
+    """Level-1 group width ``s`` of the TSQR merge (1: flat): the nodes'
+    width at a tiered topology ``(S, C)``, else ``heat_tpu``'s √p divisor
+    from 16 ranks up (qr.py:65)."""
+    if topo is not None:
+        S, C = topo
+        if S > 1 and C > 1 and S * C == p:
+            return C
     return _tsqr_group_size(p) if p >= _TSQR_TWO_LEVEL_MIN_P else 1
 
 
-def _stack_qr(comm, r: torch.Tensor, group):
-    """(Q2, R) of the rows of every member's ``r`` stacked in rank order
-    (one all-gather over ``group``, None for the world)."""
-    rs = comm.allgather(r, 0, group=group)
+def _stack_qr(comm, r: torch.Tensor, group, ring=None):
+    """(Q2, R) of the rows of every member's ``r`` stacked in rank order:
+    one all-gather over ``group`` (None for the world), or with ``ring =
+    (size, pos, perm)`` the ring of ``kernels.cmatmul.ring_all_gather``."""
+    if ring is None:
+        rs = comm.allgather(r, 0, group=group)
+    else:
+        from ...kernels import cmatmul
+
+        with cmatmul.stamp_scope("tsqr"):
+            rs = cmatmul.ring_all_gather(r, comm, *ring).reshape(-1, r.shape[-1])
     return torch.linalg.qr(rs, mode="reduced")
 
 
@@ -68,7 +85,10 @@ def _tsqr_local(comm, a: torch.Tensor, block_rows: int, calc_q: bool, s: int = 1
     rows r·block_rows onwards, at most block_rows of them). ``s`` > 1 runs
     the two-level tree with groups of ``s`` consecutive ranks (s must
     divide the world size). Returns (Q's shard | None, R)."""
+    from ...kernels import cmatmul
+
     p, rank = comm.size, comm.rank
+    ring = cmatmul.ring_enabled()
     n = a.shape[1]
     k = min(block_rows, n)
     q1, r1 = torch.linalg.qr(a, mode="reduced")
@@ -76,7 +96,7 @@ def _tsqr_local(comm, a: torch.Tensor, block_rows: int, calc_q: bool, s: int = 1
         r1 = torch.cat([r1, r1.new_zeros((k - r1.shape[0], n))])
     kr = q1.shape[1]
     if s <= 1:
-        q2, r = _stack_qr(comm, r1, None)
+        q2, r = _stack_qr(comm, r1, None, (p, rank, cmatmul.grouped_ring_perm(1, p)) if ring else None)
         if not calc_q:
             return None, r
         return q1 @ q2[rank * k : rank * k + kr], r
@@ -84,12 +104,20 @@ def _tsqr_local(comm, a: torch.Tensor, block_rows: int, calc_q: bool, s: int = 1
         raise ValueError(f"TSQR group width {s} does not divide the world size {p}")
     g, j = divmod(rank, s)
     within, across = comm.subgroups(p // s, s)
-    q2, r_g = _stack_qr(comm, r1, within)  # level 1: the s members of this group
+    G = p // s
+    # level 1: the s members of this group; level 2: every group's factor
+    q2, r_g = _stack_qr(comm, r1, within, (s, j, cmatmul.grouped_ring_perm(G, s)) if ring else None)
     k2 = q2.shape[1]
-    q3, r = _stack_qr(comm, r_g, across)  # level 2: every group's factor
+    q3, r = _stack_qr(comm, r_g, across, (G, g, cmatmul.grouped_ring_perm(G, s, across=True)) if ring else None)
     if not calc_q:
         return None, r
     return q1 @ (q2[j * k : j * k + kr] @ q3[g * k2 : (g + 1) * k2]), r
+
+
+def _topology(comm):
+    """``(S, C)`` of the communicator's tiered topology, or None."""
+    t = comm.topology
+    return (t.n_slices, t.chips_per_slice) if t.tiered else None
 
 
 def qr(a: DNDarray, tiles_per_proc: int = 1, calc_q: bool = True, overwrite_a: bool = False) -> QR:
@@ -123,7 +151,8 @@ def qr(a: DNDarray, tiles_per_proc: int = 1, calc_q: bool = True, overwrite_a: b
 
     if a.split == 0 and comm.is_distributed() and m >= n and n <= 4096:
         block = -(-m // comm.size)
-        q_loc, r = _tsqr_local(comm, a._balanced_larray().to(tt), block, calc_q, _tsqr_grouping(comm.size))
+        q_loc, r = _tsqr_local(comm, a._balanced_larray().to(tt), block, calc_q,
+                               _tsqr_grouping(comm.size, _topology(comm)))
         r_arr = DNDarray(r, tuple(r.shape), dtype, None, a.device, comm)
         if not calc_q:
             return QR(None, r_arr)

@@ -14,11 +14,24 @@ copies K5 and K6 (``csrc/relayout.cu``) under ``ht.redistribution``.
 seeded draw of the port (the hSVD sketch operators, k-means++ seeding,
 module inits) through its one entry point ``threefry.draw`` (and
 ``threefry.shuffle`` for permutations), one launch a draw of this rank's
-chunk; it replaces no Pallas kernel. The launch counts stay on their modules (for example
+chunk; it replaces no Pallas kernel. ``quant`` holds the wire codec with
+its kernel pair Q1 (``csrc/quant.cu``: the int8 encode and decode) under
+the quantized all-reduces and the redistribution executor's codec laps;
+it replaces no Pallas kernel either. ``cmatmul`` holds the rings of the
+linalg collectives as point-to-point hops. The launch counts stay on their modules (for example
 ``attention.ATTENTION_LAUNCHES``): a name imported here would not follow them.
 """
 
-from . import attention, relayout, sort, spmm, threefry
+from . import attention, cmatmul, quant, relayout, sort, spmm, threefry
+from .cmatmul import (
+    ring_all_gather,
+    ring_matmul_reduce,
+)
+from .quant import (
+    decode_blocks,
+    encode_blocks,
+    wire_ratio,
+)
 from .attention import (
     attention_serviceable,
     flash_attention,
@@ -47,6 +60,8 @@ from .spmm import (
 
 __all__ = [
     "attention",
+    "cmatmul",
+    "quant",
     "relayout",
     "sort",
     "spmm",
@@ -68,4 +83,9 @@ __all__ = [
     "lane_fill",
     "pack_rows",
     "unpack_rows",
+    "ring_all_gather",
+    "ring_matmul_reduce",
+    "decode_blocks",
+    "encode_blocks",
+    "wire_ratio",
 ]

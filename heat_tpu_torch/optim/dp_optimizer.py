@@ -14,6 +14,16 @@ of operations and in float32 hyperparameters (``inject_hyperparams``):
 nesterov), ``Adam`` (the decay first, then ``scale_by_adam``) and
 ``AdamW`` (``scale_by_adam``, then the decay), each scaled by −lr.
 
+``DataParallelOptimizer(wire_quant="int8" | "bf16")`` is ``heat_tpu``'s
+quantized-gradient mode with error feedback: each rank adds its carry to
+its float32 gradient sum, flattened in ``heat_tpu``'s pytree order, and sums that over the ranks through
+``kernels.quant.quantized_allreduce_sum`` (``hierarchical_allreduce_sum``
+at a tiered topology with more than one rank a node), keeps the residual
+as its next carry, and takes one all-reduce of the loss sum and the row
+count; each rank's dropout key is ``fold_in(step key, rank)`` over a block
+of ``ceil(n/p)`` rows, as ``heat_tpu`` draws it per device. In a world of
+one rank the mode is the exact step, as in ``heat_tpu``.
+
 ``DASO`` keeps ``heat_tpu``'s two-level schedule: nodes are groups of
 consecutive ranks; every step all-reduces the gradients within a node,
 and every ``global_skip``-th step averages the parameters over the ranks
@@ -145,12 +155,11 @@ class AdamW(Adam):
             self._apply(p, u, hyper["learning_rate"])
 
 
-def _refuse_wire_quant(wire_quant) -> None:
-    if wire_quant is not None:
-        raise NotImplementedError(
-            "DataParallelOptimizer(wire_quant=...): the quantized gradient wire and its error-feedback carry need "
-            "kernels/quant.py, which is not ported (ROADMAP.md Queue 1, item 12)"
-        )
+def _check_wire_quant(wire_quant) -> None:
+    from ..kernels.quant import MODES
+
+    if wire_quant is not None and wire_quant not in MODES:
+        raise ValueError(f"wire_quant must be one of {MODES} or None, got {wire_quant!r}")
 
 
 def _local_sums(model, loss, xb: torch.Tensor, yb, key, batch):
@@ -181,6 +190,20 @@ def _flat(tensors: List[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
 def _unflat(flat: torch.Tensor, like: List[torch.Tensor]) -> List[torch.Tensor]:
     parts = flat.split([t.numel() for t in like])
     return [part.reshape(t.shape).to(t.dtype) for part, t in zip(parts, like)]
+
+
+def _pytree_order(module: torch.nn.Module) -> List[int]:
+    """The positions in ``module.parameters()`` in ``heat_tpu``'s
+    ``ravel_pytree`` order of the same parameters: a ``Sequential``'s
+    children by index, each layer's parameters by name ("bias" before
+    "weight"), as JAX orders a tuple of dicts. The quantized wire flattens
+    in this order, so that its blocks, tiles and carry are ``heat_tpu``'s."""
+    names = [name for name, _ in module.named_parameters()]
+
+    def key(name: str):
+        return tuple((0, int(part), "") if part.isdigit() else (1, 0, part) for part in name.split("."))
+
+    return sorted(range(len(names)), key=lambda i: key(names[i]))
 
 
 def _operands(x: DNDarray, y):
@@ -240,14 +263,18 @@ class DataParallelOptimizer(_ReducedStep):
     and each rank draws its rows of the one global mask; one all-reduce
     sums the gradients, the row count and the loss; the result is the
     global mean loss as a replicated 0-d DNDarray. A rank without rows
-    takes the collective with zeros. ``wire_quant`` raises
-    ``NotImplementedError`` (ROADMAP.md Queue 1, item 12)."""
+    takes the collective with zeros. ``wire_quant="int8"`` or ``"bf16"``
+    sends the gradients through the wire codec with an error-feedback
+    carry (module docstring); None is the exact all-reduce."""
 
     def __init__(self, local_optimizer, model, loss=None, blocking: bool = True, wire_quant: Optional[str] = None):
         super().__init__(local_optimizer, model, loss)
-        _refuse_wire_quant(wire_quant)
+        _check_wire_quant(wire_quant)
         self.blocking = bool(blocking)
-        self.wire_quant = None
+        self.wire_quant = wire_quant
+        # this rank's error-feedback carry, one flat float32 gradient, made
+        # at the first quantized step
+        self._ef_carry: Optional[torch.Tensor] = None
 
     def step(self, x: DNDarray, y) -> DNDarray:
         """One training step on the global batch; returns the global mean
@@ -255,24 +282,67 @@ class DataParallelOptimizer(_ReducedStep):
         x, xb, yb = _operands(x, y)
         self._iter += 1
         dropkey = _threefry.fold_in(self._base_key, self._iter)
-        total = self._reduced_update(xb, yb, dropkey, batch_of(x), x.is_distributed())
-        return scalar_dndarray(total[0] / torch.clamp_min(total[1], 1.0), self.model.comm, x.device)
+        comm = self.model.comm
+        if self.wire_quant is not None and comm.size > 1:
+            total = self._quantized_update(xb, yb, dropkey, -(-x.shape[0] // comm.size))
+        else:
+            total = self._reduced_update(xb, yb, dropkey, batch_of(x), x.is_distributed())
+        return scalar_dndarray(total[0] / torch.clamp_min(total[1], 1.0), comm, x.device)
+
+    def _quantized_update(self, xb: torch.Tensor, yb, dropkey, block_rows: int) -> torch.Tensor:
+        """The quantized-gradient step (``heat_tpu``'s ``_get_quant_step``):
+        the gradient of this rank's rows (its dropout key folded with its
+        rank, its rows the first of a block of ``block_rows``) plus the
+        carry through the codec's all-reduce, one all-reduce of (loss sum,
+        row count), the division and the update; the residual becomes the
+        carry. Returns the reduced (loss sum, count)."""
+        from ..kernels import quant as _quant
+
+        comm = self.model.comm
+        key = _threefry.fold_in(dropkey, comm.rank)
+        params, grads, tail = _local_sums(self.model, self.loss, xb, yb, key, (0, block_rows))
+        order = _pytree_order(self.model.module)
+        g_flat = _flat([grads[i] for i in order], torch.float32)
+        if self._ef_carry is None:
+            self._ef_carry = torch.zeros_like(g_flat)
+        h = g_flat + self._ef_carry
+        topo = comm.topology
+        if topo.tiered and topo.chips_per_slice > 1:
+            red, self._ef_carry = _quant.hierarchical_allreduce_sum(h, comm, topo.n_slices, topo.chips_per_slice,
+                                                                    self.wire_quant)
+        else:
+            red, self._ef_carry = _quant.quantized_allreduce_sum(h, comm, self.wire_quant)
+        total = comm.allreduce(tail.to(torch.float32))
+        gbar = [None] * len(params)
+        for i, g in zip(order, _unflat(red / torch.clamp_min(total[1], 1.0), [params[i] for i in order])):
+            gbar[i] = g
+        self.local.update(params, gbar, self.opt_state, self.hyper)
+        return total
 
     def checkpoint_state(self) -> dict:
         """What a resume needs, bit for bit: the parameters, the optimizer
         state and hyperparameters, the step counter the dropout key folds
-        in and the base key."""
+        in and the base key. Under ``wire_quant`` it also holds every
+        rank's error-feedback carry, gathered by one all-gather: the call
+        is then collective, and every rank must make it (a writer on rank 0
+        alone would wait for the others)."""
         params = [p.detach().clone() for p in self.model.module.parameters()]
         opt = [t.clone() for name in sorted(self.opt_state) for t in self.opt_state[name]]
         state = {f"param_{i:04d}": p for i, p in enumerate(params)}
         state.update({f"opt_{i:04d}": t for i, t in enumerate(opt)})
         state.update(base_key=np.asarray(self._base_key, dtype=np.uint32), iter=int(self._iter), n_params=len(params),
-                     n_opt=len(opt), hyper=dict(self.hyper), wire_quant="")
+                     n_opt=len(opt), hyper=dict(self.hyper), wire_quant=self.wire_quant or "")
+        if self._ef_carry is not None:
+            # every rank's carry, one row a rank (one all-gather), as
+            # heat_tpu keeps its carry sharded over the devices
+            state["ef_carry"] = self.model.comm.allgather(self._ef_carry[None], 0)
         return state
 
     def load_checkpoint_state(self, state: dict) -> None:
         """Adopt ``checkpoint_state()``'s dict; a checkpoint of another
-        architecture raises before anything changes."""
+        architecture or codec raises before anything changes. On a world of
+        another size the carry's rows fold as row r -> rank r % p (summed),
+        which keeps the total residual."""
         params = list(self.model.module.parameters())
         opt = [t for name in sorted(self.opt_state) for t in self.opt_state[name]]
         n_p, n_o = int(state["n_params"]), int(state["n_opt"])
@@ -281,7 +351,12 @@ class DataParallelOptimizer(_ReducedStep):
                 f"checkpoint carries {n_p} param / {n_o} optimizer tensors but this optimizer has "
                 f"{len(params)} / {len(opt)}: architectures differ"
             )
-        _refuse_wire_quant(state.get("wire_quant") or None)
+        saved_wire = state.get("wire_quant") or None
+        if saved_wire != self.wire_quant:
+            raise ValueError(
+                f"checkpoint was written with wire_quant={saved_wire!r} but this optimizer runs "
+                f"{self.wire_quant!r}: the error-feedback carry is only meaningful under the same codec"
+            )
         with torch.no_grad():
             for i, p in enumerate(params):
                 p.copy_(torch.as_tensor(state[f"param_{i:04d}"]).to(device=p.device, dtype=p.dtype))
@@ -290,6 +365,14 @@ class DataParallelOptimizer(_ReducedStep):
         self.hyper = dict(state["hyper"])
         self._iter = int(state["iter"])
         self._base_key = tuple(int(v) for v in np.asarray(state["base_key"]).reshape(-1))
+        carry = state.get("ef_carry")
+        if carry is None or self.wire_quant is None:
+            self._ef_carry = None
+            return
+        comm = self.model.comm
+        rows = torch.as_tensor(carry).detach().cpu().to(torch.float32)
+        mine = rows[torch.arange(rows.shape[0]) % comm.size == comm.rank].sum(dim=0)
+        self._ef_carry = mine.to(params[0].device if params else mine.device)
 
 
 class DASO(_ReducedStep):

@@ -22,7 +22,19 @@ from . import executor, planner, schedule, spec, staging
 from . import schedule as schedule_ir  # heat_tpu's names of the two modules
 from . import spec as spec_mod
 from .executor import LocalWorld, execute, reshape_local, resplit_local
-from .planner import budget_bytes, clear_plan_cache, explain, golden_specs, plan, planner_enabled
+from .planner import (
+    budget_bytes,
+    clear_plan_cache,
+    explain,
+    golden_specs,
+    overlap_mode,
+    plan,
+    planner_enabled,
+    resolve_topology,
+    tier_time_model,
+    wire_quant_gate,
+    wire_quant_mode,
+)
 from .schedule import Schedule, Step
 from .spec import RedistSpec
 from .staging import HostArray, ooc_mode, plan_staged_passes, prove_fits
@@ -39,10 +51,15 @@ __all__ = [
     "explain",
     "golden_specs",
     "ooc_mode",
+    "overlap_mode",
     "plan",
     "plan_staged_passes",
     "planner_enabled",
     "prove_fits",
     "reshape_local",
+    "resolve_topology",
     "resplit_local",
+    "tier_time_model",
+    "wire_quant_gate",
+    "wire_quant_mode",
 ]

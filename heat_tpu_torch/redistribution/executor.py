@@ -11,11 +11,15 @@ passes an in-process stand-in that moves the blocks of ``p`` emulated
 ranks between their tensors, so that all ranks' bodies run in one process
 (on one card, or in the CPU tests). Either way the exchange offers
 
-* ``alltoall(send)``: block q of ``send`` (dim 0, ``p`` equal blocks) goes
-  to rank q; block q of the result came from rank q;
+* ``alltoall(send, group=None)``: block q of ``send`` (dim 0, ``p`` equal
+  blocks) goes to rank q; block q of the result came from rank q; with a
+  ``group`` of ``tier_groups``, q is the member's index there;
+* ``tier_groups((S, C))``: this rank's group within its node and its group
+  across nodes at a two-tier topology;
 * ``allgather(t, axis)``: every rank's ``t`` concatenated along ``axis``;
 * ``ring_exchange(send, dst, src)``: ``send`` to ``dst``, the same shape
-  from ``src``,
+  from ``src``; ``permute(send, pairs)``, the communicator's (the rings of
+  ``kernels.cmatmul`` run on either),
 
 and counts its calls by the names of ``schedule.COLLECTIVE_STEP_KINDS``,
 which are held against the plan's ``collective_counts()``.
@@ -29,6 +33,14 @@ the destination. The laps of a chunk group run in the sequential order
 ROADMAP.md Queue 1, item 16. The packed pivot's copies are kernels K6
 (``unpack_rows``, a packed source) and K5 (``pack_rows``, a packed
 target).
+
+A plan with ``quantize`` steps runs those laps on encoded wire rows
+(``kernels.quant``: Q1 on a card), one row a destination block, in
+``heat_tpu``'s element order, so that the values that arrive equal
+``heat_tpu``'s bit for bit. A ``hierarchical-a2a`` plan runs each lap as an
+all-to-all within the node, then one across nodes of the rows packed by
+node (the encoded leg under the codec); the blocks land where the flat
+all-to-all puts them.
 """
 
 from __future__ import annotations
@@ -52,18 +64,37 @@ Body = Callable[[torch.Tensor, int, int, object], torch.Tensor]
 
 def _a2a_chunks(sched: Schedule):
     """(before, after) all-to-all lap counts around the plan's ``reshape``
-    step, from step kinds (heat_tpu executor.py:109)."""
+    step, from step kinds (heat_tpu executor.py:109); a hierarchical lap's
+    pair counts once (its ``ici`` step is skipped)."""
     before = after = 0
     seen_reshape = False
     for st in sched.steps:
         if st.kind == "reshape":
             seen_reshape = True
-        elif st.kind == "all_to_all":
+        elif st.kind == "all_to_all" and st.tier != "ici":
             if seen_reshape:
                 after += 1
             else:
                 before += 1
     return max(before, 1), max(after, 1)
+
+
+def _quant_flags(sched: Schedule):
+    """(mode, quant_in, quant_out): the codec and which exchanges around the
+    plan's ``reshape`` step run encoded (heat_tpu executor.py:167); a move
+    has no reshape step, so its codec steps count as ``quant_in``."""
+    mode = sched.quant["mode"] if sched.quant else None
+    seen_reshape = False
+    qin = qout = False
+    for st in sched.steps:
+        if st.kind == "reshape":
+            seen_reshape = True
+        elif st.kind == "quantize":
+            if seen_reshape:
+                qout = True
+            else:
+                qin = True
+    return mode, qin, qout
 
 
 def _packed_flags(sched: Schedule):
@@ -103,11 +134,30 @@ def _empty_chunk(spec: RedistSpec, rank: int, like: torch.Tensor) -> torch.Tenso
 # --------------------------------------------------------------------- #
 # exchanges of heat_tpu's program bodies                                #
 # --------------------------------------------------------------------- #
-def _chunked_all_to_all(x, p: int, split_axis: int, concat_axis: int, C: int, exchange) -> torch.Tensor:
+def _a2a_axis(t: torch.Tensor, axis: int, exchange, group) -> torch.Tensor:
+    """All-to-all over ``group`` along ``axis``: its blocks go to the
+    members in order, the received ones stand along ``axis`` by source."""
+    return exchange.alltoall(t.movedim(axis, 0).contiguous(), group=group).movedim(0, axis)
+
+
+def _wire_a2a(rows: torch.Tensor, codec: str, exchange, group=None) -> torch.Tensor:
+    """One all-to-all of the encoded rows of ``rows`` (row q bound for
+    member q), decoded: row q of the result came from member q."""
+    from ..kernels import quant as _quant
+
+    n = rows.shape[1]
+    return _quant.decode_blocks(exchange.alltoall(_quant.encode_blocks(rows, codec), group=group), n, codec)
+
+
+def _chunked_all_to_all(x, p: int, split_axis: int, concat_axis: int, C: int, exchange,
+                        codec: Optional[str] = None, topo=None) -> torch.Tensor:
     """Tiled all-to-all of a physical block in C equal laps along the
     concat axis (heat_tpu executor.py:213): ``split_axis`` splits into p
     blocks, block q goes to rank q, and the received blocks are
-    concatenated along ``concat_axis`` in rank order."""
+    concatenated along ``concat_axis`` in rank order. ``codec`` ships each
+    lap's p destination blocks as encoded rows; ``topo=(S, C)`` runs each
+    lap within the node, then across nodes (the encoded leg under
+    ``codec``)."""
     x2 = x.movedim(concat_axis, 0)
     s_ax = split_axis + 1 if split_axis < concat_axis else split_axis
     Bc = x2.shape[0]
@@ -115,29 +165,67 @@ def _chunked_all_to_all(x, p: int, split_axis: int, concat_axis: int, C: int, ex
     Bs = x2.shape[s_ax] // p
     rest = tuple(x2.shape[1:s_ax]) + (Bs,) + tuple(x2.shape[s_ax + 1 :])
     out = x.new_empty((p, Bc) + rest)
+    if topo is not None:
+        S_t, C_t = topo
+        within, across = exchange.tier_groups(topo)
     for c in range(max(C, 1)):
         chunk = x2[c * step : (c + 1) * step]
-        send = chunk.unflatten(s_ax, (p, Bs)).movedim(s_ax, 0).contiguous()
-        out[:, c * step : (c + 1) * step] = exchange.alltoall(send)
+        if topo is not None:
+            # destination s'·C + c' factored (S, C, Bs): within the node block
+            # c' goes to place c', then across nodes row s' to node s'
+            v = _a2a_axis(chunk.unflatten(s_ax, (S_t, C_t, Bs)), s_ax + 1, exchange, within)
+            if codec is None:
+                v = _a2a_axis(v, s_ax, exchange, across)
+            else:
+                m = v.movedim(s_ax, 0)
+                v = _wire_a2a(m.reshape(S_t, -1), codec, exchange, across).to(x.dtype).reshape(m.shape).movedim(0, s_ax)
+            recv = v.flatten(s_ax, s_ax + 1).movedim(s_ax, 0)
+        elif codec is not None:
+            # heat_tpu's wire rows: destination block q in (Bs, step, ...) order
+            m = chunk.movedim(s_ax, 0)
+            dec = _wire_a2a(m.reshape(p, -1), codec, exchange).to(x.dtype)
+            recv = dec.reshape((p, Bs) + tuple(m.shape[1:])).movedim(1, s_ax + 1)
+        else:
+            recv = exchange.alltoall(chunk.unflatten(s_ax, (p, Bs)).movedim(s_ax, 0).contiguous())
+        out[:, c * step : (c + 1) * step] = recv
     return out.reshape((p * Bc,) + rest).movedim(0, concat_axis)
 
 
-def _chunked_a2a_flat(x, p: int, C: int, exchange) -> torch.Tensor:
+def _chunked_a2a_flat(x, p: int, C: int, exchange, codec: Optional[str] = None, topo=None) -> torch.Tensor:
     """All-to-all of a (p, M) column-grouped flat buffer in C laps of
     columns (heat_tpu executor.py:394): row d goes to rank d, row q of the
-    result came from rank q."""
+    result came from rank q; ``codec`` and ``topo`` as for
+    :func:`_chunked_all_to_all`."""
     M = x.shape[1]
     step = M // max(C, 1)
     out = torch.empty_like(x)
+    if topo is not None:
+        S_t, C_t = topo
+        within, across = exchange.tier_groups(topo)
     for c in range(max(C, 1)):
-        out[:, c * step : (c + 1) * step] = exchange.alltoall(x[:, c * step : (c + 1) * step].contiguous())
+        chunk = x[:, c * step : (c + 1) * step]
+        if topo is not None:
+            v = _a2a_axis(chunk.reshape(S_t, C_t, step), 1, exchange, within)
+            if codec is None:
+                recv = exchange.alltoall(v.contiguous(), group=across)
+            else:
+                recv = _wire_a2a(v.reshape(S_t, C_t * step), codec, exchange, across).to(x.dtype)
+            recv = recv.reshape(p, step)
+        elif codec is not None:
+            recv = _wire_a2a(chunk.contiguous(), codec, exchange).to(x.dtype)
+        else:
+            recv = exchange.alltoall(chunk.contiguous())
+        out[:, c * step : (c + 1) * step] = recv
     return out
 
 
-def _ring_exchange(x, rank: int, p: int, split_axis: int, concat_axis: int, exchange) -> torch.Tensor:
+def _ring_exchange(x, rank: int, p: int, split_axis: int, concat_axis: int, exchange,
+                   codec: Optional[str] = None) -> torch.Tensor:
     """The split move as p − 1 hops (heat_tpu executor.py:491): at
     distance d this rank sends the block bound for rank + d and places the
-    one from rank − d."""
+    one from rank − d; ``codec`` sends each block as one encoded row."""
+    from ..kernels import quant as _quant
+
     Bs = x.shape[split_axis] // p
     Bc = x.shape[concat_axis]
     shape = list(x.shape)
@@ -146,29 +234,44 @@ def _ring_exchange(x, rank: int, p: int, split_axis: int, concat_axis: int, exch
     out.narrow(concat_axis, rank * Bc, Bc).copy_(x.narrow(split_axis, rank * Bs, Bs))
     for d in range(1, p):
         blk = x.narrow(split_axis, ((rank + d) % p) * Bs, Bs).contiguous()
-        recv = exchange.ring_exchange(blk, (rank + d) % p, (rank - d) % p)
-        out.narrow(concat_axis, ((rank - d) % p) * Bc, Bc).copy_(recv)
+        dst, src = (rank + d) % p, (rank - d) % p
+        if codec is None:
+            recv = exchange.ring_exchange(blk, dst, src)
+        else:
+            wire = exchange.ring_exchange(_quant.encode_blocks(blk.reshape(1, -1), codec), dst, src)
+            recv = _quant.decode_blocks(wire, blk.numel(), codec).to(x.dtype).reshape(blk.shape)
+        out.narrow(concat_axis, src * Bc, Bc).copy_(recv)
     return out
 
 
 # --------------------------------------------------------------------- #
 # per-rank bodies, one per strategy                                     #
 # --------------------------------------------------------------------- #
+def _laps(sched: Schedule):
+    """(topology of a hierarchical plan or None, laps before the reshape,
+    laps after it)."""
+    hier = sched.topo_key if sched.strategy == "hierarchical-a2a" else None
+    return (hier,) + _a2a_chunks(sched)
+
+
 def _move_body(spec: RedistSpec, sched: Schedule) -> Body:
-    """split i → split j by (chunked) all-to-all or the ring (heat_tpu
-    ``_move_program``, :547)."""
+    """split i → split j by (chunked) all-to-all, the ring or the
+    hierarchical all-to-all (heat_tpu ``_move_program``, :547)."""
     i, j = spec.src_split, spec.dst_split
     Ni, Nj = spec.gshape[i], spec.gshape[j]
     ring = sched.strategy == "ring"
-    C = _a2a_chunks(sched)[0]
+    hier, C, _ = _laps(sched)
+    mode, qin, _ = _quant_flags(sched)
+    codec = mode if qin else None
 
     def body(x, rank, p, exchange):
         y = _padding.pad_to(x, i, _padding.pad_extent(Ni, p) // p)
         y = _padding.pad_to(y, j, _padding.pad_extent(Nj, p))
         if ring:
-            y = _ring_exchange(y, rank, p, split_axis=j, concat_axis=i, exchange=exchange)
+            y = _ring_exchange(y, rank, p, split_axis=j, concat_axis=i, exchange=exchange, codec=codec)
         else:
-            y = _chunked_all_to_all(y, p, split_axis=j, concat_axis=i, C=C, exchange=exchange)
+            y = _chunked_all_to_all(y, p, split_axis=j, concat_axis=i, C=C, exchange=exchange, codec=codec,
+                                    topo=hier)
         y = _padding.trim_to(y, i, Ni)
         return _padding.trim_to(y, j, _count(Nj, p, rank)).contiguous()
 
@@ -196,18 +299,21 @@ def _pivot_body(spec: RedistSpec, sched: Schedule) -> Body:
     Also the collective-free split-0 → split-0 reshape."""
     s, t = spec.src_split, spec.dst_split
     in_shape, out_shape = spec.gshape, spec.out_shape
-    C1, C2 = _a2a_chunks(sched)
+    hier, C1, C2 = _laps(sched)
+    mode, qin, qout = _quant_flags(sched)
 
     def body(x, rank, p, exchange):
         y = x
         if s != 0:
             y = _padding.pad_to(y, s, _padding.pad_extent(in_shape[s], p) // p)
-            y = _chunked_all_to_all(y, p, split_axis=0, concat_axis=s, C=C1, exchange=exchange)
+            y = _chunked_all_to_all(y, p, split_axis=0, concat_axis=s, C=C1, exchange=exchange,
+                                    codec=mode if qin else None, topo=hier)
             y = _padding.trim_to(y, s, in_shape[s])
         y = y.reshape((out_shape[0] // p,) + tuple(out_shape[1:]))
         if t != 0:
             y = _padding.pad_to(y, t, _padding.pad_extent(out_shape[t], p))
-            y = _chunked_all_to_all(y, p, split_axis=t, concat_axis=0, C=C2, exchange=exchange)
+            y = _chunked_all_to_all(y, p, split_axis=t, concat_axis=0, C=C2, exchange=exchange,
+                                    codec=mode if qout else None, topo=hier)
             y = _padding.trim_to(y, t, _count(out_shape[t], p, rank))
         return y.contiguous()
 
@@ -220,8 +326,10 @@ def _packed_pivot_body(spec: RedistSpec, sched: Schedule) -> Body:
     unpacks; a packed target is packed by K5 before its all-to-alls."""
     s, t = spec.src_split, spec.dst_split
     (r0, c0), (r1, c1) = spec.gshape, spec.out_shape
-    C1, C2 = _a2a_chunks(sched)
+    hier, C1, C2 = _laps(sched)
     packed_in, packed_out = _packed_flags(sched)
+    mode, qin, qout = _quant_flags(sched)
+    cin, cout = (mode if qin else None), (mode if qout else None)
 
     def body(x, rank, p, exchange):
         c0p, c1p = _padding.pad_extent(c0, p), _padding.pad_extent(c1, p)
@@ -231,10 +339,11 @@ def _packed_pivot_body(spec: RedistSpec, sched: Schedule) -> Body:
             xl = _padding.pad_to(x, 1, cs0)
             if packed_in:
                 grouped = xl.contiguous().reshape(p, R0 * cs0)  # row block q is bound for rank q
-                recv = _chunked_a2a_flat(grouped, p, C1, exchange)
+                recv = _chunked_a2a_flat(grouped, p, C1, exchange, codec=cin, topo=hier)
                 flat = _relayout.unpack_rows(recv, R0, c0p, c0, p)
             else:
-                y = _chunked_all_to_all(xl, p, split_axis=0, concat_axis=1, C=C1, exchange=exchange)
+                y = _chunked_all_to_all(xl, p, split_axis=0, concat_axis=1, C=C1, exchange=exchange, codec=cin,
+                                        topo=hier)
                 flat = _padding.trim_to(y, 1, c0).reshape(R0 * c0)
         else:  # split 0: the shard is a contiguous run of the flat order
             flat = x.reshape(-1)
@@ -242,10 +351,11 @@ def _packed_pivot_body(spec: RedistSpec, sched: Schedule) -> Body:
             if packed_out:
                 grouped = _relayout.pack_rows(flat, R1, c1, c1p, p)
                 # rows arrive in global order
-                y = _chunked_a2a_flat(grouped, p, C2, exchange).reshape(r1, cs1)
+                y = _chunked_a2a_flat(grouped, p, C2, exchange, codec=cout, topo=hier).reshape(r1, cs1)
             else:
                 y = _padding.pad_to(flat.reshape(R1, c1), 1, c1p)
-                y = _chunked_all_to_all(y, p, split_axis=1, concat_axis=0, C=C2, exchange=exchange)
+                y = _chunked_all_to_all(y, p, split_axis=1, concat_axis=0, C=C2, exchange=exchange, codec=cout,
+                                        topo=hier)
             return _padding.trim_to(y, 1, _count(c1, p, rank)).contiguous()
         return flat.reshape(R1, c1)
 
@@ -274,6 +384,12 @@ def program(spec: RedistSpec, sched: Optional[Schedule] = None) -> Body:
         return _pivot_body(spec, sched)
     if strategy == "packed-pivot":
         return _packed_pivot_body(spec, sched)
+    if strategy == "hierarchical-a2a":
+        if not spec.is_reshape:
+            return _move_body(spec, sched)
+        if any(st.kind in ("pack", "unpack") for st in sched.steps):
+            return _packed_pivot_body(spec, sched)
+        return _pivot_body(spec, sched)
     raise ValueError(f"unknown strategy {strategy!r} (plan {sched.plan_id})")
 
 
@@ -327,9 +443,18 @@ class _LocalExchange:
         self.world.barrier.wait()
         self.counts[name] = self.counts.get(name, 0) + 1
 
-    def alltoall(self, send: torch.Tensor) -> torch.Tensor:
+    def tier_groups(self, topo):
+        """(within, across): the member ranks of this rank's node and of its
+        place in every node at topology ``(S, C)``."""
+        S, C = int(topo[0]), int(topo[1])
+        s, c = divmod(self.rank, C)
+        return [s * C + j for j in range(C)], [g * C + c for g in range(S)]
+
+    def alltoall(self, send: torch.Tensor, group=None) -> torch.Tensor:
+        members = list(range(self.world.p)) if group is None else list(group)
+        me = members.index(self.rank)
         posts = self._post(send)
-        recv = torch.stack([posts[q][self.rank] for q in range(self.world.p)])
+        recv = torch.stack([posts[q][me] for q in members])
         self._done("all-to-all")
         return recv
 
@@ -338,6 +463,19 @@ class _LocalExchange:
         whole = torch.cat(list(posts), dim=axis)
         self._done("all-gather")
         return whole
+
+    @property
+    def size(self) -> int:
+        return self.world.p
+
+    def permute(self, send: torch.Tensor, pairs) -> torch.Tensor:
+        """The communicator's ``permute``: for each (src, dst) of ``pairs``
+        rank src's ``send`` goes to rank dst; zeros where nothing arrives."""
+        posts = self._post(send)
+        src = [s for s, d in pairs if d == self.rank]
+        recv = posts[src[0]].clone() if src else torch.zeros_like(send)
+        self._done("collective-permute")
+        return recv
 
     def ring_exchange(self, send: torch.Tensor, dst: int, src: int) -> torch.Tensor:
         posts = self._post((send, dst))

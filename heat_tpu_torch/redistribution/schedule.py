@@ -16,15 +16,22 @@ modeled critical-path account of the groups (depth-2 pipelining of laps);
 the port's executor issues the laps in sequential order, which launches
 the same collectives (the pipelined order is ROADMAP.md Queue 1, item 16).
 
-Plans serialize canonically (``canonical_json``) and byte for byte as
-``heat_tpu`` serializes an unquantized plan on a flat topology, so the
-``plan_id`` (the hash of that serialization) is ``heat_tpu``'s. The port
-has no wire codec, two-tier annotations or calibration: the ``quant`` key
-is always null and those conditional keys never appear. Out-of-core
+Under the wire codec (``kernels.quant``) the planner wraps a plan's
+admissible collectives in ``quantize``/``dequantize`` steps, scales their
+``bytes_moved`` to the encoded bytes and adds the ``quant`` annotation
+({mode, tol, bytes_raw, bytes_sent, ratio, min_group_bytes}). At a
+two-tier topology every collective step carries its ``tier`` (``"ici"``
+within a node, ``"dcn"`` across) and the plan the ``topology`` annotation
+({n_slices, chips_per_slice, dcn_penalty}); a plan priced under a measured
+lattice profile carries ``calibration`` ({profile_id, edges}). Out-of-core
 staging plans (``redistribution.staging``) carry ``stage_in``/``stage_out``
-steps on the ``pcie`` tier and the conditional ``staging`` annotation,
-serialized as ``heat_tpu`` serializes them; every other plan keeps its
-bytes and its ``plan_id``.
+steps on the ``pcie`` tier and the ``staging`` annotation. ``topology``,
+``staging`` and ``calibration`` are conditional keys: a plan without them
+serializes without them.
+
+Plans serialize canonically (``canonical_json``) and byte for byte as
+``heat_tpu`` serializes the same plan, so the ``plan_id`` (the hash of that
+serialization) is ``heat_tpu``'s.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from __future__ import annotations
 import hashlib
 import json
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from .spec import RedistSpec
 
@@ -46,8 +53,9 @@ COLLECTIVE_STEP_KINDS: Dict[str, str] = {
     "ppermute": "collective-permute",
 }
 
-# ``pack``/``unpack`` are the relayout copies of kernels.relayout (K5, K6)
-_LOCAL_STEP_KINDS = ("slice", "pad", "reshape", "concat", "pack", "unpack")
+# ``pack``/``unpack`` are the relayout copies of kernels.relayout (K5, K6);
+# ``quantize``/``dequantize`` the wire codec's copies (kernels.quant, Q1)
+_LOCAL_STEP_KINDS = ("slice", "pad", "reshape", "concat", "pack", "unpack", "quantize", "dequantize")
 
 # the out-of-core staging transfers: one window of a host-resident operand
 # copied to the card or its result copied back, over the ``pcie`` tier; no
@@ -62,7 +70,7 @@ class Step:
     ----------
     kind : ``all_to_all`` | ``all_gather`` | ``ppermute`` | ``slice`` |
         ``pad`` | ``reshape`` | ``concat`` | ``pack`` | ``unpack`` |
-        ``stage_in`` | ``stage_out``.
+        ``quantize`` | ``dequantize`` | ``stage_in`` | ``stage_out``.
     bytes_moved : per-rank payload sent to other ranks, or over the host
         to card edge for the staging steps (0 for local steps).
     bytes_copied : per-rank bytes a local relayout copy writes.
@@ -73,8 +81,10 @@ class Step:
     detail : what the step does.
     chunk : chunk index when the step is one lap of a chunked exchange.
     overlap : pipeline-group tag of a lap of a chunk group, else None.
-    tier : ``"pcie"`` on the staging steps (and only there), else None
-        (then the key is left out of the serialization).
+    tier : ``"ici"`` or ``"dcn"`` on a collective of a plan at a two-tier
+        topology (its group within a node or across nodes), ``"pcie"`` on
+        the staging steps (and only there), else None (then the key is left
+        out of the serialization).
     """
 
     __slots__ = ("kind", "bytes_moved", "bytes_copied", "peak_bytes", "lane_fill", "detail", "chunk", "overlap",
@@ -94,7 +104,9 @@ class Step:
     ):
         if kind not in COLLECTIVE_STEP_KINDS and kind not in _LOCAL_STEP_KINDS and kind not in STAGING_STEP_KINDS:
             raise ValueError(f"unknown step kind {kind!r}")
-        if (tier == "pcie") != (kind in STAGING_STEP_KINDS) or tier not in (None, "pcie"):
+        if tier not in (None, "ici", "dcn", "pcie"):
+            raise ValueError(f"unknown tier {tier!r} (expected 'ici', 'dcn', 'pcie' or None)")
+        if (tier == "pcie") != (kind in STAGING_STEP_KINDS):
             raise ValueError(f"tier 'pcie' is the staging steps' and theirs alone (got {kind!r} on {tier!r})")
         self.kind = kind
         self.bytes_moved = int(bytes_moved)
@@ -133,7 +145,8 @@ class Step:
 
     def __repr__(self) -> str:
         c = f"[{self.chunk}]" if self.chunk is not None else ""
-        return f"Step({self.kind}{c}, moved={self.bytes_moved}, peak={self.peak_bytes})"
+        t = f", tier={self.tier}" if self.tier else ""
+        return f"Step({self.kind}{c}, moved={self.bytes_moved}, peak={self.peak_bytes}{t})"
 
 
 class Schedule:
@@ -164,7 +177,10 @@ class Schedule:
         budget_bytes: int,
         notes: str = "",
         overlap: Optional[Dict[str, Any]] = None,
+        quant: Optional[Dict[str, Any]] = None,
+        topology: Optional[Dict[str, Any]] = None,
         staging: Optional[Dict[str, Any]] = None,
+        calibration: Optional[Dict[str, Any]] = None,
     ):
         self.spec = spec
         self.strategy = strategy
@@ -172,7 +188,10 @@ class Schedule:
         self.budget_bytes = int(budget_bytes)
         self.notes = notes
         self.overlap = overlap
+        self.quant = quant
+        self.topology = topology
         self.staging = staging
+        self.calibration = calibration
         self.plan_id = hashlib.sha1(self.canonical_json(with_plan_id=False).encode()).hexdigest()[:12]
 
     # ------------------------------------------------------------------ #
@@ -232,6 +251,35 @@ class Schedule:
         """2 when the plan carries an overlap annotation, else 1."""
         return int(self.overlap["depth"]) if self.overlap else 1
 
+    @property
+    def wire_bytes_sent(self) -> int:
+        """Per-rank bytes that cross to other ranks (encoded under the
+        codec)."""
+        return self.bytes_moved
+
+    @property
+    def wire_bytes_raw(self) -> int:
+        """Per-rank full-width bytes of the same movement."""
+        return int(self.quant["bytes_raw"]) if self.quant else self.bytes_moved
+
+    @property
+    def topo_key(self) -> Optional[Tuple[int, int]]:
+        """``(n_slices, chips_per_slice)`` of a tiered plan, None when flat."""
+        if not self.topology:
+            return None
+        return (int(self.topology["n_slices"]), int(self.topology["chips_per_slice"]))
+
+    def tier_bytes(self) -> Dict[str, int]:
+        """``{"ici": B, "dcn": B}`` of the collectives' payload (a flat plan's
+        is all ``ici``), with ``"pcie"`` for a staged plan's transfers."""
+        out = {"ici": 0, "dcn": 0}
+        for s in self.steps:
+            if s.is_collective:
+                out[s.tier or "ici"] += s.bytes_moved
+            elif s.kind in STAGING_STEP_KINDS:
+                out["pcie"] = out.get("pcie", 0) + s.bytes_moved
+        return out
+
     def collective_counts(self) -> Dict[str, int]:
         """{collective name: count} the executor must issue, directly
         comparable with the communicator's ``counts``."""
@@ -258,24 +306,28 @@ class Schedule:
             "within_budget": self.within_budget,
             "notes": self.notes,
             "overlap": self.overlap,
-            "quant": None,
+            "quant": self.quant,
         }
+        if self.topology is not None:
+            d["topology"] = self.topology
         if self.staging is not None:
             d["staging"] = self.staging
+        if self.calibration is not None:
+            d["calibration"] = self.calibration
         if with_plan_id:
             d["plan_id"] = self.plan_id
         return d
 
     def canonical_json(self, with_plan_id: bool = True) -> str:
         """Deterministic serialization, byte for byte ``heat_tpu``'s for
-        the same (spec, budget)."""
+        the same (spec, budget, codec, topology, profile)."""
         return json.dumps(self.as_dict(with_plan_id=with_plan_id), sort_keys=True, separators=(",", ":"))
 
     def describe(self) -> str:
         """One line per step with its movement and copy accounting and
         pipeline tag, plus the overlap annotation's modeled critical path:
         what ``ht.redistribution.explain(...)`` shows when printed
-        (``heat_tpu``'s rendering of a flat, unquantized plan)."""
+        (``heat_tpu``'s rendering)."""
         groups = {g["tag"]: g for g in (self.overlap or {}).get("groups", [])}
         lines = [
             f"plan {self.plan_id}  strategy={self.strategy}  "
@@ -285,7 +337,12 @@ class Schedule:
             chunk = f"[{s.chunk}]" if s.chunk is not None else ""
             pipe = f"  pipe={s.overlap}" if s.overlap else ""
             g = groups.get(s.overlap)
-            if g and s.is_collective:
+            if g and s.is_collective and "ici_bytes" in g:
+                wi = g["ici_bytes"] // g["laps"]
+                wd = g["dcn_bytes"] * g["dcn_penalty"] // g["laps"]
+                c = g["copy_bytes"] // g["laps"]
+                model = f"  model=max(ici {wi}, dcn {wd}, copy {c})={max(wi, wd, c)} B-eq"
+            elif g and s.is_collective:
                 w = g["wire_bytes"] // g["laps"]
                 c = g["copy_bytes"] // g["laps"]
                 model = f"  model=max(wire {w}, copy {c})={max(w, c)} B"
@@ -307,7 +364,20 @@ class Schedule:
             )
         else:
             lines.append("  overlap: none (sequential schedule)")
-        lines.append("  quant: none (full-width wire)")
+        if self.quant:
+            q = self.quant
+            lines.append(
+                f"  quant: {q['mode']} wire codec  raw={q['bytes_raw']} B -> sent={q['bytes_sent']} B "
+                f"(saved {q['bytes_raw'] - q['bytes_sent']} B, ratio {q['ratio']}, tol {q['tol']})"
+            )
+        else:
+            lines.append("  quant: none (full-width wire)")
+        if self.topology:
+            t, tb = self.topology, self.tier_bytes()
+            lines.append(
+                f"  topology: {t['n_slices']}x{t['chips_per_slice']} two-tier  ici={tb['ici']} B  dcn={tb['dcn']} B "
+                f"(dcn priced {t['dcn_penalty']}x — time-eq {tb['ici'] + tb['dcn'] * t['dcn_penalty']} B)"
+            )
         if self.staging:
             sg, model = self.staging, self.staging["model"]
             passes = ", ".join(f"{p['tag']}(axis {p['axis']}: {p['n_windows']}w" + ("+wb" if p.get("writeback") else "")
@@ -318,6 +388,10 @@ class Schedule:
                 f"host-resident={sg['host_bytes']} B  model: pcie {model['pcie_s']}s / critical path "
                 f"{model['critical_path_s']}s ({model['bound_gbps']} GB/s)"
             )
+        if self.calibration:
+            c = self.calibration
+            edges = "  ".join(f"{e}={c['edges'][e] / 1e9:.2f}GB/s" for e in sorted(c["edges"]))
+            lines.append(f"  calibration: profile {c['profile_id']}  {edges}")
         if self.notes:
             lines.append(f"  notes: {self.notes}")
         return "\n".join(lines)
@@ -325,7 +399,9 @@ class Schedule:
     def __repr__(self) -> str:
         kinds = [s.kind + (f"[{s.chunk}]" if s.chunk is not None else "") for s in self.steps]
         ov = f", overlap=depth{self.overlap_depth}" if self.overlap else ""
+        qt = f", quant={self.quant['mode']}" if self.quant else ""
+        tp = f", topo={self.topology['n_slices']}x{self.topology['chips_per_slice']}" if self.topology else ""
         return (
             f"Schedule({self.strategy}, plan={self.plan_id}, {self.spec!r}, "
-            f"steps={kinds}, peak={self.peak_bytes}B/{self.budget_bytes}B{ov})"
+            f"steps={kinds}, peak={self.peak_bytes}B/{self.budget_bytes}B{ov}{qt}{tp})"
         )

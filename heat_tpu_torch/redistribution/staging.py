@@ -40,12 +40,12 @@ staged plans of its plan checks (item 14).
 
 from __future__ import annotations
 
-import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import gates as _gates
 from .schedule import Schedule, Step
 from .spec import RedistSpec
 
@@ -81,7 +81,7 @@ GRAIN = (512, 512)
 # --------------------------------------------------------------------- #
 def ooc_mode() -> str:
     """``HEAT_TPU_OOC`` resolved to ``"0"``, ``"1"`` or ``"auto"``."""
-    v = os.environ.get(OOC_ENV, "auto").strip().lower()
+    v = (_gates.get(OOC_ENV, "auto") or "").strip().lower()
     if v in ("0", "off", "false", "no"):
         return "0"
     if v in ("1", "on", "true", "force", "yes"):
@@ -107,7 +107,7 @@ def slab_bytes(override: Optional[int] = None) -> int:
 
     if override is not None:
         return max(1, int(override))
-    raw = os.environ.get(SLAB_ENV, "").strip()
+    raw = (_gates.get(SLAB_ENV, "") or "").strip()
     try:
         mb = int(raw) if raw else DEFAULT_SLAB_MB
     except ValueError:
@@ -271,7 +271,8 @@ def plan_staged_passes(
     }
     notes = (f"out-of-core staging: {len(pass_meta)} pass(es) over a {spec.logical_bytes} B host-resident operand "
              "through a depth-2 double-buffered HBM slab (HEAT_TPU_OOC)")
-    return Schedule(spec, "host-staging", steps, slab_b, notes=notes, staging=annotation)
+    return Schedule(spec, "host-staging", steps, slab_b, notes=notes, staging=annotation,
+                    calibration=tiers.profile_annotation())
 
 
 def prove_fits(sched: Schedule, hbm_bytes: Optional[int] = None) -> Schedule:

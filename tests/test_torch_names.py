@@ -22,10 +22,7 @@ import heat_tpu as jht
 import heat_tpu_torch as ht
 
 # ROADMAP.md Queue 1 items and "Not faults", by reason
-_TOPOLOGY = "item 12: two-tier topologies and lattice calibration"
-_RUNTIME = "item 12: core/gates.py, core/jit.py, the lattice of core/tiers.py"
-_CODEC = "item 12: kernels/quant.py, the wire codec"
-_RINGS = "item 12: kernels/cmatmul.py, its rings as P2P"
+_JIT = "item 12 (b): core/jit.py, ht.jit"
 _SERVICE = "item 13: service layers"
 _COMPLEX = "Not faults: native complex, no complex platform policy"
 _COMM = "Not faults: the communicator is TorchCommunication (MPICommunication names it)"
@@ -33,28 +30,18 @@ _PHYS = "Not faults: the port's resplit_local/reshape_local"
 
 ABSENT = {
     "heat_tpu": {
-        "DCN_BPS": _TOPOLOGY, "DCN_PENALTY": _TOPOLOGY, "ICI_BPS": _TOPOLOGY, "TOPOLOGY_ENV": _TOPOLOGY,
-        "Topology": _TOPOLOGY, "topology_for": _TOPOLOGY, "MeshCommunication": _COMM,
+        "MeshCommunication": _COMM,
         "check_complex_platform": _COMPLEX, "complex_mode": _COMPLEX, "supports_complex": _COMPLEX,
-        "use_complex": _COMPLEX, "jit": _RUNTIME, "solve_endpoint": _SERVICE, "serving": _SERVICE, "observability": _SERVICE, "resilience": _SERVICE,
+        "use_complex": _COMPLEX, "jit": _JIT, "solve_endpoint": _SERVICE, "serving": _SERVICE, "observability": _SERVICE, "resilience": _SERVICE,
         "analysis": "item 14: analysis",
     },
     "heat_tpu.core": {
-        "DCN_BPS": _TOPOLOGY, "DCN_PENALTY": _TOPOLOGY, "ICI_BPS": _TOPOLOGY, "TOPOLOGY_ENV": _TOPOLOGY,
-        "Topology": _TOPOLOGY, "topology_for": _TOPOLOGY, "MeshCommunication": _COMM,
+        "MeshCommunication": _COMM,
         "check_complex_platform": _COMPLEX, "complex_mode": _COMPLEX, "supports_complex": _COMPLEX,
-        "use_complex": _COMPLEX, "jit": _RUNTIME, "solve_endpoint": _SERVICE,
+        "use_complex": _COMPLEX, "jit": _JIT, "solve_endpoint": _SERVICE,
     },
     "heat_tpu.core.linalg": {"solve_endpoint": _SERVICE},
-    "heat_tpu.kernels": {
-        "ring_all_gather": _RINGS, "ring_matmul_reduce": _RINGS,
-        "encode_blocks": _CODEC, "decode_blocks": _CODEC, "wire_ratio": _CODEC,
-    },
-    "heat_tpu.redistribution": {
-        "overlap_mode": "item 16: the executor's pipelined lap order", "resolve_topology": _TOPOLOGY,
-        "tier_time_model": _TOPOLOGY, "wire_quant_gate": _CODEC, "wire_quant_mode": _CODEC,
-        "resplit_phys": _PHYS, "reshape_phys": _PHYS,
-    },
+    "heat_tpu.redistribution": {"resplit_phys": _PHYS, "reshape_phys": _PHYS},
 }
 
 

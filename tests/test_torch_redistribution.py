@@ -110,11 +110,28 @@ def test_budget_knob_is_shared(monkeypatch):
     [({"quant": "int8"}, {}), ({"topology": "2x4"}, {}), ({}, {"HEAT_TPU_WIRE_QUANT": "1"}),
      ({}, {"HEAT_TPU_TOPOLOGY": "2x4"}), ({}, {"HEAT_TPU_LATTICE_PROFILE": "/nonexistent.json"})],
 )
-def test_unported_planner_options_raise(kwargs, env, monkeypatch):
+def test_unported_planner_options_raise(kwargs, env, monkeypatch, tmp_path):
+    """The options the port once refused (the codec, two tiers, a lattice
+    profile) now plan as heat_tpu plans them: both packages read one lattice
+    profile (so both price ``dcn`` alike) unless the case names a missing
+    one, which both drop for the rates."""
+    from heat_tpu.observability import calibration
+
+    from heat_tpu_torch.core import tiers
+
+    if "HEAT_TPU_LATTICE_PROFILE" not in env:
+        env = {**env, "HEAT_TPU_LATTICE_PROFILE": str(tmp_path / "lattice.json")}
+        edges = {e: {"bps": rate} for e, (_, _, rate) in tiers.EDGES.items()}  # every edge measured
+        calibration.save_profile(calibration.build_profile(edges, platform="gpu", topology="flat"),
+                                 env["HEAT_TPU_LATTICE_PROFILE"])
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 12"):
-        planner.plan(S((64, 48), "float32", 0, 1, 8), **kwargs)
+    spec, jspec = _both((4096, 2048), "float32", 0, 1, 8)  # 3.5 MiB cross a rank: the codec's threshold is 2
+    mine = planner.plan(spec, **kwargs)
+    ref = jplanner.plan(jspec, **kwargs)
+    assert mine.canonical_json() == ref.canonical_json()
+    assert bool(mine.quant) == ("quant" in kwargs or "HEAT_TPU_WIRE_QUANT" in env)
+    assert (tiers.profile_id() is None) == env["HEAT_TPU_LATTICE_PROFILE"].startswith("/nonexistent")
 
 
 # --------------------------------------------------------------------- #

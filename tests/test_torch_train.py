@@ -288,9 +288,23 @@ def test_checkpoint_round_trip_restores_training_bit_for_bit():
 
 
 def test_wire_quant_refuses_naming_its_item():
+    """``wire_quant`` takes heat_tpu's modes (an unknown one raises); in a
+    world of one rank it is the exact step, as in heat_tpu."""
+    x, y = worker.train_data("mlp", 32)
+    X, Y = ht.array(x, split=0), ht.array(y, split=0)
+    runs = []
+    for wire in (None, "int8", "bf16"):
+        model = ht.nn.DataParallel(worker.train_mlp(ht.nn), key=3)
+        opt = ht.optim.DataParallelOptimizer(ht.optim.SGD(0.05), model, wire_quant=wire)
+        assert opt.wire_quant == wire
+        runs.append(([float(opt.step(X, Y)) for _ in range(2)], _params(model)))
+    for losses, params in runs[1:]:
+        assert losses == runs[0][0]
+        for a, b in zip(params, runs[0][1]):
+            np.testing.assert_array_equal(a, b)
     model = ht.nn.DataParallel(worker.train_mlp(ht.nn))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 12"):
-        ht.optim.DataParallelOptimizer(ht.optim.SGD(), model, wire_quant="int8")
+    with pytest.raises(ValueError):
+        ht.optim.DataParallelOptimizer(ht.optim.SGD(), model, wire_quant="int4")
     with pytest.raises(TypeError):
         ht.optim.DataParallelOptimizer(torch.optim.SGD, model)
 

@@ -300,6 +300,7 @@ def _cases(ht):
     cases.update(_sparse_cases(ht))
     cases.update(_staging_cases(ht))
     cases.update(_io_cases(ht))
+    cases.update(_wire_cases(ht))
     return cases
 
 
@@ -2354,6 +2355,148 @@ def _io_cases(ht):
         shuffled = [(d.numpy(), l.numpy(), _np(d.larray)) for d, l in ds]
         return {"batches": batches, "shuffled": shuffled, "len": len(ds)}
     cases["io_partial_h5"] = partial
+    return cases
+
+
+# the distributed runtime's wire (tests/test_torch_quant.py,
+# tests/test_torch_overlap.py): the codec's all-reduces, a quantized
+# resplit, data-parallel training on the quantized wire, and the rings
+WIRE_N = 5000  # a flat vector over 4 ranks: blocks of 1250, ragged tiles
+WIRE_MODES = ("int8", "bf16")
+WIRE_TOPOLOGIES = ("flat", "2x2")
+WIRE_RESPLIT = (1024, 768)  # 3 MiB, split 0 -> 1: large enough that 2x2 plans the hierarchical form
+WIRE_MIN_GROUP = 1024  # the codec's group threshold, lowered alike in both planners
+WIRE_DP_STEPS = 3
+RING_QR = {"tall": (50, 7), "short_last": (9, 3)}
+RING_MATMUL = ((13, 22), (22, 5))  # a split 1, b split 0: 6, 6, 6, 4 contraction columns
+RING_FACT_N = 37  # polar, lu, solve: blocks of 10 rows, the last 7
+
+
+def wire_vector(rank: int, n: int = WIRE_N) -> np.ndarray:
+    """Rank r's flat float32 vector, with a NaN-free wide range."""
+    rng = np.random.default_rng(300 + rank)
+    return (rng.standard_normal(n) * 10.0 ** rng.integers(-2, 3, n)).astype(np.float32)
+
+
+def wire_matrix(shape, seed: int) -> np.ndarray:
+    return np.random.default_rng(400 + seed).standard_normal(shape).astype(np.float32)
+
+
+@contextlib.contextmanager
+def wire_env(**gates):
+    """Set ``HEAT_TPU_<name>`` gates for the call, restoring them after."""
+    old = {k: os.environ.get("HEAT_TPU_" + k) for k in gates}
+    os.environ.update({"HEAT_TPU_" + k: str(v) for k, v in gates.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop("HEAT_TPU_" + k, None)
+            else:
+                os.environ["HEAT_TPU_" + k] = v
+
+
+def _wire_cases(ht):
+    from unittest import mock
+
+    import torch
+
+    from heat_tpu_torch.kernels import quant
+    from heat_tpu_torch.redistribution import planner
+
+    comm = ht.get_comm()
+    cases = {}
+
+    def counted(call):
+        comm.counts.clear()
+        out = call()
+        return out, dict(comm.counts)
+
+    for mode in WIRE_MODES:
+        def allreduce(mode=mode):
+            h = torch.from_numpy(wire_vector(comm.rank))
+            (flat, resid), counts = counted(lambda: quant.quantized_allreduce_sum(h, comm, mode))
+            (hier, hresid), hcounts = counted(lambda: quant.hierarchical_allreduce_sum(h, comm, 2, 2, mode))
+            return {"sum": _np(flat), "resid": _np(resid), "counts": counts, "hier_sum": _np(hier),
+                    "hier_resid": _np(hresid), "hier_counts": hcounts}
+        cases[f"wire_allreduce_{mode}"] = allreduce
+
+    def resplit(wire, topology):
+        a = wire_matrix(WIRE_RESPLIT, 1)
+        old = planner.QUANT_MIN_WIRE_BYTES
+        planner.QUANT_MIN_WIRE_BYTES = WIRE_MIN_GROUP
+        try:
+            with wire_env(WIRE_QUANT=wire, TOPOLOGY=topology):
+                x = ht.array(a, split=0)
+                sched = planner.plan(planner.RedistSpec.normalize(a.shape, "float32", 0, 1, comm.size))
+                y, counts = counted(lambda: x.resplit(1))
+        finally:
+            planner.QUANT_MIN_WIRE_BYTES = old
+            planner.clear_plan_cache()
+        return {"local": _np(y.larray), "counts": counts, "plan_counts": sched.collective_counts(),
+                "strategy": sched.strategy, "quant": sched.quant["mode"] if sched.quant else None}
+    for wire in ("1", "bf16", "0"):
+        for topology in WIRE_TOPOLOGIES:
+            cases[f"wire_resplit_{wire}_{topology}"] = lambda wire=wire, topology=topology: resplit(wire, topology)
+
+    def dp(mode, topology):
+        x, y = train_data("mlp", 30)
+        seen = []  # the codec's input a step, h = gradient + carry
+
+        def recorded(fn):
+            def call(h, *args):
+                seen.append(_np(h).copy())
+                return fn(h, *args)
+            return call
+        with wire_env(TOPOLOGY=topology), mock.patch.object(
+                quant, "quantized_allreduce_sum", recorded(quant.quantized_allreduce_sum)), mock.patch.object(
+                quant, "hierarchical_allreduce_sum", recorded(quant.hierarchical_allreduce_sum)):
+            model = ht.nn.DataParallel(train_mlp(ht.nn), key=13)
+            dpo = ht.optim.DataParallelOptimizer(train_optimizer(ht.optim, "sgd"), model, wire_quant=mode)
+            X, Y = ht.array(x, split=0), ht.array(y, split=0)
+            steps = []
+            for _ in range(WIRE_DP_STEPS):
+                loss, counts = counted(lambda: dpo.step(X, Y))
+                steps.append({"loss": float(loss), "params": [_np(p).copy() for p in model.module.parameters()],
+                              "carry": _np(dpo._ef_carry).copy(), "counts": counts, "h": seen[-1]})
+            state = dpo.checkpoint_state()
+            other = ht.optim.DataParallelOptimizer(train_optimizer(ht.optim, "sgd"),
+                                                   ht.nn.DataParallel(train_mlp(ht.nn), key=13), wire_quant=mode)
+            other.load_checkpoint_state(state)
+        return {"steps": steps, "ef_rows": _np(state["ef_carry"]), "restored": _np(other._ef_carry)}
+    for mode in WIRE_MODES:
+        for topology in WIRE_TOPOLOGIES:
+            cases[f"wire_dp_{mode}_{topology}"] = lambda mode=mode, topology=topology: dp(mode, topology)
+
+    # the rings: each call under HEAT_TPU_REDIST_OVERLAP=1 and =0
+    def both(call, topology="flat"):
+        out = {}
+        for overlap in ("1", "0"):
+            with wire_env(REDIST_OVERLAP=overlap, TOPOLOGY=topology):
+                res, counts = counted(call)
+            parts = res if isinstance(res, (list, tuple)) else [res]
+            out[overlap] = {"parts": [_np(p.larray) if hasattr(p, "larray") else _np(p) if hasattr(p, "detach")
+                                      else np.asarray(p) for p in parts if p is not None], "counts": counts}
+        return out
+
+    for label, shape in RING_QR.items():
+        for topology in WIRE_TOPOLOGIES:
+            cases[f"ring_qr_{label}_{topology}"] = lambda shape=shape, topology=topology: both(
+                lambda: ht.linalg.qr(ht.array(wire_matrix(shape, 2), split=0)), topology)
+    cases["ring_matmul"] = lambda: both(lambda: ht.matmul(ht.array(wire_matrix(RING_MATMUL[0], 3), split=1),
+                                                          ht.array(wire_matrix(RING_MATMUL[1], 4), split=0)))
+    n = RING_FACT_N
+    cases["ring_polar"] = lambda: both(lambda: ht.linalg.polar(ht.array(fact_matrix("gen", (n, n), seed=50), split=0)))
+    cases["ring_lu"] = lambda: both(lambda: ht.linalg.lu(ht.array(fact_matrix("gen", (n, n), seed=51), split=0)))
+    cases["ring_cholesky"] = lambda: both(lambda: ht.linalg.cholesky(ht.array(fact_matrix("spd", (n, n), seed=52),
+                                                                             split=0)))
+    for assume in ("gen", "pos"):
+        cases[f"ring_solve_{assume}"] = lambda assume=assume: both(lambda: ht.linalg.solve(
+            ht.array(fact_matrix("gen" if assume == "gen" else "spd", (n, n), seed=53), split=0),
+            ht.array(fact_matrix("tall", (n, 3), seed=54), split=0), assume_a=assume))
+    cases["ring_hsvd"] = lambda: both(lambda: ht.linalg.hsvd_rank(ht.array(rank8(HSVD_SHAPE), split=0), 8,
+                                                                  compute_sv=True))
     return cases
 
 
